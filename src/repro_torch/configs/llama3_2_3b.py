@@ -1,0 +1,17 @@
+"""Llama-3.2-3B — small llama3 [hf:meta-llama/Llama-3.2-1B; unverified]."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-3b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=500000.0,
+    source="hf:meta-llama/Llama-3.2-1B; unverified",
+)

@@ -1,0 +1,153 @@
+"""SplitZip decode kernels (paper §3.2): wrappers and their plain versions.
+
+``decode_fused`` unpacks the 4-bit codes, maps them through the codebook,
+reassembles the container bits from the sign-mantissa stream AND applies the
+sparse escape correction in one CUDA launch (``csrc/splitzip_decode.cu``, the
+port of the Pallas ``decode_fused``).  ``decode_dense`` is the dense stage
+alone, for layouts whose correction stays outside the kernel
+(``layout='global'`` and capacities above ``MAX_FUSED_CAP``).
+
+Each wrapper launches its kernel for CUDA operands and runs its plain PyTorch
+version (``*_plain``) only for CPU operands; anything else raises.
+``launches`` on a wrapper counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core import codec as C
+from repro_torch.core.codebook import FORMATS
+from repro_torch.kernels import build
+
+_P = ctypes.c_void_p
+_PROTOTYPES = {
+    "sz_decode_fused": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int, _P, _P],
+    "sz_decode_dense": [ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
+                        ctypes.c_int, _P, _P],
+}
+
+
+def decode_lut(exponents: tuple) -> np.ndarray:
+    """16 bytes: code -> exponent (codes beyond the codebook decode to 0)."""
+    if len(exponents) > 16:
+        raise ValueError("the codec kernels unpack 4-bit codes (k <= 16); got "
+                         f"k={len(exponents)}")
+    lut = np.zeros(16, dtype=np.uint8)
+    lut[:len(exponents)] = exponents
+    return lut
+
+
+def _check_dense(packed, sign_mantissa, chunk):
+    rows = sign_mantissa.shape[0]
+    build.check_operand(sign_mantissa, "sign_mantissa", torch.uint8, (rows, chunk))
+    build.check_operand(packed, "packed", torch.uint8, (rows, chunk // 2))
+    return rows
+
+
+def _lib():
+    return build.library("splitzip_decode", _PROTOTYPES)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def decode_dense_plain(packed: torch.Tensor, sign_mantissa: torch.Tensor,
+                       exponents: tuple, fmt: str = "bf16", chunk: int = 1024):
+    """(rows, chunk//2) packed + (rows, chunk) sign-mantissa -> (rows, chunk)
+    container bits, escaped exponents left at code 0's value."""
+    rows = sign_mantissa.shape[0]
+    e = C.decode_codes(C.unpack_nibbles(packed.reshape(-1)), exponents)
+    return C.join_fields(e, sign_mantissa.reshape(-1), fmt).reshape(rows, chunk)
+
+
+def decode_fused_plain(packed: torch.Tensor, sign_mantissa: torch.Tensor,
+                       esc_pos: torch.Tensor, esc_val: torch.Tensor,
+                       esc_count: torch.Tensor, exponents: tuple,
+                       fmt: str = "bf16", chunk: int = 1024):
+    """Dense decode, then the exponent field is overwritten at each row's
+    escape slots ``j < esc_count`` in slot order; slots with ``pos >= chunk``
+    (padding) are skipped."""
+    s = FORMATS[fmt]
+    mbits, ebits, nbits = s["mbits"], s["ebits"], s["bits"]
+    keep = ((1 << nbits) - 1) ^ (((1 << ebits) - 1) << mbits)
+    rows, cap = esc_pos.shape
+    x = C.widen(decode_dense_plain(packed, sign_mantissa, exponents, fmt, chunk))
+    cnt = torch.clamp(esc_count.reshape(-1), min=0, max=cap)
+    pos = C.widen(esc_pos).to(torch.int64)
+    val = esc_val.to(torch.int32)
+    for j in range(int(cnt.max()) if rows else 0):
+        r = torch.nonzero((cnt > j) & (pos[:, j] < chunk)).reshape(-1)
+        p = pos[r, j]
+        x[r, p] = (x[r, p] & keep) | (val[r, j] << mbits)
+    return C.narrow(x, C.container_dtype(fmt))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def decode_dense(packed: torch.Tensor, sign_mantissa: torch.Tensor,
+                 exponents: tuple, fmt: str = "bf16", chunk: int = 1024):
+    """Dense decode to container bits: (rows, chunk//2) packed + (rows, chunk)
+    sign-mantissa -> (rows, chunk) u16/u8 (escapes still dummy)."""
+    rows = _check_dense(packed, sign_mantissa, chunk)
+    lut = decode_lut(exponents)
+    if not build.on_cuda(packed, sign_mantissa):
+        return decode_dense_plain(packed, sign_mantissa, exponents, fmt, chunk)
+    out = torch.empty((rows, chunk), dtype=C.container_dtype(fmt),
+                      device=packed.device)
+    build.check_launchable(chunk, packed, sign_mantissa, out)
+    lib = _lib()
+    with torch.cuda.device(packed.device):
+        err = lib.sz_decode_dense(
+            build.FMT_ID[fmt], packed.data_ptr(), sign_mantissa.data_ptr(),
+            out.data_ptr(), rows, chunk, lut.ctypes.data,
+            build.stream_of(packed))
+    build.check(lib, err, "decode_dense")
+    decode_dense.launches += 1
+    return out
+
+
+def decode_fused(packed: torch.Tensor, sign_mantissa: torch.Tensor,
+                 esc_pos: torch.Tensor, esc_val: torch.Tensor,
+                 esc_count: torch.Tensor, exponents: tuple, fmt: str = "bf16",
+                 chunk: int = 1024):
+    """Single-launch fused decode to FINAL container bits.
+
+    (rows, chunk//2) packed + (rows, chunk) sign-mantissa + (rows, cap)
+    esc_pos u16 / esc_val u8 + (rows, 1) esc_count i32 (clipped to cap by
+    the caller) -> (rows, chunk) u16/u8 with the sparse correction applied."""
+    rows = _check_dense(packed, sign_mantissa, chunk)
+    cap = esc_pos.shape[1] if esc_pos.dim() == 2 else -1
+    build.check_operand(esc_pos, "esc_pos", torch.uint16, (rows, cap))
+    build.check_operand(esc_val, "esc_val", torch.uint8, (rows, cap))
+    build.check_operand(esc_count, "esc_count", torch.int32, (rows, 1))
+    lut = decode_lut(exponents)
+    if not build.on_cuda(packed, sign_mantissa, esc_pos, esc_val, esc_count):
+        return decode_fused_plain(packed, sign_mantissa, esc_pos, esc_val,
+                                  esc_count, exponents, fmt, chunk)
+    if cap < 1:
+        raise ValueError("decode_fused needs at least one escape slot per row")
+    out = torch.empty((rows, chunk), dtype=C.container_dtype(fmt),
+                      device=packed.device)
+    build.check_launchable(chunk, packed, sign_mantissa, out)
+    lib = _lib()
+    with torch.cuda.device(packed.device):
+        err = lib.sz_decode_fused(
+            build.FMT_ID[fmt], packed.data_ptr(), sign_mantissa.data_ptr(),
+            esc_pos.data_ptr(), esc_val.data_ptr(), esc_count.data_ptr(),
+            out.data_ptr(), rows, chunk, cap, lut.ctypes.data,
+            build.stream_of(packed))
+    build.check(lib, err, "decode_fused")
+    decode_fused.launches += 1
+    return out
+
+
+decode_dense.launches = 0
+decode_fused.launches = 0

@@ -1,0 +1,151 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
+
+Runs the disaggregated pipeline in one process: calibrate a SplitZip
+codebook on this model's own KV activations, then prefill -> compressed
+transfer -> decode for a batch of random prompts, reporting the transfer
+ratio, codec health and the time of each phase on the device.
+
+Runs on the card unless ``--device`` names another (``--device cpu`` runs
+the kernels' plain versions); without CUDA and without ``--device`` it
+raises.  ``--codec-backend`` picks the codec from the registry (``auto``
+resolves to ``cuda``, the hand-written kernels; ``torch`` is the reference
+codec).  ``--n-chunks`` > 1 switches the transfer to the chunked pipelined
+executor.  Weights are random, made from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.core import codebook as cbm
+from repro_torch.core import tree as TR
+from repro_torch.core.backend import available_backends
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import model as M
+from repro_torch.models.kvcache import DecodeState
+from repro_torch.serving.engine import DisaggregatedEngine
+from repro_torch.serving.prefill import PrefillOutput
+
+
+@torch.no_grad()
+def calibrate_on_model(cfg, params, *, device, seq: int = 32, batch: int = 2,
+                       seed: int = 0) -> cbm.Codebook:
+    """Paper §3.3: one-time calibration on representative KV tensors (a
+    prefill of random prompts through this model)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = ShapeConfig("calib", seq_len=seq, global_batch=batch, kind="train")
+    prompt = {"tokens": M.make_inputs(cfg, shape, gen, seq=seq)["tokens"]}
+    _, state = M.prefill(params, prompt, cfg, max_seq=seq)
+    leaves = [x.reshape(-1).view(torch.int16).cpu().numpy().view(np.uint16)
+              for x in TR.leaves(state.cache) if x.dtype == torch.bfloat16]
+    if not leaves:
+        return cbm.DEFAULT_BF16_CODEBOOK
+    return cbm.calibrate(leaves, k=16)
+
+
+def make_prompt(cfg, batch: int, prompt_len: int, *, device, seed: int) -> Dict:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = ShapeConfig("serve", seq_len=prompt_len, global_batch=batch,
+                        kind="prefill")
+    return {"tokens": M.make_inputs(cfg, shape, gen, seq=prompt_len)["tokens"]}
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # (B, 1 + new_tokens)
+    prefill: PrefillOutput        # the prefill worker's cache and first token
+    delivered: DecodeState        # the cache as the decode worker received it
+    seconds: Dict[str, float]     # prefill / transfer / decode_loop, synced
+
+
+def serve_once(eng: DisaggregatedEngine, prompt: Dict, new_tokens: int,
+               max_seq: Optional[int] = None) -> ServeResult:
+    """prefill -> transfer -> decode through ``eng``, each phase timed on the
+    host clock around work that ends in a device synchronize."""
+    max_seq = max_seq or prompt["tokens"].shape[1] + 1 + new_tokens
+    seconds = {}
+
+    def timed(name, fn):
+        synchronize(eng.device)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(eng.device)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    pre = timed("prefill", lambda: eng.prefill(prompt, max_seq=max_seq))
+    delivered = timed("transfer", lambda: eng.transfer(pre.state))
+    toks = timed("decode_loop", lambda: eng.decode(pre.first_token, delivered,
+                                                   new_tokens))
+    tokens = torch.cat([pre.first_token[:, None], toks], dim=1)
+    return ServeResult(tokens=tokens, prefill=pre, delivered=delivered,
+                       seconds=seconds)
+
+
+def main(argv=None) -> ServeResult:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the CUDA card (raises "
+                         "without one)")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-compress", action="store_true")
+    ap.add_argument("--codec-backend", default="auto",
+                    choices=sorted(available_backends()),
+                    help="codec backend registry key; 'auto' resolves to the "
+                         "CUDA kernels")
+    ap.add_argument("--n-chunks", type=int, default=1,
+                    help=">1 => chunked pipelined transfer engine")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.init_params(cfg, gen, device)
+    cb = calibrate_on_model(cfg, params, device=device, seed=args.seed + 1)
+    print(f"calibrated top-16 exponents: {cb.exponents}")
+
+    eng = DisaggregatedEngine(cfg, params, cb, compress=not args.no_compress,
+                              backend=args.codec_backend,
+                              n_chunks=args.n_chunks, device=device)
+    prompt = make_prompt(cfg, args.batch, args.prompt_len, device=device,
+                         seed=args.seed + 2)
+    res = serve_once(eng, prompt, args.new_tokens)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"generated {tuple(res.tokens.shape)} tokens on {where}")
+    for name, sec in res.seconds.items():
+        print(f"{name + ' time':21s}: {sec * 1e3:.3f} ms")
+    print(f"cache raw bytes      : {eng.stats.raw_cache_bytes:,.0f}")
+    print(f"cache wire bytes     : {eng.stats.wire_bytes:,.0f}")
+    print(f"transfer ratio       : {eng.stats.transfer_ratio:.3f}x")
+    print(f"codec ok (no overflow): {eng.stats.codec_ok}")
+    print(f"codec backend        : {args.codec_backend} (resolved: "
+          f"{eng.tc.get_backend().name})")
+    print(eng.describe_plan())
+    if eng.stats.chunk_retries:
+        print(f"capacity schedule    : {eng.stats.chunk_retries} units "
+              f"retried, {eng.stats.chunk_retry_steps} extra encode attempts")
+    if eng.stats.chunk_wire_bytes:
+        per = eng.stats.chunk_wire_bytes
+        print(f"pipelined chunks     : {len(per)} shipped (requested "
+              f"{args.n_chunks}) — per-chunk wire bytes min={min(per):,.0f} "
+              f"max={max(per):,.0f}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

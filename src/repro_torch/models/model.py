@@ -1,0 +1,190 @@
+"""Dense GQA model on PyTorch: the port of ``repro.models.model`` (dense family).
+
+Parameters are a plain nested dict stacked over layers, with the JAX
+package's shapes and init scales, so ``models/weights.params_from_jax`` maps
+one package's parameters onto the other's.  The layer stack is a Python loop
+(the JAX package scans it).
+
+Public API: init_params / forward / prefill / decode_step / make_inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import layers as L
+from repro_torch.models.kvcache import DecodeState, require_dense
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> Dict:
+    """Seeded random parameters with ``repro.models.model.init_params``'s
+    shapes and scales (normal * scale in f32, stored bf16), stacked over
+    layers.  The numbers come from ``generator`` (on its own device) and
+    land on ``device`` (default: the generator's)."""
+    require_dense(cfg)
+    device = device if device is not None else generator.device
+    nl, d, h, hkv, hd, dff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32) * scale
+        return x.to(device=device, dtype=torch.bfloat16)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=device)
+
+    s = d ** -0.5
+    p: Dict = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+    p["layers"] = {
+        "norm1": ones((nl, d)),
+        "norm2": ones((nl, d)),
+        "attn": {
+            "wq": normal((nl, d, h, hd), s),
+            "wk": normal((nl, d, hkv, hd), s),
+            "wv": normal((nl, d, hkv, hd), s),
+            "wo": normal((nl, h, hd, d), s),
+        },
+        "ffn": {
+            "w_gate": normal((nl, d, dff), s),
+            "w_up": normal((nl, d, dff), s),
+            "w_down": normal((nl, dff, d), dff ** -0.5),
+        },
+    }
+    return p
+
+
+def layer_params(stacked: Dict, i: int) -> Dict:
+    """Layer ``i``'s slice of the layer-stacked parameter dict."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["embed"].t())
+    return torch.matmul(x, params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
+            collect_cache: bool = False, logits_positions: str = "all"):
+    """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
+
+    ``logits_positions='last'`` projects only the final position through the
+    LM head (prefill needs just the first sampled token)."""
+    require_dense(cfg)
+    x = params["embed"][batch["tokens"]]
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
+        o = L.chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+        x = x + L.attention_out(lp["attn"], o)
+        h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + L.mlp(lp["ffn"], h2)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    if logits_positions == "last":
+        x = x[:, -1:]
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+    return lm_logits(params, x, cfg), cache, torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
+            kv_block: int = 1024) -> Tuple[torch.Tensor, DecodeState]:
+    """Run the full prompt; return (last-position logits, decode state).
+
+    The cache is padded with zeros to ``max_seq`` slots so decode can
+    continue in place.  Ragged batches: ``batch["lengths"]`` (B,) marks each
+    row's true prompt length (rows right-padded to a common S); last-token
+    logits are gathered at ``lengths - 1`` and ``cache_len`` starts at
+    ``lengths``."""
+    lengths = batch.get("lengths")
+    logits, cache, _ = forward(
+        params, batch, cfg, kv_block=kv_block, collect_cache=True,
+        logits_positions="all" if lengths is not None else "last")
+    b, s = batch["tokens"].shape
+    max_seq = max_seq or s
+    if max_seq > s:   # (L, B, S, Hkv, hd): pad S
+        cache = {k: F.pad(v, (0, 0, 0, 0, 0, max_seq - s)) for k, v in cache.items()}
+    dev = logits.device
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        last = logits[torch.arange(b, device=dev), (lengths - 1).to(torch.int64)]
+        return last, DecodeState(cache=cache, cache_len=lengths)
+    return logits[:, -1], DecodeState(
+        cache=cache, cache_len=torch.full((b,), s, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
+
+def decode_step(params, tokens: torch.Tensor, state: DecodeState,
+                cfg: ArchConfig) -> Tuple[torch.Tensor, DecodeState]:
+    """One autoregressive step.  tokens: (B, 1) int -> logits (B, V).
+
+    The new k/v are written INTO ``state.cache`` (in place, saving a copy of
+    the cache per step); the returned state shares that cache and advances
+    ``cache_len``."""
+    require_dense(cfg)
+    x = params["embed"][tokens]
+    cache_len = state.cache_len
+    ck, cv = state.cache["k"], state.cache["v"]
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        out, _ = L.decode_attention_block(lp["attn"], h, ck[i], cv[i], cache_len,
+                                          cfg.rope_theta)
+        y = x + out
+        h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
+        x = y + L.mlp(lp["ffn"], h2)
+    logits = lm_logits(params, x, cfg)[:, -1]
+    return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def make_inputs(cfg: ArchConfig, shape: ShapeConfig, generator: torch.Generator,
+                batch: Optional[int] = None, seq: Optional[int] = None,
+                device=None) -> Dict:
+    """Random token batch ``{"tokens", "labels"}`` (B, S) from ``generator``."""
+    b = batch or shape.global_batch
+    s = seq or shape.seq_len
+    device = device if device is not None else generator.device
+
+    def ids():
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
+                             device=generator.device).to(device)
+
+    return {"tokens": ids(), "labels": ids()}

@@ -1,0 +1,30 @@
+"""Parameters from the JAX package, as numpy, into the port's layout.
+
+Both packages keep the same nested-dict parameter tree with the same shapes,
+so the conversion is per-array: bf16 arrays (``ml_dtypes.bfloat16``, or
+their ``uint16`` bit patterns) become ``torch.bfloat16`` with identical
+bits, float32 stays float32.  The caller converts the JAX tree to numpy
+(``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.array(arr, order="C")   # a writable copy: JAX's buffers are read-only
+    if arr.dtype.name in ("bfloat16", "uint16"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_jax(np_tree: Any, device=None) -> Any:
+    """Map a numpy copy of ``repro.models.model.init_params``'s tree onto
+    tensors on ``device`` (default CPU)."""
+    if isinstance(np_tree, dict):
+        return {k: params_from_jax(v, device) for k, v in np_tree.items()}
+    return _tensor(np.asarray(np_tree), device)

@@ -1,0 +1,153 @@
+"""Disaggregated serving engine: prefill worker -> SplitZip transfer -> decode
+worker, as one orchestrated pipeline (the port of ``repro.serving.engine``).
+
+Both workers run in-process on one device; the transfer is a real
+compress -> (in-process wire) -> decompress roundtrip through the codec
+backend, so the bit-exactness of the whole serving path is checked end to
+end.  The engine builds ONE :class:`~repro_torch.serving.plan.TransferPlan`
+per cache structure and executes it through a cached
+:class:`~repro_torch.serving.session.TransferSession` on every ``transfer``.
+``n_chunks == 1`` runs the whole-tensor executor, ``n_chunks > 1`` the
+chunked pipelined one.
+
+The engine runs on the card unless the caller passes ``device=``; without
+CUDA it raises.  Only raw residency is ported: ``resident="compressed"``
+needs the paged attention kernel and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree as TR
+from repro_torch.core.codebook import Codebook
+from repro_torch.device import resolve_device
+from repro_torch.models.kvcache import DecodeState
+from repro_torch.serving.decode import decode_loop
+from repro_torch.serving.plan import TransferConfig, TransferPlan
+from repro_torch.serving.prefill import PrefillOutput, prefill_step
+from repro_torch.serving.session import TransferSession
+
+
+def raw_wire_bytes(cache: Dict) -> float:
+    return float(sum(x.numel() * x.element_size() for x in TR.leaves(cache)))
+
+
+@dataclasses.dataclass
+class EngineStats:
+    raw_cache_bytes: float = 0.0
+    wire_bytes: float = 0.0
+    prefill_calls: int = 0
+    decode_tokens: int = 0
+    codec_ok: bool = True
+    # per-chunk wire bytes, one entry per pipeline chunk per transfer call
+    # (chunked mode only; the whole-tensor path leaves this empty)
+    chunk_wire_bytes: List[float] = dataclasses.field(default_factory=list)
+    # units (chunks/tensors) re-encoded on the geometric capacity schedule
+    chunk_retries: int = 0
+    # total extra encode attempts across the schedule
+    chunk_retry_steps: int = 0
+    # fp32 hi/lo route: raw lo halves shipped alongside the stream
+    fp32_lo_wire_bytes: float = 0.0
+    # encoded units (chunks + leaves) that went down the capacity schedule
+    encoded_units: int = 0
+
+    @property
+    def transfer_ratio(self) -> float:
+        return self.raw_cache_bytes / max(self.wire_bytes, 1.0)
+
+
+class DisaggregatedEngine:
+    """Local PD engine with a real compressed transfer stage."""
+
+    def __init__(self, cfg: ArchConfig, params, codebook: Codebook,
+                 *, compress: bool = True, chunk: int = 1024, cap: int = 64,
+                 backend: str = "auto", n_chunks: int = 1,
+                 compress_fp32: bool = False, resident: str = "raw",
+                 device=None):
+        if resident == "compressed":
+            raise NotImplementedError(
+                "resident='compressed' needs the paged attention kernel, which "
+                "is not ported yet; use resident='raw'")
+        if resident != "raw":
+            raise ValueError(f"resident={resident!r}: expected 'raw' or "
+                             "'compressed'")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.tc = TransferConfig(codebook=codebook, chunk=chunk, cap=cap,
+                                 enabled=compress, backend=backend,
+                                 n_chunks=n_chunks, compress_fp32=compress_fp32)
+        self.resident = resident
+        self.stats = EngineStats()
+        self._session: Optional[TransferSession] = None
+
+    # -- plan/session caching ------------------------------------------------
+    def _session_for(self, cache) -> TransferSession:
+        """Build the TransferPlan once per cache structure and reuse its
+        session; the ``plan.matches`` walk doubles as the structure check."""
+        if self._session is None or not self._session.plan.matches(cache):
+            self._session = TransferPlan.build(cache, self.tc).session()
+        return self._session
+
+    @property
+    def plan(self) -> Optional[TransferPlan]:
+        return self._session.plan if self._session is not None else None
+
+    def describe_plan(self) -> str:
+        """The resolved per-leaf routing table (empty before first transfer)."""
+        return self.plan.describe() if self.plan is not None else "(no plan yet)"
+
+    # -- the three pipeline stages ------------------------------------------
+    def prefill(self, batch: Dict, max_seq: Optional[int] = None) -> PrefillOutput:
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        out = prefill_step(self.params, batch, self.cfg, max_seq=max_seq)
+        self.stats.prefill_calls += 1
+        return out
+
+    def transfer(self, state: DecodeState) -> DecodeState:
+        """Compress -> ship -> decompress.  Bit-exact by construction.
+
+        Escape-capacity overflow walks the plan's geometric capacity schedule
+        and then falls back to raw — per tensor on the whole-tensor path, per
+        chunk on the pipelined path — and the accounting charges raw bytes
+        for exactly the payload that shipped raw."""
+        raw = raw_wire_bytes(state.cache)
+        self.stats.raw_cache_bytes += raw
+        if not self.tc.enabled or not state.cache:
+            self.stats.wire_bytes += raw
+            return state
+        sess = self._session_for(state.cache)
+        cache = sess.transfer(state.cache, check=False)
+        self._absorb_transfer_stats(sess.last_stats)
+        return DecodeState(cache=cache, cache_len=state.cache_len)
+
+    def _absorb_transfer_stats(self, cstats) -> None:
+        self.stats.wire_bytes += cstats.wire_bytes
+        self.stats.codec_ok &= cstats.all_ok
+        self.stats.chunk_retries += cstats.n_retries
+        self.stats.chunk_retry_steps += cstats.n_retry_steps
+        self.stats.fp32_lo_wire_bytes += cstats.fp32_lo_wire_bytes
+        self.stats.encoded_units += len(cstats.chunk_retried)
+        if self.tc.n_chunks > 1:
+            self.stats.chunk_wire_bytes.extend(cstats.chunk_wire_bytes)
+
+    def decode(self, first_token: torch.Tensor, state: DecodeState,
+               num_steps: int) -> torch.Tensor:
+        toks, _ = decode_loop(self.params, first_token, state, self.cfg,
+                              num_steps)
+        self.stats.decode_tokens += int(toks.numel())
+        return toks
+
+    # -- end-to-end ----------------------------------------------------------
+    def generate(self, batch: Dict, num_steps: int,
+                 max_seq: Optional[int] = None) -> torch.Tensor:
+        """prompt batch -> (B, 1 + num_steps) generated ids (greedy)."""
+        pre = self.prefill(batch, max_seq=max_seq)
+        state = self.transfer(pre.state)
+        toks = self.decode(pre.first_token, state, num_steps)
+        return torch.cat([pre.first_token[:, None], toks], dim=1)
