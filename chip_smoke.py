@@ -23,12 +23,37 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 4. capacity — a cache with one chunk of nothing but escapes walks the
               capacity schedule to ``layout='global'``: the dense kernels
               launch and delivery stays bitwise.
+5. attention — the paged-attention kernels against their plain versions:
+              ``decode_pages`` (the kernels' shared page decoder) BITWISE
+              for bf16 / fp8_e5m2 / fp8_e4m3 pages with escape counts 0,
+              cap and over cap, padding and repeated slots, NaN/Inf/zero/
+              subnormal payloads; ``paged_gqa_attention`` and
+              ``paged_mla_attention`` within ``PARTIALS_RTOL`` on edge inputs
+              (an empty row, nq 1 and 4 causal, K/V and ckv/krope with their
+              own caps, every format) and at the main paths' geometries,
+              where each is timed beside its plain version, its bound, and
+              SDPA over the same prefix held raw (a yardstick only).
+6. resident — smollm-135m at full width, ``resident="compressed"``: batch 8,
+              prompt 2048, 40 new tokens through ``serve_once``.  Admitted
+              (not demoted), the pool rehydrates bitwise to the prefill
+              cache, one flush per row, the exact resident/raw byte counts,
+              and teacher-forced logits within 0.12 max|logits| of raw decode.
+7. mla      — minicpm3-4b at full width (62 layers), batch 4, prompt 1000,
+              40 new tokens: the raw path (cuda backend, n_chunks 1 and 8,
+              compression off) bitwise, then the resident path as phase 6.
+8. demotion — an out-of-band codebook makes the stream inadmissible: the
+              batch demotes once and its tokens equal the raw-resident
+              engine's bit for bit.
 
-The launch counters are set to 0 right before phase 3 and read right after
-phase 4: those two phases are the main path.  The ``kernels`` JSON line,
-the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``
-close the output.  Without CUDA, or outside a checkout, it exits non-zero
-before printing any result.
+The launch counters are set to 0 right before each main-path run and read
+right after it: the served transfer of phase 3 (``encode_fused``,
+``decode_fused``), the capacity walk of phase 4 (``encode_dense``,
+``decode_dense``), and the served resident decode of phases 6
+(``paged_gqa_attention``) and 7 (``paged_mla_attention``); the checks
+around those runs are not counted.  The ``kernels`` JSON line, the card's
+``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}`` close the
+output.  Without CUDA, or outside a checkout, it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -46,6 +71,13 @@ SRC = ROOT / "src"
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # 32-bit ALU rate outside the tensor cores
 ARCH, BATCH, PROMPT, NEW_TOKENS = "smollm-135m", 8, 2048, 16
+RES_TOKENS = 40                  # phase 6: the tails fill and flush at step 32
+MLA_ARCH, MLA_BATCH, MLA_PROMPT = "minicpm3-4b", 4, 1000
+PROMPT_OF = {ARCH: PROMPT, MLA_ARCH: MLA_PROMPT}
+# |logits| bound of resident vs raw decode, the JAX package's own
+# (tests/test_kvpool.py): raw decode accumulates p.v in bf16, the paged
+# kernel in f32
+LOGITS_BOUND = 0.12
 
 
 def emit(**obj) -> None:
@@ -82,6 +114,28 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launch_counters():
+    """Every kernel wrapper, by its kernel's name."""
+    from repro_torch.kernels import splitzip_attention as SA
+    from repro_torch.kernels import splitzip_decode as D
+    from repro_torch.kernels import splitzip_encode as E
+    return {"encode_fused": E.encode_fused, "decode_fused": D.decode_fused,
+            "encode_dense": E.encode_dense, "decode_dense": D.decode_dense,
+            "paged_gqa_attention": SA.paged_gqa_attention,
+            "paged_mla_attention": SA.paged_mla_attention,
+            "decode_pages": SA.decode_pages}
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with every launch counter set to 0 just before it and
+    read just after it: ``(result, {kernel: launches})``."""
+    wrappers = launch_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn(*args)
+    return out, {k: w.launches for k, w in wrappers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -210,12 +264,12 @@ def phase_main(torch, cfg, device):
             raise AssertionError("send/recv: delivered cache != prefill cache")
         return {"encode": t1 - t0, "decode": t2 - t1}
 
-    results, tokens = {}, {}
+    results, tokens, launches = {}, {}, {}
     for label, kw in (("cuda_n1", dict(n_chunks=1)),
                       ("cuda_n8", dict(n_chunks=8)),
                       ("raw", dict(compress=False))):
         eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device, **kw)
-        res = serve.serve_once(eng, prompt, NEW_TOKENS)
+        res, launches[label] = counted(serve.serve_once, eng, prompt, NEW_TOKENS)
         if not same_cache(res.delivered.cache, res.prefill.state.cache):
             raise AssertionError(f"{label}: delivered cache != prefill cache")
         tokens[label] = res.tokens
@@ -239,7 +293,7 @@ def phase_main(torch, cfg, device):
          new_tokens=NEW_TOKENS, cache_elements=n_elems,
          codebook=list(cb.exponents), runs=results,
          tokens_equal=True, delivered_bitwise=True)
-    return cb, first
+    return cb, first, params, prompt, launches
 
 
 def phase_capacity(torch, cfg, cb, first, device):
@@ -258,7 +312,7 @@ def phase_capacity(torch, cfg, cb, first, device):
     flat[:1024] = chunk_bits.to(torch.int16)
     state = DecodeState(cache=cache, cache_len=first.prefill.state.cache_len)
     eng = DisaggregatedEngine(cfg, None, cb, backend="cuda", device=device)
-    out = eng.transfer(state)
+    out, launches = counted(eng.transfer, state)
     torch.cuda.synchronize()
     if not all(C.bits_equal(x, y) for x, y in zip(TR.leaves(out.cache),
                                                  TR.leaves(cache))):
@@ -269,6 +323,396 @@ def phase_capacity(torch, cfg, cb, first, device):
                              "(expected cap -> 2cap -> 4cap -> global = 3)")
     emit(phase="capacity", retry_steps=steps, transfer_ratio=eng.stats.transfer_ratio,
          delivered_bitwise=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the paged-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN_KERNELS = {
+    "paged_gqa_attention": ("src/repro_torch/kernels/csrc/splitzip_attention.cu",
+                            "src/repro/kernels/splitzip_attention.py:212"),
+    "paged_mla_attention": ("src/repro_torch/kernels/csrc/splitzip_attention.cu",
+                            "src/repro/kernels/splitzip_attention.py:360"),
+}
+# the main paths' geometries: smollm-135m at batch 8 after a 2048-token
+# prompt (80-token pages, 25 full), minicpm3-4b at batch 4 after 1000
+# tokens (64-token pages, 15 full)
+GQA_MAIN = dict(batch=BATCH, nq=1, heads=9, hkv=3, hd=64, dv=64, tp=80,
+                pages=27, lens=[PROMPT] * BATCH)
+MLA_MAIN = dict(batch=MLA_BATCH, nq=1, heads=40, rank=256, rope=32, tp=64,
+                pages=17, lens=[MLA_PROMPT] * MLA_BATCH)
+GQA_EDGE = dict(batch=3, heads=4, hkv=2, hd=32, dv=128, tp=16, pages=4,
+                lens=[64, 37, 9])           # dv != hd, own caps, an empty row
+MLA_EDGE = dict(batch=3, heads=8, rank=128, rope=32, tp=32, pages=3,
+                lens=[96, 50, 20])          # own caps, an empty row
+
+
+def _page_bytes(streams):
+    sm, _, pos, _, _ = streams
+    pe = sm.shape[1] * sm.shape[2]
+    return 1.5 * pe + 3 * pos.shape[1] + 4
+
+
+def attention_work(case, kind):
+    """(bytes, operations) the call must move and do: every full page's
+    compressed streams and page-table entries read once, q read, the f32
+    partials written; nq H Tp (score width + context width) multiply-adds a
+    page, two operations each (the rate counts a fused multiply-add as
+    two)."""
+    tp = case["tokens_per_page"]
+    if kind == "gqa":
+        q = case["q"]
+        b, nq, h, hd = q.shape
+        s0, s1, table = case["k_streams"], case["v_streams"], case["page_table_k"]
+        dv = s1[0].shape[1] * s1[0].shape[2] // tp // case["hkv"]
+        width, out_w = hd + dv, dv
+        q_bytes = q.numel() * 2
+    else:
+        ql, qr = case["q_lat"], case["q_rope"]
+        b, nq, h, r = ql.shape
+        s0, s1, table = case["ckv_streams"], case["krope_streams"], \
+            case["page_table_ckv"]
+        width, out_w = 2 * r + qr.shape[-1], r
+        q_bytes = (ql.numel() + qr.numel()) * 2
+    n = int((case["cache_len"] // tp).clamp(max=table.shape[1]).sum())
+    nbytes = (n * (_page_bytes(s0) + _page_bytes(s1) + 8) + q_bytes
+              + b * nq * h * (out_w + 2) * 4 + b * 4)
+    return nbytes, n * 2 * nq * h * tp * width
+
+
+def raw_sdpa_ms(torch, case, kind):
+    """SDPA over the same prefix held RAW in bf16 (the decoded full pages):
+    a yardstick of what attention over uncompressed KV costs here.  Not the
+    same function (no page decode, normalized output) and never called by
+    the port."""
+    import torch.nn.functional as F
+    from repro_torch.core import codec as C
+    from repro_torch.kernels import splitzip_attention as SA
+    tp = case["tokens_per_page"]
+    fmt, exps, chunk = case["fmt"], case["exponents"], case["chunk"]
+
+    def prefix(streams, table):
+        n = int((case["cache_len"] // tp).min())
+        ids = table[:, :n].reshape(-1).long()
+        sel = tuple(C.unsigned_view(C.signed_view(t)[ids]) if t.dtype == torch.uint16
+                    else t[ids] for t in streams)
+        bits = SA.decode_pages_plain(sel, exps, fmt, chunk)
+        return SA.bits_to_float(bits, fmt).to(torch.bfloat16).reshape(
+            table.shape[0], n * tp, -1)
+
+    if kind == "gqa":
+        q = case["q"]
+        b, nq, h, hd = q.shape
+        hkv = case["hkv"]
+        k = prefix(case["k_streams"], case["page_table_k"]).reshape(b, -1, hkv, hd)
+        v = prefix(case["v_streams"], case["page_table_v"]).reshape(b, -1, hkv, hd)
+        k = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+        v = v.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+        qq = q.transpose(1, 2).contiguous()
+    else:
+        ql, qr = case["q_lat"], case["q_rope"]
+        b, nq, h, r = ql.shape
+        c = prefix(case["ckv_streams"], case["page_table_ckv"])
+        kr = prefix(case["krope_streams"], case["page_table_krope"])
+        k = torch.cat([c, kr], dim=-1)[:, None].expand(b, h, -1, -1).contiguous()
+        v = c[:, None].expand(b, h, -1, -1).contiguous()
+        qq = torch.cat([ql, qr], dim=-1).transpose(1, 2).contiguous()
+    scale = case["scale"]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qq, k, v, scale=scale),
+                   reps=20)
+
+
+def phase_attention(torch, device):
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import cases as K
+    from repro_torch.kernels import splitzip_attention as SA
+
+    # the shared page decoder, bitwise, every format
+    n_dec = 0
+    for name, fmt, exps, streams in AC.decode_cases(seed=3):
+        dev = tuple(t.to(device) for t in streams)
+        got = SA.decode_pages(dev, exps, fmt, 1024)
+        torch.cuda.synchronize()
+        if K.max_abs_err((got,), (SA.decode_pages_plain(dev, exps, fmt, 1024),)) != 0:
+            raise AssertionError(f"decode_pages {name}: kernel != plain")
+        n_dec += 1
+
+    # edge inputs, every format, nq 1 and 4 (causal)
+    n_edge, worst_edge = 0, 0.0
+    for fmt in ("bf16", "fp8_e5m2", "fp8_e4m3"):
+        for nq in (1, 4):
+            for kind, make, kw, fn in (
+                    ("gqa", AC.gqa_case, GQA_EDGE, SA.paged_gqa_attention),
+                    ("mla", AC.mla_case, MLA_EDGE, SA.paged_mla_attention)):
+                case = AC.to_device(make(fmt, 20 + nq, nq=nq, **kw), device)
+                got = fn(**case)
+                torch.cuda.synchronize()
+                plain = SA.paged_gqa_attention_plain if kind == "gqa" \
+                    else SA.paged_mla_attention_plain
+                worst_edge = max(worst_edge, AC.check_partials(got, plain(**case)))
+                n_edge += 1
+
+    # the main paths' geometries: check, then time
+    records = {}
+    for name, kind, make, kw, fn, plain in (
+            ("paged_gqa_attention", "gqa", AC.gqa_case, GQA_MAIN,
+             SA.paged_gqa_attention, SA.paged_gqa_attention_plain),
+            ("paged_mla_attention", "mla", AC.mla_case, MLA_MAIN,
+             SA.paged_mla_attention, SA.paged_mla_attention_plain)):
+        case = AC.to_device(make("bf16", 7, **kw), device)
+        k_streams = case["k_streams"] if kind == "gqa" else case["ckv_streams"]
+        got_bits = SA.decode_pages(k_streams, case["exponents"], "bf16", 1024)
+        if K.max_abs_err((got_bits,), (SA.decode_pages_plain(
+                k_streams, case["exponents"], "bf16", 1024),)) != 0:
+            raise AssertionError(f"{name}: page decode != plain at main geometry")
+        err = AC.check_partials(fn(**case), plain(**case))
+        nbytes, ops = attention_work(case, kind)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        ms = cuda_ms(lambda: fn(**case), reps=20)
+        records[name] = dict(
+            name=name, route="cuda", source=ATTN_KERNELS[name][0],
+            replaces=ATTN_KERNELS[name][1], launches=None, max_abs_err=err,
+            tolerance=f"rtol {AC.PARTIALS_RTOL} (f32 sums in another order)",
+            ms=ms, kernel_ms=ms, plain_ms=cuda_ms(lambda: plain(**case), reps=3,
+                                                  warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library="none: no single PyTorch call decodes pages",
+            raw_sdpa_ms=raw_sdpa_ms(torch, case, kind), bytes=nbytes, ops=ops,
+            geometry={k: v for k, v in kw.items() if k != "lens"},
+            cache_len=kw["lens"][0])
+    torch.cuda.empty_cache()
+    emit(phase="attention", decode_cases=n_dec, edge_cases=n_edge,
+         edge_max_abs_err=worst_edge, decode_bitwise=True,
+         timed={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "raw_sdpa_ms",
+                                      "max_abs_err", "bytes")}
+                for k, v in records.items()})
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: compressed-resident decode at full width
+# ---------------------------------------------------------------------------
+
+def live_pool_check(torch, cfg, states, device) -> float:
+    """The family's paged kernel against its plain version on live pools
+    after their flush: the real page tables (pages allocated in (row, page,
+    layer) order at admission, (layer, row) order at the flush), the
+    flushed pages, every row's own length; the first and last layer,
+    seeded queries.  Returns the largest absolute difference."""
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import splitzip_attention as SA
+    from repro_torch.models import mla as MLA
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def q(*shape):
+        return (0.25 * torch.randn(*shape, generator=gen, device=device)
+                ).to(torch.bfloat16)
+
+    worst = 0.0
+    for st in states:
+        g, b, h = st.geom, st.geom.batch, cfg.num_heads
+        common = dict(cache_len=st.cache_len, exponents=g.exponents,
+                      chunk=g.chunk, tokens_per_page=g.tokens_per_page,
+                      causal=True)
+        for i in (0, g.n_layers - 1):
+            if cfg.mla is not None:
+                c, r = st.leaves["ckv"], st.leaves["krope"]
+                kw = dict(q_lat=q(b, 1, h, cfg.mla.kv_lora_rank),
+                          q_rope=q(b, 1, h, cfg.mla.qk_rope_head_dim),
+                          ckv_streams=c.streams(), krope_streams=r.streams(),
+                          page_table_ckv=c.page_table[i],
+                          page_table_krope=r.page_table[i],
+                          fmt=g.leaf("ckv").fmt, scale=MLA.mla_scale(cfg.mla),
+                          **common)
+                fn, plain = SA.paged_mla_attention, SA.paged_mla_attention_plain
+            else:
+                k, v = st.leaves["k"], st.leaves["v"]
+                kw = dict(q=q(b, 1, h, cfg.head_dim), k_streams=k.streams(),
+                          v_streams=v.streams(), page_table_k=k.page_table[i],
+                          page_table_v=v.page_table[i], fmt=g.leaf("k").fmt,
+                          hkv=cfg.num_kv_heads, scale=1.0 / cfg.head_dim ** 0.5,
+                          **common)
+                fn, plain = SA.paged_gqa_attention, SA.paged_gqa_attention_plain
+            worst = max(worst, AC.check_partials(fn(**kw), plain(**kw)))
+    return worst
+
+
+def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
+                    want_bytes, want_max_seq):
+    """Serve ``resident="compressed"`` through ``serve_once`` (its launches
+    counted), then hold a fresh admission of the same prefill against the
+    prefill cache (bitwise rehydrate, exact bytes), teacher-force the served
+    tokens through resident and raw decode steps side by side, and hold the
+    paged kernel against its plain version on both flushed pools.  Returns
+    the phase's record and the served run's launches."""
+    from repro_torch.core import codec as C
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.kvcache import DecodeState
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    eng = DisaggregatedEngine(cfg, params, cb, resident="compressed",
+                              backend="cuda", device=device)
+    res, launches = counted(serve.serve_once, eng, prompt, new_tokens)
+    st = eng.stats
+    if (st.resident_admits, st.resident_demotions) != (1, 0):
+        raise AssertionError(f"admits/demotions {st.resident_admits}/"
+                             f"{st.resident_demotions}, want 1/0")
+    pool = eng._pool
+    g = pool.geom
+    if g.max_seq != want_max_seq:
+        raise AssertionError(f"max_seq {g.max_seq} != {want_max_seq}")
+    n_full0 = PROMPT_OF[cfg.name] // g.tokens_per_page
+    flushed = {lg.key: pool.allocated_pages(lg.key)
+               - g.n_layers * g.batch * n_full0 for lg in g.leaves}
+    if any(v != g.n_layers * g.batch for v in flushed.values()):
+        raise AssertionError(f"flush allocated {flushed}, want "
+                             f"{g.n_layers * g.batch} pages a leaf")
+    got_bytes = (pool.hbm_bytes(), pool.raw_bytes())
+    if got_bytes != want_bytes:
+        raise AssertionError(f"resident/raw bytes {got_bytes} != {want_bytes}")
+
+    eng_raw = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device)
+    raw = serve.serve_once(eng_raw, prompt, new_tokens)
+    same_tok = (res.tokens == raw.tokens)
+    agree = float(same_tok.float().mean())
+    # per row, the first generated position where resident and raw differ
+    # (random weights give flat logits, so one flip changes all that follows)
+    first_diff = [int(torch.nonzero(~row)[0]) if not bool(row.all()) else None
+                  for row in same_tok.cpu()]
+
+    # a fresh admission of the same prefill: rehydrate, then teacher forcing
+    eng_tf = DisaggregatedEngine(cfg, params, cb, resident="compressed",
+                                 backend="cuda", device=device)
+    pre = eng_tf.prefill(prompt, max_seq=want_max_seq)
+    rst = eng_tf.transfer(pre.state)
+    tpool = eng_tf._pool
+    reh = tpool.rehydrate(rst)
+    for k, v in pre.state.cache.items():
+        if not C.bits_equal(reh[k], v):
+            raise AssertionError(f"rehydrate after admission != prefill cache ({k})")
+    del reh
+    raw_st = DecodeState(cache={k: v.clone() for k, v in pre.state.cache.items()},
+                         cache_len=pre.state.cache_len.clone())
+    worst, served_argmax = 0.0, 0
+    t_res = t_raw = 0.0
+    with torch.no_grad():
+        for i in range(new_tokens):
+            tok = res.tokens[:, i:i + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lr, raw_st = M.decode_step(params, tok, raw_st, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lc, rst = M.resident_decode_step(params, tok, rst, cfg)
+            rst = tpool.flush_full_tails(rst)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            t_raw, t_res = t_raw + (t1 - t0), t_res + (t2 - t1)
+            a, b = lr.float(), lc.float()
+            if not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"non-finite resident logits at step {i}")
+            scale = max(1e-3, float(a.abs().max()))
+            ratio = float((a - b).abs().max()) / scale
+            worst = max(worst, ratio)
+            if ratio >= LOGITS_BOUND:
+                raise AssertionError(f"step {i}: |resident - raw| = {ratio:.4f} "
+                                     f"max|logits| >= {LOGITS_BOUND}")
+            served_argmax += int(torch.equal(
+                torch.argmax(lc, dim=-1).to(torch.int32), res.tokens[:, i + 1]))
+    live_err = live_pool_check(torch, cfg, (pool.state, rst), device)
+    return dict(
+        tokens_per_page=g.tokens_per_page, max_seq=g.max_seq,
+        resident_admits=st.resident_admits,
+        resident_demotions=st.resident_demotions, flushed_pages=flushed,
+        resident_hbm_bytes=got_bytes[0], resident_raw_bytes=got_bytes[1],
+        resident_ratio=got_bytes[1] / got_bytes[0],
+        transfer_ratio=st.transfer_ratio,
+        rehydrate_bitwise=True, tokens_agree_with_raw=agree,
+        first_divergence_per_row=first_diff,
+        teacher_forced_max_ratio=worst, logits_bound=LOGITS_BOUND,
+        teacher_forced_steps_matching_served=served_argmax,
+        live_pool_max_abs_err=live_err, live_pool_rtol=AC.PARTIALS_RTOL,
+        seconds_resident=res.seconds, seconds_raw=raw.seconds,
+        step_ms_resident=t_res / new_tokens * 1e3,
+        step_ms_raw=t_raw / new_tokens * 1e3, served_launches=launches), launches
+
+
+def phase_resident(torch, cfg, params, cb, prompt, device):
+    out, launches = resident_checks(
+        torch, cfg, params, cb, prompt, RES_TOKENS, device,
+        want_bytes=(315_780_480, 398_131_200), want_max_seq=2160)
+    emit(phase="resident", arch=cfg.name, batch=BATCH, prompt=PROMPT,
+         new_tokens=RES_TOKENS, **out)
+    return launches
+
+
+def phase_mla(torch, device):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    cfg = get_config(MLA_ARCH)
+    gen = torch.Generator(device=device).manual_seed(10)
+    params = M.init_params(cfg, gen, device)
+    cb = serve.calibrate_on_model(cfg, params, device=device, seed=11)
+    prompt = serve.make_prompt(cfg, MLA_BATCH, MLA_PROMPT, device=device, seed=12)
+    raw_runs, tokens = {}, {}
+    for label, kw in (("cuda_n1", dict(n_chunks=1)),
+                      ("cuda_n8", dict(n_chunks=8)),
+                      ("raw", dict(compress=False))):
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device, **kw)
+        res = serve.serve_once(eng, prompt, RES_TOKENS)
+        if not all(C.bits_equal(x, y) for x, y in zip(
+                TR.leaves(res.delivered.cache), TR.leaves(res.prefill.state.cache))):
+            raise AssertionError(f"mla {label}: delivered cache != prefill cache")
+        tokens[label] = res.tokens
+        raw_runs[label] = dict(seconds=res.seconds,
+                               transfer_ratio=eng.stats.transfer_ratio,
+                               codec_ok=eng.stats.codec_ok)
+        del res, eng
+    for label in ("cuda_n8", "raw"):
+        if not torch.equal(tokens[label], tokens["cuda_n1"]):
+            raise AssertionError(f"mla tokens differ: {label} vs cuda_n1")
+    out, launches = resident_checks(
+        torch, cfg, params, cb, prompt, RES_TOKENS, device,
+        want_bytes=(126_684_352, 155_418_624), want_max_seq=1088)
+    emit(phase="mla", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_lora_rank=cfg.mla.kv_lora_rank,
+         rope=cfg.mla.qk_rope_head_dim, vocab=cfg.vocab_size,
+         batch=MLA_BATCH, prompt=MLA_PROMPT, new_tokens=RES_TOKENS,
+         raw_runs=raw_runs, raw_tokens_equal=True, delivered_bitwise=True,
+         **out)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_demotion(torch, cfg, params, prompt, device):
+    from repro_torch.core.codebook import Codebook
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    bad = Codebook(fmt="bf16", exponents=tuple(range(16)))   # every value escapes
+    eng_res = DisaggregatedEngine(cfg, params, bad, resident="compressed",
+                                  backend="cuda", device=device)
+    eng_raw = DisaggregatedEngine(cfg, params, bad, backend="cuda", device=device)
+    max_seq = eng_res.resident_max_seq(PROMPT + 1 + NEW_TOKENS)
+    res, launches = counted(serve.serve_once, eng_res, prompt, NEW_TOKENS)
+    raw = serve.serve_once(eng_raw, prompt, NEW_TOKENS, max_seq=max_seq)
+    if (eng_res.stats.resident_demotions, eng_res.stats.resident_admits) != (1, 0):
+        raise AssertionError("inadmissible stream: expected one demotion")
+    if not torch.equal(res.tokens, raw.tokens):
+        raise AssertionError("demoted tokens != raw-resident tokens")
+    emit(phase="demotion", resident_demotions=1, tokens_bitwise=True,
+         max_seq=max_seq, seconds=res.seconds)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -288,8 +732,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels import splitzip_decode as D
-    from repro_torch.kernels import splitzip_encode as E
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -310,21 +752,33 @@ def main(argv=None) -> int:
 
     cfg = get_config(ARCH)
     records = phase_kernels(torch, cfg, device)
+    records.update(phase_attention(torch, device))
 
-    wrappers = {"encode_fused": E.encode_fused, "decode_fused": D.decode_fused,
-                "encode_dense": E.encode_dense, "decode_dense": D.decode_dense}
-    for w in wrappers.values():
-        w.launches = 0
-    cb, first = phase_main(torch, cfg, device)
-    after_main = {k: w.launches for k, w in wrappers.items()}
-    phase_capacity(torch, cfg, cb, first, device)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    emit(phase="launches", after_main=after_main, after_capacity=launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    # each main-path run is counted alone (``counted``): the served
+    # transfer (phase 3, cuda n_chunks 1), the capacity walk (phase 4), and
+    # the served resident decodes of each family (phases 6 and 7)
+    cb, first, params, prompt, main_runs = phase_main(torch, cfg, device)
+    windows = {"main": main_runs["cuda_n1"], "main_n8": main_runs["cuda_n8"],
+               "capacity": phase_capacity(torch, cfg, cb, first, device)}
+    del first
+    windows["resident"] = phase_resident(torch, cfg, params, cb, prompt, device)
+    windows["mla"] = phase_mla(torch, device)
+    windows["demotion"] = phase_demotion(torch, cfg, params, prompt, device)
+    emit(phase="launches", **windows)
+    owner = {"encode_fused": "main", "decode_fused": "main",
+             "encode_dense": "capacity", "decode_dense": "capacity",
+             "paged_gqa_attention": "resident", "paged_mla_attention": "mla"}
+    for k, rec in records.items():
+        rec["launches"] = windows[owner[k]][k]
+    missing = [k for k, rec in records.items() if not rec["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for k, rec in records.items():
-        rec["launches"] = launches[k]
+    if windows["resident"]["paged_gqa_attention"] < 30 * RES_TOKENS:
+        raise AssertionError("paged_gqa_attention: fewer than one launch per "
+                             "layer and step on the resident path")
+    if windows["mla"]["paged_mla_attention"] < 62 * RES_TOKENS:
+        raise AssertionError("paged_mla_attention: fewer than one launch per "
+                             "layer and step on the MLA resident path")
     emit(kernels=list(records.values()))
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

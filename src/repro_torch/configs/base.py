@@ -1,9 +1,10 @@
 """Architecture + shape configuration system (copy of ``repro.configs.base``).
 
 The dataclasses are data only and copied verbatim, so a config means the same
-model in both packages.  ``get_config`` resolves the dense family the port
-runs today (smollm-135m, llama3.2-3b, qwen3-32b); the other architectures of
-the JAX package raise ``NotImplementedError`` until their family is ported.
+model in both packages.  ``get_config`` resolves the families the port runs
+today: dense GQA (smollm-135m, llama3.2-3b, qwen3-32b) and MLA
+(minicpm3-4b); the other architectures of the JAX package raise
+``NotImplementedError`` until their family is ported.
 """
 
 from __future__ import annotations
@@ -201,11 +202,12 @@ ARCH_IDS = (
     "mamba2-2.7b",
 )
 
-#: architectures whose family the port runs (dense GQA); the rest of
-#: ``ARCH_IDS`` come with later slices of the port
+#: architectures whose family the port runs (dense GQA and MLA); the rest
+#: of ``ARCH_IDS`` come with later slices of the port
 PORTED = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",  # paper's own eval model
 }
 

@@ -1,4 +1,4 @@
-"""Build and load the CUDA codec kernels: ``nvcc`` -> shared library -> ctypes.
+"""Build and load the CUDA kernels: ``nvcc`` -> shared library -> ctypes.
 
 Each source under ``csrc/`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/repro_torch_kernels/``
@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "splitzip_encode": CSRC / "splitzip_encode.cu",
     "splitzip_decode": CSRC / "splitzip_decode.cu",
+    "splitzip_attention": CSRC / "splitzip_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -47,7 +48,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): "
-                           "the CUDA codec kernels cannot be built")
+                           "the CUDA kernels cannot be built")
     return found
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from repro_torch.core.backend import available_backends
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.models.kvcache import DecodeState
+from repro_torch.models.kvpool import ResidentState
 from repro_torch.serving.engine import DisaggregatedEngine
 from repro_torch.serving.prefill import PrefillOutput
 
@@ -61,15 +62,19 @@ def make_prompt(cfg, batch: int, prompt_len: int, *, device, seed: int) -> Dict:
 class ServeResult:
     tokens: torch.Tensor          # (B, 1 + new_tokens)
     prefill: PrefillOutput        # the prefill worker's cache and first token
-    delivered: DecodeState        # the cache as the decode worker received it
+    # what the decode worker received: the raw cache, or the admitted
+    # compressed-resident pool state (which decode then updates in place)
+    delivered: Union[DecodeState, ResidentState]
     seconds: Dict[str, float]     # prefill / transfer / decode_loop, synced
 
 
 def serve_once(eng: DisaggregatedEngine, prompt: Dict, new_tokens: int,
                max_seq: Optional[int] = None) -> ServeResult:
     """prefill -> transfer -> decode through ``eng``, each phase timed on the
-    host clock around work that ends in a device synchronize."""
-    max_seq = max_seq or prompt["tokens"].shape[1] + 1 + new_tokens
+    host clock around work that ends in a device synchronize.  A
+    compressed-resident engine gets its cache padded to a page multiple."""
+    max_seq = eng.resident_max_seq(
+        max_seq or prompt["tokens"].shape[1] + 1 + new_tokens)
     seconds = {}
 
     def timed(name, fn):

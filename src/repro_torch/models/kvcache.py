@@ -1,11 +1,13 @@
-"""Inference cache structures (dense family), the port of
+"""Inference cache structures (dense GQA and MLA families), the port of
 ``repro.models.kvcache``.
 
 The cache is *the* object SplitZip exists for: it is produced by prefill
 workers, crosses the PD boundary compressed, and is consumed by decode
-workers.  The dense family stores ``k``/``v`` stacked over layers,
-``(L, B, S, Hkv, hd)`` bf16, so the whole cache is one dict the transfer
-plan maps the codec over.
+workers.  Each family stores its state stacked over layers, so the whole
+cache is one dict the transfer plan maps the codec over:
+
+  dense : k, v        (L, B, S, Hkv, hd)             bf16
+  mla   : ckv, krope  (L, B, S, r) / (L, B, S, p)    bf16
 """
 
 from __future__ import annotations
@@ -39,17 +41,27 @@ class DecodeState:
 
 
 def require_dense(cfg: ArchConfig) -> None:
-    if (cfg.ssm is not None or cfg.hybrid is not None or cfg.mla is not None
+    """Raise unless ``cfg`` is a token decoder of the dense GQA or the MLA
+    family (no MoE, SSM, hybrid, encoder-only or frontend configs)."""
+    if (cfg.ssm is not None or cfg.hybrid is not None
             or cfg.moe is not None or cfg.encoder_only or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported")
+            f"{cfg.name}: only the dense GQA and MLA families are ported")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zero-filled dense cache ``{"k", "v"}`` of shape (L, B, S, Hkv, hd)."""
+    """Zero-filled cache: ``{"k", "v"}`` (L, B, S, Hkv, hd) for dense GQA,
+    ``{"ckv", "krope"}`` (L, B, S, r) / (L, B, S, p) for MLA."""
     require_dense(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    l, b, s = cfg.num_layers, batch, max_seq
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((l, b, s, m.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((l, b, s, m.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
+    shape = (l, b, s, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

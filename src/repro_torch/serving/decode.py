@@ -1,5 +1,9 @@
 """Decode worker: consumes a (transferred) cache and generates tokens (the
-port of ``repro.serving.decode``; the JAX ``lax.scan`` is a Python loop)."""
+port of ``repro.serving.decode``; the JAX ``lax.scan`` is a Python loop).
+
+``decode_loop`` decodes a raw cache; ``resident_decode_loop`` decodes a
+compressed-resident one (:class:`~repro_torch.models.kvpool.ResidentState`)
+and demotes to ``decode_loop`` if a tail flush cannot stay resident."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models.kvcache import DecodeState
+from repro_torch.models.kvpool import KVPool, ResidencyError, ResidentState
 
 
 @torch.no_grad()
@@ -27,7 +32,43 @@ def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
         logits, st = M.decode_step(params, tok[:, None], st, cfg)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(tok)
+    return _stack(toks, first_token), st
+
+
+def _stack(toks, first_token: torch.Tensor) -> torch.Tensor:
     if not toks:
         return torch.zeros((first_token.shape[0], 0), dtype=torch.int32,
-                           device=first_token.device), st
-    return torch.stack(toks, dim=1), st
+                           device=first_token.device)
+    return torch.stack(toks, dim=1)
+
+
+@torch.no_grad()
+def resident_decode_loop(params, first_token: torch.Tensor,
+                         state: ResidentState, pool: KVPool, cfg: ArchConfig,
+                         num_steps: int):
+    """Greedy generation over a compressed-resident cache.
+
+    Each step runs ``resident_decode_step`` (one paged-attention launch per
+    layer; the pools are read-only there), then the host recompresses rows
+    whose raw tail page filled into fresh pages (``pool.flush_full_tails``).
+    Escape overflow or pool exhaustion during a flush demotes the WHOLE
+    batch: the pool rehydrates bit-exactly to a raw ``DecodeState`` and the
+    remaining steps run :func:`decode_loop`.  ``state`` is updated in place.
+    Returns ``(tokens (B, N), final_state, demoted)``."""
+    tok = first_token
+    toks = []
+    st = state
+    for i in range(num_steps):
+        logits, st = M.resident_decode_step(params, tok[:, None], st, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+        try:
+            st = pool.flush_full_tails(st)
+        except ResidencyError:
+            dst = DecodeState(cache=pool.rehydrate(st), cache_len=st.cache_len)
+            remaining = num_steps - (i + 1)
+            if remaining:
+                rest, dst = decode_loop(params, tok, dst, cfg, remaining)
+                toks.extend(rest.unbind(dim=1))
+            return _stack(toks, first_token), dst, True
+    return _stack(toks, first_token), st, False

@@ -10,9 +10,19 @@ per cache structure and executes it through a cached
 ``n_chunks == 1`` runs the whole-tensor executor, ``n_chunks > 1`` the
 chunked pipelined one.
 
+Two residencies on the decode side:
+
+* ``resident="raw"``: the received streams decode once and decode runs over
+  the raw cache;
+* ``resident="compressed"``: the received streams are admitted into a paged
+  :class:`~repro_torch.models.kvpool.KVPool` without rehydration and decode
+  attends over the pages directly (the paged attention kernels).  An
+  inadmissible stream (raw-fallback leaf, layout or codebook drift, page
+  escape overflow, a cache length that is not a page multiple) demotes the
+  batch to raw residency; losslessness holds either way.
+
 The engine runs on the card unless the caller passes ``device=``; without
-CUDA it raises.  Only raw residency is ported: ``resident="compressed"``
-needs the paged attention kernel and raises ``NotImplementedError``.
+CUDA it raises.
 """
 
 from __future__ import annotations
@@ -26,11 +36,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import Codebook
 from repro_torch.device import resolve_device
+from repro_torch.models import kvcache as KC
+from repro_torch.models import kvpool as KVP
 from repro_torch.models.kvcache import DecodeState
-from repro_torch.serving.decode import decode_loop
+from repro_torch.serving.decode import decode_loop, resident_decode_loop
 from repro_torch.serving.plan import TransferConfig, TransferPlan
 from repro_torch.serving.prefill import PrefillOutput, prefill_step
-from repro_torch.serving.session import TransferSession
+from repro_torch.serving.session import TransferSession, decode_leaves
 
 
 def raw_wire_bytes(cache: Dict) -> float:
@@ -55,6 +67,20 @@ class EngineStats:
     fp32_lo_wire_bytes: float = 0.0
     # encoded units (chunks + leaves) that went down the capacity schedule
     encoded_units: int = 0
+    # compressed-resident KV (resident="compressed"): batches admitted into
+    # the paged pool without rehydration, batches demoted to raw residency
+    # (unsupported stream, escape overflow, pool exhaustion), and the pool's
+    # device footprint vs what the same cache costs raw-resident
+    resident_admits: int = 0
+    resident_demotions: int = 0
+    resident_hbm_bytes: float = 0.0
+    resident_raw_bytes: float = 0.0
+
+    @property
+    def resident_ratio(self) -> float:
+        """raw-resident / compressed-resident device bytes: the decode
+        worker's capacity multiplier."""
+        return self.resident_raw_bytes / max(self.resident_hbm_bytes, 1.0)
 
     @property
     def transfer_ratio(self) -> float:
@@ -68,14 +94,18 @@ class DisaggregatedEngine:
                  *, compress: bool = True, chunk: int = 1024, cap: int = 64,
                  backend: str = "auto", n_chunks: int = 1,
                  compress_fp32: bool = False, resident: str = "raw",
-                 device=None):
-        if resident == "compressed":
-            raise NotImplementedError(
-                "resident='compressed' needs the paged attention kernel, which "
-                "is not ported yet; use resident='raw'")
-        if resident != "raw":
+                 page_bytes: Optional[int] = None, device=None):
+        if resident not in ("raw", "compressed"):
             raise ValueError(f"resident={resident!r}: expected 'raw' or "
                              "'compressed'")
+        if resident == "compressed":
+            # the pool consumes page-addressable whole-tensor streams, with
+            # compression actually on
+            if n_chunks != 1:
+                raise ValueError("resident='compressed' requires n_chunks=1 "
+                                 "(chunked streams are not page-addressable)")
+            if not compress:
+                raise ValueError("resident='compressed' requires compress=True")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -83,8 +113,10 @@ class DisaggregatedEngine:
                                  enabled=compress, backend=backend,
                                  n_chunks=n_chunks, compress_fp32=compress_fp32)
         self.resident = resident
+        self.page_bytes = page_bytes
         self.stats = EngineStats()
         self._session: Optional[TransferSession] = None
+        self._pool: Optional[KVP.KVPool] = None   # pool of the last admission
 
     # -- plan/session caching ------------------------------------------------
     def _session_for(self, cache) -> TransferSession:
@@ -122,6 +154,8 @@ class DisaggregatedEngine:
             self.stats.wire_bytes += raw
             return state
         sess = self._session_for(state.cache)
+        if self.resident == "compressed":
+            return self._transfer_resident(sess, state)
         cache = sess.transfer(state.cache, check=False)
         self._absorb_transfer_stats(sess.last_stats)
         return DecodeState(cache=cache, cache_len=state.cache_len)
@@ -136,17 +170,70 @@ class DisaggregatedEngine:
         if self.tc.n_chunks > 1:
             self.stats.chunk_wire_bytes.extend(cstats.chunk_wire_bytes)
 
-    def decode(self, first_token: torch.Tensor, state: DecodeState,
-               num_steps: int) -> torch.Tensor:
-        toks, _ = decode_loop(self.params, first_token, state, self.cfg,
-                              num_steps)
+    def resident_tokens_per_page(self, batch: int = 1) -> int:
+        """Page granularity the pool uses for this arch (the cache length
+        must be a multiple; ``generate`` rounds it up)."""
+        cache = KC.init_cache(self.cfg, batch, 8 * self.tc.chunk, device="meta")
+        return KVP.tokens_per_page_for(
+            cache, self.tc.chunk, self.page_bytes or KVP.DEFAULT_PAGE_BYTES)
+
+    def resident_max_seq(self, max_seq: int) -> int:
+        """``max_seq`` rounded up to a page multiple for a compressed-resident
+        engine (pages are fixed-size); unchanged for raw residency."""
+        if self.resident != "compressed":
+            return max_seq
+        tp = self.resident_tokens_per_page()
+        return -(-max_seq // tp) * tp
+
+    def _transfer_resident(self, sess: TransferSession, state: DecodeState):
+        """Admit the wire streams into a paged pool, without rehydration.
+
+        Any inadmissible stream demotes THIS batch to raw residency: the
+        received streams decode once and decode runs over the raw cache."""
+        comp, raw = sess.transfer_compressed(state.cache, check=False)
+        self._absorb_transfer_stats(sess.last_stats)
+        backend = sess.plan.backend
+        try:
+            pool = KVP.KVPool.for_cache(
+                state.cache, self.tc.codebook, backend, chunk=self.tc.chunk,
+                page_bytes=self.page_bytes or KVP.DEFAULT_PAGE_BYTES)
+            rst = pool.admit_from_wire(comp, state.cache_len)
+        except KVP.ResidencyError:
+            self.stats.resident_demotions += 1
+            cache = decode_leaves(comp, raw, state.cache, backend)
+            return DecodeState(cache=cache, cache_len=state.cache_len)
+        self._pool = pool
+        self.stats.resident_admits += 1
+        self.stats.resident_hbm_bytes += pool.hbm_bytes()
+        self.stats.resident_raw_bytes += pool.raw_bytes()
+        return rst
+
+    def decode(self, first_token: torch.Tensor, state, num_steps: int
+               ) -> torch.Tensor:
+        """Greedy decode of ``num_steps`` tokens from a raw ``DecodeState``
+        or an admitted ``ResidentState``."""
+        if isinstance(state, KVP.ResidentState):
+            toks, _, demoted = resident_decode_loop(
+                self.params, first_token, state, self._pool, self.cfg,
+                num_steps)
+            self.stats.resident_demotions += int(demoted)
+        else:
+            toks, _ = decode_loop(self.params, first_token, state, self.cfg,
+                                  num_steps)
         self.stats.decode_tokens += int(toks.numel())
         return toks
 
     # -- end-to-end ----------------------------------------------------------
     def generate(self, batch: Dict, num_steps: int,
                  max_seq: Optional[int] = None) -> torch.Tensor:
-        """prompt batch -> (B, 1 + num_steps) generated ids (greedy)."""
+        """prompt batch -> (B, 1 + num_steps) generated ids (greedy).
+
+        A compressed-resident engine pads the cache to a page multiple of
+        ``max_seq`` (default: prompt + first token + steps); prefill's own
+        default, the raw prompt length, is almost never page-aligned."""
+        if self.resident == "compressed":
+            max_seq = self.resident_max_seq(
+                max_seq or batch["tokens"].shape[1] + 1 + num_steps)
         pre = self.prefill(batch, max_seq=max_seq)
         state = self.transfer(pre.state)
         toks = self.decode(pre.first_token, state, num_steps)

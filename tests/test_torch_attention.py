@@ -1,0 +1,256 @@
+"""The port's paged-attention modules against the JAX package's.
+
+On the CPU each wrapper runs its plain PyTorch version, which must match the
+JAX package's Pallas kernel run with ``interpret=True`` on the same pages:
+``m`` within rtol 1e-6, ``l`` and ``acc`` within rtol 1e-5, each with an
+absolute floor of the same share of the tensor's largest magnitude (both
+sides sum in f32, in another order: the Pallas interpreter's dot against
+PyTorch's einsum).  The plain page decoder must equal the JAX package's bitwise, in
+all three formats.  The tail/merge/finalize glue must match too.
+
+The inputs are the seeded pages of :mod:`repro_torch.kernels.attention_cases`
+(every byte drawn, escape counts 0 / some / cap / over cap), on pools of a
+few pages so the interpreted kernels stay quick.  The ``cuda`` test holds
+the CUDA kernels against their plain versions on a card and skips here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import attention_cases as AC
+from repro_torch.kernels import cases as K
+from repro_torch.kernels import splitzip_attention as SA
+from repro_torch.kernels.cases import CODEBOOKS
+
+CHUNK = 1024
+FORMATS = ("bf16", "fp8_e5m2", "fp8_e4m3")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's attention module (Pallas, interpret mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import splitzip_attention as JSA
+    from repro.models import kvpool as JP
+    return dict(jnp=jnp, JSA=JSA, JP=JP)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def np_of(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def jax_streams(ref, streams):
+    return tuple(ref["jnp"].asarray(np_of(t)) for t in streams)
+
+
+def jax_bf16(ref, t):
+    import jax
+    return jax.lax.bitcast_convert_type(ref["jnp"].asarray(np_of(t)),
+                                        ref["jnp"].bfloat16)
+
+
+def assert_partials(got, want):
+    """m within rtol 1e-6, l and acc within rtol 1e-5; the absolute floor of
+    each is the same share of the tensor's largest magnitude (an entry of
+    ``acc`` near 0 is a sum of terms of the row's scale, and inherits their
+    rounding, not a share of its own small value)."""
+    for g, w, rtol in zip(got, want, (1e-5, 1e-6, 1e-5)):
+        w = np.asarray(w)
+        scale = float(np.abs(w[w > -1e29]).max(initial=0.0))
+        np.testing.assert_allclose(g.numpy(), w, rtol=rtol,
+                                   atol=rtol * max(scale, 1e-6))
+
+
+# ---------------------------------------------------------------------------
+# the page decoder
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_decode_pages_matches_jax_bitwise(ref, fmt):
+    """Dense decode + page escapes (count 0 / cap / over cap, any exponent:
+    NaN, Inf, zero and subnormal payloads) against ``_decode_pool_pages``."""
+    JP = ref["JP"]
+    jnp = ref["jnp"]
+    rng = np.random.default_rng(3)
+    cb = CODEBOOKS[fmt]
+    pe, cap = 2 * CHUNK, 16
+    streams = AC.page_streams(cb, 6, pe, cap, CHUNK, rng)
+    got = SA.decode_pages(streams, tuple(cb.exponents), fmt, CHUNK)
+    assert got.dtype == (torch.uint16 if fmt == "bf16" else torch.uint8)
+    sm, packed, pos, val, cnt = jax_streams(ref, streams)
+    leaf = JP.PagedLeaf(sign_mantissa=sm, packed=packed, esc_pos=pos,
+                        esc_val=val, esc_cnt=cnt,
+                        page_table=jnp.zeros((1, 1, 1), jnp.int32),
+                        tail=jnp.zeros((1, 1, 1, 1), jnp.bfloat16))
+    lg = JP.LeafGeometry(key="k", shape=(1, 1, 1, 1), dtype="bfloat16",
+                         fmt=fmt, m=1, page_elems=pe, page_chunks=2,
+                         escape_cap=cap, n_pages=6)
+    geom = JP.PoolGeometry(tokens_per_page=1, chunk=CHUNK, max_pages=1,
+                           n_layers=1, batch=1, max_seq=1,
+                           exponents=tuple(cb.exponents), leaves=(lg,))
+    want = np.asarray(JP._decode_pool_pages(leaf, lg, geom))
+    mask = 0xFFFF if fmt == "bf16" else 0xFF
+    np.testing.assert_array_equal(np_of(got).astype(np.int64),
+                                  want.astype(np.int64) & mask)
+
+
+def test_decode_pages_checks_operands():
+    cb = CODEBOOKS["bf16"]
+    sm, packed, pos, val, cnt = AC.page_streams(cb, 2, CHUNK, 8, CHUNK,
+                                                np.random.default_rng(0))
+    with pytest.raises(TypeError):
+        SA.decode_pages((sm, packed, pos.view(torch.int16), val, cnt),
+                        cb.exponents, "bf16", CHUNK)
+    with pytest.raises(ValueError):
+        SA.decode_pages((sm, packed, pos, val, cnt.reshape(-1)), cb.exponents,
+                        "bf16", CHUNK)
+
+
+# ---------------------------------------------------------------------------
+# paged GQA and MLA: plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+GQA_CASES = {
+    # nq 2 (causal mask active), dv != hd with their own caps, an empty row
+    "nq2_dv_ne_hd_empty_row": dict(batch=2, nq=2, heads=4, hkv=2, hd=32,
+                                   dv=128, tp=16, pages=3, lens=[45, 9]),
+    "nq1": dict(batch=2, nq=1, heads=4, hkv=2, hd=32, dv=32, tp=16, pages=3,
+                lens=[48, 33]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GQA_CASES))
+def test_paged_gqa_plain_matches_pallas(ref, name):
+    case = AC.gqa_case("bf16", 11, **GQA_CASES[name])
+    got = SA.paged_gqa_attention(**case)
+    want = ref["JSA"].paged_gqa_attention(
+        jax_bf16(ref, case["q"]), jax_streams(ref, case["k_streams"]),
+        jax_streams(ref, case["v_streams"]),
+        ref["jnp"].asarray(case["page_table_k"].numpy()),
+        ref["jnp"].asarray(case["page_table_v"].numpy()),
+        ref["jnp"].asarray(case["cache_len"].numpy()),
+        exponents=case["exponents"], fmt="bf16", chunk=CHUNK,
+        tokens_per_page=case["tokens_per_page"], hkv=case["hkv"], causal=True,
+        scale=case["scale"], interpret=True)
+    assert_partials(got, want)
+    if 9 in GQA_CASES[name]["lens"]:                  # the empty row
+        acc, m, l = got
+        assert bool((m[1] == SA.NEG_INF).all()) and not l[1].any() and not acc[1].any()
+
+
+MLA_CASES = {
+    # nq 2, ckv/krope with their own page_chunks and caps, an empty row
+    "nq2_empty_row": dict(batch=2, nq=2, heads=4, rank=128, rope=32, tp=32,
+                          pages=3, lens=[80, 20]),
+    "nq1": dict(batch=2, nq=1, heads=4, rank=128, rope=32, tp=32, pages=3,
+                lens=[96, 40]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MLA_CASES))
+def test_paged_mla_plain_matches_pallas(ref, name):
+    case = AC.mla_case("bf16", 12, **MLA_CASES[name])
+    assert case["ckv_streams"][2].shape[1] != case["krope_streams"][2].shape[1]
+    got = SA.paged_mla_attention(**case)
+    want = ref["JSA"].paged_mla_attention(
+        jax_bf16(ref, case["q_lat"]), jax_bf16(ref, case["q_rope"]),
+        jax_streams(ref, case["ckv_streams"]),
+        jax_streams(ref, case["krope_streams"]),
+        ref["jnp"].asarray(case["page_table_ckv"].numpy()),
+        ref["jnp"].asarray(case["page_table_krope"].numpy()),
+        ref["jnp"].asarray(case["cache_len"].numpy()),
+        exponents=case["exponents"], fmt="bf16", chunk=CHUNK,
+        tokens_per_page=case["tokens_per_page"], scale=case["scale"],
+        causal=True, interpret=True)
+    assert_partials(got, want)
+
+
+def test_wrappers_check_operands():
+    case = AC.gqa_case("bf16", 1, **GQA_CASES["nq1"])
+    with pytest.raises(TypeError):
+        SA.paged_gqa_attention(**{**case, "q": case["q"].float()})
+    with pytest.raises(ValueError, match="geometry"):
+        SA.paged_gqa_attention(**{**case, "hkv": 4})
+    with pytest.raises(ValueError):
+        SA.paged_gqa_attention(**{**case, "cache_len": case["cache_len"][:1]})
+    mcase = AC.mla_case("bf16", 1, **MLA_CASES["nq1"])
+    with pytest.raises(ValueError, match="geometry"):
+        SA.paged_mla_attention(**{**mcase, "tokens_per_page": 16})
+
+
+# ---------------------------------------------------------------------------
+# tail partials, merge, finalize
+# ---------------------------------------------------------------------------
+
+def test_tail_merge_finalize_match_jax(ref):
+    jnp, JSA = ref["jnp"], ref["JSA"]
+    rng = np.random.default_rng(5)
+    B, nq, hkv, g, T, dv = 2, 1, 2, 3, 16, 8
+    s = rng.standard_normal((B, nq, hkv, g, T)).astype(np.float32)
+    v4 = rng.standard_normal((B, T, hkv, dv)).astype(np.float32)
+    s3 = rng.standard_normal((B, nq, 5, T)).astype(np.float32)
+    v3 = rng.standard_normal((B, T, dv)).astype(np.float32)
+    valid = np.arange(T)[None, :] < np.array([[7], [16]])
+    for ss, vv in ((s, v4), (s3, v3)):
+        got = SA.tail_partials(torch.from_numpy(ss), torch.from_numpy(vv),
+                               torch.from_numpy(valid))
+        want = JSA.tail_partials(jnp.asarray(ss), jnp.asarray(vv),
+                                 jnp.asarray(valid))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-6)
+        other = tuple(x * 0.5 - 0.25 for x in got)
+        m_got = SA.merge_partials(got, other)
+        m_want = JSA.merge_partials(want, tuple(jnp.asarray(x.numpy())
+                                                for x in other))
+        for a, b in zip(m_got, m_want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-6)
+        fin = SA.finalize(m_got[0], m_got[2])
+        jfin = JSA.finalize(m_want[0], m_want[2])
+        assert fin.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            fin.view(torch.int16).numpy(),
+            np.asarray(jfin).view(np.int16))
+
+
+# ---------------------------------------------------------------------------
+# on a card: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_attention_kernels_match_plain_on_card(cuda_device, fmt):
+    for _, f, exps, streams in AC.decode_cases(seed=2):
+        if f != fmt:
+            continue
+        dev = tuple(t.to(cuda_device) for t in streams)
+        got = SA.decode_pages(dev, exps, fmt, CHUNK)
+        torch.cuda.synchronize()
+        assert K.max_abs_err((got.cpu(),), (SA.decode_pages_plain(
+            streams, exps, fmt, CHUNK),)) == 0
+    for kw in GQA_CASES.values():
+        for nq in (1, 4):
+            case = AC.gqa_case(fmt, 4, **{**kw, "nq": nq})
+            got = SA.paged_gqa_attention(**AC.to_device(case, cuda_device))
+            torch.cuda.synchronize()
+            AC.check_partials(got, SA.paged_gqa_attention(**case))
+    for kw in MLA_CASES.values():
+        for nq in (1, 4):
+            case = AC.mla_case(fmt, 5, **{**kw, "nq": nq})
+            got = SA.paged_mla_attention(**AC.to_device(case, cuda_device))
+            torch.cuda.synchronize()
+            AC.check_partials(got, SA.paged_mla_attention(**case))

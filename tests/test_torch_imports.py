@@ -39,6 +39,7 @@ def test_port_files_found():
     assert len(FILES) > 20
     assert (PORT / "kernels" / "csrc" / "splitzip_encode.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "splitzip_decode.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "splitzip_attention.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -106,5 +107,27 @@ def test_other_families_not_yet_ported():
         get_config("mamba2-2.7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b"):
+    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minicpm3-4b"):
         assert get_config(arch).family == "dense"
+    assert get_config("minicpm3-4b").mla is not None
+
+
+def test_importing_attention_kernels_builds_nothing():
+    """The paged-attention wrappers build their library at the first launch
+    on a card, never at import, and never for CPU operands."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO / "src")!r})
+        from repro_torch.kernels import build, splitzip_attention as SA
+        from repro_torch.kernels import attention_cases as AC
+        case = AC.gqa_case("bf16", 0, batch=1, nq=1, heads=2, hkv=1, hd=64,
+                           dv=64, tp=16, pages=2, lens=[32])
+        SA.paged_gqa_attention(**case)
+        assert build.loaded() == {{}}, build.loaded()
+        assert SA.paged_gqa_attention.launches == 0
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

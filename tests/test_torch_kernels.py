@@ -212,7 +212,9 @@ def test_build_is_keyed_on_the_source_and_stays_out_of_git(tmp_path,
     assert "build/" in (repo / ".gitignore").read_text().split()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     paths = {build.library_path(n) for n in build.SOURCES}
-    assert len(paths) == 2 and all(p.parent == build.build_dir() for p in paths)
+    assert sorted(build.SOURCES) == ["splitzip_attention", "splitzip_decode",
+                                     "splitzip_encode"]
+    assert len(paths) == 3 and all(p.parent == build.build_dir() for p in paths)
     # an edited source gets another library
     src = tmp_path / "k.cu"
     src.write_text("// v1\n")

@@ -246,6 +246,11 @@ def test_unported_session_features_raise():
         sess.transfer(tc, verify=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         TPL.TransferPlan.build(tc, tp.tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="compressed"):
-        DisaggregatedEngine(get_config("smollm-135m").reduced(), {}, tcb_,
-                            resident="compressed", device="cpu")
+    # compressed residency is ported: the engine builds, and refuses the
+    # chunked streams its pool cannot page, as the JAX engine does
+    cfg = get_config("smollm-135m").reduced()
+    assert DisaggregatedEngine(cfg, {}, tcb_, resident="compressed",
+                               device="cpu").resident == "compressed"
+    with pytest.raises(ValueError, match="n_chunks=1"):
+        DisaggregatedEngine(cfg, {}, tcb_, resident="compressed", n_chunks=2,
+                            device="cpu")
