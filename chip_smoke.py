@@ -44,16 +44,31 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8. demotion — an out-of-band codebook makes the stream inadmissible: the
               batch demotes once and its tokens equal the raw-resident
               engine's bit for bit.
+9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
+              128 experts top-8, about 61 GB of random bf16 weights drawn
+              a layer at a time), batch 4, prompt 2048, 40 new tokens: the
+              raw path (n_chunks 1 and 8, compression off) bitwise, then
+              the resident path as phase 6 (32-token pages).  Peak device
+              memory is reported per phase.
+
+Prefill attention runs the flash-attention kernel in every attention layer.
+Phase ``flash`` (after phase 5) holds it against its plain version on
+seeded edge cases; each family's phase then holds it on the live q/k/v of
+its first and last layer (captured from a prefill at the served geometry)
+against the plain version and against ``chunked_attention``, and times it
+beside the plain version and ``scaled_dot_product_attention`` (a yardstick
+the port never calls); phase ``flash_live`` reports the three geometries.
 
 The launch counters are set to 0 right before each main-path run and read
 right after it: the served transfer of phase 3 (``encode_fused``,
 ``decode_fused``), the capacity walk of phase 4 (``encode_dense``,
-``decode_dense``), and the served resident decode of phases 6
-(``paged_gqa_attention``) and 7 (``paged_mla_attention``); the checks
-around those runs are not counted.  The ``kernels`` JSON line, the card's
-``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}`` close the
-output.  Without CUDA, or outside a checkout, it exits non-zero before
-printing any result.
+``decode_dense``), the served resident decode of phases 6
+(``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
+prefills of phases 3, 7 and 9 (``flash_attention``: one launch per layer,
+30 + 62 + 48); the checks around those runs are not counted.  The
+``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
+``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
+a checkout, it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -70,10 +85,12 @@ SRC = ROOT / "src"
 
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # 32-bit ALU rate outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
 ARCH, BATCH, PROMPT, NEW_TOKENS = "smollm-135m", 8, 2048, 16
 RES_TOKENS = 40                  # phase 6: the tails fill and flush at step 32
 MLA_ARCH, MLA_BATCH, MLA_PROMPT = "minicpm3-4b", 4, 1000
-PROMPT_OF = {ARCH: PROMPT, MLA_ARCH: MLA_PROMPT}
+MOE_ARCH, MOE_BATCH, MOE_PROMPT = "qwen3-moe-30b-a3b", 4, 2048
+PROMPT_OF = {ARCH: PROMPT, MLA_ARCH: MLA_PROMPT, MOE_ARCH: MOE_PROMPT}
 # |logits| bound of resident vs raw decode, the JAX package's own
 # (tests/test_kvpool.py): raw decode accumulates p.v in bf16, the paged
 # kernel in f32
@@ -110,14 +127,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = H100_F32_OPS_PER_S):
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def launch_counters():
     """Every kernel wrapper, by its kernel's name."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import splitzip_attention as SA
     from repro_torch.kernels import splitzip_decode as D
     from repro_torch.kernels import splitzip_encode as E
@@ -125,7 +143,8 @@ def launch_counters():
             "encode_dense": E.encode_dense, "decode_dense": D.decode_dense,
             "paged_gqa_attention": SA.paged_gqa_attention,
             "paged_mla_attention": SA.paged_mla_attention,
-            "decode_pages": SA.decode_pages}
+            "decode_pages": SA.decode_pages,
+            "flash_attention": FA.flash_attention}
 
 
 def counted(fn, *args):
@@ -492,6 +511,98 @@ def phase_attention(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# prefill flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_KERNEL = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:91")
+
+
+def phase_flash(torch, device):
+    """The kernel against ``flash_attention_ref`` on every seeded edge case,
+    with each case's tolerance, and twice: the same bits on a second run."""
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import flash_attention as FA
+    worst = {}
+    for c in AC.flash_cases(seed=1):
+        q, k, v = (t.to(device) for t in (c["q"], c["k"], c["v"]))
+        got = FA.flash_attention(q, k, v, causal=c["causal"])
+        torch.cuda.synchronize()
+        want = FA.flash_attention_ref(q, k, v, causal=c["causal"])
+        worst[c["name"]] = AC.check_close(got, want, *c["tol"])
+        if not torch.equal(got, FA.flash_attention(q, k, v, causal=c["causal"])):
+            raise AssertionError(f"flash {c['name']}: two runs differ")
+    emit(phase="flash", edge_cases=len(worst), max_abs_err=worst,
+         tolerances={k: list(v) for k, v in AC.FLASH_TOL.items()},
+         deterministic=True)
+
+
+def capture_flash(fn, *args):
+    """``fn(*args)`` with the q/k/v of its first and last flash-attention
+    call kept (the first and last attention layer of a prefill): the
+    layers' handle on the kernel module is swapped for a recorder that
+    calls the real wrapper, whose launch counter stays its own."""
+    import types
+    from repro_torch.models import layers as L
+    kernels, seen = L.FA, []
+
+    def keep(q, k, v, **kw):
+        seen[1:] = [(q, k, v, kw)]
+        return kernels.flash_attention(q, k, v, **kw)
+
+    L.FA = types.SimpleNamespace(flash_attention=keep)
+    try:
+        out = fn(*args)
+    finally:
+        L.FA = kernels
+    return out, (seen[0], seen[-1])
+
+
+def flash_live(torch, layers, arch):
+    """The kernel on a served prefill's live q/k/v (first and last layer)
+    against its plain version (one bf16 ulp) and ``chunked_attention``
+    (the JAX package's 3e-2), then timed on the first layer's beside the
+    plain version and SDPA (causal, GQA, the same bf16 inputs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    errs = []
+    for q, k, v, kw in layers:
+        causal = kw.get("causal", True)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        errs.append(dict(
+            plain=AC.check_close(got, FA.flash_attention_ref(q, k, v, causal=causal),
+                                 *AC.FLASH_TOL["bf16"]),
+            chunked=AC.check_close(got, L.chunked_attention(q, k, v, causal=causal,
+                                                            kv_block=512),
+                                   AC.FLASH_VS_CHUNKED, AC.FLASH_VS_CHUNKED)))
+        torch.cuda.empty_cache()
+    q, k, v, kw = layers[0]
+    b, sq, h, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    nbytes = FA.hbm_bytes(b, sq, skv, h, hkv, d, dv)
+    ops = FA.flops(b, sq, skv, h, d, dv, causal=True)
+    b_ms, b_by = bound_ms(nbytes, ops, H100_BF16_OPS_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    except RuntimeError as exc:      # e.g. a value width SDPA refuses
+        sdpa, library = None, f"none: SDPA refused ({str(exc).splitlines()[0]})"
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v), reps=10)
+    rec = dict(arch=arch, geometry=dict(B=b, S=sq, H=h, Hkv=hkv, d=d, dv=dv),
+               max_abs_err=max(e["plain"] for e in errs), errors=errs,
+               ms=ms, plain_ms=cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
+                                       reps=2, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=sdpa, library=library,
+               bytes=nbytes, ops=ops, tflops=ops / ms / 1e9)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: compressed-resident decode at full width
 # ---------------------------------------------------------------------------
 
@@ -545,8 +656,10 @@ def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
     counted), then hold a fresh admission of the same prefill against the
     prefill cache (bitwise rehydrate, exact bytes), teacher-force the served
     tokens through resident and raw decode steps side by side, and hold the
-    paged kernel against its plain version on both flushed pools.  Returns
-    the phase's record and the served run's launches."""
+    paged kernel against its plain version on both flushed pools.  The
+    fresh admission's prefill is the one whose first and last layer hold
+    the flash-attention kernel (``flash_live``).  Returns the phase's record
+    and the served run's launches."""
     from repro_torch.core import codec as C
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.launch import serve
@@ -587,7 +700,9 @@ def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
     # a fresh admission of the same prefill: rehydrate, then teacher forcing
     eng_tf = DisaggregatedEngine(cfg, params, cb, resident="compressed",
                                  backend="cuda", device=device)
-    pre = eng_tf.prefill(prompt, max_seq=want_max_seq)
+    pre, flash_layers = capture_flash(eng_tf.prefill, prompt, want_max_seq)
+    flash = flash_live(torch, flash_layers, cfg.name)
+    del flash_layers
     rst = eng_tf.transfer(pre.state)
     tpool = eng_tf._pool
     reh = tpool.rehydrate(rst)
@@ -638,7 +753,8 @@ def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
         live_pool_max_abs_err=live_err, live_pool_rtol=AC.PARTIALS_RTOL,
         seconds_resident=res.seconds, seconds_raw=raw.seconds,
         step_ms_resident=t_res / new_tokens * 1e3,
-        step_ms_raw=t_raw / new_tokens * 1e3, served_launches=launches), launches
+        step_ms_raw=t_raw / new_tokens * 1e3, served_launches=launches,
+        flash_live=flash), launches
 
 
 def phase_resident(torch, cfg, params, cb, prompt, device):
@@ -647,7 +763,7 @@ def phase_resident(torch, cfg, params, cb, prompt, device):
         want_bytes=(315_780_480, 398_131_200), want_max_seq=2160)
     emit(phase="resident", arch=cfg.name, batch=BATCH, prompt=PROMPT,
          new_tokens=RES_TOKENS, **out)
-    return launches
+    return launches, out["flash_live"]
 
 
 def phase_mla(torch, device):
@@ -691,7 +807,71 @@ def phase_mla(torch, device):
          **out)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, out["flash_live"]
+
+
+def phase_moe(torch, device):
+    """qwen3-moe-30b-a3b at full width: the raw path bitwise, then the
+    resident path (``resident_checks``).  Returns the served resident run's
+    launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    def peak_gb():
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        return gb
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(20),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(x.numel() * x.element_size() for x in TR.leaves(params))
+    peak = {"init": peak_gb()}
+    cb = serve.calibrate_on_model(cfg, params, device=device, seed=21)
+    prompt = serve.make_prompt(cfg, MOE_BATCH, MOE_PROMPT, device=device, seed=22)
+    raw_runs, tokens = {}, {}
+    for label, kw in (("cuda_n1", dict(n_chunks=1)),
+                      ("cuda_n8", dict(n_chunks=8)),
+                      ("raw", dict(compress=False))):
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device, **kw)
+        res = serve.serve_once(eng, prompt, RES_TOKENS)
+        if not all(C.bits_equal(x, y) for x, y in zip(
+                TR.leaves(res.delivered.cache), TR.leaves(res.prefill.state.cache))):
+            raise AssertionError(f"moe {label}: delivered cache != prefill cache")
+        tokens[label] = res.tokens
+        raw_runs[label] = dict(seconds=res.seconds,
+                               transfer_ratio=eng.stats.transfer_ratio,
+                               raw_bytes=eng.stats.raw_cache_bytes,
+                               wire_bytes=eng.stats.wire_bytes,
+                               codec_ok=eng.stats.codec_ok)
+        del res, eng
+        peak[label] = peak_gb()
+    for label in ("cuda_n8", "raw"):
+        if not torch.equal(tokens[label], tokens["cuda_n1"]):
+            raise AssertionError(f"moe tokens differ: {label} vs cuda_n1")
+    out, launches = resident_checks(
+        torch, cfg, params, cb, prompt, RES_TOKENS, device,
+        want_bytes=(640_505_856, 830_472_192), want_max_seq=2112)
+    peak["resident"] = peak_gb()
+    emit(phase="moe", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+         weight_bytes=weight_bytes, init_seconds=init_s,
+         batch=MOE_BATCH, prompt=MOE_PROMPT, new_tokens=RES_TOKENS,
+         raw_runs=raw_runs, raw_tokens_equal=True, delivered_bitwise=True,
+         peak_memory_gb=peak, **out)
+    del params
+    torch.cuda.empty_cache()
+    return launches, out["flash_live"]
 
 
 def phase_demotion(torch, cfg, params, prompt, device):
@@ -737,7 +917,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     if args.out:
@@ -753,23 +933,51 @@ def main(argv=None) -> int:
     cfg = get_config(ARCH)
     records = phase_kernels(torch, cfg, device)
     records.update(phase_attention(torch, device))
+    phase_flash(torch, device)
 
     # each main-path run is counted alone (``counted``): the served
     # transfer (phase 3, cuda n_chunks 1), the capacity walk (phase 4), and
-    # the served resident decodes of each family (phases 6 and 7)
+    # the served resident decodes of each family (phases 6, 7 and 9); the
+    # served prefills of phases 3, 7 and 9 count the flash-attention kernel
     cb, first, params, prompt, main_runs = phase_main(torch, cfg, device)
     windows = {"main": main_runs["cuda_n1"], "main_n8": main_runs["cuda_n8"],
                "capacity": phase_capacity(torch, cfg, cb, first, device)}
     del first
-    windows["resident"] = phase_resident(torch, cfg, params, cb, prompt, device)
-    windows["mla"] = phase_mla(torch, device)
+    flash = {}
+    windows["resident"], flash[ARCH] = phase_resident(torch, cfg, params, cb,
+                                                      prompt, device)
+    windows["mla"], flash[MLA_ARCH] = phase_mla(torch, device)
     windows["demotion"] = phase_demotion(torch, cfg, params, prompt, device)
+    del params, cb, prompt
+    torch.cuda.empty_cache()
+    windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
     emit(phase="launches", **windows)
+    emit(phase="flash_live", geometries=flash)
     owner = {"encode_fused": "main", "decode_fused": "main",
              "encode_dense": "capacity", "decode_dense": "capacity",
              "paged_gqa_attention": "resident", "paged_mla_attention": "mla"}
     for k, rec in records.items():
         rec["launches"] = windows[owner[k]][k]
+    # the flash-attention kernel: one launch per layer of each served prefill
+    served_prefills = {ARCH: ("main", 30), MLA_ARCH: ("mla", 62),
+                       MOE_ARCH: ("moe", 48)}
+    by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
+    if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
+        raise AssertionError(f"flash_attention launches per served prefill "
+                             f"{by_arch}, want one per attention layer")
+    moe_rec = flash[MOE_ARCH]
+    records["flash_attention"] = dict(
+        name="flash_attention", route="cuda", source=FLASH_KERNEL[0],
+        replaces=FLASH_KERNEL[1], launches=sum(by_arch.values()),
+        launches_by_arch=by_arch, max_abs_err=moe_rec["max_abs_err"],
+        tolerance="atol 1e-3, rtol 8e-3 (one bf16 ulp)",
+        ms=moe_rec["ms"], kernel_ms=moe_rec["ms"], plain_ms=moe_rec["plain_ms"],
+        bound_ms=moe_rec["bound_ms"], bound_by=moe_rec["bound_by"],
+        library_ms=moe_rec["library_ms"], library=moe_rec["library"],
+        bytes=moe_rec["bytes"], ops=moe_rec["ops"], geometry=moe_rec["geometry"],
+        geometries={a: {k: r[k] for k in ("geometry", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "max_abs_err")}
+                    for a, r in flash.items()})
     missing = [k for k, rec in records.items() if not rec["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -779,7 +987,10 @@ def main(argv=None) -> int:
     if windows["mla"]["paged_mla_attention"] < 62 * RES_TOKENS:
         raise AssertionError("paged_mla_attention: fewer than one launch per "
                              "layer and step on the MLA resident path")
-    emit(kernels=list(records.values()))
+    if windows["moe"]["paged_gqa_attention"] < 48 * RES_TOKENS:
+        raise AssertionError("paged_gqa_attention: fewer than one launch per "
+                             "layer and step on the MoE resident path")
+    emit(kernels=list(records.values()), seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,5 +1,6 @@
-"""Seeded inputs for holding the paged-attention kernels against their plain
-versions.
+"""Seeded inputs for holding the attention kernels against their plain
+versions: the paged-attention kernels and, at the end, prefill flash
+attention (``FLASH_EDGE``, with its tolerances).
 
 Page streams are made directly (numpy from a seed), not by encoding: every
 byte of ``sign_mantissa`` and ``packed`` is drawn, and the escape list of
@@ -199,3 +200,80 @@ def check_partials(got, want, rtol: float = PARTIALS_RTOL) -> float:
                                  f"rtol {rtol}")
         worst = max(worst, float(d.max()))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# prefill flash attention
+# ---------------------------------------------------------------------------
+
+#: (name, B, Sq, Skv, H, Hkv, d, dv, causal, dtype, score scale): causal and
+#: not, GQA groups 1, 3 and 8, dv != d (MLA), d 64 and 128, lengths that are
+#: not multiples of the kernel's 64-row tiles, B = 1, a single query, a KV
+#: length past the queries, scores scaled x30, bf16 and f32
+FLASH_EDGE = (
+    ("mha_causal_f32", 2, 128, 128, 4, 4, 64, 64, True, "f32", 1.0),
+    ("mha_full_bf16", 2, 96, 96, 4, 4, 64, 64, False, "bf16", 1.0),
+    ("gqa3_ragged_bf16", 1, 100, 100, 6, 2, 64, 64, True, "bf16", 1.0),
+    ("gqa3_ragged_f32", 1, 65, 65, 6, 2, 64, 64, True, "f32", 1.0),
+    ("gqa8_d128_bf16", 1, 130, 130, 8, 1, 128, 128, True, "bf16", 1.0),
+    ("gqa8_d128_f32", 2, 127, 127, 16, 2, 128, 128, True, "f32", 1.0),
+    ("mla_96_64_bf16", 2, 77, 77, 4, 4, 96, 64, True, "bf16", 1.0),
+    ("mla_96_64_f32", 1, 129, 129, 4, 4, 96, 64, True, "f32", 1.0),
+    ("cross_kv_longer_f32", 1, 37, 150, 4, 2, 64, 64, False, "f32", 1.0),
+    ("single_query_bf16", 1, 1, 200, 4, 2, 128, 128, False, "bf16", 1.0),
+    ("causal_kv_longer_bf16", 1, 50, 70, 4, 2, 64, 64, True, "bf16", 1.0),
+    ("scores_x30_f32", 1, 64, 64, 2, 2, 32, 32, True, "f32", 30.0),
+)
+
+#: kernel vs plain tolerances (atol = rtol), by case kind.  f32: the JAX
+#: test's own 2e-5, f32 sums in another order; x30: 2e-3, the JAX test's
+#: own for |logits| near 900, where the order of the f32 sums moves the
+#: softmax by about 5e-4; bf16: the f32 values agree to about 1e-6 and are
+#: each rounded once to bf16, so the outputs differ by at most one bf16 ulp
+#: (2**-7 relative at most: rtol 8e-3), with atol 1e-3 for outputs near 0.
+FLASH_TOL = {"f32": (2e-5, 2e-5), "x30": (2e-3, 2e-3), "bf16": (1e-3, 8e-3)}
+#: the kernel (f32 p) against ``chunked_attention`` (bf16 p): the JAX
+#: package's own bound between its flash kernel and its XLA attention
+FLASH_VS_CHUNKED = 3e-2
+
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def flash_case(name: str, b: int, sq: int, skv: int, h: int, hkv: int, d: int,
+               dv: int, causal: bool, dtype: str, amp: float, seed: int = 0
+               ) -> Dict:
+    """Seeded (numpy) ``q``, ``k``, ``v`` (CPU tensors) and the call's
+    keywords; ``tol`` is ``(atol, rtol)`` for the kernel against the plain
+    version."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        x = rng.standard_normal(shape).astype(np.float32) * amp
+        return torch.from_numpy(x).to(_DTYPES[dtype])
+
+    kind = "x30" if amp != 1.0 else dtype
+    return dict(name=name, q=draw(b, sq, h, d), k=draw(b, skv, hkv, d),
+                v=draw(b, skv, hkv, dv), causal=causal, tol=FLASH_TOL[kind])
+
+
+def flash_cases(seed: int = 0) -> List[Dict]:
+    """Every case of :data:`FLASH_EDGE`, seeded ``seed + i``."""
+    return [flash_case(*row, seed=seed + i) for i, row in enumerate(FLASH_EDGE)]
+
+
+def check_close(got: torch.Tensor, want: torch.Tensor, atol: float,
+                rtol: float) -> float:
+    """``|got - want| <= atol + rtol |want|`` elementwise, both finite, the
+    same shape and dtype.  Returns the largest absolute difference; raises
+    ``AssertionError`` past the tolerance."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double().cpu(), want.double().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite output")
+    d = (g - w).abs()
+    if bool((d > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"max |diff| {float(d.max())} exceeds atol {atol}, "
+                             f"rtol {rtol}")
+    return float(d.max()) if d.numel() else 0.0

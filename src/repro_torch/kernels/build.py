@@ -28,6 +28,7 @@ SOURCES = {
     "splitzip_encode": CSRC / "splitzip_encode.cu",
     "splitzip_decode": CSRC / "splitzip_decode.cu",
     "splitzip_attention": CSRC / "splitzip_attention.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

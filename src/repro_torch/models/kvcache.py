@@ -1,12 +1,12 @@
-"""Inference cache structures (dense GQA and MLA families), the port of
-``repro.models.kvcache``.
+"""Inference cache structures (GQA, the dense and MoE families, and MLA),
+the port of ``repro.models.kvcache``.
 
 The cache is *the* object SplitZip exists for: it is produced by prefill
 workers, crosses the PD boundary compressed, and is consumed by decode
 workers.  Each family stores its state stacked over layers, so the whole
 cache is one dict the transfer plan maps the codec over:
 
-  dense : k, v        (L, B, S, Hkv, hd)             bf16
+  dense, moe : k, v   (L, B, S, Hkv, hd)             bf16
   mla   : ckv, krope  (L, B, S, r) / (L, B, S, p)    bf16
 """
 
@@ -41,12 +41,14 @@ class DecodeState:
 
 
 def require_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a token decoder of the dense GQA or the MLA
-    family (no MoE, SSM, hybrid, encoder-only or frontend configs)."""
+    """Raise unless ``cfg`` is a token decoder with dense attention: the GQA
+    or the MLA family, with a SwiGLU or an MoE FFN (no SSM, hybrid,
+    encoder-only or frontend configs)."""
     if (cfg.ssm is not None or cfg.hybrid is not None
-            or cfg.moe is not None or cfg.encoder_only or cfg.frontend):
+            or cfg.encoder_only or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and MLA families are ported")
+            f"{cfg.name}: only the dense GQA and MLA families (SwiGLU or MoE "
+            "FFN) are ported")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,

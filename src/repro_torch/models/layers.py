@@ -1,5 +1,6 @@
 """Transformer layers on PyTorch: RMSNorm, RoPE, chunked (flash-style)
-attention, decode attention, GQA blocks, SwiGLU MLP.
+attention, prefill attention (the flash-attention kernel on the card),
+decode attention, GQA blocks, SwiGLU MLP.
 
 The port of ``repro.models.layers`` (dense path).  Layouts are the JAX
 package's — activations ``(B, S, D)``, heads ``(B, S, H, hd)``, projection
@@ -16,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as FA
 
 NEG_INF = -1e30
 
@@ -100,6 +103,25 @@ def chunked_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """Prefill attention of every attention layer.
+
+    On the card: the hand-written flash-attention kernel
+    (``kernels.flash_attention``), which keeps ``p`` in f32 for ``p . v``;
+    it has no sliding window, so ``window`` raises there.  On the CPU:
+    :func:`chunked_attention`, the function the JAX prefill computes on
+    every backend (``p`` rounded to bf16)."""
+    if q.device.type == "cuda":
+        if window is not None:
+            raise NotImplementedError("prefill attention on the card has no "
+                                      "sliding window")
+        return FA.flash_attention(q, k, v, causal=causal)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             kv_block=kv_block)
+
+
 def decode_attention(
     q: torch.Tensor,                 # (B, 1, H, D)
     k_cache: torch.Tensor,           # (B, S, Hkv, D)
@@ -156,7 +178,7 @@ def attention_out(p, o):
 def full_attention_block(p, x, positions, theta, *, causal=True, window=None,
                          kv_block=1024):
     q, k, v = attention_qkv(p, x, positions, theta)
-    o = chunked_attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
+    o = prefill_attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
     return attention_out(p, o), (k, v)
 
 

@@ -5,7 +5,7 @@ The KV cache is the *compressed latent*: per token only
 (kv_lora_rank + qk_rope_head_dim) values, which is what crosses the PD
 boundary and what SplitZip compresses.
 
-Prefill uses the expanded form (latent -> per-head K/V, chunked attention,
+Prefill uses the expanded form (latent -> per-head K/V, prefill attention
 with a value width that differs from the query/key width).  Decode uses the
 **absorbed form**: the k_nope projection is folded into the query and the v
 projection into the output, so a step costs O(S · kv_lora_rank) instead of
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MLAConfig
-from repro_torch.models.layers import NEG_INF, apply_rope, chunked_attention, rms_norm
+from repro_torch.models.layers import NEG_INF, apply_rope, prefill_attention, rms_norm
 
 
 def init_mla(normal, ones, n_layers: int, d_model: int, num_heads: int,
@@ -109,7 +109,7 @@ def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
                                                         cfg.qk_rope_head_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    o = chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+    o = prefill_attention(q, k, v, causal=True, kv_block=kv_block)
     return _heads_out(o, p["wo"]), (c_kv, k_rope)
 
 

@@ -1,5 +1,5 @@
-"""Dense GQA and MLA models on PyTorch: the port of ``repro.models.model``
-(dense and mla families).
+"""Dense GQA, MLA and MoE models on PyTorch: the port of
+``repro.models.model`` (dense, mla and moe families).
 
 Parameters are a plain nested dict stacked over layers, with the JAX
 package's shapes and init scales, so ``models/weights.params_from_jax`` maps
@@ -21,6 +21,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import kvpool as KVP
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.kvcache import DecodeState, require_dense
 
 
@@ -33,16 +34,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Seeded random parameters with ``repro.models.model.init_params``'s
     shapes and scales (normal * scale in f32, stored bf16), stacked over
     layers.  The numbers come from ``generator`` (on its own device) and
-    land on ``device`` (default: the generator's)."""
+    land on ``device`` (default: the generator's).  MoE stacks are drawn a
+    layer at a time (``models.moe.init_moe``), the router kept in f32."""
     require_dense(cfg)
     device = device if device is not None else generator.device
     nl, d, h, hkv, hd, dff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
 
-    def normal(shape, scale):
+    def draw(shape, scale):
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32) * scale
-        return x.to(device=device, dtype=torch.bfloat16)
+        return x.to(device=device)
+
+    def normal(shape, scale):
+        return draw(shape, scale).to(torch.bfloat16)
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.bfloat16, device=device)
@@ -60,15 +65,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             "wv": normal((nl, d, hkv, hd), s),
             "wo": normal((nl, h, hd, d), s),
         }
+    if cfg.moe is not None:
+        ffn = MOE.init_moe(draw, nl, d, cfg.moe, device)
+    else:
+        ffn = {
+            "w_gate": normal((nl, d, dff), s),
+            "w_up": normal((nl, d, dff), s),
+            "w_down": normal((nl, dff, d), dff ** -0.5),
+        }
     p["layers"] = {
         "norm1": ones((nl, d)),
         "norm2": ones((nl, d)),
         "attn": attn,
-        "ffn": {
-            "w_gate": normal((nl, d, dff), s),
-            "w_up": normal((nl, d, dff), s),
-            "w_down": normal((nl, dff, d), dff ** -0.5),
-        },
+        "ffn": ffn,
     }
     return p
 
@@ -77,6 +86,14 @@ def layer_params(stacked: Dict, i: int) -> Dict:
     """Layer ``i``'s slice of the layer-stacked parameter dict."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN: the MoE FFN and its aux loss, or SwiGLU and None."""
+    if cfg.moe is not None:
+        return MOE.moe_ffn(lp["ffn"], h, cfg.moe)
+    return L.mlp(lp["ffn"], h), None
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +122,7 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     ks, vs = [], []
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -113,11 +131,14 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
                                                cfg.rope_theta, kv_block=kv_block)
         else:
             q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
-            o = L.chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+            o = L.prefill_attention(q, k, v, causal=True, kv_block=kv_block)
             attn_out = L.attention_out(lp["attn"], o)
         x = x + attn_out
         h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + L.mlp(lp["ffn"], h2)
+        ffn_out, layer_aux = ffn(lp, h2, cfg)
+        x = x + ffn_out
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -127,7 +148,7 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     if collect_cache:
         names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
         cache = {names[0]: torch.stack(ks), names[1]: torch.stack(vs)}
-    return lm_logits(params, x, cfg), cache, torch.zeros((), device=x.device)
+    return lm_logits(params, x, cfg), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +210,7 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
                                               cache_len, cfg.rope_theta)
         y = x + out
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
-        x = y + L.mlp(lp["ffn"], h2)
+        x = y + ffn(lp, h2, cfg)[0]
     logits = lm_logits(params, x, cfg)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
 
@@ -203,7 +224,8 @@ def resident_decode_step(params, tokens: torch.Tensor,
     launch per layer; the step appends the new token to the raw tail pages
     IN PLACE and advances ``cache_len``.  The pools themselves are read-only
     here: tail flushes are host-side between steps
-    (``KVPool.flush_full_tails``).  Dense GQA and MLA families."""
+    (``KVPool.flush_full_tails``).  GQA (dense or MoE FFN) and MLA
+    families."""
     require_dense(cfg)
     g = state.geom
     x = params["embed"][tokens]
@@ -228,7 +250,7 @@ def resident_decode_step(params, tokens: torch.Tensor,
                 fmt=fmt)
         y = x + out
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
-        x = y + L.mlp(lp["ffn"], h2)
+        x = y + ffn(lp, h2, cfg)[0]
     logits = lm_logits(params, x, cfg)[:, -1]
     return logits, KVP.ResidentState(leaves=state.leaves,
                                      cache_len=cache_len + 1, geom=g)

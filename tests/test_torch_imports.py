@@ -40,6 +40,9 @@ def test_port_files_found():
     assert (PORT / "kernels" / "csrc" / "splitzip_encode.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "splitzip_decode.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "splitzip_attention.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "flash_attention.cu").is_file()
+    for module in ("kernels/flash_attention.py", "models/moe.py"):
+        assert PORT / module in FILES, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -110,6 +113,8 @@ def test_other_families_not_yet_ported():
     for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minicpm3-4b"):
         assert get_config(arch).family == "dense"
     assert get_config("minicpm3-4b").mla is not None
+    moe = get_config("qwen3-moe-30b-a3b")
+    assert moe.family == "moe" and moe.moe is not None
 
 
 def test_importing_attention_kernels_builds_nothing():
