@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 
 1. device   — the card's name and power limit, torch/CUDA versions, and the
               build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              (``nvcc`` for sm_90a, all sources at once).
+              (``nvcc`` for sm_90a, all sources at once); the HGMMA
+              (wgmma) instructions in the flash library's SASS, where the
+              toolkit has ``cuobjdump`` (none fails the run).
 2. kernels  — all four codec kernels held BITWISE against their plain
               PyTorch versions for bf16 / fp8_e5m2 / fp8_e4m3 on edge inputs
               (specials, zero-/all-escape rows, count == cap and cap + 1,
@@ -30,9 +32,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               subnormal payloads; ``paged_gqa_attention`` and
               ``paged_mla_attention`` within ``PARTIALS_RTOL`` on edge inputs
               (an empty row, nq 1 and 4 causal, K/V and ckv/krope with their
-              own caps, every format) and at the main paths' geometries,
-              where each is timed beside its plain version, its bound, and
-              SDPA over the same prefix held raw (a yardstick only).
+              own caps, every format; for GQA also the split's edges at
+              their own split count, one split and the wrapper's) and at
+              the main paths' geometries (GQA at smollm-135m's and
+              qwen3-moe-30b-a3b's, MLA at minicpm3-4b's), where each is
+              timed (device time from a replayed CUDA graph, and issued
+              eagerly) beside its plain version, its bound, and SDPA over
+              the same prefix held raw (a yardstick only).
 6. resident — smollm-135m at full width, ``resident="compressed"``: batch 8,
               prompt 2048, 40 new tokens through ``serve_once``.  Admitted
               (not demoted), the pool rehydrates bitwise to the prefill
@@ -51,9 +57,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the resident path as phase 6 (32-token pages).  Peak device
               memory is reported per phase.
 
-Prefill attention runs the flash-attention kernel in every attention layer.
-Phase ``flash`` (after phase 5) holds it against its plain version on
-seeded edge cases; each family's phase then holds it on the live q/k/v of
+Prefill attention runs the flash-attention kernel in every attention layer,
+on its tensor-core (wgmma) path for every served family.  Phase ``flash``
+(after phase 5) holds it against its plain version on seeded edge cases,
+each on the path its dtype and widths pick; each family's phase then holds
+it on the live q/k/v of
 its first and last layer (captured from a prefill at the served geometry)
 against the plain version and against ``chunked_attention``, and times it
 beside the plain version and ``scaled_dot_product_attention`` (a yardstick
@@ -65,7 +73,8 @@ right after it: the served transfer of phase 3 (``encode_fused``,
 ``decode_dense``), the served resident decode of phases 6
 (``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
 prefills of phases 3, 7 and 9 (``flash_attention``: one launch per layer,
-30 + 62 + 48); the checks around those runs are not counted.  The
+30 + 62 + 48, every one on the tensor-core path, or the run fails); the
+checks around those runs are not counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
 a checkout, it exits non-zero before printing any result.
@@ -112,25 +121,24 @@ def nvidia_smi_line() -> str:
 # timing helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = H100_F32_OPS_PER_S):
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_count(lib_path, opcode: str):
+    """How many ``opcode`` instructions the library's SASS holds
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    import shutil
+    tool = next((c for c in ("/usr/local/cuda/bin/cuobjdump",
+                             shutil.which("cuobjdump")) if c and Path(c).is_file()),
+                None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def launch_counters():
@@ -149,12 +157,17 @@ def launch_counters():
 
 def counted(fn, *args):
     """``fn(*args)`` with every launch counter set to 0 just before it and
-    read just after it: ``(result, {kernel: launches})``."""
+    read just after it: ``(result, {kernel: launches})``; the flash kernel's
+    tensor-core launches count apart as ``flash_attention_tc``."""
+    from repro_torch.kernels import flash_attention as FA
     wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
+    FA.flash_attention.launches_tc = 0
     out = fn(*args)
-    return out, {k: w.launches for k, w in wrappers.items()}
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts["flash_attention_tc"] = FA.flash_attention.launches_tc
+    return out, counts
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +192,7 @@ def phase_kernels(torch, cfg, device):
     from repro_torch.kernels import cases as K
     from repro_torch.kernels import splitzip_decode as D
     from repro_torch.kernels import splitzip_encode as E
+    from repro_torch.kernels.timing import cuda_ms
 
     # edge inputs, all formats, every kernel bitwise against its plain version
     n_cases = 0
@@ -355,11 +369,9 @@ ATTN_KERNELS = {
     "paged_mla_attention": ("src/repro_torch/kernels/csrc/splitzip_attention.cu",
                             "src/repro/kernels/splitzip_attention.py:360"),
 }
-# the main paths' geometries: smollm-135m at batch 8 after a 2048-token
-# prompt (80-token pages, 25 full), minicpm3-4b at batch 4 after 1000
+# the main paths' geometries: GQA at smollm-135m's and qwen3-moe-30b-a3b's
+# (``attention_cases.GQA_SERVED``), minicpm3-4b at batch 4 after 1000
 # tokens (64-token pages, 15 full)
-GQA_MAIN = dict(batch=BATCH, nq=1, heads=9, hkv=3, hd=64, dv=64, tp=80,
-                pages=27, lens=[PROMPT] * BATCH)
 MLA_MAIN = dict(batch=MLA_BATCH, nq=1, heads=40, rank=256, rope=32, tp=64,
                 pages=17, lens=[MLA_PROMPT] * MLA_BATCH)
 GQA_EDGE = dict(batch=3, heads=4, hkv=2, hd=32, dv=128, tp=16, pages=4,
@@ -409,6 +421,7 @@ def raw_sdpa_ms(torch, case, kind):
     import torch.nn.functional as F
     from repro_torch.core import codec as C
     from repro_torch.kernels import splitzip_attention as SA
+    from repro_torch.kernels.timing import cuda_ms
     tp = case["tokens_per_page"]
     fmt, exps, chunk = case["fmt"], case["exponents"], case["chunk"]
 
@@ -447,6 +460,7 @@ def phase_attention(torch, device):
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import cases as K
     from repro_torch.kernels import splitzip_attention as SA
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
 
     # the shared page decoder, bitwise, every format
     n_dec = 0
@@ -472,41 +486,63 @@ def phase_attention(torch, device):
                     else SA.paged_mla_attention_plain
                 worst_edge = max(worst_edge, AC.check_partials(got, plain(**case)))
                 n_edge += 1
+        # the GQA split's edges, at their own split count, one split, and
+        # the wrapper's choice, against the unsplit plain version
+        for name, (kw, n_split) in AC.GQA_SPLIT_EDGE.items():
+            case = AC.to_device(AC.gqa_case(fmt, 30, **kw), device)
+            want = SA.paged_gqa_attention_plain(**case)
+            for got in (SA.launch_paged_gqa(**case, n_split=n_split),
+                        SA.launch_paged_gqa(**case, n_split=1),
+                        SA.paged_gqa_attention(**case)):
+                torch.cuda.synchronize()
+                worst_edge = max(worst_edge, AC.check_partials(got, want))
+                n_edge += 1
 
-    # the main paths' geometries: check, then time
+    # the main paths' geometries: check, then time (device time with no
+    # host gaps, ``ms``, and issued eagerly from Python, ``eager_ms``)
     records = {}
-    for name, kind, make, kw, fn, plain in (
-            ("paged_gqa_attention", "gqa", AC.gqa_case, GQA_MAIN,
-             SA.paged_gqa_attention, SA.paged_gqa_attention_plain),
-            ("paged_mla_attention", "mla", AC.mla_case, MLA_MAIN,
+    for name, label, kind, make, kw, fn, plain in (
+            ("paged_gqa_attention", ARCH, "gqa", AC.gqa_case,
+             AC.GQA_SERVED[ARCH], SA.paged_gqa_attention,
+             SA.paged_gqa_attention_plain),
+            ("paged_gqa_attention", MOE_ARCH, "gqa", AC.gqa_case,
+             AC.GQA_SERVED[MOE_ARCH], SA.paged_gqa_attention,
+             SA.paged_gqa_attention_plain),
+            ("paged_mla_attention", MLA_ARCH, "mla", AC.mla_case, MLA_MAIN,
              SA.paged_mla_attention, SA.paged_mla_attention_plain)):
         case = AC.to_device(make("bf16", 7, **kw), device)
         k_streams = case["k_streams"] if kind == "gqa" else case["ckv_streams"]
         got_bits = SA.decode_pages(k_streams, case["exponents"], "bf16", 1024)
         if K.max_abs_err((got_bits,), (SA.decode_pages_plain(
                 k_streams, case["exponents"], "bf16", 1024),)) != 0:
-            raise AssertionError(f"{name}: page decode != plain at main geometry")
+            raise AssertionError(f"{name}: page decode != plain at {label}'s geometry")
         err = AC.check_partials(fn(**case), plain(**case))
         nbytes, ops = attention_work(case, kind)
         b_ms, b_by = bound_ms(nbytes, ops)
-        ms = cuda_ms(lambda: fn(**case), reps=20)
-        records[name] = dict(
+        ms = graph_ms(lambda: fn(**case), reps=20)
+        rec = dict(
             name=name, route="cuda", source=ATTN_KERNELS[name][0],
             replaces=ATTN_KERNELS[name][1], launches=None, max_abs_err=err,
             tolerance=f"rtol {AC.PARTIALS_RTOL} (f32 sums in another order)",
-            ms=ms, kernel_ms=ms, plain_ms=cuda_ms(lambda: plain(**case), reps=3,
-                                                  warmup=1),
+            ms=ms, kernel_ms=ms, eager_ms=cuda_ms(lambda: fn(**case), reps=20),
+            plain_ms=cuda_ms(lambda: plain(**case), reps=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call decodes pages",
             raw_sdpa_ms=raw_sdpa_ms(torch, case, kind), bytes=nbytes, ops=ops,
-            geometry={k: v for k, v in kw.items() if k != "lens"},
+            arch=label, geometry={k: v for k, v in kw.items() if k != "lens"},
             cache_len=kw["lens"][0])
-    torch.cuda.empty_cache()
+        rec["geometries"] = {label: {f: rec[f] for f in (
+            "geometry", "cache_len", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "raw_sdpa_ms", "max_abs_err")}}
+        if name in records:             # a further geometry of a kernel
+            records[name]["geometries"].update(rec["geometries"])
+        else:
+            records[name] = rec
+        del case
+        torch.cuda.empty_cache()
     emit(phase="attention", decode_cases=n_dec, edge_cases=n_edge,
          edge_max_abs_err=worst_edge, decode_bitwise=True,
-         timed={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "raw_sdpa_ms",
-                                      "max_abs_err", "bytes")}
-                for k, v in records.items()})
+         timed={k: v["geometries"] for k, v in records.items()})
     return records
 
 
@@ -523,16 +559,23 @@ def phase_flash(torch, device):
     with each case's tolerance, and twice: the same bits on a second run."""
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import flash_attention as FA
-    worst = {}
+    worst, path = {}, {}
     for c in AC.flash_cases(seed=1):
-        q, k, v = (t.to(device) for t in (c["q"], c["k"], c["v"]))
+        q, k, v = AC.flash_operands(c, device)
+        tc0 = FA.flash_attention.launches_tc
         got = FA.flash_attention(q, k, v, causal=c["causal"])
         torch.cuda.synchronize()
+        path[c["name"]] = "tensor_core" if FA.flash_attention.launches_tc > tc0 \
+            else "cuda_core"
         want = FA.flash_attention_ref(q, k, v, causal=c["causal"])
         worst[c["name"]] = AC.check_close(got, want, *c["tol"])
         if not torch.equal(got, FA.flash_attention(q, k, v, causal=c["causal"])):
             raise AssertionError(f"flash {c['name']}: two runs differ")
-    emit(phase="flash", edge_cases=len(worst), max_abs_err=worst,
+        if path[c["name"]] != ("tensor_core" if FA.tensor_core_path(
+                q.dtype, q.shape[-1], v.shape[-1]) else "cuda_core"):
+            raise AssertionError(f"flash {c['name']}: took the {path[c['name']]} "
+                                 "kernel against its dtype and widths")
+    emit(phase="flash", edge_cases=len(worst), max_abs_err=worst, path=path,
          tolerances={k: list(v) for k, v in AC.FLASH_TOL.items()},
          deterministic=True)
 
@@ -561,11 +604,13 @@ def capture_flash(fn, *args):
 def flash_live(torch, layers, arch):
     """The kernel on a served prefill's live q/k/v (first and last layer)
     against its plain version (one bf16 ulp) and ``chunked_attention``
-    (the JAX package's 3e-2), then timed on the first layer's beside the
-    plain version and SDPA (causal, GQA, the same bf16 inputs)."""
+    (the JAX package's 3e-2), then timed on the first layer's (device
+    time, ``ms``, and issued eagerly, ``eager_ms``) beside the plain
+    version and SDPA (causal, GQA, the same bf16 inputs)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
     from repro_torch.models import layers as L
     errs = []
     for q, k, v, kw in layers:
@@ -591,11 +636,12 @@ def flash_live(torch, layers, arch):
         library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
     except RuntimeError as exc:      # e.g. a value width SDPA refuses
         sdpa, library = None, f"none: SDPA refused ({str(exc).splitlines()[0]})"
-    ms = cuda_ms(lambda: FA.flash_attention(q, k, v), reps=10)
+    ms = graph_ms(lambda: FA.flash_attention(q, k, v), reps=10)
     rec = dict(arch=arch, geometry=dict(B=b, S=sq, H=h, Hkv=hkv, d=d, dv=dv),
                max_abs_err=max(e["plain"] for e in errs), errors=errs,
-               ms=ms, plain_ms=cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
-                                       reps=2, warmup=1),
+               ms=ms, eager_ms=cuda_ms(lambda: FA.flash_attention(q, k, v), reps=10),
+               plain_ms=cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
+                                reps=2, warmup=1),
                bound_ms=b_ms, bound_by=b_by, library_ms=sdpa, library=library,
                bytes=nbytes, ops=ops, tflops=ops / ms / 1e9)
     torch.cuda.empty_cache()
@@ -924,11 +970,16 @@ def main(argv=None) -> int:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    hgmma = sass_count(build.library_path("flash_attention"), "HGMMA")
+    if hgmma == 0:
+        raise AssertionError("the flash library's SASS has no HGMMA: the "
+                             "tensor-core kernel was not built for sm_90a")
     emit(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 3), built=sorted(logs),
+         flash_sass_hgmma=hgmma if hgmma is not None else "not available",
          ptxas=[ln.strip() for v in logs.values() for ln in v.splitlines()
-                if "registers" in ln or "bytes smem" in ln])
+                if "registers" in ln or "bytes smem" in ln or "spill" in ln])
 
     cfg = get_config(ARCH)
     records = phase_kernels(torch, cfg, device)
@@ -958,6 +1009,9 @@ def main(argv=None) -> int:
              "paged_gqa_attention": "resident", "paged_mla_attention": "mla"}
     for k, rec in records.items():
         rec["launches"] = windows[owner[k]][k]
+    records["paged_gqa_attention"]["launches_by_arch"] = {
+        ARCH: windows["resident"]["paged_gqa_attention"],
+        MOE_ARCH: windows["moe"]["paged_gqa_attention"]}
     # the flash-attention kernel: one launch per layer of each served prefill
     served_prefills = {ARCH: ("main", 30), MLA_ARCH: ("mla", 62),
                        MOE_ARCH: ("moe", 48)}
@@ -965,18 +1019,27 @@ def main(argv=None) -> int:
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "
                              f"{by_arch}, want one per attention layer")
+    tc_by_arch = {a: windows[w]["flash_attention_tc"]
+                  for a, (w, _) in served_prefills.items()}
+    if tc_by_arch != by_arch:
+        raise AssertionError(f"flash_attention tensor-core launches per served "
+                             f"prefill {tc_by_arch} of {by_arch}: a served "
+                             "prefill took the CUDA-core kernel")
     moe_rec = flash[MOE_ARCH]
     records["flash_attention"] = dict(
         name="flash_attention", route="cuda", source=FLASH_KERNEL[0],
         replaces=FLASH_KERNEL[1], launches=sum(by_arch.values()),
-        launches_by_arch=by_arch, max_abs_err=moe_rec["max_abs_err"],
+        launches_by_arch=by_arch, launches_tensor_core=sum(tc_by_arch.values()),
+        max_abs_err=moe_rec["max_abs_err"],
         tolerance="atol 1e-3, rtol 8e-3 (one bf16 ulp)",
-        ms=moe_rec["ms"], kernel_ms=moe_rec["ms"], plain_ms=moe_rec["plain_ms"],
+        ms=moe_rec["ms"], kernel_ms=moe_rec["ms"], eager_ms=moe_rec["eager_ms"],
+        plain_ms=moe_rec["plain_ms"],
         bound_ms=moe_rec["bound_ms"], bound_by=moe_rec["bound_by"],
         library_ms=moe_rec["library_ms"], library=moe_rec["library"],
         bytes=moe_rec["bytes"], ops=moe_rec["ops"], geometry=moe_rec["geometry"],
-        geometries={a: {k: r[k] for k in ("geometry", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "max_abs_err")}
+        geometries={a: {k: r[k] for k in ("geometry", "ms", "eager_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err")}
                     for a, r in flash.items()})
     missing = [k for k, rec in records.items() if not rec["launches"]]
     if missing:

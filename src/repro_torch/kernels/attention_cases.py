@@ -127,6 +127,36 @@ def gqa_case(fmt: str, seed: int, *, batch: int, nq: int, heads: int, hkv: int,
                 scale=1.0 / np.sqrt(hd))
 
 
+#: the served resident geometries of the GQA kernel: smollm-135m at batch
+#: 8 after a 2048-token prompt (80-token pages, 25 full of 27), and
+#: qwen3-moe-30b-a3b at batch 4 after 2088 tokens (32-token pages, 65 full
+#: of 66: the resident run's cache mid-way through its 40 new tokens)
+GQA_SERVED = {
+    "smollm-135m": dict(batch=8, nq=1, heads=9, hkv=3, hd=64, dv=64, tp=80,
+                        pages=27, lens=[2048] * 8),
+    "qwen3-moe-30b-a3b": dict(batch=4, nq=1, heads=32, hkv=4, hd=128, dv=128,
+                              tp=32, pages=66, lens=[2088] * 4),
+}
+
+#: the GQA split kernel's edges, ``{name: (gqa_case keywords, n_split)}``:
+#: more splits than a row's pages (empty ranges), ragged rows that end
+#: below a split's start, a row with no full page, and nq 4 causal with
+#: 2-token pages and one page a split, so the last split of the first
+#: query row sees only keys above its diagonal (a wholly masked split)
+GQA_SPLIT_EDGE = {
+    "more_splits_than_pages": (dict(batch=2, nq=1, heads=4, hkv=2, hd=32,
+                                    dv=64, tp=16, pages=3, lens=[48, 20]), 5),
+    "ragged_rows_below_split_start": (dict(
+        batch=4, nq=1, heads=8, hkv=2, hd=64, dv=64, tp=16, pages=6,
+        lens=[96, 70, 20, 33]), 4),
+    "empty_row": (dict(batch=3, nq=1, heads=4, hkv=2, hd=32, dv=128, tp=16,
+                       pages=4, lens=[64, 9, 40]), 3),
+    "nq4_causal_masked_split": (dict(batch=2, nq=4, heads=4, hkv=2, hd=64,
+                                     dv=64, tp=2, pages=20, lens=[40, 33],
+                                     chunk=256), 20),
+}
+
+
 def mla_case(fmt: str, seed: int, *, batch: int, nq: int, heads: int,
              rank: int, rope: int, tp: int, pages: int, lens,
              chunk: int = 1024) -> Dict:
@@ -206,10 +236,14 @@ def check_partials(got, want, rtol: float = PARTIALS_RTOL) -> float:
 # prefill flash attention
 # ---------------------------------------------------------------------------
 
-#: (name, B, Sq, Skv, H, Hkv, d, dv, causal, dtype, score scale): causal and
-#: not, GQA groups 1, 3 and 8, dv != d (MLA), d 64 and 128, lengths that are
-#: not multiples of the kernel's 64-row tiles, B = 1, a single query, a KV
-#: length past the queries, scores scaled x30, bf16 and f32
+#: (name, B, Sq, Skv, H, Hkv, d, dv, causal, dtype, score scale[, v
+#: offset]): causal and not, GQA groups 1, 3 and 8, dv != d (MLA), d 64 and
+#: 128, lengths that are not multiples of the kernel's 64-row tiles, B = 1,
+#: a single query, a KV length past the queries, scores scaled x30, bf16
+#: and f32; for the tensor-core kernel, five key tiles (its two-stage ring
+#: wraps) and an MLA ``v`` that is a head slice of a wider tensor (the
+#: optional last field: ``v`` is ``wide[..., offset:]``, here 128 bytes in,
+#: as ``mla_prefill`` passes it)
 FLASH_EDGE = (
     ("mha_causal_f32", 2, 128, 128, 4, 4, 64, 64, True, "f32", 1.0),
     ("mha_full_bf16", 2, 96, 96, 4, 4, 64, 64, False, "bf16", 1.0),
@@ -223,6 +257,8 @@ FLASH_EDGE = (
     ("single_query_bf16", 1, 1, 200, 4, 2, 128, 128, False, "bf16", 1.0),
     ("causal_kv_longer_bf16", 1, 50, 70, 4, 2, 64, 64, True, "bf16", 1.0),
     ("scores_x30_f32", 1, 64, 64, 2, 2, 32, 32, True, "f32", 30.0),
+    ("ring_wrap_d128_bf16", 1, 320, 320, 8, 2, 128, 128, True, "bf16", 1.0),
+    ("mla_v_slice_bf16", 2, 150, 150, 4, 4, 96, 64, True, "bf16", 1.0, 64),
 )
 
 #: kernel vs plain tolerances (atol = rtol), by case kind.  f32: the JAX
@@ -240,11 +276,12 @@ _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def flash_case(name: str, b: int, sq: int, skv: int, h: int, hkv: int, d: int,
-               dv: int, causal: bool, dtype: str, amp: float, seed: int = 0
-               ) -> Dict:
+               dv: int, causal: bool, dtype: str, amp: float,
+               v_offset: int = 0, seed: int = 0) -> Dict:
     """Seeded (numpy) ``q``, ``k``, ``v`` (CPU tensors) and the call's
     keywords; ``tol`` is ``(atol, rtol)`` for the kernel against the plain
-    version."""
+    version.  ``v_offset > 0`` makes ``v`` the last ``dv`` of ``v_offset +
+    dv`` head columns (a strided view)."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape):
@@ -252,8 +289,18 @@ def flash_case(name: str, b: int, sq: int, skv: int, h: int, hkv: int, d: int,
         return torch.from_numpy(x).to(_DTYPES[dtype])
 
     kind = "x30" if amp != 1.0 else dtype
-    return dict(name=name, q=draw(b, sq, h, d), k=draw(b, skv, hkv, d),
-                v=draw(b, skv, hkv, dv), causal=causal, tol=FLASH_TOL[kind])
+    q, k = draw(b, sq, h, d), draw(b, skv, hkv, d)
+    wide = draw(b, skv, hkv, v_offset + dv)
+    return dict(name=name, q=q, k=k, v=wide[..., v_offset:], v_wide=wide,
+                v_offset=v_offset, causal=causal, tol=FLASH_TOL[kind])
+
+
+def flash_operands(case: Dict, device) -> Tuple[torch.Tensor, ...]:
+    """A flash case's ``q``, ``k``, ``v`` on ``device``, ``v`` still a view
+    of its wider tensor where the case has one (``Tensor.to`` would make
+    the slice contiguous)."""
+    v = case["v_wide"].to(device)[..., case["v_offset"]:]
+    return case["q"].to(device), case["k"].to(device), v
 
 
 def flash_cases(seed: int = 0) -> List[Dict]:

@@ -14,10 +14,15 @@ The JAX models' ``chunked_attention`` (and the port's, which prefill keeps
 on the CPU) rounds ``p`` to bf16 before ``p . v``; the JAX package holds the
 two within 3e-2 (``tests/test_flash_attention.py``).
 
-The wrapper launches the kernel for CUDA operands and runs
+The wrapper launches a kernel for CUDA operands and runs
 :func:`flash_attention_ref` only for CPU operands; anything else raises, as
-does an argument the kernel does not take.  ``flash_attention.launches``
-counts its kernel launches.
+does an argument the kernels do not take.  Which of the two kernels runs
+depends only on the dtype and the head widths (:func:`tensor_core_path`):
+bf16 operands whose ``d`` and ``dv`` are multiples of 16 go to the
+tensor-core kernel (``sz_flash_attention_tc``: wgmma, TMA-fed tiles),
+everything else (f32, or a bf16 width that is not a multiple of 16) to the
+CUDA-core kernel (``sz_flash_attention``).  ``flash_attention.launches``
+counts every launch, ``flash_attention.launches_tc`` the tensor-core ones.
 """
 
 from __future__ import annotations
@@ -45,7 +50,12 @@ _L = ctypes.c_longlong
 _PROTOTYPES = {
     "sz_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I] * 8
                           + [ctypes.c_float, _P],
+    "sz_flash_attention_tc": [_P, _P, _P, _P] + [_L] * 9 + [_I] * 8
+                             + [ctypes.c_float, _P],
 }
+#: the tensor-core kernel's k-step (wgmma K for bf16): d and dv must be
+#: multiples of it
+TC_WIDTH_STEP = 16
 
 
 def _lib():
@@ -108,8 +118,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
+
+def tensor_core_path(dtype: torch.dtype, d: int, dv: int) -> bool:
+    """True when ``flash_attention`` takes the tensor-core kernel: bf16
+    operands whose ``d`` and ``dv`` are multiples of 16.  f32 operands keep
+    the CUDA-core kernel (exact to f32 rounding), as do bf16 widths the
+    wgmma k-step does not divide."""
+    return (dtype == torch.bfloat16 and d % TC_WIDTH_STEP == 0
+            and dv % TC_WIDTH_STEP == 0)
+
+
+def _tma_operand(t: torch.Tensor):
+    """``t`` and its element strides over (B, S, heads) as a tensor map
+    takes them: a copy only if the base or a stride of an axis longer than
+    1 is not a 16-byte multiple (or is 0, an expanded axis); the stride of
+    an axis of length 1 is never stepped and is passed as 8."""
+    def fits(x):
+        return all(st > 0 and st % 8 == 0 for st, n in
+                   zip(x.stride()[:3], x.shape[:3]) if n > 1)
+    if t.data_ptr() % 16 or not fits(t):
+        t = t.contiguous()
+    return t, [st if n > 1 else 8 for st, n in zip(t.stride()[:3], t.shape[:3])]
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None
@@ -117,9 +149,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, dv), bf16 or f32
     -> (B, Sq, H, dv) in ``q.dtype``.
 
-    CUDA operands launch ``sz_flash_attention``; they may be strided over
-    (B, S, H) (an expanded head axis is read through its zero stride) and
-    are made contiguous over the head dimension only if they are not."""
+    CUDA operands launch one of two kernels, chosen by dtype and widths
+    alone (:func:`tensor_core_path`):
+
+    * bf16 with ``d`` and ``dv`` multiples of 16: ``sz_flash_attention_tc``
+      (wgmma on the tensor cores, tiles fed by TMA).  Operands are read
+      through their strides over (B, S, H); one whose base or strides are
+      not 16-byte multiples, or that has an expanded (zero-stride) axis, is
+      copied contiguous first.
+    * otherwise (f32, or bf16 widths that are not multiples of 16):
+      ``sz_flash_attention`` on the f32 CUDA cores, which reads any strides
+      over (B, S, H), an expanded head axis through its zero stride.
+
+    Either way an operand is made contiguous over the head dimension only
+    if it is not."""
     b, sq, skv, h, hkv, d, dv = _shapes(q, k, v)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(d))
     if not build.on_cuda(q, k, v):
@@ -135,18 +178,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lib = _lib()
+    tc = tensor_core_path(q.dtype, d, dv)
     with torch.cuda.device(q.device):
-        err = lib.sz_flash_attention(
-            DTYPE_ID[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            b, sq, skv, h, hkv, d, dv, int(bool(causal)), scale,
-            build.stream_of(q))
+        if tc:
+            (q, qs), (k, ks), (v, vs) = (_tma_operand(t) for t in (q, k, v))
+            err = lib.sz_flash_attention_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *qs, *ks, *vs, b, sq, skv, h, hkv, d, dv, int(bool(causal)),
+                scale, build.stream_of(q))
+        else:
+            err = lib.sz_flash_attention(
+                DTYPE_ID[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], b, sq, skv, h, hkv, d, dv, int(bool(causal)),
+                scale, build.stream_of(q))
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tc)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
 # ---------------------------------------------------------------------------

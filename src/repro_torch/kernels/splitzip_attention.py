@@ -17,14 +17,25 @@ are plain PyTorch, as the JAX package computes them outside any kernel.
 container bits; it is how the in-kernel decode is held bitwise against the
 plain decoder, and how the pool rehydrates on the card.
 
-Each wrapper launches its kernel for CUDA operands and runs its plain
+``paged_gqa_attention`` splits each row's full pages across the card
+(flash-decoding): a grid of (row, KV head, split) CTAs, each over a
+contiguous range of the row's pages (:func:`gqa_split_count`,
+:func:`gqa_split_ranges`), writes un-normalized partials per split, and a
+second small kernel merges them (:func:`merge_splits` is its plain
+version) into exactly the partials the unsplit kernel returned.
+``paged_mla_attention`` keeps one CTA per row and head group over all its
+pages.
+
+Each wrapper launches its kernels for CUDA operands and runs its plain
 PyTorch version (``*_plain``) only for CPU operands; anything else raises.
-``launches`` on a wrapper counts its kernel launches.
+``launches`` on a wrapper counts its calls that launched (for GQA one call
+launches the split kernel and, with more than one split, the merge kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -47,14 +58,20 @@ TILE_TOKENS = (64, 32, 16, 8, 4, 2, 1)
 MLA_HEADS_PER_CTA = 8
 #: rows of 1024 elements per ``decode_pages`` CTA (32 KB of shared memory)
 DECODE_TILE_ROWS = 8
+#: the GQA split grid covers the card's SMs at least this many times
+GQA_WAVES = 2
+#: shared memory a GQA split CTA aims under (two or three CTAs an SM)
+GQA_SMEM_BUDGET = 96 * 1024
+#: elements a GQA thread copies at once (16 B of sign-mantissa bytes, 8 B of
+#: codes): hd and dv must be multiples of it on the card
+GQA_VEC = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTOTYPES = {
     "sz_decode_pages": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "sz_paged_gqa": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P] + [_I] * 15 + [ctypes.c_float] + [_I] * 3
-                    + [_P, _P],
+    "sz_paged_gqa": [_I] + [_P] * 20 + [_I] * 15 + [ctypes.c_float]
+                    + [_I] * 2 + [_P, _P],
     "sz_paged_mla": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _P] + [_I] * 15 + [ctypes.c_float]
                     + [_I] * 3 + [_P, _P],
@@ -202,19 +219,20 @@ def _causal_mask(cache_len, p: int, tp: int, nq: int) -> torch.Tensor:
 
 
 def _paged_softmax(shape, width: int, pmax: int, n_full, cache_len, tp: int,
-                   causal: bool, score, context):
+                   causal: bool, score, context, first: int = 0):
     """The TPU kernels' page-ordered f32 online softmax, the plain version of
     both families.  ``shape`` is the partials' (B, nq, ...); ``score(p)``
     gives page p's scaled scores (B, nq, ..., Tp) and ``context(p, probs)``
-    its context (B, nq, ..., width).  Rows stop at their ``n_full`` pages;
-    a row with none keeps ``m = -1e30``, ``l = 0``, ``acc = 0``."""
+    its context (B, nq, ..., width).  Rows run pages ``first`` to their
+    ``n_full``; a row with none keeps ``m = -1e30``, ``l = 0``,
+    ``acc = 0``."""
     b, nq = shape[:2]
     dev = cache_len.device
     ones = [1] * (len(shape) - 2)
     m = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros(shape, dtype=torch.float32, device=dev)
     acc = torch.zeros((*shape, width), dtype=torch.float32, device=dev)
-    for p in range(pmax):
+    for p in range(first, pmax):
         s = score(p)
         if causal:
             mask = _causal_mask(cache_len, p, tp, nq).reshape(b, nq, *ones, tp)
@@ -262,6 +280,76 @@ def paged_gqa_attention_plain(q, k_streams, v_streams, page_table_k,
     return acc.reshape(b, nq, h, dv), m.reshape(b, nq, h), l.reshape(b, nq, h)
 
 
+def gqa_split_count(n_sm: int, b: int, hkv: int, n_pages: int) -> int:
+    """How many contiguous ranges each row's pages are split into: enough
+    (row, KV head, split) CTAs to cover ``n_sm`` SMs :data:`GQA_WAVES`
+    times, at most one split a page.  ``n_pages`` is the page table's width
+    (the most full pages a row can have): reading the rows' lengths back
+    from the card would stall every launch."""
+    if b * hkv <= 0 or n_pages <= 0:
+        return 1
+    return max(1, min(n_pages, -(-GQA_WAVES * n_sm // (b * hkv))))
+
+
+def gqa_split_ranges(n_split: int, n_pages: int, n_full: int):
+    """Split s's pages of a row with ``n_full`` full pages, as the kernel
+    computes them: ``[s P / n, min((s + 1) P / n, n_full))`` (integer
+    division, ``P = n_pages``), empty where the row ends before it."""
+    out = []
+    for s in range(n_split):
+        lo = s * n_pages // n_split
+        hi = min((s + 1) * n_pages // n_split, n_full)
+        out.append((lo, max(lo, hi)))
+    return out
+
+
+def gqa_smem_bytes(tile: int, rows: int, hd: int, dv: int, sz: int) -> int:
+    """Shared memory of one split CTA (``gqa_smem`` in the CUDA source):
+    two stages of a tile's raw streams, two of its container bits (rows
+    padded by 4 bytes), then q, p, acc, m, l of its ``rows`` query rows;
+    ``sz`` is the container's bytes (2 bf16, 1 fp8)."""
+    chunks = tile * (hd + dv) // GQA_VEC
+    raw = (chunks * 24 + 15) // 16 * 16
+    bits = tile * ((hd * sz + 4) // 4 + (dv * sz + 4) // 4) * 4
+    return 2 * raw + 2 * bits + 4 * rows * (hd + tile + dv + 2)
+
+
+def _gqa_tile(tp: int, rows: int, hd: int, dv: int, sz: int) -> int:
+    """Token tile of the split kernel: a whole page if it fits the budget,
+    else the largest power of two that does; raises above 227 KB."""
+    for tile in (tp,) + TILE_TOKENS:
+        tile = min(tile, tp)
+        if gqa_smem_bytes(tile, rows, hd, dv, sz) <= GQA_SMEM_BUDGET:
+            return tile
+    if gqa_smem_bytes(1, rows, hd, dv, sz) > SMEM_MAX:
+        raise ValueError("paged GQA needs more than 227 KB of shared memory "
+                         "at a 1-token tile")
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gqa_geometry(q, k_streams, v_streams, page_table_k, page_table_v,
+                  cache_len, chunk: int, tp: int, hkv: int):
+    """Checked operands -> (b, nq, h, hd, dv, P, (npg, pe, cap) of K and V)."""
+    if q.dim() != 4:
+        raise ValueError("q must be (B, nq, H, hd)")
+    b, nq, h, hd = q.shape
+    build.check_operand(q, "q", torch.bfloat16, (b, nq, h, hd))
+    kg = _check_streams(k_streams, "k", chunk)
+    vg = _check_streams(v_streams, "v", chunk)
+    n_pages = _check_rows(page_table_k, page_table_v, cache_len, b)
+    pe_k, pe_v = kg[1], vg[1]
+    if hkv < 1 or h % hkv or pe_k % tp or pe_v % tp \
+            or pe_k // tp != hkv * hd or (pe_v // tp) % hkv:
+        raise ValueError(f"inconsistent GQA page geometry: H={h} hkv={hkv} "
+                         f"hd={hd} Tp={tp} page_elems k={pe_k} v={pe_v}")
+    return b, nq, h, hd, pe_v // tp // hkv, n_pages, kg, vg
+
+
 def paged_gqa_attention(q, k_streams, v_streams, page_table_k, page_table_v,
                         cache_len, *, exponents: tuple, fmt: str = "bf16",
                         chunk: int, tokens_per_page: int, hkv: int,
@@ -272,49 +360,140 @@ def paged_gqa_attention(q, k_streams, v_streams, page_table_k, page_table_v,
     own page_chunks and escape cap; page tables (B, P) i32; cache_len (B,)
     i32.  Returns ``acc (B, nq, H, dv)``, ``m``, ``l`` (B, nq, H) f32 over
     the full pages; merge the raw tail with :func:`tail_partials` +
-    :func:`merge_partials`, then :func:`finalize`."""
-    tp = tokens_per_page
-    if q.dim() != 4:
-        raise ValueError("q must be (B, nq, H, hd)")
-    b, nq, h, hd = q.shape
-    build.check_operand(q, "q", torch.bfloat16, (b, nq, h, hd))
-    npg_k, pe_k, cap_k = _check_streams(k_streams, "k", chunk)
-    npg_v, pe_v, cap_v = _check_streams(v_streams, "v", chunk)
-    n_pages = _check_rows(page_table_k, page_table_v, cache_len, b)
-    if hkv < 1 or h % hkv or pe_k % tp or pe_v % tp \
-            or pe_k // tp != hkv * hd or (pe_v // tp) % hkv:
-        raise ValueError(f"inconsistent GQA page geometry: H={h} hkv={hkv} "
-                         f"hd={hd} Tp={tp} page_elems k={pe_k} v={pe_v}")
-    dv = pe_v // tp // hkv
+    :func:`merge_partials`, then :func:`finalize`.  On the card each row's
+    pages are split :func:`gqa_split_count` ways and merged; hd and dv
+    must be multiples of 16 there."""
+    geo = _gqa_geometry(q, k_streams, v_streams, page_table_k, page_table_v,
+                        cache_len, chunk, tokens_per_page, hkv)
+    b, hd, n_pages = geo[0], geo[3], geo[5]
     scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
     operands = (q, *k_streams, *v_streams, page_table_k, page_table_v,
                 cache_len)
     if not build.on_cuda(*operands):
         return paged_gqa_attention_plain(
             q, k_streams, v_streams, page_table_k, page_table_v, cache_len,
-            exponents=exponents, fmt=fmt, chunk=chunk, tokens_per_page=tp,
-            hkv=hkv, causal=causal, scale=scale)
-    g = h // hkv
-    rows = nq * g
-    tile, smem = _tile_and_smem(
-        tp, rows * hd + rows * dv + 3 * rows, (hd + 1) + (dv + 1) + rows)
-    dev = q.device
-    acc = torch.empty((b, nq, h, dv), dtype=torch.float32, device=dev)
-    m = torch.empty((b, nq, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, nq, h), dtype=torch.float32, device=dev)
+            exponents=exponents, fmt=fmt, chunk=chunk,
+            tokens_per_page=tokens_per_page, hkv=hkv, causal=causal,
+            scale=scale)
+    n_split = gqa_split_count(_sm_count(q.device.index or 0), b, hkv, n_pages)
+    return _launch_gqa(geo, q, k_streams, v_streams, page_table_k,
+                       page_table_v, cache_len, exponents, fmt,
+                       tokens_per_page, hkv, causal, scale, n_split)
+
+
+def launch_paged_gqa(q, k_streams, v_streams, page_table_k, page_table_v,
+                     cache_len, *, exponents: tuple, fmt: str, chunk: int,
+                     tokens_per_page: int, hkv: int, causal: bool,
+                     scale: float, n_split: int):
+    """The card's GQA kernels with ``n_split`` ranges a row (the wrapper
+    picks :func:`gqa_split_count`; tests force others).  CUDA operands
+    only; adds one to ``paged_gqa_attention.launches``."""
+    geo = _gqa_geometry(q, k_streams, v_streams, page_table_k, page_table_v,
+                        cache_len, chunk, tokens_per_page, hkv)
+    if not build.on_cuda(q, *k_streams, *v_streams, page_table_k,
+                         page_table_v, cache_len):
+        raise ValueError("launch_paged_gqa takes CUDA operands only")
+    return _launch_gqa(geo, q, k_streams, v_streams, page_table_k,
+                       page_table_v, cache_len, exponents, fmt,
+                       tokens_per_page, hkv, causal, scale, n_split)
+
+
+def _launch_gqa(geo, q, k_streams, v_streams, page_table_k, page_table_v,
+                cache_len, exponents, fmt, tp, hkv, causal, scale, n_split):
+    """Launch the split kernel (and the merge kernel when ``n_split > 1``)
+    on checked CUDA operands; ``geo`` is :func:`_gqa_geometry`'s."""
+    b, nq, h, hd, dv, n_pages, (npg_k, pe_k, cap_k), (npg_v, pe_v, cap_v) = geo
+    if hd % GQA_VEC or dv % GQA_VEC or n_split < 1:
+        raise ValueError(f"hd={hd}, dv={dv}, n_split={n_split}: the kernel "
+                         f"needs widths that are multiples of {GQA_VEC} and "
+                         "n_split >= 1")
+    for t in (k_streams[0], k_streams[1], v_streams[0], v_streams[1]):
+        if t.data_ptr() % 16:
+            raise ValueError("page streams must be 16-byte aligned")
+    sz = FORMATS[fmt]["bits"] // 8
+    tile = _gqa_tile(tp, nq * (h // hkv), hd, dv, sz)
+    # the partials and, split, their per-split scratch: one allocation
+    # (this runs once per layer and decode step, where host time counts)
+    rows = b * nq * h
+    n_parts = n_split if n_split > 1 else 0
+    buf = torch.empty(((1 + n_parts) * rows * (dv + 2),), dtype=torch.float32,
+                      device=q.device)
+    acc, m, l, *parts = torch.split(
+        buf, [rows * dv, rows, rows] + ([n_parts * rows * dv, n_parts * rows,
+                                         n_parts * rows] if n_parts else []))
+    acc, m, l = acc.view(b, nq, h, dv), m.view(b, nq, h), l.view(b, nq, h)
+    parts = parts or (None, None, None)
     lut = decode_lut(exponents)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         err = lib.sz_paged_gqa(
             build.FMT_ID[fmt], q.data_ptr(), *(t.data_ptr() for t in k_streams),
             *(t.data_ptr() for t in v_streams), page_table_k.data_ptr(),
             page_table_v.data_ptr(), cache_len.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, nq, h, hkv, hd, dv, n_pages, tp,
-            pe_k, cap_k, npg_k, pe_v, cap_v, npg_v, int(bool(causal)), scale,
-            tile, 128, smem, lut.ctypes.data, build.stream_of(q))
+            m.data_ptr(), l.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in parts),
+            b, nq, h, hkv, hd, dv, n_pages, tp, pe_k, cap_k, npg_k, pe_v, cap_v,
+            npg_v, int(bool(causal)), float(scale), tile, n_split,
+            lut.ctypes.data, build.stream_of(q))
     build.check(lib, err, "paged_gqa_attention")
     paged_gqa_attention.launches += 1
     return acc, m, l
+
+
+def paged_gqa_splits_plain(q, k_streams, v_streams, page_table_k,
+                           page_table_v, cache_len, *, exponents: tuple,
+                           fmt: str = "bf16", chunk: int,
+                           tokens_per_page: int, hkv: int, n_split: int,
+                           causal: bool = True, scale=None):
+    """The split kernel's partials, plain: split s runs the page-ordered
+    online softmax over its range (:func:`gqa_split_ranges`) of each row's
+    full pages; a split with no visible token gives ``m = -1e30``,
+    ``l = 0``, ``acc = 0``.  Returns ``acc (n_split, B, nq, H, dv)``,
+    ``m``, ``l`` (n_split, B, nq, H)."""
+    tp = tokens_per_page
+    b, nq, h, hd = q.shape
+    g = h // hkv
+    n_pages = page_table_k.shape[1]
+    dv = v_streams[0].shape[1] * chunk // tp // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    n_full = torch.clamp(cache_len // tp, max=n_pages)
+    pmax = int(n_full.max()) if b else 0
+    if pmax:
+        kf = _gather_pages(k_streams, page_table_k, pmax, exponents, fmt,
+                           chunk).reshape(b, pmax, tp, hkv, hd)
+        vf = _gather_pages(v_streams, page_table_v, pmax, exponents, fmt,
+                           chunk).reshape(b, pmax, tp, hkv, dv)
+    qf = q.float().reshape(b, nq, hkv, g, hd)
+    out = []
+    for s in range(n_split):
+        lo = s * n_pages // n_split
+        hi = (s + 1) * n_pages // n_split
+        acc, m, l = _paged_softmax(
+            (b, nq, hkv, g), dv, min(hi, pmax), torch.clamp(n_full, max=hi),
+            cache_len, tp, causal,
+            lambda p: torch.einsum("bqhgd,bthd->bqhgt", qf, kf[:, p]) * scale,
+            lambda p, pexp: torch.einsum("bqhgt,bthd->bqhgd", pexp, vf[:, p]),
+            first=lo)
+        dead = m <= NEG_INF
+        out.append((torch.where(dead[..., None], 0.0, acc).reshape(b, nq, h, dv),
+                    m.reshape(b, nq, h),
+                    torch.where(dead, 0.0, l).reshape(b, nq, h)))
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def merge_splits(acc, m, l):
+    """The merge kernel's plain version: per-split partials (leading split
+    axis) -> the unsplit partials.  ``m`` is the maximum over the splits;
+    ``l`` and ``acc`` are rescaled by ``exp(m_s - m)`` and summed in split
+    order."""
+    mx = m.amax(dim=0)
+    acc_out = torch.zeros_like(acc[0])
+    l_out = torch.zeros_like(l[0])
+    for s in range(m.shape[0]):
+        w = torch.exp(m[s] - mx)
+        acc_out = acc_out + acc[s] * w[..., None]
+        l_out = l_out + l[s] * w
+    return acc_out, mx, l_out
 
 
 # ---------------------------------------------------------------------------

@@ -192,6 +192,77 @@ def test_wrappers_check_operands():
 
 
 # ---------------------------------------------------------------------------
+# the GQA split (flash-decoding): ranges, per-split partials, merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(AC.GQA_SPLIT_EDGE))
+def test_gqa_split_partials_merge_to_the_unsplit_plain_version(name):
+    """The split ranges cover each row's full pages exactly once; folding
+    the per-range plain partials with ``merge_partials`` (and merging them
+    as the merge kernel does) gives the unsplit plain version's ``m``
+    bitwise and ``l``, ``acc`` within ``PARTIALS_RTOL``."""
+    kw, n_split = AC.GQA_SPLIT_EDGE[name]
+    case = AC.gqa_case("bf16", 31, **kw)
+    n_pages = case["page_table_k"].shape[1]
+    tp = case["tokens_per_page"]
+    for length in case["cache_len"].tolist():
+        n_full = min(length // tp, n_pages)
+        covered = [p for lo, hi in SA.gqa_split_ranges(n_split, n_pages, n_full)
+                   for p in range(lo, hi)]
+        assert covered == list(range(n_full)), (length, covered)
+    parts = SA.paged_gqa_splits_plain(**case, n_split=n_split)
+    assert parts[0].shape[0] == n_split
+    want = SA.paged_gqa_attention_plain(**case)
+    folded = tuple(x[0] for x in parts)
+    for s in range(1, n_split):
+        folded = SA.merge_partials(folded, tuple(x[s] for x in parts))
+    for got in (folded, SA.merge_splits(*parts)):
+        assert torch.equal(got[1], want[1])
+        AC.check_partials(got, want)
+
+
+def test_gqa_split_edges_reach_their_edges():
+    """Each edge case has what its name says: empty splits, a row with no
+    full page, and a split whose every key is above a query's diagonal."""
+    kw, n_split = AC.GQA_SPLIT_EDGE["more_splits_than_pages"]
+    assert n_split > kw["pages"]
+    kw, n_split = AC.GQA_SPLIT_EDGE["empty_row"]
+    assert min(kw["lens"]) < kw["tp"]
+    kw, n_split = AC.GQA_SPLIT_EDGE["nq4_causal_masked_split"]
+    case = AC.gqa_case("bf16", 31, **kw)
+    acc, m, l = SA.paged_gqa_splits_plain(**case, n_split=n_split)
+    dead = m <= SA.NEG_INF                        # (split, B, nq, H)
+    assert bool(dead[-1, 0, 0].all())             # last split, first query
+    assert not bool(dead[-1, 0, -1].any())        # ... the last query sees it
+    assert not l[dead].any() and not acc[dead].any()
+
+
+@pytest.mark.parametrize("args,want", [
+    ((132, 8, 3, 27), 11),      # smollm-135m resident: 264 CTAs
+    ((132, 4, 4, 66), 17),      # qwen3-moe-30b-a3b resident: 272 CTAs
+    ((132, 1, 1, 4), 4),        # at most one split a page
+    ((132, 64, 8, 40), 1),      # the rows alone cover the card
+    ((132, 2, 2, 0), 1),        # no pages
+])
+def test_gqa_split_count_covers_the_card(args, want):
+    n_sm, b, hkv, n_pages = args
+    n_split = SA.gqa_split_count(*args)
+    assert n_split == want
+    assert 1 <= n_split <= max(1, n_pages)
+    if n_split < n_pages:
+        assert b * hkv * n_split >= SA.GQA_WAVES * n_sm
+
+
+def test_gqa_tile_fits_the_budget():
+    """A whole page is one tile where it fits (the served geometries); the
+    shared memory formula is the CUDA source's."""
+    assert SA._gqa_tile(80, 3, 64, 64, 2) == 80
+    assert SA._gqa_tile(32, 8, 128, 128, 2) == 32
+    assert SA.gqa_smem_bytes(80, 3, 64, 64, 2) == 2 * 15_360 + 2 * 21_120 + 2_520
+    assert SA._gqa_tile(256, 8, 128, 128, 2) < 256
+
+
+# ---------------------------------------------------------------------------
 # tail partials, merge, finalize
 # ---------------------------------------------------------------------------
 
@@ -254,3 +325,23 @@ def test_attention_kernels_match_plain_on_card(cuda_device, fmt):
             got = SA.paged_mla_attention(**AC.to_device(case, cuda_device))
             torch.cuda.synchronize()
             AC.check_partials(got, SA.paged_mla_attention(**case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_gqa_split_edges_match_plain_on_card(cuda_device, fmt):
+    """The split and merge kernels at each split edge, with the edge's own
+    split count, one split, and the wrapper's choice, against the unsplit
+    plain version; the wrapper counts one launch a call."""
+    for name, (kw, n_split) in AC.GQA_SPLIT_EDGE.items():
+        case = AC.gqa_case(fmt, 6, **kw)
+        want = SA.paged_gqa_attention(**case)
+        dev = AC.to_device(case, cuda_device)
+        before = SA.paged_gqa_attention.launches
+        for n in (n_split, 1):
+            got = SA.launch_paged_gqa(**dev, n_split=n)
+            torch.cuda.synchronize()
+            AC.check_partials(got, want)
+        AC.check_partials(SA.paged_gqa_attention(**dev), want)
+        torch.cuda.synchronize()
+        assert SA.paged_gqa_attention.launches == before + 3, name

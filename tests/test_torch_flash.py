@@ -147,15 +147,55 @@ def test_served_bounds():
     assert FA.hbm_bytes(4, 2048, 2048, 32, 4, 128, 128) / 3.35e12 < ops / 989e12
 
 
+#: the served prefills' (d, dv): smollm-135m, minicpm3-4b (MLA), qwen3-moe
+SERVED_WIDTHS = ((64, 64), (96, 64), (128, 128))
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    *((torch.bfloat16, d, dv, True) for d, dv in SERVED_WIDTHS),
+    (torch.bfloat16, 256, 16, True),
+    (torch.float32, 128, 128, False),
+    (torch.bfloat16, 100, 64, False),
+    (torch.bfloat16, 64, 72, False),
+    (torch.bfloat16, 32, 8, False),
+])
+def test_kernel_choice_depends_on_dtype_and_widths(dtype, d, dv, want):
+    assert FA.tensor_core_path(dtype, d, dv) is want
+
+
+def test_tma_operand_copies_only_what_a_tensor_map_cannot_read():
+    """The MLA ``v`` (a head slice 128 bytes in) is read in place; an
+    expanded head axis (stride 0) or a stride that is no 16-byte multiple
+    is copied; an axis of length 1 passes stride 8."""
+    c = case_by_name("mla_v_slice_bf16")
+    v = c["v"]
+    assert not v.is_contiguous() and v.storage_offset() == 64
+    got, strides = FA._tma_operand(v)
+    assert got.data_ptr() == v.data_ptr() and strides == list(v.stride()[:3])
+    k1 = c["k"][:, :, :1].expand(-1, -1, 4, -1)
+    got, strides = FA._tma_operand(k1)
+    assert got.is_contiguous() and torch.equal(got, k1)
+    odd = torch.zeros(1, 5, 3, 100, dtype=torch.bfloat16)[..., :96]
+    got, strides = FA._tma_operand(odd)
+    assert got.is_contiguous() and strides == [8, 3 * 96, 96]
+
+
+def test_ref_reads_a_strided_v_as_its_copy():
+    c = case_by_name("mla_v_slice_bf16")
+    a = FA.flash_attention_ref(c["q"], c["k"], c["v"], causal=True)
+    b = FA.flash_attention_ref(c["q"], c["k"], c["v"].contiguous(), causal=True)
+    assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
-# on a card: the CUDA kernel against its plain version
+# on a card: the CUDA kernels against their plain version
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card(cuda_device):
     before = FA.flash_attention.launches
     for c in AC.flash_cases(seed=1):
-        dev = [t.to(cuda_device) for t in (c["q"], c["k"], c["v"])]
+        dev = AC.flash_operands(c, cuda_device)
         got = FA.flash_attention(*dev, causal=c["causal"])
         torch.cuda.synchronize()
         want = FA.flash_attention_ref(*dev, causal=c["causal"])
@@ -182,3 +222,26 @@ def test_flash_kernel_reads_strided_operands(cuda_device):
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention(q[..., :1].expand(-1, -1, -1, 300),
                            k[..., :1].expand(-1, -1, -1, 300), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", SERVED_WIDTHS)
+def test_served_widths_take_the_tensor_core_kernel(cuda_device, d, dv):
+    """bf16 at each served prefill's head widths launches the wgmma kernel
+    (``launches_tc``) and holds one bf16 ulp against the plain version;
+    f32 at the same widths keeps the CUDA-core kernel."""
+    rng = np.random.default_rng(d + dv)
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dtype).to(cuda_device)
+
+    q, k, v = draw(2, 200, 8, d), draw(2, 200, 2, d), draw(2, 200, 2, dv)
+    before = (FA.flash_attention.launches, FA.flash_attention.launches_tc)
+    got = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention.launches, FA.flash_attention.launches_tc) == \
+        (before[0] + 1, before[1] + 1)
+    AC.check_close(got, FA.flash_attention_ref(q, k, v), *AC.FLASH_TOL["bf16"])
+    FA.flash_attention(q.float(), k.float(), v.float())
+    assert FA.flash_attention.launches_tc == before[1] + 1
