@@ -8,8 +8,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 1. device   — the card's name and power limit, torch/CUDA versions, and the
               build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (``nvcc`` for sm_90a, all sources at once); the HGMMA
-              (wgmma) instructions in the flash library's SASS, where the
-              toolkit has ``cuobjdump`` (none fails the run).
+              (wgmma) instructions in the flash library's SASS and the
+              HMMA (mma.sync) ones in the paged-attention library's, where
+              the toolkit has ``cuobjdump`` (none of either fails the run).
 2. kernels  — all four codec kernels held BITWISE against their plain
               PyTorch versions for bf16 / fp8_e5m2 / fp8_e4m3 on edge inputs
               (specials, zero-/all-escape rows, count == cap and cap + 1,
@@ -32,13 +33,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               subnormal payloads; ``paged_gqa_attention`` and
               ``paged_mla_attention`` within ``PARTIALS_RTOL`` on edge inputs
               (an empty row, nq 1 and 4 causal, K/V and ckv/krope with their
-              own caps, every format; for GQA also the split's edges at
+              own caps, every format; for both also the split's edges at
               their own split count, one split and the wrapper's) and at
               the main paths' geometries (GQA at smollm-135m's and
-              qwen3-moe-30b-a3b's, MLA at minicpm3-4b's), where each is
-              timed (device time from a replayed CUDA graph, and issued
-              eagerly) beside its plain version, its bound, and SDPA over
-              the same prefix held raw (a yardstick only).
+              qwen3-moe-30b-a3b's, MLA at minicpm3-4b's, with its grid),
+              where each is timed (device time from a replayed CUDA graph,
+              and issued eagerly) beside its plain version, its bound
+              (GQA's on the f32 ALU rate, MLA's on the bf16 tensor-core
+              rate its products run at), and SDPA over the same prefix
+              held raw (a yardstick only).
 6. resident — smollm-135m at full width, ``resident="compressed"``: batch 8,
               prompt 2048, 40 new tokens through ``serve_once``.  Admitted
               (not demoted), the pool rehydrates bitwise to the prefill
@@ -369,11 +372,9 @@ ATTN_KERNELS = {
     "paged_mla_attention": ("src/repro_torch/kernels/csrc/splitzip_attention.cu",
                             "src/repro/kernels/splitzip_attention.py:360"),
 }
-# the main paths' geometries: GQA at smollm-135m's and qwen3-moe-30b-a3b's
-# (``attention_cases.GQA_SERVED``), minicpm3-4b at batch 4 after 1000
-# tokens (64-token pages, 15 full)
-MLA_MAIN = dict(batch=MLA_BATCH, nq=1, heads=40, rank=256, rope=32, tp=64,
-                pages=17, lens=[MLA_PROMPT] * MLA_BATCH)
+# the main paths' geometries are ``attention_cases.GQA_SERVED`` (smollm-135m,
+# qwen3-moe-30b-a3b) and ``MLA_SERVED`` (minicpm3-4b at MLA_BATCH after
+# MLA_PROMPT tokens)
 GQA_EDGE = dict(batch=3, heads=4, hkv=2, hd=32, dv=128, tp=16, pages=4,
                 lens=[64, 37, 9])           # dv != hd, own caps, an empty row
 MLA_EDGE = dict(batch=3, heads=8, rank=128, rope=32, tp=32, pages=3,
@@ -486,17 +487,21 @@ def phase_attention(torch, device):
                     else SA.paged_mla_attention_plain
                 worst_edge = max(worst_edge, AC.check_partials(got, plain(**case)))
                 n_edge += 1
-        # the GQA split's edges, at their own split count, one split, and
-        # the wrapper's choice, against the unsplit plain version
-        for name, (kw, n_split) in AC.GQA_SPLIT_EDGE.items():
-            case = AC.to_device(AC.gqa_case(fmt, 30, **kw), device)
-            want = SA.paged_gqa_attention_plain(**case)
-            for got in (SA.launch_paged_gqa(**case, n_split=n_split),
-                        SA.launch_paged_gqa(**case, n_split=1),
-                        SA.paged_gqa_attention(**case)):
-                torch.cuda.synchronize()
-                worst_edge = max(worst_edge, AC.check_partials(got, want))
-                n_edge += 1
+        # the split edges of both kernels, at their own split count, one
+        # split, and the wrapper's choice, against the unsplit plain version
+        for edges, make, plain, launch, fn in (
+                (AC.GQA_SPLIT_EDGE, AC.gqa_case, SA.paged_gqa_attention_plain,
+                 SA.launch_paged_gqa, SA.paged_gqa_attention),
+                (AC.MLA_SPLIT_EDGE, AC.mla_case, SA.paged_mla_attention_plain,
+                 SA.launch_paged_mla, SA.paged_mla_attention)):
+            for name, (kw, n_split) in edges.items():
+                case = AC.to_device(make(fmt, 30, **kw), device)
+                want = plain(**case)
+                for got in (launch(**case, n_split=n_split),
+                            launch(**case, n_split=1), fn(**case)):
+                    torch.cuda.synchronize()
+                    worst_edge = max(worst_edge, AC.check_partials(got, want))
+                    n_edge += 1
 
     # the main paths' geometries: check, then time (device time with no
     # host gaps, ``ms``, and issued eagerly from Python, ``eager_ms``)
@@ -508,8 +513,9 @@ def phase_attention(torch, device):
             ("paged_gqa_attention", MOE_ARCH, "gqa", AC.gqa_case,
              AC.GQA_SERVED[MOE_ARCH], SA.paged_gqa_attention,
              SA.paged_gqa_attention_plain),
-            ("paged_mla_attention", MLA_ARCH, "mla", AC.mla_case, MLA_MAIN,
-             SA.paged_mla_attention, SA.paged_mla_attention_plain)):
+            ("paged_mla_attention", MLA_ARCH, "mla", AC.mla_case,
+             AC.MLA_SERVED[MLA_ARCH], SA.paged_mla_attention,
+             SA.paged_mla_attention_plain)):
         case = AC.to_device(make("bf16", 7, **kw), device)
         k_streams = case["k_streams"] if kind == "gqa" else case["ckv_streams"]
         got_bits = SA.decode_pages(k_streams, case["exponents"], "bf16", 1024)
@@ -518,19 +524,27 @@ def phase_attention(torch, device):
             raise AssertionError(f"{name}: page decode != plain at {label}'s geometry")
         err = AC.check_partials(fn(**case), plain(**case))
         nbytes, ops = attention_work(case, kind)
-        b_ms, b_by = bound_ms(nbytes, ops)
+        # GQA's products run on the f32 ALUs, MLA's on the bf16 tensor cores
+        rate = H100_F32_OPS_PER_S if kind == "gqa" else H100_BF16_OPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, ops, rate)
         ms = graph_ms(lambda: fn(**case), reps=20)
         rec = dict(
             name=name, route="cuda", source=ATTN_KERNELS[name][0],
             replaces=ATTN_KERNELS[name][1], launches=None, max_abs_err=err,
-            tolerance=f"rtol {AC.PARTIALS_RTOL} (f32 sums in another order)",
+            tolerance=f"rtol {AC.PARTIALS_RTOL} (f32 sums in another order"
+                      + ("; p as two bf16 terms)" if kind == "mla" else ")"),
             ms=ms, kernel_ms=ms, eager_ms=cuda_ms(lambda: fn(**case), reps=20),
             plain_ms=cuda_ms(lambda: plain(**case), reps=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call decodes pages",
             raw_sdpa_ms=raw_sdpa_ms(torch, case, kind), bytes=nbytes, ops=ops,
-            arch=label, geometry={k: v for k, v in kw.items() if k != "lens"},
+            bound_rate_ops_per_s=rate, arch=label,
+            geometry={k: v for k, v in kw.items() if k != "lens"},
             cache_len=kw["lens"][0])
+        if kind == "mla":
+            grid = SA.mla_grid(kw["batch"], kw["nq"], kw["heads"], kw["pages"],
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+            rec.update(grid=grid, n_split=grid[2])
         rec["geometries"] = {label: {f: rec[f] for f in (
             "geometry", "cache_len", "ms", "eager_ms", "plain_ms", "bound_ms",
             "bound_by", "raw_sdpa_ms", "max_abs_err")}}
@@ -974,10 +988,16 @@ def main(argv=None) -> int:
     if hgmma == 0:
         raise AssertionError("the flash library's SASS has no HGMMA: the "
                              "tensor-core kernel was not built for sm_90a")
+    hmma = sass_count(build.library_path("splitzip_attention"), "HMMA")
+    if hmma == 0:
+        raise AssertionError("the paged-attention library's SASS has no HMMA: "
+                             "the MLA kernel's products are not on the tensor "
+                             "cores")
     emit(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 3), built=sorted(logs),
          flash_sass_hgmma=hgmma if hgmma is not None else "not available",
+         attention_sass_hmma=hmma if hmma is not None else "not available",
          ptxas=[ln.strip() for v in logs.values() for ln in v.splitlines()
                 if "registers" in ln or "bytes smem" in ln or "spill" in ln])
 

@@ -1,25 +1,24 @@
-"""Time the two redesigned attention kernels beside an earlier revision's.
+"""Time the redesigned MLA paged-attention kernel beside an earlier revision's.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab_kernels --old DIR [--reps N]
 
-``DIR`` holds that revision's ``flash_attention.cu`` and
-``splitzip_attention.cu`` (``git show REV:src/repro_torch/kernels/csrc/<file>``)
-in a directory git ignores.  They are built there with this package's
-``nvcc`` flags and called through their own C entries (``sz_flash_attention``
-as both revisions declare it; ``sz_paged_gqa`` with the earlier one's token
-tile, 128 threads and shared memory, as its wrapper chose them).  This
-revision's kernels run through their wrappers.
+``DIR`` holds that revision's ``splitzip_attention.cu`` (``git show
+REV:src/repro_torch/kernels/csrc/splitzip_attention.cu``, REV the parent
+commit, whose MLA kernel is one CTA per row and group of up to 8 heads over
+all its pages, on the f32 CUDA cores) in a directory git ignores.  It is
+built there with this package's ``nvcc`` flags and called through its own C
+entry (``sz_paged_mla`` as that revision declares it, with the token tile,
+256 threads and shared memory its wrapper chose).  This revision's kernel
+runs through its wrapper.
 
-Each geometry is timed in turns, old, new, new, old, after both outputs
-are held against the plain version: ``old_ms``/``new_ms`` are device time
-(``timing.graph_ms``: ``--reps`` calls in one CUDA graph, replayed), and
-``old_eager_ms``/``new_eager_ms`` the same calls issued from Python
-(``timing.cuda_ms``), which include a wrapper's host work where it exceeds
-its kernels.  The geometries: prefill flash attention at the three served prefills' shapes and
-layouts (qwen3-moe-30b-a3b, smollm-135m, minicpm3-4b, whose ``v`` is a head
-slice of ``kv``; seeded bf16 values, since neither kernel's work depends on
-them), paged GQA at the served resident geometries (``GQA_SERVED``).  One
-JSON line a geometry, then the card's ``nvidia-smi`` line.  Needs a card.
+The geometry is minicpm3-4b's served resident decode
+(``attention_cases.MLA_SERVED``), bf16, timed in turns, old, new, new, old,
+after both outputs are held against the plain version: ``old_ms``/``new_ms``
+are device time (``timing.graph_ms``: ``--reps`` calls in one CUDA graph,
+replayed), and ``old_eager_ms``/``new_eager_ms`` the same calls issued from
+Python (``timing.cuda_ms``), which include a wrapper's host work where it
+exceeds its kernels.  One JSON line, then the card's ``nvidia-smi`` line.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -31,29 +30,25 @@ import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import attention_cases as AC
 from repro_torch.kernels import build
-from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import splitzip_attention as SA
 from repro_torch.kernels.splitzip_decode import decode_lut
 from repro_torch.kernels.timing import cuda_ms, graph_ms
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 OLD_PROTOTYPES = {
-    "flash_attention": {
-        "sz_flash_attention": FA._PROTOTYPES["sz_flash_attention"]},
     "splitzip_attention": {
-        "sz_paged_gqa": [_I] + [_P] * 17 + [_I] * 15 + [ctypes.c_float]
+        "sz_paged_mla": [_I] + [_P] * 18 + [_I] * 15 + [ctypes.c_float]
                         + [_I] * 3 + [_P, _P]},
 }
-
-#: (name, B, S, H, Hkv, d, dv, v read from a wider head axis of this width)
-FLASH_SERVED = (("qwen3-moe-30b-a3b", 4, 2048, 32, 4, 128, 128, None),
-                ("smollm-135m", 8, 2048, 9, 3, 64, 64, None),
-                ("minicpm3-4b", 4, 1000, 40, 40, 96, 64, 128))
+#: the earlier wrapper's limits: query heads a CTA, the default dynamic
+#: shared memory, token sub-tiles tried (largest first)
+OLD_HEADS_PER_CTA = 8
+OLD_SMEM_DEFAULT = 48 * 1024
+OLD_TILES = (64, 32, 16, 8, 4, 2, 1)
 
 
 def build_old(old: Path):
@@ -91,42 +86,42 @@ def in_turns(old, new, reps: int) -> dict:
     return out
 
 
-def old_flash(lib, q, k, v):
-    b, sq, h, d = q.shape
-    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-    err = lib.sz_flash_attention(
-        FA.DTYPE_ID[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, sq, skv, h, hkv, d, dv, 1, float(1.0 / np.sqrt(d)),
-        build.stream_of(q))
-    build.check(lib, err, "old flash_attention")
-    return out
+def old_tile_and_smem(tp: int, floats_fixed: int, floats_per_token: int):
+    """The earlier wrapper's token tile: the largest whose f32 shared memory
+    fits the default limit, else the smallest with the limit raised."""
+    for tile in OLD_TILES:
+        tile = min(tile, tp)
+        smem = 4 * (floats_fixed + tile * floats_per_token)
+        if smem <= OLD_SMEM_DEFAULT:
+            return tile, smem
+    return tile, smem
 
 
-def old_gqa(lib, case):
-    """The earlier ``sz_paged_gqa``: one CTA a (row, KV head), its tile and
-    shared memory as its wrapper chose them."""
-    q, ks, vs = case["q"], case["k_streams"], case["v_streams"]
-    b, nq, h, hd = q.shape
-    tp, hkv = case["tokens_per_page"], case["hkv"]
-    pe_k, pe_v = ks[0].shape[1] * ks[0].shape[2], vs[0].shape[1] * vs[0].shape[2]
-    dv, rows = pe_v // tp // hkv, nq * (h // hkv)
-    tile, smem = SA._tile_and_smem(tp, rows * hd + rows * dv + 3 * rows,
-                                   (hd + 1) + (dv + 1) + rows)
-    acc = torch.empty((b, nq, h, dv), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
+def old_mla(lib, case):
+    """The earlier ``sz_paged_mla``: one CTA a (row, group of up to 8
+    heads) over all its pages, its tile and shared memory as its wrapper
+    chose them."""
+    ql, qr = case["q_lat"], case["q_rope"]
+    cs, rs = case["ckv_streams"], case["krope_streams"]
+    b, nq, h, r = ql.shape
+    rope, tp = qr.shape[-1], case["tokens_per_page"]
+    hpc = max(d for d in range(1, min(h, OLD_HEADS_PER_CTA) + 1) if h % d == 0)
+    rows = nq * hpc
+    tile, smem = old_tile_and_smem(tp, rows * (2 * r + rope + 3),
+                                   (r + 1) + (rope + 1) + rows)
+    acc = torch.empty((b, nq, h, r), dtype=torch.float32, device=ql.device)
+    m = torch.empty((b, nq, h), dtype=torch.float32, device=ql.device)
     l = torch.empty_like(m)
-    err = lib.sz_paged_gqa(
-        build.FMT_ID[case["fmt"]], q.data_ptr(), *(t.data_ptr() for t in ks),
-        *(t.data_ptr() for t in vs), case["page_table_k"].data_ptr(),
-        case["page_table_v"].data_ptr(), case["cache_len"].data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, nq, h, hkv, hd, dv,
-        case["page_table_k"].shape[1], tp, pe_k, ks[2].shape[1], ks[0].shape[0],
-        pe_v, vs[2].shape[1], vs[0].shape[0], 1, float(case["scale"]), tile,
-        128, smem, decode_lut(case["exponents"]).ctypes.data,
-        build.stream_of(q))
-    build.check(lib, err, "old paged_gqa_attention")
+    err = lib.sz_paged_mla(
+        build.FMT_ID[case["fmt"]], ql.data_ptr(), qr.data_ptr(),
+        *(t.data_ptr() for t in cs), *(t.data_ptr() for t in rs),
+        case["page_table_ckv"].data_ptr(), case["page_table_krope"].data_ptr(),
+        case["cache_len"].data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, nq, h, hpc, r, rope, case["page_table_ckv"].shape[1], tp,
+        tp * r, cs[2].shape[1], cs[0].shape[0], tp * rope, rs[2].shape[1],
+        rs[0].shape[0], 1, float(case["scale"]), tile, 256, smem,
+        decode_lut(case["exponents"]).ctypes.data, build.stream_of(ql))
+    build.check(lib, err, "old paged_mla_attention")
     return acc, m, l
 
 
@@ -142,37 +137,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     libs = build_old(args.old)
     build.build_all()
-    gen = torch.Generator(device=dev).manual_seed(3)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    for name, b, s, h, hkv, d, dv, wide in FLASH_SERVED:
-        q, k = randn(b, s, h, d), randn(b, s, hkv, d)
-        v = randn(b, s, hkv, wide)[..., wide - dv:] if wide else randn(b, s, hkv, dv)
-        want = FA.flash_attention_ref(q, k, v)
-        AC.check_close(old_flash(libs["flash_attention"], q, k, v), want,
-                       *AC.FLASH_TOL["bf16"])
-        AC.check_close(FA.flash_attention(q, k, v), want, *AC.FLASH_TOL["bf16"])
-        tc_before = FA.flash_attention.launches_tc
-        rec = in_turns(lambda: old_flash(libs["flash_attention"], q, k, v),
-                       lambda: FA.flash_attention(q, k, v), args.reps)
-        rec["tensor_core_path"] = FA.flash_attention.launches_tc > tc_before
-        print(json.dumps(dict(kernel="flash_attention", geometry=name, B=b, S=s,
-                              H=h, Hkv=hkv, d=d, dv=dv, **rec)), flush=True)
-        del q, k, v, want
-        torch.cuda.empty_cache()
-
-    for name, kw in AC.GQA_SERVED.items():
-        case = AC.to_device(AC.gqa_case("bf16", 7, **kw), dev)
-        want = SA.paged_gqa_attention_plain(**case)
-        AC.check_partials(old_gqa(libs["splitzip_attention"], case), want)
-        AC.check_partials(SA.paged_gqa_attention(**case), want)
-        rec = in_turns(lambda: old_gqa(libs["splitzip_attention"], case),
-                       lambda: SA.paged_gqa_attention(**case), args.reps)
-        print(json.dumps(dict(kernel="paged_gqa_attention", geometry=name,
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, kw in AC.MLA_SERVED.items():
+        case = AC.to_device(AC.mla_case("bf16", 7, **kw), dev)
+        want = SA.paged_mla_attention_plain(**case)
+        AC.check_partials(old_mla(libs["splitzip_attention"], case), want)
+        AC.check_partials(SA.paged_mla_attention(**case), want)
+        rec = in_turns(lambda: old_mla(libs["splitzip_attention"], case),
+                       lambda: SA.paged_mla_attention(**case), args.reps)
+        grid = SA.mla_grid(kw["batch"], kw["nq"], kw["heads"], kw["pages"], n_sm)
+        print(json.dumps(dict(kernel="paged_mla_attention", geometry=name,
                               **{k: v for k, v in kw.items() if k != "lens"},
-                              cache_len=kw["lens"][0], **rec)), flush=True)
+                              cache_len=kw["lens"][0], grid=grid, **rec)),
+              flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -185,6 +185,40 @@ def mla_case(fmt: str, seed: int, *, batch: int, nq: int, heads: int,
                 scale=1.0 / np.sqrt(rank + rope), causal=True)
 
 
+#: the served resident geometry of the MLA kernel: minicpm3-4b at batch 4
+#: after a 1000-token prompt (64-token pages, 15 full of the page table's
+#: 17)
+MLA_SERVED = {
+    "minicpm3-4b": dict(batch=4, nq=1, heads=40, rank=256, rope=32, tp=64,
+                        pages=17, lens=[1000] * 4),
+}
+
+#: the MLA split kernel's edges, ``{name: (mla_case keywords, n_split)}``:
+#: more splits than a row's pages (empty ranges), a row with no full page,
+#: nq 4 causal with 2-token pages and one page a split (the last split of
+#: the first query row sees only keys above its diagonal), nq 4 x H 40
+#: (four CTAs a row of 10 heads each, 40 rows), rope 64, ckv and krope
+#: escape caps of 32 and 8 at kv_rank 256, and 72-token pages (a 64-token
+#: tile, then 8 tokens padded to 16)
+MLA_SPLIT_EDGE = {
+    "more_splits_than_pages": (dict(batch=2, nq=1, heads=8, rank=128, rope=32,
+                                    tp=32, pages=3, lens=[96, 40]), 5),
+    "empty_row": (dict(batch=3, nq=1, heads=8, rank=128, rope=32, tp=32,
+                       pages=4, lens=[128, 9, 70]), 3),
+    "nq4_causal_masked_split": (dict(batch=2, nq=4, heads=4, rank=128,
+                                     rope=32, tp=2, pages=20, lens=[40, 33],
+                                     chunk=64), 20),
+    "nq4_h40_four_groups": (dict(batch=2, nq=4, heads=40, rank=128, rope=32,
+                                 tp=32, pages=3, lens=[96, 70]), 2),
+    "rope64": (dict(batch=2, nq=2, heads=8, rank=128, rope=64, tp=16,
+                    pages=4, lens=[64, 47]), 2),
+    "distinct_caps_rank256": (dict(batch=2, nq=1, heads=16, rank=256, rope=32,
+                                   tp=32, pages=5, lens=[160, 100]), 3),
+    "two_tiles_a_page": (dict(batch=2, nq=1, heads=8, rank=128, rope=32,
+                              tp=72, pages=3, lens=[216, 150], chunk=256), 2),
+}
+
+
 def to_device(case: Dict, device) -> Dict:
     """The same case with every tensor (and tensor tuple) on ``device``."""
     def move(v):
@@ -197,11 +231,12 @@ def to_device(case: Dict, device) -> Dict:
 
 
 #: kernel vs plain tolerance on the partials (acc, m, l): the kernel sums in
-#: another order (token sub-tiles of up to 64 with fused multiply-adds, the
-#: softmax rescaled per sub-tile) than the plain version (one einsum per
-#: page); at the scores these cases make (|s| of order 1 to 10) f32 rounding
-#: stays near 1e-6 relative, so 1e-4 leaves margin without hiding a wrong
-#: page, mask or scale (those move values by O(1)).
+#: another order (token sub-tiles of up to 64 with fused multiply-adds or
+#: tensor-core products, the softmax rescaled per sub-tile) than the plain
+#: version (one einsum per page), and the MLA kernel carries p into P.V as
+#: two bf16 terms (about 16 bits); at the scores these cases make (|s| of
+#: order 1 to 10) that stays near 1e-6 relative, so 1e-4 leaves margin
+#: without hiding a wrong page, mask or scale (those move values by O(1)).
 PARTIALS_RTOL = 1e-4
 
 

@@ -28,14 +28,18 @@
 // tile overwrite the exponent field, in slot order (32 slots a round; a
 // round in which two slots hit one element runs slot by slot); padding
 // (pos == page_elems) never matches.  Then bits -> f32: bf16 is its bits
-// << 16, fp8 goes through cuda_fp8.h.
+// << 16, fp8 goes through cuda_fp8.h.  The MLA kernel stores bf16 values
+// instead, and its escape warps rebuild an escaped element from its
+// sign-mantissa byte, still in the copy stage, and the slot's exponent.
 //
 // Bound.  Per row and leaf the kernel must read the compressed bytes of
 // its full pages, 1.5 * page_elems + 3 * cap + 4 per page, plus q and the
 // f32 partials; the arithmetic is nq * H * Tp * (hd + dv) multiply-adds per
 // page, 2 * nq * H * Tp * (hd + dv) operations (MLA: r + rope for the score
-// and r for the context).  GQA is bound by the bytes; MLA, whose 40 heads
-// share one latent page, by the f32 operations.
+// and r for the context).  GQA, on the f32 CUDA cores, is bound by the
+// bytes; so is MLA, whose 40 heads share one latent page, once its
+// products run on the bf16 tensor cores (989 TFLOP/s against 67 on the
+// f32 ALUs).
 //
 // GQA (sz_paged_gqa), split across the card (flash-decoding): a decode
 // batch has a few dozen (row, KV head) pairs against 132 SMs, so each
@@ -55,13 +59,28 @@
 // barrier; the tiles hold container bits (rows padded 4 bytes so a warp
 // reading one column of 32 rows hits 32 banks), converted as they are read.
 //
-// MLA (sz_paged_mla), unsplit, as first ported: one CTA per (row, group of
-// up to 8 heads) decodes its page tiles once for all the query heads that
-// share them and walks its pages in order with m, l, acc in shared memory
-// (the loop replaces the TPU's sequential page axis); token sub-tiles keep
-// the tiles in shared memory for any page geometry.  At decode batch
-// sizes its grid is a few dozen CTAs on 132 SMs, so it runs far from its
-// bound; tensor cores over the latent and the split are its next step.
+// MLA (sz_paged_mla), split the same way, on the tensor cores: one CTA per
+// (row, group of hpc heads, split), hpc the largest divisor of H with
+// nq * hpc <= 64, so at decode (nq 1) all of a row's heads share one CTA
+// and each page is decoded once per row.  The CTA's query rows [q_lat |
+// q_rope] sit in shared memory as bf16 (rows padded to 16 with zeros),
+// each token tile of [ckv | krope] is decoded straight to bf16 (every
+// e5m2 and e4m3 value is a bf16 value), and both products run as
+// mma.sync m16n8k16 bf16 -> f32 from ldmatrix fragments: S = Q [ckv |
+// krope]^T, then acc += P ckv with ckv read transposed (ldmatrix.trans).
+// mma.sync rather than wgmma: a decode CTA has 1 to 4 M tiles of 16 rows,
+// under wgmma's 64, and its operands are decoded into shared memory by
+// the same threads, so the register-level instruction needs no
+// descriptors, swizzle or warpgroup fences, and the work (about 167 MFLOP
+// a call at minicpm3-4b's decode) is not what bounds the kernel.  Warps are
+// (M tile, half of the latent columns): each recomputes its M tile's
+// scores (cheap) and keeps 16 x r/2 f32 of acc in registers; the online
+// softmax runs on the score fragment (rows reduced over a quad of lanes),
+// and p enters P.V as bf16(p) + bf16(p - bf16(p)), two MMAs into one
+// accumulator, so about 16 bits of the TPU kernel's f32 p survive.
+// Stream loads, the next tile's cp.async during this tile's decode, the
+// split ranges and the merge kernel are the GQA kernel's.
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,12 +144,11 @@ __device__ void tile_dense(const Pool& pl, int pid, int m, int t0, int nt,
 }
 
 // Escape phase: the calling warp applies the page's slots j < min(cnt, cap)
-// that fall in the tile, in slot order.  dst holds container bits in T
-// (32-bit for the unsplit kernel and sz_decode_pages, the container's own
-// width for the GQA split kernel).
-template <class F, typename T>
-__device__ void tile_escapes(const Pool& pl, int pid, int m, int t0, int nt,
-                             int c0, int w, T* dst, int ld) {
+// that fall in the tile, in slot order, as put(key, exponent) with key =
+// row * w + column inside the tile.
+template <class Put>
+__device__ void page_escapes(const Pool& pl, int pid, int m, int t0, int nt,
+                             int c0, int w, Put put) {
   const int lane = threadIdx.x & 31;
   const int n = min(max(pl.cnt[pid], 0), pl.cap);
   const uint16_t* pos = pl.pos + (size_t)pid * pl.cap;
@@ -144,7 +162,7 @@ __device__ void tile_escapes(const Pool& pl, int pid, int m, int t0, int nt,
       if (p < pl.page_elems) {
         const int r = p / m - t0, c = p % m - c0;
         if (r >= 0 && r < nt && c >= 0 && c < w) {
-          at = r * ld + c;
+          at = r * w + c;
           v = val[j];
         }
       }
@@ -156,15 +174,26 @@ __device__ void tile_escapes(const Pool& pl, int pid, int m, int t0, int nt,
       for (int k = 0; k < 32; ++k) {
         const int a = __shfl_sync(FULL, at, k);
         const unsigned vk = __shfl_sync(FULL, v, k);
-        if (lane == 0 && a >= 0)
-          dst[a] = ((dst[a] & F::KEEP) | (vk << F::MBITS)) & F::CMASK;
+        if (lane == 0 && a >= 0) put(a, vk);
         __syncwarp();
       }
     } else if (at >= 0) {
-      dst[at] = ((dst[at] & F::KEEP) | (v << F::MBITS)) & F::CMASK;
+      put(at, v);
     }
     __syncwarp();
   }
+}
+
+// The escapes on container bits held in T at dst[row * ld + column]
+// (32-bit for sz_decode_pages, the container's own width for the GQA split
+// kernel): the slot's exponent replaces the exponent field.
+template <class F, typename T>
+__device__ void tile_escapes(const Pool& pl, int pid, int m, int t0, int nt,
+                             int c0, int w, T* dst, int ld) {
+  page_escapes(pl, pid, m, t0, nt, c0, w, [=](int key, unsigned v) {
+    T& d = dst[(key / w) * ld + key % w];
+    d = (T)(((d & F::KEEP) | (v << F::MBITS)) & F::CMASK);
+  });
 }
 
 template <class F>
@@ -178,13 +207,14 @@ __device__ __forceinline__ float to_f32(unsigned b) {
   }
 }
 
-// Bits -> f32 in place; every thread.
+// Container bits -> the same value's bf16 bits (exact: every e5m2 and e4m3
+// value is a bf16 value).
 template <class F>
-__device__ void tile_to_f32(unsigned* t, int nt, int w, int ld) {
-  for (int i = threadIdx.x; i < nt * w; i += blockDim.x) {
-    const int r = i / w, c = i - r * w;
-    const unsigned b = t[r * ld + c];
-    reinterpret_cast<float*>(t)[r * ld + c] = to_f32<F>(b);
+__device__ __forceinline__ uint32_t to_bf16_bits(uint32_t b) {
+  if constexpr (F::KIND == 0) {
+    return b;
+  } else {
+    return __float_as_uint(to_f32<F>(b)) >> 16;
   }
 }
 
@@ -219,167 +249,13 @@ __global__ void decode_pages_kernel(Pool pl, T* __restrict__ out, int chunk,
 }
 
 // ---------------------------------------------------------------------------
-// the paged MLA kernel (absorbed form)
-// ---------------------------------------------------------------------------
-
-struct AttnArgs {
-  const uint16_t* q0;      // bf16 (B, nq, H, w0): q_lat
-  const uint16_t* q1;      // bf16 (B, nq, H, w1): q_rope
-  Pool p0, p1;             // ckv, krope
-  const int32_t* table0;   // (B, P) logical -> physical page id
-  const int32_t* table1;
-  const int32_t* cache_len;  // (B,)
-  float* acc;              // (B, nq, H, dv)
-  float* m;                // (B, nq, H)
-  float* l;
-  int nq, H, hpc;          // hpc: query heads per CTA
-  int w0, w1, m0, m1;      // tile widths; page row lengths (elements/token)
-  int P, tp, tile, causal;
-  float scale;
-  DecodeLut lut;
-};
-
-// One CTA per (row, group of hpc heads) walks the row's full pages in
-// order: score q0.t0 + q1.t1, context over t0.
-template <class F>
-__global__ void paged_mla_kernel(AttnArgs a) {
-  __shared__ unsigned char s_lut[16];
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, grp = blockIdx.y;
-  const int R = a.nq * a.hpc;               // query rows of this CTA
-  const int dv = a.w0;                      // context width: the latent
-  const int ld0 = a.w0 + 1, ld1 = a.w1 + 1;  // padded tile rows: no bank clash
-  float* q0_s = smem;                       // R * w0
-  float* q1_s = q0_s + R * a.w0;            // R * w1
-  float* t0_s = q1_s + R * a.w1;            // tile * ld0
-  float* t1_s = t0_s + a.tile * ld0;        // tile * ld1
-  float* p_s = t1_s + a.tile * ld1;         // R * tile
-  float* acc_s = p_s + R * a.tile;          // R * dv
-  float* m_s = acc_s + R * dv;              // R
-  float* l_s = m_s + R;                     // R
-  float* c_s = l_s + R;                     // R
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
-  load_lut(s_lut, a.lut);
-
-  // queries: row r = qi * hpc + hi is head grp * hpc + hi of query qi
-  for (int i = tid; i < R * a.w0; i += nthr) {
-    const int r = i / a.w0, d = i - r * a.w0;
-    const int qi = r / a.hpc, head = grp * a.hpc + r % a.hpc;
-    q0_s[i] = __uint_as_float(
-        (unsigned)a.q0[(((size_t)b * a.nq + qi) * a.H + head) * a.w0 + d] << 16);
-  }
-  for (int i = tid; i < R * a.w1; i += nthr) {
-    const int r = i / a.w1, d = i - r * a.w1;
-    const int qi = r / a.hpc, head = grp * a.hpc + r % a.hpc;
-    q1_s[i] = __uint_as_float(
-        (unsigned)a.q1[(((size_t)b * a.nq + qi) * a.H + head) * a.w1 + d] << 16);
-  }
-  for (int i = tid; i < R * dv; i += nthr) acc_s[i] = 0.f;
-  for (int r = tid; r < R; r += nthr) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-
-  const int clen = a.cache_len[b];
-  const int n_full = min(clen / a.tp, a.P);
-  for (int p = 0; p < n_full; ++p) {
-    const int pid0 = min(max(a.table0[(size_t)b * a.P + p], 0), a.p0.n_pages - 1);
-    const int pid1 = min(max(a.table1[(size_t)b * a.P + p], 0), a.p1.n_pages - 1);
-    for (int t0 = 0; t0 < a.tp; t0 += a.tile) {
-      const int nt = min(a.tile, a.tp - t0);
-      unsigned* u0 = reinterpret_cast<unsigned*>(t0_s);
-      unsigned* u1 = reinterpret_cast<unsigned*>(t1_s);
-      tile_dense<F>(a.p0, pid0, a.m0, t0, nt, 0, a.w0, u0, ld0, s_lut);
-      tile_dense<F>(a.p1, pid1, a.m1, t0, nt, 0, a.w1, u1, ld1, s_lut);
-      __syncthreads();
-      if (warp == 0) tile_escapes<F>(a.p0, pid0, a.m0, t0, nt, 0, a.w0, u0, ld0);
-      if (warp == 1) tile_escapes<F>(a.p1, pid1, a.m1, t0, nt, 0, a.w1, u1, ld1);
-      __syncthreads();
-      tile_to_f32<F>(u0, nt, a.w0, ld0);
-      tile_to_f32<F>(u1, nt, a.w1, ld1);
-      __syncthreads();
-
-      // scores (scaled, masked) into p_s
-      for (int i = tid; i < R * nt; i += nthr) {
-        const int r = i / nt, t = i - r * nt;
-        const float* qr = q0_s + r * a.w0;
-        const float* kt = t0_s + t * ld0;
-        float s0 = 0.f;
-        for (int d = 0; d < a.w0; ++d) s0 = fmaf(qr[d], kt[d], s0);
-        const float* q1r = q1_s + r * a.w1;
-        const float* k1 = t1_s + t * ld1;
-        float s1 = 0.f;
-        for (int d = 0; d < a.w1; ++d) s1 = fmaf(q1r[d], k1[d], s1);
-        s0 += s1;
-        float s = s0 * a.scale;
-        if (a.causal) {
-          const int q_pos = clen - (a.nq - 1) + r / a.hpc;
-          const int t_pos = p * a.tp + t0 + t;
-          if (t_pos > q_pos) s = NEG_INF;
-        }
-        p_s[r * a.tile + t] = s;
-      }
-      __syncthreads();
-
-      // online softmax: one warp per query row
-      for (int r = warp; r < R; r += nwarps) {
-        float mx = -3.0e38f;
-        for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, p_s[r * a.tile + t]);
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int t = lane; t < nt; t += 32) {
-          const float e = expf(p_s[r * a.tile + t] - m_new);
-          p_s[r * a.tile + t] = e;
-          sum += e;
-        }
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          c_s[r] = corr;
-          l_s[r] = l_s[r] * corr + sum;
-          m_s[r] = m_new;
-        }
-      }
-      __syncthreads();
-
-      // context: acc = acc * corr + p @ v
-      const float* vt = t0_s;
-      const int ldv = ld0;
-      for (int i = tid; i < R * dv; i += nthr) {
-        const int r = i / dv, d = i - r * dv;
-        const float* pr = p_s + r * a.tile;
-        float pv = 0.f;
-        for (int t = 0; t < nt; ++t) pv = fmaf(pr[t], vt[t * ldv + d], pv);
-        acc_s[i] = acc_s[i] * c_s[r] + pv;
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = tid; i < R * dv; i += nthr) {
-    const int r = i / dv, d = i - r * dv;
-    const int qi = r / a.hpc, head = grp * a.hpc + r % a.hpc;
-    a.acc[(((size_t)b * a.nq + qi) * a.H + head) * dv + d] = acc_s[i];
-  }
-  for (int r = tid; r < R; r += nthr) {
-    const int qi = r / a.hpc, head = grp * a.hpc + r % a.hpc;
-    a.m[((size_t)b * a.nq + qi) * a.H + head] = m_s[r];
-    a.l[((size_t)b * a.nq + qi) * a.H + head] = l_s[r];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the GQA split kernel (flash-decoding) and its merge
 // ---------------------------------------------------------------------------
 
 constexpr int GQA_THREADS = 128;
 constexpr int GQA_WARPS = GQA_THREADS / 32;
 constexpr int VEC = 16;        // elements a copy: 16 B of sign-mantissa, 8 B of codes
-constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_THREADS = 128;
 
 struct GqaArgs {
   const uint16_t* q;       // bf16 (B, nq, H, hd)
@@ -479,14 +355,12 @@ __device__ void gqa_issue(const GqaArgs& a, const GqaSmem& L, unsigned char* raw
   }
 }
 
-// 16 elements (sign-mantissa bytes + packed codes) -> container bits, as
-// 32-bit words (bf16: two a word, fp8: four) at dst.
+// 16 elements (sign-mantissa bytes + packed codes) -> their container bits.
 template <class F>
-__device__ __forceinline__ void decode_vec(uint4 smv, uint2 pkv, uint64_t lut_lo,
-                                           uint64_t lut_hi, uint32_t* dst) {
+__device__ __forceinline__ void decode_bits(uint4 smv, uint2 pkv, uint64_t lut_lo,
+                                            uint64_t lut_hi, uint32_t (&bits)[VEC]) {
   const uint32_t sm[4] = {smv.x, smv.y, smv.z, smv.w};
   const uint32_t pk[2] = {pkv.x, pkv.y};
-  uint32_t bits[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     const uint32_t a = (sm[i >> 2] >> (8 * (i & 3))) & 0xFFu;
@@ -497,6 +371,15 @@ __device__ __forceinline__ void decode_vec(uint4 smv, uint2 pkv, uint64_t lut_lo
                (a & F::MMASK)) &
               F::CMASK;
   }
+}
+
+// 16 elements -> container bits, as 32-bit words (bf16: two a word, fp8:
+// four) at dst.
+template <class F>
+__device__ __forceinline__ void decode_vec(uint4 smv, uint2 pkv, uint64_t lut_lo,
+                                           uint64_t lut_hi, uint32_t* dst) {
+  uint32_t bits[VEC];
+  decode_bits<F>(smv, pkv, lut_lo, lut_hi, bits);
   if constexpr (F::BITS == 16) {
 #pragma unroll
     for (int w = 0; w < VEC / 2; ++w) dst[w] = bits[2 * w] | (bits[2 * w + 1] << 16);
@@ -678,24 +561,25 @@ __global__ void __launch_bounds__(GQA_THREADS) paged_gqa_split_kernel(GqaArgs a)
 
 // The splits' partials of `rows` query rows -> the unsplit partials: m the
 // maximum over the splits, l and acc rescaled by exp(m_s - m) and summed in
-// split order.  One warp a row; the row's weights exp(m_s - m) are computed
-// once into shared memory, so the sums only stream acc.
+// split order.  One CTA a row, its warps over the row's columns, so a
+// decode batch's few hundred rows spread over the card; each warp computes
+// the row's weights exp(m_s - m) into its own shared memory, so the sums
+// only stream acc and no barrier joins the warps.  GQA and MLA alike.
 __global__ void __launch_bounds__(MERGE_THREADS)
-    gqa_merge_kernel(const float* __restrict__ acc_p, const float* __restrict__ m_p,
-                     const float* __restrict__ l_p, float* __restrict__ acc,
-                     float* __restrict__ m, float* __restrict__ l, int rows, int dv,
-                     int n_split) {
+    merge_splits_kernel(const float* __restrict__ acc_p, const float* __restrict__ m_p,
+                        const float* __restrict__ l_p, float* __restrict__ acc,
+                        float* __restrict__ m, float* __restrict__ l, int rows,
+                        int dv, int n_split) {
   extern __shared__ float w_s[];  // (MERGE_THREADS / 32, n_split)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (MERGE_THREADS / 32) + warp;
-  if (row >= rows) return;
+  const int row = blockIdx.x;
   float* w = w_s + warp * n_split;
   float mx = NEG_INF;
   for (int s = lane; s < n_split; s += 32) mx = fmaxf(mx, m_p[(size_t)s * rows + row]);
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
   for (int s = lane; s < n_split; s += 32) w[s] = expf(m_p[(size_t)s * rows + row] - mx);
   __syncwarp();
-  for (int d = lane; d < dv; d += 32) {
+  for (int d = threadIdx.x; d < dv; d += MERGE_THREADS) {
     const float* src = acc_p + (size_t)row * dv + d;
     const size_t step = (size_t)rows * dv;
     float x = 0.f;
@@ -703,7 +587,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     for (int s = 0; s < n_split; ++s) x += src[s * step] * w[s];
     acc[(size_t)row * dv + d] = x;
   }
-  if (lane == 0) {
+  if (threadIdx.x == 0) {
     float y = 0.f;
     for (int s = 0; s < n_split; ++s) y += l_p[(size_t)s * rows + row] * w[s];
     m[row] = mx;
@@ -726,6 +610,418 @@ int launch_gqa(const GqaArgs& a, int smem, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// the MLA split kernel (absorbed form, tensor cores)
+// ---------------------------------------------------------------------------
+
+constexpr int MLA_THREADS = 256;
+constexpr int MLA_WARPS = MLA_THREADS / 32;
+constexpr int MLA_MAX_ROWS = 64;   // query rows a CTA: M tiles of 16, two warps each
+constexpr int MLA_MAX_TILE = 64;   // tokens a tile: the score fragment's 8 n-tiles
+constexpr int MLA_MAX_HALF = 128;  // latent columns a warp accumulates: 16 n-tiles
+static_assert(2 * MLA_MAX_ROWS / 16 <= MLA_WARPS, "two warps an M tile");
+
+struct MlaArgs {
+  const uint16_t* q_lat;   // bf16 (B, nq, H, r)
+  const uint16_t* q_rope;  // bf16 (B, nq, H, rope)
+  Pool pc, pr;             // ckv and krope pools
+  const int32_t* table_c;  // (B, P)
+  const int32_t* table_r;
+  const int32_t* cache_len;  // (B,)
+  float* acc;              // (n_split, B, nq, H, r)
+  float* m;                // (n_split, B, nq, H)
+  float* l;
+  int B, nq, H, hpc, r, rope;
+  int P, tp, tile, causal, n_split;
+  float scale;
+  DecodeLut lut;
+};
+
+// Shared memory of one CTA: the query rows (bf16, rows padded to 16), two
+// bf16 tile stages of [ckv | krope] (a tile's tokens padded to 16 with zero
+// rows), two raw stages (a tile's sign-mantissa copies, then its codes).
+// Rows of Q and of a tile are ld = r + rope + 8 elements: an odd number of
+// 16-byte units, so the 8 row addresses of an ldmatrix hit 32 banks.
+struct MlaSmem {
+  int ld;     // bf16 elements a row
+  int q;      // bytes of Q
+  int tile;   // bytes of a tile stage
+  int codes;  // offset of the packed codes in a raw stage
+  int raw;    // bytes of a raw stage
+  int total;
+};
+
+__host__ __device__ inline MlaSmem mla_smem(int tile, int rows, int r, int rope) {
+  MlaSmem g;
+  const int chunks = tile * (r + rope) / VEC;
+  g.ld = r + rope + 8;
+  g.q = (rows + 15) / 16 * 16 * g.ld * 2;
+  g.tile = (tile + 15) / 16 * 16 * g.ld * 2;
+  g.codes = chunks * 16;
+  g.raw = (chunks * 24 + 15) / 16 * 16;
+  g.total = g.q + 2 * g.tile + 2 * g.raw;
+  return g;
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&x)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&x)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(addr));
+}
+// d += a (16 x 16, row) b (16 x 8, col), bf16 in, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// (x, y) -> hi = bf16 pair, lo = bf16 pair of what rounding left (x low)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+// Chunk c of a tile of nt tokens: ckv chunks first (ck a token), then
+// krope (cr a token).  Its token t and its column in a tile row (krope
+// after the r ckv columns); true for krope.
+__device__ __forceinline__ bool mla_chunk(int c, int nk, int ck, int cr, int r,
+                                          int& t, int& col) {
+  if (c < nk) {
+    t = c / ck;
+    col = (c - t * ck) * VEC;
+    return false;
+  }
+  const int cc = c - nk;
+  t = cc / cr;
+  col = r + (cc - t * cr) * VEC;
+  return true;
+}
+
+// Tile i of the CTA's page range into raw stage `raw`: this thread's chunks
+// c = tid, tid + 256, ... (the same thread decodes them), cp.async.
+__device__ void mla_issue(const MlaArgs& a, const MlaSmem& L, unsigned char* raw,
+                          int b, int lo, int tpp, int i) {
+  const int page = lo + i / tpp, t0 = (i % tpp) * a.tile;
+  const int nt = min(a.tile, a.tp - t0);
+  const int pid_c = page_id(a.table_c, a.P, b, page, a.pc.n_pages);
+  const int pid_r = page_id(a.table_r, a.P, b, page, a.pr.n_pages);
+  const int ck = a.r / VEC, cr = a.rope / VEC, nk = nt * ck;
+  for (int c = threadIdx.x; c < nk + nt * cr; c += MLA_THREADS) {
+    int t, col;
+    const bool rope = mla_chunk(c, nk, ck, cr, a.r, t, col);
+    const Pool& pl = rope ? a.pr : a.pc;
+    const size_t at = (size_t)(rope ? pid_r : pid_c) * pl.page_elems +
+                      (size_t)(t0 + t) * (rope ? a.rope : a.r) + (rope ? col - a.r : col);
+    cp_async16(raw + c * 16, pl.sm + at);
+    cp_async8(raw + L.codes + c * 8, pl.packed + at / 2);
+  }
+}
+
+// This thread's chunks of raw stage `raw` -> bf16 values of the tile
+// (nt tokens, zero rows up to ntp).
+template <class F>
+__device__ void mla_decode(const MlaArgs& a, const MlaSmem& L,
+                           const unsigned char* raw, uint16_t* tl, int nt, int ntp,
+                           uint64_t lut_lo, uint64_t lut_hi) {
+  const int ck = a.r / VEC, cr = a.rope / VEC, nk = nt * ck;
+  for (int c = threadIdx.x; c < nk + nt * cr; c += MLA_THREADS) {
+    int t, col;
+    mla_chunk(c, nk, ck, cr, a.r, t, col);
+    uint32_t bits[VEC];
+    decode_bits<F>(*reinterpret_cast<const uint4*>(raw + c * 16),
+                   *reinterpret_cast<const uint2*>(raw + L.codes + c * 8), lut_lo,
+                   lut_hi, bits);
+    uint32_t w[VEC / 2];
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e)
+      w[e] = to_bf16_bits<F>(bits[2 * e]) | (to_bf16_bits<F>(bits[2 * e + 1]) << 16);
+    uint4* dst = reinterpret_cast<uint4*>(tl + t * L.ld + col);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+  const int rv = (a.r + a.rope) / 8;  // 16-byte units a row
+  for (int i = threadIdx.x; i < (ntp - nt) * rv; i += MLA_THREADS) {
+    const int t = nt + i / rv;
+    *reinterpret_cast<uint4*>(tl + t * L.ld + (i % rv) * 8) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The escape warp of one leaf (w elements a token): an escaped element is
+// rebuilt from its sign-mantissa byte, which the raw stage holds at
+// sm[row * w + column] (the leaf's chunks are a token's 16-element runs in
+// order), and the slot's exponent, then stored as bf16 at dst[row * ld +
+// column].  The bits are those tile_escapes would leave: the sign and
+// mantissa of the dense decode, the slot's exponent.
+template <class F>
+__device__ void mla_escapes(const Pool& pl, int pid, int w, int t0, int nt,
+                            const unsigned char* sm, uint16_t* dst, int ld) {
+  page_escapes(pl, pid, w, t0, nt, 0, w, [=](int key, unsigned v) {
+    const unsigned x = sm[key];
+    const unsigned bits = ((((x >> F::MBITS) & 1u) << (F::BITS - 1)) |
+                           (x & F::MMASK) | (v << F::MBITS)) &
+                          F::CMASK;
+    dst[(key / w) * ld + key % w] = (uint16_t)to_bf16_bits<F>(bits);
+  });
+}
+
+// One CTA per (row b, head group, split) over the split's contiguous range
+// of the row's full pages.  Per tile: cp.async of the next tile's streams,
+// this thread's chunks decoded to bf16, a barrier, the escape warps (0:
+// ckv, 1: krope), a barrier; then warp w < 2 * MT takes M tile w / 2 (query
+// rows 16 (w / 2) ..) and latent columns [(w % 2) r / 2, ...): S = Q T^T
+// over r + rope, the online softmax on the fragment, acc += P V.  Fragment
+// rows: a lane holds rows g = lane / 4 and g + 8 of its M tile, tokens or
+// columns 8 j + 2 (lane % 4) and + 1 of each n-tile j.
+template <class F>
+__global__ void __launch_bounds__(MLA_THREADS, 1) paged_mla_split_kernel(MlaArgs a) {
+  extern __shared__ __align__(16) unsigned char msmem[];
+  const int b = blockIdx.x, grp = blockIdx.y, split = blockIdx.z;
+  const int R = a.nq * a.hpc, MT = (R + 15) / 16;
+  const int K = a.r + a.rope, half = a.r / 2;
+  const MlaSmem L = mla_smem(a.tile, R, a.r, a.rope);
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(msmem);
+  uint16_t* tile0 = reinterpret_cast<uint16_t*>(msmem + L.q);
+  unsigned char* raw0 = msmem + L.q + 2 * L.tile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint64_t lut_lo = 0, lut_hi = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lut_lo |= (uint64_t)a.lut.t[i] << (8 * i);
+    lut_hi |= (uint64_t)a.lut.t[8 + i] << (8 * i);
+  }
+
+  const int clen = a.cache_len[b];
+  const int n_full = min(clen / a.tp, a.P);
+  const int lo = (int)((long long)split * a.P / a.n_split);
+  const int hi = min((int)((long long)(split + 1) * a.P / a.n_split), n_full);
+  const int tpp = (a.tp + a.tile - 1) / a.tile;  // tiles a page
+  const int n_tiles = hi > lo ? (hi - lo) * tpp : 0;
+  if (n_tiles > 0) mla_issue(a, L, raw0, b, lo, tpp, 0);
+  cp_async_commit();
+
+  // query rows, while the first tile's streams are in flight: row i = qi *
+  // hpc + hi is head grp * hpc + hi of query qi, [q_lat | q_rope]; rows R
+  // .. 16 MT are zero
+  const int rv = K / 8, lv = a.r / 8;  // 16-byte units a row, of q_lat
+  for (int i = tid; i < MT * 16 * rv; i += MLA_THREADS) {
+    const int row = i / rv, c = i - row * rv;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (row < R) {
+      const size_t q = ((size_t)b * a.nq + row / a.hpc) * a.H + grp * a.hpc + row % a.hpc;
+      x = c < lv ? reinterpret_cast<const uint4*>(a.q_lat + q * a.r)[c]
+                 : reinterpret_cast<const uint4*>(a.q_rope + q * a.rope)[c - lv];
+    }
+    *reinterpret_cast<uint4*>(q_s + row * L.ld + c * 8) = x;
+  }
+
+  const bool mma_warp = warp < 2 * MT;
+  const int mt = warp >> 1, col0 = (warp & 1) * half;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = mt * 16 + g;  // and row0 + 8
+  const int qpos0 = clen - (a.nq - 1) + row0 / a.hpc;
+  const int qpos1 = clen - (a.nq - 1) + (row0 + 8) / a.hpc;
+  float acc[MLA_MAX_HALF / 8][4];
+#pragma unroll
+  for (int n = 0; n < MLA_MAX_HALF / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  // ldmatrix row addresses (a lane gives one row of one 8 x 8 matrix):
+  // A = Q rows 16 mt + lane % 16, columns k0 + 8 (lane / 16); B of S = tile
+  // tokens 16 j + 8 (lane / 16) + lane % 8, columns k0 + 8 (lane / 8 % 2);
+  // B of P.V (transposed) = tile tokens 16 kk + 8 (lane / 8 % 2) + lane % 8,
+  // columns col0 + 16 n + 8 (lane / 16)
+  const uint32_t q_addr =
+      smem_u32(q_s) + ((mt * 16 + (lane & 15)) * L.ld + (lane >> 4) * 8) * 2;
+  const int s_row = (lane >> 4) * 8 + (lane & 7), s_col = ((lane >> 3) & 1) * 8;
+  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = col0 + (lane >> 4) * 8;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_tiles) mla_issue(a, L, raw0 + (st ^ 1) * L.raw, b, lo, tpp, i + 1);
+    cp_async_commit();
+    cp_async_wait1();  // this thread's copies of tile i have landed
+
+    const int page = lo + i / tpp, t0 = (i % tpp) * a.tile;
+    const int nt = min(a.tile, a.tp - t0), ntp = (nt + 15) & ~15;
+    const unsigned char* raw = raw0 + st * L.raw;
+    uint16_t* tl = tile0 + st * (L.tile / 2);
+    mla_decode<F>(a, L, raw, tl, nt, ntp, lut_lo, lut_hi);
+    __syncthreads();
+    if (warp == 0)
+      mla_escapes<F>(a.pc, page_id(a.table_c, a.P, b, page, a.pc.n_pages), a.r, t0, nt,
+                     raw, tl, L.ld);
+    if (warp == 1)
+      mla_escapes<F>(a.pr, page_id(a.table_r, a.P, b, page, a.pr.n_pages), a.rope, t0,
+                     nt, raw + nt * a.r, tl + a.r, L.ld);
+    __syncthreads();
+    if (!mma_warp) continue;
+
+    // S = Q T^T over the r + rope columns
+    const uint32_t t_addr = smem_u32(tl);
+    float s[MLA_MAX_TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < MLA_MAX_TILE / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t qa[4];
+      ldsm4(qa, q_addr + k0 * 2);
+#pragma unroll
+      for (int j = 0; j < MLA_MAX_TILE / 16; ++j) {
+        if (16 * j < ntp) {
+          uint32_t kb[4];
+          ldsm4(kb, t_addr + ((16 * j + s_row) * L.ld + k0 + s_col) * 2);
+          mma_bf16(s[2 * j], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale, mask (tokens past nt, and above the causal diagonal), online
+    // softmax over the tile for rows row0 (e 0, 1) and row0 + 8 (e 2, 3)
+    const int tok0 = page * a.tp + t0;
+    float mx0 = -3.0e38f, mx1 = -3.0e38f;
+#pragma unroll
+    for (int j = 0; j < MLA_MAX_TILE / 8; ++j) {
+      if (8 * j < ntp) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 8 * j + 2 * tq + (e & 1);
+          float x = s[j][e] * a.scale;
+          if (t >= nt || (a.causal && tok0 + t > (e < 2 ? qpos0 : qpos1))) x = NEG_INF;
+          s[j][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < MLA_MAX_TILE / 8; ++j) {
+      if (8 * j < ntp) {
+        s[j][0] = expf(s[j][0] - mn0);
+        s[j][1] = expf(s[j][1] - mn0);
+        s[j][2] = expf(s[j][2] - mn1);
+        s[j][3] = expf(s[j][3] - mn1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+    }
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    l0 = l0 * c0 + quad_sum(sum0);
+    l1 = l1 * c1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < MLA_MAX_HALF / 8; ++n) {
+      acc[n][0] *= c0;
+      acc[n][1] *= c0;
+      acc[n][2] *= c1;
+      acc[n][3] *= c1;
+    }
+
+    // acc += P V, V the tile's ckv columns [col0, col0 + r / 2); the score
+    // fragment of n-tiles 2 kk, 2 kk + 1 is the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < MLA_MAX_TILE / 16; ++kk) {
+      if (16 * kk < ntp) {
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        const uint32_t v_addr = t_addr + ((16 * kk + v_row) * L.ld + v_col) * 2;
+#pragma unroll
+        for (int n = 0; n < MLA_MAX_HALF / 16; ++n) {
+          if (16 * n < half) {
+            uint32_t vb[4];
+            ldsm4_trans(vb, v_addr + 32 * n);
+            mma_bf16(acc[2 * n], ph, vb[0], vb[1]);
+            mma_bf16(acc[2 * n], pl, vb[0], vb[1]);
+            mma_bf16(acc[2 * n + 1], ph, vb[2], vb[3]);
+            mma_bf16(acc[2 * n + 1], pl, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // a split with no visible token (an empty range, or every key above the
+  // causal diagonal) leaves m = -1e30 and gives l = 0, acc = 0
+  if (!mma_warp) return;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int row = row0 + 8 * h2;
+    if (row < R) {
+      const size_t o = (((size_t)split * a.B + b) * a.nq + row / a.hpc) * a.H +
+                       grp * a.hpc + row % a.hpc;
+      const float mr = h2 ? m1 : m0;
+      const bool dead = mr <= NEG_INF;
+      float* dst = a.acc + o * a.r + col0 + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < MLA_MAX_HALF / 8; ++n)
+        if (8 * n < half)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              dead ? make_float2(0.f, 0.f)
+                   : make_float2(acc[n][2 * h2], acc[n][2 * h2 + 1]);
+      if ((warp & 1) == 0 && tq == 0) {
+        a.m[o] = mr;
+        a.l[o] = dead ? 0.f : (h2 ? l1 : l0);
+      }
+    }
+  }
+}
+
+template <class F>
+int launch_mla(const MlaArgs& a, int smem, cudaStream_t s) {
+  auto kernel = paged_mla_split_kernel<F>;
+  static bool opted_in = false;  // the most shared memory a block may take
+  if (!opted_in) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const dim3 grid((unsigned)a.B, (unsigned)(a.H / a.hpc), (unsigned)a.n_split);
+  kernel<<<grid, MLA_THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The merge of n_split > 1 splits' partials (B nq H rows of dv) into acc,
+// m, l.
+int launch_merge(const void* acc_part, const void* m_part, const void* l_part,
+                 void* acc, void* m, void* l, int rows, int dv, int n_split,
+                 cudaStream_t s) {
+  const int merge_smem = (MERGE_THREADS / 32) * n_split * 4;
+  if (merge_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  merge_splits_kernel<<<rows, MERGE_THREADS, merge_smem, s>>>(
+      static_cast<const float*>(acc_part), static_cast<const float*>(m_part),
+      static_cast<const float*>(l_part), static_cast<float*>(acc),
+      static_cast<float*>(m), static_cast<float*>(l), rows, dv, n_split);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -743,35 +1039,6 @@ Pool make_pool(const void* sm, const void* packed, const void* pos,
   p.cap = cap;
   p.n_pages = n_pages;
   return p;
-}
-
-template <typename K>
-int launch_with_smem(K kernel, dim3 grid, dim3 block, int smem, cudaStream_t s,
-                     const AttnArgs& a) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<grid, block, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int launch_mla(int fmt, const AttnArgs& a, int B, int groups, int threads,
-                int smem, const void* lut, void* stream) {
-  if (B <= 0 || groups <= 0) return 0;
-  if (threads < 64 || threads % 32 || a.tile < 1 || smem > 232448)
-    return (int)cudaErrorInvalidValue;
-  AttnArgs args = a;
-  memcpy(args.lut.t, lut, sizeof(args.lut.t));
-  const dim3 grid((unsigned)B, (unsigned)groups), block((unsigned)threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (fmt) {
-    case 0: return launch_with_smem(paged_mla_kernel<Bf16>, grid, block, smem, s, args);
-    case 1: return launch_with_smem(paged_mla_kernel<E5m2>, grid, block, smem, s, args);
-    case 2: return launch_with_smem(paged_mla_kernel<E4m3>, grid, block, smem, s, args);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -876,54 +1143,72 @@ extern "C" int sz_paged_gqa(
     default: return (int)cudaErrorInvalidValue;
   }
   if (err || !split) return err;
-  const int rows = B * nq * H;
-  const int merge_smem = (MERGE_THREADS / 32) * n_split * 4;
-  if (merge_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  gqa_merge_kernel<<<(rows + MERGE_THREADS / 32 - 1) / (MERGE_THREADS / 32),
-                     MERGE_THREADS, merge_smem, s>>>(
-      static_cast<const float*>(acc_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), rows, dv, n_split);
-  return (int)cudaGetLastError();
+  return launch_merge(acc_part, m_part, l_part, acc, m, l, B * nq * H, dv, n_split, s);
 }
 
+// MLA: the split kernel over n_split contiguous ranges of each row's full
+// pages, then (n_split > 1) the merge kernel, as for GQA.  heads_per_cta
+// divides H with nq * heads_per_cta <= 64; kv_rank a multiple of 32 up to
+// 256, rope_dim a multiple of 16; q_lat, q_rope and the sign-mantissa and
+// packed pools 16-byte aligned.
 extern "C" int sz_paged_mla(
     int fmt, const void* q_lat, const void* q_rope, const void* c_sm,
     const void* c_packed, const void* c_pos, const void* c_val,
     const void* c_cnt, const void* r_sm, const void* r_packed,
     const void* r_pos, const void* r_val, const void* r_cnt,
     const void* table_c, const void* table_r, const void* cache_len,
-    void* acc, void* m, void* l, int B, int nq, int H, int heads_per_cta,
-    int kv_rank, int rope_dim, int P, int tokens_per_page, int pe_c,
-    int cap_c, int n_pages_c, int pe_r, int cap_r, int n_pages_r, int causal,
-    float scale, int tile, int threads, int smem, const void* lut,
-    void* stream) {
-  if (heads_per_cta <= 0 || H % heads_per_cta) return (int)cudaErrorInvalidValue;
-  AttnArgs a;
-  a.q0 = static_cast<const uint16_t*>(q_lat);
-  a.q1 = static_cast<const uint16_t*>(q_rope);
-  a.p0 = make_pool(c_sm, c_packed, c_pos, c_val, c_cnt, pe_c, cap_c, n_pages_c);
-  a.p1 = make_pool(r_sm, r_packed, r_pos, r_val, r_cnt, pe_r, cap_r, n_pages_r);
-  a.table0 = static_cast<const int32_t*>(table_c);
-  a.table1 = static_cast<const int32_t*>(table_r);
+    void* acc, void* m, void* l, void* acc_part, void* m_part, void* l_part,
+    int B, int nq, int H, int heads_per_cta, int kv_rank, int rope_dim, int P,
+    int tokens_per_page, int pe_c, int cap_c, int n_pages_c, int pe_r,
+    int cap_r, int n_pages_r, int causal, float scale, int tile, int n_split,
+    const void* lut, void* stream) {
+  if (B <= 0) return 0;
+  if (nq < 1 || heads_per_cta < 1 || H % heads_per_cta ||
+      nq * heads_per_cta > MLA_MAX_ROWS || kv_rank < 32 || kv_rank % 32 ||
+      kv_rank / 2 > MLA_MAX_HALF || rope_dim < VEC || rope_dim % VEC || tile < 1 ||
+      tile > MLA_MAX_TILE || n_split < 1 || pe_c != tokens_per_page * kv_rank ||
+      pe_r != tokens_per_page * rope_dim ||
+      ((uintptr_t)q_lat | (uintptr_t)q_rope | (uintptr_t)c_sm | (uintptr_t)c_packed |
+       (uintptr_t)r_sm | (uintptr_t)r_packed) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int smem = mla_smem(tile, nq * heads_per_cta, kv_rank, rope_dim).total;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const bool split = n_split > 1;
+  MlaArgs a;
+  a.q_lat = static_cast<const uint16_t*>(q_lat);
+  a.q_rope = static_cast<const uint16_t*>(q_rope);
+  a.pc = make_pool(c_sm, c_packed, c_pos, c_val, c_cnt, pe_c, cap_c, n_pages_c);
+  a.pr = make_pool(r_sm, r_packed, r_pos, r_val, r_cnt, pe_r, cap_r, n_pages_r);
+  a.table_c = static_cast<const int32_t*>(table_c);
+  a.table_r = static_cast<const int32_t*>(table_r);
   a.cache_len = static_cast<const int32_t*>(cache_len);
-  a.acc = static_cast<float*>(acc);
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
+  a.acc = static_cast<float*>(split ? acc_part : acc);
+  a.m = static_cast<float*>(split ? m_part : m);
+  a.l = static_cast<float*>(split ? l_part : l);
+  a.B = B;
   a.nq = nq;
   a.H = H;
   a.hpc = heads_per_cta;
-  a.w0 = kv_rank;
-  a.w1 = rope_dim;
-  a.m0 = kv_rank;
-  a.m1 = rope_dim;
+  a.r = kv_rank;
+  a.rope = rope_dim;
   a.P = P;
   a.tp = tokens_per_page;
   a.tile = tile;
   a.causal = causal;
+  a.n_split = n_split;
   a.scale = scale;
-  return launch_mla(fmt, a, B, H / heads_per_cta, threads, smem, lut,
-                           stream);
+  memcpy(a.lut.t, lut, sizeof(a.lut.t));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (fmt) {
+    case 0: err = launch_mla<Bf16>(a, smem, s); break;
+    case 1: err = launch_mla<E5m2>(a, smem, s); break;
+    case 2: err = launch_mla<E4m3>(a, smem, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err || !split) return err;
+  return launch_merge(acc_part, m_part, l_part, acc, m, l, B * nq * H, kv_rank,
+                      n_split, s);
 }
 
 extern "C" const char* sz_error_string(int code) {

@@ -17,19 +17,20 @@ are plain PyTorch, as the JAX package computes them outside any kernel.
 container bits; it is how the in-kernel decode is held bitwise against the
 plain decoder, and how the pool rehydrates on the card.
 
-``paged_gqa_attention`` splits each row's full pages across the card
-(flash-decoding): a grid of (row, KV head, split) CTAs, each over a
-contiguous range of the row's pages (:func:`gqa_split_count`,
-:func:`gqa_split_ranges`), writes un-normalized partials per split, and a
+Both attention kernels split each row's full pages across the card
+(flash-decoding): a grid of (row, KV head or head group, split) CTAs, each
+over a contiguous range of the row's pages (:func:`split_count`,
+:func:`split_ranges`), writes un-normalized partials per split, and a
 second small kernel merges them (:func:`merge_splits` is its plain
-version) into exactly the partials the unsplit kernel returned.
-``paged_mla_attention`` keeps one CTA per row and head group over all its
-pages.
+version) into exactly the unsplit partials.  ``paged_mla_attention`` gives
+one CTA all the heads of a row that fit (:func:`mla_head_group`: all 40 of
+minicpm3-4b's at decode) and runs both of its products on the tensor
+cores.
 
 Each wrapper launches its kernels for CUDA operands and runs its plain
 PyTorch version (``*_plain``) only for CPU operands; anything else raises.
-``launches`` on a wrapper counts its calls that launched (for GQA one call
-launches the split kernel and, with more than one split, the merge kernel).
+``launches`` on a wrapper counts its calls that launched (one call launches
+the split kernel and, with more than one split, the merge kernel).
 """
 
 from __future__ import annotations
@@ -48,23 +49,26 @@ from repro_torch.kernels.splitzip_decode import decode_lut
 
 NEG_INF = -1e30
 
-#: dynamic shared memory a launch may use without raising its limit
-SMEM_DEFAULT = 48 * 1024
-#: the most a block may opt into on Hopper (227 KB)
+#: the most shared memory a block may opt into on Hopper (227 KB)
 SMEM_MAX = 232448
 #: token sub-tile sizes tried, largest first
 TILE_TOKENS = (64, 32, 16, 8, 4, 2, 1)
-#: query heads that share one MLA CTA's decoded latent tiles (at most)
-MLA_HEADS_PER_CTA = 8
 #: rows of 1024 elements per ``decode_pages`` CTA (32 KB of shared memory)
 DECODE_TILE_ROWS = 8
-#: the GQA split grid covers the card's SMs at least this many times
-GQA_WAVES = 2
+#: a split grid covers the card's SMs at least this many times
+SPLIT_WAVES = 2
 #: shared memory a GQA split CTA aims under (two or three CTAs an SM)
 GQA_SMEM_BUDGET = 96 * 1024
-#: elements a GQA thread copies at once (16 B of sign-mantissa bytes, 8 B of
-#: codes): hd and dv must be multiples of it on the card
-GQA_VEC = 16
+#: elements a split kernel's thread copies at once (16 B of sign-mantissa
+#: bytes, 8 B of codes): GQA's hd and dv and MLA's rope must be multiples
+#: of it on the card
+VEC = 16
+#: query rows (nq x heads) an MLA CTA takes at most: four 16-row M tiles
+MLA_MAX_ROWS = 64
+#: tokens an MLA tile takes at most (the score fragment's width)
+MLA_TILE = 64
+#: the widest kv_rank the MLA kernel takes (16 x 128 f32 of acc a warp)
+MLA_MAX_RANK = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,9 +76,8 @@ _PROTOTYPES = {
     "sz_decode_pages": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "sz_paged_gqa": [_I] + [_P] * 20 + [_I] * 15 + [ctypes.c_float]
                     + [_I] * 2 + [_P, _P],
-    "sz_paged_mla": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P, _P] + [_I] * 15 + [ctypes.c_float]
-                    + [_I] * 3 + [_P, _P],
+    "sz_paged_mla": [_I] + [_P] * 21 + [_I] * 15 + [ctypes.c_float]
+                    + [_I] * 2 + [_P, _P],
 }
 
 Streams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -115,20 +118,6 @@ def _check_rows(pt0, pt1, cache_len, b: int):
     build.check_operand(pt1, "page_table", torch.int32, (b, p))
     build.check_operand(cache_len, "cache_len", torch.int32, (b,))
     return p
-
-
-def _tile_and_smem(tp: int, floats_fixed: int, floats_per_token: int):
-    """Largest token sub-tile whose shared memory fits the default limit,
-    else the smallest tile with the limit raised; raises above 227 KB."""
-    for tile in TILE_TOKENS:
-        tile = min(tile, tp)
-        smem = 4 * (floats_fixed + tile * floats_per_token)
-        if smem <= SMEM_DEFAULT:
-            return tile, smem
-    if smem > SMEM_MAX:
-        raise ValueError(f"paged attention needs {smem} bytes of shared "
-                         f"memory at a 1-token tile (limit {SMEM_MAX})")
-    return tile, smem
 
 
 # ---------------------------------------------------------------------------
@@ -280,18 +269,19 @@ def paged_gqa_attention_plain(q, k_streams, v_streams, page_table_k,
     return acc.reshape(b, nq, h, dv), m.reshape(b, nq, h), l.reshape(b, nq, h)
 
 
-def gqa_split_count(n_sm: int, b: int, hkv: int, n_pages: int) -> int:
+def split_count(n_sm: int, b: int, groups: int, n_pages: int) -> int:
     """How many contiguous ranges each row's pages are split into: enough
-    (row, KV head, split) CTAs to cover ``n_sm`` SMs :data:`GQA_WAVES`
-    times, at most one split a page.  ``n_pages`` is the page table's width
-    (the most full pages a row can have): reading the rows' lengths back
-    from the card would stall every launch."""
-    if b * hkv <= 0 or n_pages <= 0:
+    (row, group, split) CTAs to cover ``n_sm`` SMs :data:`SPLIT_WAVES`
+    times, at most one split a page.  ``groups`` is the grid's other axis
+    (GQA: the KV heads; MLA: the head groups).  ``n_pages`` is the page
+    table's width (the most full pages a row can have): reading the rows'
+    lengths back from the card would stall every launch."""
+    if b * groups <= 0 or n_pages <= 0:
         return 1
-    return max(1, min(n_pages, -(-GQA_WAVES * n_sm // (b * hkv))))
+    return max(1, min(n_pages, -(-SPLIT_WAVES * n_sm // (b * groups))))
 
 
-def gqa_split_ranges(n_split: int, n_pages: int, n_full: int):
+def split_ranges(n_split: int, n_pages: int, n_full: int):
     """Split s's pages of a row with ``n_full`` full pages, as the kernel
     computes them: ``[s P / n, min((s + 1) P / n, n_full))`` (integer
     division, ``P = n_pages``), empty where the row ends before it."""
@@ -308,7 +298,7 @@ def gqa_smem_bytes(tile: int, rows: int, hd: int, dv: int, sz: int) -> int:
     two stages of a tile's raw streams, two of its container bits (rows
     padded by 4 bytes), then q, p, acc, m, l of its ``rows`` query rows;
     ``sz`` is the container's bytes (2 bf16, 1 fp8)."""
-    chunks = tile * (hd + dv) // GQA_VEC
+    chunks = tile * (hd + dv) // VEC
     raw = (chunks * 24 + 15) // 16 * 16
     bits = tile * ((hd * sz + 4) // 4 + (dv * sz + 4) // 4) * 4
     return 2 * raw + 2 * bits + 4 * rows * (hd + tile + dv + 2)
@@ -361,7 +351,7 @@ def paged_gqa_attention(q, k_streams, v_streams, page_table_k, page_table_v,
     i32.  Returns ``acc (B, nq, H, dv)``, ``m``, ``l`` (B, nq, H) f32 over
     the full pages; merge the raw tail with :func:`tail_partials` +
     :func:`merge_partials`, then :func:`finalize`.  On the card each row's
-    pages are split :func:`gqa_split_count` ways and merged; hd and dv
+    pages are split :func:`split_count` ways and merged; hd and dv
     must be multiples of 16 there."""
     geo = _gqa_geometry(q, k_streams, v_streams, page_table_k, page_table_v,
                         cache_len, chunk, tokens_per_page, hkv)
@@ -375,7 +365,7 @@ def paged_gqa_attention(q, k_streams, v_streams, page_table_k, page_table_v,
             exponents=exponents, fmt=fmt, chunk=chunk,
             tokens_per_page=tokens_per_page, hkv=hkv, causal=causal,
             scale=scale)
-    n_split = gqa_split_count(_sm_count(q.device.index or 0), b, hkv, n_pages)
+    n_split = split_count(_sm_count(q.device.index or 0), b, hkv, n_pages)
     return _launch_gqa(geo, q, k_streams, v_streams, page_table_k,
                        page_table_v, cache_len, exponents, fmt,
                        tokens_per_page, hkv, causal, scale, n_split)
@@ -386,7 +376,7 @@ def launch_paged_gqa(q, k_streams, v_streams, page_table_k, page_table_v,
                      tokens_per_page: int, hkv: int, causal: bool,
                      scale: float, n_split: int):
     """The card's GQA kernels with ``n_split`` ranges a row (the wrapper
-    picks :func:`gqa_split_count`; tests force others).  CUDA operands
+    picks :func:`split_count`; tests force others).  CUDA operands
     only; adds one to ``paged_gqa_attention.launches``."""
     geo = _gqa_geometry(q, k_streams, v_streams, page_table_k, page_table_v,
                         cache_len, chunk, tokens_per_page, hkv)
@@ -403,26 +393,16 @@ def _launch_gqa(geo, q, k_streams, v_streams, page_table_k, page_table_v,
     """Launch the split kernel (and the merge kernel when ``n_split > 1``)
     on checked CUDA operands; ``geo`` is :func:`_gqa_geometry`'s."""
     b, nq, h, hd, dv, n_pages, (npg_k, pe_k, cap_k), (npg_v, pe_v, cap_v) = geo
-    if hd % GQA_VEC or dv % GQA_VEC or n_split < 1:
+    if hd % VEC or dv % VEC or n_split < 1:
         raise ValueError(f"hd={hd}, dv={dv}, n_split={n_split}: the kernel "
-                         f"needs widths that are multiples of {GQA_VEC} and "
+                         f"needs widths that are multiples of {VEC} and "
                          "n_split >= 1")
     for t in (k_streams[0], k_streams[1], v_streams[0], v_streams[1]):
         if t.data_ptr() % 16:
             raise ValueError("page streams must be 16-byte aligned")
     sz = FORMATS[fmt]["bits"] // 8
     tile = _gqa_tile(tp, nq * (h // hkv), hd, dv, sz)
-    # the partials and, split, their per-split scratch: one allocation
-    # (this runs once per layer and decode step, where host time counts)
-    rows = b * nq * h
-    n_parts = n_split if n_split > 1 else 0
-    buf = torch.empty(((1 + n_parts) * rows * (dv + 2),), dtype=torch.float32,
-                      device=q.device)
-    acc, m, l, *parts = torch.split(
-        buf, [rows * dv, rows, rows] + ([n_parts * rows * dv, n_parts * rows,
-                                         n_parts * rows] if n_parts else []))
-    acc, m, l = acc.view(b, nq, h, dv), m.view(b, nq, h), l.view(b, nq, h)
-    parts = parts or (None, None, None)
+    acc, m, l, parts = _partials(b, nq, h, dv, n_split, q.device)
     lut = decode_lut(exponents)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -431,13 +411,45 @@ def _launch_gqa(geo, q, k_streams, v_streams, page_table_k, page_table_v,
             *(t.data_ptr() for t in v_streams), page_table_k.data_ptr(),
             page_table_v.data_ptr(), cache_len.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in parts),
-            b, nq, h, hkv, hd, dv, n_pages, tp, pe_k, cap_k, npg_k, pe_v, cap_v,
+            *parts, b, nq, h, hkv, hd, dv, n_pages, tp, pe_k, cap_k, npg_k, pe_v, cap_v,
             npg_v, int(bool(causal)), float(scale), tile, n_split,
             lut.ctypes.data, build.stream_of(q))
     build.check(lib, err, "paged_gqa_attention")
     paged_gqa_attention.launches += 1
     return acc, m, l
+
+
+def _partials(b: int, nq: int, h: int, dv: int, n_split: int, device):
+    """The partials ``acc (B, nq, H, dv)``, ``m``, ``l`` and, split, the
+    data pointers of their per-split scratch (else three None): one
+    allocation, since this runs once per layer and decode step, where host
+    time counts."""
+    rows = b * nq * h
+    n_parts = n_split if n_split > 1 else 0
+    buf = torch.empty(((1 + n_parts) * rows * (dv + 2),), dtype=torch.float32,
+                      device=device)
+    acc, m, l, *parts = torch.split(
+        buf, [rows * dv, rows, rows] + ([n_parts * rows * dv, n_parts * rows,
+                                         n_parts * rows] if n_parts else []))
+    ptrs = tuple(t.data_ptr() for t in parts) if parts else (None,) * 3
+    return acc.view(b, nq, h, dv), m.view(b, nq, h), l.view(b, nq, h), ptrs
+
+
+def _split_partials(n_split: int, n_pages: int, pmax: int, n_full, run):
+    """Per-split partials stacked on a leading split axis: ``run(first,
+    stop, n_full)`` is the page-ordered softmax over pages ``first`` to
+    ``stop`` of rows with ``n_full`` full pages, returning ``(acc, m, l)``
+    in the output layout; a split with no visible token gives ``m =
+    -1e30``, ``l = 0``, ``acc = 0``."""
+    out = []
+    for s in range(n_split):
+        lo = s * n_pages // n_split
+        hi = (s + 1) * n_pages // n_split
+        acc, m, l = run(lo, min(hi, pmax), torch.clamp(n_full, max=hi))
+        dead = m <= NEG_INF
+        out.append((torch.where(dead[..., None], 0.0, acc), m,
+                    torch.where(dead, 0.0, l)))
+    return tuple(torch.stack(x) for x in zip(*out))
 
 
 def paged_gqa_splits_plain(q, k_streams, v_streams, page_table_k,
@@ -446,7 +458,7 @@ def paged_gqa_splits_plain(q, k_streams, v_streams, page_table_k,
                            tokens_per_page: int, hkv: int, n_split: int,
                            causal: bool = True, scale=None):
     """The split kernel's partials, plain: split s runs the page-ordered
-    online softmax over its range (:func:`gqa_split_ranges`) of each row's
+    online softmax over its range (:func:`split_ranges`) of each row's
     full pages; a split with no visible token gives ``m = -1e30``,
     ``l = 0``, ``acc = 0``.  Returns ``acc (n_split, B, nq, H, dv)``,
     ``m``, ``l`` (n_split, B, nq, H)."""
@@ -464,21 +476,16 @@ def paged_gqa_splits_plain(q, k_streams, v_streams, page_table_k,
         vf = _gather_pages(v_streams, page_table_v, pmax, exponents, fmt,
                            chunk).reshape(b, pmax, tp, hkv, dv)
     qf = q.float().reshape(b, nq, hkv, g, hd)
-    out = []
-    for s in range(n_split):
-        lo = s * n_pages // n_split
-        hi = (s + 1) * n_pages // n_split
+
+    def run(first, stop, n_full_s):
         acc, m, l = _paged_softmax(
-            (b, nq, hkv, g), dv, min(hi, pmax), torch.clamp(n_full, max=hi),
-            cache_len, tp, causal,
+            (b, nq, hkv, g), dv, stop, n_full_s, cache_len, tp, causal,
             lambda p: torch.einsum("bqhgd,bthd->bqhgt", qf, kf[:, p]) * scale,
             lambda p, pexp: torch.einsum("bqhgt,bthd->bqhgd", pexp, vf[:, p]),
-            first=lo)
-        dead = m <= NEG_INF
-        out.append((torch.where(dead[..., None], 0.0, acc).reshape(b, nq, h, dv),
-                    m.reshape(b, nq, h),
-                    torch.where(dead, 0.0, l).reshape(b, nq, h)))
-    return tuple(torch.stack(x) for x in zip(*out))
+            first=first)
+        return acc.reshape(b, nq, h, dv), m.reshape(b, nq, h), l.reshape(b, nq, h)
+
+    return _split_partials(n_split, n_pages, pmax, n_full, run)
 
 
 def merge_splits(acc, m, l):
@@ -500,6 +507,32 @@ def merge_splits(acc, m, l):
 # paged MLA (absorbed form)
 # ---------------------------------------------------------------------------
 
+def _mla_pages(q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
+               page_table_krope, cache_len, exponents, fmt, chunk, tp):
+    """Plain-version inputs: (n_full, pmax, ckv f32 (B, pmax, Tp, r), krope
+    f32 (B, pmax, Tp, rope), q_lat f32, q_rope f32)."""
+    b, _, _, r = q_lat.shape
+    rope = q_rope.shape[-1]
+    n_full = torch.clamp(cache_len // tp, max=page_table_ckv.shape[1])
+    pmax = int(n_full.max()) if b else 0
+    cf = rf = None
+    if pmax:
+        cf = _gather_pages(ckv_streams, page_table_ckv, pmax, exponents, fmt,
+                           chunk).reshape(b, pmax, tp, r)
+        rf = _gather_pages(krope_streams, page_table_krope, pmax, exponents,
+                           fmt, chunk).reshape(b, pmax, tp, rope)
+    return n_full, pmax, cf, rf, q_lat.float(), q_rope.float()
+
+
+def _mla_score(qlf, qrf, cf, rf, scale):
+    return lambda p: (torch.einsum("bqhr,btr->bqht", qlf, cf[:, p])
+                      + torch.einsum("bqhp,btp->bqht", qrf, rf[:, p])) * scale
+
+
+def _mla_context(cf):
+    return lambda p, pexp: torch.einsum("bqht,btr->bqhr", pexp, cf[:, p])
+
+
 def paged_mla_attention_plain(q_lat, q_rope, ckv_streams, krope_streams,
                               page_table_ckv, page_table_krope, cache_len, *,
                               exponents: tuple, fmt: str = "bf16", chunk: int,
@@ -507,27 +540,92 @@ def paged_mla_attention_plain(q_lat, q_rope, ckv_streams, krope_streams,
                               causal: bool = True):
     """The TPU kernel's page-ordered f32 online softmax, absorbed MLA: score
     ``q_lat . ckv + q_rope . krope``, context over ``ckv``."""
-    tp = tokens_per_page
+    b, nq, h, r = q_lat.shape
+    n_full, pmax, cf, rf, qlf, qrf = _mla_pages(
+        q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
+        page_table_krope, cache_len, exponents, fmt, chunk, tokens_per_page)
+    return _paged_softmax((b, nq, h), r, pmax, n_full, cache_len,
+                          tokens_per_page, causal,
+                          _mla_score(qlf, qrf, cf, rf, scale), _mla_context(cf))
+
+
+def paged_mla_splits_plain(q_lat, q_rope, ckv_streams, krope_streams,
+                           page_table_ckv, page_table_krope, cache_len, *,
+                           exponents: tuple, fmt: str = "bf16", chunk: int,
+                           tokens_per_page: int, scale: float, n_split: int,
+                           causal: bool = True):
+    """The MLA split kernel's partials, plain, as
+    :func:`paged_gqa_splits_plain`: ``acc (n_split, B, nq, H, kv_rank)``,
+    ``m``, ``l`` (n_split, B, nq, H)."""
+    b, nq, h, r = q_lat.shape
+    n_full, pmax, cf, rf, qlf, qrf = _mla_pages(
+        q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
+        page_table_krope, cache_len, exponents, fmt, chunk, tokens_per_page)
+    score, context = _mla_score(qlf, qrf, cf, rf, scale), _mla_context(cf)
+    return _split_partials(
+        n_split, page_table_ckv.shape[1], pmax, n_full,
+        lambda first, stop, n_full_s: _paged_softmax(
+            (b, nq, h), r, stop, n_full_s, cache_len, tokens_per_page, causal,
+            score, context, first=first))
+
+
+def mla_head_group(h: int, nq: int) -> int:
+    """Query heads one MLA CTA takes: the largest divisor of H with
+    ``nq * heads <= MLA_MAX_ROWS``, so at decode (nq 1) one CTA holds all
+    of a row's heads (up to 64) and decodes each page once for them."""
+    fits = [d for d in range(1, h + 1) if h % d == 0 and nq * d <= MLA_MAX_ROWS]
+    if not fits:
+        raise ValueError(f"paged MLA on the card takes at most {MLA_MAX_ROWS} "
+                         f"queries a row (nq={nq})")
+    return max(fits)
+
+
+def mla_grid(b: int, nq: int, h: int, n_pages: int, n_sm: int):
+    """The MLA split kernel's grid ``(B, head groups, n_split)`` on a card
+    of ``n_sm`` SMs, as the wrapper launches it."""
+    groups = h // mla_head_group(h, nq)
+    return b, groups, split_count(n_sm, b, groups, n_pages)
+
+
+def mla_smem_bytes(tile: int, rows: int, r: int, rope: int) -> int:
+    """Shared memory of one MLA split CTA (``mla_smem`` in the CUDA source):
+    Q and two tile stages in bf16, rows of ``r + rope + 8`` elements (Q's
+    rows and a tile's tokens padded to 16), then two raw stages of a tile's
+    streams."""
+    ld = r + rope + 8
+    chunks = tile * (r + rope) // VEC
+    return (-(-rows // 16) * 16 * ld * 2 + 2 * (-(-tile // 16) * 16 * ld * 2)
+            + 2 * ((chunks * 24 + 15) // 16 * 16))
+
+
+def _mla_tile(tp: int, rows: int, r: int, rope: int) -> int:
+    """Token tile of the MLA kernel: a page up to 64 tokens, smaller where
+    shared memory does not fit; raises above 227 KB at a 16-token tile."""
+    for tile in (MLA_TILE, 32, 16):
+        tile = min(tile, tp)
+        if mla_smem_bytes(tile, rows, r, rope) <= SMEM_MAX:
+            return tile
+    raise ValueError("paged MLA needs more than 227 KB of shared memory at a "
+                     "16-token tile")
+
+
+def _mla_geometry(q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
+                  page_table_krope, cache_len, chunk: int, tp: int):
+    """Checked operands -> (b, nq, h, r, rope, P, (npg, pe, cap) of ckv and
+    krope)."""
+    if q_lat.dim() != 4 or q_rope.dim() != 4:
+        raise ValueError("q_lat and q_rope must be (B, nq, H, ·)")
     b, nq, h, r = q_lat.shape
     rope = q_rope.shape[-1]
-    n_full = torch.clamp(cache_len // tp, max=page_table_ckv.shape[1])
-    pmax = int(n_full.max()) if b else 0
-    if pmax:
-        cf = _gather_pages(ckv_streams, page_table_ckv, pmax, exponents, fmt,
-                           chunk).reshape(b, pmax, tp, r)
-        rf = _gather_pages(krope_streams, page_table_krope, pmax, exponents,
-                           fmt, chunk).reshape(b, pmax, tp, rope)
-    qlf, qrf = q_lat.float(), q_rope.float()
-    return _paged_softmax(
-        (b, nq, h), r, pmax, n_full, cache_len, tp, causal,
-        lambda p: (torch.einsum("bqhr,btr->bqht", qlf, cf[:, p])
-                   + torch.einsum("bqhp,btp->bqht", qrf, rf[:, p])) * scale,
-        lambda p, pexp: torch.einsum("bqht,btr->bqhr", pexp, cf[:, p]))
-
-
-def mla_heads_per_cta(h: int) -> int:
-    """Query heads sharing one CTA: the largest divisor of H up to 8."""
-    return max(d for d in range(1, min(h, MLA_HEADS_PER_CTA) + 1) if h % d == 0)
+    build.check_operand(q_lat, "q_lat", torch.bfloat16, (b, nq, h, r))
+    build.check_operand(q_rope, "q_rope", torch.bfloat16, (b, nq, h, rope))
+    cg = _check_streams(ckv_streams, "ckv", chunk)
+    rg = _check_streams(krope_streams, "krope", chunk)
+    n_pages = _check_rows(page_table_ckv, page_table_krope, cache_len, b)
+    if cg[1] != tp * r or rg[1] != tp * rope:
+        raise ValueError(f"inconsistent MLA page geometry: Tp={tp} r={r} "
+                         f"rope={rope} page_elems ckv={cg[1]} krope={rg[1]}")
+    return b, nq, h, r, rope, n_pages, cg, rg
 
 
 def paged_mla_attention(q_lat, q_rope, ckv_streams, krope_streams,
@@ -540,47 +638,77 @@ def paged_mla_attention(q_lat, q_rope, ckv_streams, krope_streams,
     q_lat (B, nq, H, kv_rank) and q_rope (B, nq, H, rope) bf16; ckv and
     krope 5-tuples with their own page_chunks and caps.  Returns ``acc (B,
     nq, H, kv_rank)`` (latent space), ``m``, ``l`` (B, nq, H) f32; the
-    caller applies the ``w_v``/``wo`` up-projections after the tail merge."""
-    tp = tokens_per_page
-    if q_lat.dim() != 4 or q_rope.dim() != 4:
-        raise ValueError("q_lat and q_rope must be (B, nq, H, ·)")
-    b, nq, h, r = q_lat.shape
-    rope = q_rope.shape[-1]
-    build.check_operand(q_lat, "q_lat", torch.bfloat16, (b, nq, h, r))
-    build.check_operand(q_rope, "q_rope", torch.bfloat16, (b, nq, h, rope))
-    npg_c, pe_c, cap_c = _check_streams(ckv_streams, "ckv", chunk)
-    npg_r, pe_r, cap_r = _check_streams(krope_streams, "krope", chunk)
-    n_pages = _check_rows(page_table_ckv, page_table_krope, cache_len, b)
-    if pe_c != tp * r or pe_r != tp * rope:
-        raise ValueError(f"inconsistent MLA page geometry: Tp={tp} r={r} "
-                         f"rope={rope} page_elems ckv={pe_c} krope={pe_r}")
+    caller applies the ``w_v``/``wo`` up-projections after the tail merge.
+    On the card the grid is :func:`mla_grid`'s; kv_rank must be a multiple
+    of 32 up to 256, rope a multiple of 16, nq at most 64, and q and the
+    page streams 16-byte aligned there."""
+    geo = _mla_geometry(q_lat, q_rope, ckv_streams, krope_streams,
+                        page_table_ckv, page_table_krope, cache_len, chunk,
+                        tokens_per_page)
     operands = (q_lat, q_rope, *ckv_streams, *krope_streams, page_table_ckv,
                 page_table_krope, cache_len)
     if not build.on_cuda(*operands):
         return paged_mla_attention_plain(
             q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
             page_table_krope, cache_len, exponents=exponents, fmt=fmt,
-            chunk=chunk, tokens_per_page=tp, scale=scale, causal=causal)
-    hpc = mla_heads_per_cta(h)
-    rows = nq * hpc
-    tile, smem = _tile_and_smem(
-        tp, rows * r + rows * rope + rows * r + 3 * rows,
-        (r + 1) + (rope + 1) + rows)
-    dev = q_lat.device
-    acc = torch.empty((b, nq, h, r), dtype=torch.float32, device=dev)
-    m = torch.empty((b, nq, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, nq, h), dtype=torch.float32, device=dev)
+            chunk=chunk, tokens_per_page=tokens_per_page, scale=scale,
+            causal=causal)
+    b, nq, h, n_pages = geo[0], geo[1], geo[2], geo[5]
+    n_split = mla_grid(b, nq, h, n_pages, _sm_count(q_lat.device.index or 0))[2]
+    return _launch_mla(geo, q_lat, q_rope, ckv_streams, krope_streams,
+                       page_table_ckv, page_table_krope, cache_len, exponents,
+                       fmt, tokens_per_page, causal, scale, n_split)
+
+
+def launch_paged_mla(q_lat, q_rope, ckv_streams, krope_streams,
+                     page_table_ckv, page_table_krope, cache_len, *,
+                     exponents: tuple, fmt: str, chunk: int,
+                     tokens_per_page: int, scale: float, causal: bool,
+                     n_split: int):
+    """The card's MLA kernels with ``n_split`` ranges a row (the wrapper
+    picks :func:`mla_grid`'s; tests force others).  CUDA operands only;
+    adds one to ``paged_mla_attention.launches``."""
+    geo = _mla_geometry(q_lat, q_rope, ckv_streams, krope_streams,
+                        page_table_ckv, page_table_krope, cache_len, chunk,
+                        tokens_per_page)
+    if not build.on_cuda(q_lat, q_rope, *ckv_streams, *krope_streams,
+                         page_table_ckv, page_table_krope, cache_len):
+        raise ValueError("launch_paged_mla takes CUDA operands only")
+    return _launch_mla(geo, q_lat, q_rope, ckv_streams, krope_streams,
+                       page_table_ckv, page_table_krope, cache_len, exponents,
+                       fmt, tokens_per_page, causal, scale, n_split)
+
+
+def _launch_mla(geo, q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,
+                page_table_krope, cache_len, exponents, fmt, tp, causal, scale,
+                n_split):
+    """Launch the MLA split kernel (and the merge kernel when ``n_split >
+    1``) on checked CUDA operands; ``geo`` is :func:`_mla_geometry`'s."""
+    b, nq, h, r, rope, n_pages, (npg_c, pe_c, cap_c), (npg_r, pe_r, cap_r) = geo
+    if r % 32 or r > MLA_MAX_RANK or rope % VEC or not rope or n_split < 1:
+        raise ValueError(f"kv_rank={r}, rope={rope}, n_split={n_split}: the "
+                         f"kernel needs kv_rank a multiple of 32 up to "
+                         f"{MLA_MAX_RANK}, rope a multiple of {VEC}, "
+                         "n_split >= 1")
+    for t in (q_lat, q_rope, ckv_streams[0], ckv_streams[1], krope_streams[0],
+              krope_streams[1]):
+        if t.data_ptr() % 16:
+            raise ValueError("q_lat, q_rope and the page streams must be "
+                             "16-byte aligned")
+    hpc = mla_head_group(h, nq)
+    tile = _mla_tile(tp, nq * hpc, r, rope)
+    acc, m, l, parts = _partials(b, nq, h, r, n_split, q_lat.device)
     lut = decode_lut(exponents)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q_lat.device):
         err = lib.sz_paged_mla(
             build.FMT_ID[fmt], q_lat.data_ptr(), q_rope.data_ptr(),
             *(t.data_ptr() for t in ckv_streams),
             *(t.data_ptr() for t in krope_streams), page_table_ckv.data_ptr(),
             page_table_krope.data_ptr(), cache_len.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, nq, h, hpc, r, rope, n_pages, tp,
-            pe_c, cap_c, npg_c, pe_r, cap_r, npg_r, int(bool(causal)),
-            float(scale), tile, 256, smem, lut.ctypes.data,
+            m.data_ptr(), l.data_ptr(), *parts, b, nq, h, hpc, r, rope,
+            n_pages, tp, pe_c, cap_c, npg_c, pe_r, cap_r, npg_r,
+            int(bool(causal)), float(scale), tile, n_split, lut.ctypes.data,
             build.stream_of(q_lat))
     build.check(lib, err, "paged_mla_attention")
     paged_mla_attention.launches += 1

@@ -207,7 +207,7 @@ def test_gqa_split_partials_merge_to_the_unsplit_plain_version(name):
     tp = case["tokens_per_page"]
     for length in case["cache_len"].tolist():
         n_full = min(length // tp, n_pages)
-        covered = [p for lo, hi in SA.gqa_split_ranges(n_split, n_pages, n_full)
+        covered = [p for lo, hi in SA.split_ranges(n_split, n_pages, n_full)
                    for p in range(lo, hi)]
         assert covered == list(range(n_full)), (length, covered)
     parts = SA.paged_gqa_splits_plain(**case, n_split=n_split)
@@ -246,11 +246,11 @@ def test_gqa_split_edges_reach_their_edges():
 ])
 def test_gqa_split_count_covers_the_card(args, want):
     n_sm, b, hkv, n_pages = args
-    n_split = SA.gqa_split_count(*args)
+    n_split = SA.split_count(*args)
     assert n_split == want
     assert 1 <= n_split <= max(1, n_pages)
     if n_split < n_pages:
-        assert b * hkv * n_split >= SA.GQA_WAVES * n_sm
+        assert b * hkv * n_split >= SA.SPLIT_WAVES * n_sm
 
 
 def test_gqa_tile_fits_the_budget():
@@ -260,6 +260,104 @@ def test_gqa_tile_fits_the_budget():
     assert SA._gqa_tile(32, 8, 128, 128, 2) == 32
     assert SA.gqa_smem_bytes(80, 3, 64, 64, 2) == 2 * 15_360 + 2 * 21_120 + 2_520
     assert SA._gqa_tile(256, 8, 128, 128, 2) < 256
+
+
+# ---------------------------------------------------------------------------
+# the MLA split: head groups, split count, per-split partials, merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(AC.MLA_SPLIT_EDGE))
+def test_mla_split_partials_merge_to_the_unsplit_plain_version(name):
+    """As for GQA: the ranges cover each row's full pages once; the per-split
+    plain partials, folded with ``merge_partials`` and merged as the merge
+    kernel does, give the unsplit plain version's ``m`` bitwise and ``l``,
+    ``acc`` within ``PARTIALS_RTOL``."""
+    kw, n_split = AC.MLA_SPLIT_EDGE[name]
+    case = AC.mla_case("bf16", 32, **kw)
+    n_pages = case["page_table_ckv"].shape[1]
+    tp = case["tokens_per_page"]
+    for length in case["cache_len"].tolist():
+        n_full = min(length // tp, n_pages)
+        covered = [p for lo, hi in SA.split_ranges(n_split, n_pages, n_full)
+                   for p in range(lo, hi)]
+        assert covered == list(range(n_full)), (length, covered)
+    parts = SA.paged_mla_splits_plain(**case, n_split=n_split)
+    assert parts[0].shape == (n_split, *case["q_lat"].shape)
+    want = SA.paged_mla_attention_plain(**case)
+    folded = tuple(x[0] for x in parts)
+    for s in range(1, n_split):
+        folded = SA.merge_partials(folded, tuple(x[s] for x in parts))
+    for got in (folded, SA.merge_splits(*parts)):
+        assert torch.equal(got[1], want[1])
+        AC.check_partials(got, want)
+
+
+def test_mla_split_edges_reach_their_edges():
+    """Each MLA edge case has what its name says."""
+    E = AC.MLA_SPLIT_EDGE
+    assert E["more_splits_than_pages"][1] > E["more_splits_than_pages"][0]["pages"]
+    assert min(E["empty_row"][0]["lens"]) < E["empty_row"][0]["tp"]
+    kw, n_split = E["nq4_causal_masked_split"]
+    acc, m, l = SA.paged_mla_splits_plain(**AC.mla_case("bf16", 32, **kw),
+                                          n_split=n_split)
+    dead = m <= SA.NEG_INF                        # (split, B, nq, H)
+    assert bool(dead[-1, 0, 0].all())             # last split, first query
+    assert not bool(dead[-1, 0, -1].any())        # ... the last query sees it
+    assert not l[dead].any() and not acc[dead].any()
+    kw = E["nq4_h40_four_groups"][0]
+    assert SA.mla_grid(kw["batch"], 4, 40, kw["pages"], 132)[1] == 4
+    assert E["rope64"][0]["rope"] == 64
+    case = AC.mla_case("bf16", 32, **E["distinct_caps_rank256"][0])
+    assert case["ckv_streams"][2].shape[1] != case["krope_streams"][2].shape[1]
+    kw = E["two_tiles_a_page"][0]
+    assert SA._mla_tile(kw["tp"], kw["heads"], kw["rank"], kw["rope"]) \
+        == SA.MLA_TILE < kw["tp"]
+    assert kw["tp"] % SA.MLA_TILE % 16                      # a padded tile
+
+
+@pytest.mark.parametrize("h,nq,want", [
+    (40, 1, 40),                # minicpm3-4b decode: one CTA a row
+    (40, 4, 10),                # 160 rows: four groups of 10 heads
+    (40, 2, 20),
+    (8, 1, 8),
+    (8, 4, 8),
+    (1, 1, 1),
+    (1, 64, 1),
+])
+def test_mla_head_group(h, nq, want):
+    hpc = SA.mla_head_group(h, nq)
+    assert hpc == want and h % hpc == 0 and nq * hpc <= SA.MLA_MAX_ROWS
+
+
+def test_mla_head_group_raises_past_64_queries():
+    with pytest.raises(ValueError, match="queries"):
+        SA.mla_head_group(1, 65)
+
+
+@pytest.mark.parametrize("args,want", [
+    ((4, 1, 40, 17, 132), (4, 1, 17)),    # minicpm3-4b served: a page a split
+    ((4, 4, 40, 17, 132), (4, 4, 17)),
+    ((64, 1, 40, 17, 132), (64, 1, 5)),   # 320 CTAs: past two waves
+    ((4, 1, 40, 0, 132), (4, 1, 1)),      # no pages
+])
+def test_mla_grid_at_the_served_shape(args, want):
+    assert SA.mla_grid(*args) == want
+
+
+def test_mla_smem_fits_the_card():
+    """minicpm3-4b's decode takes whole 64-token pages as tiles in 159,488
+    bytes (the CUDA source's ``mla_smem``); a wide rope halves the tile."""
+    assert SA.mla_smem_bytes(64, 40, 256, 32) == 48 * 296 * 2 + 2 * 64 * 296 * 2 \
+        + 2 * 27_648 == 159_488
+    assert SA._mla_tile(64, 40, 256, 32) == 64
+    assert SA._mla_tile(64, 64, 256, 256) == 32
+    assert SA.mla_smem_bytes(32, 64, 256, 256) <= SA.SMEM_MAX
+
+
+def test_launch_paged_mla_takes_cuda_operands_only():
+    case = AC.mla_case("bf16", 1, **MLA_CASES["nq1"])
+    with pytest.raises(ValueError, match="CUDA"):
+        SA.launch_paged_mla(**case, n_split=2)
 
 
 # ---------------------------------------------------------------------------
@@ -345,3 +443,23 @@ def test_gqa_split_edges_match_plain_on_card(cuda_device, fmt):
         AC.check_partials(SA.paged_gqa_attention(**dev), want)
         torch.cuda.synchronize()
         assert SA.paged_gqa_attention.launches == before + 3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_mla_split_edges_match_plain_on_card(cuda_device, fmt):
+    """The MLA split and merge kernels at each split edge, with the edge's
+    own split count, one split, and the wrapper's choice, against the
+    unsplit plain version; the wrapper counts one launch a call."""
+    for name, (kw, n_split) in AC.MLA_SPLIT_EDGE.items():
+        case = AC.mla_case(fmt, 6, **kw)
+        want = SA.paged_mla_attention(**case)
+        dev = AC.to_device(case, cuda_device)
+        before = SA.paged_mla_attention.launches
+        for n in (n_split, 1):
+            got = SA.launch_paged_mla(**dev, n_split=n)
+            torch.cuda.synchronize()
+            AC.check_partials(got, want)
+        AC.check_partials(SA.paged_mla_attention(**dev), want)
+        torch.cuda.synchronize()
+        assert SA.paged_mla_attention.launches == before + 3, name
