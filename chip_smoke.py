@@ -14,15 +14,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 2. kernels  — all four codec kernels held BITWISE against their plain
               PyTorch versions for bf16 / fp8_e5m2 / fp8_e4m3 on edge inputs
               (specials, zero-/all-escape rows, count == cap and cap + 1,
-              cap 1/64/128, a ragged tail), then timed with CUDA events at
-              the main path's shape (one smollm-135m KV leaf) beside their
-              plain versions and their memory bound.
+              cap 1/64/128, a ragged tail) and on the persistent fused
+              kernels' edges (chunks 256 to 8192, 1 and 7 rows, counts
+              31/32/33/cap, one lane's span, slots 31 and 32 on one
+              position, more rows than one pass of each grid), then timed
+              at the main path's shape (one smollm-135m KV leaf: device
+              time from a replayed CUDA graph, and issued eagerly) beside
+              their plain versions and their memory bound; the fused pair
+              also on the same leaf with about two escapes a row.
 3. main     — smollm-135m at full width with seeded random weights: batch 8,
               prompt 2048, 16 new tokens, codebook calibrated on the model's
               own prefill KV, through ``launch/serve.py``'s code path with
               the ``cuda`` backend at n_chunks 1 and 8 and with
               compression off.  Delivered caches must equal the prefill
               cache bit for bit and the tokens must agree across the runs.
+              At n_chunks 1 it also reports the escapes per row of the
+              streams sent and one ``torch.profiler`` trace of the encode
+              and decode halves (host clock beside device time).
 4. capacity — a cache with one chunk of nothing but escapes walks the
               capacity schedule to ``layout='global'``: the dense kernels
               launch and delivery stays bitwise.
@@ -133,15 +141,9 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = H100_F32_OPS_PER_S):
 def sass_count(lib_path, opcode: str):
     """How many ``opcode`` instructions the library's SASS holds
     (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
-    import shutil
-    tool = next((c for c in ("/usr/local/cuda/bin/cuobjdump",
-                             shutil.which("cuobjdump")) if c and Path(c).is_file()),
-                None)
-    if tool is None:
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    return sum(opcode in ln for ln in sass.splitlines())
+    from repro_torch.kernels import build
+    sass = build.sass(lib_path)
+    return None if sass is None else sum(opcode in ln for ln in sass.splitlines())
 
 
 def launch_counters():
@@ -189,79 +191,129 @@ KERNELS = {
 }
 
 
+def _bits_tensor(torch, bits, device):
+    """numpy container bits -> a tensor of the same width on ``device``."""
+    if bits.dtype.itemsize == 2:
+        return torch.from_numpy(bits.view("int16")).to(device).view(torch.uint16)
+    return torch.from_numpy(bits).to(device)
+
+
 def phase_kernels(torch, cfg, device):
-    from repro_torch.core import codec as C
-    from repro_torch.core.codebook import calibrate
     from repro_torch.kernels import cases as K
     from repro_torch.kernels import splitzip_decode as D
     from repro_torch.kernels import splitzip_encode as E
-    from repro_torch.kernels.timing import cuda_ms
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
 
-    # edge inputs, all formats, every kernel bitwise against its plain version
-    n_cases = 0
+    # edge inputs, all formats, every kernel bitwise against its plain
+    # version; then the persistent fused kernels' own edges: every chunk
+    # width, 1 and 7 rows, the 32-slot prefetch, one lane's span, a repeated
+    # slot, and more rows than one pass of each grid covers
+    n_cases, passes = 0, {}
     for fmt, cb in K.CODEBOOKS.items():
-        for name, bits, cap in K.kernel_cases(fmt, seed=1):
-            t = torch.from_numpy(bits.view("int16") if bits.dtype.itemsize == 2
-                                 else bits).to(device)
-            if bits.dtype.itemsize == 2:
-                t = t.view(torch.uint16)
-            errs = K.check_case(t, cb, cap)
+        edges = [(name, bits, cap, 1024) for name, bits, cap
+                 in K.kernel_cases(fmt, seed=1)] + K.fused_cases(fmt, seed=1)
+        for chunk in (1024, 768):
+            big = 1 << 40
+            warps = max(E.fused_grid(fmt, big, chunk, device) * E.FUSED_WARPS,
+                        D.fused_grid(fmt, big, chunk, device) * D.FUSED_WARPS)
+            passes[f"{fmt}/{chunk}"] = warps
+            edges.append((f"grid_pass_{chunk}", K.many_rows(fmt, warps + 37, 5, chunk),
+                          64, chunk))
+        for name, bits, cap, chunk in edges:
+            errs = K.check_case(_bits_tensor(torch, bits, device), cb, cap, chunk)
             if max(errs.values()) != 0:
                 raise AssertionError(f"{fmt}/{name}: kernel != plain {errs}")
             n_cases += 1
+        streams = tuple(t.to(device) for t in K.repeated_slot_case(fmt))
+        if K.check_decode_case(streams, cb) != 0:
+            raise AssertionError(f"{fmt}/repeated slot: decode_fused != plain")
+        n_cases += 1
     torch.cuda.synchronize()
 
-    # main-path shape: one smollm KV leaf (L, B, S, Hkv, hd), synthetic bf16
+    # main-path shape: one smollm KV leaf (L, B, S, Hkv, hd), synthetic bf16,
+    # and the same leaf with about two escapes a row
     shape = (cfg.num_layers, BATCH, PROMPT + 1 + NEW_TOKENS, cfg.num_kv_heads,
              cfg.head_dim)
-    gen = torch.Generator(device=device).manual_seed(7)
-    leaf = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    sample = leaf.reshape(-1)[: 1 << 22].view(torch.int16).cpu().numpy().view("uint16")
-    cb = calibrate([sample], k=16)
+    if shape != K.MAIN_LEAF_SHAPE:
+        raise AssertionError(f"main-path leaf {shape} != {K.MAIN_LEAF_SHAPE}")
+    x, cb = K.codec_leaf(device, shape)
     exps, chunk, cap = tuple(cb.exponents), 1024, 64
-    x = C.to_bits(leaf, "bf16").reshape(-1, chunk)
     rows, n = x.shape[0], x.numel()
-    enc = E.encode_fused(x, exps, "bf16", chunk, cap)
-    sm, packed, pos, val, cnt = enc
-    cnt = torch.clamp(cnt, max=cap)
+
+    def fused_runs(bits):
+        enc = E.encode_fused(bits, exps, "bf16", chunk, cap)
+        sm, packed, pos, val, cnt = enc
+        cnt = torch.clamp(cnt, max=cap)
+        applied = int(cnt.sum())          # escape slots decode_fused reads
+        return applied, {
+            "encode_fused": (lambda: E.encode_fused(bits, exps, "bf16", chunk, cap),
+                             lambda: E.encode_fused_plain(bits, exps, "bf16", chunk, cap),
+                             2 * n + n + n // 2 + 3 * rows * cap + 4 * rows, 16 * n),
+            "decode_fused": (lambda: D.decode_fused(packed, sm, pos, val, cnt, exps, "bf16", chunk),
+                             lambda: D.decode_fused_plain(packed, sm, pos, val, cnt, exps, "bf16", chunk),
+                             n // 2 + n + 3 * applied + 4 * rows + 2 * n, 12 * n)}
+
+    def held(name, kernel, plain, label):
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = K.max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel != plain at the {label} shape")
+        return err
+
+    applied, runs = fused_runs(x)
     dense = E.encode_dense(x, exps, "bf16", chunk)
-    applied = int(cnt.sum())          # escape slots decode_fused reads
-    runs = {
-        "encode_fused": (lambda: E.encode_fused(x, exps, "bf16", chunk, cap),
-                         lambda: E.encode_fused_plain(x, exps, "bf16", chunk, cap),
-                         2 * n + n + n // 2 + 3 * rows * cap + 4 * rows, 16 * n),
-        "decode_fused": (lambda: D.decode_fused(packed, sm, pos, val, cnt, exps, "bf16", chunk),
-                         lambda: D.decode_fused_plain(packed, sm, pos, val, cnt, exps, "bf16", chunk),
-                         n // 2 + n + 3 * applied + 4 * rows + 2 * n, 12 * n),
+    runs.update({
         "encode_dense": (lambda: E.encode_dense(x, exps, "bf16", chunk),
                          lambda: E.encode_dense_plain(x, exps, "bf16", chunk),
                          2 * n + n + n // 2 + n, 12 * n),
         "decode_dense": (lambda: D.decode_dense(dense[1], dense[0], exps, "bf16", chunk),
                          lambda: D.decode_dense_plain(dense[1], dense[0], exps, "bf16", chunk),
                          n // 2 + n + 2 * n, 10 * n),
-    }
+    })
     records = {}
     for name, (kernel, plain, nbytes, ops) in runs.items():
-        got, want = kernel(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = K.max_abs_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{name}: kernel != plain at the main-path shape")
+        err = held(name, kernel, plain, "main-path")
         b_ms, b_by = bound_ms(nbytes, ops)
-        ms = cuda_ms(kernel, reps=20)
+        ms = graph_ms(kernel, reps=20)
         records[name] = dict(
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=None, max_abs_err=err,
             bitwise_equal=True, ms=ms, kernel_ms=ms,
+            eager_ms=cuda_ms(kernel, reps=20),
             plain_ms=cuda_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, bytes=nbytes, ops=ops,
-            shape=[rows, chunk], escapes_applied=applied if name == "decode_fused" else None)
-    del leaf, x, enc, dense
+            bound_by=b_by, library_ms=None,
+            library="none: no single PyTorch call computes it",
+            bytes=nbytes, ops=ops, shape=[rows, chunk])
+    # codec throughput in raw (bf16) bytes, the paper's measure
+    raw_bytes = 2 * n
+    for name, fused in (("encode_fused", E), ("decode_fused", D)):
+        records[name].update(
+            grid=[fused.fused_grid("bf16", rows, chunk, device), fused.FUSED_WARPS],
+            escapes_applied=applied, escapes_per_row=applied / rows,
+            raw_bytes=raw_bytes, raw_gb_per_s=raw_bytes / records[name]["ms"] / 1e6)
+    del dense, runs
+    torch.cuda.empty_cache()
+
+    heavy_bits = K.escape_heavy(x, cb)
+    heavy_applied, heavy = fused_runs(heavy_bits)
+    for name, (kernel, plain, nbytes, ops) in heavy.items():
+        err = held(name, kernel, plain, "escape-heavy")
+        b_ms, b_by = bound_ms(nbytes, ops)
+        ms = graph_ms(kernel, reps=20)
+        records[name]["escape_heavy"] = dict(
+            ms=ms, eager_ms=cuda_ms(kernel, reps=20), bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, max_abs_err=err,
+            escapes_applied=heavy_applied, escapes_per_row=heavy_applied / rows,
+            raw_gb_per_s=raw_bytes / ms / 1e6)
+    del x, heavy_bits, heavy
     torch.cuda.empty_cache()
     emit(phase="kernels", edge_cases=n_cases, formats=list(K.CODEBOOKS),
-         timed={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bytes")}
-                for k, v in records.items()})
+         grid_pass_warps=passes,
+         timed={k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms", "bound_ms", "bytes")}
+                for k, v in records.items()},
+         escape_heavy={k: records[k]["escape_heavy"] for k in ("encode_fused", "decode_fused")})
     return records
 
 
@@ -300,6 +352,46 @@ def phase_main(torch, cfg, device):
             raise AssertionError("send/recv: delivered cache != prefill cache")
         return {"encode": t1 - t0, "decode": t2 - t1}
 
+    def codec_profile(eng, cache):
+        """One more send and recv under ``torch.profiler``: each half's host
+        clock (profiled) beside the device time of the kernels and copies it
+        ran, and its host operations by their own host time, largest
+        first."""
+        from torch.profiler import ProfilerActivity, profile
+        sess = eng.plan.session()
+        out = {}
+        for half, call in (("encode", lambda: sess.send(cache)),
+                           ("decode", sess.recv)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev = sorted(((ev.device_time_total / 1e3, ev.count, ev.key[:90])
+                          for ev in prof.key_averages()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA
+                          and ev.device_time_total > 0), reverse=True)
+            host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key[:60])
+                           for ev in prof.key_averages()
+                           if ev.device_type == torch.autograd.DeviceType.CPU),
+                          reverse=True)
+            out[half] = dict(wall_ms=wall * 1e3,
+                             device_ms=sum(ms for ms, _, _ in dev),
+                             device=[dict(name=k, ms=ms, calls=c)
+                                     for ms, c, k in dev[:8]],
+                             host=[dict(name=k, self_ms=ms, calls=c)
+                                   for ms, c, k in host[:8]])
+        return out
+
+    def served_escapes(eng, cache):
+        """Escapes per chunk row of the streams the served path sends."""
+        comp, _ = eng.plan.session().transfer_compressed(cache)
+        rows = sum(ct.n_padded // ct.chunk for ct in comp.values())
+        escapes = sum(int(ct.esc_count.sum()) for ct in comp.values())
+        return dict(escapes=escapes, rows=rows, escapes_per_row=escapes / rows)
+
     results, tokens, launches = {}, {}, {}
     for label, kw in (("cuda_n1", dict(n_chunks=1)),
                       ("cuda_n8", dict(n_chunks=8)),
@@ -319,6 +411,9 @@ def phase_main(torch, cfg, device):
             codec_ok=eng.stats.codec_ok, plan=eng.describe_plan())
         if label == "cuda_n1":
             first = res
+            results[label].update(
+                escapes=served_escapes(eng, res.prefill.state.cache),
+                codec_profile=codec_profile(eng, res.prefill.state.cache))
     for label in ("cuda_n8", "raw"):
         if not torch.equal(tokens[label], tokens["cuda_n1"]):
             raise AssertionError(f"tokens differ: {label} vs cuda_n1")

@@ -1,24 +1,35 @@
-"""Time the redesigned MLA paged-attention kernel beside an earlier revision's.
+"""Time a redesigned kernel beside an earlier revision's, in turns.
 
-    PYTHONPATH=src python -m repro_torch.kernels.ab_kernels --old DIR [--reps N]
+    PYTHONPATH=src python -m repro_torch.kernels.ab_kernels --old DIR \
+        [--kernel paged_mla_attention|encode_fused|decode_fused] [--reps N]
 
-``DIR`` holds that revision's ``splitzip_attention.cu`` (``git show
-REV:src/repro_torch/kernels/csrc/splitzip_attention.cu``, REV the parent
-commit, whose MLA kernel is one CTA per row and group of up to 8 heads over
-all its pages, on the f32 CUDA cores) in a directory git ignores.  It is
-built there with this package's ``nvcc`` flags and called through its own C
-entry (``sz_paged_mla`` as that revision declares it, with the token tile,
-256 threads and shared memory its wrapper chose).  This revision's kernel
-runs through its wrapper.
+``DIR`` holds that revision's source of the kernel (``git show
+REV:src/repro_torch/kernels/csrc/<file>.cu``, REV the parent commit) in a
+directory git ignores (``build/parent``).  It is built there with this
+package's ``nvcc`` flags and called through its own C entry; this
+revision's kernel runs through its wrapper.
 
-The geometry is minicpm3-4b's served resident decode
-(``attention_cases.MLA_SERVED``), bf16, timed in turns, old, new, new, old,
-after both outputs are held against the plain version: ``old_ms``/``new_ms``
-are device time (``timing.graph_ms``: ``--reps`` calls in one CUDA graph,
+* ``paged_mla_attention`` (the default; ``splitzip_attention.cu``): the
+  earlier ``sz_paged_mla`` (one CTA per row and group of up to 8 heads over
+  all its pages, on the f32 CUDA cores, with the token tile, 256 threads and
+  shared memory its wrapper chose), at minicpm3-4b's served resident decode
+  (``attention_cases.MLA_SERVED``), bf16.
+* ``encode_fused`` / ``decode_fused`` (``splitzip_encode.cu`` /
+  ``splitzip_decode.cu``): the earlier ``sz_encode_fused`` /
+  ``sz_decode_fused`` (one CTA per chunk row) through today's C prototypes,
+  at the main path's shape (``cases.codec_leaf``: one smollm-135m KV leaf,
+  92,925 rows of 1024 bf16, cap 64) and at the escape-heavy one
+  (``cases.escape_heavy``: the same leaf with about two escapes a row).
+  Also says whether the dense kernels of the two libraries compile to the
+  same instructions (``cuobjdump``, where the toolkit has it).
+
+Both outputs are first held against the plain version (bitwise for the
+codec), then timed in turns, old, new, new, old: ``old_ms``/``new_ms`` are
+device time (``timing.graph_ms``: ``--reps`` calls in one CUDA graph,
 replayed), and ``old_eager_ms``/``new_eager_ms`` the same calls issued from
 Python (``timing.cuda_ms``), which include a wrapper's host work where it
-exceeds its kernels.  One JSON line, then the card's ``nvidia-smi`` line.
-Needs a card.
+exceeds its kernels.  One JSON line per shape, then the card's
+``nvidia-smi`` line.  Needs a card.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,16 +46,25 @@ import torch
 
 from repro_torch.kernels import attention_cases as AC
 from repro_torch.kernels import build
+from repro_torch.kernels import cases as K
 from repro_torch.kernels import splitzip_attention as SA
+from repro_torch.kernels import splitzip_decode as D
+from repro_torch.kernels import splitzip_encode as E
 from repro_torch.kernels.splitzip_decode import decode_lut
 from repro_torch.kernels.timing import cuda_ms, graph_ms
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel -> (source, its earlier C entry and that entry's argtypes)
 OLD_PROTOTYPES = {
-    "splitzip_attention": {
+    "paged_mla_attention": ("splitzip_attention", {
         "sz_paged_mla": [_I] + [_P] * 18 + [_I] * 15 + [ctypes.c_float]
-                        + [_I] * 3 + [_P, _P]},
+                        + [_I] * 3 + [_P, _P]}),
+    "encode_fused": ("splitzip_encode", {
+        "sz_encode_fused": [_I] + [_P] * 6 + [_L, _I, _I, _P, _P]}),
+    "decode_fused": ("splitzip_decode", {
+        "sz_decode_fused": [_I] + [_P] * 6 + [_L, _I, _I, _P, _P]}),
 }
+CODEC_CHUNK, CODEC_CAP = 1024, 64
 #: the earlier wrapper's limits: query heads a CTA, the default dynamic
 #: shared memory, token sub-tiles tried (largest first)
 OLD_HEADS_PER_CTA = 8
@@ -51,26 +72,32 @@ OLD_SMEM_DEFAULT = 48 * 1024
 OLD_TILES = (64, 32, 16, 8, 4, 2, 1)
 
 
-def build_old(old: Path):
-    """The earlier sources in ``old`` -> loaded libraries, by name."""
-    libs, procs = {}, {}
-    for name in OLD_PROTOTYPES:
-        src, so = old / f"{name}.cu", old / f"lib{name}_old.so"
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the old {name}:\n{log}")
-        lib = ctypes.CDLL(str(old / f"lib{name}_old.so"))
-        lib.sz_error_string.argtypes = [_I]
-        lib.sz_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in OLD_PROTOTYPES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-        libs[name] = lib
-    return libs
+def build_old(old: Path, kernel: str):
+    """The earlier source of ``kernel`` in ``old`` -> (loaded library, its
+    path, the ``nvcc`` log).  A header it includes is looked up beside it,
+    then in this revision's ``csrc/``."""
+    name, prototypes = OLD_PROTOTYPES[kernel]
+    src, so = old / f"{name}.cu", old / f"lib{name}_old.so"
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
+         str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the old {name}:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(so))
+    lib.sz_error_string.argtypes = [_I]
+    lib.sz_error_string.restype = ctypes.c_char_p
+    for fn, argtypes in prototypes.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    return lib, so, proc.stdout
+
+
+def _ptxas(log: str):
+    """The ``-Xptxas -v`` lines of an ``nvcc`` log: per kernel, its
+    registers, spills and shared memory."""
+    return [ln.strip() for ln in log.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
 
 
 def in_turns(old, new, reps: int) -> dict:
@@ -125,31 +152,139 @@ def old_mla(lib, case):
     return acc, m, l
 
 
+def ab_mla(lib, dev, reps: int) -> None:
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, kw in AC.MLA_SERVED.items():
+        case = AC.to_device(AC.mla_case("bf16", 7, **kw), dev)
+        want = SA.paged_mla_attention_plain(**case)
+        AC.check_partials(old_mla(lib, case), want)
+        AC.check_partials(SA.paged_mla_attention(**case), want)
+        rec = in_turns(lambda: old_mla(lib, case),
+                       lambda: SA.paged_mla_attention(**case), reps)
+        grid = SA.mla_grid(kw["batch"], kw["nq"], kw["heads"], kw["pages"], n_sm)
+        print(json.dumps(dict(kernel="paged_mla_attention", geometry=name,
+                              **{k: v for k, v in kw.items() if k != "lens"},
+                              cache_len=kw["lens"][0], grid=grid, **rec)),
+              flush=True)
+
+
+def old_encode(lib, x, exps):
+    """The earlier ``sz_encode_fused`` into fresh outputs, as its wrapper
+    called it."""
+    rows, dev = x.shape[0], x.device
+    sm = torch.empty((rows, CODEC_CHUNK), dtype=torch.uint8, device=dev)
+    packed = torch.empty((rows, CODEC_CHUNK // 2), dtype=torch.uint8, device=dev)
+    pos = torch.empty((rows, CODEC_CAP), dtype=torch.uint16, device=dev)
+    val = torch.empty((rows, CODEC_CAP), dtype=torch.uint8, device=dev)
+    cnt = torch.empty((rows, 1), dtype=torch.int32, device=dev)
+    err = lib.sz_encode_fused(
+        build.FMT_ID["bf16"], x.data_ptr(), sm.data_ptr(), packed.data_ptr(),
+        pos.data_ptr(), val.data_ptr(), cnt.data_ptr(), rows, CODEC_CHUNK,
+        CODEC_CAP, E.encode_lut(exps).ctypes.data, build.stream_of(x))
+    build.check(lib, err, "old encode_fused")
+    return sm, packed, pos, val, cnt
+
+
+def old_decode(lib, streams, exps):
+    """The earlier ``sz_decode_fused`` into a fresh output."""
+    packed, sm, pos, val, cnt = streams
+    out = torch.empty(sm.shape, dtype=torch.uint16, device=sm.device)
+    err = lib.sz_decode_fused(
+        build.FMT_ID["bf16"], packed.data_ptr(), sm.data_ptr(), pos.data_ptr(),
+        val.data_ptr(), cnt.data_ptr(), out.data_ptr(), sm.shape[0],
+        CODEC_CHUNK, CODEC_CAP, decode_lut(exps).ctypes.data,
+        build.stream_of(sm))
+    build.check(lib, err, "old decode_fused")
+    return out
+
+
+def dense_sass(lib_path: Path):
+    """``{(element type, mbits, ebits): instructions}`` of the dense codec
+    kernels in a library's SASS, or None where the toolkit has no
+    ``cuobjdump``.  Parameter offsets (constant bank 0) are masked: the
+    earlier sources instantiated the dense kernels as ``encode_kernel`` /
+    ``decode_kernel`` with ``FUSED = false`` and the fused kernel's escape
+    buffers among their parameters."""
+    sass = build.sass(lib_path)
+    if sass is None:
+        return None
+    out, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            f = m.group(1)
+            k = re.search(r"_kernelI([th])Li(\d)ELi(\d)E(Lb0E)?", f)
+            key = None
+            if k and ("dense_kernel" in f or k.group(4)):
+                key = (k.group(1), k.group(2), k.group(3))
+                out[key] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if key is not None and m:
+            out[key].append(re.sub(r"c\[0x0\]\[(R\d+\+)?0x[0-9a-f]+\]",
+                                   r"c[0x0][\1*]", m.group(1)))
+    return out
+
+
+def ab_codec(kernel: str, lib, lib_path: Path, dev, reps: int) -> None:
+    x, cb = K.codec_leaf(dev)
+    exps = tuple(cb.exponents)
+    inputs = {"main": x, "escape_heavy": K.escape_heavy(x, cb)}
+    for label, bits in inputs.items():
+        rows = bits.shape[0]
+        enc = E.encode_fused(bits, exps, "bf16", CODEC_CHUNK, CODEC_CAP)
+        streams = (enc[1], enc[0], enc[2], enc[3],
+                   torch.clamp(enc[4], max=CODEC_CAP))
+        if kernel == "encode_fused":
+            old = lambda: old_encode(lib, bits, exps)
+            new = lambda: E.encode_fused(bits, exps, "bf16", CODEC_CHUNK, CODEC_CAP)
+            want = E.encode_fused_plain(bits, exps, "bf16", CODEC_CHUNK, CODEC_CAP)
+            grid = [E.fused_grid("bf16", rows, CODEC_CHUNK, dev), E.FUSED_WARPS]
+        else:
+            old = lambda: (old_decode(lib, streams, exps),)
+            new = lambda: (D.decode_fused(*streams, exps, "bf16", CODEC_CHUNK),)
+            want = (D.decode_fused_plain(*streams, exps, "bf16", CODEC_CHUNK),)
+            grid = [D.fused_grid("bf16", rows, CODEC_CHUNK, dev), D.FUSED_WARPS]
+        for who, fn in (("old", old), ("new", new)):
+            if K.max_abs_err(fn(), want) != 0:
+                raise AssertionError(f"{who} {kernel} != plain on {label}")
+        escapes = int(enc[4].sum())
+        rec = in_turns(old, new, reps)
+        print(json.dumps(dict(kernel=kernel, input=label, rows=rows,
+                              chunk=CODEC_CHUNK, cap=CODEC_CAP,
+                              escapes=escapes, escapes_per_row=escapes / rows,
+                              applied=int(streams[4].sum()), bitwise_equal=True,
+                              grid=grid, **rec)), flush=True)
+        del enc, streams, want
+        torch.cuda.empty_cache()
+    old_sass = dense_sass(lib_path)
+    new_sass = dense_sass(build.library_path(OLD_PROTOTYPES[kernel][0]))
+    print(json.dumps(dict(
+        kernel=kernel, dense_kernels=sorted("/".join(k) for k in (new_sass or {})),
+        dense_sass_equal=None if old_sass is None else (
+            bool(new_sass) and old_sass == new_sass))), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True, type=Path,
-                    help="directory with the earlier revision's .cu sources")
+                    help="directory with the earlier revision's .cu source")
+    ap.add_argument("--kernel", default="paged_mla_attention",
+                    choices=sorted(OLD_PROTOTYPES))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    libs = build_old(args.old)
-    build.build_all()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, kw in AC.MLA_SERVED.items():
-        case = AC.to_device(AC.mla_case("bf16", 7, **kw), dev)
-        want = SA.paged_mla_attention_plain(**case)
-        AC.check_partials(old_mla(libs["splitzip_attention"], case), want)
-        AC.check_partials(SA.paged_mla_attention(**case), want)
-        rec = in_turns(lambda: old_mla(libs["splitzip_attention"], case),
-                       lambda: SA.paged_mla_attention(**case), args.reps)
-        grid = SA.mla_grid(kw["batch"], kw["nq"], kw["heads"], kw["pages"], n_sm)
-        print(json.dumps(dict(kernel="paged_mla_attention", geometry=name,
-                              **{k: v for k, v in kw.items() if k != "lens"},
-                              cache_len=kw["lens"][0], grid=grid, **rec)),
-              flush=True)
+    lib, lib_path, old_log = build_old(args.old, args.kernel)
+    new_log = build.build_all().get(OLD_PROTOTYPES[args.kernel][0], "")
+    print(json.dumps(dict(kernel=args.kernel, ptxas_old=_ptxas(old_log),
+                          ptxas_new=_ptxas(new_log))), flush=True)
+    if args.kernel == "paged_mla_attention":
+        ab_mla(lib, dev, args.reps)
+    else:
+        ab_codec(args.kernel, lib, lib_path, dev, args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

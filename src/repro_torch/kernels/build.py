@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/repro_torch_kernels/``
 at the repository root (listed in ``.gitignore``).  A library's file name
-carries a hash of its source and of the compiler flags, so an edited source
-rebuilds and an unchanged one is reused.  All missing libraries are compiled
+carries a hash of its source, of the headers under ``csrc/`` and of the
+compiler flags, so an edited source or header rebuilds and an unchanged one
+is reused.  All missing libraries are compiled
 together, one ``nvcc`` process per source.
 
 Importing this module builds nothing; :func:`library` (called by a kernel
@@ -30,6 +31,8 @@ SOURCES = {
     "splitzip_attention": CSRC / "splitzip_attention.cu",
     "flash_attention": CSRC / "flash_attention.cu",
 }
+#: headers the sources include: a library's key covers them too
+HEADERS = (CSRC / "codec_stream.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -55,7 +58,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes()
+                            + b"".join(h.read_bytes() for h in HEADERS)
+                            + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -107,6 +112,18 @@ def library(name: str, prototypes: Optional[dict] = None) -> ctypes.CDLL:
     return lib
 
 
+def sass(lib_path: Path) -> Optional[str]:
+    """The library's SASS (``cuobjdump -sass``), or None where the toolkit
+    has no ``cuobjdump``."""
+    tool = next((c for c in ("/usr/local/cuda/bin/cuobjdump",
+                             shutil.which("cuobjdump")) if c and Path(c).is_file()),
+                None)
+    if tool is None:
+        return None
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
 def loaded() -> Dict[str, ctypes.CDLL]:
     """The libraries loaded in this process so far (empty until a launch)."""
     return dict(_LOADED)
@@ -126,7 +143,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 #: the ``fmt`` argument of every C entry point
 FMT_ID = {"bf16": 0, "fp8_e5m2": 1, "fp8_e4m3": 2}
 
-#: the kernels give each thread 8 elements and keep whole warps per row
+#: the codec kernels walk a row in whole 256-element warp steps (the dense
+#: ones with one CTA of chunk / 8 threads a row)
 MAX_CHUNK = 8192
 
 
@@ -154,8 +172,8 @@ def check_operand(t, name: str, dtype, shape) -> None:
 
 
 def check_launchable(chunk: int, *tensors) -> None:
-    """What only the CUDA kernels require: a chunk of whole warps (8
-    elements per thread) and 16-byte aligned operands."""
+    """What only the CUDA kernels require: a chunk of whole 256-element
+    warp steps and 16-byte aligned operands."""
     if chunk % 256 or not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk}: the CUDA kernels need a multiple of "
                          f"256 up to {MAX_CHUNK}")

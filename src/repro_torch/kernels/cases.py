@@ -5,8 +5,16 @@ capacity, chosen where a kernel is most likely to differ from its plain
 version: special values (NaN payloads, infinities, signed zeros,
 subnormals), rows without escapes, rows that are all escapes, escape counts
 at ``cap`` and ``cap + 1``, capacities 1/64/128, and a ragged tail that
-``_pad_to_chunk`` pads.  Made with numpy from a seed, so the CPU tests and
-the on-card check draw the same inputs.
+``_pad_to_chunk`` pads.  :func:`fused_cases` adds the edges of the
+persistent warp-a-row fused kernels (other chunk widths, 1 and 7 rows,
+counts around the 32-slot prefetch, escapes packed into one lane's
+elements) and :func:`repeated_slot_case` a decode input whose slots 31 and
+32 name one position.  Made with numpy from a seed, so the CPU tests and the
+on-card check draw the same inputs.
+
+:func:`codec_leaf` and :func:`escape_heavy` make the timed inputs, on the
+card: one smollm-135m KV leaf of seeded normal bf16 values, and the same
+leaf with about two escapes a row.
 """
 
 from __future__ import annotations
@@ -103,6 +111,117 @@ def kernel_cases(fmt: str, seed: int = 0, chunk: int = 1024
     return out
 
 
+def _rows(cb: Codebook, counts, chunk: int, rng: np.random.Generator) -> np.ndarray:
+    return np.concatenate([_row_with_escapes(cb, n, chunk, rng) for n in counts])
+
+
+def _row_escaping_at(cb: Codebook, positions, chunk: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """One chunk whose exponents are in the codebook except at ``positions``."""
+    row = _row_with_escapes(cb, 0, chunk, rng)
+    mbits, ebits = FORMATS[cb.fmt]["mbits"], FORMATS[cb.fmt]["ebits"]
+    field = np.asarray(((1 << ebits) - 1) << mbits, dtype=row.dtype)
+    esc = np.asarray(_escape_exponent(cb) << mbits, dtype=row.dtype)
+    row[list(positions)] = (row[list(positions)] & ~field) | esc
+    return row
+
+
+#: (chunk, per-row escape counts, cap): chunks of 1 to 32 steps of 256
+#: elements, with counts under, at and over the cap
+FUSED_CHUNKS = ((256, (0, 3, 4, 5), 4), (768, (2, 0, 9, 8), 8),
+                (2048, (1, 7, 0), 6), (8192, (40, 3, 0), 33))
+
+
+def fused_cases(fmt: str, seed: int = 0
+                ) -> List[Tuple[str, np.ndarray, int, int]]:
+    """``[(name, flat container bits, cap, chunk), ...]``: where a
+    persistent kernel that takes a warp a row is most likely to go wrong."""
+    rng = np.random.default_rng(seed)
+    cb = CODEBOOKS[fmt]
+    out = [(f"chunk{chunk}", _rows(cb, counts, chunk, rng), cap, chunk)
+           for chunk, counts, cap in FUSED_CHUNKS]
+    out.append(("rows1", _rows(cb, (5,), 1024, rng), 8, 1024))
+    out.append(("rows7", _rows(cb, (0, 1, 8, 9, 3, 0, 2), 1024, rng), 8, 1024))
+    # around the 32 slots decode reads with the streams, and at cap / cap + 1
+    out.append(("count31_32_33_cap40",
+                _rows(cb, (31, 32, 33, 40, 41), 1024, rng), 40, 1024))
+    # every escape of a row inside one 16-element span (first, middle, last)
+    out.append(("one_lane16", np.concatenate(
+        [_row_escaping_at(cb, range(16 * l, 16 * l + 16), 1024, rng)
+         for l in (0, 13, 63)]), 16, 1024))
+    return out
+
+
+def repeated_slot_case(fmt: str, seed: int = 0, chunk: int = 1024,
+                       cap: int = 40):
+    """Decode streams (packed, sign_mantissa, esc_pos, esc_val, esc_count) of
+    two rows whose first row's slots 31 and 32 name one position with
+    different values (count 40 == cap): the later slot must win."""
+    rng = np.random.default_rng(seed)
+    cb = CODEBOOKS[fmt]
+    bits = _rows(cb, (cap, 2), chunk, rng)
+    t = torch.from_numpy(bits.view(np.int16)).view(torch.uint16) \
+        if bits.dtype == np.uint16 else torch.from_numpy(bits)
+    sm, packed, pos, val, cnt = E.encode_fused_plain(
+        t.reshape(-1, chunk), tuple(cb.exponents), fmt, chunk, cap)
+    pos, val = C.signed_view(pos).clone(), val.clone()
+    pos[0, 32] = pos[0, 31]
+    val[0, 32] = (int(val[0, 31]) + 1) % (1 << FORMATS[fmt]["ebits"])
+    return packed, sm, C.unsigned_view(pos), val, torch.clamp(cnt, max=cap)
+
+
+def many_rows(fmt: str, rows: int, seed: int = 0, chunk: int = 1024,
+              rate: float = 2 / 1024) -> np.ndarray:
+    """``rows`` chunks whose elements escape independently with probability
+    ``rate``: enough rows to take a persistent grid more than one pass."""
+    rng = np.random.default_rng(seed)
+    cb = CODEBOOKS[fmt]
+    n = rows * chunk
+    e = rng.choice(np.asarray(cb.exponents), size=n)
+    e[rng.random(n) < rate] = _escape_exponent(cb)
+    mbits = FORMATS[fmt]["mbits"]
+    return _compose(e, rng.integers(0, 1 << mbits, n), rng.integers(0, 2, n), fmt)
+
+
+# ---------------------------------------------------------------------------
+# the timed inputs (on the card)
+# ---------------------------------------------------------------------------
+
+#: one smollm-135m KV leaf (layers, batch, sequence, KV heads, head_dim) at
+#: chip_smoke's main path: batch 8, a 2048-token prompt plus 1 + 16 tokens
+MAIN_LEAF_SHAPE = (30, 8, 2048 + 1 + 16, 3, 64)
+
+
+def codec_leaf(device, shape=MAIN_LEAF_SHAPE, seed: int = 7):
+    """Seeded normal bf16 values of ``shape`` as (rows, 1024) u16 container
+    bits, and the 16-exponent codebook calibrated on their first 4 Mi."""
+    from repro_torch.core.codebook import calibrate
+    gen = torch.Generator(device=device).manual_seed(seed)
+    leaf = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    sample = leaf.reshape(-1)[: 1 << 22].view(torch.int16).cpu().numpy().view("uint16")
+    cb = calibrate([sample], k=16)
+    return C.to_bits(leaf, "bf16").reshape(-1, 1024), cb
+
+
+def escape_heavy(bits: torch.Tensor, cb: Codebook, rate: float = 2 / 1024,
+                 seed: int = 11) -> torch.Tensor:
+    """A copy of container ``bits`` in which each element, chosen
+    independently with probability ``rate`` by a seeded generator, gets an
+    exponent outside ``cb`` (uniform over those), sign and mantissa kept."""
+    s = FORMATS[cb.fmt]
+    gen = torch.Generator(device=bits.device).manual_seed(seed)
+    hit = torch.nonzero(torch.rand(bits.numel(), generator=gen,
+                                   device=bits.device) < rate).reshape(-1)
+    outside = torch.tensor([e for e in range(1 << s["ebits"])
+                            if e not in cb.exponents], device=bits.device)
+    e = outside[torch.randint(outside.numel(), (hit.numel(),), generator=gen,
+                              device=bits.device)]
+    keep = ((1 << s["bits"]) - 1) ^ (((1 << s["ebits"]) - 1) << s["mbits"])
+    x = C.widen(bits).reshape(-1).clone()
+    x[hit] = (x[hit] & keep) | (e.to(x.dtype) << s["mbits"])
+    return C.narrow(x, bits.dtype).reshape(bits.shape)
+
+
 def max_abs_err(got, want) -> int:
     """Largest integer difference between two tuples of integer tensors."""
     err = 0
@@ -144,3 +263,11 @@ def check_case(bits, cb: Codebook, cap: int, chunk: int = 1024) -> dict:
         raise AssertionError("decode_fused does not invert encode_fused on "
                              "rows within capacity")
     return errs
+
+
+def check_decode_case(streams, cb: Codebook, chunk: int = 1024) -> int:
+    """``decode_fused`` against its plain version on given streams (their
+    device decides kernel or plain): the max abs integer error."""
+    fmt, exps = cb.fmt, tuple(cb.exponents)
+    got = D.decode_fused(*streams, exps, fmt, chunk)
+    return max_abs_err((got,), (D.decode_fused_plain(*streams, exps, fmt, chunk),))

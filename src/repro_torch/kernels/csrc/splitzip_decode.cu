@@ -13,21 +13,36 @@
 //
 // Bound: memory traffic.  bf16 reads 1.5 B/element of dense streams plus
 // 3 B per applied escape and 4 B of count per row, and writes 2 B/element;
-// the arithmetic is a table lookup and a few shifts per element.  The design:
-//   * one CTA per row, chunk/8 threads, each thread on 8 contiguous
-//     elements: a 4-byte code load, an 8-byte sign-mantissa load and one
-//     16-byte store (bf16);
-//   * the 16-entry decode table lives in shared memory, copied from the
-//     launch parameters, instead of the TPU kernel's one-hot select chain;
-//   * a row without escapes (the common case) stores straight from
-//     registers; a row with escapes is assembled in shared memory, warp 0
-//     applies its slots 32 at a time (slots of one round hit distinct
-//     elements unless the buffer repeats a position, detected with
-//     __match_any_sync, in which case that round runs in slot order), and
-//     the row is stored coalesced — no per-slot pass over the whole row.
+// the arithmetic is a table lookup and a few shifts per element.  The
+// 16-entry decode table lives in shared memory, copied from the launch
+// parameters, instead of the TPU kernel's one-hot select chain.
+//
+// Dense kernel: one CTA per row, chunk/8 threads, each thread on 8
+// contiguous elements (a 4-byte code load, an 8-byte sign-mantissa load and
+// one 16-byte store for bf16).
+//
+// Fused kernel: a persistent grid (as many 256-thread CTAs as fit on the
+// card, no more than the rows need) in which each warp decodes whole rows,
+// w, w + W, ... for warp w of W, in steps of 32 * E elements, E contiguous
+// ones a lane: E = 16 where the chunk is a multiple of 512 (bf16: an 8-byte
+// code load, a 16-byte sign-mantissa load and two 16-byte stores a lane),
+// else 8.  Each warp keeps the loads of its next 32 / E steps in flight in
+// registers while it decodes the current one; loads bypass L1 and the
+// output goes out as streaming stores.  A row's escape metadata comes in the
+// same batch as its first step's streams: the count, and speculatively the
+// first min(cap, 32) slots (lane j holds slot j), so no row waits on a
+// dependent round trip; slots from 32 up are read only when the count says
+// they exist.  Escapes are patched in registers: each slot j < count, in
+// slot order, is broadcast by __shfl_sync and the lane that owns its
+// position overwrites that element's exponent field, so a later slot
+// overwrites an earlier one at a repeated position (slot order) with no
+// shared-memory copy of the row and no barrier.  A row without escapes costs
+// one test.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "codec_stream.cuh"
 
 namespace {
 
@@ -36,6 +51,10 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 struct DecodeLut {
   unsigned char t[16];  // code -> exponent
 };
+
+// ---------------------------------------------------------------------------
+// dense kernel: one CTA per row
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __device__ __forceinline__ void store8(T* p, const unsigned (&y)[8]);
@@ -60,21 +79,15 @@ __device__ __forceinline__ void store8<uint8_t>(uint8_t* p,
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-template <typename T, int MBITS, int EBITS, bool FUSED>
-__global__ void decode_kernel(const uint8_t* __restrict__ packed,
-                              const uint8_t* __restrict__ sign_mantissa,
-                              const uint16_t* __restrict__ esc_pos,
-                              const uint8_t* __restrict__ esc_val,
-                              const int32_t* __restrict__ esc_count,
-                              T* __restrict__ out, int chunk, int cap,
-                              DecodeLut lut) {
+template <typename T, int MBITS, int EBITS>
+__global__ void decode_dense_kernel(const uint8_t* __restrict__ packed,
+                                    const uint8_t* __restrict__ sign_mantissa,
+                                    T* __restrict__ out, int chunk,
+                                    DecodeLut lut) {
   constexpr int BITS = 8 * sizeof(T);
   constexpr unsigned CMASK = (1u << BITS) - 1u;
   constexpr unsigned MMASK = (1u << MBITS) - 1u;
-  constexpr unsigned KEEP = CMASK ^ (((1u << EBITS) - 1u) << MBITS);
   __shared__ unsigned char s_dec[16];
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  T* s_row = reinterpret_cast<T*>(s_raw);
 
   const int t = threadIdx.x;
   if (t < 16) s_dec[t] = lut.t[t];
@@ -92,57 +105,203 @@ __global__ void decode_kernel(const uint8_t* __restrict__ packed,
     const unsigned sign = (a >> MBITS) & 1u;
     y[i] = ((sign << (BITS - 1)) | (e << MBITS) | (a & MMASK)) & CMASK;
   }
-
-  int n = 0;
-  if (FUSED) n = min(max(esc_count[row], 0), cap);  // uniform over the CTA
-  if (n == 0) {
-    store8<T>(out + first, y);
-    return;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s_row[8 * t + i] = (T)y[i];
-  __syncthreads();
-  if (t < 32) {
-    const uint16_t* rpos = esc_pos + row * (size_t)cap;
-    const uint8_t* rval = esc_val + row * (size_t)cap;
-    for (int base = 0; base < n; base += 32) {
-      const int j = base + t;
-      unsigned pos = (unsigned)chunk, val = 0;
-      if (j < n) {
-        pos = rpos[j];
-        val = rval[j];
-      }
-      const bool valid = pos < (unsigned)chunk;
-      const unsigned peers = __match_any_sync(FULL, valid ? pos : 0xFFFFFFFFu);
-      const bool repeated = valid && __popc(peers) > 1;
-      if (__any_sync(FULL, repeated)) {
-        // a position repeats within this round: apply it in slot order
-        for (int k = 0; k < 32; ++k) {
-          const unsigned p = __shfl_sync(FULL, pos, k);
-          const unsigned v = __shfl_sync(FULL, val, k);
-          if (t == 0 && p < (unsigned)chunk)
-            s_row[p] = (T)(((s_row[p] & KEEP) | (v << MBITS)) & CMASK);
-        }
-      } else if (valid) {
-        s_row[pos] = (T)(((s_row[pos] & KEEP) | (val << MBITS)) & CMASK);
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) y[i] = s_row[8 * t + i];
   store8<T>(out + first, y);
 }
 
-template <bool FUSED>
-int launch_decode(int fmt, const void* packed, const void* sign_mantissa,
-                  const void* esc_pos, const void* esc_val,
-                  const void* esc_count, void* out, long long rows, int chunk,
-                  int cap, const void* lut, void* stream) {
+// ---------------------------------------------------------------------------
+// fused kernel: persistent, a warp per row
+// ---------------------------------------------------------------------------
+
+constexpr unsigned NO_SLOT = 0xFFFFu;        // a position no lane owns
+
+// one step of a lane's loads; ``count``/``slot`` only on a row's first step
+template <int E>
+struct Item {
+  Words<E / 2> codes;
+  Words<E> am;
+  int count;
+  unsigned slot;  // pos | val << 16 of slot ``lane``
+};
+
+template <typename T, int MBITS, int EBITS, int E>
+__global__ void __launch_bounds__(FUSED_THREADS)
+decode_fused_kernel(const uint8_t* __restrict__ packed,
+                    const uint8_t* __restrict__ sign_mantissa,
+                    const uint16_t* __restrict__ esc_pos,
+                    const uint8_t* __restrict__ esc_val,
+                    const int32_t* __restrict__ esc_count,
+                    T* __restrict__ out, long long rows, int chunk, int cap,
+                    DecodeLut lut) {
+  constexpr int BITS = 8 * sizeof(T);
+  constexpr unsigned CMASK = (1u << BITS) - 1u;
+  constexpr unsigned MMASK = (1u << MBITS) - 1u;
+  constexpr unsigned KEEP = CMASK ^ (((1u << EBITS) - 1u) << MBITS);
+  constexpr int STEP = 32 * E;
+  constexpr int RING = ring_steps(E);
+  __shared__ unsigned char s_dec[16];
+  if (threadIdx.x < 16) s_dec[threadIdx.x] = lut.t[threadIdx.x];
+  __syncthreads();
+
+  const unsigned lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * FUSED_WARPS;
+  const long long warp =
+      (long long)blockIdx.x * FUSED_WARPS + (threadIdx.x >> 5);
+  const int steps = chunk / STEP;
+  const long long items =
+      warp < rows ? ((rows - 1 - warp) / warps + 1) * steps : 0;
+  const int prefetched = min(cap, 32);
+
+  Item<E> ring[RING];
+  long long lrow = warp;  // the next item to load
+  int lstep = 0;
+  auto load = [&](Item<E>& it) {
+    const size_t first = (size_t)lrow * chunk + lstep * STEP + lane * E;
+    it.codes = ld_stream<E / 2>(packed + first / 2);
+    it.am = ld_stream<E>(sign_mantissa + first);
+    it.count = 0;
+    it.slot = NO_SLOT;
+    if (lstep == 0) {
+      it.count = __ldg(esc_count + lrow);
+      if ((int)lane < prefetched) {
+        const size_t j = (size_t)lrow * cap + lane;
+        it.slot = __ldg(esc_pos + j) | ((unsigned)__ldg(esc_val + j) << 16);
+      }
+    }
+    if (++lstep == steps) { lstep = 0; lrow += warps; }
+  };
+#pragma unroll
+  for (int k = 0; k < RING; ++k)
+    if (k < items) load(ring[k]);
+
+  long long row = warp;   // the item being decoded
+  int step = 0, n = 0;
+  unsigned slot0 = NO_SLOT;
+  for (long long base = 0; base < items; base += RING) {
+#pragma unroll
+    for (int k = 0; k < RING; ++k) {
+      if (base + k >= items) break;
+      const Item<E> it = ring[k];
+      if (base + k + RING < items) load(ring[k]);
+
+      if (step == 0) {
+        n = min(max(it.count, 0), cap);
+        slot0 = it.slot;
+      }
+      const int at = step * STEP + (int)lane * E;  // in the row
+      unsigned y[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const unsigned a = (it.am.w[i / 4] >> (8 * (i % 4))) & 0xFFu;
+        const unsigned e = s_dec[(it.codes.w[i / 8] >> (4 * (i % 8))) & 0xFu];
+        const unsigned sign = (a >> MBITS) & 1u;
+        y[i] = ((sign << (BITS - 1)) | (e << MBITS) | (a & MMASK)) & CMASK;
+      }
+
+      // the row's escapes, in slot order, 32 slots a round
+      for (int r0 = 0; r0 < n; r0 += 32) {
+        unsigned s = slot0;
+        if (r0 > 0) {
+          const int j = r0 + (int)lane;
+          s = NO_SLOT;
+          if (j < n) {
+            const size_t o = (size_t)row * cap + j;
+            s = __ldg(esc_pos + o) | ((unsigned)__ldg(esc_val + o) << 16);
+          }
+        }
+        const int m = min(32, n - r0);
+        for (int k2 = 0; k2 < m; ++k2) {
+          const unsigned w = __shfl_sync(FULL, s, k2);
+          const unsigned rel = (w & 0xFFFFu) - (unsigned)at;
+          if (rel < (unsigned)E) {
+            const unsigned v = w >> 16;
+#pragma unroll
+            for (int i = 0; i < E; ++i)
+              if ((unsigned)i == rel) y[i] = ((y[i] & KEEP) | (v << MBITS)) & CMASK;
+          }
+        }
+      }
+
+      Words<E * sizeof(T)> o = {};
+      constexpr int PER = 4 / sizeof(T);
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        o.w[i / PER] |= y[i] << (BITS * (i % PER));
+      st_stream<E * sizeof(T)>(out + (size_t)row * chunk + at, o);
+
+      if (++step == steps) {
+        step = 0;
+        row += warps;
+      }
+    }
+  }
+}
+
+// The fused kernel for a format at 16 (wide) or 8 elements a lane.
+template <int E>
+const void* fused_kernel(int fmt) {
+  return fmt == 0 ? (const void*)decode_fused_kernel<uint16_t, 7, 8, E>
+       : fmt == 1 ? (const void*)decode_fused_kernel<uint8_t, 2, 5, E>
+                  : (const void*)decode_fused_kernel<uint8_t, 3, 4, E>;
+}
+
+const void* fused_kernel_of(int fmt, int wide) {
+  return wide ? fused_kernel<16>(fmt) : fused_kernel<8>(fmt);
+}
+
+template <int E>
+void launch_fused_kernel(int fmt, int ctas, cudaStream_t s, const uint8_t* pk,
+                         const uint8_t* sm, const uint16_t* pos,
+                         const uint8_t* val, const int32_t* cnt, void* out,
+                         long long rows, int chunk, int cap,
+                         const DecodeLut& table) {
+  switch (fmt) {
+    case 0:
+      decode_fused_kernel<uint16_t, 7, 8, E><<<ctas, FUSED_THREADS, 0, s>>>(
+          pk, sm, pos, val, cnt, static_cast<uint16_t*>(out), rows, chunk,
+          cap, table);
+      break;
+    case 1:
+      decode_fused_kernel<uint8_t, 2, 5, E><<<ctas, FUSED_THREADS, 0, s>>>(
+          pk, sm, pos, val, cnt, static_cast<uint8_t*>(out), rows, chunk,
+          cap, table);
+      break;
+    default:
+      decode_fused_kernel<uint8_t, 3, 4, E><<<ctas, FUSED_THREADS, 0, s>>>(
+          pk, sm, pos, val, cnt, static_cast<uint8_t*>(out), rows, chunk,
+          cap, table);
+      break;
+  }
+}
+
+int launch_decode_fused(int fmt, const void* packed, const void* sign_mantissa,
+                        const void* esc_pos, const void* esc_val,
+                        const void* esc_count, void* out, long long rows,
+                        int chunk, int cap, const void* lut, void* stream) {
   if (rows <= 0) return 0;
-  if (chunk % 256 != 0 || chunk > 8192 || (FUSED && cap < 1)) {
+  if (chunk % 256 != 0 || chunk > 8192 || cap < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int ctas = 0;
+  const int err = persistent_ctas(fused_kernel_of, fmt, rows, chunk, &ctas);
+  if (err != 0) return err;
+  DecodeLut table;
+  memcpy(table.t, lut, sizeof(table.t));
+  auto launch = lane_elems(chunk) == 16 ? &launch_fused_kernel<16>
+                                        : &launch_fused_kernel<8>;
+  launch(fmt, ctas, static_cast<cudaStream_t>(stream),
+         static_cast<const uint8_t*>(packed),
+         static_cast<const uint8_t*>(sign_mantissa),
+         static_cast<const uint16_t*>(esc_pos),
+         static_cast<const uint8_t*>(esc_val),
+         static_cast<const int32_t*>(esc_count), out, rows, chunk, cap, table);
+  return (int)cudaGetLastError();
+}
+
+int launch_decode_dense(int fmt, const void* packed, const void* sign_mantissa,
+                        void* out, long long rows, int chunk, const void* lut,
+                        void* stream) {
+  if (rows <= 0) return 0;
+  if (chunk % 256 != 0 || chunk > 8192) {
     return (int)cudaErrorInvalidValue;
   }
   DecodeLut table;
@@ -151,23 +310,18 @@ int launch_decode(int fmt, const void* packed, const void* sign_mantissa,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const uint8_t* sm = static_cast<const uint8_t*>(sign_mantissa);
-  const uint16_t* pos = static_cast<const uint16_t*>(esc_pos);
-  const uint8_t* val = static_cast<const uint8_t*>(esc_val);
-  const int32_t* cnt = static_cast<const int32_t*>(esc_count);
   switch (fmt) {
     case 0:
-      decode_kernel<uint16_t, 7, 8, FUSED>
-          <<<grid, block, FUSED ? chunk * 2 : 0, s>>>(
-              pk, sm, pos, val, cnt, static_cast<uint16_t*>(out), chunk, cap,
-              table);
+      decode_dense_kernel<uint16_t, 7, 8><<<grid, block, 0, s>>>(
+          pk, sm, static_cast<uint16_t*>(out), chunk, table);
       break;
     case 1:
-      decode_kernel<uint8_t, 2, 5, FUSED><<<grid, block, FUSED ? chunk : 0, s>>>(
-          pk, sm, pos, val, cnt, static_cast<uint8_t*>(out), chunk, cap, table);
+      decode_dense_kernel<uint8_t, 2, 5><<<grid, block, 0, s>>>(
+          pk, sm, static_cast<uint8_t*>(out), chunk, table);
       break;
     case 2:
-      decode_kernel<uint8_t, 3, 4, FUSED><<<grid, block, FUSED ? chunk : 0, s>>>(
-          pk, sm, pos, val, cnt, static_cast<uint8_t*>(out), chunk, cap, table);
+      decode_dense_kernel<uint8_t, 3, 4><<<grid, block, 0, s>>>(
+          pk, sm, static_cast<uint8_t*>(out), chunk, table);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -184,16 +338,23 @@ extern "C" int sz_decode_fused(int fmt, const void* packed,
                                const void* esc_val, const void* esc_count,
                                void* out, long long rows, int chunk, int cap,
                                const void* lut, void* stream) {
-  return launch_decode<true>(fmt, packed, sign_mantissa, esc_pos, esc_val,
+  return launch_decode_fused(fmt, packed, sign_mantissa, esc_pos, esc_val,
                              esc_count, out, rows, chunk, cap, lut, stream);
+}
+
+// The CTAs (of 8 warps) sz_decode_fused launches for ``rows`` rows of
+// ``chunk`` on the current device, into ``*ctas``.  Returns a cudaError_t.
+extern "C" int sz_decode_fused_grid(int fmt, long long rows, int chunk,
+                                    int* ctas) {
+  return persistent_ctas(fused_kernel_of, fmt, rows, chunk, ctas);
 }
 
 extern "C" int sz_decode_dense(int fmt, const void* packed,
                                const void* sign_mantissa, void* out,
                                long long rows, int chunk, const void* lut,
                                void* stream) {
-  return launch_decode<false>(fmt, packed, sign_mantissa, nullptr, nullptr,
-                              nullptr, out, rows, chunk, 0, lut, stream);
+  return launch_decode_dense(fmt, packed, sign_mantissa, out, rows, chunk,
+                             lut, stream);
 }
 
 extern "C" const char* sz_error_string(int code) {

@@ -3,7 +3,9 @@
 ``decode_fused`` unpacks the 4-bit codes, maps them through the codebook,
 reassembles the container bits from the sign-mantissa stream AND applies the
 sparse escape correction in one CUDA launch (``csrc/splitzip_decode.cu``, the
-port of the Pallas ``decode_fused``).  ``decode_dense`` is the dense stage
+port of the Pallas ``decode_fused``: a persistent grid, a warp per chunk row,
+escapes patched in registers; :func:`fused_grid` says how many CTAs it
+launches).  ``decode_dense`` is the dense stage
 alone, for layouts whose correction stays outside the kernel
 (``layout='global'`` and capacities above ``MAX_FUSED_CAP``).
 
@@ -23,10 +25,15 @@ from repro_torch.core import codec as C
 from repro_torch.core.codebook import FORMATS
 from repro_torch.kernels import build
 
+#: warps in a CTA of the persistent fused kernel (``FUSED_WARPS`` in csrc)
+FUSED_WARPS = 8
+
 _P = ctypes.c_void_p
 _PROTOTYPES = {
     "sz_decode_fused": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, _P, _P],
+    "sz_decode_fused_grid": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)],
     "sz_decode_dense": [ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, _P, _P],
 }
@@ -51,6 +58,19 @@ def _check_dense(packed, sign_mantissa, chunk):
 
 def _lib():
     return build.library("splitzip_decode", _PROTOTYPES)
+
+
+def fused_grid(fmt: str, rows: int, chunk: int, device) -> int:
+    """CTAs (of ``FUSED_WARPS`` warps, a warp a row at a time) that
+    ``decode_fused`` launches for ``rows`` rows of ``chunk`` on the CUDA
+    ``device``: as many as fit on the card at once, no more than the rows
+    need."""
+    lib, ctas = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sz_decode_fused_grid(build.FMT_ID[fmt], rows, chunk,
+                                     ctypes.byref(ctas))
+    build.check(lib, err, "decode_fused grid")
+    return ctas.value
 
 
 # ---------------------------------------------------------------------------

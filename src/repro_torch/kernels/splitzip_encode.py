@@ -2,7 +2,9 @@
 
 ``encode_fused`` emits the complete per-chunk streams — field split, code
 lookup, nibble packing AND the escape compaction — from one CUDA launch
-(``csrc/splitzip_encode.cu``, the port of the Pallas ``encode_fused``).
+(``csrc/splitzip_encode.cu``, the port of the Pallas ``encode_fused``: a
+persistent grid, a warp per chunk row; :func:`fused_grid` says how many
+CTAs it launches).
 ``encode_dense`` is the dense stage alone, for the two-stage path
 (:mod:`repro_torch.kernels.twostage`): capacities above ``MAX_FUSED_CAP`` and
 the capacity schedule's ``layout='global'`` step.
@@ -26,10 +28,15 @@ from repro_torch.kernels import build
 #: ops layer routes to the two-stage path (the same split as the JAX package).
 MAX_FUSED_CAP = 128
 
+#: warps in a CTA of the persistent fused kernel (``FUSED_WARPS`` in csrc)
+FUSED_WARPS = 8
+
 _P = ctypes.c_void_p
 _PROTOTYPES = {
     "sz_encode_fused": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, _P, _P],
+    "sz_encode_fused_grid": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)],
     "sz_encode_dense": [ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, _P, _P],
 }
@@ -62,6 +69,19 @@ def _outputs(rows, chunk, device):
 
 def _lib():
     return build.library("splitzip_encode", _PROTOTYPES)
+
+
+def fused_grid(fmt: str, rows: int, chunk: int, device) -> int:
+    """CTAs (of ``FUSED_WARPS`` warps, a warp a row at a time) that
+    ``encode_fused`` launches for ``rows`` rows of ``chunk`` on the CUDA
+    ``device``: as many as fit on the card at once, no more than the rows
+    need."""
+    lib, ctas = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sz_encode_fused_grid(build.FMT_ID[fmt], rows, chunk,
+                                     ctypes.byref(ctas))
+    build.check(lib, err, "encode_fused grid")
+    return ctas.value
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +162,7 @@ def encode_fused(bits: torch.Tensor, exponents: tuple, fmt: str = "bf16",
     esc_pos = torch.empty((rows, cap), dtype=torch.uint16, device=dev)
     esc_val = torch.empty((rows, cap), dtype=torch.uint8, device=dev)
     esc_count = torch.empty((rows, 1), dtype=torch.int32, device=dev)
-    build.check_launchable(chunk, bits, sm, packed)
+    build.check_launchable(chunk, bits, sm, packed, esc_pos, esc_val)
     lut = encode_lut(exponents)
     lib = _lib()
     with torch.cuda.device(dev):

@@ -7,7 +7,9 @@ BITWISE on the same bits, for bf16, fp8_e5m2 and fp8_e4m3.  The ops layer
 must dispatch as the JAX package does: fused up to ``MAX_FUSED_CAP``, the
 two-stage path above it or when ``fused=False``, and the ``layout='global'``
 compaction.  Inputs are the seeded edge cases of
-:mod:`repro_torch.kernels.cases`.
+:mod:`repro_torch.kernels.cases`, among them the edges of the persistent
+warp-a-row fused kernels (``fused_cases``, ``repeated_slot_case``), which the
+fused functions must match at every chunk width they take.
 
 The JAX comparisons import JAX through the ``ref`` fixture
 (``pytest.importorskip("jax")``), so this file also runs where JAX is not
@@ -25,6 +27,7 @@ from repro_torch.kernels import splitzip_decode as D
 from repro_torch.kernels import splitzip_encode as E
 
 FORMATS = ("bf16", "fp8_e5m2", "fp8_e4m3")
+FORMATS_MBITS = {"bf16": 7, "fp8_e5m2": 2, "fp8_e4m3": 3}
 CHUNK = 1024
 
 
@@ -113,6 +116,83 @@ def test_kernel_functions_match_pallas(ref, fmt, name):
                              exps, **kw)
     assert_same([j_ddec], [D.decode_dense(packed, sm, exps, fmt, CHUNK)],
                 ["dense bits"])
+
+
+FUSED_CASE_NAMES = [name for name, *_ in K.fused_cases("bf16")]
+
+
+def fused_case(fmt: str, name: str):
+    """A named fused-kernel edge case: (numpy rows, torch rows, cap, chunk)."""
+    bits, cap, chunk = {n: (b, c, ch) for n, b, c, ch in K.fused_cases(fmt)}[name]
+    x = to_torch_bits(bits).reshape(-1, chunk)
+    return tnp(x), x, cap, chunk
+
+
+@pytest.mark.parametrize("fmt,name", [("bf16", n) for n in FUSED_CASE_NAMES]
+                         + [(f, n) for f in FORMATS[1:]
+                            for n in ("chunk768", "count31_32_33_cap40")])
+def test_fused_edges_match_pallas(ref, fmt, name):
+    """The fused encode and decode at the persistent kernels' edges: chunk
+    widths 256 to 8192, 1 and 7 rows, counts 31/32/33 and cap, every escape
+    in one 16-element span."""
+    jnp, JE, JD = ref["jnp"], ref["JE"], ref["JD"]
+    xb, x, cap, chunk = fused_case(fmt, name)
+    exps = tuple(K.CODEBOOKS[fmt].exponents)
+    kw = dict(fmt=fmt, chunk=chunk, block_rows=xb.shape[0], interpret=True)
+    t_enc = E.encode_fused(x, exps, fmt, chunk, cap)
+    assert_same(JE.encode_fused(jnp.asarray(xb), exps, cap=cap, **kw), t_enc,
+                ("sign_mantissa", "packed", "esc_pos", "esc_val", "esc_count"))
+    sm, packed, pos, val, cnt = t_enc
+    cnt = torch.clamp(cnt, max=cap)
+    j_dec = JD.decode_fused(*(jnp.asarray(tnp(t)) for t in (packed, sm, pos,
+                                                             val, cnt)),
+                            exps, **kw)
+    assert_same([j_dec], [D.decode_fused(packed, sm, pos, val, cnt, exps, fmt,
+                                         chunk)], ["fused bits"])
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_repeated_slot_matches_pallas(ref, fmt):
+    """Slots 31 and 32 name one position: the later slot wins, as the Pallas
+    kernel's slot loop has it."""
+    jnp, JD = ref["jnp"], ref["JD"]
+    streams = K.repeated_slot_case(fmt)
+    exps = tuple(K.CODEBOOKS[fmt].exponents)
+    got = D.decode_fused(*streams, exps, fmt, CHUNK)
+    want = JD.decode_fused(*(jnp.asarray(tnp(t)) for t in streams), exps,
+                           fmt=fmt, chunk=CHUNK, block_rows=2, interpret=True)
+    assert_same([want], [got], ["fused bits"])
+    pos, val = C.widen(streams[2]), streams[3]
+    p = int(pos[0, 31])
+    assert int(pos[0, 32]) == p and int(val[0, 32]) != int(val[0, 31])
+    field = got[:1].to(torch.int32) >> FORMATS_MBITS[fmt]
+    mask = (1 << (8 * got.element_size() - 1 - FORMATS_MBITS[fmt])) - 1
+    assert int(field[0, p]) & mask == int(val[0, 32])
+
+
+def test_fused_cases_reach_their_edges():
+    """The cases are what their names say: every chunk width, 1 and 7 rows,
+    true counts 31/32/33/cap/cap+1, 16 escapes in one 16-element span."""
+    cases = {n: (b, c, ch) for n, b, c, ch in K.fused_cases("bf16")}
+    exps = tuple(K.CODEBOOKS["bf16"].exponents)
+
+    def counts(name):
+        bits, cap, chunk = cases[name]
+        x = to_torch_bits(bits).reshape(-1, chunk)
+        return E.encode_fused(x, exps, "bf16", chunk, cap)[4].reshape(-1).tolist()
+
+    assert {cases[f"chunk{c}"][2] for c, _, _ in K.FUSED_CHUNKS} == {256, 768, 2048, 8192}
+    for chunk, want, cap in K.FUSED_CHUNKS:
+        assert counts(f"chunk{chunk}") == list(want)
+        assert max(want) > cap
+    assert len(counts("rows1")) == 1 and len(counts("rows7")) == 7
+    assert counts("count31_32_33_cap40") == [31, 32, 33, 40, 41]
+    bits, cap, chunk = cases["one_lane16"]
+    x = to_torch_bits(bits).reshape(-1, chunk)
+    _, _, pos, _, cnt = E.encode_fused(x, exps, "bf16", chunk, cap)
+    assert cnt.reshape(-1).tolist() == [cap] * 3 == [16] * 3
+    for row, lane in zip(C.widen(pos).tolist(), (0, 13, 63)):
+        assert row == list(range(16 * lane, 16 * lane + 16))
 
 
 # (layout, cap, fused): fused kernel, cap > MAX_FUSED_CAP (two-stage), the
@@ -224,6 +304,18 @@ def test_build_is_keyed_on_the_source_and_stays_out_of_git(tmp_path,
     assert build.library_path("probe") != v1
 
 
+def test_build_is_keyed_on_the_shared_header(tmp_path, monkeypatch):
+    """An edit to a header the sources include rebuilds every library."""
+    assert all(h.is_file() and h.parent == build.CSRC for h in build.HEADERS)
+    header = tmp_path / "h.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "HEADERS", (header,))
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    header.write_text("// v2\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+
+
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
     from pathlib import Path
     if Path("/usr/local/cuda/bin/nvcc").is_file():
@@ -246,3 +338,30 @@ def test_kernels_match_plain_on_card(cuda_device, fmt):
         torch.cuda.synchronize()
         assert max(errs.values()) == 0, (name, errs)
     assert E.encode_fused.launches > launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_fused_edges_match_plain_on_card(cuda_device, fmt):
+    """The persistent fused kernels bitwise against their plain versions at
+    their edges (every chunk width, 1 and 7 rows, the 32-slot prefetch, one
+    lane's span, a repeated slot), and over more rows than one pass of the
+    persistent grid covers, in a count that is no multiple of its warps."""
+    for name, bits, cap, chunk in K.fused_cases(fmt, seed=2):
+        errs = K.check_case(to_torch_bits(bits).to(cuda_device),
+                            K.CODEBOOKS[fmt], cap, chunk)
+        torch.cuda.synchronize()
+        assert max(errs.values()) == 0, (name, errs)
+    streams = tuple(t.to(cuda_device) for t in K.repeated_slot_case(fmt))
+    assert K.check_decode_case(streams, K.CODEBOOKS[fmt]) == 0
+    # 1024 takes 16 elements a lane, 768 takes 8: each its own grid
+    for chunk in (1024, 768):
+        big = 1 << 40
+        warps = max(E.fused_grid(fmt, big, chunk, cuda_device) * E.FUSED_WARPS,
+                    D.fused_grid(fmt, big, chunk, cuda_device) * D.FUSED_WARPS)
+        assert E.fused_grid(fmt, 7, chunk, cuda_device) == 1
+        bits = K.many_rows(fmt, warps + 37, seed=3, chunk=chunk)
+        errs = K.check_case(to_torch_bits(bits).to(cuda_device),
+                            K.CODEBOOKS[fmt], 64, chunk)
+        torch.cuda.synchronize()
+        assert max(errs.values()) == 0, ("more rows than a grid pass", chunk, errs)
