@@ -17,11 +17,18 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               cap 1/64/128, a ragged tail) and on the persistent fused
               kernels' edges (chunks 256 to 8192, 1 and 7 rows, counts
               31/32/33/cap, one lane's span, slots 31 and 32 on one
-              position, more rows than one pass of each grid), then timed
-              at the main path's shape (one smollm-135m KV leaf: device
-              time from a replayed CUDA graph, and issued eagerly) beside
-              their plain versions and their memory bound; the fused pair
-              also on the same leaf with about two escapes a row.
+              position, more rows than one pass of the largest of the
+              three persistent grids: encode_fused, decode_fused,
+              decode_dense), then timed at the main path's shape (one
+              smollm-135m KV leaf: device time from a replayed CUDA graph,
+              and issued eagerly) beside their plain versions and their
+              memory bound, the persistent kernels with their grid and raw
+              GB/s; the fused pair also on the same leaf with about two
+              escapes a row.  Last, the capacity retry's whole decode half
+              at that leaf encoded with ``layout='global'``
+              (``twostage.decode_to_bits`` and ``ops.decode_bits``, each
+              bitwise, eager and profiled device time, and the dense
+              kernel's share of each).
 3. main     — smollm-135m at full width with seeded random weights: batch 8,
               prompt 2048, 16 new tokens, codebook calibrated on the model's
               own prefill KV, through ``launch/serve.py``'s code path with
@@ -146,6 +153,31 @@ def sass_count(lib_path, opcode: str):
     return None if sass is None else sum(opcode in ln for ln in sass.splitlines())
 
 
+def profiled(torch, fn, reps: int = 1):
+    """``fn()`` ``reps`` times under ``torch.profiler``, after a
+    synchronize: (host ms a call, profiled; ``[(device ms a call, calls,
+    name)]`` of the kernels and copies it ran and ``[(host self ms a call,
+    calls, name)]`` of its host operations, each largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    events = prof.key_averages()
+    device = sorted(((ev.device_time_total / 1e3 / reps, ev.count, ev.key[:90])
+                     for ev in events
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and ev.device_time_total > 0), reverse=True)
+    host = sorted(((ev.self_cpu_time_total / 1e3 / reps, ev.count, ev.key[:60])
+                   for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    return wall * 1e3, device, host
+
+
 def launch_counters():
     """Every kernel wrapper, by its kernel's name."""
     from repro_torch.kernels import flash_attention as FA
@@ -214,8 +246,9 @@ def phase_kernels(torch, cfg, device):
                  in K.kernel_cases(fmt, seed=1)] + K.fused_cases(fmt, seed=1)
         for chunk in (1024, 768):
             big = 1 << 40
-            warps = max(E.fused_grid(fmt, big, chunk, device) * E.FUSED_WARPS,
-                        D.fused_grid(fmt, big, chunk, device) * D.FUSED_WARPS)
+            warps = E.FUSED_WARPS * max(grid(fmt, big, chunk, device) for grid
+                                        in (E.fused_grid, D.fused_grid,
+                                            D.dense_grid))
             passes[f"{fmt}/{chunk}"] = warps
             edges.append((f"grid_pass_{chunk}", K.many_rows(fmt, warps + 37, 5, chunk),
                           64, chunk))
@@ -286,15 +319,19 @@ def phase_kernels(torch, cfg, device):
             bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call computes it",
             bytes=nbytes, ops=ops, shape=[rows, chunk])
-    # codec throughput in raw (bf16) bytes, the paper's measure
+    # the persistent grids, and codec throughput in raw (bf16) bytes, the
+    # paper's measure
     raw_bytes = 2 * n
-    for name, fused in (("encode_fused", E), ("decode_fused", D)):
+    for name, grid in (("encode_fused", E.fused_grid), ("decode_fused", D.fused_grid),
+                       ("decode_dense", D.dense_grid)):
         records[name].update(
-            grid=[fused.fused_grid("bf16", rows, chunk, device), fused.FUSED_WARPS],
-            escapes_applied=applied, escapes_per_row=applied / rows,
+            grid=[grid("bf16", rows, chunk, device), E.FUSED_WARPS],
             raw_bytes=raw_bytes, raw_gb_per_s=raw_bytes / records[name]["ms"] / 1e6)
+    for name in ("encode_fused", "decode_fused"):
+        records[name].update(escapes_applied=applied, escapes_per_row=applied / rows)
     del dense, runs
     torch.cuda.empty_cache()
+    capacity = capacity_decode_half(torch, x, cb, records["decode_dense"]["ms"])
 
     heavy_bits = K.escape_heavy(x, cb)
     heavy_applied, heavy = fused_runs(heavy_bits)
@@ -313,8 +350,41 @@ def phase_kernels(torch, cfg, device):
          grid_pass_warps=passes,
          timed={k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms", "bound_ms", "bytes")}
                 for k, v in records.items()},
-         escape_heavy={k: records[k]["escape_heavy"] for k in ("encode_fused", "decode_fused")})
+         escape_heavy={k: records[k]["escape_heavy"] for k in ("encode_fused", "decode_fused")},
+         capacity_decode_half=capacity)
     return records
+
+
+def capacity_decode_half(torch, x, cb, dense_ms):
+    """The capacity retry's whole decode half at the main-path leaf ``x``
+    (container bits) encoded as its ``layout='global'`` retry encodes it
+    (``twostage.encode``): ``twostage.decode_to_bits``, the path
+    ``CudaBackend.for_retry("global")`` takes, and ``ops.decode_bits``, the
+    fused backend's global decode.  Each must give back ``x`` bit for bit;
+    each is timed eagerly (CUDA events) and by its device time under
+    ``torch.profiler`` (its nonzero reads sync, so no CUDA graph takes it),
+    with the dense kernel's share of both (``dense_ms`` is its graph time)."""
+    from repro_torch.core import codec as C
+    from repro_torch.kernels import ops, twostage
+    from repro_torch.kernels.timing import cuda_ms
+    ct = twostage.encode(C.from_bits(x, torch.bfloat16), cb, layout="global")
+    if not bool(ct.ok):
+        raise AssertionError("global layout overflowed at the main-path leaf")
+    out = {"escapes": int(ct.esc_count.sum()), "cap": ct.cap}
+    for name, fn in (("twostage.decode_to_bits", lambda: twostage.decode_to_bits(ct)),
+                     ("ops.decode_bits", lambda: ops.decode_bits(ct))):
+        if not C.bits_equal(fn(), x.reshape(-1)):
+            raise AssertionError(f"{name}: the global decode != the sent bits")
+        eager = cuda_ms(fn, reps=5)
+        _, device, _ = profiled(torch, fn, reps=3)
+        dev_ms = sum(ms for ms, _, _ in device)
+        dense_dev = sum(ms for ms, _, k in device if "decode_kernel" in k)
+        out[name] = dict(
+            eager_ms=eager, device_ms=dev_ms, dense_device_ms=dense_dev,
+            dense_share_of_device=dense_dev / dev_ms,
+            dense_share_of_eager=dense_ms / eager,
+            device=[dict(name=k, ms=ms, calls=c) for ms, c, k in device[:6]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -357,27 +427,12 @@ def phase_main(torch, cfg, device):
         clock (profiled) beside the device time of the kernels and copies it
         ran, and its host operations by their own host time, largest
         first."""
-        from torch.profiler import ProfilerActivity, profile
         sess = eng.plan.session()
         out = {}
         for half, call in (("encode", lambda: sess.send(cache)),
                            ("decode", sess.recv)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                call()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            dev = sorted(((ev.device_time_total / 1e3, ev.count, ev.key[:90])
-                          for ev in prof.key_averages()
-                          if ev.device_type == torch.autograd.DeviceType.CUDA
-                          and ev.device_time_total > 0), reverse=True)
-            host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key[:60])
-                           for ev in prof.key_averages()
-                           if ev.device_type == torch.autograd.DeviceType.CPU),
-                          reverse=True)
-            out[half] = dict(wall_ms=wall * 1e3,
+            wall, dev, host = profiled(torch, call)
+            out[half] = dict(wall_ms=wall,
                              device_ms=sum(ms for ms, _, _ in dev),
                              device=[dict(name=k, ms=ms, calls=c)
                                      for ms, c, k in dev[:8]],

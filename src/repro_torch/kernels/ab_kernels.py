@@ -1,27 +1,32 @@
 """Time a redesigned kernel beside an earlier revision's, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab_kernels --old DIR \
-        [--kernel paged_mla_attention|encode_fused|decode_fused] [--reps N]
+        [--kernel paged_mla_attention|encode_fused|decode_fused|decode_dense]
+        [--reps N]
 
 ``DIR`` holds that revision's source of the kernel (``git show
-REV:src/repro_torch/kernels/csrc/<file>.cu``, REV the parent commit) in a
-directory git ignores (``build/parent``).  It is built there with this
-package's ``nvcc`` flags and called through its own C entry; this
-revision's kernel runs through its wrapper.
+REV:src/repro_torch/kernels/csrc/<file>``, REV the parent commit) in a
+directory git ignores (``build/parent``), with the headers it includes
+(else this revision's are used) and, for the codec kernels, both codec
+sources.  It is built there with this package's ``nvcc`` flags and called
+through its own C entry; this revision's kernel runs through its wrapper.
 
 * ``paged_mla_attention`` (the default; ``splitzip_attention.cu``): the
   earlier ``sz_paged_mla`` (one CTA per row and group of up to 8 heads over
   all its pages, on the f32 CUDA cores, with the token tile, 256 threads and
   shared memory its wrapper chose), at minicpm3-4b's served resident decode
   (``attention_cases.MLA_SERVED``), bf16.
-* ``encode_fused`` / ``decode_fused`` (``splitzip_encode.cu`` /
-  ``splitzip_decode.cu``): the earlier ``sz_encode_fused`` /
-  ``sz_decode_fused`` (one CTA per chunk row) through today's C prototypes,
-  at the main path's shape (``cases.codec_leaf``: one smollm-135m KV leaf,
-  92,925 rows of 1024 bf16, cap 64) and at the escape-heavy one
-  (``cases.escape_heavy``: the same leaf with about two escapes a row).
-  Also says whether the dense kernels of the two libraries compile to the
-  same instructions (``cuobjdump``, where the toolkit has it).
+* ``encode_fused`` / ``decode_fused`` / ``decode_dense``
+  (``splitzip_encode.cu`` / ``splitzip_decode.cu``): the earlier
+  ``sz_encode_fused`` / ``sz_decode_fused`` / ``sz_decode_dense`` through
+  today's C prototypes, at the main path's shape (``cases.codec_leaf``: one
+  smollm-135m KV leaf, 92,925 rows of 1024 bf16, cap 64) and at the
+  escape-heavy one (``cases.escape_heavy``: the same leaf with about two
+  escapes a row); ``decode_dense`` on the dense streams
+  (``encode_dense``) of each.  Each line has the kernel's grid and its
+  raw (bf16) GB/s.  Then says which codec kernels compile to the earlier
+  revision's instructions (``sass_equal``: ``cuobjdump``, where the toolkit
+  has it), by role, whatever their C++ names.
 
 Both outputs are first held against the plain version (bitwise for the
 codec), then timed in turns, old, new, new, old: ``old_ms``/``new_ms`` are
@@ -63,7 +68,12 @@ OLD_PROTOTYPES = {
         "sz_encode_fused": [_I] + [_P] * 6 + [_L, _I, _I, _P, _P]}),
     "decode_fused": ("splitzip_decode", {
         "sz_decode_fused": [_I] + [_P] * 6 + [_L, _I, _I, _P, _P]}),
+    "decode_dense": ("splitzip_decode", {
+        "sz_decode_dense": [_I] + [_P] * 3 + [_L, _I, _P, _P]}),
 }
+#: the codec sources, and the codec kernels this revision leaves alone
+CODEC_SOURCES = ("splitzip_encode", "splitzip_decode")
+UNCHANGED = ("encode_fused", "encode_dense", "decode_fused")
 CODEC_CHUNK, CODEC_CAP = 1024, 64
 #: the earlier wrapper's limits: query heads a CTA, the default dynamic
 #: shared memory, token sub-tiles tried (largest first)
@@ -72,11 +82,10 @@ OLD_SMEM_DEFAULT = 48 * 1024
 OLD_TILES = (64, 32, 16, 8, 4, 2, 1)
 
 
-def build_old(old: Path, kernel: str):
-    """The earlier source of ``kernel`` in ``old`` -> (loaded library, its
-    path, the ``nvcc`` log).  A header it includes is looked up beside it,
-    then in this revision's ``csrc/``."""
-    name, prototypes = OLD_PROTOTYPES[kernel]
+def compile_old(old: Path, name: str):
+    """The earlier source ``name`` in ``old`` -> (its library's path, the
+    ``nvcc`` log).  A header it includes is looked up beside it, then in
+    this revision's ``csrc/``."""
     src, so = old / f"{name}.cu", old / f"lib{name}_old.so"
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
@@ -84,13 +93,21 @@ def build_old(old: Path, kernel: str):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the old {name}:\n{proc.stdout}")
+    return so, proc.stdout
+
+
+def build_old(old: Path, kernel: str):
+    """The earlier source of ``kernel`` in ``old`` -> (loaded library, its
+    path, the ``nvcc`` log)."""
+    name, prototypes = OLD_PROTOTYPES[kernel]
+    so, log = compile_old(old, name)
     lib = ctypes.CDLL(str(so))
     lib.sz_error_string.argtypes = [_I]
     lib.sz_error_string.restype = ctypes.c_char_p
     for fn, argtypes in prototypes.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
-    return lib, so, proc.stdout
+    return lib, so, log
 
 
 def _ptxas(log: str):
@@ -198,25 +215,42 @@ def old_decode(lib, streams, exps):
     return out
 
 
-def dense_sass(lib_path: Path):
-    """``{(element type, mbits, ebits): instructions}`` of the dense codec
-    kernels in a library's SASS, or None where the toolkit has no
-    ``cuobjdump``.  Parameter offsets (constant bank 0) are masked: the
-    earlier sources instantiated the dense kernels as ``encode_kernel`` /
-    ``decode_kernel`` with ``FUSED = false`` and the fused kernel's escape
-    buffers among their parameters."""
-    sass = build.sass(lib_path)
-    if sass is None:
-        return None
+def old_decode_dense(lib, dense, exps):
+    """The earlier ``sz_decode_dense`` into a fresh output."""
+    sm, packed = dense[0], dense[1]
+    out = torch.empty(sm.shape, dtype=torch.uint16, device=sm.device)
+    err = lib.sz_decode_dense(
+        build.FMT_ID["bf16"], packed.data_ptr(), sm.data_ptr(), out.data_ptr(),
+        sm.shape[0], CODEC_CHUNK, decode_lut(exps).ctypes.data,
+        build.stream_of(sm))
+    build.check(lib, err, "old decode_dense")
+    return out
+
+
+#: a codec kernel's mangled name: (encode|decode), its role where the name
+#: has it, element type (t u16, h u8), mbits, ebits, elements a lane where
+#: templated, and FUSED where a bool template argument says it (the first
+#: port's ``encode_kernel`` / ``decode_kernel``, this ``decode_kernel``)
+_CODEC_NAME = re.compile(r"(encode|decode)_(?:(fused|dense)_)?kernelI([th])"
+                         r"Li(\d)ELi(\d)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+
+
+def codec_sass_of(sass: str) -> dict:
+    """``{(role, element type, mbits, ebits, lane elements): instructions}``
+    of the codec kernels in ``cuobjdump -sass`` text; role is
+    ``{encode,decode}_{fused,dense}``, whatever the kernel's C++ name.
+    Parameter offsets (constant bank 0) are masked, so a kernel whose
+    parameter list moved still compares by its instructions."""
     out, key = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            f = m.group(1)
-            k = re.search(r"_kernelI([th])Li(\d)ELi(\d)E(Lb0E)?", f)
+            k = _CODEC_NAME.search(m.group(1))
             key = None
-            if k and ("dense_kernel" in f or k.group(4)):
-                key = (k.group(1), k.group(2), k.group(3))
+            if k:
+                op, kind, t, mb, eb, lane, fused = k.groups()
+                kind = kind or ("fused" if fused == "1" else "dense")
+                key = (f"{op}_{kind}", t, mb, eb, lane or "")
                 out[key] = []
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
@@ -226,7 +260,40 @@ def dense_sass(lib_path: Path):
     return out
 
 
-def ab_codec(kernel: str, lib, lib_path: Path, dev, reps: int) -> None:
+def sass_equal(old: dict, new: dict) -> dict:
+    """``{role: bool}`` for each role in ``UNCHANGED`` that either side
+    has: every instantiation present on both sides with equal
+    instructions."""
+    out = {}
+    for role in UNCHANGED:
+        a = {k: v for k, v in old.items() if k[0] == role}
+        b = {k: v for k, v in new.items() if k[0] == role}
+        if a or b:
+            out[role] = bool(a) and a == b
+    return out
+
+
+def codec_sass_check(old_dir: Path, built: dict) -> dict:
+    """Which of the codec kernels this revision leaves alone compile to the
+    same instructions as the earlier revision's (both codec sources from
+    ``old_dir``; ``built`` maps a source already built there to its
+    library), or ``{"sass_equal": None}`` where the toolkit has no
+    ``cuobjdump``."""
+    old, new = {}, {}
+    for name in CODEC_SOURCES:
+        so = built.get(name) or compile_old(old_dir, name)[0]
+        a, b = build.sass(so), build.sass(build.library_path(name))
+        if a is None or b is None:
+            return dict(sass_equal=None)
+        old.update(codec_sass_of(a))
+        new.update(codec_sass_of(b))
+    return dict(sass_equal=sass_equal(old, new),
+                kernels_old=sorted("/".join(k) for k in old),
+                kernels_new=sorted("/".join(k) for k in new))
+
+
+def ab_codec(kernel: str, lib, lib_path: Path, old_dir: Path, dev,
+             reps: int) -> None:
     x, cb = K.codec_leaf(dev)
     exps = tuple(cb.exponents)
     inputs = {"main": x, "escape_heavy": K.escape_heavy(x, cb)}
@@ -239,30 +306,39 @@ def ab_codec(kernel: str, lib, lib_path: Path, dev, reps: int) -> None:
             old = lambda: old_encode(lib, bits, exps)
             new = lambda: E.encode_fused(bits, exps, "bf16", CODEC_CHUNK, CODEC_CAP)
             want = E.encode_fused_plain(bits, exps, "bf16", CODEC_CHUNK, CODEC_CAP)
-            grid = [E.fused_grid("bf16", rows, CODEC_CHUNK, dev), E.FUSED_WARPS]
-        else:
+            grid = E.fused_grid("bf16", rows, CODEC_CHUNK, dev)
+        elif kernel == "decode_fused":
             old = lambda: (old_decode(lib, streams, exps),)
             new = lambda: (D.decode_fused(*streams, exps, "bf16", CODEC_CHUNK),)
             want = (D.decode_fused_plain(*streams, exps, "bf16", CODEC_CHUNK),)
-            grid = [D.fused_grid("bf16", rows, CODEC_CHUNK, dev), D.FUSED_WARPS]
+            grid = D.fused_grid("bf16", rows, CODEC_CHUNK, dev)
+        else:
+            dense = E.encode_dense(bits, exps, "bf16", CODEC_CHUNK)
+            old = lambda: (old_decode_dense(lib, dense, exps),)
+            new = lambda: (D.decode_dense(dense[1], dense[0], exps, "bf16",
+                                          CODEC_CHUNK),)
+            want = (D.decode_dense_plain(dense[1], dense[0], exps, "bf16",
+                                         CODEC_CHUNK),)
+            grid = D.dense_grid("bf16", rows, CODEC_CHUNK, dev)
         for who, fn in (("old", old), ("new", new)):
             if K.max_abs_err(fn(), want) != 0:
                 raise AssertionError(f"{who} {kernel} != plain on {label}")
         escapes = int(enc[4].sum())
         rec = in_turns(old, new, reps)
+        raw = 2 * bits.numel()          # the bf16 bytes a leaf holds
         print(json.dumps(dict(kernel=kernel, input=label, rows=rows,
                               chunk=CODEC_CHUNK, cap=CODEC_CAP,
                               escapes=escapes, escapes_per_row=escapes / rows,
                               applied=int(streams[4].sum()), bitwise_equal=True,
-                              grid=grid, **rec)), flush=True)
-        del enc, streams, want
+                              grid=[grid, E.FUSED_WARPS],
+                              old_raw_gb_per_s=raw / rec["old_ms"] / 1e6,
+                              new_raw_gb_per_s=raw / rec["new_ms"] / 1e6,
+                              **rec)), flush=True)
+        del enc, streams, want, old, new
         torch.cuda.empty_cache()
-    old_sass = dense_sass(lib_path)
-    new_sass = dense_sass(build.library_path(OLD_PROTOTYPES[kernel][0]))
-    print(json.dumps(dict(
-        kernel=kernel, dense_kernels=sorted("/".join(k) for k in (new_sass or {})),
-        dense_sass_equal=None if old_sass is None else (
-            bool(new_sass) and old_sass == new_sass))), flush=True)
+    built = {OLD_PROTOTYPES[kernel][0]: lib_path}
+    print(json.dumps(dict(kernel=kernel, **codec_sass_check(old_dir, built))),
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -284,7 +360,7 @@ def main(argv=None) -> int:
     if args.kernel == "paged_mla_attention":
         ab_mla(lib, dev, args.reps)
     else:
-        ab_codec(args.kernel, lib, lib_path, dev, args.reps)
+        ab_codec(args.kernel, lib, lib_path, args.old, dev, args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -144,7 +144,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 FMT_ID = {"bf16": 0, "fp8_e5m2": 1, "fp8_e4m3": 2}
 
 #: the codec kernels walk a row in whole 256-element warp steps (the dense
-#: ones with one CTA of chunk / 8 threads a row)
+#: encode with one CTA of chunk / 8 threads a row)
 MAX_CHUNK = 8192
 
 

@@ -1,6 +1,6 @@
-// What the persistent fused codec kernels share (splitzip_encode.cu,
-// splitzip_decode.cu): the grid's geometry and its size, and a lane's
-// streaming loads and stores.  Each of the two sources includes it once and
+// What the persistent codec kernels share (splitzip_encode.cu: the fused
+// encode; splitzip_decode.cu: the fused and the dense decode): the grid's
+// geometry and its size, and a lane's streaming loads and stores.  Each of the two sources includes it once and
 // is its own library, so every static below is that library's own.
 #pragma once
 
@@ -66,25 +66,40 @@ __device__ __forceinline__ void st_stream(void* p, const Words<NB>& r) {
   }
 }
 
-// CTAs of a persistent grid of FUSED_THREADS-thread CTAs, a warp a row:
-// as many as fit on the card at once, no more than ``rows`` need.
+// The persistent kernels a library may hold: each kind keeps its own
+// occupancy (splitzip_decode.cu: 0 the fused kernel, 1 the dense one).
+constexpr int MAX_KINDS = 2;
+
+// CTAs of ``kernel_of(fmt, wide)`` that fit on one SM at once, into ``*n``:
 // ``kernel_of(fmt, wide)`` is the kernel for format ``fmt`` at 16 (wide) or
-// 8 elements a lane.  The occupancy query runs once per (format, lane
-// width, device) and is cached, so a launch itself queries nothing.
+// 8 elements a lane, the width ``chunk`` takes.  Not cached.
+inline int ctas_per_sm(const void* (*kernel_of)(int, int), int fmt, int chunk,
+                       int* n) {
+  if (fmt < 0 || fmt > 2 || chunk % 256 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, kernel_of(fmt, lane_elems(chunk) == 16), FUSED_THREADS, 0);
+}
+
+// CTAs of a persistent grid of FUSED_THREADS-thread CTAs, a warp a row:
+// as many as fit on the card at once, no more than ``rows`` need.  The
+// occupancy query runs once per (kernel ``kind``, format, lane width,
+// device) and is cached, so a launch itself queries nothing.
 inline int persistent_ctas(const void* (*kernel_of)(int, int), int fmt,
-                           long long rows, int chunk, int* ctas) {
-  static int per_sm[3][2][MAX_DEVICES], sms[MAX_DEVICES];
+                           long long rows, int chunk, int* ctas,
+                           int kind = 0) {
+  static int per_sm[MAX_KINDS][3][2][MAX_DEVICES], sms[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (fmt < 0 || fmt > 2 || dev >= MAX_DEVICES || chunk % 256 != 0)
+  if (kind < 0 || kind >= MAX_KINDS || fmt < 0 || fmt > 2 ||
+      dev >= MAX_DEVICES || chunk % 256 != 0)
     return (int)cudaErrorInvalidValue;
   const int wide = lane_elems(chunk) == 16;
-  int& fit = per_sm[fmt][wide][dev];
+  int& fit = per_sm[kind][fmt][wide][dev];
   if (fit == 0) {
     int n = 0, m = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel_of(fmt, wide), FUSED_THREADS, 0);
+    err = (cudaError_t)ctas_per_sm(kernel_of, fmt, chunk, &n);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;

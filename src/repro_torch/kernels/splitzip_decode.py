@@ -4,10 +4,11 @@
 reassembles the container bits from the sign-mantissa stream AND applies the
 sparse escape correction in one CUDA launch (``csrc/splitzip_decode.cu``, the
 port of the Pallas ``decode_fused``: a persistent grid, a warp per chunk row,
-escapes patched in registers; :func:`fused_grid` says how many CTAs it
-launches).  ``decode_dense`` is the dense stage
-alone, for layouts whose correction stays outside the kernel
-(``layout='global'`` and capacities above ``MAX_FUSED_CAP``).
+escapes patched in registers).  ``decode_dense`` is the dense stage alone,
+for layouts whose correction stays outside the kernel (``layout='global'``
+and capacities above ``MAX_FUSED_CAP``): the same kernel with the escapes
+compiled out.  :func:`fused_grid` and :func:`dense_grid` say how many CTAs
+each launches, from its own occupancy (:func:`ctas_per_sm`).
 
 Each wrapper launches its kernel for CUDA operands and runs its plain PyTorch
 version (``*_plain``) only for CPU operands; anything else raises.
@@ -36,6 +37,10 @@ _PROTOTYPES = {
                              ctypes.POINTER(ctypes.c_int)],
     "sz_decode_dense": [ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, _P, _P],
+    "sz_decode_dense_grid": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)],
+    "sz_decode_ctas_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -60,17 +65,41 @@ def _lib():
     return build.library("splitzip_decode", _PROTOTYPES)
 
 
+def _grid(entry: str, fmt: str, rows: int, chunk: int, device) -> int:
+    lib, ctas = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(build.FMT_ID[fmt], rows, chunk,
+                                  ctypes.byref(ctas))
+    build.check(lib, err, entry)
+    return ctas.value
+
+
 def fused_grid(fmt: str, rows: int, chunk: int, device) -> int:
     """CTAs (of ``FUSED_WARPS`` warps, a warp a row at a time) that
     ``decode_fused`` launches for ``rows`` rows of ``chunk`` on the CUDA
     ``device``: as many as fit on the card at once, no more than the rows
     need."""
-    lib, ctas = _lib(), ctypes.c_int(0)
+    return _grid("sz_decode_fused_grid", fmt, rows, chunk, device)
+
+
+def dense_grid(fmt: str, rows: int, chunk: int, device) -> int:
+    """:func:`fused_grid` for ``decode_dense``, from its own occupancy."""
+    return _grid("sz_decode_dense_grid", fmt, rows, chunk, device)
+
+
+def ctas_per_sm(kernel: str, fmt: str, chunk: int, device) -> int:
+    """CTAs of the ``"fused"`` or ``"dense"`` decode kernel for ``chunk``
+    that fit on one SM of the CUDA ``device``, asked of the runtime anew
+    (the grids above cache theirs)."""
+    if kernel not in ("fused", "dense"):
+        raise ValueError(f"kernel={kernel!r}: 'fused' or 'dense'")
+    lib, n = _lib(), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.sz_decode_fused_grid(build.FMT_ID[fmt], rows, chunk,
-                                     ctypes.byref(ctas))
-    build.check(lib, err, "decode_fused grid")
-    return ctas.value
+        err = lib.sz_decode_ctas_per_sm(int(kernel == "fused"),
+                                        build.FMT_ID[fmt], chunk,
+                                        ctypes.byref(n))
+    build.check(lib, err, f"{kernel} decode occupancy")
+    return n.value
 
 
 # ---------------------------------------------------------------------------

@@ -151,6 +151,33 @@ def test_fused_edges_match_pallas(ref, fmt, name):
                                          chunk)], ["fused bits"])
 
 
+DENSE_CASE_NAMES = [f"chunk{chunk}" for chunk, _, _ in K.FUSED_CHUNKS] + ["rows1",
+                                                                       "rows7"]
+
+
+@pytest.mark.parametrize("fmt,name", [(f, n) for f in FORMATS
+                                      for n in DENSE_CASE_NAMES])
+def test_dense_edges_match_pallas(ref, fmt, name):
+    """The dense decode at the persistent kernels' edges (chunk widths 256
+    to 8192, 1 and 7 rows) on ``encode_dense``'s streams: escapes stay at
+    code 0's exponent, as in the Pallas ``decode_dense``."""
+    jnp, JE, JD = ref["jnp"], ref["JE"], ref["JD"]
+    xb, x, _, chunk = fused_case(fmt, name)
+    exps = tuple(K.CODEBOOKS[fmt].exponents)
+    br = JE.fit_block_rows(xb.shape[0], JE.DEFAULT_BLOCK_ROWS)
+    kw = dict(fmt=fmt, chunk=chunk, block_rows=br, interpret=True)
+    sm, packed, is_esc = E.encode_dense(x, exps, fmt, chunk)
+    assert_same(JE.encode_dense(jnp.asarray(xb), exps, **kw), (sm, packed, is_esc),
+                ("sign_mantissa", "packed", "is_escape"))
+    got = D.decode_dense(packed, sm, exps, fmt, chunk)
+    want = JD.decode_dense(jnp.asarray(tnp(packed)), jnp.asarray(tnp(sm)), exps, **kw)
+    assert_same([want], [got], ["dense bits"])
+    # exactly the escaped elements differ from the input
+    esc = tnp(is_esc) != 0
+    assert esc.any()
+    np.testing.assert_array_equal(tnp(got) != xb, esc)
+
+
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_repeated_slot_matches_pallas(ref, fmt):
     """Slots 31 and 32 name one position: the later slot wins, as the Pallas
@@ -365,3 +392,99 @@ def test_fused_edges_match_plain_on_card(cuda_device, fmt):
                             K.CODEBOOKS[fmt], 64, chunk)
         torch.cuda.synchronize()
         assert max(errs.values()) == 0, ("more rows than a grid pass", chunk, errs)
+
+
+def _sass(functions):
+    """``cuobjdump -sass`` text of ``{mangled name: [instructions]}``."""
+    lines = []
+    for name, body in functions.items():
+        lines.append(f"\t\tFunction : {name}")
+        lines += [f"        /*{16 * i:04x}*/                   {ins} ;   /* 0x0 */"
+                  for i, ins in enumerate(body)]
+    return "\n".join(lines)
+
+
+def test_codec_sass_compares_kernels_by_role():
+    """``ab_kernels`` holds the codec kernels a revision leaves alone to the
+    parent's SASS by role: the templated ``decode_kernel<..., true>`` is the
+    parent's ``decode_fused_kernel``, ``<..., false>`` its dense decode, and
+    a moved parameter offset is not a difference."""
+    from repro_torch.kernels import ab_kernels as AB
+    tail = "EEEvPKhS2_PKtS2_PKiPT_xiiNS_9DecodeLutE"
+    old = _sass({
+        f"_ZN12_GLOBAL__N_119decode_fused_kernelItLi7ELi8ELi16{tail}":
+            ["LDC R1, c[0x0][0x28]", "EXIT"],
+        "_ZN12_GLOBAL__N_119decode_dense_kernelIhLi2ELi5EEEvPKhS2_PT_iNS_9DecodeLutE":
+            ["S2R R0, SR_TID.X", "EXIT"],
+        "_ZN12_GLOBAL__N_119encode_fused_kernelItLi7ELi8ELi16EEEvPKT_Ph": ["NOP"],
+        "_ZN12_GLOBAL__N_119encode_dense_kernelIhLi3ELi4EEEvPKT_PhS4_S4_i": ["NOP"],
+        "_Z9unrelatedv": ["BRA"]})
+    new = _sass({
+        f"_ZN12_GLOBAL__N_113decode_kernelItLi7ELi8ELi16ELb1{tail}":
+            ["LDC R1, c[0x0][0x30]", "EXIT"],
+        f"_ZN12_GLOBAL__N_113decode_kernelIhLi2ELi5ELi16ELb0{tail}":
+            ["LDG.E.128.CONSTANT R4, [R2.64]", "EXIT"],
+        "_ZN12_GLOBAL__N_119encode_fused_kernelItLi7ELi8ELi16EEEvPKT_Ph": ["NOP"],
+        "_ZN12_GLOBAL__N_119encode_dense_kernelIhLi3ELi4EEEvPKT_PhS4_S4_i": ["NOP"]})
+    a, b = AB.codec_sass_of(old), AB.codec_sass_of(new)
+    assert sorted(a) == [("decode_dense", "h", "2", "5", ""),
+                         ("decode_fused", "t", "7", "8", "16"),
+                         ("encode_dense", "h", "3", "4", ""),
+                         ("encode_fused", "t", "7", "8", "16")]
+    assert ("decode_dense", "h", "2", "5", "16") in b
+    assert a[("decode_fused", "t", "7", "8", "16")] == ["LDC R1, c[0x0][*]", "EXIT"]
+    assert AB.sass_equal(a, b) == {"encode_fused": True, "encode_dense": True,
+                                   "decode_fused": True}
+    changed = dict(b)
+    changed[("encode_dense", "h", "3", "4", "")] = ["NOP", "NOP"]
+    del changed[("encode_fused", "t", "7", "8", "16")]
+    assert AB.sass_equal(a, changed) == {"encode_fused": False,
+                                         "encode_dense": False,
+                                         "decode_fused": True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_dense_decode_matches_plain_past_its_grid_on_card(cuda_device, fmt):
+    """The persistent dense decode bitwise against its plain version over
+    more rows than one pass of its own grid covers, at 16 elements a lane
+    (chunk 1024) and 8 (chunk 768); 7 rows take one CTA."""
+    exps = tuple(K.CODEBOOKS[fmt].exponents)
+    for chunk in (1024, 768):
+        assert D.dense_grid(fmt, 7, chunk, cuda_device) == 1
+        rows = D.dense_grid(fmt, 1 << 40, chunk, cuda_device) * D.FUSED_WARPS + 37
+        x = to_torch_bits(K.many_rows(fmt, rows, seed=4, chunk=chunk)).to(
+            cuda_device).reshape(rows, chunk)
+        sm, packed, _ = E.encode_dense(x, exps, fmt, chunk)
+        launched = D.decode_dense.launches
+        got = D.decode_dense(packed, sm, exps, fmt, chunk)
+        torch.cuda.synchronize()
+        assert D.decode_dense.launches == launched + 1
+        want = D.decode_dense_plain(packed, sm, exps, fmt, chunk)
+        assert K.max_abs_err((got,), (want,)) == 0, chunk
+
+
+@pytest.mark.cuda
+def test_decode_grids_use_their_own_occupancy(cuda_device, tmp_path):
+    """The fused and the dense decode kernel of one library each size their
+    persistent grid from their own occupancy, whichever is asked first: in
+    a fresh copy of the library (its own cache) each grid equals what the
+    runtime gives for its own kernel, times the SMs."""
+    import ctypes
+    import shutil
+    D.fused_grid("bf16", 1, CHUNK, cuda_device)           # builds the library
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for order in (("fused", "dense"), ("dense", "fused")):
+        lib = ctypes.CDLL(str(shutil.copy(build.library_path("splitzip_decode"),
+                                          tmp_path / f"lib_{order[0]}.so")))
+        for fmt in FORMATS:
+            for chunk in (1024, 768):
+                for kernel in order:
+                    entry = getattr(lib, f"sz_decode_{kernel}_grid")
+                    entry.argtypes = D._PROTOTYPES[f"sz_decode_{kernel}_grid"]
+                    ctas = ctypes.c_int(0)
+                    with torch.cuda.device(cuda_device):
+                        assert entry(build.FMT_ID[fmt], 1 << 40, chunk,
+                                     ctypes.byref(ctas)) == 0
+                    fit = D.ctas_per_sm(kernel, fmt, chunk, cuda_device)
+                    assert ctas.value == fit * sms, (order, fmt, chunk, kernel)
