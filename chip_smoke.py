@@ -41,6 +41,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 4. capacity — a cache with one chunk of nothing but escapes walks the
               capacity schedule to ``layout='global'``: the dense kernels
               launch and delivery stays bitwise.
+4a. profile — ``CalibratedProfile.measure`` of the ``cuda`` backend at the
+              main-path leaf's shape (5 repeats; host clock around
+              synchronized calls) and of the ``torch`` backend on a smaller
+              one: g_enc, g_dec and ratio beside the kernels' device GB/s,
+              saved under ``build/`` and resolved back equal, and the
+              served transfer's ``transfer_report`` at 100 Gb/s under the
+              measured profile and the paper's.
+4b. verified — smollm-135m served with ``verify=True`` under a seeded
+              ``FaultPlan`` at n_chunks 1 and 8 (a corruption and a drop
+              each, seeded rates at 8): delivery bitwise, tokens equal to
+              the fault-free run's, every injected fault re-fetched, encode
+              launches as fault-free; an unverified run whose corrupted
+              entry arrives corrupted; a failover re-send bitwise at the
+              same wire bytes and with no encode; the verified transfer's
+              host time against the plain one, in turns.
+4c. wire    — the served cache through ``wire`` and ``wire-verify``:
+              bitwise round trip, each SZ02 payload the size
+              ``payload_bytes_model`` says, encode and decode timed; a
+              flipped byte raises ``WireIntegrityError`` naming its frame;
+              phase 4's all-escape chunk through the wire's global
+              re-encode (the dense kernels).
 5. attention — the paged-attention kernels against their plain versions:
               ``decode_pages`` (the kernels' shared page decoder) BITWISE
               for bf16 / fp8_e5m2 / fp8_e4m3 pages with escape counts 0,
@@ -88,7 +109,8 @@ the port never calls); phase ``flash_live`` reports the three geometries.
 The launch counters are set to 0 right before each main-path run and read
 right after it: the served transfer of phase 3 (``encode_fused``,
 ``decode_fused``), the capacity walk of phase 4 (``encode_dense``,
-``decode_dense``), the served resident decode of phases 6
+``decode_dense``), each path of phases 4a–4c (the codec kernels'
+``launches_by_path``), the served resident decode of phases 6
 (``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
 prefills of phases 3, 7 and 9 (``flash_attention``: one launch per layer,
 30 + 62 + 48, every one on the tensor-core path, or the run fails); the
@@ -479,15 +501,15 @@ def phase_main(torch, cfg, device):
          new_tokens=NEW_TOKENS, cache_elements=n_elems,
          codebook=list(cb.exponents), runs=results,
          tokens_equal=True, delivered_bitwise=True)
-    return cb, first, params, prompt, launches
+    return cb, first, params, prompt, launches, results
 
 
-def phase_capacity(torch, cfg, cb, first, device):
+def escape_chunk_state(torch, cb, first, device):
+    """The served prefill cache with its first chunk of ``k`` made of
+    nothing but escapes (1024 of them, past every per-chunk capacity)."""
     from repro_torch.core import codec as C
-    from repro_torch.core import tree as TR
     from repro_torch.core.codebook import FORMATS
     from repro_torch.models.kvcache import DecodeState
-    from repro_torch.serving.engine import DisaggregatedEngine
 
     cache = {k: v.clone() for k, v in first.prefill.state.cache.items()}
     esc_e = next(e for e in range(256) if e not in cb.exponents)
@@ -496,7 +518,16 @@ def phase_capacity(torch, cfg, cb, first, device):
         | (esc_e << mbits)
     flat = C.signed_view(cache["k"].view(torch.uint16)).reshape(-1)
     flat[:1024] = chunk_bits.to(torch.int16)
-    state = DecodeState(cache=cache, cache_len=first.prefill.state.cache_len)
+    return DecodeState(cache=cache, cache_len=first.prefill.state.cache_len)
+
+
+def phase_capacity(torch, cfg, cb, first, device):
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    state = escape_chunk_state(torch, cb, first, device)
+    cache = state.cache
     eng = DisaggregatedEngine(cfg, None, cb, backend="cuda", device=device)
     out, launches = counted(eng.transfer, state)
     torch.cuda.synchronize()
@@ -510,6 +541,258 @@ def phase_capacity(torch, cfg, cb, first, device):
     emit(phase="capacity", retry_steps=steps, transfer_ratio=eng.stats.transfer_ratio,
          delivered_bitwise=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases profile, verified and wire: the transfer plane
+# ---------------------------------------------------------------------------
+
+LINK_GBPS = 100.0                 # the launcher's default simulated PD link
+
+
+def host_ms(torch, fn, reps: int):
+    """Host-clock ms of each of ``reps`` calls of ``fn`` (after one warm-up),
+    each ended by a device synchronize, and the last call's result."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def need_launches(path, counts, names):
+    missing = [k for k in names if not counts[k]]
+    if missing:
+        raise AssertionError(f"path {path}: kernels never launched: {missing}")
+
+
+def phase_profile(torch, records, served, smi, device):
+    """``CalibratedProfile.measure`` on the ``cuda`` backend at the main-path
+    leaf's shape, on the ``torch`` backend at a smaller one; saved under
+    ``build/`` and resolved back; the served smollm transfer priced under
+    the measured profile and the paper's."""
+    from repro_torch.core import profile as PR
+    from repro_torch.serving.transfer import transfer_report
+
+    rows = served["leaf_rows"]
+    cal, launches = counted(lambda: PR.CalibratedProfile.measure(
+        backend="cuda", shapes=((rows, 1024),), repeats=5, warmup=1,
+        device=device))
+    need_launches("profile", launches, ("encode_fused", "decode_fused"))
+    cal_torch = PR.CalibratedProfile.measure(
+        backend="torch", shapes=((1 << 22,),), repeats=3, warmup=1,
+        device=device)
+    path = ROOT / "build" / "chip_smoke_profiles.json"
+    PR.save_profiles([cal, cal_torch], str(path))
+    link_bw = LINK_GBPS * 1e9 / 8
+    measured = PR.resolve_profile(str(path), link_bw=link_bw, backend="cuda")
+    if measured != cal.profile(link_bw) or \
+            PR.load_profiles(str(path)) != {cal.key: cal, cal_torch.key: cal_torch}:
+        raise AssertionError("the saved profile does not resolve back equal")
+    reports = {}
+    for name, prof in (("measured", measured),
+                       ("paper", PR.resolve_profile("paper", link_bw=link_bw))):
+        rep = transfer_report(served["raw_bytes"], served["wire_bytes"], prof)
+        reports[name] = dict(source=prof.source, t_native_ms=rep.t_native * 1e3,
+                             t_splitzip_ms=rep.t_splitzip * 1e3,
+                             t_encode_ms=rep.t_encode * 1e3,
+                             t_transfer_ms=rep.t_transfer * 1e3,
+                             t_decode_ms=rep.t_decode * 1e3,
+                             speedup=rep.speedup, ratio=rep.ratio)
+
+    def gbps(c):
+        return dict(g_enc_GBps=c.g_enc / 1e9, g_dec_GBps=c.g_dec / 1e9,
+                    ratio=c.ratio, workload_elems=c.workload_elems,
+                    repeats=c.repeats, source=c.source)
+    emit(phase="profile", nvidia_smi=smi, cuda=gbps(cal), torch=gbps(cal_torch),
+         kernel_device_raw_GBps={k: records[k]["raw_gb_per_s"]
+                                 for k in ("encode_fused", "decode_fused")},
+         saved=str(path.relative_to(ROOT)), resolves_equal=True,
+         link_gbps=LINK_GBPS, transfer_report=reports, launches=launches)
+    return launches
+
+
+def phase_verified(torch, cfg, params, cb, prompt, first, main_runs, device):
+    """Verified delivery under a seeded fault plan at n_chunks 1 and 8 (each
+    executor meets a corruption and a drop; n_chunks 8 also seeded rates):
+    bitwise delivery, the fault-free tokens, every fault re-fetched, encode
+    launches as fault-free.  Then an unverified run whose corrupted entry
+    arrives corrupted, a failover re-send, and the verified transfer's
+    overhead against the plain one on the same plan."""
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.core.backend import get_backend
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DisaggregatedEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.plan import TransferConfig, TransferPlan
+
+    def differing(a, b):
+        return sum(int((C.signed_view(x.view(torch.uint16))
+                        != C.signed_view(y.view(torch.uint16))).sum())
+                   for x, y in zip(TR.leaves(a), TR.leaves(b)))
+
+    plans = {1: FaultPlan(seed=18, corrupt_chunks=(0,), drop_chunks=(1,)),
+             8: FaultPlan(seed=18, corrupt_chunks=(2,), drop_chunks=(5,),
+                          corrupt_p=0.25, drop_p=0.1)}
+    fault_free = {1: main_runs["cuda_n1"], 8: main_runs["cuda_n8"]}
+    runs, windows = {}, {}
+    for n, faults in plans.items():
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", n_chunks=n,
+                                  verify=True, faults=faults, device=device)
+        res, launches = counted(serve.serve_once, eng, prompt, NEW_TOKENS)
+        st = eng.stats
+        if differing(res.delivered.cache, res.prefill.state.cache):
+            raise AssertionError(f"verified n_chunks {n}: delivered != prefill")
+        if not torch.equal(res.tokens, first.tokens):
+            raise AssertionError(f"verified n_chunks {n}: tokens != fault-free")
+        if not (st.faults_injected == st.verify_failures == st.refetches >= 2):
+            raise AssertionError(
+                f"verified n_chunks {n}: injected {st.faults_injected}, "
+                f"failures {st.verify_failures}, re-fetches {st.refetches}")
+        for k in ("encode_fused", "encode_dense"):
+            if launches[k] != fault_free[n][k]:
+                raise AssertionError(f"verified n_chunks {n}: {k} launched "
+                                     f"{launches[k]}, fault-free {fault_free[n][k]}")
+        need_launches(f"verified_n{n}", launches, ("encode_fused", "decode_fused"))
+        windows[f"verified_n{n}"] = launches
+        runs[f"n_chunks_{n}"] = dict(
+            faults=faults.describe(), faults_injected=st.faults_injected,
+            verify_failures=st.verify_failures, refetches=st.refetches,
+            raw_refetches=st.raw_refetches, wire_bytes=st.wire_bytes,
+            transfer_ratio=st.transfer_ratio, seconds=res.seconds,
+            launches={k: launches[k] for k in ("encode_fused", "decode_fused",
+                                               "encode_dense", "decode_dense")})
+
+    state = first.prefill.state
+    loose = DisaggregatedEngine(cfg, None, cb, backend="cuda", device=device,
+                                faults=FaultPlan(corrupt_chunks=(0,)))
+    bad = differing(loose.transfer(state).cache, state.cache)
+    if not bad or loose.stats.verify_failures:
+        raise AssertionError("unverified: the corrupted entry was not delivered")
+
+    fo = DisaggregatedEngine(cfg, None, cb, backend="cuda", device=device,
+                             retain_for_failover=True)
+    fo.transfer(state)
+    wire_first = fo._session.last_stats.wire_bytes
+    again, resend_launches = counted(fo.resend_cache, state)
+    if differing(again.cache, state.cache) or \
+            fo._session.last_stats.wire_bytes != wire_first:
+        raise AssertionError("failover re-send: cache or wire bytes differ")
+    if resend_launches["encode_fused"] or resend_launches["encode_dense"]:
+        raise AssertionError("failover re-send encoded again")
+
+    overhead = {}
+    for n in (1, 8):
+        plan = TransferPlan.build(state.cache, TransferConfig(
+            codebook=cb, backend="cuda", n_chunks=n))
+        plain, ver = plan.session(), plan.session(verify=True)
+        t_plain, t_ver = [], []
+        for order in ((plain, t_plain), (ver, t_ver), (ver, t_ver),
+                      (plain, t_plain)) * 2:
+            sess, out = order
+            out.extend(host_ms(torch, lambda: sess.transfer(state.cache), 1)[0])
+        overhead[f"n_chunks_{n}"] = dict(
+            plain_ms=t_plain, verified_ms=t_ver,
+            plain_mean_ms=sum(t_plain) / len(t_plain),
+            verified_mean_ms=sum(t_ver) / len(t_ver))
+    ct = get_backend("cuda").encode(state.cache["k"], cb)
+    stream_bytes = sum(t.numel() * t.element_size() for t in ct.tensors())
+    tag_ms, _ = host_ms(torch, lambda: get_backend("cuda").checksum(ct), 5)
+    emit(phase="verified", arch=cfg.name, batch=BATCH, prompt=PROMPT, runs=runs,
+         delivered_bitwise=True, tokens_equal_fault_free=True,
+         unverified_corrupted_elements=bad, failover_resend_bitwise=True,
+         failover_resend_launches=resend_launches,
+         verify_overhead=overhead,
+         checksum_one_leaf=dict(stream_bytes=stream_bytes, host_ms=tag_ms,
+                                GBps=stream_bytes / min(tag_ms) / 1e6))
+    return windows
+
+
+def phase_wire(torch, cfg, cb, first, smi, device):
+    """The served cache through the ``wire`` and ``wire-verify`` backends
+    (bitwise round trip, each payload's size against ``payload_bytes_model``,
+    encode and decode timed on the host clock), a flipped byte caught in its
+    frame, and the all-escape chunk through the global re-encode."""
+    from repro_torch.core import backend as B
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.core import wire as W
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    state = first.prefill.state
+    windows, engines = {}, {}
+    for name in ("wire", "wire-verify"):
+        eng = DisaggregatedEngine(cfg, None, cb, backend=name, device=device)
+        out, launches = counted(eng.transfer, state)
+        if not all(C.bits_equal(x, y) for x, y in zip(TR.leaves(out.cache),
+                                                     TR.leaves(state.cache))):
+            raise AssertionError(f"{name}: delivered cache != sent cache")
+        need_launches(name, launches, ("encode_fused", "decode_fused"))
+        windows[name] = launches
+        engines[name] = dict(transfer_ratio=eng.stats.transfer_ratio,
+                             wire_bytes=eng.stats.wire_bytes)
+
+    be = B.get_backend("wire-verify")
+    leaves = {}
+    for key, leaf in state.cache.items():
+        enc_ms, wc = host_ms(torch, lambda: be.encode(leaf, cb), 3)
+        dec_ms, back = host_ms(torch, lambda: be.decode(wc), 3)
+        model = W.payload_bytes_model(leaf.numel(), wc.stats.n_escapes, "bf16",
+                                      cb.k, W.DEFAULT_CHUNK)
+        if len(wc.payload) != model or not C.bits_equal(back, leaf):
+            raise AssertionError(f"wire {key}: payload {len(wc.payload)} vs "
+                                 f"model {model}, or the round trip differs")
+        leaves[key] = dict(payload_bytes=len(wc.payload), model_bytes=model,
+                           escapes=wc.stats.n_escapes, ratio=wc.stats.ratio,
+                           raw_bytes=wc.stats.raw_bytes, encode_ms=enc_ms,
+                           decode_ms=dec_ms,
+                           encode_raw_GBps=wc.stats.raw_bytes / min(enc_ms) / 1e6,
+                           decode_raw_GBps=wc.stats.raw_bytes / min(dec_ms) / 1e6)
+    # where a wire encode's and decode's host time goes: one traced call each
+    trace = {}
+    for half, call in (("encode", lambda: be.encode(leaf, cb)),
+                       ("decode", lambda: be.decode(wc))):
+        wall, dev, host = profiled(torch, call)
+        trace[half] = dict(wall_ms=wall, device_ms=sum(ms for ms, _, _ in dev),
+                           host_ops_self_ms=sum(ms for ms, _, _ in host),
+                           device=[dict(name=k, ms=ms, calls=c)
+                                   for ms, c, k in dev[:6]],
+                           host=[dict(name=k, self_ms=ms, calls=c)
+                                 for ms, c, k in host[:8]])
+    lay = W._parse(wc.payload)
+    frame = min(3, lay.n_frames - 1)
+    bad = bytearray(wc.payload)
+    bad[lay.body_off + frame * W.FRAME_BYTES + 5] ^= 0x04
+    try:
+        be.decode(B.WireCompressed(payload=bytes(bad), shape=wc.shape,
+                                   dtype=wc.dtype, fmt=wc.fmt, stats=wc.stats,
+                                   device=wc.device))
+    except W.WireIntegrityError as err:
+        if err.frames != (frame,):
+            raise AssertionError(f"flipped byte in frame {frame}, error names "
+                                 f"{err.frames}")
+    else:
+        raise AssertionError("wire-verify decoded a corrupted payload")
+
+    esc = escape_chunk_state(torch, cb, first, device)
+    eng = DisaggregatedEngine(cfg, None, cb, backend="wire", device=device)
+    out, launches = counted(eng.transfer, esc)
+    if not all(C.bits_equal(x, y) for x, y in zip(TR.leaves(out.cache),
+                                                 TR.leaves(esc.cache))):
+        raise AssertionError("wire, all-escape chunk: delivered != sent")
+    need_launches("wire_escapes", launches, ("encode_dense", "decode_dense"))
+    windows["wire_escapes"] = launches
+    emit(phase="wire", nvidia_smi=smi, engines=engines, leaves=leaves,
+         trace=trace, round_trip_bitwise=True, flipped_byte_frame=frame,
+         integrity_error_frames=[frame], n_frames=lay.n_frames,
+         escape_chunk_transfer_ratio=eng.stats.transfer_ratio,
+         launches=windows)
+    return windows
 
 
 # ---------------------------------------------------------------------------
@@ -1160,9 +1443,17 @@ def main(argv=None) -> int:
     # transfer (phase 3, cuda n_chunks 1), the capacity walk (phase 4), and
     # the served resident decodes of each family (phases 6, 7 and 9); the
     # served prefills of phases 3, 7 and 9 count the flash-attention kernel
-    cb, first, params, prompt, main_runs = phase_main(torch, cfg, device)
+    cb, first, params, prompt, main_runs, main_results = phase_main(
+        torch, cfg, device)
     windows = {"main": main_runs["cuda_n1"], "main_n8": main_runs["cuda_n8"],
                "capacity": phase_capacity(torch, cfg, cb, first, device)}
+    served = dict(raw_bytes=main_results["cuda_n1"]["raw_bytes"],
+                  wire_bytes=main_results["cuda_n1"]["wire_bytes"],
+                  leaf_rows=first.prefill.state.cache["k"].numel() // 1024)
+    windows["profile"] = phase_profile(torch, records, served, smi, device)
+    windows.update(phase_verified(torch, cfg, params, cb, prompt, first,
+                                  main_runs, device))
+    windows.update(phase_wire(torch, cfg, cb, first, smi, device))
     del first
     flash = {}
     windows["resident"], flash[ARCH] = phase_resident(torch, cfg, params, cb,
@@ -1179,6 +1470,10 @@ def main(argv=None) -> int:
              "paged_gqa_attention": "resident", "paged_mla_attention": "mla"}
     for k, rec in records.items():
         rec["launches"] = windows[owner[k]][k]
+    transfer_paths = ("main", "main_n8", "capacity", "profile", "verified_n1",
+                      "verified_n8", "wire", "wire-verify", "wire_escapes")
+    for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
+        records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
         ARCH: windows["resident"]["paged_gqa_attention"],
         MOE_ARCH: windows["moe"]["paged_gqa_attention"]}

@@ -15,21 +15,31 @@ Built-in backends:
           kernels launch for CUDA tensors; CPU tensors take their plain
           versions.  The counterpart of ``pallas``.
   auto  : resolves to ``cuda``.
+  wire  : the SZ02 host payload (:mod:`repro_torch.core.wire`): true
+          variable-length bytes with no escape-capacity limit, so ``ok`` is
+          always True.  The element-wise work runs on the tensor's device
+          through the ``cuda`` backend's kernels; the payload itself is host
+          bytes.  ``wire-verify`` checks every payload's frame table before
+          decoding.
 
-Interface contract: ``encode`` returns a :class:`CompressedTensor`;
+Interface contract: ``encode`` returns a compressed object (a
+:class:`CompressedTensor`, or a :class:`WireCompressed` for ``wire``);
 ``decode`` inverts it bit-exactly; ``decode_bits`` yields the flat container
 bit stream; ``ok``/``wire_bytes``/``raw_bytes`` give the transfer session a
-uniform view for the raw-fallback accounting.
+uniform view for the raw-fallback accounting; ``checksum`` is the
+Fletcher-32 tag the verified wire hop frames an object with.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.core import codec as C
-from repro_torch.core.codebook import Codebook
+from repro_torch.core import wire as W
+from repro_torch.core.codebook import FORMATS, Codebook
 from repro_torch.kernels import ops
 
 
@@ -61,6 +71,16 @@ class CodecBackend:
     def raw_bytes(self, comp: C.CompressedTensor) -> float:
         """Uncompressed bytes of the original tensor (the fallback cost)."""
         return C.raw_bytes(comp)
+
+    def checksum(self, comp) -> int:
+        """Fletcher-32 integrity tag over a wire object's bytes: a
+        compressed object's streams concatenated in the JAX pytree's leaf
+        order (:meth:`CompressedTensor.tensors`), or a raw tensor's bytes.
+        Computed on the object's device; only the tag reaches the host."""
+        leaves = comp.tensors() if isinstance(comp, C.CompressedTensor) else (comp,)
+        return W.fletcher32(torch.cat([
+            C.signed_view(t).contiguous().reshape(-1).view(torch.uint8)
+            for t in leaves]))
 
     def for_retry(self, layout: str) -> "CodecBackend":
         """Backend for the adaptive-capacity re-encode of an overflowed unit.
@@ -142,6 +162,72 @@ class CudaBackend(CodecBackend):
         return self
 
 
+@dataclasses.dataclass(frozen=True)
+class WireCompressed:
+    """A tensor as its SZ02 host payload.  ``device`` is where it was
+    encoded from and where it decodes to."""
+
+    payload: bytes
+    shape: tuple
+    dtype: str
+    fmt: str
+    stats: W.WireStats
+    device: str
+
+
+class WireBackend(CodecBackend):
+    """The SZ02 wire codec: byte-exact serialization, no capacity limit.
+
+    Encode runs the ``cuda`` backend's kernels where the tensor is (a
+    chunked encode at ``cap``; where a chunk's true count overflows, one
+    ``layout='global'`` re-encode at the total count through the two-stage
+    path, which loses no escape), compacts the escapes in chunk order and
+    repacks the fields whose width differs from SZ02's, then copies the body
+    to the host once.  Decode parses on the host, uploads the payload once
+    and decodes on the payload's device through the kernels.
+    ``verify=True`` checks the frame table first (on that device) and raises
+    :class:`~repro_torch.core.wire.WireIntegrityError` naming the bad
+    frames."""
+
+    name = "wire"
+
+    def __init__(self, verify: bool = False):
+        self.verify = verify
+        self.codec = CudaBackend()
+
+    def encode(self, x, codebook, *, chunk=C.DEFAULT_CHUNK, cap=C.DEFAULT_CAP,
+               layout="chunked"):
+        # layout is an in-graph concern: the payload's escape arrays hold
+        # exactly the escapes there are
+        ct = W.lossless_streams(x, codebook, chunk, cap, self.codec.encode,
+                                self.codec.for_retry("global").encode)
+        payload, stats = W.payload_from_streams(ct)
+        return WireCompressed(payload=payload, shape=tuple(x.shape),
+                              dtype=C.dtype_name(x.dtype), fmt=codebook.fmt,
+                              stats=stats, device=str(x.device))
+
+    def decode_bits(self, comp: WireCompressed) -> torch.Tensor:
+        ct = W.streams_from_payload(comp.payload, comp.device,
+                                    verify=self.verify)
+        return self.codec.decode_bits(ct)
+
+    def decode(self, comp: WireCompressed) -> torch.Tensor:
+        bits = self.decode_bits(comp).reshape(comp.shape)
+        return C.from_bits(bits, C.dtype_from_name(comp.dtype))
+
+    def checksum(self, comp: WireCompressed) -> int:
+        return W.fletcher32(comp.payload)
+
+    def ok(self, comp: WireCompressed) -> bool:
+        return True  # variable-length format: unconditionally lossless
+
+    def wire_bytes(self, comp: WireCompressed) -> float:
+        return float(comp.stats.payload_bytes)
+
+    def raw_bytes(self, comp: WireCompressed) -> float:
+        return comp.stats.n_elements * FORMATS[comp.fmt]["bits"] / 8.0
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -173,3 +259,7 @@ def available_backends() -> Tuple[str, ...]:
 register_backend("torch", TorchBackend)
 register_backend("cuda", CudaBackend)
 register_backend("auto", CudaBackend)
+register_backend("wire", WireBackend)
+# integrity-checking wire decode: every payload's frame table is verified
+# before the body is parsed (WireIntegrityError on corruption)
+register_backend("wire-verify", lambda: WireBackend(verify=True))

@@ -9,8 +9,15 @@ Runs on the card unless ``--device`` names another (``--device cpu`` runs
 the kernels' plain versions); without CUDA and without ``--device`` it
 raises.  ``--codec-backend`` picks the codec from the registry (``auto``
 resolves to ``cuda``, the hand-written kernels; ``torch`` is the reference
-codec).  ``--n-chunks`` > 1 switches the transfer to the chunked pipelined
-executor.  Weights are random, made from ``--seed``.
+codec; ``wire`` / ``wire-verify`` ship SZ02 payloads).  ``--n-chunks`` > 1
+switches the transfer to the chunked pipelined executor.  Weights are
+random, made from ``--seed``.
+
+``--profile`` selects the codec profile that prices the analytic transfer
+report (:mod:`repro_torch.core.profile`): ``paper`` (the paper's H200
+figures), ``measured`` (the calibrated ``build/profiles.json``, measured on
+the spot when absent) or a ``profiles.json`` path; ``--link-gbps`` is the
+simulated PD link.  The report line names the profile's provenance.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.core import codebook as cbm
 from repro_torch.core import tree as TR
 from repro_torch.core.backend import available_backends
+from repro_torch.core.profile import resolve_profile
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.models.kvcache import DecodeState
@@ -112,6 +120,13 @@ def main(argv=None) -> ServeResult:
                          "CUDA kernels")
     ap.add_argument("--n-chunks", type=int, default=1,
                     help=">1 => chunked pipelined transfer engine")
+    ap.add_argument("--link-gbps", type=float, default=100.0,
+                    help="simulated PD link (Gbit/s) for the analytic report")
+    ap.add_argument("--profile", default="paper",
+                    help="codec profile source for the analytic report: "
+                         "'paper' (the paper's H200 figures), 'measured' "
+                         "(calibrated build/profiles.json; measured now if "
+                         "absent), or a profiles.json path")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -123,9 +138,12 @@ def main(argv=None) -> ServeResult:
     cb = calibrate_on_model(cfg, params, device=device, seed=args.seed + 1)
     print(f"calibrated top-16 exponents: {cb.exponents}")
 
+    profile = resolve_profile(args.profile, link_bw=args.link_gbps * 1e9 / 8,
+                              backend=args.codec_backend, device=device)
     eng = DisaggregatedEngine(cfg, params, cb, compress=not args.no_compress,
                               backend=args.codec_backend,
-                              n_chunks=args.n_chunks, device=device)
+                              n_chunks=args.n_chunks, profile=profile,
+                              device=device)
     prompt = make_prompt(cfg, args.batch, args.prompt_len, device=device,
                          seed=args.seed + 2)
     res = serve_once(eng, prompt, args.new_tokens)
@@ -149,6 +167,10 @@ def main(argv=None) -> ServeResult:
         print(f"pipelined chunks     : {len(per)} shipped (requested "
               f"{args.n_chunks}) — per-chunk wire bytes min={min(per):,.0f} "
               f"max={max(per):,.0f}")
+    rep = eng.transfer_report()
+    print(f"analytic transfer    : native {rep.t_native * 1e3:.2f} ms -> "
+          f"splitzip {rep.t_splitzip * 1e3:.2f} ms ({rep.speedup:.3f}x at "
+          f"{args.link_gbps:.0f} Gb/s, profile: {profile.source})")
     return res
 
 

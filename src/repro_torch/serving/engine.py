@@ -21,6 +21,14 @@ Two residencies on the decode side:
   escape overflow, a cache length that is not a page multiple) demotes the
   batch to raw residency; losslessness holds either way.
 
+The transfer stage takes the session's wire-integrity knobs: ``verify=True``
+checksum-verifies every wire hop (re-fetch on failure), ``faults=`` injects
+a seeded :class:`~repro_torch.serving.faults.FaultPlan`, and
+``retain_for_failover=True`` keeps the last payload so :meth:`resend_cache`
+can re-ship it to a replacement decode worker without re-encoding.
+``profile=`` (a :class:`~repro_torch.core.pipeline.CodecProfile`) prices
+the transfers in :meth:`transfer_report`.
+
 The engine runs on the card unless the caller passes ``device=``; without
 CUDA it raises.
 """
@@ -33,8 +41,9 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import tree as TR
+from repro_torch.core.backend import WireBackend, get_backend
 from repro_torch.core.codebook import Codebook
+from repro_torch.core.pipeline import CodecProfile
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache as KC
 from repro_torch.models import kvpool as KVP
@@ -43,10 +52,8 @@ from repro_torch.serving.decode import decode_loop, resident_decode_loop
 from repro_torch.serving.plan import TransferConfig, TransferPlan
 from repro_torch.serving.prefill import PrefillOutput, prefill_step
 from repro_torch.serving.session import TransferSession, decode_leaves
-
-
-def raw_wire_bytes(cache: Dict) -> float:
-    return float(sum(x.numel() * x.element_size() for x in TR.leaves(cache)))
+from repro_torch.serving.transfer import (TransferReport, raw_wire_bytes,
+                                          transfer_report)
 
 
 @dataclasses.dataclass
@@ -65,8 +72,18 @@ class EngineStats:
     chunk_retry_steps: int = 0
     # fp32 hi/lo route: raw lo halves shipped alongside the stream
     fp32_lo_wire_bytes: float = 0.0
-    # encoded units (chunks + leaves) that went down the capacity schedule
+    # encoded units (chunks + leaves) that went down the capacity schedule —
+    # the denominator for the observed overflow probability
     encoded_units: int = 0
+    # per-prompt-length overflow observations: cache_len -> [units, retried]
+    # (bucketed by DisaggregatedEngine.overflow_priors)
+    overflow_obs: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
+    # verified delivery (verify=True / faults= engines): checksum mismatches
+    # seen, re-fetches issued, re-fetches that shipped raw, faults injected
+    verify_failures: int = 0
+    refetches: int = 0
+    raw_refetches: int = 0
+    faults_injected: int = 0
     # compressed-resident KV (resident="compressed"): batches admitted into
     # the paged pool without rehydration, batches demoted to raw residency
     # (unsupported stream, escape overflow, pool exhaustion), and the pool's
@@ -75,6 +92,8 @@ class EngineStats:
     resident_demotions: int = 0
     resident_hbm_bytes: float = 0.0
     resident_raw_bytes: float = 0.0
+    # failover: retained-payload re-sends (retain_for_failover=True engines)
+    failover_resends: int = 0
 
     @property
     def resident_ratio(self) -> float:
@@ -86,6 +105,15 @@ class EngineStats:
     def transfer_ratio(self) -> float:
         return self.raw_cache_bytes / max(self.wire_bytes, 1.0)
 
+    @property
+    def observed_overflow_p(self) -> float:
+        """Fraction of encoded units whose FIRST attempt overflowed — the
+        maximum-likelihood estimate of the per-attempt overflow probability
+        the plan's capacity-schedule expectation takes."""
+        if self.encoded_units <= 0:
+            return 0.0
+        return self.chunk_retries / self.encoded_units
+
 
 class DisaggregatedEngine:
     """Local PD engine with a real compressed transfer stage."""
@@ -93,8 +121,11 @@ class DisaggregatedEngine:
     def __init__(self, cfg: ArchConfig, params, codebook: Codebook,
                  *, compress: bool = True, chunk: int = 1024, cap: int = 64,
                  backend: str = "auto", n_chunks: int = 1,
-                 compress_fp32: bool = False, resident: str = "raw",
-                 page_bytes: Optional[int] = None, device=None):
+                 compress_fp32: bool = False,
+                 profile: Optional[CodecProfile] = None,
+                 verify: bool = False, faults=None,
+                 resident: str = "raw", page_bytes: Optional[int] = None,
+                 retain_for_failover: bool = False, device=None):
         if resident not in ("raw", "compressed"):
             raise ValueError(f"resident={resident!r}: expected 'raw' or "
                              "'compressed'")
@@ -106,12 +137,23 @@ class DisaggregatedEngine:
                                  "(chunked streams are not page-addressable)")
             if not compress:
                 raise ValueError("resident='compressed' requires compress=True")
+            if isinstance(get_backend(backend), WireBackend):
+                raise ValueError("resident='compressed' needs the codec's "
+                                 "streams; the wire backend ships bytes")
+        if retain_for_failover and n_chunks != 1:
+            raise ValueError("retain_for_failover requires n_chunks=1 (only "
+                             "tensor-path payloads are retained)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.tc = TransferConfig(codebook=codebook, chunk=chunk, cap=cap,
                                  enabled=compress, backend=backend,
                                  n_chunks=n_chunks, compress_fp32=compress_fp32)
+        self.profile = profile
+        # wire-integrity knobs, passed through to every TransferSession
+        self.verify = verify
+        self.faults = faults
+        self.retain_for_failover = retain_for_failover
         self.resident = resident
         self.page_bytes = page_bytes
         self.stats = EngineStats()
@@ -123,7 +165,9 @@ class DisaggregatedEngine:
         """Build the TransferPlan once per cache structure and reuse its
         session; the ``plan.matches`` walk doubles as the structure check."""
         if self._session is None or not self._session.plan.matches(cache):
-            self._session = TransferPlan.build(cache, self.tc).session()
+            self._session = TransferPlan.build(cache, self.tc).session(
+                verify=self.verify, faults=self.faults,
+                retain_last=self.retain_for_failover)
         return self._session
 
     @property
@@ -133,6 +177,21 @@ class DisaggregatedEngine:
     def describe_plan(self) -> str:
         """The resolved per-leaf routing table (empty before first transfer)."""
         return self.plan.describe() if self.plan is not None else "(no plan yet)"
+
+    def overflow_priors(self, bucket_tokens: int = 1024) -> Dict[int, float]:
+        """Per-bucket overflow priors from this engine's observed retries:
+        the per-length observations of ``EngineStats.overflow_obs`` bucketed
+        at ``bucket_tokens``, each bucket's fraction of encoded units that
+        needed a re-encode.  Buckets with no observations are absent."""
+        b = max(1, bucket_tokens)
+        agg: Dict[int, List[int]] = {}
+        for length, (units, retried) in self.stats.overflow_obs.items():
+            bucket = max(b, -(-length // b) * b)
+            acc = agg.setdefault(bucket, [0, 0])
+            acc[0] += units
+            acc[1] += retried
+        return {bucket: retried / units
+                for bucket, (units, retried) in agg.items() if units > 0}
 
     # -- the three pipeline stages ------------------------------------------
     def prefill(self, batch: Dict, max_seq: Optional[int] = None) -> PrefillOutput:
@@ -157,16 +216,43 @@ class DisaggregatedEngine:
         if self.resident == "compressed":
             return self._transfer_resident(sess, state)
         cache = sess.transfer(state.cache, check=False)
-        self._absorb_transfer_stats(sess.last_stats)
+        self._absorb_transfer_stats(sess.last_stats, state)
         return DecodeState(cache=cache, cache_len=state.cache_len)
 
-    def _absorb_transfer_stats(self, cstats) -> None:
+    def resend_cache(self, state: DecodeState) -> DecodeState:
+        """Failover re-send: re-ship the last transfer's retained payload to
+        a replacement decode worker (``retain_for_failover=True`` engines):
+        one wire hop, no re-encode, and a cache bit-identical to what the
+        lost worker held."""
+        if not self.tc.enabled or not state.cache:
+            return state
+        sess = self._session_for(state.cache)
+        cache = sess.resend_last()
+        self.stats.failover_resends += 1
+        self.stats.raw_cache_bytes += raw_wire_bytes(state.cache)
+        self._absorb_transfer_stats(sess.last_stats, state)
+        return DecodeState(cache=cache, cache_len=state.cache_len)
+
+    def _absorb_transfer_stats(self, cstats, state: DecodeState) -> None:
         self.stats.wire_bytes += cstats.wire_bytes
         self.stats.codec_ok &= cstats.all_ok
         self.stats.chunk_retries += cstats.n_retries
         self.stats.chunk_retry_steps += cstats.n_retry_steps
         self.stats.fp32_lo_wire_bytes += cstats.fp32_lo_wire_bytes
-        self.stats.encoded_units += len(cstats.chunk_retried)
+        self.stats.verify_failures += cstats.verify_failures
+        self.stats.refetches += cstats.refetches
+        self.stats.raw_refetches += cstats.raw_refetches
+        self.stats.faults_injected += cstats.faults_injected
+        # overflow observations, keyed by the transferred prompt length: the
+        # raw material for the per-bucket overflow priors
+        units = len(cstats.chunk_retried)
+        if units:
+            self.stats.encoded_units += units
+            lens = torch.as_tensor(state.cache_len)
+            length = int(lens.max()) if lens.numel() else 0
+            obs = self.stats.overflow_obs.setdefault(length, [0, 0])
+            obs[0] += units
+            obs[1] += cstats.n_retries
         if self.tc.n_chunks > 1:
             self.stats.chunk_wire_bytes.extend(cstats.chunk_wire_bytes)
 
@@ -191,7 +277,7 @@ class DisaggregatedEngine:
         Any inadmissible stream demotes THIS batch to raw residency: the
         received streams decode once and decode runs over the raw cache."""
         comp, raw = sess.transfer_compressed(state.cache, check=False)
-        self._absorb_transfer_stats(sess.last_stats)
+        self._absorb_transfer_stats(sess.last_stats, state)
         backend = sess.plan.backend
         try:
             pool = KVP.KVPool.for_cache(
@@ -238,3 +324,12 @@ class DisaggregatedEngine:
         state = self.transfer(pre.state)
         toks = self.decode(pre.first_token, state, num_steps)
         return torch.cat([pre.first_token[:, None], toks], dim=1)
+
+    def transfer_report(self) -> Optional[TransferReport]:
+        """The analytic transfer report of everything this engine shipped,
+        priced with ``profile`` (None without one)."""
+        if self.profile is None:
+            return None
+        return transfer_report(self.stats.raw_cache_bytes,
+                               self.stats.wire_bytes, self.profile,
+                               n_chunks=self.tc.n_chunks, plan=self.plan)

@@ -41,6 +41,9 @@ from repro_torch.core import codec as C
 from repro_torch.core import tree as TR
 from repro_torch.core.backend import CodecBackend, get_backend
 from repro_torch.core.codebook import Codebook
+from repro_torch.core.pipeline import (CodecProfile, degraded_stage_times,
+                                       expected_schedule_attempts,
+                                       flowshop_makespan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +148,24 @@ class TransferStats:
     fp32_lo_wire_bytes: float = 0.0
     # fp8 route: sidecar-encoded float8 leaves' wire bytes
     fp8_wire_bytes: float = 0.0
+    # verified delivery (verify=True sessions / injected faults): checksum
+    # mismatches + drops observed, re-fetches issued, re-fetches that shipped
+    # the unit's raw bits, and the extra bytes those re-fetches put on the
+    # wire (chunk_*/leaf_* keep their first-ship meaning)
+    verify_failures: int = 0
+    refetches: int = 0
+    raw_refetches: int = 0
+    refetch_wire_bytes: float = 0.0
+    # injected-fault bookkeeping (FaultChannel): faults applied this call and
+    # wire latency added by 'delay' faults
+    faults_injected: int = 0
+    fault_delay_s: float = 0.0
 
     @property
     def wire_bytes(self) -> float:
         return (sum(self.chunk_wire_bytes) + sum(self.leaf_wire_bytes.values())
                 + self.raw_passthrough_bytes + self.fp32_lo_wire_bytes
-                + self.fp8_wire_bytes)
+                + self.fp8_wire_bytes + self.refetch_wire_bytes)
 
     @property
     def all_ok(self) -> bool:
@@ -269,6 +284,82 @@ class TransferPlan:
     def raw_bytes(self) -> float:
         return float(sum(r.raw_bytes for r in self.routes))
 
+    # -- the time model -------------------------------------------------------
+    def chunk_raw_bytes(self, scale: float = 1.0) -> List[float]:
+        """Raw byte size of each pipeline chunk, as actually segmented,
+        times ``scale`` (per-prompt-length byte scaling)."""
+        return [s.raw_bytes * scale for s in self.segments]
+
+    def byte_split(self, scale: float = 1.0) -> Tuple[float, float, float]:
+        """(stream_bytes, fp8_sidecar_bytes, incompressible_bytes) under the
+        route table: stream = bf16 bits + fp32 hi halves (codec ratio
+        applies), fp8 sidecars compress outside the pipe, incompressible =
+        raw passthrough + fp32 lo halves (full link cost).  ``scale``
+        multiplies every class."""
+        stream = 2.0 * self.stream_len
+        fp8 = out = 0.0
+        for r in self.routes:
+            if r.route == "fp8":
+                fp8 += r.raw_bytes
+            elif r.route == "fp32_hilo":
+                out += 2.0 * r.n_elements           # the raw lo half
+            elif r.route == "raw":
+                out += r.raw_bytes
+        return stream * scale, fp8 * scale, out * scale
+
+    def collective_wire_bytes(self, ratio: float, n_hops: int,
+                              scale: float = 1.0) -> float:
+        """Analytic wire bytes for a ring collective over this plan: each of
+        the ``n_hops`` hops ships the routed stream at the codec ``ratio``
+        plus the incompressible bytes at full cost."""
+        stream, fp8, out = self.byte_split(scale)
+        return ((stream + fp8) / max(ratio, 1e-9) + out) * n_hops
+
+    def expected_attempts(self, overflow_p: float) -> Tuple[float, float]:
+        """``(expected encode attempts per unit, raw-fallback fraction)``
+        under this plan's capacity schedule when each attempt independently
+        overflows with probability ``overflow_p``.  The schedule length is
+        read off a representative unit: the first segment (chunked) or the
+        largest encoded leaf (tensor)."""
+        if overflow_p <= 0.0:
+            return 1.0, 0.0
+        if self.segments:
+            n, cap = self.segments[0].n_elements, self.segments[0].cap
+        else:
+            enc = [r for r in self.routes if r.route != "raw"]
+            if not enc:
+                return 1.0, 0.0
+            big = max(enc, key=lambda r: r.n_elements)
+            n, cap = big.n_elements, big.cap
+        return expected_schedule_attempts(len(self.schedule_for(n, cap)),
+                                          overflow_p)
+
+    def estimate_time(self, profile: CodecProfile, *, scale: float = 1.0,
+                      overflow_p: float = 0.0) -> float:
+        """A-priori transfer time for ONE execution: the flowshop recurrence
+        over the plan's actual segment sizes (tensor granularity: additive),
+        charging the codec ratio only on routed bytes — incompressible
+        sidecars pay full link cost.  ``overflow_p`` walks the capacity
+        schedule in expectation: re-attempts inflate the encode stage and
+        the exhausted fraction ships raw at full link bandwidth."""
+        stream, fp8, out = self.byte_split(scale)
+        attempts, raw_frac = self.expected_attempts(overflow_p)
+        t_side = (fp8 * ((1.0 - raw_frac) / (profile.ratio * profile.link_bw)
+                         + raw_frac / profile.link_bw)
+                  + out / profile.link_bw)
+        if self.granularity == "chunked":
+            times = [degraded_stage_times(s, profile, attempts=attempts,
+                                          raw_frac=raw_frac)
+                     for s in self.chunk_raw_bytes(scale)]
+            return (flowshop_makespan(times) + profile.fixed_overhead_s
+                    + t_side)
+        t_enc, t_xfer, t_dec = degraded_stage_times(stream, profile,
+                                                    attempts=attempts,
+                                                    raw_frac=raw_frac)
+        t_enc += attempts * fp8 / profile.g_enc      # fp8 sidecars are
+        t_dec += (1.0 - raw_frac) * fp8 / profile.g_dec  # codec-touched too
+        return t_enc + t_xfer + t_dec + t_side + profile.fixed_overhead_s
+
     def describe(self) -> str:
         """Human-readable routing table (serve launcher / docs)."""
         counts: Dict[str, int] = {}
@@ -342,8 +433,12 @@ class TransferPlan:
     # -- session -------------------------------------------------------------
     def session(self, *, faults=None, verify: bool = False,
                 retain_last: bool = False) -> "TransferSession":
-        """A session executing this plan (``faults``/``verify``/
-        ``retain_last`` are not ported yet and raise)."""
+        """A session executing this plan.  ``faults`` is ``None | registry
+        name | FaultPlan`` (:mod:`repro_torch.serving.faults`);
+        ``verify=True`` checksum-verifies every wire hop and re-fetches on
+        failure; ``retain_last=True`` keeps the last transfer's compressed
+        payloads sender-side so a decode-worker failover can re-send them
+        (``TransferSession.resend_last``) without re-encoding."""
         from repro_torch.serving.session import TransferSession
         return TransferSession(self, faults=faults, verify=verify,
                                retain_last=retain_last)

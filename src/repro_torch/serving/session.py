@@ -11,14 +11,15 @@ The port of ``repro.serving.session`` with its two LOCAL executors:
 
 ``send(cache)`` runs the prefill-side work (encode + the wire hop), ``recv()``
 the decode-side work, ``transfer(cache)`` both; ``last_stats`` carries the
-per-call accounting.  The wire is in-process: the compressed streams are
-handed over as they are.
+per-call accounting.  The wire is in-process: the compressed objects are
+handed over as they are, or, when ``verify=`` or ``faults=`` is set, inside
+Fletcher-32 frames over a :class:`~repro_torch.serving.faults.FaultChannel`
+(verified delivery, see :class:`TransferSession`).  ``retain_last`` keeps
+the last tensor-path payload for a failover re-send (``resend_last``).
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than
-ignored: checksum-verified delivery (``verify=``), fault injection
-(``faults=``), failover re-send (``retain_last``), prefix-delta transfer,
-the persistent executor, the ring collective, resharding and the mesh
-executor.
+ignored: prefix-delta transfer, the persistent executor, the ring
+collective, resharding and the mesh executor.
 """
 
 from __future__ import annotations
@@ -29,14 +30,38 @@ import torch
 
 from repro_torch.core import codec as C
 from repro_torch.core import tree as TR
+from repro_torch.core.backend import (CodecBackend, WireBackend,
+                                      WireCompressed, get_backend)
 from repro_torch.core.pipeline import ChunkSchedule
+from repro_torch.serving.faults import FaultChannel, resolve_faults
 from repro_torch.serving.plan import TransferPlan, TransferStats
+
+# hard ceiling on wire attempts per unit (initial ship + re-fetches).  The
+# default FaultPlan stops randomized faults at max_attempt=8, so only an
+# explicitly-persistent adversarial plan can reach this — and then the
+# session fails LOUDLY instead of decoding garbage or spinning forever.
+_MAX_WIRE_ATTEMPTS = 32
+
+
+class TransferIntegrityError(RuntimeError):
+    """A wire unit could not be delivered intact within the attempt budget —
+    every re-fetch, the terminal raw re-fetches included, failed
+    verification.  Raised instead of ever decoding corrupt bytes."""
 
 
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet; the local tensor "
         "and chunked executors are")
+
+
+def _backend_for(comp_obj, be: CodecBackend) -> CodecBackend:
+    """The backend that can decode (or tag) ``comp_obj``: wire payloads
+    decode only with a wire backend, streams and raw tensors with a stream
+    codec (``torch`` and ``cuda`` share the stream layout)."""
+    if isinstance(comp_obj, WireCompressed):
+        return be if isinstance(be, WireBackend) else get_backend("wire")
+    return get_backend("torch") if isinstance(be, WireBackend) else be
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +181,19 @@ def decode_leaves(comp: Dict, raw: Dict, structure, backend):
     for path, leaf in flat:
         key = TR.leaf_key(path)
         if key in comp:
-            leaves.append(backend.decode(comp[key]).reshape(leaf.shape))
+            ct = comp[key]
+            leaves.append(_backend_for(ct, backend).decode(ct).reshape(leaf.shape))
         elif key + "#hi" in comp:  # fp32 hi/lo split
-            hi = C.widen(backend.decode(comp[key + "#hi"])).to(torch.int64)
+            ct = comp[key + "#hi"]
+            hi = C.widen(_backend_for(ct, backend).decode(ct)).to(torch.int64)
             u = (hi << 16) | C.widen(raw[key + "#lo"]).to(torch.int64)
             leaves.append(C.narrow_u32(u).view(torch.int32).view(torch.float32)
                           .reshape(leaf.shape))
         else:
             leaves.append(raw[key])
     return TR.unflatten(treedef, leaves)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -174,21 +203,44 @@ def decode_leaves(comp: Dict, raw: Dict, structure, backend):
 class TransferSession:
     """Run a :class:`TransferPlan` repeatedly: ``send``/``recv`` or the fused
     ``transfer``.  Accumulates ``calls``/``total_wire_bytes``; per-call
-    accounting is in ``last_stats``."""
+    accounting is in ``last_stats``.
+
+    **Wire integrity** (``verify=True`` and/or ``faults=``): every wire
+    object — pipeline chunks, tensor-path leaves, sidecars — ships inside a
+    Fletcher-32 checksum frame over a
+    :class:`~repro_torch.serving.faults.FaultChannel`.  With ``verify`` on,
+    a mismatched or dropped frame is re-fetched: the staged compressed
+    object is shipped again with the fault coordinate re-keyed (it is not
+    encoded again), as many times as the plan's capacity schedule has
+    steps, then the unit's RAW bits as the terminal re-fetch.  Corrupt
+    bytes are never decoded, and exhaustion raises
+    :class:`TransferIntegrityError`.  ``faults=`` injects a seeded
+    :class:`~repro_torch.serving.faults.FaultPlan` into the channel."""
 
     def __init__(self, plan: TransferPlan, *, faults=None,
                  verify: bool = False, retain_last: bool = False):
-        if faults is not None:
-            raise _not_ported("fault injection (faults=)")
-        if verify:
-            raise _not_ported("checksum-verified delivery (verify=True)")
-        if retain_last:
-            raise _not_ported("failover re-send (retain_last=True)")
         self.plan = plan
+        self.verify = verify
+        self.retain_last = retain_last
+        self.faults = resolve_faults(faults)
+        # the checksum-framed wire: active whenever faults are injected or
+        # verification is on, so the plain hop pays nothing
+        self._channel = (FaultChannel(self._object_checksum, self.faults)
+                         if (verify or self.faults is not None) else None)
         self.last_stats: Optional[TransferStats] = None
         self.calls = 0
         self.total_wire_bytes = 0.0
+        self._uid = 0         # per-send transfer id (fault-plan keying)
+        self._injected_seen = 0
         self._staged = None   # in-flight payload between send() and recv()
+        # the pristine encoded payload of the last tensor-path send, kept
+        # only under retain_last (see resend_last)
+        self._retained = None
+
+    def _object_checksum(self, obj) -> int:
+        """Fletcher-32 over any wire object: compressed streams, a wire
+        payload or a raw tensor."""
+        return _backend_for(obj, self.plan.backend).checksum(obj)
 
     # -- public API ----------------------------------------------------------
     def send(self, cache, check: bool = True) -> None:
@@ -199,17 +251,30 @@ class TransferSession:
             raise RuntimeError("send() called twice without recv()")
         if check:
             self._check_structure(cache)
+        self._uid += 1
         if self.plan.granularity == "chunked":
             self._staged = ("chunked", self._send_chunked(cache))
         else:
             self._staged = ("tensor", self._send_tensor(cache))
 
+    def _set_verify(self, verify: Optional[bool]) -> None:
+        """Per-call ``verify=`` knob: None keeps the session default."""
+        if verify is None:
+            return
+        if verify and self._channel is None:
+            raise ValueError(
+                "this session shipped unframed payloads (no checksums on the "
+                "wire); build it with plan.session(verify=True) or faults=")
+        self.verify = bool(verify)
+
     def recv(self, verify: Optional[bool] = None):
-        """Decode-side half: returns the reassembled cache pytree."""
-        if verify:
-            raise _not_ported("checksum-verified delivery (verify=True)")
+        """Decode-side half: returns the reassembled cache pytree.
+        ``verify=True`` enforces the checksum frames shipped by ``send``
+        (re-fetch on mismatch), ``verify=False`` delivers without
+        enforcement, None keeps the session default."""
         if self._staged is None:
             raise RuntimeError("recv() called before send()")
+        self._set_verify(verify)
         kind, payload = self._staged
         self._staged = None
         if kind == "chunked":
@@ -223,32 +288,98 @@ class TransferSession:
                  verify: Optional[bool] = None):
         """Fused send + recv.  The chunked path interleaves the stages on the
         explicit ``ChunkSchedule`` (encode t / ship t-1 / decode t-2); the
-        result is bit-identical to split send()+recv()."""
-        if verify:
-            raise _not_ported("checksum-verified delivery (verify=True)")
+        result is bit-identical to split send()+recv().  ``verify=`` as on
+        ``recv``."""
+        self._set_verify(verify)
         if self.plan.granularity == "chunked":
             if self._staged is not None:
                 raise RuntimeError("transfer() called with a send() pending")
             if check:
                 self._check_structure(cache)
+            self._uid += 1
             out = self._transfer_chunked_interleaved(cache)
             self._account()
             return out
         self.send(cache, check=check)
         return self.recv()
 
-    def transfer_compressed(self, cache, check: bool = True):
+    def transfer_compressed(self, cache, check: bool = True,
+                            verify: Optional[bool] = None):
         """Tensor-path transfer that STOPS at the compressed streams: returns
-        ``(comp, raw)`` in the ``encode_leaves`` key convention.  Only the
-        tensor path qualifies (chunked granularity re-segments leaves)."""
+        ``(comp, raw)`` in the ``encode_leaves`` key convention, after
+        verified delivery when the session frames its wire.  Only the tensor
+        path qualifies (chunked granularity re-segments leaves)."""
         if self.plan.granularity == "chunked":
             raise ValueError(
                 "transfer_compressed requires the tensor path (n_chunks == 1)")
+        self._set_verify(verify)
         self.send(cache, check=check)
-        _, (comp, raw, _) = self._staged
+        _, payload = self._staged
         self._staged = None
+        comp, raw, structure, pristine_comp, pristine_raw = payload
+        if self._channel is not None:
+            comp, raw = self._deliver_tensor(comp, raw, structure,
+                                             pristine_comp, pristine_raw)
         self._account()
         return comp, raw
+
+    def resend_last(self, verify: Optional[bool] = None):
+        """Re-ship the most recent tensor-path transfer from its retained
+        encoded payload — the decode-worker-failover path: one more wire
+        hop, no re-encode.  Returns the decoded cache, bit-identical to the
+        original transfer's result; ``last_stats`` / ``total_wire_bytes``
+        account the repeated hop like any other call."""
+        if self.plan.granularity == "chunked":
+            raise ValueError(
+                "resend_last requires the tensor path (n_chunks == 1); "
+                "chunked transfers are not retained")
+        if self._retained is None:
+            raise RuntimeError(
+                "no retained transfer to re-send; build the session with "
+                "retain_last=True and complete a transfer first")
+        if self._staged is not None:
+            raise RuntimeError("resend_last() called with a send() pending")
+        self._set_verify(verify)
+        comp, raw, cache = self._retained
+        be = self.plan.backend
+        stats = TransferStats(chunk_wire_bytes=[], chunk_ok=[],
+                              raw_passthrough_bytes=0.0, n_elements=0)
+        for r in self.plan.routes:
+            key = r.key
+            if key in comp:
+                nbytes = float(_backend_for(comp[key], be)
+                               .wire_bytes(comp[key]))
+                if r.route == "fp8":
+                    stats.fp8_wire_bytes += nbytes
+                else:
+                    stats.leaf_wire_bytes[key] = nbytes
+                stats.leaf_ok[key] = True
+            elif key + "#hi" in comp:
+                hi = comp[key + "#hi"]
+                stats.leaf_wire_bytes[key] = float(
+                    _backend_for(hi, be).wire_bytes(hi))
+                stats.fp32_lo_wire_bytes += 2.0 * r.n_elements
+                stats.leaf_ok[key] = True
+            elif r.route == "raw":
+                stats.raw_passthrough_bytes += r.raw_bytes
+            else:
+                # a leaf that fell back to raw on the original encode
+                if r.route == "fp8":
+                    stats.fp8_wire_bytes += r.raw_bytes
+                else:
+                    stats.leaf_wire_bytes[key] = r.raw_bytes
+                stats.leaf_ok[key] = False
+        self.last_stats = stats
+        self._uid += 1
+        if self._channel is not None:
+            comp_f, raw_f = self._frame_tensor(comp, raw)
+            comp_d, raw_d = self._deliver_tensor(comp_f, raw_f, cache,
+                                                 comp, raw)
+        else:
+            comp_d, raw_d = comp, raw
+        out = decode_leaves(comp_d, raw_d, cache, be)
+        self._account()
+        return out
 
     # -- executors that are not ported yet -------------------------------------
     def transfer_delta(self, *args, **kwargs):
@@ -256,9 +387,6 @@ class TransferSession:
 
     def enable_prefix_cache(self, *args, **kwargs):
         raise _not_ported("prefix-delta transfer (enable_prefix_cache)")
-
-    def resend_last(self, *args, **kwargs):
-        raise _not_ported("failover re-send (resend_last)")
 
     def save(self, *args, **kwargs):
         raise _not_ported("the persistent executor (save)")
@@ -282,6 +410,11 @@ class TransferSession:
     def _account(self) -> None:
         self.calls += 1
         if self.last_stats is not None:
+            if self._channel is not None:
+                # per-call slice of the channel's running fault counter
+                self.last_stats.faults_injected = (self._channel.injected
+                                                   - self._injected_seen)
+                self._injected_seen = self._channel.injected
             self.total_wire_bytes += self.last_stats.wire_bytes
 
     # -- local / tensor ------------------------------------------------------
@@ -290,12 +423,115 @@ class TransferSession:
                               raw_passthrough_bytes=0.0, n_elements=0)
         comp, raw = encode_leaves(self.plan, cache, scheduled=True,
                                   stats=stats)
+        if self.retain_last:
+            self._retained = (comp, raw, cache)
         self.last_stats = stats
-        return comp, raw, cache
+        if self._channel is None:
+            return comp, raw, cache, None, None
+        # frame every wire object; keep the pristine dicts sender-side so a
+        # verified re-fetch can re-ship the exact same object
+        comp_f, raw_f = self._frame_tensor(comp, raw)
+        return comp_f, raw_f, cache, comp, raw
+
+    def _frame_tensor(self, comp, raw):
+        """Frame the tensor path's wire objects: compressed entries first,
+        then raw ones, numbered in that order (the fault coordinate)."""
+        comp_f = {k: self._channel.ship(v, self._uid, ci, 0)
+                  for ci, (k, v) in enumerate(comp.items())}
+        raw_f = {k: self._channel.ship(v, self._uid, len(comp) + ci, 0)
+                 for ci, (k, v) in enumerate(raw.items())}
+        return comp_f, raw_f
 
     def _recv_tensor(self, payload):
-        comp, raw, structure = payload
+        comp, raw, structure, pristine_comp, pristine_raw = payload
+        if self._channel is not None:
+            comp, raw = self._deliver_tensor(comp, raw, structure,
+                                             pristine_comp, pristine_raw)
         return decode_leaves(comp, raw, structure, self.plan.backend)
+
+    def _deliver_tensor(self, comp_f, raw_f, structure, pristine_comp,
+                        pristine_raw):
+        """Unframe + verify every tensor-path entry.  A compressed entry
+        whose re-ships exhaust the retry budget falls back to the whole
+        ORIGINAL leaf shipped raw (mirroring the encode-overflow fallback);
+        raw entries re-ship themselves until intact."""
+        stats = self.last_stats
+        leaves = {TR.leaf_key(p): leaf
+                  for p, leaf in TR.flatten_with_path(structure)[0]}
+        comp: Dict[str, object] = {}
+        raw: Dict[str, object] = {}
+        ci = 0
+        for key, frame in comp_f.items():
+            base = key[:-3] if key.endswith("#hi") else key
+            obj, fell_raw = self._deliver_entry(
+                frame, ci, stats, resend=pristine_comp[key],
+                raw_payload=leaves[base])
+            if fell_raw:
+                raw[base] = obj      # whole leaf ships raw; lo sidecar unused
+            else:
+                comp[key] = obj
+            ci += 1
+        for key, frame in raw_f.items():
+            obj, _ = self._deliver_entry(frame, ci, stats,
+                                         resend=pristine_raw[key],
+                                         raw_payload=pristine_raw[key])
+            raw.setdefault(key, obj)
+            ci += 1
+        return comp, raw
+
+    def _deliver_entry(self, frame, ci: int, stats: TransferStats, *,
+                       resend, raw_payload):
+        """``(payload, used_raw_fallback)`` for one framed wire entry.
+
+        Verified mode re-fetches on mismatch/drop: ``retry_doublings + 1``
+        re-ships of the staged compressed object (each attempt re-keys the
+        fault plan, so injected faults re-roll), then the raw payload as the
+        terminal re-fetch — itself verified and retried, failing loud past
+        ``_MAX_WIRE_ATTEMPTS``.  Unverified mode delivers whatever arrived
+        (corruption flows through undetected — the hazard ``verify=``
+        closes); only a full drop heals from the staged raw payload."""
+        payload, intact = self._channel.deliver(frame)
+        stats.fault_delay_s += frame.delay_s
+        if not self.verify:
+            if payload is None:      # dropped in flight: heal from the
+                return raw_payload, True  # staged raw payload, raw-routed
+            return payload, False
+        is_raw = resend is raw_payload
+        attempt = 1
+        while not intact:
+            if attempt <= self.plan.tc.retry_doublings + 1:
+                obj, is_raw = resend, resend is raw_payload
+            else:
+                obj, is_raw = raw_payload, True
+            payload, intact = self._refetch(ci, attempt, obj, is_raw,
+                                            self._object_wire_bytes(obj),
+                                            stats, f"wire entry {ci}")
+            attempt += 1
+        return payload, is_raw
+
+    def _refetch(self, ci: int, attempt: int, obj, is_raw: bool,
+                 nbytes: float, stats: TransferStats, what: str):
+        """One verified re-fetch after a failed delivery: count it, re-ship
+        ``obj`` with the fault coordinate re-keyed to ``attempt``, deliver."""
+        stats.verify_failures += 1
+        if attempt >= _MAX_WIRE_ATTEMPTS:
+            raise TransferIntegrityError(
+                f"{what}: integrity not established after {attempt} "
+                "attempts (raw re-fetches included)")
+        stats.refetches += 1
+        stats.raw_refetches += int(is_raw)
+        stats.refetch_wire_bytes += nbytes
+        frame = self._channel.ship(obj, self._uid, ci, attempt)
+        stats.fault_delay_s += frame.delay_s
+        return self._channel.deliver(frame)
+
+    def _object_wire_bytes(self, obj) -> float:
+        """Bytes ``obj`` puts on the wire: a tensor its raw bytes, a
+        compressed object (an fp8 sidecar re-fetched as its own terminal
+        payload included) its codec's wire bytes."""
+        if isinstance(obj, torch.Tensor):
+            return float(obj.numel() * obj.element_size())
+        return float(_backend_for(obj, self.plan.backend).wire_bytes(obj))
 
     # -- local / chunked -----------------------------------------------------
     def _encode_chunk(self, stream, i: int):
@@ -307,9 +543,10 @@ class TransferSession:
             cap=seg.cap, layout=tc.layout)
 
     def _ship_chunk(self, stream, i: int, ct, stats: TransferStats):
-        """The wire hop for chunk ``i``: walk the remaining capacity schedule
-        on overflow, then raw fallback.  Returns the in-flight payload
-        (compressed object, or None when the chunk ships its raw bits)."""
+        """The capacity-schedule walk for chunk ``i``: on overflow re-encode
+        down the remaining schedule, then raw fallback.  Returns the payload
+        to ship (compressed object, or None when the chunk ships its raw
+        bits)."""
         plan, tc = self.plan, self.plan.tc
         seg = plan.segments[i]
         be = plan.backend
@@ -336,7 +573,57 @@ class TransferSession:
         seg = self.plan.segments[i]
         if payload is None:      # raw fallback: the original bits shipped
             return stream[seg.start:seg.stop]
-        return self.plan.backend.decode_bits(payload).reshape(-1)
+        if isinstance(payload, torch.Tensor):
+            # explicit raw bits (the framed wire ships them for real)
+            return payload.reshape(-1)
+        return _backend_for(payload, self.plan.backend).decode_bits(
+            payload).reshape(-1)
+
+    def _wire_hop(self, stream, i: int, ct, stats: TransferStats):
+        """Chunk ``i``'s full send side: the capacity-schedule walk, then the
+        checksum-framed channel when active, as ``(frame, staged)``.  Under
+        a channel the raw fallback ships its EXPLICIT bits, so the wire hop
+        stays falsifiable under fault injection."""
+        p = self._ship_chunk(stream, i, ct, stats)
+        if self._channel is None:
+            return p
+        seg = self.plan.segments[i]
+        payload = p if p is not None else stream[seg.start:seg.stop]
+        return self._channel.ship(payload, self._uid, i, 0), p
+
+    def _chunk_out(self, stream, i: int, p, stats: TransferStats):
+        if self._channel is None:
+            return self._decode_chunk(stream, i, p)
+        return self._deliver_chunk(stream, i, *p, stats)
+
+    def _deliver_chunk(self, stream, i: int, frame, staged,
+                       stats: TransferStats):
+        """Receiver side of chunk ``i`` under an active channel.  Verified
+        mode re-fetches a mismatched/dropped frame: the staged compressed
+        chunk again for each remaining step of the capacity schedule (the
+        attempt re-keyed so injected faults re-roll), then the chunk's raw
+        bits (also verified).  Never hands corrupt bytes to the decoder;
+        fails loud past ``_MAX_WIRE_ATTEMPTS``."""
+        seg = self.plan.segments[i]
+        payload, intact = self._channel.deliver(frame)
+        stats.fault_delay_s += frame.delay_s
+        if not self.verify:
+            # unverified: corruption flows through; a drop falls back to the
+            # local-slice shortcut (visible only in channel.injected)
+            return self._decode_chunk(stream, i, payload)
+        steps = len(self.plan.schedule_for(seg.n_elements, seg.cap))
+        attempt = 1
+        while not intact:
+            if attempt < steps and staged is not None:
+                obj, nbytes, is_raw = (staged, float(
+                    self.plan.backend.wire_bytes(staged)), False)
+            else:
+                obj, nbytes, is_raw = (stream[seg.start:seg.stop],
+                                       seg.raw_bytes, True)
+            payload, intact = self._refetch(i, attempt, obj, is_raw, nbytes,
+                                            stats, f"chunk {i}")
+            attempt += 1
+        return self._decode_chunk(stream, i, payload)
 
     def _chunked_sidecars(self, cache, stats: TransferStats):
         """Everything outside the pipelined stream: fold the stream, encode
@@ -366,19 +653,54 @@ class TransferSession:
             raw_passthrough_bytes=0.0, n_elements=self.plan.stream_len,
             chunk_retried=[False] * n, chunk_retry_steps=[0] * n)
 
+    def _ship_sidecars(self, lo, fp8_payload, raw):
+        """Frame the non-pipelined wire objects (lo halves, fp8 sidecars,
+        raw passthrough).  Numbering continues past the pipeline chunks so
+        every fault coordinate stays unique within the transfer."""
+        framed = {}
+        ci = self.plan.n_chunks
+        for name, d in (("lo", lo), ("fp8", fp8_payload), ("raw", raw)):
+            framed[name] = {k: self._channel.ship(v, self._uid, ci + j, 0)
+                            for j, (k, v) in enumerate(d.items())}
+            ci += len(d)
+        return framed["lo"], framed["fp8"], framed["raw"]
+
+    def _deliver_sidecars(self, lo_f, fp8_f, raw_f, pristine, stats):
+        """Unframe + verify the sidecars; a faulted sidecar re-ships its
+        pristine object (it IS the terminal payload) until intact."""
+        out = []
+        ci = self.plan.n_chunks
+        for frames, orig in zip((lo_f, fp8_f, raw_f), pristine):
+            d = {}
+            for j, (k, frame) in enumerate(frames.items()):
+                d[k], _ = self._deliver_entry(frame, ci + j, stats,
+                                              resend=orig[k],
+                                              raw_payload=orig[k])
+            out.append(d)
+            ci += len(frames)
+        return out
+
     def _send_chunked(self, cache):
         stats = self._new_chunked_stats()
         stream, lo, fp8_payload, raw = self._chunked_sidecars(cache, stats)
-        in_flight = [self._ship_chunk(stream, i, self._encode_chunk(stream, i),
-                                      stats)
+        in_flight = [self._wire_hop(stream, i, self._encode_chunk(stream, i),
+                                    stats)
                      for i in range(self.plan.n_chunks)]
         self.last_stats = stats
-        return stream, in_flight, lo, fp8_payload, raw
+        if self._channel is None:
+            return stream, in_flight, lo, fp8_payload, raw, None
+        pristine = (lo, fp8_payload, raw)
+        lo_f, fp8_f, raw_f = self._ship_sidecars(lo, fp8_payload, raw)
+        return stream, in_flight, lo_f, fp8_f, raw_f, pristine
 
     def _recv_chunked(self, payload):
-        stream, in_flight, lo, fp8_payload, raw = payload
-        decoded = [self._decode_chunk(stream, i, p)
+        stream, in_flight, lo, fp8_payload, raw, pristine = payload
+        stats = self.last_stats
+        decoded = [self._chunk_out(stream, i, p, stats)
                    for i, p in enumerate(in_flight)]
+        if self._channel is not None:
+            lo, fp8_payload, raw = self._deliver_sidecars(
+                lo, fp8_payload, raw, pristine, stats)
         return self._reassemble(decoded, lo, fp8_payload, raw)
 
     def _reassemble(self, decoded_bits: List[torch.Tensor], lo, fp8_payload,
@@ -392,7 +714,7 @@ class TransferSession:
             if r.route == "fp8":
                 p = fp8_payload[r.key]
                 fp8_dec[r.key] = (p if isinstance(p, torch.Tensor)  # raw leaf
-                                  else plan.backend.decode(p))
+                                  else _backend_for(p, plan.backend).decode(p))
         return plan.unfold_stream(bits_out, lo, fp8_dec, raw)
 
     def _transfer_chunked_interleaved(self, cache):
@@ -408,11 +730,15 @@ class TransferSession:
             if 0 <= enc_i < n:
                 encoded[enc_i] = self._encode_chunk(stream, enc_i)
             if 0 <= xfer_i < n:
-                in_flight[xfer_i] = self._ship_chunk(
+                in_flight[xfer_i] = self._wire_hop(
                     stream, xfer_i, encoded.pop(xfer_i), stats)
             if 0 <= dec_i < n:
-                decoded[dec_i] = self._decode_chunk(
-                    stream, dec_i, in_flight.pop(dec_i))
+                decoded[dec_i] = self._chunk_out(
+                    stream, dec_i, in_flight.pop(dec_i), stats)
+        if self._channel is not None:
+            lo_f, fp8_f, raw_f = self._ship_sidecars(lo, fp8_payload, raw)
+            lo, fp8_payload, raw = self._deliver_sidecars(
+                lo_f, fp8_f, raw_f, (lo, fp8_payload, raw), stats)
         self.last_stats = stats
         return self._reassemble([decoded[i] for i in range(n)], lo,
                                 fp8_payload, raw)

@@ -488,3 +488,37 @@ def test_decode_grids_use_their_own_occupancy(cuda_device, tmp_path):
                                      ctypes.byref(ctas)) == 0
                     fit = D.ctas_per_sm(kernel, fmt, chunk, cuda_device)
                     assert ctas.value == fit * sms, (order, fmt, chunk, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_wire_payload_on_card_matches_host(cuda_device, fmt):
+    """The ``wire`` backend builds the SZ02 body on the card from the codec
+    kernels' streams (escapes compacted in chunk order, fields repacked):
+    byte for byte the reference codec's payload built on the CPU, on every
+    edge case (caps 1 to 128: over-cap chunks take the global re-encode);
+    ``wire-verify`` decodes it on the card back to the sent bits."""
+    from repro_torch.core import backend as TB
+    from repro_torch.core import wire as W
+    cb = K.CODEBOOKS[fmt]
+    be = TB.get_backend("wire-verify")
+    for name, bits, cap in K.kernel_cases(fmt):
+        host = to_torch_bits(bits)
+        want, stats = W.encode(host, cb)
+        x = host.to(cuda_device)
+        wc = be.encode(x, cb, cap=cap)
+        assert wc.payload == want and wc.stats == stats, name
+        assert C.bits_equal(be.decode(wc), x), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fletcher32_on_card_matches_cpu(cuda_device):
+    from repro_torch.core import wire as W
+    for n in (1, 2, 65537, (3 << 21) + 1):
+        buf = torch.from_numpy(
+            np.random.default_rng(n).integers(0, 256, n).astype(np.uint8))
+        card = buf.to(cuda_device)
+        assert W.fletcher32(card) == W.fletcher32(buf)
+        np.testing.assert_array_equal(W.frame_checksums(card),
+                                      W.frame_checksums(buf))

@@ -234,16 +234,11 @@ def test_send_recv_and_transfer_compressed():
 def test_unported_session_features_raise():
     jc, tc, cb, tcb_ = make_caches(heavy=False)
     _, tp = plans(jc, tc, cb, tcb_)
-    for kw in (dict(faults=object()), dict(verify=True), dict(retain_last=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tp.session(**kw)
     sess = tp.session()
-    for name in ("transfer_delta", "enable_prefix_cache", "resend_last",
-                 "save", "load", "ring_reduce", "reshard"):
+    for name in ("transfer_delta", "enable_prefix_cache", "save", "load",
+                 "ring_reduce", "reshard"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(sess, name)()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sess.transfer(tc, verify=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         TPL.TransferPlan.build(tc, tp.tc, mesh=object())
     # compressed residency is ported: the engine builds, and refuses the
