@@ -62,6 +62,31 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               flipped byte raises ``WireIntegrityError`` naming its frame;
               phase 4's all-escape chunk through the wire's global
               re-encode (the dense kernels).
+4d. fleet   — the serving control plane on smollm's full-width weights:
+              (a) prefix-delta transfer (batch 1, turn 1 a 2048-token
+              prompt, turn 2 the same plus 256 tokens, n_chunks 480: a
+              segment is an eighth of a leaf-layer slab): a cold delta
+              equals a full transfer bitwise at equal wire bytes, the same
+              cache again ships 0 bytes with no codec launch, k altered
+              segments ship exactly k (k encode_fused and k decode_fused
+              launches), another session id hits nothing, the tokens after
+              a delta equal those after a full transfer; reported: turn 2's
+              hit share against the slab geometry's prediction, whether the
+              two prefills' K/V agree bitwise over the shared prompt, delta
+              and full host ms in turns, the comparison pass's device ms.
+              (b) a ``DisaggregatedScheduler`` (1 prefill, 1 link, 2 decode
+              workers, router ``transfer-aware``) kills decode worker 0; its
+              ``on_failover`` hook re-sends through ``resend_cache``: every
+              re-send bitwise the baseline, no encode, one decode_fused a
+              leaf.  (c) the Fig. 2 analogue: 256 requests of a seeded
+              multi-tenant trace (prompts 256–16384, sessions 0.3) over
+              2 prefill x 2 links (50 GB/s and a quarter of it) x 4 decode
+              workers, every link policy, bucket plans of smollm-135m's and
+              qwen3-moe-30b-a3b's caches (meta tensors), priced with phase
+              ``profile``'s measured cuda profile against the native link
+              and phase ``main``'s prefill and decode-step times: link busy
+              conserved, every request accounted for, two runs equal, and
+              SplitZip's link busy time below native's.
 5. attention — the paged-attention kernels against their plain versions:
               ``decode_pages`` (the kernels' shared page decoder) BITWISE
               for bf16 / fp8_e5m2 / fp8_e4m3 pages with escape counts 0,
@@ -109,8 +134,9 @@ the port never calls); phase ``flash_live`` reports the three geometries.
 The launch counters are set to 0 right before each main-path run and read
 right after it: the served transfer of phase 3 (``encode_fused``,
 ``decode_fused``), the capacity walk of phase 4 (``encode_dense``,
-``decode_dense``), each path of phases 4a–4c (the codec kernels'
-``launches_by_path``), the served resident decode of phases 6
+``decode_dense``), each path of phases 4a–4d (the codec kernels'
+``launches_by_path``; phase 4d's turn-2 delta and the scheduler run with
+its re-sends), the served resident decode of phases 6
 (``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
 prefills of phases 3, 7 and 9 (``flash_attention``: one launch per layer,
 30 + 62 + 48, every one on the tensor-core path, or the run fails); the
@@ -124,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -613,7 +640,7 @@ def phase_profile(torch, records, served, smi, device):
                                  for k in ("encode_fused", "decode_fused")},
          saved=str(path.relative_to(ROOT)), resolves_equal=True,
          link_gbps=LINK_GBPS, transfer_report=reports, launches=launches)
-    return launches
+    return launches, cal
 
 
 def phase_verified(torch, cfg, params, cb, prompt, first, main_runs, device):
@@ -793,6 +820,312 @@ def phase_wire(torch, cfg, cb, first, smi, device):
          escape_chunk_transfer_ratio=eng.stats.transfer_ratio,
          launches=windows)
     return windows
+
+
+# ---------------------------------------------------------------------------
+# phase fleet: prefix delta, scheduler-driven failover, the fleet simulation
+# ---------------------------------------------------------------------------
+
+FLEET_PROMPT, FLEET_FRESH = 2048, 256   # turn 1's prompt; turn 2 appends
+FLEET_CHUNKS = 480                      # a segment: 1/8 of a leaf-layer slab
+FLEET_ALTERED = 3                       # the last k segments altered
+FLEET_LINK_GBPS = 400.0                 # 400GbE, 50 GB/s: the fleet's base
+FLEET_ARCHS = ("smollm-135m", "qwen3-moe-30b-a3b")
+
+
+def predicted_hit_share(plan, cfg, max_seq: int) -> float:
+    """The share of turn 2's raw bytes that can hit when only its fresh
+    tokens' K/V differ from turn 1's: segments of the folded stream that
+    overlap no changed span of any (L, B=1, S, Hkv, hd) slab."""
+    per_tok = cfg.num_kv_heads * cfg.head_dim
+    slab = max_seq * per_tok
+    n_leaf = cfg.num_layers * slab
+    changed = [(leaf * n_leaf + layer * slab + FLEET_PROMPT * per_tok,
+                leaf * n_leaf + layer * slab + (FLEET_PROMPT + FLEET_FRESH) * per_tok)
+               for leaf in range(2) for layer in range(cfg.num_layers)]
+    hit = sum(s.raw_bytes for s in plan.segments
+              if not any(a < s.stop and s.start < b for a, b in changed))
+    return hit / (2.0 * plan.stream_len)
+
+
+def fleet_delta(torch, cfg, params, cb, device):
+    """Part (a): prefix-delta transfer at full width, batch 1, n_chunks 480,
+    through ``DisaggregatedEngine(..., prefix_cache_bytes=...)``."""
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.kernels.timing import cuda_ms
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    def same(a, b):
+        return all(C.bits_equal(x, y) for x, y in zip(TR.leaves(a), TR.leaves(b)))
+
+    max_seq = FLEET_PROMPT + FLEET_FRESH + 1 + NEW_TOKENS
+    p2 = serve.make_prompt(cfg, 1, FLEET_PROMPT + FLEET_FRESH, device=device, seed=30)
+    p1 = {"tokens": p2["tokens"][:, :FLEET_PROMPT].contiguous()}
+    kw = dict(backend="cuda", n_chunks=FLEET_CHUNKS, device=device)
+    full = DisaggregatedEngine(cfg, params, cb, **kw)
+    eng = DisaggregatedEngine(cfg, params, cb, prefix_cache_bytes=float(8 << 30), **kw)
+    pre1 = eng.prefill(p1, max_seq=max_seq)
+    pre2 = eng.prefill(p2, max_seq=max_seq)
+    s1, s2 = pre1.state, pre2.state
+    raw = sum(x.numel() * x.element_size() for x in TR.leaves(s1.cache))
+
+    # cold: a full transfer's delivery and wire bytes
+    want, full_launches = counted(full.transfer, s1)
+    got, cold_launches = counted(eng.transfer, s1, 0)
+    sess = eng._session
+    plan = sess.plan
+    cold = sess.last_stats
+    if not (same(got.cache, want.cache) and same(got.cache, s1.cache)):
+        raise AssertionError("fleet delta, cold: delivery != full transfer")
+    if cold.wire_bytes != full._session.last_stats.wire_bytes or cold.prefix_hit_bytes:
+        raise AssertionError("fleet delta, cold: wire bytes != full transfer's")
+    if any(cold_launches[k] != full_launches[k] for k in ("encode_fused", "decode_fused")):
+        raise AssertionError("fleet delta, cold: launches != full transfer's")
+
+    # the same cache again: nothing crosses the wire, no codec launch
+    got, same_launches = counted(eng.transfer, s1, 0)
+    st = sess.last_stats
+    codec = ("encode_fused", "decode_fused", "encode_dense", "decode_dense")
+    if st.wire_bytes != 0.0 or st.prefix_hit_bytes != raw or \
+            any(same_launches[k] for k in codec) or not same(got.cache, s1.cache):
+        raise AssertionError(f"fleet delta, unchanged: wire {st.wire_bytes}, "
+                             f"hit {st.prefix_hit_bytes} of {raw}, {same_launches}")
+
+    # another session id: isolated, a full transfer
+    got, _ = counted(eng.transfer, s1, 1)
+    st = sess.last_stats
+    if st.prefix_hit_bytes or st.wire_bytes != cold.wire_bytes or not same(got.cache, s1.cache):
+        raise AssertionError("fleet delta: session 1 hit session 0's prefix")
+
+    # the last k segments altered (a low mantissa bit flipped in each): those
+    # k ship, bitwise, one encode_fused and one decode_fused each
+    alt = {k: v.clone() for k, v in s1.cache.items()}
+    n_k = alt["k"].numel()
+    flat_v = C.signed_view(alt["v"].view(torch.uint16)).reshape(-1)
+    altered = list(range(plan.n_chunks - FLEET_ALTERED, plan.n_chunks))
+    for i in altered:
+        seg = plan.segments[i]
+        j = (seg.start + seg.stop) // 2 - n_k
+        flat_v[j] = flat_v[j] ^ 1
+    alt_state = type(s1)(cache=alt, cache_len=s1.cache_len)
+    got, alt_launches = counted(eng.transfer, alt_state, 0)
+    st = sess.last_stats
+    shipped = [i for i, w in enumerate(st.chunk_wire_bytes) if w > 0]
+    if shipped != altered or not same(got.cache, alt) or \
+            alt_launches["encode_fused"] != FLEET_ALTERED or \
+            alt_launches["decode_fused"] != FLEET_ALTERED:
+        raise AssertionError(f"fleet delta, {FLEET_ALTERED} altered: shipped "
+                             f"{shipped}, launches {alt_launches}")
+
+    # the real turn 2 on a fresh session id: turn 1 cold, then the delta
+    eng.transfer(s1, 2)
+    d2, turn2_launches = counted(eng.transfer, s2, 2)
+    st2 = sess.last_stats
+    f2 = full.transfer(s2)
+    if not (same(d2.cache, f2.cache) and same(d2.cache, s2.cache)):
+        raise AssertionError("fleet delta, turn 2: delivery != full transfer")
+    need_launches("fleet_delta", turn2_launches, ("encode_fused", "decode_fused"))
+    toks_delta = eng.decode(pre2.first_token, d2, NEW_TOKENS)
+    toks_full = full.decode(pre2.first_token, f2, NEW_TOKENS)
+    if not torch.equal(toks_delta, toks_full):
+        raise AssertionError("fleet delta: tokens after delta != after full transfer")
+    prefix_equal = {k: C.bits_equal(s1.cache[k][:, :, :FLEET_PROMPT].contiguous(),
+                                    s2.cache[k][:, :, :FLEET_PROMPT].contiguous())
+                    for k in s1.cache}
+
+    # host ms in turns: full, delta, delta, full (each delta's session primed
+    # with turn 1 first, untimed, and dropped after), and the comparison
+    # pass's device ms
+    t_full, t_delta = [], []
+    for rep in range(3):
+        for kind in ("full", "delta", "delta", "full"):
+            if kind == "full":
+                t_full.extend(host_ms(torch, lambda: full.transfer(s2), 1)[0][-1:])
+            else:
+                sid = 100 + len(t_delta)
+                eng.transfer(s1, sid)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.transfer(s2, sid)
+                torch.cuda.synchronize()
+                t_delta.append((time.perf_counter() - t0) * 1e3)
+                sess._prefix_index.drop(sid)
+    eng.transfer(s1, 99)
+    entry = sess._prefix_index.get(99)
+    stream, lo, fp8, raw_side = plan.fold_stream(s2.cache)
+    sides = sess._delta_sides(lo, fp8, raw_side)
+    cmp_ms = cuda_ms(lambda: sess.shadow_hits(stream, sides, entry), reps=20)
+    cmp_bytes = 2 * stream.numel() * 2 + 2 * stream.numel()   # two reads, bools
+    out = dict(
+        max_seq=max_seq, n_chunks=plan.n_chunks, segment_elems=plan.segments[0].n_elements,
+        stream_bytes=2 * plan.stream_len, raw_bytes=raw,
+        cold=dict(wire_bytes=cold.wire_bytes, launches=cold_launches),
+        unchanged=dict(wire_bytes=0.0, prefix_hit_bytes=raw, launches=same_launches),
+        altered=dict(k=FLEET_ALTERED, shipped=shipped, launches=alt_launches),
+        turn2=dict(hit_share=st2.prefix_hit_bytes / raw,
+                   predicted_hit_share=predicted_hit_share(plan, cfg, max_seq),
+                   segments_shipped=sum(w > 0 for w in st2.chunk_wire_bytes),
+                   wire_bytes=st2.wire_bytes, full_wire_bytes=full._session.last_stats.wire_bytes,
+                   prefix_hit_bytes=st2.prefix_hit_bytes, launches=turn2_launches,
+                   prefill_prefix_bitwise=prefix_equal),
+        tokens_equal=True, delivered_bitwise=True, sessions_isolated=True,
+        host_ms=dict(full=t_full, delta=t_delta,
+                     full_median=statistics.median(t_full),
+                     delta_median=statistics.median(t_delta)),
+        compare_pass=dict(device_ms=cmp_ms, bytes=cmp_bytes,
+                          GBps=cmp_bytes / cmp_ms / 1e6,
+                          bound_ms=cmp_bytes / H100_HBM_BYTES_PER_S * 1e3))
+    return out, turn2_launches, s1
+
+
+def fleet_resend(torch, cfg, cb, state, profile, device):
+    """Part (b): a decode-worker kill in the event scheduler drives real
+    re-sends through the engine's ``on_failover`` hook."""
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.kernels import splitzip_decode as D
+    from repro_torch.kernels import splitzip_encode as E
+    from repro_torch.serving.cluster import ClusterConfig, LinkSpec
+    from repro_torch.serving.engine import DisaggregatedEngine
+    from repro_torch.serving.faults import FaultPlan, WorkerKill
+    from repro_torch.serving.scheduler import DisaggregatedScheduler, Request
+
+    fo = DisaggregatedEngine(cfg, None, cb, backend="cuda", device=device,
+                             retain_for_failover=True)
+    baseline = fo.transfer(state)
+    n_leaves = len(TR.leaves(state.cache))
+    resent = []
+
+    def on_failover(req):
+        before = (E.encode_fused.launches + E.encode_dense.launches,
+                  D.decode_fused.launches)
+        out = fo.resend_cache(state)
+        resent.append(dict(rid=req.rid, cache=out.cache,
+                           encodes=E.encode_fused.launches + E.encode_dense.launches - before[0],
+                           decodes=D.decode_fused.launches - before[1]))
+
+    tokens = int(state.cache_len.max())
+    kv_tok = fo.stats.raw_cache_bytes / (state.cache["k"].shape[1] * state.cache["k"].shape[2])
+    sched = DisaggregatedScheduler(fo.scheduler_config(
+        profile, kv_bytes_per_token=kv_tok, prefill_time_per_token=0.0,
+        decode_time_per_step=1e-3, max_prefill_batch=4,
+        cluster=ClusterConfig(n_prefill=1, n_decode=2, links=(LinkSpec(),),
+                              router="transfer-aware"),
+        faults=FaultPlan(seed=1, worker_kills=(WorkerKill(worker=0, at=5e-3),)),
+        heartbeat_timeout_s=1e-3, on_failover=on_failover))
+    for i in range(4):
+        sched.submit(Request(rid=i, arrival=0.0, prompt_len=tokens, max_new_tokens=64))
+    done, launches = counted(sched.run)
+    if sched.failovers < 1 or not resent:
+        raise AssertionError("fleet resend: the scheduler reported no failover")
+    if fo.stats.failover_resends != len(resent):
+        raise AssertionError("fleet resend: engine re-sends != hook calls")
+    for r in resent:
+        if not all(C.bits_equal(a, b) for a, b in zip(TR.leaves(r["cache"]),
+                                                      TR.leaves(baseline.cache))):
+            raise AssertionError(f"fleet resend: rid {r['rid']} != baseline delivery")
+        if r["encodes"] or r["decodes"] != n_leaves:
+            raise AssertionError(f"fleet resend: rid {r['rid']} launched "
+                                 f"{r['encodes']} encodes, {r['decodes']} decodes")
+    states = sorted({r.state for r in done})
+    if len(done) != 4 or not set(states) <= {"completed", "shed", "failed-over"}:
+        raise AssertionError(f"fleet resend: states {states}")
+    return dict(failovers=sched.failovers, resends=len(resent),
+                resent_rids=[r["rid"] for r in resent],
+                per_resend_launches=dict(encode=0, decode_fused=n_leaves),
+                states=states, resend_bitwise=True, kv_bytes_per_token=kv_tok), launches
+
+
+def fleet_sim(profile, seconds, link_gbps):
+    """Part (c): the Fig. 2 analogue on the port's scheduler, priced with
+    this run's measured cuda profile against the native link, prefill and
+    decode-step time from phase ``main``; bucket plans of each arch's cache
+    structure from meta tensors."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.cluster import ClusterConfig, LinkSpec
+    from repro_torch.serving.policy import available_policies
+    from repro_torch.serving.scheduler import (DisaggregatedScheduler,
+                                               SchedulerConfig, summarize)
+    from repro_torch.serving.traces import TraceConfig, generate_trace
+
+    link = dataclasses.replace(profile, link_bw=link_gbps * 1e9 / 8)
+    ptpt = seconds["prefill"] / PROMPT        # a batch costs its longest prompt
+    step = seconds["decode_loop"] / NEW_TOKENS
+    trace_cfg = TraceConfig(seed=0, n_requests=256, prompt_min=256,
+                            prompt_max=16384, session_p=0.3)
+
+    def run(arch, policy, compress):
+        cluster = ClusterConfig(
+            n_prefill=2, n_decode=4,
+            links=(LinkSpec(policy=policy, bw_scale=1.0),
+                   LinkSpec(policy=policy, bw_scale=0.25)),
+            router="transfer-aware", prefix_cache_bytes=float(64 << 30))
+        sched = DisaggregatedScheduler(SchedulerConfig(
+            arch=get_config(arch), profile=link, compress=compress, n_chunks=8,
+            prefill_time_per_token=ptpt, decode_time_per_step=step,
+            cluster=cluster))
+        reqs = generate_trace(trace_cfg)
+        for r in reqs:
+            sched.submit(r)
+        done = sched.run()
+        if len(done) != len(reqs) or any(
+                r.state not in ("completed", "shed", "failed-over") for r in done):
+            raise AssertionError(f"fleet {arch}/{policy}: requests not accounted")
+        if abs(sched.link_busy_s - sum(sched.link_busy_by_link)) > \
+                1e-9 * max(1.0, sched.link_busy_s):
+            raise AssertionError(f"fleet {arch}/{policy}: link busy not conserved")
+        return sched, summarize(done)
+
+    out, t0 = {}, time.perf_counter()
+    for arch in FLEET_ARCHS:
+        for policy in available_policies():
+            sz, s = run(arch, policy, True)
+            nat, n = run(arch, policy, False)
+            if run(arch, policy, True)[1] != s:
+                raise AssertionError(f"fleet {arch}/{policy}: two runs differ")
+            if not sz.link_busy_s < nat.link_busy_s:
+                raise AssertionError(f"fleet {arch}/{policy}: SplitZip link busy "
+                                     f"{sz.link_busy_s} >= native {nat.link_busy_s}")
+            out[f"{arch}/{policy}"] = dict(
+                splitzip=s, native=n,
+                ttft_ratio=n["mean_ttft_s"] / s["mean_ttft_s"],
+                p99_ttft_ratio=n["p99_ttft_s"] / s["p99_ttft_s"],
+                tok_s_ratio=s["throughput_tok_s"] / n["throughput_tok_s"],
+                req_s_ratio=s["throughput_req_s"] / n["throughput_req_s"],
+                link_busy_s=dict(splitzip=sz.link_busy_s, native=nat.link_busy_s,
+                                 ratio=sz.link_busy_s / nat.link_busy_s,
+                                 by_link=sz.link_busy_by_link),
+                prefix_hit_bytes=sz.prefix_hit_bytes,
+                transfer_bytes=sz.transfer_bytes, sheds=sz.sheds,
+                buckets=len(sz.plans))
+    return dict(profile=dict(source=link.source, g_enc_GBps=link.g_enc / 1e9,
+                             g_dec_GBps=link.g_dec / 1e9, ratio=link.ratio,
+                             link_GBps=link.link_bw / 1e9),
+                prefill_time_per_token=ptpt, decode_time_per_step=step,
+                trace=dict(seed=trace_cfg.seed, n_requests=trace_cfg.n_requests,
+                           prompt_min=trace_cfg.prompt_min,
+                           prompt_max=trace_cfg.prompt_max,
+                           session_p=trace_cfg.session_p),
+                runs=out, seconds=time.perf_counter() - t0)
+
+
+def phase_fleet(torch, cfg, params, cb, cal, seconds, smi, device):
+    """Phase ``fleet``: (a) prefix delta at full width, (b) scheduler-driven
+    failover re-sends on the card, (c) the fleet on the card's prices."""
+    t0 = time.perf_counter()
+    delta, delta_launches, state = fleet_delta(torch, cfg, params, cb, device)
+    t1 = time.perf_counter()
+    profile = cal.profile(FLEET_LINK_GBPS * 1e9 / 8)
+    resend, resend_launches = fleet_resend(torch, cfg, cb, state, profile, device)
+    t2 = time.perf_counter()
+    sim = fleet_sim(profile, seconds, FLEET_LINK_GBPS)
+    emit(phase="fleet", nvidia_smi=smi, delta=delta, resend=resend, fleet=sim,
+         seconds=dict(delta=t1 - t0, resend=t2 - t1,
+                      fleet=time.perf_counter() - t2))
+    return {"fleet_delta": delta_launches, "fleet_resend": resend_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1450,11 +1783,13 @@ def main(argv=None) -> int:
     served = dict(raw_bytes=main_results["cuda_n1"]["raw_bytes"],
                   wire_bytes=main_results["cuda_n1"]["wire_bytes"],
                   leaf_rows=first.prefill.state.cache["k"].numel() // 1024)
-    windows["profile"] = phase_profile(torch, records, served, smi, device)
+    windows["profile"], cal = phase_profile(torch, records, served, smi, device)
     windows.update(phase_verified(torch, cfg, params, cb, prompt, first,
                                   main_runs, device))
     windows.update(phase_wire(torch, cfg, cb, first, smi, device))
     del first
+    windows.update(phase_fleet(torch, cfg, params, cb, cal,
+                               main_results["cuda_n1"]["seconds"], smi, device))
     flash = {}
     windows["resident"], flash[ARCH] = phase_resident(torch, cfg, params, cb,
                                                       prompt, device)
@@ -1471,7 +1806,8 @@ def main(argv=None) -> int:
     for k, rec in records.items():
         rec["launches"] = windows[owner[k]][k]
     transfer_paths = ("main", "main_n8", "capacity", "profile", "verified_n1",
-                      "verified_n8", "wire", "wire-verify", "wire_escapes")
+                      "verified_n8", "wire", "wire-verify", "wire_escapes",
+                      "fleet_delta", "fleet_resend")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {

@@ -29,6 +29,13 @@ can re-ship it to a replacement decode worker without re-encoding.
 ``profile=`` (a :class:`~repro_torch.core.pipeline.CodecProfile`) prices
 the transfers in :meth:`transfer_report`.
 
+``prefix_cache_bytes=`` (chunked path, compression on) turns on
+prefix-delta transfer: ``transfer(state, session_id=...)`` ships only the
+segments that changed since that session's last turn
+(``TransferSession.transfer_delta``).  :meth:`scheduler_config` hands the
+engine's plan, transfer policy and observed overflow to the event
+scheduler (:mod:`repro_torch.serving.scheduler`).
+
 The engine runs on the card unless the caller passes ``device=``; without
 CUDA it raises.
 """
@@ -36,7 +43,7 @@ CUDA it raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
@@ -54,6 +61,9 @@ from repro_torch.serving.prefill import PrefillOutput, prefill_step
 from repro_torch.serving.session import TransferSession, decode_leaves
 from repro_torch.serving.transfer import (TransferReport, raw_wire_bytes,
                                           transfer_report)
+
+if TYPE_CHECKING:  # the scheduler imports nothing of the engine
+    from repro_torch.serving.scheduler import SchedulerConfig
 
 
 @dataclasses.dataclass
@@ -94,6 +104,9 @@ class EngineStats:
     resident_raw_bytes: float = 0.0
     # failover: retained-payload re-sends (retain_for_failover=True engines)
     failover_resends: int = 0
+    # prefix-delta transfer: raw bytes the destination already held, which
+    # the wire therefore never carried (not in wire_bytes)
+    prefix_hit_bytes: float = 0.0
 
     @property
     def resident_ratio(self) -> float:
@@ -125,7 +138,8 @@ class DisaggregatedEngine:
                  profile: Optional[CodecProfile] = None,
                  verify: bool = False, faults=None,
                  resident: str = "raw", page_bytes: Optional[int] = None,
-                 retain_for_failover: bool = False, device=None):
+                 retain_for_failover: bool = False,
+                 prefix_cache_bytes: Optional[float] = None, device=None):
         if resident not in ("raw", "compressed"):
             raise ValueError(f"resident={resident!r}: expected 'raw' or "
                              "'compressed'")
@@ -143,6 +157,13 @@ class DisaggregatedEngine:
         if retain_for_failover and n_chunks != 1:
             raise ValueError("retain_for_failover requires n_chunks=1 (only "
                              "tensor-path payloads are retained)")
+        if prefix_cache_bytes is not None:
+            if n_chunks <= 1:
+                raise ValueError("prefix_cache_bytes requires n_chunks > 1 "
+                                 "(delta granularity is the chunked "
+                                 "segmentation)")
+            if not compress:
+                raise ValueError("prefix_cache_bytes requires compress=True")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -156,6 +177,7 @@ class DisaggregatedEngine:
         self.retain_for_failover = retain_for_failover
         self.resident = resident
         self.page_bytes = page_bytes
+        self.prefix_cache_bytes = prefix_cache_bytes
         self.stats = EngineStats()
         self._session: Optional[TransferSession] = None
         self._pool: Optional[KVP.KVPool] = None   # pool of the last admission
@@ -168,6 +190,8 @@ class DisaggregatedEngine:
             self._session = TransferPlan.build(cache, self.tc).session(
                 verify=self.verify, faults=self.faults,
                 retain_last=self.retain_for_failover)
+            if self.prefix_cache_bytes is not None:
+                self._session.enable_prefix_cache(self.prefix_cache_bytes)
         return self._session
 
     @property
@@ -193,6 +217,27 @@ class DisaggregatedEngine:
         return {bucket: retried / units
                 for bucket, (units, retried) in agg.items() if units > 0}
 
+    def scheduler_config(self, profile: Optional[CodecProfile] = None,
+                         **overrides) -> "SchedulerConfig":
+        """A :class:`~repro_torch.serving.scheduler.SchedulerConfig` that
+        charges transfers through THIS engine's transfer policy: its resolved
+        :class:`TransferPlan` when one exists (else per-bucket plans from its
+        ``TransferConfig``), ``profile`` (default: the engine's), and its
+        observed overflow as the expected-retry model (``overflow_p``, plus
+        per-bucket ``overflow_priors`` when there are per-length
+        observations).  Any other field passes through ``overrides``."""
+        from repro_torch.serving.scheduler import SchedulerConfig
+        kw = dict(profile=profile if profile is not None else self.profile,
+                  plan=self.plan, transfer_config=self.tc,
+                  compress=self.tc.enabled,
+                  n_chunks=max(1, self.tc.n_chunks),
+                  overflow_p=self.stats.observed_overflow_p)
+        kw.update(overrides)
+        if "overflow_priors" not in overrides and self.stats.overflow_obs:
+            kw["overflow_priors"] = self.overflow_priors(
+                kw.get("bucket_tokens", SchedulerConfig.bucket_tokens))
+        return SchedulerConfig(**kw)
+
     # -- the three pipeline stages ------------------------------------------
     def prefill(self, batch: Dict, max_seq: Optional[int] = None) -> PrefillOutput:
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
@@ -200,13 +245,19 @@ class DisaggregatedEngine:
         self.stats.prefill_calls += 1
         return out
 
-    def transfer(self, state: DecodeState) -> DecodeState:
+    def transfer(self, state: DecodeState,
+                 session_id: Optional[int] = None) -> DecodeState:
         """Compress -> ship -> decompress.  Bit-exact by construction.
 
         Escape-capacity overflow walks the plan's geometric capacity schedule
         and then falls back to raw — per tensor on the whole-tensor path, per
         chunk on the pipelined path — and the accounting charges raw bytes
-        for exactly the payload that shipped raw."""
+        for exactly the payload that shipped raw.
+
+        ``session_id`` (with ``prefix_cache_bytes`` set) routes the call
+        through the prefix-delta path: segments the destination already
+        holds for that session stay off the wire, and their raw size lands
+        in ``EngineStats.prefix_hit_bytes``."""
         raw = raw_wire_bytes(state.cache)
         self.stats.raw_cache_bytes += raw
         if not self.tc.enabled or not state.cache:
@@ -215,7 +266,10 @@ class DisaggregatedEngine:
         sess = self._session_for(state.cache)
         if self.resident == "compressed":
             return self._transfer_resident(sess, state)
-        cache = sess.transfer(state.cache, check=False)
+        if session_id is not None and self.prefix_cache_bytes is not None:
+            cache = sess.transfer_delta(state.cache, session_id, check=False)
+        else:
+            cache = sess.transfer(state.cache, check=False)
         self._absorb_transfer_stats(sess.last_stats, state)
         return DecodeState(cache=cache, cache_len=state.cache_len)
 
@@ -239,6 +293,7 @@ class DisaggregatedEngine:
         self.stats.chunk_retries += cstats.n_retries
         self.stats.chunk_retry_steps += cstats.n_retry_steps
         self.stats.fp32_lo_wire_bytes += cstats.fp32_lo_wire_bytes
+        self.stats.prefix_hit_bytes += cstats.prefix_hit_bytes
         self.stats.verify_failures += cstats.verify_failures
         self.stats.refetches += cstats.refetches
         self.stats.raw_refetches += cstats.raw_refetches

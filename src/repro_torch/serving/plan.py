@@ -160,6 +160,10 @@ class TransferStats:
     # wire latency added by 'delay' faults
     faults_injected: int = 0
     fault_delay_s: float = 0.0
+    # prefix-delta transfer: raw bytes of segments and sidecars NOT shipped
+    # because the receiver already held them bit for bit; excluded from
+    # ``wire_bytes``, which stays the bytes actually on the wire
+    prefix_hit_bytes: float = 0.0
 
     @property
     def wire_bytes(self) -> float:

@@ -17,13 +17,22 @@ Fletcher-32 frames over a :class:`~repro_torch.serving.faults.FaultChannel`
 (verified delivery, see :class:`TransferSession`).  ``retain_last`` keeps
 the last tensor-path payload for a failover re-send (``resend_last``).
 
+**Prefix-delta transfer** (``enable_prefix_cache`` + ``transfer_delta``, on
+the chunked path): only the segments and sidecars whose bits changed since
+a session id's last turn cross the wire; the rest is re-used from the
+receiver's copy and counted in ``TransferStats.prefix_hit_bytes``.  The
+sender's shadow of the last turn stays on the bytes' device and is compared
+there, in the bit domain, in one pass a turn (:class:`PrefixIndex`).
+
 Not ported yet, and rejected with ``NotImplementedError`` rather than
-ignored: prefix-delta transfer, the persistent executor, the ring
-collective, resharding and the mesh executor.
+ignored: the persistent executor, the ring collective, resharding and the
+mesh executor.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -194,6 +203,84 @@ def decode_leaves(comp: Dict, raw: Dict, structure, backend):
     return TR.unflatten(treedef, leaves)
 
 
+# ---------------------------------------------------------------------------
+# prefix-delta index (transfer_delta)
+# ---------------------------------------------------------------------------
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """Flat byte view of a tensor: shadows compare in the BIT domain, so NaN
+    payloads, negative zeros and denormals compare exactly."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def _owned(x: torch.Tensor, sender: torch.Tensor) -> torch.Tensor:
+    """``x``, cloned where it shares storage with the sender's ``sender``:
+    the receiver keeps a copy of its own."""
+    if x.untyped_storage().data_ptr() == sender.untyped_storage().data_ptr():
+        return x.clone()
+    return x
+
+
+@dataclasses.dataclass
+class _PrefixEntry:
+    """One session's resident cache, seen from both ends of the wire: the
+    sender's bit shadows of its last turn (on the bytes' device) and the
+    receiver's objects a hit re-uses without wire traffic."""
+
+    stream: torch.Tensor                   # sender int16 shadow of fold_stream
+    seg_bits: List[torch.Tensor]           # receiver decoded bits per segment
+    side_shadow: Dict[str, torch.Tensor]   # "<fam>:<key>" -> sender copy
+    side_obj: Dict[str, object]            # "<fam>:<key>" -> receiver object
+    nbytes: float                          # raw-byte footprint (LRU accounting)
+
+
+class PrefixIndex:
+    """LRU-by-bytes map of session id -> :class:`_PrefixEntry`.
+
+    The execution-side twin of the scheduler's ``PrefixDirectory``: it holds
+    the receiver objects and the sender shadows that
+    :meth:`TransferSession.transfer_delta` compares against.
+    ``capacity_bytes=None`` is unbounded; otherwise least-recently-used
+    sessions are dropped until the raw-byte footprint fits (an entry larger
+    than the whole budget is dropped at once)."""
+
+    def __init__(self, capacity_bytes: Optional[float] = None):
+        if capacity_bytes is not None and capacity_bytes <= 0:
+            raise ValueError("capacity_bytes must be positive (or None)")
+        self.capacity_bytes = capacity_bytes
+        self.evictions = 0
+        self._entries: "OrderedDict[object, _PrefixEntry]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def sessions(self):
+        return list(self._entries)
+
+    @property
+    def resident_bytes(self) -> float:
+        return sum(e.nbytes for e in self._entries.values())
+
+    def get(self, session_id) -> Optional[_PrefixEntry]:
+        e = self._entries.get(session_id)
+        if e is not None:
+            self._entries.move_to_end(session_id)
+        return e
+
+    def put(self, session_id, entry: _PrefixEntry) -> None:
+        self._entries[session_id] = entry
+        self._entries.move_to_end(session_id)
+        if self.capacity_bytes is None:
+            return
+        while self._entries and self.resident_bytes > self.capacity_bytes:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+
+    def drop(self, session_id) -> None:
+        self._entries.pop(session_id, None)
+
+    def clear(self) -> None:
+        self._entries.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +323,10 @@ class TransferSession:
         # the pristine encoded payload of the last tensor-path send, kept
         # only under retain_last (see resend_last)
         self._retained = None
+        # prefix-delta state (see transfer_delta), and the padded
+        # (n_segments, per) comparison buffer of the segment shadows
+        self._prefix_index: Optional[PrefixIndex] = None
+        self._hit_buf: Optional[torch.Tensor] = None
 
     def _object_checksum(self, obj) -> int:
         """Fletcher-32 over any wire object: compressed streams, a wire
@@ -381,13 +472,184 @@ class TransferSession:
         self._account()
         return out
 
+    # -- prefix-delta transfer ----------------------------------------------
+    def enable_prefix_cache(self,
+                            capacity_bytes: Optional[float] = None
+                            ) -> PrefixIndex:
+        """Attach a :class:`PrefixIndex` so :meth:`transfer_delta` can skip
+        segments the destination already holds.  Chunked path only: delta
+        granularity is the plan's codec-aligned segmentation.  Returns the
+        index (idempotent; the first capacity wins)."""
+        if self.plan.granularity != "chunked":
+            raise ValueError(
+                "prefix-delta transfer rides the chunked path (n_chunks > 1); "
+                "build the plan with granularity='chunked'")
+        if self._prefix_index is None:
+            self._prefix_index = PrefixIndex(capacity_bytes)
+        return self._prefix_index
+
+    def transfer_delta(self, cache, session_id, *, check: bool = True,
+                       verify: Optional[bool] = None):
+        """Prefix-aware transfer: ship only the segments (and sidecars) that
+        CHANGED since this session id's last transfer.
+
+        A segment of the folded stream hits when its bits equal the sender's
+        shadow of the last turn; a hit costs zero wire bytes (the receiver
+        re-uses the bits it decoded then) and its raw size lands in
+        ``last_stats.prefix_hit_bytes``.  Changed segments run the normal
+        chunked machinery: capacity-schedule retries, checksum framing,
+        verified re-fetches.  Sidecars (fp32 lo halves, fp8 leaves, raw
+        passthrough) hit on whole-object bit equality.  The result is
+        bit-identical to a full ``transfer`` of the same cache, and a cold
+        session id ships exactly what a full transfer ships.  Requires
+        :meth:`enable_prefix_cache`.
+
+        The comparison is one device pass over the stream and the sidecars
+        against the shadows, with one boolean vector read back."""
+        if self._prefix_index is None:
+            raise RuntimeError(
+                "prefix cache not enabled; call enable_prefix_cache() first")
+        if self._staged is not None:
+            raise RuntimeError("transfer_delta() called with a send() "
+                               "pending")
+        self._set_verify(verify)
+        if check:
+            self._check_structure(cache)
+        self._uid += 1
+        plan = self.plan
+        stats = self._new_chunked_stats()
+        stream, lo, fp8, raw = plan.fold_stream(cache)
+        sides = self._delta_sides(lo, fp8, raw)
+        entry = self._prefix_index.get(session_id)
+        n_seg = plan.n_chunks
+        if entry is None:
+            hits = [False] * (n_seg + len(sides))
+        else:
+            hits = self.shadow_hits(stream, sides, entry).tolist()
+
+        # the pipelined stream, segment by segment
+        bits: List[torch.Tensor] = []
+        for i, seg in enumerate(plan.segments):
+            if hits[i]:
+                bits.append(entry.seg_bits[i])
+                stats.prefix_hit_bytes += seg.raw_bytes
+                # chunk_wire_bytes[i] stays 0.0: nothing crossed the wire
+            else:
+                p = self._wire_hop(stream, i, self._encode_chunk(stream, i),
+                                   stats)
+                bits.append(_owned(self._chunk_out(stream, i, p, stats),
+                                   stream))
+
+        # the sidecars, each whole
+        lo_out: Dict[str, object] = {}
+        fp8_dec: Dict[str, object] = {}
+        raw_out: Dict[str, object] = {}
+        miss_lo: Dict[str, object] = {}
+        miss_fp8: Dict[str, object] = {}
+        miss_raw: Dict[str, object] = {}
+        routes = {r.key: r for r in plan.routes}
+        for (fam, k, _), hit in zip(sides, hits[n_seg:]):
+            r = routes[k]
+            if fam == "lo":
+                if hit:
+                    lo_out[k] = entry.side_obj[f"lo:{k}"]
+                    stats.prefix_hit_bytes += 2.0 * r.n_elements
+                else:
+                    miss_lo[k] = lo[k]
+                    stats.fp32_lo_wire_bytes += 2.0 * r.n_elements
+            elif fam == "fp8":
+                if hit:
+                    fp8_dec[k] = entry.side_obj[f"fp8:{k}"]
+                    stats.prefix_hit_bytes += r.raw_bytes
+                else:
+                    ct, ok, extra = _encode_scheduled(
+                        plan, fp8[k], plan.fp8_codebook, r.n_elements, r.cap,
+                        scheduled=True)
+                    _record_unit(stats, k, bool(ok), extra)
+                    stats.fp8_wire_bytes += (
+                        float(plan.backend.wire_bytes(ct)) if ok
+                        else r.raw_bytes)
+                    miss_fp8[k] = ct if ok else fp8[k]
+            elif hit:
+                raw_out[k] = entry.side_obj[f"raw:{k}"]
+                stats.prefix_hit_bytes += r.raw_bytes
+            else:
+                miss_raw[k] = raw[k]
+                stats.raw_passthrough_bytes += r.raw_bytes
+
+        if self._channel is not None:
+            lo_f, fp8_f, raw_f = self._ship_sidecars(miss_lo, miss_fp8,
+                                                     miss_raw)
+            miss_lo, miss_fp8, miss_raw = self._deliver_sidecars(
+                lo_f, fp8_f, raw_f, (miss_lo, miss_fp8, miss_raw), stats)
+        lo_out.update(miss_lo)
+        raw_out.update(miss_raw)
+        for k, p in miss_fp8.items():
+            fp8_dec[k] = (p if isinstance(p, torch.Tensor)   # raw fallback
+                          else _backend_for(p, plan.backend).decode(p))
+
+        # a fresh tensor even for one segment: the delivered cache never
+        # aliases what the receiver keeps for the next turn
+        bits_out = C.unsigned_view(torch.cat([C.signed_view(b) for b in bits]))
+        out = plan.unfold_stream(bits_out, lo_out, fp8_dec, raw_out)
+
+        # refresh the shadows and the receiver objects for the NEXT turn
+        shadow: Dict[str, torch.Tensor] = {}
+        side_obj: Dict[str, object] = {}
+        nbytes = 2.0 * stream.numel()
+        kept = {"lo": lo_out, "fp8": fp8_dec, "raw": raw_out}
+        for fam, k, sender in sides:
+            shadow[f"{fam}:{k}"] = sender.clone()
+            obj = kept[fam][k]
+            side_obj[f"{fam}:{k}"] = (_owned(obj, sender)
+                                      if isinstance(obj, torch.Tensor) else obj)
+            nbytes += (2.0 * routes[k].n_elements if fam == "lo"
+                       else routes[k].raw_bytes)
+        self._prefix_index.put(session_id, _PrefixEntry(
+            stream=C.signed_view(stream).clone(), seg_bits=bits,
+            side_shadow=shadow, side_obj=side_obj, nbytes=nbytes))
+
+        self.last_stats = stats
+        self._account()
+        return out
+
+    def _delta_sides(self, lo, fp8, raw) -> List[Tuple[str, str, torch.Tensor]]:
+        """The sidecars of a folded cache in route order, as ``(family,
+        key, sender tensor)``: fp32 lo halves, fp8 leaves, raw leaves."""
+        sides = []
+        for r in self.plan.routes:
+            if r.route == "fp32_hilo":
+                sides.append(("lo", r.key, lo[r.key]))
+            elif r.route == "fp8":
+                sides.append(("fp8", r.key, fp8[r.key]))
+            elif r.route == "raw":
+                sides.append(("raw", r.key, raw[r.key]))
+        return sides
+
+    def shadow_hits(self, stream: torch.Tensor, sides, entry: _PrefixEntry
+                    ) -> torch.Tensor:
+        """Which segments and sidecars equal ``entry``'s shadows, bit for
+        bit, as one bool tensor on the stream's device: one element per
+        segment, then one per sidecar in ``sides`` order.
+
+        The stream compares in one pass into a ``(n_segments, per)`` buffer
+        padded with True past the stream's end, reduced with
+        ``all(dim=1)``; no host sync happens here."""
+        segs = self.plan.segments
+        n = stream.numel()
+        per = segs[0].n_elements
+        if self._hit_buf is None:
+            self._hit_buf = torch.ones(len(segs) * per, dtype=torch.bool,
+                                       device=stream.device)
+        torch.eq(C.signed_view(stream), entry.stream, out=self._hit_buf[:n])
+        flags = [self._hit_buf.view(len(segs), per).all(dim=1)]
+        for fam, k, sender in sides:
+            shadow = entry.side_shadow[f"{fam}:{k}"]
+            flags.append((_bits(sender) == _bits(shadow)).all().reshape(1)
+                         .to(stream.device))
+        return torch.cat(flags)
+
     # -- executors that are not ported yet -------------------------------------
-    def transfer_delta(self, *args, **kwargs):
-        raise _not_ported("prefix-delta transfer (transfer_delta)")
-
-    def enable_prefix_cache(self, *args, **kwargs):
-        raise _not_ported("prefix-delta transfer (enable_prefix_cache)")
-
     def save(self, *args, **kwargs):
         raise _not_ported("the persistent executor (save)")
 

@@ -235,8 +235,7 @@ def test_unported_session_features_raise():
     jc, tc, cb, tcb_ = make_caches(heavy=False)
     _, tp = plans(jc, tc, cb, tcb_)
     sess = tp.session()
-    for name in ("transfer_delta", "enable_prefix_cache", "save", "load",
-                 "ring_reduce", "reshard"):
+    for name in ("save", "load", "ring_reduce", "reshard"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(sess, name)()
     with pytest.raises(NotImplementedError, match="mesh"):
