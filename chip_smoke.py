@@ -12,7 +12,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               HMMA (mma.sync) ones in the paged-attention library's, where
               the toolkit has ``cuobjdump`` (none of either fails the run).
 2. kernels  — all four codec kernels held BITWISE against their plain
-              PyTorch versions for bf16 / fp8_e5m2 / fp8_e4m3 on edge inputs
+              PyTorch versions for bf16 / fp8_e5m2 / fp8_e4m3 (16- or
+              14-entry exponent tables, then 8-entry ones) on edge inputs
               (specials, zero-/all-escape rows, count == cap and cap + 1,
               cap 1/64/128, a ragged tail) and on the persistent fused
               kernels' edges (chunks 256 to 8192, 1 and 7 rows, counts
@@ -62,6 +63,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               flipped byte raises ``WireIntegrityError`` naming its frame;
               phase 4's all-escape chunk through the wire's global
               re-encode (the dense kernels).
+4c'. fp8    — phase 3's served cache cast to float8_e5m2 (k 16) and
+              float8_e4m3fn (k 8), codebooks from ``fp8.calibrate_fp8``,
+              through the plan's ``fp8`` route on ``cuda``: bitwise, the
+              wire ratio against native beside ``ratio_vs_native`` at the
+              measured escape rate (wire bytes follow the size model's
+              code bits; the nibble-packed streams' ratio apart).
 4d. fleet   — the serving control plane on smollm's full-width weights:
               (a) prefix-delta transfer (batch 1, turn 1 a 2048-token
               prompt, turn 2 the same plus 256 tokens, n_chunks 480: a
@@ -114,12 +121,33 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8. demotion — an out-of-band codebook makes the stream inadmissible: the
               batch demotes once and its tokens equal the raw-resident
               engine's bit for bit.
+8a. minitron — minitron-4b at full width (32 layers, d_model 3072, GQA
+              24/8 x 128), batch 4, prompt 2048, 16 new tokens, served raw
+              (cuda, n_chunks 1) and with compression off: delivery
+              bitwise, tokens equal, 32 flash launches.
+8b. ssm     — mamba2-2.7b at full width (64 layers, d_model 2560, 80 heads
+              x 64, d_state 128), batch 4, prompt 2048 (8 SSD chunks), 16
+              new tokens, three runs: ``compress_fp32=True`` (the 671 MB
+              f32 SSM state's hi halves fold into the codec stream),
+              ``compress_fp32=False`` (the state ships raw), compression
+              off.  Delivered state bitwise the prefill's, tokens equal;
+              per run the prefill, transfer and decode-loop seconds, the
+              ratio, escapes per row, capacity retries and peak memory.
+8c. hybrid  — recurrentgemma-9b at full width (12 triples + 2 extra
+              recurrent blocks, d_model 4096, LRU 4096, window 2048), batch
+              4, prompt 4096 (past the window: the cache keeps the last
+              2048 positions), 16 new tokens, the same three runs and
+              gates as ``ssm``; its prefill launches the flash kernel 12
+              times, all on the tensor-core path, and its first and last
+              local-attention layer join ``flash_live`` (bound counted over
+              the window; SDPA with an explicit band mask).
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
               raw path (n_chunks 1 and 8, compression off) bitwise, then
               the resident path as phase 6 (32-token pages).  Peak device
-              memory is reported per phase.
+              memory is reported per phase.  Each family's model is freed
+              before the next is drawn.
 
 Prefill attention runs the flash-attention kernel in every attention layer,
 on its tensor-core (wgmma) path for every served family.  Phase ``flash``
@@ -129,7 +157,10 @@ it on the live q/k/v of
 its first and last layer (captured from a prefill at the served geometry)
 against the plain version and against ``chunked_attention``, and times it
 beside the plain version and ``scaled_dot_product_attention`` (a yardstick
-the port never calls); phase ``flash_live`` reports the three geometries.
+the port never calls); phase ``flash_live`` reports the four geometries,
+recurrentgemma's with its window.  Phase ``flash``'s cases include sliding
+windows (1, 16, 100, >= Skv, non-causal, d 256 with one KV head) on both
+kernels.
 
 The launch counters are set to 0 right before each main-path run and read
 right after it: the served transfer of phase 3 (``encode_fused``,
@@ -138,9 +169,9 @@ right after it: the served transfer of phase 3 (``encode_fused``,
 ``launches_by_path``; phase 4d's turn-2 delta and the scheduler run with
 its re-sends), the served resident decode of phases 6
 (``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
-prefills of phases 3, 7 and 9 (``flash_attention``: one launch per layer,
-30 + 62 + 48, every one on the tensor-core path, or the run fails); the
-checks around those runs are not counted.  The
+prefills of phases 3, 7, 8a, 8c and 9 (``flash_attention``: one launch per
+attention layer, 30 + 62 + 32 + 12 + 48, every one on the tensor-core path,
+or the run fails); the checks around those runs are not counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
 a checkout, it exits non-zero before printing any result.
@@ -310,6 +341,17 @@ def phase_kernels(torch, cfg, device):
         if K.check_decode_case(streams, cb) != 0:
             raise AssertionError(f"{fmt}/repeated slot: decode_fused != plain")
         n_cases += 1
+    # 8-entry exponent tables (fp8 e4m3's recommended k, e5m2's 3-bit
+    # variant), the same edges
+    n_k8 = 0
+    for fmt, cb in K.CODEBOOKS_K8.items():
+        edges = [(name, bits, cap, 1024) for name, bits, cap
+                 in K.kernel_cases(fmt, seed=3, cb=cb)] + K.fused_cases(fmt, seed=3, cb=cb)
+        for name, bits, cap, chunk in edges:
+            errs = K.check_case(_bits_tensor(torch, bits, device), cb, cap, chunk)
+            if max(errs.values()) != 0:
+                raise AssertionError(f"{fmt}/k8/{name}: kernel != plain {errs}")
+            n_k8 += 1
     torch.cuda.synchronize()
 
     # main-path shape: one smollm KV leaf (L, B, S, Hkv, hd), synthetic bf16,
@@ -395,7 +437,8 @@ def phase_kernels(torch, cfg, device):
             raw_gb_per_s=raw_bytes / ms / 1e6)
     del x, heavy_bits, heavy
     torch.cuda.empty_cache()
-    emit(phase="kernels", edge_cases=n_cases, formats=list(K.CODEBOOKS),
+    emit(phase="kernels", edge_cases=n_cases, k8_edge_cases=n_k8,
+         formats=list(K.CODEBOOKS),
          grid_pass_warps=passes,
          timed={k: {f: v[f] for f in ("ms", "eager_ms", "plain_ms", "bound_ms", "bytes")}
                 for k, v in records.items()},
@@ -489,13 +532,6 @@ def phase_main(torch, cfg, device):
                                    for ms, c, k in host[:8]])
         return out
 
-    def served_escapes(eng, cache):
-        """Escapes per chunk row of the streams the served path sends."""
-        comp, _ = eng.plan.session().transfer_compressed(cache)
-        rows = sum(ct.n_padded // ct.chunk for ct in comp.values())
-        escapes = sum(int(ct.esc_count.sum()) for ct in comp.values())
-        return dict(escapes=escapes, rows=rows, escapes_per_row=escapes / rows)
-
     results, tokens, launches = {}, {}, {}
     for label, kw in (("cuda_n1", dict(n_chunks=1)),
                       ("cuda_n8", dict(n_chunks=8)),
@@ -529,6 +565,17 @@ def phase_main(torch, cfg, device):
          codebook=list(cb.exponents), runs=results,
          tokens_equal=True, delivered_bitwise=True)
     return cb, first, params, prompt, launches, results
+
+
+def served_escapes(eng, cache):
+    """Escapes per chunk row of the streams the served path sends (leaves
+    that ship raw after the capacity schedule have no streams)."""
+    comp, _ = eng.plan.session().transfer_compressed(cache)
+    rows = sum(ct.n_padded // ct.chunk for ct in comp.values())
+    escapes = sum(int(ct.esc_count.sum()) for ct in comp.values())
+    return dict(escapes=escapes, rows=rows,
+                escapes_per_row=escapes / rows if rows else None,
+                encoded_leaves=sorted(comp))
 
 
 def escape_chunk_state(torch, cb, first, device):
@@ -1342,15 +1389,20 @@ def phase_flash(torch, device):
     worst, path = {}, {}
     for c in AC.flash_cases(seed=1):
         q, k, v = AC.flash_operands(c, device)
+        kw = dict(causal=c["causal"], window=c["window"])
         tc0 = FA.flash_attention.launches_tc
-        got = FA.flash_attention(q, k, v, causal=c["causal"])
+        got = FA.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         path[c["name"]] = "tensor_core" if FA.flash_attention.launches_tc > tc0 \
             else "cuda_core"
-        want = FA.flash_attention_ref(q, k, v, causal=c["causal"])
+        want = FA.flash_attention_ref(q, k, v, **kw)
         worst[c["name"]] = AC.check_close(got, want, *c["tol"])
-        if not torch.equal(got, FA.flash_attention(q, k, v, causal=c["causal"])):
+        if not torch.equal(got, FA.flash_attention(q, k, v, **kw)):
             raise AssertionError(f"flash {c['name']}: two runs differ")
+        if c["window"] is not None and c["window"] >= k.shape[1] and not \
+                torch.equal(got, FA.flash_attention(q, k, v, causal=c["causal"])):
+            raise AssertionError(f"flash {c['name']}: a window >= Skv differs "
+                                 "from no window")
         if path[c["name"]] != ("tensor_core" if FA.tensor_core_path(
                 q.dtype, q.shape[-1], v.shape[-1]) else "cuda_core"):
             raise AssertionError(f"flash {c['name']}: took the {path[c['name']]} "
@@ -1386,7 +1438,10 @@ def flash_live(torch, layers, arch):
     against its plain version (one bf16 ulp) and ``chunked_attention``
     (the JAX package's 3e-2), then timed on the first layer's (device
     time, ``ms``, and issued eagerly, ``eager_ms``) beside the plain
-    version and SDPA (causal, GQA, the same bf16 inputs)."""
+    version and SDPA (causal, GQA, the same bf16 inputs; with a sliding
+    window, an explicit boolean band mask, since no single call takes a
+    window).  The bound counts only the (query, key) pairs inside the
+    window."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import flash_attention as FA
@@ -1394,34 +1449,49 @@ def flash_live(torch, layers, arch):
     from repro_torch.models import layers as L
     errs = []
     for q, k, v, kw in layers:
-        causal = kw.get("causal", True)
-        got = FA.flash_attention(q, k, v, causal=causal)
+        causal, window = kw.get("causal", True), kw.get("window")
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
         errs.append(dict(
-            plain=AC.check_close(got, FA.flash_attention_ref(q, k, v, causal=causal),
-                                 *AC.FLASH_TOL["bf16"]),
-            chunked=AC.check_close(got, L.chunked_attention(q, k, v, causal=causal,
-                                                            kv_block=512),
-                                   AC.FLASH_VS_CHUNKED, AC.FLASH_VS_CHUNKED)))
+            plain=AC.check_close(got, FA.flash_attention_ref(
+                q, k, v, causal=causal, window=window), *AC.FLASH_TOL["bf16"]),
+            chunked=AC.check_close(got, L.chunked_attention(
+                q, k, v, causal=causal, window=window, kv_block=512),
+                AC.FLASH_VS_CHUNKED, AC.FLASH_VS_CHUNKED)))
         torch.cuda.empty_cache()
     q, k, v, kw = layers[0]
+    causal, window = kw.get("causal", True), kw.get("window")
     b, sq, h, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     nbytes = FA.hbm_bytes(b, sq, skv, h, hkv, d, dv)
-    ops = FA.flops(b, sq, skv, h, d, dv, causal=True)
+    ops = FA.flops(b, sq, skv, h, d, dv, causal=causal, window=window)
     b_ms, b_by = bound_ms(nbytes, ops, H100_BF16_OPS_PER_S)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        sdpa_kw = dict(is_causal=True)
+        library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    else:
+        i = torch.arange(sq, device=q.device)
+        rel = i[:, None] - torch.arange(skv, device=q.device)[None, :]
+        sdpa_kw = dict(attn_mask=(rel >= 0) & (rel < window))
+        library = ("scaled_dot_product_attention(attn_mask=causal band of "
+                   f"{window}, enable_gqa=True)")
     try:
         sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
-        library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+            qt, kt, vt, enable_gqa=True, **sdpa_kw), reps=10)
     except RuntimeError as exc:      # e.g. a value width SDPA refuses
         sdpa, library = None, f"none: SDPA refused ({str(exc).splitlines()[0]})"
-    ms = graph_ms(lambda: FA.flash_attention(q, k, v), reps=10)
-    rec = dict(arch=arch, geometry=dict(B=b, S=sq, H=h, Hkv=hkv, d=d, dv=dv),
+    del sdpa_kw
+
+    def kernel():
+        return FA.flash_attention(q, k, v, causal=causal, window=window)
+
+    ms = graph_ms(kernel, reps=10)
+    rec = dict(arch=arch, geometry=dict(B=b, S=sq, H=h, Hkv=hkv, d=d, dv=dv,
+                                        window=window),
                max_abs_err=max(e["plain"] for e in errs), errors=errs,
-               ms=ms, eager_ms=cuda_ms(lambda: FA.flash_attention(q, k, v), reps=10),
-               plain_ms=cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
-                                reps=2, warmup=1),
+               ms=ms, eager_ms=cuda_ms(kernel, reps=10),
+               plain_ms=cuda_ms(lambda: FA.flash_attention_ref(
+                   q, k, v, causal=causal, window=window), reps=2, warmup=1),
                bound_ms=b_ms, bound_by=b_by, library_ms=sdpa, library=library,
                bytes=nbytes, ops=ops, tflops=ops / ms / 1e9)
     torch.cuda.empty_cache()
@@ -1721,6 +1791,223 @@ def phase_demotion(torch, cfg, params, prompt, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fp8 route, and the families of the sixth slice
+# ---------------------------------------------------------------------------
+
+#: (fmt, k, torch dtype name): Appendix B's preferred e5m2 variant and
+#: e4m3's only meaningful one
+FP8_VARIANTS = (("fp8_e5m2", 16, "float8_e5m2"), ("fp8_e4m3", 8, "float8_e4m3fn"))
+MINITRON_ARCH, MINITRON_BATCH, MINITRON_PROMPT = "minitron-4b", 4, 2048
+SSM_ARCH, SSM_BATCH, SSM_PROMPT = "mamba2-2.7b", 4, 2048
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT = "recurrentgemma-9b", 4, 4096
+
+
+def phase_fp8(torch, cb, first, device):
+    """Phase ``main``'s served cache cast to float8 (e5m2 at k 16, e4m3 at
+    k 8), codebooks from ``fp8.calibrate_fp8`` on the cast leaves, through
+    the plan's ``fp8`` route on the ``cuda`` backend: delivery bitwise, the
+    wire ratio against native beside ``ratio_vs_native`` at the measured
+    escape rate.  The wire bytes follow the size model (``code_bits``
+    a code: 3 at k 8); the streams keep a nibble a code, and the ratio
+    with nibble codes is reported apart.  Returns each variant's
+    launches."""
+    from repro_torch.core import codec as C
+    from repro_torch.core import fp8 as FP8
+    from repro_torch.core.codebook import FORMATS
+    from repro_torch.core import tree as TR
+    from repro_torch.serving.plan import TransferConfig, TransferPlan
+
+    out, launches = {}, {}
+    for fmt, k, dtype in FP8_VARIANTS:
+        cache = {key: v.to(getattr(torch, dtype))
+                 for key, v in first.prefill.state.cache.items()}
+        sample = [v.reshape(-1)[: 1 << 22].view(torch.uint8).cpu().numpy()
+                  for v in cache.values()]
+        cb8 = FP8.calibrate_fp8(sample, fmt, k)
+        plan = TransferPlan.build(cache, TransferConfig(
+            codebook=cb, fp8_codebook=cb8, backend="cuda"))
+        if [r.route for r in plan.routes] != ["fp8", "fp8"]:
+            raise AssertionError(f"{fmt}: routes {[r.route for r in plan.routes]}")
+        sess = plan.session()
+        got, launches[fmt] = counted(sess.transfer, cache)
+        torch.cuda.synchronize()
+        if not all(C.bits_equal(a, b) for a, b in zip(TR.leaves(got), TR.leaves(cache))):
+            raise AssertionError(f"{fmt}: delivered cache != sent cache")
+        st = sess.last_stats
+        comp, _ = plan.session().transfer_compressed(cache)
+        n = sum(v.numel() for v in cache.values())
+        escapes = sum(int(ct.esc_count.sum()) for ct in comp.values())
+        mbits = FORMATS[fmt]["mbits"]
+        eps = escapes / n
+        out[fmt] = dict(
+            k=k, dtype=dtype, codebook=list(cb8.exponents), elements=n,
+            raw_bytes=float(n), wire_bytes=st.fp8_wire_bytes,
+            wire_ratio_vs_native=n / st.fp8_wire_bytes,
+            model_ratio_vs_native=FP8.ratio_vs_native(fmt, k, eps),
+            model_ratio_vs_bf16=FP8.ratio_vs_bf16(fmt, k, eps),
+            escape_rate=eps, escapes=escapes, codec_ok=st.all_ok,
+            retry_steps=st.chunk_retry_steps,
+            wire_bytes_follow=f"the size model: {cb8.code_bits}-bit codes",
+            # the codes as the streams hold them (a nibble each), the rest
+            # as the size model counts it
+            nibble_code_bytes=n * (1 + mbits) / 8 + n / 2 + 3 * escapes,
+            nibble_code_ratio_vs_native=n / (n * (1 + mbits) / 8 + n / 2
+                                             + 3 * escapes),
+            # what the streams take in device memory: a byte of sign and
+            # mantissa and a nibble of code an element
+            stream_bytes_in_memory=sum(ct.sign_mantissa.numel() + ct.packed.numel()
+                                       for ct in comp.values()),
+            nan_elements=int(sum(int(torch.isnan(v.float()).sum())
+                                 for v in cache.values())))
+        del cache, got, comp, sess, plan
+        torch.cuda.empty_cache()
+    emit(phase="fp8", arch=ARCH, batch=BATCH, prompt=PROMPT, variants=out,
+         delivered_bitwise=True, paper_appendix_b="up to 1.14x over native E5M2")
+    return launches
+
+
+def hi_half_escapes(torch, cache, cb, chunk: int = 1024):
+    """Escapes of the f32 leaves' hi halves under the bf16 codebook ``cb``
+    (the exponent of an f32 value is its hi half's bf16 exponent), per
+    chunk row of ``chunk`` elements, as the ``fp32_hilo`` route encodes
+    them: ``{leaf: {escapes, rows, per_row, max_per_row}}``."""
+    book = torch.zeros(256, dtype=torch.bool, device=next(iter(cache.values())).device)
+    book[list(cb.exponents)] = True
+    out = {}
+    for key, x in cache.items():
+        if x.dtype != torch.float32 or not x.numel():
+            continue
+        e = (x.reshape(-1).view(torch.int32) >> 23) & 0xFF
+        esc = ~book[e.to(torch.int64)]
+        esc = torch.nn.functional.pad(esc, (0, (-esc.numel()) % chunk))
+        per_row = esc.view(-1, chunk).sum(dim=1)
+        out[key] = dict(escapes=int(per_row.sum()), rows=per_row.numel(),
+                        per_row=float(per_row.float().mean()),
+                        max_per_row=int(per_row.max()))
+    return out
+
+
+def _peak_gb(torch):
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
+                 flash_layers=False):
+    """``arch`` at full width (seeded random weights, drawn on the card),
+    served through ``serve_once`` once per ``(label, engine keywords)`` of
+    ``runs`` with the ``cuda`` backend at n_chunks 1: each run's delivered
+    cache bitwise the prefill's, the tokens of every run equal.  Reports
+    each run's seconds, ratio, escapes (with ``compress_fp32``, also the
+    f32 leaves' hi halves'), capacity retries and peak device memory, and
+    the cache's leaf shapes.  The first run's launches are counted alone; with
+    ``flash_layers`` its prefill's first and last attention layer are kept
+    for ``flash_live``.  Frees the model before it returns."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DisaggregatedEngine
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.leaves(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in TR.leaves(params))
+    peak = {"init": _peak_gb(torch)}
+    cb = serve.calibrate_on_model(cfg, params, device=device, seed=seed + 1)
+    prompt = serve.make_prompt(cfg, batch, prompt_len, device=device, seed=seed + 2)
+    results, tokens, launches, layers = {}, {}, {}, None
+    for i, (label, kw) in enumerate(runs):
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device, **kw)
+        if i == 0 and flash_layers:
+            (res, launches[label]), layers = capture_flash(
+                counted, serve.serve_once, eng, prompt, NEW_TOKENS)
+        else:
+            res, launches[label] = counted(serve.serve_once, eng, prompt, NEW_TOKENS)
+        cache = res.prefill.state.cache
+        if not all(C.bits_equal(x, y) for x, y in zip(
+                TR.leaves(res.delivered.cache), TR.leaves(cache))):
+            raise AssertionError(f"{arch} {label}: delivered cache != prefill cache")
+        if not bool(torch.isfinite(res.prefill.last_logits.float()).all()):
+            raise AssertionError(f"{arch} {label}: non-finite prefill logits")
+        tokens[label] = res.tokens
+        shapes = {k: list(v.shape) for k, v in cache.items()}
+        st = eng.stats
+        results[label] = dict(
+            seconds=res.seconds, transfer_ratio=st.transfer_ratio,
+            raw_bytes=st.raw_cache_bytes, wire_bytes=st.wire_bytes,
+            fp32_lo_wire_bytes=st.fp32_lo_wire_bytes, codec_ok=st.codec_ok,
+            retried_units=st.chunk_retries, retry_steps=st.chunk_retry_steps,
+            plan=eng.describe_plan())
+        if eng.plan is not None:
+            results[label]["escapes"] = served_escapes(eng, cache)
+            if eng.tc.compress_fp32:
+                results[label]["fp32_hi_escapes"] = hi_half_escapes(torch, cache, cb)
+        del res, eng, cache
+        peak[label] = _peak_gb(torch)
+    for label in tokens:
+        if not torch.equal(tokens[label], tokens[runs[0][0]]):
+            raise AssertionError(f"{arch} tokens differ: {label} vs {runs[0][0]}")
+    flash = flash_live(torch, layers, arch) if layers is not None else None
+    del params, layers
+    torch.cuda.empty_cache()
+    record = dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+                  vocab=cfg.vocab_size, params=n_params, weight_bytes=weight_bytes,
+                  init_seconds=init_s, batch=batch, prompt=prompt_len,
+                  new_tokens=NEW_TOKENS, codebook=list(cb.exponents),
+                  cache_shapes=shapes, runs=results,
+                  tokens_equal=True, delivered_bitwise=True, peak_memory_gb=peak)
+    return record, launches, flash
+
+
+#: the recurrent families' three runs: the f32 state through the hi/lo
+#: route, the f32 state raw, and compression off
+RECURRENT_RUNS = (("fp32_hilo", dict(compress_fp32=True)),
+                  ("fp32_raw", dict(compress_fp32=False)),
+                  ("off", dict(compress=False)))
+
+
+def phase_minitron(torch, device):
+    rec, launches, _ = serve_family(
+        torch, MINITRON_ARCH, MINITRON_BATCH, MINITRON_PROMPT,
+        (("cuda_n1", {}), ("off", dict(compress=False))), device, seed=40)
+    emit(phase="minitron", **rec)
+    return launches["cuda_n1"]
+
+
+def phase_ssm(torch, device):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(SSM_ARCH)
+    rec, launches, _ = serve_family(torch, SSM_ARCH, SSM_BATCH, SSM_PROMPT,
+                                    RECURRENT_RUNS, device, seed=50)
+    emit(phase="ssm", d_state=cfg.ssm.d_state, ssd_chunks=SSM_PROMPT // cfg.ssm.chunk,
+         **rec)
+    return launches["fp32_hilo"]
+
+
+def phase_hybrid(torch, device):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYBRID_ARCH)
+    rec, launches, flash = serve_family(
+        torch, HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, RECURRENT_RUNS, device,
+        seed=60, flash_layers=True)
+    if rec["cache_shapes"]["attn_k"][2] != cfg.hybrid.window:
+        raise AssertionError(f"hybrid cache keeps {rec['cache_shapes']['attn_k'][2]} "
+                             f"positions, not the window's {cfg.hybrid.window}")
+    emit(phase="hybrid", window=cfg.hybrid.window, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, **rec)
+    return launches["fp32_hilo"], flash
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1787,6 +2074,7 @@ def main(argv=None) -> int:
     windows.update(phase_verified(torch, cfg, params, cb, prompt, first,
                                   main_runs, device))
     windows.update(phase_wire(torch, cfg, cb, first, smi, device))
+    windows.update(phase_fp8(torch, cb, first, device))
     del first
     windows.update(phase_fleet(torch, cfg, params, cb, cal,
                                main_results["cuda_n1"]["seconds"], smi, device))
@@ -1797,6 +2085,9 @@ def main(argv=None) -> int:
     windows["demotion"] = phase_demotion(torch, cfg, params, prompt, device)
     del params, cb, prompt
     torch.cuda.empty_cache()
+    windows["minitron"] = phase_minitron(torch, device)
+    windows["ssm"] = phase_ssm(torch, device)
+    windows["hybrid"], flash[HYBRID_ARCH] = phase_hybrid(torch, device)
     windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -1807,7 +2098,8 @@ def main(argv=None) -> int:
         rec["launches"] = windows[owner[k]][k]
     transfer_paths = ("main", "main_n8", "capacity", "profile", "verified_n1",
                       "verified_n8", "wire", "wire-verify", "wire_escapes",
-                      "fleet_delta", "fleet_resend")
+                      "fp8_e5m2", "fp8_e4m3", "fleet_delta",
+                      "fleet_resend", "minitron", "ssm", "hybrid")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
@@ -1815,7 +2107,8 @@ def main(argv=None) -> int:
         MOE_ARCH: windows["moe"]["paged_gqa_attention"]}
     # the flash-attention kernel: one launch per layer of each served prefill
     served_prefills = {ARCH: ("main", 30), MLA_ARCH: ("mla", 62),
-                       MOE_ARCH: ("moe", 48)}
+                       MOE_ARCH: ("moe", 48), MINITRON_ARCH: ("minitron", 32),
+                       HYBRID_ARCH: ("hybrid", 12)}
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "

@@ -2,9 +2,10 @@
 
 The dataclasses are data only and copied verbatim, so a config means the same
 model in both packages.  ``get_config`` resolves the families the port runs
-today: dense GQA (smollm-135m, llama3.2-3b, qwen3-32b), MLA (minicpm3-4b)
-and MoE (qwen3-moe-30b-a3b); the other architectures of the JAX package
-raise ``NotImplementedError`` until their family is ported.
+today: dense GQA (smollm-135m, llama3.2-3b, minitron-4b, qwen3-32b), MLA
+(minicpm3-4b), MoE (qwen3-moe-30b-a3b), SSM (mamba2-2.7b) and the RG-LRU +
+local-attention hybrid (recurrentgemma-9b); the other architectures of the
+JAX package raise ``NotImplementedError`` until their family is ported.
 """
 
 from __future__ import annotations
@@ -202,13 +203,17 @@ ARCH_IDS = (
     "mamba2-2.7b",
 )
 
-#: architectures whose family the port runs (dense GQA, MLA and MoE); the
-#: rest of ``ARCH_IDS`` come with later slices of the port
+#: architectures whose family the port runs (dense GQA, MLA, MoE, SSM and
+#: the RG-LRU hybrid); the rest of ``ARCH_IDS`` come with later slices of
+#: the port
 PORTED = {
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",  # paper's own eval model
 }
 

@@ -448,3 +448,143 @@ def static_stream_bytes(ct: CompressedTensor) -> int:
 
 def raw_bytes(ct: CompressedTensor) -> float:
     return ct.n_elements * FORMATS[ct.fmt]["bits"] / 8.0
+
+
+def roundtrip_ok(x: torch.Tensor, ct: CompressedTensor) -> torch.Tensor:
+    """Bit-level equality of ``x`` and the decode of ``ct`` (a 0-d bool
+    tensor; float ``==`` would fail on NaN)."""
+    a = signed_view(flat_bits(x, ct.fmt))
+    b = signed_view(flat_bits(decode(ct), ct.fmt))
+    return torch.all(a == b)
+
+
+def compression_ratio(ct: CompressedTensor) -> float:
+    return raw_bytes(ct) / compressed_bytes(ct)
+
+
+def _code_bits(k: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(2, k)))))
+
+
+def theoretical_ratio(fmt: str = "bf16", k: int = 16, escape_rate: float = 0.0) -> float:
+    """ρ = 2 / (3/2 + 3ε) for bf16/top-16; generalized per format/k."""
+    s = FORMATS[fmt]
+    per_elem_bytes = (1 + s["mbits"]) / 8.0 + _code_bits(k) / 8.0 + 3.0 * escape_rate
+    return (s["bits"] / 8.0) / per_elem_bytes
+
+
+# ---------------------------------------------------------------------------
+# Top-15 + sentinel variant (paper §3.4 / Table 6 ablation)
+# ---------------------------------------------------------------------------
+
+SENTINEL = 15
+
+
+@dataclasses.dataclass(frozen=True)
+class SentinelCompressed:
+    """Streams of the top-15 + escape-token design: code 15 marks an escape,
+    whose value sits in ``esc_val`` in occurrence order (no positions)."""
+
+    sign_mantissa: torch.Tensor  # u8[N]
+    packed: torch.Tensor         # u8[N//2]
+    esc_val: torch.Tensor        # u8[C, cap] escape values in occurrence order
+    esc_count: torch.Tensor      # i32[C]
+    ok: torch.Tensor             # bool[]
+    shape: tuple
+    dtype: str
+    fmt: str
+    exponents: tuple             # 15 entries
+    chunk: int
+    cap: int
+
+
+def encode_sentinel(x: torch.Tensor, codebook: Codebook, chunk: int = DEFAULT_CHUNK,
+                    cap: int = DEFAULT_CAP) -> SentinelCompressed:
+    """Top-15 + escape-token encode: saves 2 bytes an escape (no position)
+    but makes decode irregular."""
+    exps = tuple(int(e) for e in codebook.exponents[:15])
+    fmt = codebook.fmt
+    pad = exps[0] << FORMATS[fmt]["mbits"]
+    bits = _pad_to_chunk(flat_bits(x, fmt), chunk, pad)
+    e, a = split_fields(bits, fmt)
+    code, member = assign_codes(e, exps)
+    code = torch.where(member, code, torch.full_like(code, SENTINEL))
+    _, esc_val, esc_count, ok = collect_escapes(e, member, chunk, cap)
+    return SentinelCompressed(
+        sign_mantissa=a, packed=pack_nibbles(code), esc_val=esc_val,
+        esc_count=esc_count, ok=ok, shape=tuple(x.shape),
+        dtype=dtype_name(x.dtype), fmt=fmt, exponents=exps, chunk=chunk,
+        cap=cap)
+
+
+def decode_sentinel(ct: SentinelCompressed) -> torch.Tensor:
+    """Irregular decode: every element inspects the code stream for the
+    sentinel, sentinels are ranked per chunk, and the rank (clipped to
+    ``cap - 1``, as the JAX package clips it) gathers from the values."""
+    code = unpack_nibbles(ct.packed)
+    is_esc = code == SENTINEL
+    e = decode_codes(torch.where(is_esc, torch.zeros_like(code), code),
+                     ct.exponents)
+    c = ct.esc_val.shape[0]
+    is_esc2 = is_esc.reshape(c, ct.chunk)
+    rank = torch.cumsum(is_esc2.to(torch.int32), dim=-1) - 1
+    rank = torch.clamp(rank, 0, ct.cap - 1).to(torch.int64)
+    vals = torch.gather(ct.esc_val, 1, rank)
+    e = torch.where(is_esc2, vals, e.reshape(c, ct.chunk)).reshape(-1)
+    bits = join_fields(e, ct.sign_mantissa, ct.fmt)
+    n = int(np.prod(ct.shape)) if ct.shape else 1
+    return from_bits(bits[:n].reshape(ct.shape), dtype_from_name(ct.dtype))
+
+
+def sentinel_bytes(ct: SentinelCompressed) -> float:
+    """N + N/2 + 1 byte per escape (values only)."""
+    s = FORMATS[ct.fmt]
+    n = ct.sign_mantissa.shape[0]
+    return n * (1 + s["mbits"]) / 8.0 + n * 0.5 + 1.0 * int(ct.esc_count.sum())
+
+
+# ---------------------------------------------------------------------------
+# Dynamic (per-call) calibration variant (paper §4.3.5 ablation)
+# ---------------------------------------------------------------------------
+
+def dynamic_topk_exponents(bits: torch.Tensor, fmt: str = "bf16",
+                           k: int = 16) -> torch.Tensor:
+    """Online histogram + top-k selection (the expensive path the paper's
+    pre-calibration avoids): the ``k`` most frequent exponents, u8.  Equal
+    counts keep the lower exponent first, as ``jax.lax.top_k`` does (a
+    stable descending sort; ``torch.topk`` promises no order)."""
+    e, _ = split_fields(flat_bits(bits, fmt), fmt)
+    hist = torch.bincount(e.to(torch.int64), minlength=1 << FORMATS[fmt]["ebits"])
+    order = torch.sort(hist, descending=True, stable=True).indices
+    return order[:k].to(torch.uint8)
+
+
+def encode_with_dynamic_codebook(x: torch.Tensor, fmt: str = "bf16", k: int = 16,
+                                 chunk: int = DEFAULT_CHUNK, cap: int = DEFAULT_CAP):
+    """Dynamic-codebook encode: rebuild the codebook per input (slow path).
+    Returns ``((sign_mantissa, packed, esc_pos, esc_val, esc_count, ok),
+    codebook u8[k])``."""
+    bits = flat_bits(x, fmt)
+    cb = dynamic_topk_exponents(bits, fmt, k)
+    bits = _pad_to_chunk(bits, chunk, int(cb[0]) << FORMATS[fmt]["mbits"])
+    e, a = split_fields(bits, fmt)
+    eq = e[..., None] == cb
+    member = eq.any(dim=-1)
+    code = (eq.to(torch.int32) * torch.arange(k, device=e.device)).sum(dim=-1)
+    packed = pack_nibbles(code.to(torch.uint8))
+    esc_pos, esc_val, esc_count, ok = collect_escapes(e, member, chunk, cap)
+    return (a, packed, esc_pos, esc_val, esc_count, ok), cb
+
+
+def decode_with_dynamic_codebook(streams, cb: torch.Tensor, shape, dtype,
+                                 fmt: str = "bf16",
+                                 chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    a, packed, esc_pos, esc_val, _, _ = streams
+    code = unpack_nibbles(packed).to(torch.int64)
+    e = torch.where(code < cb.numel(), cb[torch.clamp(code, max=cb.numel() - 1)],
+                    torch.zeros_like(cb[:1]))
+    e = scatter_escapes(e, esc_pos, esc_val, chunk)
+    bits = join_fields(e, a, fmt)
+    n = int(np.prod(shape)) if shape else 1
+    dtype = dtype if isinstance(dtype, torch.dtype) else dtype_from_name(str(dtype))
+    return from_bits(bits[:n].reshape(shape), dtype)

@@ -14,23 +14,28 @@ from typing import Any, List, Tuple
 LEAF = "*"
 
 
+def _walk(node, path, out):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys),
+                tuple(_walk(node[k], path + (k,), out) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, len(node),
+                tuple(_walk(v, path + (f"[{i}]",), out) for i, v in enumerate(node)))
+    out.append((path, node))
+    return LEAF
+
+
 def flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], Any]:
-    """``tree`` -> ([(path, leaf), ...], treedef), dict keys sorted."""
+    """``tree`` -> ([(path, leaf), ...], treedef), dict keys sorted.
+
+    The recursion is a module-level function, not a closure: a nested
+    function that calls itself sits in a reference cycle with its cell,
+    and the cycle would keep every leaf it saw alive until Python's
+    cyclic collector ran."""
     out: List[Tuple[tuple, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys),
-                    tuple(walk(node[k], path + (k,)) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, len(node),
-                    tuple(walk(v, path + (f"[{i}]",)) for i, v in enumerate(node)))
-        out.append((path, node))
-        return LEAF
-
-    treedef = walk(tree, ())
+    treedef = _walk(tree, (), out)
     return out, treedef
 
 
@@ -38,20 +43,19 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)[0]]
 
 
+def _build(d, it):
+    if d == LEAF:
+        return next(it)
+    kind, meta, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(meta, children)}
+    vals = [_build(c, it) for c in children]
+    return vals if kind == "list" else tuple(vals)
+
+
 def unflatten(treedef, flat_leaves):
     """Inverse of :func:`flatten_with_path`."""
-    it = iter(flat_leaves)
-
-    def build(d):
-        if d == LEAF:
-            return next(it)
-        kind, meta, children = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(meta, children)}
-        vals = [build(c) for c in children]
-        return vals if kind == "list" else tuple(vals)
-
-    return build(treedef)
+    return _build(treedef, iter(flat_leaves))
 
 
 def leaf_key(path) -> str:

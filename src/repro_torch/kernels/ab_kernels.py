@@ -1,7 +1,8 @@
 """Time a redesigned kernel beside an earlier revision's, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab_kernels --old DIR \
-        [--kernel paged_mla_attention|encode_fused|decode_fused|decode_dense]
+        [--kernel paged_mla_attention|encode_fused|decode_fused|decode_dense|
+                  flash_attention]
         [--reps N]
 
 ``DIR`` holds that revision's source of the kernel (``git show
@@ -27,6 +28,11 @@ through its own C entry; this revision's kernel runs through its wrapper.
   raw (bf16) GB/s.  Then says which codec kernels compile to the earlier
   revision's instructions (``sass_equal``: ``cuobjdump``, where the toolkit
   has it), by role, whatever their C++ names.
+* ``flash_attention`` (``flash_attention.cu``): the earlier
+  ``sz_flash_attention_tc`` (no ``window`` argument) against this
+  revision's wrapper without a window, at the served prefill geometries
+  (``FLASH_SERVED``), seeded bf16 q/k/v; also whether the two outputs are
+  equal bit for bit.
 
 Both outputs are first held against the plain version (bitwise for the
 codec), then timed in turns, old, new, new, old: ``old_ms``/``new_ms`` are
@@ -70,7 +76,15 @@ OLD_PROTOTYPES = {
         "sz_decode_fused": [_I] + [_P] * 6 + [_L, _I, _I, _P, _P]}),
     "decode_dense": ("splitzip_decode", {
         "sz_decode_dense": [_I] + [_P] * 3 + [_L, _I, _P, _P]}),
+    "flash_attention": ("flash_attention", {
+        "sz_flash_attention_tc": [_P] * 4 + [_L] * 9 + [_I] * 8
+                                 + [ctypes.c_float, _P]}),
 }
+#: the served prefill geometries without a window: (B, S, H, Hkv, d, dv)
+FLASH_SERVED = {"smollm-135m": (8, 2048, 9, 3, 64, 64),
+                "minicpm3-4b": (4, 1000, 40, 40, 96, 64),
+                "minitron-4b": (4, 2048, 24, 8, 128, 128),
+                "qwen3-moe-30b-a3b": (4, 2048, 32, 4, 128, 128)}
 #: the codec sources, and the codec kernels this revision leaves alone
 CODEC_SOURCES = ("splitzip_encode", "splitzip_decode")
 UNCHANGED = ("encode_fused", "encode_dense", "decode_fused")
@@ -341,6 +355,39 @@ def ab_codec(kernel: str, lib, lib_path: Path, old_dir: Path, dev,
           flush=True)
 
 
+def ab_flash(lib, dev, reps: int) -> None:
+    from repro_torch.kernels import flash_attention as FA
+    for arch, (b, s, h, hkv, d, dv) in FLASH_SERVED.items():
+        gen = torch.Generator(device=dev).manual_seed(b * s + h)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+        out = torch.empty((b, s, h, dv), dtype=torch.bfloat16, device=dev)
+        scale = float(d ** -0.5)
+
+        def old():
+            err = lib.sz_flash_attention_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, s, s, h,
+                hkv, d, dv, 1, scale, build.stream_of(q))
+            if err:
+                raise RuntimeError(lib.sz_error_string(err).decode())
+            return out
+
+        def new():
+            return FA.flash_attention(q, k, v, causal=True)
+
+        want = FA.flash_attention_ref(q, k, v, causal=True)
+        for fn in (old, new):
+            AC.check_close(fn(), want, *AC.FLASH_TOL["bf16"])
+        same = bool(torch.equal(old().clone(), new()))
+        rec = in_turns(old, new, reps)
+        print(json.dumps(dict(kernel="flash_attention", arch=arch,
+                              geometry=dict(B=b, S=s, H=h, Hkv=hkv, d=d, dv=dv),
+                              bitwise_equal=same, **rec)), flush=True)
+        del q, k, v, out, want
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True, type=Path,
@@ -359,6 +406,8 @@ def main(argv=None) -> int:
                           ptxas_new=_ptxas(new_log))), flush=True)
     if args.kernel == "paged_mla_attention":
         ab_mla(lib, dev, args.reps)
+    elif args.kernel == "flash_attention":
+        ab_flash(lib, dev, args.reps)
     else:
         ab_codec(args.kernel, lib, lib_path, args.old, dev, args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,7 +16,7 @@ overflow.  The CPU tests and ``chip_smoke.py`` draw the same inputs.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -277,8 +277,12 @@ def check_partials(got, want, rtol: float = PARTIALS_RTOL) -> float:
 #: a single query, a KV length past the queries, scores scaled x30, bf16
 #: and f32; for the tensor-core kernel, five key tiles (its two-stage ring
 #: wraps) and an MLA ``v`` that is a head slice of a wider tensor (the
-#: optional last field: ``v`` is ``wide[..., offset:]``, here 128 bytes in,
-#: as ``mla_prefill`` passes it)
+#: optional 12th field: ``v`` is ``wide[..., offset:]``, here 128 bytes in,
+#: as ``mla_prefill`` passes it); then sliding windows (the optional 13th
+#: field): a window of 1, one that is not a multiple of the 64-key tile,
+#: one of at least Skv (the causal result), one shorter than a tile, one
+#: without the causal mask, and recurrentgemma's d 256 with one KV head,
+#: on both kernels
 FLASH_EDGE = (
     ("mha_causal_f32", 2, 128, 128, 4, 4, 64, 64, True, "f32", 1.0),
     ("mha_full_bf16", 2, 96, 96, 4, 4, 64, 64, False, "bf16", 1.0),
@@ -294,6 +298,16 @@ FLASH_EDGE = (
     ("scores_x30_f32", 1, 64, 64, 2, 2, 32, 32, True, "f32", 30.0),
     ("ring_wrap_d128_bf16", 1, 320, 320, 8, 2, 128, 128, True, "bf16", 1.0),
     ("mla_v_slice_bf16", 2, 150, 150, 4, 4, 96, 64, True, "bf16", 1.0, 64),
+    ("win1_bf16", 1, 130, 130, 4, 2, 64, 64, True, "bf16", 1.0, 0, 1),
+    ("win1_f32", 1, 70, 70, 2, 1, 32, 32, True, "f32", 1.0, 0, 1),
+    ("win100_ragged_bf16", 2, 300, 300, 4, 1, 128, 128, True, "bf16", 1.0, 0, 100),
+    ("win100_ragged_f32", 1, 260, 260, 4, 2, 64, 64, True, "f32", 1.0, 0, 100),
+    ("win_ge_skv_bf16", 1, 150, 150, 4, 2, 64, 64, True, "bf16", 1.0, 0, 150),
+    ("win16_bf16", 1, 200, 200, 4, 4, 64, 64, True, "bf16", 1.0, 0, 16),
+    ("win16_f32", 1, 200, 200, 4, 4, 64, 64, True, "f32", 1.0, 0, 16),
+    ("win70_full_bf16", 1, 200, 200, 4, 2, 64, 64, False, "bf16", 1.0, 0, 70),
+    ("win70_full_f32", 1, 150, 180, 4, 2, 64, 64, False, "f32", 1.0, 0, 70),
+    ("win128_d256_mqa_bf16", 1, 330, 330, 16, 1, 256, 256, True, "bf16", 1.0, 0, 128),
 )
 
 #: kernel vs plain tolerances (atol = rtol), by case kind.  f32: the JAX
@@ -312,11 +326,12 @@ _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 def flash_case(name: str, b: int, sq: int, skv: int, h: int, hkv: int, d: int,
                dv: int, causal: bool, dtype: str, amp: float,
-               v_offset: int = 0, seed: int = 0) -> Dict:
+               v_offset: int = 0, window: Optional[int] = None,
+               seed: int = 0) -> Dict:
     """Seeded (numpy) ``q``, ``k``, ``v`` (CPU tensors) and the call's
-    keywords; ``tol`` is ``(atol, rtol)`` for the kernel against the plain
-    version.  ``v_offset > 0`` makes ``v`` the last ``dv`` of ``v_offset +
-    dv`` head columns (a strided view)."""
+    keywords (``causal``, ``window``); ``tol`` is ``(atol, rtol)`` for the
+    kernel against the plain version.  ``v_offset > 0`` makes ``v`` the last
+    ``dv`` of ``v_offset + dv`` head columns (a strided view)."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape):
@@ -327,7 +342,8 @@ def flash_case(name: str, b: int, sq: int, skv: int, h: int, hkv: int, d: int,
     q, k = draw(b, sq, h, d), draw(b, skv, hkv, d)
     wide = draw(b, skv, hkv, v_offset + dv)
     return dict(name=name, q=q, k=k, v=wide[..., v_offset:], v_wide=wide,
-                v_offset=v_offset, causal=causal, tol=FLASH_TOL[kind])
+                v_offset=v_offset, causal=causal, window=window,
+                tol=FLASH_TOL[kind])
 
 
 def flash_operands(case: Dict, device) -> Tuple[torch.Tensor, ...]:

@@ -19,7 +19,7 @@ leaf with about two escapes a row.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,13 @@ CODEBOOKS = {
     "fp8_e5m2": Codebook(fmt="fp8_e5m2", exponents=tuple(range(8, 24))),
     # e4m3 has only 16 exponents: a 14-entry book leaves 0 and 15 escaping
     "fp8_e4m3": Codebook(fmt="fp8_e4m3", exponents=tuple(range(1, 15))),
+}
+#: 8-exponent books (3-bit codes in the size model, still nibble-packed):
+#: ``fp8.RECOMMENDED``'s k for e4m3 and Appendix B's other e5m2 variant
+CODEBOOKS_K8 = {
+    "bf16": Codebook(fmt="bf16", exponents=tuple(range(122, 130))),
+    "fp8_e5m2": Codebook(fmt="fp8_e5m2", exponents=tuple(range(11, 19))),
+    "fp8_e4m3": Codebook(fmt="fp8_e4m3", exponents=tuple(range(4, 12))),
 }
 
 SPECIALS = {
@@ -75,11 +82,13 @@ def _row_with_escapes(cb: Codebook, n_esc: int, chunk: int,
     return _compose(e, mant, sign, fmt)
 
 
-def kernel_cases(fmt: str, seed: int = 0, chunk: int = 1024
+def kernel_cases(fmt: str, seed: int = 0, chunk: int = 1024,
+                 cb: Optional[Codebook] = None
                  ) -> List[Tuple[str, np.ndarray, int]]:
-    """``[(name, flat container bits, cap), ...]`` for one format."""
+    """``[(name, flat container bits, cap), ...]`` for one format, under
+    ``cb`` (default ``CODEBOOKS[fmt]``)."""
     rng = np.random.default_rng(seed)
-    cb = CODEBOOKS[fmt]
+    cb = cb or CODEBOOKS[fmt]
     s = FORMATS[fmt]
     nbits, mbits = s["bits"], s["mbits"]
     out: List[Tuple[str, np.ndarray, int]] = []
@@ -132,12 +141,13 @@ FUSED_CHUNKS = ((256, (0, 3, 4, 5), 4), (768, (2, 0, 9, 8), 8),
                 (2048, (1, 7, 0), 6), (8192, (40, 3, 0), 33))
 
 
-def fused_cases(fmt: str, seed: int = 0
+def fused_cases(fmt: str, seed: int = 0, cb: Optional[Codebook] = None
                 ) -> List[Tuple[str, np.ndarray, int, int]]:
     """``[(name, flat container bits, cap, chunk), ...]``: where a
-    persistent kernel that takes a warp a row is most likely to go wrong."""
+    persistent kernel that takes a warp a row is most likely to go wrong
+    (under ``cb``, default ``CODEBOOKS[fmt]``)."""
     rng = np.random.default_rng(seed)
-    cb = CODEBOOKS[fmt]
+    cb = cb or CODEBOOKS[fmt]
     out = [(f"chunk{chunk}", _rows(cb, counts, chunk, rng), cap, chunk)
            for chunk, counts, cap in FUSED_CHUNKS]
     out.append(("rows1", _rows(cb, (5,), 1024, rng), 8, 1024))

@@ -3,23 +3,27 @@
 // Replaces the Pallas TPU kernel in src/repro/kernels/flash_attention.py:
 //   sz_flash_attention_tc  <- flash_attention (_kernel), bf16 operands whose
 //                             d and dv are multiples of 16 (every served
-//                             prefill: d 64, d 96 / dv 64, d 128)
+//                             prefill: d 64, d 96 / dv 64, d 128, and
+//                             recurrentgemma's windowed d 256)
 //   sz_flash_attention     <- the same, f32 operands and any other bf16 width
 //
 // What it computes: causal or non-causal multi-head attention with grouped
 // KV heads (query head h reads KV head h / (H / Hkv)) and a value width that
-// may differ from the query/key width (MLA prefill: d 96, dv 64).  q (B, Sq,
+// may differ from the query/key width (MLA prefill: d 96, dv 64), and an
+// optional sliding window (recurrentgemma's local attention).  q (B, Sq,
 // H, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, dv), bf16 or f32, with any
 // strides over (B, S, H) and unit stride over the head dimension; out (B,
 // Sq, H, dv) contiguous, in the input type.  Arithmetic as the TPU kernel:
 // q, k, v in f32, s = (q . k) * scale, masked scores -1e30 (k_pos >= Skv,
-// and k_pos > q_pos when causal, both positions from 0), an online softmax
+// k_pos > q_pos when causal, and q_pos - k_pos >= window when window > 0,
+// the JAX models' chunked_attention mask; positions from 0), an online softmax
 // over KV tiles with f32 m, l and acc, p kept in f32 for p . v, and
 // out = acc / max(l, 1e-30) rounded once to the output type.
 //
 // Bound.  The function must read q, k and v once and write out once,
 // 2 * (B Sq H d + B Skv Hkv (d + dv) + B Sq H dv) bytes in bf16, and do
-// 2 B H Sq Skv (d + dv) operations (half of that when causal).  At the
+// 2 B H Sq Skv (d + dv) operations (half of that when causal; with a window,
+// 2 B H (d + dv) times the (query, key) pairs inside it).  At the
 // served prefill shapes (Sq = Skv = 1000 to 2048) the operations outweigh
 // the bytes by two orders of magnitude: the kernel is bound by arithmetic,
 // and only the tensor cores (989 TFLOP/s bf16, against 67 TFLOP/s on the
@@ -29,7 +33,13 @@
 //   * one CTA of one warpgroup (128 threads) per (64-query block, batch *
 //     head), the heaviest causal blocks launched first; it loops over
 //     64-key tiles up to the causal diagonal and never loads the tiles
-//     above it; only the diagonal tile and the ragged last tile are masked;
+//     above it, nor, with a window, the tiles below the first key any of
+//     its rows sees (max(0, q0 - window + 1), rounded down to a tile);
+//     only the diagonal tile, the ragged last tile and the tiles the
+//     window's lower edge crosses are masked.  A row that sees no key of a
+//     masked tile scores p = exp(0) = 1 there (its running max is still
+//     -1e30); the first key it does see rescales l and acc by
+//     exp(-1e30 - m) = 0 exactly, so such a tile adds nothing;
 //   * S = Q K^T with wgmma.mma_async m64n64k16, both operands bf16 from
 //     shared memory, f32 accumulators in registers.  Products of two bf16
 //     values are exact in f32, so only the order of the sums differs from
@@ -50,14 +60,17 @@
 //     boxes, 128-byte swizzle, zeros past the sequence and head-dim ends),
 //     every operand by the same route: q once, K and V tiles into a ring of
 //     two stages with one mbarrier each, the next tile in flight while the
-//     current one is multiplied.  The MLA v, a head slice of kv (row stride
+//     current one is multiplied.  Ring stage and mbarrier phase count loop
+//     iterations from the CTA's first tile, not absolute tile indices.  The MLA v, a head slice of kv (row stride
 //     256 bytes, offset 128 bytes), is one such tensor map; the wrapper
 //     copies an operand only if its base or strides are not 16-byte
 //     multiples (or a stride is 0), which no served prefill has;
 //   * shared memory holds bf16 in the swizzled layout the wgmma
 //     descriptors name: 64-row x 128-byte blocks (64 columns of d or dv),
 //     1024-byte aligned; a k-step of 16 columns moves the descriptor's
-//     start 32 bytes inside a block.  At d = dv = 128: 80 KB a CTA;
+//     start 32 bytes inside a block.  At d = dv = 128: 80 KB a CTA; at
+//     d = dv = 256: 161 KB, and 241 registers a thread for the 64 x 256
+//     f32 accumulator;
 //   * cuTensorMapEncodeTiled comes from the runtime's driver entry point,
 //     so the library needs no link against libcuda.
 //
@@ -65,8 +78,9 @@
 // or dv is not a multiple of 16):
 //   * one CTA of 256 threads per (64-query block, batch * head), the
 //     heaviest causal blocks launched first; the CTA loops over 64-key
-//     tiles up to the causal diagonal and never visits the tiles above it
-//     (the loop replaces the TPU's sequential KV grid axis);
+//     tiles from the first its rows see through the window up to the
+//     causal diagonal and never visits the others (the loop replaces the
+//     TPU's sequential KV grid axis);
 //   * masks instead of the Pallas wrapper's padding copies: rows past Sq
 //     load zeros and are never stored, keys past Skv load zeros and score
 //     -1e30;
@@ -105,9 +119,16 @@ struct FlashArgs {
   long long q_sb, q_ss, q_sh;   // element strides over (B, S, H)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
-  int B, Sq, Skv, H, Hkv, d, dv, causal;
+  int B, Sq, Skv, H, Hkv, d, dv, causal, window;  // window 0: none
   float scale;
 };
+
+// The first key tile a 64-query block starting at q0 needs: the tile of
+// max(0, q0 - window + 1), the first key its first row sees (tile 0
+// without a window).
+__device__ __forceinline__ int first_tile(int q0, int window, int bk) {
+  return window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / bk : 0;
+}
 
 __device__ __forceinline__ float load_f32(const float* p, long long i) {
   return p[i];
@@ -178,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
 
   const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = first_tile(q0, a.window, BK); kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's p . v is done with kv_s and p_s
     load_tile(k + k0 * a.k_ss, a.k_ss, a.Skv - k0, a.d, kv_s, ldkv);
@@ -208,7 +229,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
-        const bool ok = k_pos < a.Skv && (!a.causal || q_pos >= k_pos);
+        const bool ok = k_pos < a.Skv && (!a.causal || q_pos >= k_pos) &&
+                        (a.window <= 0 || q_pos - k_pos < a.window);
         s[i][j] = ok ? s[i][j] * a.scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -293,10 +315,10 @@ extern "C" int sz_flash_attention(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int B, int Sq, int Skv, int H, int Hkv, int d, int dv,
-    int causal, float scale, void* stream) {
+    int causal, int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || H % Hkv || d <= 0 || dv <= 0 || d > MAX_D ||
-      dv > MAX_D || (long long)B * H > 65535)
+      dv > MAX_D || (long long)B * H > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   FlashArgs a;
   a.q = q;
@@ -320,6 +342,7 @@ extern "C" int sz_flash_attention(
   a.d = d;
   a.dv = dv;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   const int ldkv = (d > dv ? d : dv) + 1;
   const int smem = 4 * (BQ * (d + 1) + BK * ldkv + BQ * (BK + 1));
@@ -347,7 +370,7 @@ constexpr int SMEM_ALIGN = 1024;   // the 128-byte swizzle repeats every 1 KB
 
 struct Args {
   void* o;
-  int B, Sq, Skv, H, Hkv, d, dv, causal;
+  int B, Sq, Skv, H, Hkv, d, dv, causal, window;  // window 0: none
   float scale;
 };
 
@@ -488,7 +511,10 @@ __host__ __device__ inline int smem_bytes(int ka, int nv) {
   return SMEM_ALIGN + (ka + STAGES * (ka + nv)) * ATOM_BYTES + 8 * (STAGES + 1);
 }
 
-template <int NV>
+// WINDOW is a template flag, not only the runtime a.window: the kernels
+// without a window compile to the code they had before windows existed
+// (the runtime test alone cost them up to 7 registers a thread).
+template <int NV, bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -507,7 +533,10 @@ __global__ void __launch_bounds__(THREADS)
   const int hk = h / (a.H / a.Hkv);
   const int q0 = qb * BQ;
   const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  // tiles [kt0, kt0 + n_tiles); iteration i holds tile kt0 + i in ring
+  // stage i % STAGES, whose mbarrier completes phase (i / STAGES) & 1
+  const int kt0 = WINDOW ? first_tile(q0, a.window, BK) : 0;
+  const int n_tiles = (kv_end + BK - 1) / BK - kt0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
@@ -522,7 +551,7 @@ __global__ void __launch_bounds__(THREADS)
       tma_load(q_s + j * ATOM_BYTES, &tq, bar_q, j * ATOM, h, q0, b);
     for (int t = 0; t < min(STAGES, n_tiles); ++t)
       load_kv(&tk, &tv, ring + t * stage_bytes, bar_q + 8 * (1 + t), ka, NV, hk,
-              t * BK, b);
+              (kt0 + t) * BK, b);
   }
 
   // this thread's rows of the block and the first of its column pairs
@@ -559,8 +588,9 @@ __global__ void __launch_bounds__(THREADS)
 
     // online softmax on the fragment: s[4j + e] is row (e < 2 ? r0 : r1),
     // key k0 + 8 j + cq + (e & 1)
-    const int k0 = kt * BK;
-    const bool edge = k0 + BK > a.Skv || (a.causal && k0 + BK - 1 > q0);
+    const int k0 = (kt0 + kt) * BK;
+    const bool edge = k0 + BK > a.Skv || (a.causal && k0 + BK - 1 > q0) ||
+                      (WINDOW && q0 + BQ - 1 - k0 >= a.window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -568,7 +598,9 @@ __global__ void __launch_bounds__(THREADS)
         float x = s[4 * j + e] * a.scale;
         if (edge) {
           const int col = k0 + 8 * j + cq + (e & 1), row = e < 2 ? r0 : r1;
-          if (col >= a.Skv || (a.causal && col > row)) x = NEG_INF;
+          if (col >= a.Skv || (a.causal && col > row) ||
+              (WINDOW && row - col >= a.window))
+            x = NEG_INF;
         }
         s[4 * j + e] = x;
       }
@@ -653,7 +685,8 @@ __global__ void __launch_bounds__(THREADS)
 
     __syncthreads();  // every warp is done with this stage
     if (tid == 0 && kt + STAGES < n_tiles)
-      load_kv(&tk, &tv, k_s, bar_q + 8 * (1 + st), ka, NV, hk, (kt + STAGES) * BK, b);
+      load_kv(&tk, &tv, k_s, bar_q + 8 * (1 + st), ka, NV, hk,
+              (kt0 + kt + STAGES) * BK, b);
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
@@ -723,10 +756,10 @@ int make_map(CUtensorMap* map, const void* ptr, int width, int heads, int S,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int NV>
+template <int NV, bool WINDOW>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const Args& a, cudaStream_t s) {
-  auto kernel = flash_tc_kernel<NV>;
+  auto kernel = flash_tc_kernel<NV, WINDOW>;
   static bool opted_in = false;  // the widest d's shared memory, set once
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -751,11 +784,12 @@ extern "C" int sz_flash_attention_tc(
     const void* q, const void* k, const void* v, void* out, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int B,
-    int Sq, int Skv, int H, int Hkv, int d, int dv, int causal, float scale,
-    void* stream) {
+    int Sq, int Skv, int H, int Hkv, int d, int dv, int causal, int window,
+    float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || H % Hkv || d <= 0 || dv <= 0 || d % 16 ||
-      dv % 16 || d > MAX_D || dv > MAX_D || (long long)B * H > 65535)
+      dv % 16 || d > MAX_D || dv > MAX_D || (long long)B * H > 65535 ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   for (long long st : strides)
@@ -778,13 +812,15 @@ extern "C" int sz_flash_attention_tc(
   a.d = d;
   a.dv = dv;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool w = window > 0;
   switch ((dv + tc::ATOM - 1) / tc::ATOM) {
-    case 1: return tc::launch<1>(tq, tk, tv, a, s);
-    case 2: return tc::launch<2>(tq, tk, tv, a, s);
-    case 3: return tc::launch<3>(tq, tk, tv, a, s);
-    default: return tc::launch<4>(tq, tk, tv, a, s);
+    case 1: return w ? tc::launch<1, true>(tq, tk, tv, a, s) : tc::launch<1, false>(tq, tk, tv, a, s);
+    case 2: return w ? tc::launch<2, true>(tq, tk, tv, a, s) : tc::launch<2, false>(tq, tk, tv, a, s);
+    case 3: return w ? tc::launch<3, true>(tq, tk, tv, a, s) : tc::launch<3, false>(tq, tk, tv, a, s);
+    default: return w ? tc::launch<4, true>(tq, tk, tv, a, s) : tc::launch<4, false>(tq, tk, tv, a, s);
   }
 }
 

@@ -2,8 +2,11 @@
 plain version (the port of ``repro.kernels.flash_attention``).
 
 ``flash_attention`` is causal or non-causal multi-head attention with grouped
-KV heads (query head ``h`` reads KV head ``h // (H // Hkv)``) and a value
-width that may differ from the query/key width (MLA prefill).  It is what
+KV heads (query head ``h`` reads KV head ``h // (H // Hkv)``), a value
+width that may differ from the query/key width (MLA prefill) and an optional
+sliding window: with ``window`` a query at ``q_pos`` sees only keys with
+``q_pos - k_pos < window``, the mask of the JAX models' ``chunked_attention``
+(recurrentgemma's local attention).  It is what
 prefill attention runs on the card in every attention layer of the port's
 models (``models/layers.prefill_attention``).
 
@@ -48,9 +51,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _PROTOTYPES = {
-    "sz_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I] * 8
+    "sz_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I] * 9
                           + [ctypes.c_float, _P],
-    "sz_flash_attention_tc": [_P, _P, _P, _P] + [_L] * 9 + [_I] * 8
+    "sz_flash_attention_tc": [_P, _P, _P, _P] + [_L] * 9 + [_I] * 9
                              + [ctypes.c_float, _P],
 }
 #: the tensor-core kernel's k-step (wgmma K for bf16): d and dv must be
@@ -78,18 +81,39 @@ def _shapes(q, k, v):
     return b, sq, skv, h, hkv, d, v.shape[-1]
 
 
+def _check_window(window, sq: int, skv: int) -> int:
+    """``window`` as the kernels' argument (0: none).  Raises unless it is
+    None or a positive int, or if some query would see no key at all
+    (``Sq >= Skv + window``): such a row has no softmax."""
+    if window is None:
+        return 0
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"window={window!r}: expected None or an int >= 1")
+    if sq >= skv + window:
+        raise ValueError(f"window={window}: queries past Skv + window - 1 = "
+                         f"{skv + window - 1} see no key")
+    return window
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, scale: Optional[float] = None,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None,
                         blk_k: int = DEFAULT_BLK_K) -> torch.Tensor:
-    """What the TPU ``_kernel`` computes, in PyTorch: KV blocks of ``blk_k``
-    in order, every query row at once.  A row whose block lies wholly above
-    the causal diagonal gets ``p = 0`` and ``corr = 1`` there, exactly what
-    skipping the block gives (its running max is finite from block 0 on)."""
+    """What the TPU ``_kernel`` computes, in PyTorch, with the window mask
+    of ``chunked_attention``: KV blocks of ``blk_k`` in order, every query
+    row at once.  A row whose block lies wholly above the causal diagonal
+    gets ``p = 0`` and ``corr = 1`` there, exactly what skipping the block
+    gives (its running max is finite from block 0 on).  A row whose blocks
+    lie wholly below its window scores ``p = exp(0) = 1`` there (its running
+    max is still ``-1e30``); the first key it sees rescales ``l`` and
+    ``acc`` by ``exp(-1e30 - m) = 0`` exactly, which is what skipping those
+    blocks, as the kernels do, gives."""
     b, sq, skv, h, hkv, d, dv = _shapes(q, k, v)
+    _check_window(window, sq, skv)
     g = h // hkv
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
     dev = q.device
@@ -103,10 +127,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb = k[:, start:stop].permute(0, 2, 1, 3).float()[:, :, None]  # (B,Hkv,1,K,D)
         vb = v[:, start:stop].permute(0, 2, 1, 3).float()[:, :, None]  # (B,Hkv,1,K,Dv)
         s = torch.matmul(qg, kb.transpose(-1, -2)) * scale            # (B,Hkv,G,Sq,K)
+        k_pos = torch.arange(start, stop, device=dev)
+        seen = torch.ones((sq, stop - start), dtype=torch.bool, device=dev)
         if causal:
-            k_pos = torch.arange(start, stop, device=dev)
-            s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
-                            torch.tensor(NEG_INF, device=dev))
+            seen &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            seen &= (q_pos[:, None] - k_pos[None, :]) < window
+        if causal or window is not None:
+            s = torch.where(seen, s, torch.tensor(NEG_INF, device=dev))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -144,10 +172,12 @@ def _tma_operand(t: torch.Tensor):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Sq, H, d), k (B, Skv, Hkv, d), v (B, Skv, Hkv, dv), bf16 or f32
-    -> (B, Sq, H, dv) in ``q.dtype``.
+    -> (B, Sq, H, dv) in ``q.dtype``.  ``window`` (None: full) keeps the
+    keys with ``q_pos - k_pos < window``; each kernel then loads only the
+    key tiles its query block sees.
 
     CUDA operands launch one of two kernels, chosen by dtype and widths
     alone (:func:`tensor_core_path`):
@@ -164,9 +194,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Either way an operand is made contiguous over the head dimension only
     if it is not."""
     b, sq, skv, h, hkv, d, dv = _shapes(q, k, v)
+    win = _check_window(window, sq, skv)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(d))
     if not build.on_cuda(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
     if q.dtype not in DTYPE_ID:
         raise TypeError(f"flash_attention takes bf16 or f32, got {q.dtype}")
     if not (0 < d <= MAX_HEAD_DIM and 0 < dv <= MAX_HEAD_DIM):
@@ -185,13 +217,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = lib.sz_flash_attention_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *qs, *ks, *vs, b, sq, skv, h, hkv, d, dv, int(bool(causal)),
-                scale, build.stream_of(q))
+                win, scale, build.stream_of(q))
         else:
             err = lib.sz_flash_attention(
                 DTYPE_ID[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], b, sq, skv, h, hkv, d, dv, int(bool(causal)),
-                scale, build.stream_of(q))
+                win, scale, build.stream_of(q))
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_tc += int(tc)
@@ -206,13 +238,28 @@ flash_attention.launches_tc = 0
 # the work it must do (the TPU module's analytic counts)
 # ---------------------------------------------------------------------------
 
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside a sliding ``window``: query ``i`` sees keys
+    ``max(0, i - window + 1)`` to ``min(i, Skv - 1)`` (causal) or to
+    ``Skv - 1``."""
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
 def hbm_bytes(b, sq, skv, h, hkv, d, dv, bytes_per_el=2) -> int:
-    """Analytic HBM traffic of the fused kernel: q + k + v + o only."""
+    """Analytic HBM traffic of the fused kernel: q + k + v + o only.  At
+    Sq = Skv a window does not shrink it: every key is inside its own
+    query's window."""
     return bytes_per_el * (b * sq * h * d + b * skv * hkv * (d + dv)
                            + b * sq * h * dv)
 
 
-def flops(b, sq, skv, h, d, dv, causal=True) -> float:
-    """2 matmuls; causal ≈ half the S² area."""
+def flops(b, sq, skv, h, d, dv, causal=True, window=None) -> float:
+    """2 matmuls; causal ≈ half the S² area; with a window, exactly the
+    pairs inside it (:func:`visible_pairs`)."""
+    if window is not None:
+        return 2.0 * b * h * visible_pairs(sq, skv, causal, window) * (d + dv)
     area = sq * skv * (0.5 if causal else 1.0)
     return 2.0 * b * h * area * (d + dv)

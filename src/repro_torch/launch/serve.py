@@ -10,8 +10,10 @@ the kernels' plain versions); without CUDA and without ``--device`` it
 raises.  ``--codec-backend`` picks the codec from the registry (``auto``
 resolves to ``cuda``, the hand-written kernels; ``torch`` is the reference
 codec; ``wire`` / ``wire-verify`` ship SZ02 payloads).  ``--n-chunks`` > 1
-switches the transfer to the chunked pipelined executor.  Weights are
-random, made from ``--seed``.
+switches the transfer to the chunked pipelined executor; ``--compress-fp32``
+sends the f32 recurrent states (mamba2's SSM state, the RG-LRU's h) through
+the plan's hi/lo route instead of raw.  Weights are random, made from
+``--seed``.
 
 ``--profile`` selects the codec profile that prices the analytic transfer
 report (:mod:`repro_torch.core.profile`): ``paper`` (the paper's H200
@@ -120,6 +122,9 @@ def main(argv=None) -> ServeResult:
                          "CUDA kernels")
     ap.add_argument("--n-chunks", type=int, default=1,
                     help=">1 => chunked pipelined transfer engine")
+    ap.add_argument("--compress-fp32", action="store_true",
+                    help="hi/lo-split-compress f32 recurrent states "
+                         "(SSM/RG-LRU) through the plan's fp32_hilo route")
     ap.add_argument("--link-gbps", type=float, default=100.0,
                     help="simulated PD link (Gbit/s) for the analytic report")
     ap.add_argument("--profile", default="paper",
@@ -142,8 +147,9 @@ def main(argv=None) -> ServeResult:
                               backend=args.codec_backend, device=device)
     eng = DisaggregatedEngine(cfg, params, cb, compress=not args.no_compress,
                               backend=args.codec_backend,
-                              n_chunks=args.n_chunks, profile=profile,
-                              device=device)
+                              n_chunks=args.n_chunks,
+                              compress_fp32=args.compress_fp32,
+                              profile=profile, device=device)
     prompt = make_prompt(cfg, args.batch, args.prompt_len, device=device,
                          seed=args.seed + 2)
     res = serve_once(eng, prompt, args.new_tokens)

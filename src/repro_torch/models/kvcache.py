@@ -1,13 +1,19 @@
-"""Inference cache structures (GQA, the dense and MoE families, and MLA),
-the port of ``repro.models.kvcache``.
+"""Inference cache structures of every token-decoder family, the port of
+``repro.models.kvcache``.
 
 The cache is *the* object SplitZip exists for: it is produced by prefill
 workers, crosses the PD boundary compressed, and is consumed by decode
 workers.  Each family stores its state stacked over layers, so the whole
 cache is one dict the transfer plan maps the codec over:
 
-  dense, moe : k, v   (L, B, S, Hkv, hd)             bf16
-  mla   : ckv, krope  (L, B, S, r) / (L, B, S, p)    bf16
+  dense, moe : k, v       (L, B, S, Hkv, hd)                 bf16
+  mla        : ckv, krope (L, B, S, r) / (L, B, S, p)        bf16
+  ssm        : ssm, conv  (L, B, H, P, N) f32 / (L, B, W-1, C) bf16
+  hybrid     : attn_k, attn_v (nt, B, w, Hkv, hd) bf16, the window's
+               right-aligned last w positions; rec_h (nt, 2, B, U) f32 and
+               rec_conv (nt, 2, B, W-1, U) bf16 of each triple's two
+               recurrent blocks; extra_h / extra_conv (ne, B, ...) of the
+               leftover recurrent blocks
 """
 
 from __future__ import annotations
@@ -40,6 +46,14 @@ class DecodeState:
         return pos[None, :] < self.cache_len[:, None]
 
 
+def require_decoder(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is a token decoder the port runs: every family
+    but the encoder-only and the frontend ones."""
+    if cfg.encoder_only or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-only and frontend families are not ported")
+
+
 def require_dense(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is a token decoder with dense attention: the GQA
     or the MLA family, with a SwiGLU or an MoE FFN (no SSM, hybrid,
@@ -51,22 +65,59 @@ def require_dense(cfg: ArchConfig) -> None:
             "FFN) are ported")
 
 
+def n_triples_extra(cfg: ArchConfig):
+    """(full (rglru, rglru, local_attn) patterns, leftover recurrent blocks)."""
+    pat = len(cfg.hybrid.pattern)
+    return cfg.num_layers // pat, cfg.num_layers % pat
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zero-filled cache: ``{"k", "v"}`` (L, B, S, Hkv, hd) for dense GQA,
-    ``{"ckv", "krope"}`` (L, B, S, r) / (L, B, S, p) for MLA."""
-    require_dense(cfg)
+    """Zero-filled cache of the family's layout (module docstring); the
+    recurrent families' state does not grow with ``max_seq``, and the
+    hybrid's window holds ``min(window, max_seq)`` positions.  ``device=
+    "meta"`` allocates nothing (the scheduler's bucket plans)."""
+    require_decoder(cfg)
     l, b, s = cfg.num_layers, batch, max_seq
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.ssm is not None:
+        m = cfg.ssm
+        d_inner = m.expand * cfg.d_model
+        conv_ch = d_inner + 2 * m.n_groups * m.d_state
+        return {"ssm": zeros((l, b, d_inner // m.head_dim, m.head_dim,
+                              m.d_state), torch.float32),
+                "conv": zeros((l, b, m.conv_width - 1, conv_ch))}
+    if cfg.hybrid is not None:
+        nt, ne = n_triples_extra(cfg)
+        w = min(cfg.hybrid.window, max_seq)
+        u = cfg.hybrid.lru_width or cfg.d_model
+        cw = cfg.hybrid.conv_width
+        kv = (nt, b, w, cfg.num_kv_heads, cfg.head_dim)
+        return {"attn_k": zeros(kv), "attn_v": zeros(kv),
+                "rec_h": zeros((nt, 2, b, u), torch.float32),
+                "rec_conv": zeros((nt, 2, b, cw - 1, u)),
+                "extra_h": zeros((ne, b, u), torch.float32),
+                "extra_conv": zeros((ne, b, cw - 1, u))}
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": torch.zeros((l, b, s, m.kv_lora_rank), dtype=dtype,
-                                   device=device),
-                "krope": torch.zeros((l, b, s, m.qk_rope_head_dim),
-                                     dtype=dtype, device=device)}
+        return {"ckv": zeros((l, b, s, m.kv_lora_rank)),
+                "krope": zeros((l, b, s, m.qk_rope_head_dim))}
     shape = (l, b, s, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(shape), "v": zeros(shape)}
 
 
 def cache_bytes(cache: dict) -> int:
     return sum(x.numel() * x.element_size() for x in TR.leaves(cache))
+
+
+def transferable_leaves(cache: dict):
+    """``(path, leaf)`` pairs the transfer compresses (bf16) and those it
+    ships raw (the f32 recurrent states, unless ``compress_fp32``), in the
+    JAX package's flatten order."""
+    comp, raw = [], []
+    for path, leaf in TR.flatten_with_path(cache)[0]:
+        (comp if leaf.dtype == torch.bfloat16 else raw).append((path, leaf))
+    return comp, raw

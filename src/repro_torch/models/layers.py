@@ -109,15 +109,12 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Prefill attention of every attention layer.
 
     On the card: the hand-written flash-attention kernel
-    (``kernels.flash_attention``), which keeps ``p`` in f32 for ``p . v``;
-    it has no sliding window, so ``window`` raises there.  On the CPU:
-    :func:`chunked_attention`, the function the JAX prefill computes on
-    every backend (``p`` rounded to bf16)."""
+    (``kernels.flash_attention``), which keeps ``p`` in f32 for ``p . v``
+    and takes the sliding ``window`` (recurrentgemma's local attention)
+    itself.  On the CPU: :func:`chunked_attention`, the function the JAX
+    prefill computes on every backend (``p`` rounded to bf16)."""
     if q.device.type == "cuda":
-        if window is not None:
-            raise NotImplementedError("prefill attention on the card has no "
-                                      "sliding window")
-        return FA.flash_attention(q, k, v, causal=causal)
+        return FA.flash_attention(q, k, v, causal=causal, window=window)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              kv_block=kv_block)
 

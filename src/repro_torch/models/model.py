@@ -1,10 +1,14 @@
-"""Dense GQA, MLA and MoE models on PyTorch: the port of
-``repro.models.model`` (dense, mla and moe families).
+"""The token-decoder families on PyTorch: the port of ``repro.models.model``.
 
-Parameters are a plain nested dict stacked over layers, with the JAX
-package's shapes and init scales, so ``models/weights.params_from_jax`` maps
-one package's parameters onto the other's.  The layer stack is a Python loop
-(the JAX package scans it).
+  dense/moe : pre-norm transformer (GQA attention, SwiGLU or MoE FFN)
+  mla       : the same with MLA attention (latent KV cache)
+  ssm       : Mamba-2 (SSD) blocks
+  hybrid    : (rglru, rglru, local_attn) triples + leftover recurrent blocks
+
+Parameters are a plain nested dict stacked over layers (triples, extra
+blocks), with the JAX package's keys, shapes and init scales, so
+``models/weights.params_from_jax`` maps one package's parameters onto the
+other's.  The layer stacks are Python loops (the JAX package scans them).
 
 Public API: init_params / forward / prefill / decode_step /
 resident_decode_step / make_inputs.
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +27,10 @@ from repro_torch.models import kvpool as KVP
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.kvcache import DecodeState, require_dense
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
+from repro_torch.models.kvcache import (DecodeState, n_triples_extra,
+                                        require_decoder, require_dense)
 
 
 # ---------------------------------------------------------------------------
@@ -35,8 +43,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     shapes and scales (normal * scale in f32, stored bf16), stacked over
     layers.  The numbers come from ``generator`` (on its own device) and
     land on ``device`` (default: the generator's).  MoE stacks are drawn a
-    layer at a time (``models.moe.init_moe``), the router kept in f32."""
-    require_dense(cfg)
+    layer at a time (``models.moe.init_moe``), the router kept in f32; the
+    SSM's and the RG-LRU's decay parameters are f32 as in JAX."""
+    require_decoder(cfg)
     device = device if device is not None else generator.device
     nl, d, h, hkv, hd, dff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
@@ -52,27 +61,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, dtype=torch.bfloat16, device=device)
 
-    s = d ** -0.5
     p: Dict = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.ssm is not None:
+        p["layers"] = {"norm1": ones((nl, d)),
+                       "mixer": SSM.init_mamba2(normal, nl, d, cfg.ssm, device)}
+        return p
+    if cfg.hybrid is not None:
+        p.update(_init_hybrid(normal, ones, cfg, device))
+        return p
     if cfg.mla is not None:
         attn = MLA.init_mla(normal, ones, nl, d, h, cfg.mla)
     else:
-        attn = {
-            "wq": normal((nl, d, h, hd), s),
-            "wk": normal((nl, d, hkv, hd), s),
-            "wv": normal((nl, d, hkv, hd), s),
-            "wo": normal((nl, h, hd, d), s),
-        }
+        attn = _attention_params(normal, (nl,), d, h, hkv, hd)
     if cfg.moe is not None:
         ffn = MOE.init_moe(draw, nl, d, cfg.moe, device)
     else:
-        ffn = {
-            "w_gate": normal((nl, d, dff), s),
-            "w_up": normal((nl, d, dff), s),
-            "w_down": normal((nl, dff, d), dff ** -0.5),
-        }
+        ffn = _mlp_params(normal, (nl,), d, dff)
     p["layers"] = {
         "norm1": ones((nl, d)),
         "norm2": ones((nl, d)),
@@ -80,6 +86,45 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         "ffn": ffn,
     }
     return p
+
+
+def _attention_params(normal, lead: tuple, d, h, hkv, hd) -> Dict:
+    """GQA projections stacked over ``lead`` (``layers.init_attention``)."""
+    s = d ** -0.5
+    return {"wq": normal(lead + (d, h, hd), s),
+            "wk": normal(lead + (d, hkv, hd), s),
+            "wv": normal(lead + (d, hkv, hd), s),
+            "wo": normal(lead + (h, hd, d), s)}
+
+
+def _mlp_params(normal, lead: tuple, d, dff) -> Dict:
+    """SwiGLU weights stacked over ``lead`` (``layers.init_mlp``)."""
+    return {"w_gate": normal(lead + (d, dff), d ** -0.5),
+            "w_up": normal(lead + (d, dff), d ** -0.5),
+            "w_down": normal(lead + (dff, d), dff ** -0.5)}
+
+
+def _init_hybrid(normal, ones, cfg: ArchConfig, device) -> Dict:
+    """The ``triples`` tree (the two recurrent blocks of each triple stacked
+    (nt, 2, ...), its attention block (nt, ...)) and, for leftover layers,
+    the ``extra`` tree (ne, ...), as the JAX package vmaps them."""
+    nt, ne = n_triples_extra(cfg)
+    d, dff = cfg.d_model, cfg.d_ff
+    u, cw = cfg.hybrid.lru_width or d, cfg.hybrid.conv_width
+
+    def recurrent(lead):
+        return {"block": RG.init_rglru_block(normal, lead, d, u, cw, device),
+                "norm": ones(lead + (d,)), "mlp": _mlp_params(normal, lead, d, dff),
+                "norm_mlp": ones(lead + (d,))}
+
+    attn = {"block": _attention_params(normal, (nt,), d, cfg.num_heads,
+                                       cfg.num_kv_heads, cfg.head_dim),
+            "norm": ones((nt, d)), "mlp": _mlp_params(normal, (nt,), d, dff),
+            "norm_mlp": ones((nt, d))}
+    out = {"triples": {"rec": recurrent((nt, 2)), "attn": attn}}
+    if ne:
+        out["extra"] = recurrent((ne,))
+    return out
 
 
 def layer_params(stacked: Dict, i: int) -> Dict:
@@ -117,10 +162,96 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
 
     ``logits_positions='last'`` projects only the final position through the
     LM head (prefill needs just the first sampled token)."""
-    require_dense(cfg)
+    require_decoder(cfg)
     x = params["embed"][batch["tokens"]]
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
+    aux = torch.zeros((), device=x.device)
+    if cfg.hybrid is not None:
+        x, cache = _hybrid_forward(params, x, positions, cfg, kv_block,
+                                   collect_cache)
+    elif cfg.ssm is not None:
+        x, cache = _ssm_forward(params, x, cfg, collect_cache)
+    else:
+        x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
+                                       collect_cache)
+    if logits_positions == "last":
+        x = x[:, -1:]
+    return lm_logits(params, x, cfg), cache, aux
+
+
+def _recurrent_fwd(sub, x, cfg: ArchConfig):
+    """One residual recurrent block + its MLP; returns (x, {"h", "conv"})."""
+    h = L.rms_norm(x, sub["norm"], cfg.norm_eps)
+    out, st = RG.recurrent_block_forward(sub["block"], h)
+    x = x + out
+    h2 = L.rms_norm(x, sub["norm_mlp"], cfg.norm_eps)
+    return x + L.mlp(sub["mlp"], h2), st
+
+
+def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
+                    collect_cache: bool):
+    """The (rglru, rglru, local_attn) triples, then the extra blocks.  The
+    cache keeps each triple's last ``min(window, S)`` keys and values."""
+    window = cfg.hybrid.window
+    nt, ne = n_triples_extra(cfg)
+    caches = []
+    for i in range(nt):
+        tp = layer_params(params["triples"], i)
+        rec = []
+        for j in range(2):
+            x, st = _recurrent_fwd(layer_params(tp["rec"], j), x, cfg)
+            rec.append(st)
+        ap = tp["attn"]
+        h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
+        o = L.prefill_attention(q, k, v, causal=True, window=window,
+                                kv_block=kv_block)
+        x = x + L.attention_out(ap["block"], o)
+        h2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
+        x = x + L.mlp(ap["mlp"], h2)
+        if collect_cache:
+            w = min(window, k.shape[1])
+            caches.append({"attn_k": k[:, -w:], "attn_v": v[:, -w:],
+                           "rec_h": torch.stack([r["h"] for r in rec]),
+                           "rec_conv": torch.stack([r["conv"] for r in rec])})
+    extra = []
+    for i in range(ne):
+        x, st = _recurrent_fwd(layer_params(params["extra"], i), x, cfg)
+        extra.append(st)
+    if not collect_cache:
+        return x, None
+    cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    b, u = x.shape[0], cfg.hybrid.lru_width or cfg.d_model
+    if extra:
+        cache["extra_h"] = torch.stack([e["h"] for e in extra])
+        cache["extra_conv"] = torch.stack([e["conv"] for e in extra])
+    else:
+        cache["extra_h"] = torch.zeros((0, b, u), dtype=torch.float32,
+                                       device=x.device)
+        cache["extra_conv"] = torch.zeros(
+            (0, b, cfg.hybrid.conv_width - 1, u), dtype=x.dtype, device=x.device)
+    return x, cache
+
+
+def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool):
+    """The Mamba-2 layers; the cache is their final (ssm, conv) states."""
+    ssms, convs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        out, st = SSM.mamba2_forward(lp["mixer"], h, cfg.ssm, cfg.d_model)
+        x = x + out
+        if collect_cache:
+            ssms.append(st.ssm)
+            convs.append(st.conv)
+    if not collect_cache:
+        return x, None
+    return x, {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
+
+
+def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
+                   collect_cache: bool):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
@@ -142,13 +273,11 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
         if collect_cache:
             ks.append(k)
             vs.append(v)
-    if logits_positions == "last":
-        x = x[:, -1:]
     cache = None
     if collect_cache:
         names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
         cache = {names[0]: torch.stack(ks), names[1]: torch.stack(vs)}
-    return lm_logits(params, x, cfg), cache, aux
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -159,18 +288,27 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
             kv_block: int = 1024) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return (last-position logits, decode state).
 
-    The cache is padded with zeros to ``max_seq`` slots so decode can
-    continue in place.  Ragged batches: ``batch["lengths"]`` (B,) marks each
-    row's true prompt length (rows right-padded to a common S); last-token
-    logits are gathered at ``lengths - 1`` and ``cache_len`` starts at
-    ``lengths``."""
+    The cache of the positional families (dense, MoE, MLA) is padded with
+    zeros to ``max_seq`` slots so decode can continue in place; the
+    recurrent families' state (ssm, hybrid) does not grow and is never
+    padded.  Ragged batches: ``batch["lengths"]`` (B,) marks each row's true
+    prompt length (rows right-padded to a common S); last-token logits are
+    gathered at ``lengths - 1`` and ``cache_len`` starts at ``lengths``.
+    The recurrent families absorb right-padding into their state and
+    reject ragged input."""
     lengths = batch.get("lengths")
+    recurrent = cfg.ssm is not None or cfg.hybrid is not None
+    if lengths is not None and recurrent:
+        raise ValueError(
+            f"{cfg.name}: ragged prefill (batch['lengths']) needs a "
+            "cache-positional family (dense/mla); recurrent state absorbs "
+            "right-padding")
     logits, cache, _ = forward(
         params, batch, cfg, kv_block=kv_block, collect_cache=True,
         logits_positions="all" if lengths is not None else "last")
     b, s = batch["tokens"].shape
     max_seq = max_seq or s
-    if max_seq > s:   # (L, B, S, ...): pad S
+    if max_seq > s and not recurrent:   # (L, B, S, ...): pad S
         cache = {k: F.pad(v, (0, 0) * (v.dim() - 3) + (0, max_seq - s))
                  for k, v in cache.items()}
     dev = logits.device
@@ -186,16 +324,109 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
 # decode step
 # ---------------------------------------------------------------------------
 
+def _windowed_decode(ap, x, k_cache, v_cache, cache_len, cfg: ArchConfig):
+    """Sliding-window decode with a right-aligned shift-insert cache: the new
+    key and value enter at the right end and the oldest slot drops out; the
+    last ``min(cache_len + 1, w)`` slots are attended."""
+    w = k_cache.shape[1]
+    q, k, v = L.attention_qkv(ap, x, cache_len[:, None], cfg.rope_theta)
+    k_cache = torch.cat([k_cache[:, 1:], k], dim=1)
+    v_cache = torch.cat([v_cache[:, 1:], v], dim=1)
+    n_valid = torch.clamp(cache_len + 1, max=w)                       # (B,)
+    mask = torch.arange(w, device=x.device)[None, :] >= (w - n_valid)[:, None]
+    b, _, h, dq = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, dq).float()                      # (B,Hkv,G,d)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / np.sqrt(dq)
+    sc = torch.where(mask[:, None, None, :], sc,
+                     torch.tensor(L.NEG_INF, device=x.device))
+    p_ = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p_.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = o.reshape(b, 1, h, dq).to(x.dtype)
+    return L.attention_out(ap, o), k_cache, v_cache
+
+
+def _recurrent_step(sub, x, h_state, conv_state, cfg: ArchConfig):
+    """One residual recurrent block + its MLP, a single token."""
+    hh = L.rms_norm(x, sub["norm"], cfg.norm_eps)
+    out, st = RG.recurrent_block_step(sub["block"], hh,
+                                      {"h": h_state, "conv": conv_state})
+    x = x + out
+    hh2 = L.rms_norm(x, sub["norm_mlp"], cfg.norm_eps)
+    return x + L.mlp(sub["mlp"], hh2), st
+
+
+def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
+    """One token through the triples and extra blocks; a new cache dict."""
+    ks, vs, hs, convs = [], [], [], []
+    for i in range(cache["attn_k"].shape[0]):
+        tp = layer_params(params["triples"], i)
+        rh, rc = [], []
+        for j in range(2):
+            x, st = _recurrent_step(layer_params(tp["rec"], j), x,
+                                    cache["rec_h"][i, j], cache["rec_conv"][i, j],
+                                    cfg)
+            rh.append(st["h"])
+            rc.append(st["conv"])
+        ap = tp["attn"]
+        hh = L.rms_norm(x, ap["norm"], cfg.norm_eps)
+        out, ck, cv = _windowed_decode(ap["block"], hh, cache["attn_k"][i],
+                                       cache["attn_v"][i], cache_len, cfg)
+        x = x + out
+        hh2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
+        x = x + L.mlp(ap["mlp"], hh2)
+        ks.append(ck)
+        vs.append(cv)
+        hs.append(torch.stack(rh))
+        convs.append(torch.stack(rc))
+    new = dict(cache, attn_k=torch.stack(ks), attn_v=torch.stack(vs),
+               rec_h=torch.stack(hs), rec_conv=torch.stack(convs))
+    eh, ec = [], []
+    for i in range(cache["extra_h"].shape[0]):
+        x, st = _recurrent_step(layer_params(params["extra"], i), x,
+                                cache["extra_h"][i], cache["extra_conv"][i], cfg)
+        eh.append(st["h"])
+        ec.append(st["conv"])
+    if eh:
+        new["extra_h"] = torch.stack(eh)
+        new["extra_conv"] = torch.stack(ec)
+    return x, new
+
+
+def _ssm_decode(params, x, cache: dict, cfg: ArchConfig):
+    ssms, convs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        out, st = SSM.mamba2_decode(
+            lp["mixer"], h, SSM.SSMState(cache["ssm"][i], cache["conv"][i]),
+            cfg.ssm, cfg.d_model)
+        x = x + out
+        ssms.append(st.ssm)
+        convs.append(st.conv)
+    return x, {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
+
+
 def decode_step(params, tokens: torch.Tensor, state: DecodeState,
                 cfg: ArchConfig) -> Tuple[torch.Tensor, DecodeState]:
     """One autoregressive step.  tokens: (B, 1) int -> logits (B, V).
 
-    The new k/v (MLA: ckv/krope) are written INTO ``state.cache`` (in place,
-    saving a copy of the cache per step); the returned state shares that
-    cache and advances ``cache_len``."""
-    require_dense(cfg)
+    Dense, MoE and MLA: the new k/v (ckv/krope) are written INTO
+    ``state.cache`` (in place, saving a copy of the cache per step); the
+    returned state shares that cache.  SSM and hybrid: the returned state
+    holds a new cache (the recurrent states and the shifted window), as the
+    JAX step returns one.  Either way ``cache_len`` advances."""
+    require_decoder(cfg)
     x = params["embed"][tokens]
     cache_len = state.cache_len
+    if cfg.hybrid is not None or cfg.ssm is not None:
+        if cfg.hybrid is not None:
+            x, cache = _hybrid_decode(params, x, state.cache, cache_len, cfg)
+        else:
+            x, cache = _ssm_decode(params, x, state.cache, cfg)
+        logits = lm_logits(params, x, cfg)[:, -1]
+        return logits, DecodeState(cache=cache, cache_len=cache_len + 1)
     mla = cfg.mla is not None
     c0, c1 = (state.cache["ckv"], state.cache["krope"]) if mla else \
         (state.cache["k"], state.cache["v"])
@@ -225,7 +456,8 @@ def resident_decode_step(params, tokens: torch.Tensor,
     IN PLACE and advances ``cache_len``.  The pools themselves are read-only
     here: tail flushes are host-side between steps
     (``KVPool.flush_full_tails``).  GQA (dense or MoE FFN) and MLA
-    families."""
+    families; the recurrent ones decode raw-resident (their engine demotes
+    at admission, as the JAX engine does)."""
     require_dense(cfg)
     g = state.geom
     x = params["embed"][tokens]

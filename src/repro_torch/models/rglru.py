@@ -1,0 +1,150 @@
+"""Griffin / RecurrentGemma recurrent block on PyTorch: conv1d + RG-LRU, the
+port of ``repro.models.rglru``.
+
+RG-LRU (arXiv:2402.19427):
+    r_t = σ(W_a x_t + b_a)                      (recurrence gate)
+    i_t = σ(W_x x_t + b_x)                      (input gate)
+    a_t = exp(-c · softplus(Λ) · r_t),  c = 8
+    h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+Prefill evaluates the linear recurrence with a log-depth (Hillis–Steele)
+scan over the sequence axis: ``log2(S)`` rounds of tensor operations, not a
+Python loop over the positions.  ``jax.lax.associative_scan`` combines in
+another tree, so the two agree to f32 rounding, not bitwise.  Decode is the
+exact one-step update.  The recurrent state (B, lru_width) f32 and the
+conv's last ``conv_width - 1`` inputs are the transferred state.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+RGLRU_C = 8.0
+BF16 = torch.bfloat16
+
+
+def init_rglru_block(normal, lead: tuple, d_model: int, lru_width: int,
+                     conv_width: int, device) -> dict:
+    """Recurrent blocks stacked over ``lead`` with
+    ``repro.models.rglru.init_rglru_block``'s shapes and scales;
+    ``normal(shape, scale)`` draws bf16."""
+    s, su = d_model ** -0.5, lru_width ** -0.5
+    lam = np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, lru_width,
+                                              dtype=np.float32)) / RGLRU_C))
+    lam = torch.as_tensor(lam.astype(np.float32), device=device)
+
+    def zeros(n, dt):
+        return torch.zeros(lead + (n,), dtype=dt, device=device)
+
+    return {
+        "w_gate_branch": normal(lead + (d_model, lru_width), s),
+        "w_in": normal(lead + (d_model, lru_width), s),
+        "conv_w": normal(lead + (conv_width, lru_width), 0.1),
+        "conv_b": zeros(lru_width, BF16),
+        "w_a": normal(lead + (lru_width, lru_width), su),
+        "b_a": zeros(lru_width, torch.float32),
+        "w_x": normal(lead + (lru_width, lru_width), su),
+        "b_x": zeros(lru_width, torch.float32),
+        "lam": lam.expand(lead + (lru_width,)).contiguous(),
+        "w_out": normal(lead + (lru_width, d_model), su),
+    }
+
+
+def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., U) post-conv activations -> (a, gated input), both f32."""
+    r = torch.sigmoid(torch.matmul(x, p["w_a"]).float() + p["b_a"])
+    i = torch.sigmoid(torch.matmul(x, p["w_x"]).float() + p["b_x"])
+    log_a = -RGLRU_C * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) in f32, numerically guarded
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta * i * x.float()
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` (h_{-1} = 0) along
+    ``dim``, Hillis–Steele: round ``k`` combines each position with the one
+    ``2**k`` before it, ``(a1, b1) ∘ (a2, b2) = (a1 a2, a2 b1 + b2)``.
+    Returns the scanned (a, h)."""
+    n = a.shape[dim]
+    off = 1
+    while off < n:
+        a_prev = a.narrow(dim, 0, n - off)
+        b_prev = b.narrow(dim, 0, n - off)
+        a_cur = a.narrow(dim, off, n - off)
+        b_cur = b.narrow(dim, off, n - off)
+        b = torch.cat([b.narrow(dim, 0, off), a_cur * b_prev + b_cur], dim=dim)
+        a = torch.cat([a.narrow(dim, 0, off), a_prev * a_cur], dim=dim)
+        off *= 2
+    return a, b
+
+
+def rglru_scan(p, x: torch.Tensor, h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, U) -> (h (B, S, U) in x's dtype, final state (B, U) f32)."""
+    a, b = _gates(p, x)
+    if h0 is not None:
+        # fold the initial state in as a virtual step 0
+        a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+        b = torch.cat([h0.float()[:, None], b], dim=1)
+    _, hh = linear_scan(a, b, dim=1)
+    if h0 is not None:
+        hh = hh[:, 1:]
+    return hh.to(x.dtype), hh[:, -1]
+
+
+def rglru_step(p, x_t: torch.Tensor, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_t: (B, U), h: (B, U) -> (out in x_t's dtype, new h f32)."""
+    a, b = _gates(p, x_t)
+    new_h = a * h.float() + b
+    return new_h.to(x_t.dtype), new_h
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv (B, S, U) with (W, U) taps: each product and
+    partial sum rounded to x's dtype in tap order (the JAX ``sum``), then
+    the bias."""
+    width, s = w.shape[0], x.shape[1]
+    pads = F.pad(x, (0, 0, width - 1, 0))
+    out = pads[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + pads[:, i:i + s] * w[i]
+    return out + b
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def recurrent_block_forward(p, x: torch.Tensor, state: Optional[dict] = None
+                            ) -> Tuple[torch.Tensor, dict]:
+    """Griffin recurrent block over a full sequence: x (B, S, D) -> (out,
+    {"h": (B, U) f32, "conv": (B, conv_width-1, U) pre-conv inputs})."""
+    gate = _gelu(torch.matmul(x, p["w_gate_branch"]))
+    u = torch.matmul(x, p["w_in"])
+    uc = _causal_conv(u, p["conv_w"], p["conv_b"])
+    hseq, h_last = rglru_scan(p, uc, h0=state["h"] if state is not None else None)
+    out = torch.matmul(hseq * gate, p["w_out"])
+    width = p["conv_w"].shape[0]
+    return out, {"h": h_last, "conv": u[:, -(width - 1):, :]}
+
+
+def recurrent_block_step(p, x: torch.Tensor, state: dict
+                         ) -> Tuple[torch.Tensor, dict]:
+    """Single decode step: x (B, 1, D).  The conv over the rolling window
+    sums its f32 products and rounds once (the JAX einsum's)."""
+    gate = _gelu(torch.matmul(x, p["w_gate_branch"]))[:, 0]
+    u = torch.matmul(x, p["w_in"])[:, 0]                           # (B, U)
+    window = torch.cat([state["conv"], u[:, None, :]], dim=1)
+    uc = (window.float() * p["conv_w"].float()).sum(dim=1).to(x.dtype) \
+        + p["conv_b"]
+    h_out, h_new = rglru_step(p, uc, state["h"])
+    out = torch.matmul(h_out * gate, p["w_out"])[:, None, :]
+    return out, {"h": h_new, "conv": window[:, 1:, :]}

@@ -99,8 +99,10 @@ def test_ref_matches_chunked_attention(name):
 def test_cpu_wrapper_runs_the_plain_version():
     before = FA.flash_attention.launches
     for c in AC.flash_cases(seed=3):
-        got = FA.flash_attention(c["q"], c["k"], c["v"], causal=c["causal"])
-        want = FA.flash_attention_ref(c["q"], c["k"], c["v"], causal=c["causal"])
+        got = FA.flash_attention(c["q"], c["k"], c["v"], causal=c["causal"],
+                                 window=c["window"])
+        want = FA.flash_attention_ref(c["q"], c["k"], c["v"], causal=c["causal"],
+                                      window=c["window"])
         assert torch.equal(got, want), c["name"]
     assert FA.flash_attention.launches == before
 
@@ -196,11 +198,12 @@ def test_flash_kernel_matches_plain_on_card(cuda_device):
     before = FA.flash_attention.launches
     for c in AC.flash_cases(seed=1):
         dev = AC.flash_operands(c, cuda_device)
-        got = FA.flash_attention(*dev, causal=c["causal"])
+        kw = dict(causal=c["causal"], window=c["window"])
+        got = FA.flash_attention(*dev, **kw)
         torch.cuda.synchronize()
-        want = FA.flash_attention_ref(*dev, causal=c["causal"])
+        want = FA.flash_attention_ref(*dev, **kw)
         AC.check_close(got, want, *c["tol"])
-        again = FA.flash_attention(*dev, causal=c["causal"])
+        again = FA.flash_attention(*dev, **kw)
         assert torch.equal(got, again), f"{c['name']}: not deterministic"
     assert FA.flash_attention.launches == before + 2 * len(AC.FLASH_EDGE)
 

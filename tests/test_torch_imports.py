@@ -106,12 +106,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_other_families_not_yet_ported():
     from repro_torch.configs.base import get_config
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("mamba2-2.7b")
+    for arch in ("hubert-xlarge", "pixtral-12b", "qwen3-moe-235b-a22b"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minicpm3-4b"):
+    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minicpm3-4b",
+                 "minitron-4b"):
         assert get_config(arch).family == "dense"
+    assert get_config("mamba2-2.7b").family == "ssm"
+    assert get_config("recurrentgemma-9b").family == "hybrid"
     assert get_config("minicpm3-4b").mla is not None
     moe = get_config("qwen3-moe-30b-a3b")
     assert moe.family == "moe" and moe.moe is not None

@@ -312,6 +312,41 @@ def test_edge_cases_round_trip(fmt):
         assert max(errs.values()) == 0, name
 
 
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k8_cases_match_pallas(ref, fmt):
+    """8-entry exponent tables (``cases.CODEBOOKS_K8``): the fused and dense
+    kernel functions against the Pallas kernels (interpreted) on the
+    specials and the all-escape row, and every k-8 edge case round-trips."""
+    jnp, JE, JD = ref["jnp"], ref["JE"], ref["JD"]
+    cb = K.CODEBOOKS_K8[fmt]
+    exps = tuple(cb.exponents)
+    cases = {n: (b, c) for n, b, c in K.kernel_cases(fmt, seed=2, cb=cb)}
+    for name in ("specials_ragged", "all_escape_cap64"):
+        bits, cap = cases[name]
+        x = C._pad_to_chunk(to_torch_bits(bits), CHUNK,
+                            C.pad_bits_for(cb)).reshape(-1, CHUNK)
+        xb = tnp(x)
+        kw = dict(fmt=fmt, chunk=CHUNK, interpret=True,
+                  block_rows=JE.fit_block_rows(xb.shape[0], JE.DEFAULT_BLOCK_ROWS))
+        t_enc = E.encode_fused(x, exps, fmt, CHUNK, cap)
+        assert_same(JE.encode_fused(jnp.asarray(xb), exps, cap=cap, **kw), t_enc,
+                    ("sign_mantissa", "packed", "esc_pos", "esc_val", "esc_count"))
+        assert_same(JE.encode_dense(jnp.asarray(xb), exps, **kw),
+                    E.encode_dense(x, exps, fmt, CHUNK),
+                    ("sign_mantissa", "packed", "is_escape"))
+        sm, packed, pos, val, cnt = t_enc
+        cnt = torch.clamp(cnt, max=cap)
+        j_dec = JD.decode_fused(*(jnp.asarray(tnp(t)) for t in (packed, sm, pos,
+                                                                 val, cnt)),
+                                exps, **kw)
+        assert_same([j_dec], [D.decode_fused(packed, sm, pos, val, cnt, exps,
+                                             fmt, CHUNK)], ["fused bits"])
+    for name, bits, cap in K.kernel_cases(fmt, seed=2, cb=cb):
+        assert max(K.check_case(to_torch_bits(bits), cb, cap).values()) == 0, name
+    for name, bits, cap, chunk in K.fused_cases(fmt, seed=2, cb=cb):
+        assert max(K.check_case(to_torch_bits(bits), cb, cap, chunk).values()) == 0, name
+
+
 def test_build_is_keyed_on_the_source_and_stays_out_of_git(tmp_path,
                                                            monkeypatch):
     repo = build.build_dir().parents[1]
@@ -365,6 +400,19 @@ def test_kernels_match_plain_on_card(cuda_device, fmt):
         torch.cuda.synchronize()
         assert max(errs.values()) == 0, (name, errs)
     assert E.encode_fused.launches > launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k8_kernels_match_plain_on_card(cuda_device, fmt):
+    """Every CUDA kernel bitwise against its plain version under an
+    8-entry exponent table, on the edge cases and the fused edges."""
+    cb = K.CODEBOOKS_K8[fmt]
+    cases = [(n, b, c, 1024) for n, b, c in K.kernel_cases(fmt, seed=3, cb=cb)]
+    for name, bits, cap, chunk in cases + K.fused_cases(fmt, seed=3, cb=cb):
+        errs = K.check_case(to_torch_bits(bits).to(cuda_device), cb, cap, chunk)
+        torch.cuda.synchronize()
+        assert max(errs.values()) == 0, (name, errs)
 
 
 @pytest.mark.cuda

@@ -70,7 +70,7 @@ def close(a, b, what):
 
 
 def test_configs_match():
-    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b"):
+    for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minitron-4b"):
         j, t = jget(arch), tget(arch)
         for f in ("name", "num_layers", "d_model", "num_heads", "num_kv_heads",
                   "head_dim", "d_ff", "vocab_size", "rope_theta", "norm_eps",
@@ -183,3 +183,25 @@ def test_launcher_runs_on_cpu_when_asked(extra, capsys):
         TR.leaves(res.delivered.cache), TR.leaves(res.prefill.state.cache)))
     out = capsys.readouterr().out
     assert "transfer ratio" in out and "on cpu" in out
+
+
+def test_minitron_prefill_and_decode_match_jax():
+    """minitron-4b (dense GQA, 24 query heads over 8 KV heads at full width)
+    at its reduced size: prefill cache and logits, then teacher-forced
+    decode steps, as for smollm-135m above."""
+    jcfg, tcfg = jget("minitron-4b").reduced(), tget("minitron-4b").reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, (B, 14))
+    toks = toks.astype(np.int32)
+    jl, js = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :10])}, jcfg,
+                        max_seq=MAX_SEQ)
+    tl, ts = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :10])}, tcfg,
+                        max_seq=MAX_SEQ)
+    for k in js.cache:
+        close(js.cache[k], ts.cache[k], f"cache {k}")
+    close(jl, tl, "last logits")
+    for i in range(10, 14):
+        jl, js = JM.decode_step(jp, jnp.asarray(toks[:, i:i + 1]), js, jcfg)
+        tl, ts = TM.decode_step(tp, torch.from_numpy(toks[:, i:i + 1]), ts, tcfg)
+        close(jl, tl, f"decode logits at {i}")
