@@ -141,6 +141,33 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               times, all on the tensor-core path, and its first and last
               local-attention layer join ``flash_live`` (bound counted over
               the window; SDPA with an explicit band mask).
+8d. vlm     — pixtral-12b at full width (40 layers, d_model 5120, GQA 32/8
+              x 128, d_ff 14336, vocab 131072; the vision frontend a stub of
+              precomputed patch embeddings through ``frontend_proj``), batch
+              4, 256 patches + 1792 text tokens (2048 positions), 16 new
+              tokens: served compressed (cuda, n_chunks 1) and with
+              compression off (delivery bitwise, tokens equal, 40 flash
+              launches), then compressed-resident with an explicit max_seq
+              (as phase 6: admitted, bitwise rehydrate, one flush a row,
+              teacher-forced logits within 0.12 max|logits| of raw decode;
+              its first layer joins ``flash_live``).
+8e. persist — the persistent executor on the card: phase 8d's served
+              cache through ``session.save`` (one SZ02 file a leaf and the
+              ``szpersist-1`` manifest, in a temporary directory under
+              ``build/``, removed at the end) and ``session.load`` back
+              onto the card, bitwise; save and load host ms, each leaf's
+              wire encode, host Fletcher-32 and verified decode ms,
+              directory bytes against raw bytes.  Then a
+              ``Checkpointer`` drill on a small train-state tree: steps 1
+              and 2 saved, a leaf file of step 2 corrupted, ``restore``
+              falls back to step 1 bitwise with re-reads counted.
+8f. audio   — hubert-xlarge at full width (48 layers, d_model 1280, 16
+              heads x 80, encoder-only), batch 8 x 1500 frames (30 s of
+              audio at 50 frames/s) through ``serving.prefill.prefill_step``
+              (the launcher refuses the config, as the JAX launcher does;
+              the refusal is checked first): 48 flash launches, every one
+              on the tensor-core path, no cache, finite logits; its first
+              and last layer's live q/k/v join ``flash_live``, not causal.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -157,10 +184,11 @@ it on the live q/k/v of
 its first and last layer (captured from a prefill at the served geometry)
 against the plain version and against ``chunked_attention``, and times it
 beside the plain version and ``scaled_dot_product_attention`` (a yardstick
-the port never calls); phase ``flash_live`` reports the four geometries,
-recurrentgemma's with its window.  Phase ``flash``'s cases include sliding
-windows (1, 16, 100, >= Skv, non-causal, d 256 with one KV head) on both
-kernels.
+the port never calls); phase ``flash_live`` reports the six geometries,
+recurrentgemma's with its window, hubert's not causal at d 80.  Phase
+``flash``'s cases include sliding windows (1, 16, 100, >= Skv, non-causal,
+d 256 with one KV head) on both kernels, d = dv = 80 without the causal
+mask, and a GQA group of 4 at d 128.
 
 The launch counters are set to 0 right before each main-path run and read
 right after it: the served transfer of phase 3 (``encode_fused``,
@@ -168,10 +196,12 @@ right after it: the served transfer of phase 3 (``encode_fused``,
 ``decode_dense``), each path of phases 4a–4d (the codec kernels'
 ``launches_by_path``; phase 4d's turn-2 delta and the scheduler run with
 its re-sends), the served resident decode of phases 6
-(``paged_gqa_attention``) and 7 (``paged_mla_attention``), and the served
-prefills of phases 3, 7, 8a, 8c and 9 (``flash_attention``: one launch per
-attention layer, 30 + 62 + 32 + 12 + 48, every one on the tensor-core path,
-or the run fails); the checks around those runs are not counted.  The
+(``paged_gqa_attention``), 7 (``paged_mla_attention``) and 8d, the
+persistent executor's save and load (phase 8e), and the served prefills of
+phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
+attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
+tensor-core path, or the run fails); the checks around those runs are not
+counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
 a checkout, it exits non-zero before printing any result.
@@ -197,7 +227,6 @@ ARCH, BATCH, PROMPT, NEW_TOKENS = "smollm-135m", 8, 2048, 16
 RES_TOKENS = 40                  # phase 6: the tails fill and flush at step 32
 MLA_ARCH, MLA_BATCH, MLA_PROMPT = "minicpm3-4b", 4, 1000
 MOE_ARCH, MOE_BATCH, MOE_PROMPT = "qwen3-moe-30b-a3b", 4, 2048
-PROMPT_OF = {ARCH: PROMPT, MLA_ARCH: MLA_PROMPT, MOE_ARCH: MOE_PROMPT}
 # |logits| bound of resident vs raw decode, the JAX package's own
 # (tests/test_kvpool.py): raw decode accumulates p.v in bf16, the paged
 # kernel in f32
@@ -1186,7 +1215,7 @@ ATTN_KERNELS = {
                             "src/repro/kernels/splitzip_attention.py:360"),
 }
 # the main paths' geometries are ``attention_cases.GQA_SERVED`` (smollm-135m,
-# qwen3-moe-30b-a3b) and ``MLA_SERVED`` (minicpm3-4b at MLA_BATCH after
+# qwen3-moe-30b-a3b, pixtral-12b) and ``MLA_SERVED`` (minicpm3-4b at MLA_BATCH after
 # MLA_PROMPT tokens)
 GQA_EDGE = dict(batch=3, heads=4, hkv=2, hd=32, dv=128, tp=16, pages=4,
                 lens=[64, 37, 9])           # dv != hd, own caps, an empty row
@@ -1326,6 +1355,9 @@ def phase_attention(torch, device):
             ("paged_gqa_attention", MOE_ARCH, "gqa", AC.gqa_case,
              AC.GQA_SERVED[MOE_ARCH], SA.paged_gqa_attention,
              SA.paged_gqa_attention_plain),
+            ("paged_gqa_attention", VLM_ARCH, "gqa", AC.gqa_case,
+             AC.GQA_SERVED[VLM_ARCH], SA.paged_gqa_attention,
+             SA.paged_gqa_attention_plain),
             ("paged_mla_attention", MLA_ARCH, "mla", AC.mla_case,
              AC.MLA_SERVED[MLA_ARCH], SA.paged_mla_attention,
              SA.paged_mla_attention_plain)):
@@ -1438,7 +1470,7 @@ def flash_live(torch, layers, arch):
     against its plain version (one bf16 ulp) and ``chunked_attention``
     (the JAX package's 3e-2), then timed on the first layer's (device
     time, ``ms``, and issued eagerly, ``eager_ms``) beside the plain
-    version and SDPA (causal, GQA, the same bf16 inputs; with a sliding
+    version and SDPA (causal or not as served, GQA, the same bf16 inputs; with a sliding
     window, an explicit boolean band mask, since no single call takes a
     window).  The bound counts only the (query, key) pairs inside the
     window."""
@@ -1467,8 +1499,9 @@ def flash_live(torch, layers, arch):
     b_ms, b_by = bound_ms(nbytes, ops, H100_BF16_OPS_PER_S)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None:
-        sdpa_kw = dict(is_causal=True)
-        library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        sdpa_kw = dict(is_causal=causal)
+        library = (f"scaled_dot_product_attention(is_causal={causal}, "
+                   "enable_gqa=True)")
     else:
         i = torch.arange(sq, device=q.device)
         rel = i[:, None] - torch.arange(skv, device=q.device)[None, :]
@@ -1565,7 +1598,8 @@ def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
 
     eng = DisaggregatedEngine(cfg, params, cb, resident="compressed",
                               backend="cuda", device=device)
-    res, launches = counted(serve.serve_once, eng, prompt, new_tokens)
+    res, launches = counted(serve.serve_once, eng, prompt, new_tokens,
+                            want_max_seq)
     st = eng.stats
     if (st.resident_admits, st.resident_demotions) != (1, 0):
         raise AssertionError(f"admits/demotions {st.resident_admits}/"
@@ -1574,12 +1608,14 @@ def resident_checks(torch, cfg, params, cb, prompt, new_tokens, device, *,
     g = pool.geom
     if g.max_seq != want_max_seq:
         raise AssertionError(f"max_seq {g.max_seq} != {want_max_seq}")
-    n_full0 = PROMPT_OF[cfg.name] // g.tokens_per_page
+    positions = serve.prompt_positions(cfg, prompt)
+    n_full0 = positions // g.tokens_per_page
+    n_flush = (positions + new_tokens) // g.tokens_per_page - n_full0
     flushed = {lg.key: pool.allocated_pages(lg.key)
                - g.n_layers * g.batch * n_full0 for lg in g.leaves}
-    if any(v != g.n_layers * g.batch for v in flushed.values()):
+    if any(v != n_flush * g.n_layers * g.batch for v in flushed.values()):
         raise AssertionError(f"flush allocated {flushed}, want "
-                             f"{g.n_layers * g.batch} pages a leaf")
+                             f"{n_flush * g.n_layers * g.batch} pages a leaf")
     got_bytes = (pool.hbm_bytes(), pool.raw_bytes())
     if got_bytes != want_bytes:
         raise AssertionError(f"resident/raw bytes {got_bytes} != {want_bytes}")
@@ -1895,7 +1931,7 @@ def _peak_gb(torch):
 
 
 def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
-                 flash_layers=False):
+                 flash_layers=False, keep=False):
     """``arch`` at full width (seeded random weights, drawn on the card),
     served through ``serve_once`` once per ``(label, engine keywords)`` of
     ``runs`` with the ``cuda`` backend at n_chunks 1: each run's delivered
@@ -1904,7 +1940,9 @@ def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
     f32 leaves' hi halves'), capacity retries and peak device memory, and
     the cache's leaf shapes.  The first run's launches are counted alone; with
     ``flash_layers`` its prefill's first and last attention layer are kept
-    for ``flash_live``.  Frees the model before it returns."""
+    for ``flash_live``.  Frees the model before it returns, unless ``keep``:
+    then a fourth value holds the config, the parameters, the codebook, the
+    prompt and the first run's delivered cache, for the caller to free."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import codec as C
     from repro_torch.core import tree as TR
@@ -1925,7 +1963,7 @@ def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
     peak = {"init": _peak_gb(torch)}
     cb = serve.calibrate_on_model(cfg, params, device=device, seed=seed + 1)
     prompt = serve.make_prompt(cfg, batch, prompt_len, device=device, seed=seed + 2)
-    results, tokens, launches, layers = {}, {}, {}, None
+    results, tokens, launches, layers, kept = {}, {}, {}, None, None
     for i, (label, kw) in enumerate(runs):
         eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device, **kw)
         if i == 0 and flash_layers:
@@ -1952,6 +1990,9 @@ def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
             results[label]["escapes"] = served_escapes(eng, cache)
             if eng.tc.compress_fp32:
                 results[label]["fp32_hi_escapes"] = hi_half_escapes(torch, cache, cb)
+        if keep and i == 0:
+            kept = dict(cfg=cfg, params=params, cb=cb, prompt=prompt,
+                        cache=res.delivered.cache)
         del res, eng, cache
         peak[label] = _peak_gb(torch)
     for label in tokens:
@@ -1966,6 +2007,8 @@ def serve_family(torch, arch, batch, prompt_len, runs, device, seed, *,
                   new_tokens=NEW_TOKENS, codebook=list(cb.exponents),
                   cache_shapes=shapes, runs=results,
                   tokens_equal=True, delivered_bitwise=True, peak_memory_gb=peak)
+    if keep:
+        return record, launches, flash, kept
     return record, launches, flash
 
 
@@ -2006,6 +2049,211 @@ def phase_hybrid(torch, device):
     emit(phase="hybrid", window=cfg.hybrid.window, heads=cfg.num_heads,
          kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, **rec)
     return launches["fp32_hilo"], flash
+
+
+# ---------------------------------------------------------------------------
+# the seventh slice: the frontend families and the persistent executor
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, VLM_BATCH, VLM_PROMPT = "pixtral-12b", 4, 2048   # 256 patches + 1792 tokens
+VLM_MAX_SEQ = 2080               # 2048 + 1 + 16 up to pixtral's 16-token pages
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES = "hubert-xlarge", 8, 1500  # 30 s at 50/s
+
+
+def phase_vlm(torch, device):
+    """pixtral-12b at full width: served compressed and with compression
+    off (``serve_family``), then compressed-resident with an explicit
+    ``max_seq`` (``resident_checks``).  Returns the compressed run's
+    launches, the resident run's, the first layer's ``flash_live``, and the
+    delivered cache with its codebook for phase ``persist``."""
+    rec, launches, _, kept = serve_family(
+        torch, VLM_ARCH, VLM_BATCH, VLM_PROMPT,
+        (("cuda_n1", {}), ("off", dict(compress=False))), device, seed=70,
+        keep=True)
+    cfg, params, cb, prompt = (kept[k] for k in ("cfg", "params", "cb", "prompt"))
+    positions = prompt["patches"].shape[1] + prompt["tokens"].shape[1]
+    if positions != VLM_PROMPT or rec["cache_shapes"]["k"][2] != VLM_PROMPT + 1 + NEW_TOKENS:
+        raise AssertionError(f"vlm: {positions} prompt positions, cache "
+                             f"{rec['cache_shapes']['k']}")
+    torch.cuda.reset_peak_memory_stats()
+    out, res_launches = resident_checks(
+        torch, cfg, params, cb, prompt, NEW_TOKENS, device,
+        want_bytes=(1_041_167_360, 1_363_148_800), want_max_seq=VLM_MAX_SEQ)
+    rec["peak_memory_gb"]["resident"] = _peak_gb(torch)
+    emit(phase="vlm", heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, frontend=cfg.frontend,
+         frontend_dim=cfg.frontend_dim, patches=cfg.frontend_len,
+         text_tokens=VLM_PROMPT - cfg.frontend_len, resident=out, **rec)
+    cache = kept["cache"]
+    del params, prompt, kept
+    torch.cuda.empty_cache()
+    return launches["cuda_n1"], res_launches, out["flash_live"], cache, cb
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_persist(torch, cache, cb, device):
+    """The persistent executor on the card: ``session.save`` of phase
+    ``vlm``'s delivered cache and ``session.load`` back onto the card,
+    bitwise, each counted alone; each leaf's wire encode, host Fletcher-32
+    and verified decode timed apart; then
+    a ``Checkpointer`` drill: a corrupted step falls back to the previous
+    one bitwise, its re-reads counted.  Everything is written under
+    ``build/`` and removed.  Returns the save's and the load's launches."""
+    import shutil
+    import tempfile
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.wire import fletcher32
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.serving.plan import TransferConfig, TransferPlan
+
+    def synced(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_persist_", dir=ROOT / "build"))
+    try:
+        plan = TransferPlan.build(cache, TransferConfig(codebook=cb, backend="wire"))
+        sess = plan.session(device=device)
+        path = str(tmp / "vlm_cache")
+        (_, save_launches), save_ms = synced(counted, sess.save, path, cache)
+        save_stats = sess.last_stats
+        ((tree, _), load_launches), load_ms = synced(counted, sess.load, path)
+        if not all(C.bits_equal(a, b) for a, b in zip(TR.leaves(tree), TR.leaves(cache))):
+            raise AssertionError("persist: loaded cache != saved cache")
+        if any(x.device != cache["k"].device for x in TR.leaves(tree)):
+            raise AssertionError("persist: a leaf did not land on the card")
+        load_stats = sess.last_stats
+        del tree
+        # the save's and the load's parts, a leaf at a time: the wire
+        # encode, the host Fletcher-32 of the file, the verified decode
+        wire, wire_ver = get_backend("wire"), get_backend("wire-verify")
+        parts = {}
+        for k, v in cache.items():
+            ct, enc_ms = synced(wire.encode, v, cb)
+            _, fl_ms = synced(fletcher32, ct.payload)
+            _, dec_ms = synced(wire_ver.decode, ct)
+            parts[k] = dict(wire_encode_ms=enc_ms, host_fletcher_ms=fl_ms,
+                            wire_verify_decode_ms=dec_ms,
+                            payload_bytes=len(ct.payload))
+            del ct
+        raw_bytes = sum(x.numel() * x.element_size() for x in TR.leaves(cache))
+        dir_bytes = _dir_bytes(path)
+        manifest = json.loads((Path(path) / "manifest.json").read_text())
+        if manifest["format"] != "szpersist-1" or \
+                [e["key"] for e in manifest["leaves"]] != ["k", "v"]:
+            raise AssertionError(f"persist: manifest {manifest['format']}, "
+                                 f"{[e['key'] for e in manifest['leaves']]}")
+
+        # the Checkpointer drill on a small train-state tree on the card
+        gen = torch.Generator(device=device).manual_seed(90)
+
+        def state(step):
+            return {"params": {"w": torch.randn(1024, 1024, generator=gen,
+                                                device=device).to(torch.bfloat16)},
+                    "opt": {"m": torch.randn(1024, 1024, generator=gen, device=device)},
+                    "step": torch.tensor(step, dtype=torch.int32, device=device)}
+
+        ck = CKPT.Checkpointer(str(tmp / "ckpt"), device=device)
+        s1, s2 = state(1), state(2)
+        ck.save(1, s1, extra={"step": 1})
+        ck.save(2, s2)
+        step2 = tmp / "ckpt" / "step_0000000002"
+        victim = max(step2.glob("*.szc"), key=lambda f: f.stat().st_size)
+        blob = bytearray(victim.read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        victim.write_bytes(bytes(blob))
+        (got, extra, step), restore_ms = synced(ck.restore, s1)
+        if step != 1 or extra != {"step": 1} or not all(
+                C.bits_equal(a, b) for a, b in zip(TR.leaves(got), TR.leaves(s1))):
+            raise AssertionError(f"checkpointer: restored step {step}, not step 1 "
+                                 "bitwise")
+        if ck.stats.refetches <= 0 or ck.stats.verify_failures <= 0:
+            raise AssertionError("checkpointer: the corrupt step counted no re-read")
+        drill = dict(steps_saved=[1, 2], corrupted=victim.name, restored_step=step,
+                     bitwise=True, verify_failures=ck.stats.verify_failures,
+                     refetches=ck.stats.refetches,
+                     refetch_wire_bytes=ck.stats.refetch_wire_bytes,
+                     restore_ms=restore_ms,
+                     step_bytes=CKPT.checkpoint_bytes(str(tmp / "ckpt"), 1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="persist", arch=VLM_ARCH, leaves={k: list(v.shape) for k, v in cache.items()},
+         raw_bytes=raw_bytes, directory_bytes=dir_bytes,
+         ratio=raw_bytes / dir_bytes, save_ms=save_ms, load_ms=load_ms,
+         parts=parts,
+         save_wire_bytes=save_stats.leaf_wire_bytes,
+         load_verify_failures=load_stats.verify_failures, loaded_bitwise=True,
+         checkpointer=drill, save_launches=save_launches,
+         load_launches=load_launches)
+    return save_launches, load_launches
+
+
+def phase_audio(torch, device):
+    """hubert-xlarge at full width, encode-only: the launcher's refusal, then
+    ``prefill_step`` on 1500 frames a row (launches counted alone, the first
+    and last layer's q/k/v kept for ``flash_live``): no cache, finite
+    logits, every flash launch on the tensor-core path.  Returns the
+    prefill's launches and the first layer's ``flash_live``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.prefill import prefill_step
+
+    try:
+        serve.main(["--arch", AUDIO_ARCH])
+    except SystemExit as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("the launcher served an encoder-only config")
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(80),
+                           device)
+    n_params = sum(x.numel() for x in TR.leaves(params))
+    prompt = serve.make_prompt(cfg, AUDIO_BATCH, AUDIO_FRAMES, device=device, seed=81)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill_step(params, prompt, cfg)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prefill_step(params, prompt, cfg)          # warm: cuBLAS, the kernels
+    ((out, seconds), launches), layers = capture_flash(counted, run)
+    if out.state.cache != {} or out.state.cache_len.tolist() != [AUDIO_FRAMES] * AUDIO_BATCH:
+        raise AssertionError(f"audio: cache {list(out.state.cache)}, lengths "
+                             f"{out.state.cache_len.tolist()}")
+    if not bool(torch.isfinite(out.last_logits.float()).all()):
+        raise AssertionError("audio: non-finite logits")
+    if (launches["flash_attention"], launches["flash_attention_tc"]) != \
+            (cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"audio: flash launches {launches['flash_attention']}, "
+                             f"tensor-core {launches['flash_attention_tc']}, want "
+                             f"{cfg.num_layers} each")
+    if any(kw.get("causal", True) for _, _, _, kw in layers):
+        raise AssertionError("audio: an encoder layer ran causal attention")
+    flash = flash_live(torch, layers, AUDIO_ARCH)
+    units = out.first_token.tolist()
+    del params, prompt, out, layers
+    torch.cuda.empty_cache()
+    emit(phase="audio", arch=AUDIO_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, head_dim=cfg.head_dim, params=n_params,
+         batch=AUDIO_BATCH, frames=AUDIO_FRAMES, prefill_seconds=seconds,
+         first_units=units, launcher_refusal=refusal, cache_leaves=0,
+         peak_memory_gb=_peak_gb(torch), flash_live=flash)
+    return launches, flash
 
 
 def main(argv=None) -> int:
@@ -2088,6 +2336,13 @@ def main(argv=None) -> int:
     windows["minitron"] = phase_minitron(torch, device)
     windows["ssm"] = phase_ssm(torch, device)
     windows["hybrid"], flash[HYBRID_ARCH] = phase_hybrid(torch, device)
+    windows["vlm"], windows["vlm_resident"], flash[VLM_ARCH], vlm_cache, vlm_cb = \
+        phase_vlm(torch, device)
+    windows["persist_save"], windows["persist_load"] = phase_persist(
+        torch, vlm_cache, vlm_cb, device)
+    del vlm_cache
+    torch.cuda.empty_cache()
+    windows["audio"], flash[AUDIO_ARCH] = phase_audio(torch, device)
     windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -2099,16 +2354,19 @@ def main(argv=None) -> int:
     transfer_paths = ("main", "main_n8", "capacity", "profile", "verified_n1",
                       "verified_n8", "wire", "wire-verify", "wire_escapes",
                       "fp8_e5m2", "fp8_e4m3", "fleet_delta",
-                      "fleet_resend", "minitron", "ssm", "hybrid")
+                      "fleet_resend", "minitron", "ssm", "hybrid", "vlm",
+                      "persist_save", "persist_load")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
         ARCH: windows["resident"]["paged_gqa_attention"],
-        MOE_ARCH: windows["moe"]["paged_gqa_attention"]}
+        MOE_ARCH: windows["moe"]["paged_gqa_attention"],
+        VLM_ARCH: windows["vlm_resident"]["paged_gqa_attention"]}
     # the flash-attention kernel: one launch per layer of each served prefill
     served_prefills = {ARCH: ("main", 30), MLA_ARCH: ("mla", 62),
                        MOE_ARCH: ("moe", 48), MINITRON_ARCH: ("minitron", 32),
-                       HYBRID_ARCH: ("hybrid", 12)}
+                       HYBRID_ARCH: ("hybrid", 12), VLM_ARCH: ("vlm", 40),
+                       AUDIO_ARCH: ("audio", 48)}
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "
@@ -2147,6 +2405,12 @@ def main(argv=None) -> int:
     if windows["moe"]["paged_gqa_attention"] < 48 * RES_TOKENS:
         raise AssertionError("paged_gqa_attention: fewer than one launch per "
                              "layer and step on the MoE resident path")
+    if windows["vlm_resident"]["paged_gqa_attention"] < 40 * NEW_TOKENS:
+        raise AssertionError("paged_gqa_attention: fewer than one launch per "
+                             "layer and step on the vlm resident path")
+    for w in ("persist_save", "persist_load"):
+        if not windows[w]["encode_fused" if w == "persist_save" else "decode_fused"]:
+            raise AssertionError(f"{w}: the codec kernel never launched")
     emit(kernels=list(records.values()), seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

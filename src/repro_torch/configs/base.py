@@ -1,11 +1,12 @@
 """Architecture + shape configuration system (copy of ``repro.configs.base``).
 
 The dataclasses are data only and copied verbatim, so a config means the same
-model in both packages.  ``get_config`` resolves the families the port runs
-today: dense GQA (smollm-135m, llama3.2-3b, minitron-4b, qwen3-32b), MLA
-(minicpm3-4b), MoE (qwen3-moe-30b-a3b), SSM (mamba2-2.7b) and the RG-LRU +
-local-attention hybrid (recurrentgemma-9b); the other architectures of the
-JAX package raise ``NotImplementedError`` until their family is ported.
+model in both packages.  ``get_config`` resolves every architecture of the
+JAX package: dense GQA (smollm-135m, llama3.2-3b, minitron-4b, qwen3-32b),
+MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), SSM
+(mamba2-2.7b), the RG-LRU + local-attention hybrid (recurrentgemma-9b) and
+the frontend families (pixtral-12b behind vision patches, the encoder-only
+hubert-xlarge behind audio frames).
 """
 
 from __future__ import annotations
@@ -203,25 +204,23 @@ ARCH_IDS = (
     "mamba2-2.7b",
 )
 
-#: architectures whose family the port runs (dense GQA, MLA, MoE, SSM and
-#: the RG-LRU hybrid); the rest of ``ARCH_IDS`` come with later slices of
-#: the port
+#: every architecture of ``ARCH_IDS`` and the paper's own eval model
 PORTED = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",  # paper's own eval model
 }
 
 
 def get_config(arch: str) -> ArchConfig:
-    if arch in PORTED:
-        return importlib.import_module(PORTED[arch]).CONFIG
-    if arch in ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch!r}: not yet ported (the port runs {sorted(PORTED)})")
-    raise KeyError(f"unknown arch {arch!r}; known: {sorted(PORTED)}")
+    if arch not in PORTED:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(PORTED)}")
+    return importlib.import_module(PORTED[arch]).CONFIG

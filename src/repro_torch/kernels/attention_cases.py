@@ -130,12 +130,16 @@ def gqa_case(fmt: str, seed: int, *, batch: int, nq: int, heads: int, hkv: int,
 #: the served resident geometries of the GQA kernel: smollm-135m at batch
 #: 8 after a 2048-token prompt (80-token pages, 25 full of 27), and
 #: qwen3-moe-30b-a3b at batch 4 after 2088 tokens (32-token pages, 65 full
-#: of 66: the resident run's cache mid-way through its 40 new tokens)
+#: of 66: the resident run's cache mid-way through its 40 new tokens), and
+#: pixtral-12b at batch 4 after its 2048 positions and 16 new tokens
+#: (16-token pages, 129 full of 130)
 GQA_SERVED = {
     "smollm-135m": dict(batch=8, nq=1, heads=9, hkv=3, hd=64, dv=64, tp=80,
                         pages=27, lens=[2048] * 8),
     "qwen3-moe-30b-a3b": dict(batch=4, nq=1, heads=32, hkv=4, hd=128, dv=128,
                               tp=32, pages=66, lens=[2088] * 4),
+    "pixtral-12b": dict(batch=4, nq=1, heads=32, hkv=8, hd=128, dv=128, tp=16,
+                        pages=130, lens=[2064] * 4),
 }
 
 #: the GQA split kernel's edges, ``{name: (gqa_case keywords, n_split)}``:
@@ -282,7 +286,10 @@ def check_partials(got, want, rtol: float = PARTIALS_RTOL) -> float:
 #: field): a window of 1, one that is not a multiple of the 64-key tile,
 #: one of at least Skv (the causal result), one shorter than a tile, one
 #: without the causal mask, and recurrentgemma's d 256 with one KV head,
-#: on both kernels
+#: on both kernels; last hubert's width, d = dv = 80 (a 64-wide head box
+#: and a mostly empty second one, five 16-deep score steps), without the
+#: causal mask at ragged lengths and with more keys than queries, and
+#: pixtral's GQA group of 4 at d 128, causal
 FLASH_EDGE = (
     ("mha_causal_f32", 2, 128, 128, 4, 4, 64, 64, True, "f32", 1.0),
     ("mha_full_bf16", 2, 96, 96, 4, 4, 64, 64, False, "bf16", 1.0),
@@ -308,6 +315,9 @@ FLASH_EDGE = (
     ("win70_full_bf16", 1, 200, 200, 4, 2, 64, 64, False, "bf16", 1.0, 0, 70),
     ("win70_full_f32", 1, 150, 180, 4, 2, 64, 64, False, "f32", 1.0, 0, 70),
     ("win128_d256_mqa_bf16", 1, 330, 330, 16, 1, 256, 256, True, "bf16", 1.0, 0, 128),
+    ("mha_d80_full_bf16", 1, 150, 150, 4, 4, 80, 80, False, "bf16", 1.0),
+    ("mha_d80_cross_bf16", 2, 37, 150, 4, 4, 80, 80, False, "bf16", 1.0),
+    ("gqa4_d128_bf16", 1, 200, 200, 8, 2, 128, 128, True, "bf16", 1.0),
 )
 
 #: kernel vs plain tolerances (atol = rtol), by case kind.  f32: the JAX

@@ -13,7 +13,10 @@ codec; ``wire`` / ``wire-verify`` ship SZ02 payloads).  ``--n-chunks`` > 1
 switches the transfer to the chunked pipelined executor; ``--compress-fp32``
 sends the f32 recurrent states (mamba2's SSM state, the RG-LRU's h) through
 the plan's hi/lo route instead of raw.  Weights are random, made from
-``--seed``.
+``--seed``.  A vision config's ``--prompt-len`` counts its patch positions
+before the text tokens, as in the JAX launcher; an encoder-only config
+(hubert-xlarge) has no decode phase and is refused, as the JAX launcher
+refuses it.
 
 ``--profile`` selects the codec profile that prices the analytic transfer
 report (:mod:`repro_torch.core.profile`): ``paper`` (the paper's H200
@@ -49,10 +52,11 @@ from repro_torch.serving.prefill import PrefillOutput
 def calibrate_on_model(cfg, params, *, device, seq: int = 32, batch: int = 2,
                        seed: int = 0) -> cbm.Codebook:
     """Paper §3.3: one-time calibration on representative KV tensors (a
-    prefill of random prompts through this model)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    shape = ShapeConfig("calib", seq_len=seq, global_batch=batch, kind="train")
-    prompt = {"tokens": M.make_inputs(cfg, shape, gen, seq=seq)["tokens"]}
+    prefill of random prompts through this model; a vision prompt gets its
+    patches before ``seq`` text tokens)."""
+    if cfg.frontend == "vision_patches":
+        seq += cfg.frontend_len
+    prompt = make_prompt(cfg, batch, seq, device=device, seed=seed)
     _, state = M.prefill(params, prompt, cfg, max_seq=seq)
     leaves = [x.reshape(-1).view(torch.int16).cpu().numpy().view(np.uint16)
               for x in TR.leaves(state.cache) if x.dtype == torch.bfloat16]
@@ -62,10 +66,23 @@ def calibrate_on_model(cfg, params, *, device, seq: int = 32, batch: int = 2,
 
 
 def make_prompt(cfg, batch: int, prompt_len: int, *, device, seed: int) -> Dict:
+    """``make_inputs`` without the labels: ``prompt_len`` positions, a vision
+    config's patches among them."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = ShapeConfig("serve", seq_len=prompt_len, global_batch=batch,
                         kind="prefill")
-    return {"tokens": M.make_inputs(cfg, shape, gen, seq=prompt_len)["tokens"]}
+    return {k: v for k, v in M.make_inputs(cfg, shape, gen,
+                                           seq=prompt_len).items()
+            if k != "labels"}
+
+
+def prompt_positions(cfg, prompt: Dict) -> int:
+    """Cache positions a prompt fills: its frames, or its tokens after a
+    vision config's patches."""
+    if "frames" in prompt:
+        return prompt["frames"].shape[1]
+    n = prompt["tokens"].shape[1]
+    return n + cfg.frontend_len if cfg.frontend == "vision_patches" else n
 
 
 @dataclasses.dataclass
@@ -84,7 +101,7 @@ def serve_once(eng: DisaggregatedEngine, prompt: Dict, new_tokens: int,
     host clock around work that ends in a device synchronize.  A
     compressed-resident engine gets its cache padded to a page multiple."""
     max_seq = eng.resident_max_seq(
-        max_seq or prompt["tokens"].shape[1] + 1 + new_tokens)
+        max_seq or prompt_positions(eng.cfg, prompt) + 1 + new_tokens)
     seconds = {}
 
     def timed(name, fn):
@@ -134,10 +151,13 @@ def main(argv=None) -> ServeResult:
                          "absent), or a profiles.json path")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only; it has no decode phase "
+                         "to serve (run serving.prefill.prefill_step)")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device)
     cb = calibrate_on_model(cfg, params, device=device, seed=args.seed + 1)
@@ -152,7 +172,8 @@ def main(argv=None) -> ServeResult:
                               profile=profile, device=device)
     prompt = make_prompt(cfg, args.batch, args.prompt_len, device=device,
                          seed=args.seed + 2)
-    res = serve_once(eng, prompt, args.new_tokens)
+    res = serve_once(eng, prompt, args.new_tokens,
+                     max_seq=args.prompt_len + args.new_tokens + 1)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"generated {tuple(res.tokens.shape)} tokens on {where}")

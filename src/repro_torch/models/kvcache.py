@@ -1,4 +1,4 @@
-"""Inference cache structures of every token-decoder family, the port of
+"""Inference cache structures of every model family, the port of
 ``repro.models.kvcache``.
 
 The cache is *the* object SplitZip exists for: it is produced by prefill
@@ -6,7 +6,8 @@ workers, crosses the PD boundary compressed, and is consumed by decode
 workers.  Each family stores its state stacked over layers, so the whole
 cache is one dict the transfer plan maps the codec over:
 
-  dense, moe : k, v       (L, B, S, Hkv, hd)                 bf16
+  dense, moe : k, v       (L, B, S, Hkv, hd)                 bf16; a vlm's
+               S counts its patch positions before its text tokens
   mla        : ckv, krope (L, B, S, r) / (L, B, S, p)        bf16
   ssm        : ssm, conv  (L, B, H, P, N) f32 / (L, B, W-1, C) bf16
   hybrid     : attn_k, attn_v (nt, B, w, Hkv, hd) bf16, the window's
@@ -14,6 +15,7 @@ cache is one dict the transfer plan maps the codec over:
                rec_conv (nt, 2, B, W-1, U) bf16 of each triple's two
                recurrent blocks; extra_h / extra_conv (ne, B, ...) of the
                leftover recurrent blocks
+  audio      : none (encoder-only; what ships is the encoder output)
 """
 
 from __future__ import annotations
@@ -47,22 +49,21 @@ class DecodeState:
 
 
 def require_decoder(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a token decoder the port runs: every family
-    but the encoder-only and the frontend ones."""
-    if cfg.encoder_only or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-only and frontend families are not ported")
+    """Raise unless ``cfg`` has a decode step: every family but the
+    encoder-only one (a ``vision_patches`` frontend decodes text tokens
+    after its patches).  The JAX package raises the same ``ValueError``."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
 
 def require_dense(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is a token decoder with dense attention: the GQA
-    or the MLA family, with a SwiGLU or an MoE FFN (no SSM, hybrid,
-    encoder-only or frontend configs)."""
-    if (cfg.ssm is not None or cfg.hybrid is not None
-            or cfg.encoder_only or cfg.frontend):
+    or the MLA family (a vision frontend included), with a SwiGLU or an MoE
+    FFN; not the SSM, the hybrid or the encoder-only family."""
+    if cfg.ssm is not None or cfg.hybrid is not None or cfg.encoder_only:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA and MLA families (SwiGLU or MoE "
-            "FFN) are ported")
+            "FFN) decode from compressed pages")
 
 
 def n_triples_extra(cfg: ArchConfig):
@@ -76,8 +77,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     """Zero-filled cache of the family's layout (module docstring); the
     recurrent families' state does not grow with ``max_seq``, and the
     hybrid's window holds ``min(window, max_seq)`` positions.  ``device=
-    "meta"`` allocates nothing (the scheduler's bucket plans)."""
-    require_decoder(cfg)
+    "meta"`` allocates nothing (the scheduler's bucket plans).  An
+    encoder-only config has no cache: ``{}``."""
+    if cfg.encoder_only:
+        return {}
     l, b, s = cfg.num_layers, batch, max_seq
 
     def zeros(shape, dt=dtype):

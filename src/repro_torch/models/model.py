@@ -1,16 +1,20 @@
-"""The token-decoder families on PyTorch: the port of ``repro.models.model``.
+"""The model families on PyTorch: the port of ``repro.models.model``.
 
   dense/moe : pre-norm transformer (GQA attention, SwiGLU or MoE FFN)
   mla       : the same with MLA attention (latent KV cache)
   ssm       : Mamba-2 (SSD) blocks
   hybrid    : (rglru, rglru, local_attn) triples + leftover recurrent blocks
+  vlm       : the dense backbone behind precomputed patch embeddings
+              (``frontend_proj``), prepended to the text tokens
+  audio     : encoder-only: non-causal attention over projected frames, no
+              cache and no decode step
 
 Parameters are a plain nested dict stacked over layers (triples, extra
 blocks), with the JAX package's keys, shapes and init scales, so
 ``models/weights.params_from_jax`` maps one package's parameters onto the
 other's.  The layer stacks are Python loops (the JAX package scans them).
 
-Public API: init_params / forward / prefill / decode_step /
+Public API: init_params / embed_inputs / forward / prefill / decode_step /
 resident_decode_step / make_inputs.
 """
 
@@ -44,8 +48,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     layers.  The numbers come from ``generator`` (on its own device) and
     land on ``device`` (default: the generator's).  MoE stacks are drawn a
     layer at a time (``models.moe.init_moe``), the router kept in f32; the
-    SSM's and the RG-LRU's decay parameters are f32 as in JAX."""
-    require_decoder(cfg)
+    SSM's and the RG-LRU's decay parameters are f32 as in JAX.  A frontend
+    family adds ``frontend_proj`` (frontend_dim, d_model)."""
     device = device if device is not None else generator.device
     nl, d, h, hkv, hd, dff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
@@ -64,6 +68,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     p: Dict = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.frontend is not None:
+        p["frontend_proj"] = normal((cfg.frontend_dim, d),
+                                    cfg.frontend_dim ** -0.5)
     if cfg.ssm is not None:
         p["layers"] = {"norm1": ones((nl, d)),
                        "mixer": SSM.init_mamba2(normal, nl, d, cfg.ssm, device)}
@@ -145,6 +152,21 @@ def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig
 # embedding / head
 # ---------------------------------------------------------------------------
 
+def embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """(B, S, d_model) bf16 input of the first layer: projected audio frames,
+    patch projections prepended to the token embeddings, or the token
+    embeddings alone."""
+    if cfg.frontend == "audio_frames":
+        return torch.matmul(batch["frames"].to(torch.bfloat16),
+                            params["frontend_proj"])
+    tok = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision_patches":
+        patches = torch.matmul(batch["patches"].to(torch.bfloat16),
+                               params["frontend_proj"])
+        tok = torch.cat([patches, tok], dim=1)
+    return tok
+
+
 def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -162,8 +184,7 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
 
     ``logits_positions='last'`` projects only the final position through the
     LM head (prefill needs just the first sampled token)."""
-    require_decoder(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
@@ -262,7 +283,8 @@ def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
                                                cfg.rope_theta, kv_block=kv_block)
         else:
             q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
-            o = L.prefill_attention(q, k, v, causal=True, kv_block=kv_block)
+            o = L.prefill_attention(q, k, v, causal=not cfg.encoder_only,
+                                    kv_block=kv_block)
             attn_out = L.attention_out(lp["attn"], o)
         x = x + attn_out
         h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -288,30 +310,46 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
             kv_block: int = 1024) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return (last-position logits, decode state).
 
-    The cache of the positional families (dense, MoE, MLA) is padded with
-    zeros to ``max_seq`` slots so decode can continue in place; the
+    The cache of the positional families (dense, MoE, MLA, vlm) is padded
+    with zeros to ``max_seq`` slots so decode can continue in place; the
     recurrent families' state (ssm, hybrid) does not grow and is never
-    padded.  Ragged batches: ``batch["lengths"]`` (B,) marks each row's true
-    prompt length (rows right-padded to a common S); last-token logits are
-    gathered at ``lengths - 1`` and ``cache_len`` starts at ``lengths``.
-    The recurrent families absorb right-padding into their state and
-    reject ragged input."""
+    padded.  A vision prompt's S counts its ``frontend_len`` patches before
+    the tokens.  An encoder-only config returns the logits of every frame
+    (B, S, V) and an empty cache of length S.  Ragged batches:
+    ``batch["lengths"]`` (B,) marks each row's true prompt length (rows
+    right-padded to a common S); last-token logits are gathered at
+    ``lengths - 1`` and ``cache_len`` starts at ``lengths``.  The recurrent
+    and the frontend families reject ragged input."""
     lengths = batch.get("lengths")
     recurrent = cfg.ssm is not None or cfg.hybrid is not None
-    if lengths is not None and recurrent:
-        raise ValueError(
-            f"{cfg.name}: ragged prefill (batch['lengths']) needs a "
-            "cache-positional family (dense/mla); recurrent state absorbs "
-            "right-padding")
+    if lengths is not None:
+        if recurrent:
+            raise ValueError(
+                f"{cfg.name}: ragged prefill (batch['lengths']) needs a "
+                "cache-positional family (dense/mla); recurrent state absorbs "
+                "right-padding")
+        if cfg.frontend is not None or cfg.encoder_only:
+            raise ValueError("ragged prefill is token-decoder only")
     logits, cache, _ = forward(
         params, batch, cfg, kv_block=kv_block, collect_cache=True,
-        logits_positions="all" if lengths is not None else "last")
-    b, s = batch["tokens"].shape
+        logits_positions="all" if (cfg.encoder_only or lengths is not None)
+        else "last")
+    if cfg.frontend == "vision_patches":
+        b, s = batch["tokens"].shape
+        s += cfg.frontend_len
+    elif cfg.frontend == "audio_frames":
+        b, s = batch["frames"].shape[:2]
+    else:
+        b, s = batch["tokens"].shape
+    dev = logits.device
+    if cfg.encoder_only:
+        return logits, DecodeState(
+            cache={}, cache_len=torch.full((b,), s, dtype=torch.int32,
+                                           device=dev))
     max_seq = max_seq or s
     if max_seq > s and not recurrent:   # (L, B, S, ...): pad S
         cache = {k: F.pad(v, (0, 0) * (v.dim() - 3) + (0, max_seq - s))
                  for k, v in cache.items()}
-    dev = logits.device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
         last = logits[torch.arange(b, device=dev), (lengths - 1).to(torch.int64)]
@@ -458,6 +496,7 @@ def resident_decode_step(params, tokens: torch.Tensor,
     (``KVPool.flush_full_tails``).  GQA (dense or MoE FFN) and MLA
     families; the recurrent ones decode raw-resident (their engine demotes
     at admission, as the JAX engine does)."""
+    require_decoder(cfg)
     require_dense(cfg)
     g = state.geom
     x = params["embed"][tokens]
@@ -495,13 +534,30 @@ def resident_decode_step(params, tokens: torch.Tensor,
 def make_inputs(cfg: ArchConfig, shape: ShapeConfig, generator: torch.Generator,
                 batch: Optional[int] = None, seq: Optional[int] = None,
                 device=None) -> Dict:
-    """Random token batch ``{"tokens", "labels"}`` (B, S) from ``generator``."""
+    """Random input batch from ``generator``, with the JAX package's keys and
+    shapes: ``{"tokens", "labels"}`` (B, S); an audio config ``{"frames"``
+    (B, S, frontend_dim) bf16, ``"labels"}``; a vision config ``{"patches"``
+    (B, frontend_len, frontend_dim) bf16, ``"tokens", "labels"}`` of
+    ``S - frontend_len`` text positions."""
     b = batch or shape.global_batch
     s = seq or shape.seq_len
     device = device if device is not None else generator.device
 
-    def ids():
-        return torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=generator,
                              device=generator.device).to(device)
 
-    return {"tokens": ids(), "labels": ids()}
+    def normal(*dims):
+        return torch.randn(dims, generator=generator, device=generator.device,
+                           dtype=torch.float32).to(device, torch.bfloat16)
+
+    if cfg.frontend == "audio_frames":
+        return {"frames": normal(b, s, cfg.frontend_dim), "labels": ids(s)}
+    if cfg.frontend == "vision_patches":
+        s_text = s - cfg.frontend_len
+        if s_text < 0:
+            raise ValueError(f"{cfg.name}: seq {s} is shorter than its "
+                             f"{cfg.frontend_len} frontend positions")
+        return {"patches": normal(b, cfg.frontend_len, cfg.frontend_dim),
+                "tokens": ids(s_text), "labels": ids(s_text)}
+    return {"tokens": ids(s), "labels": ids(s)}

@@ -436,13 +436,14 @@ class TransferPlan:
 
     # -- session -------------------------------------------------------------
     def session(self, *, faults=None, verify: bool = False,
-                retain_last: bool = False) -> "TransferSession":
+                retain_last: bool = False, device=None) -> "TransferSession":
         """A session executing this plan.  ``faults`` is ``None | registry
         name | FaultPlan`` (:mod:`repro_torch.serving.faults`);
         ``verify=True`` checksum-verifies every wire hop and re-fetches on
         failure; ``retain_last=True`` keeps the last transfer's compressed
         payloads sender-side so a decode-worker failover can re-send them
-        (``TransferSession.resend_last``) without re-encoding."""
+        (``TransferSession.resend_last``) without re-encoding.  ``device``
+        is where ``load`` puts what it reads (default: the card)."""
         from repro_torch.serving.session import TransferSession
         return TransferSession(self, faults=faults, verify=verify,
-                               retain_last=retain_last)
+                               retain_last=retain_last, device=device)

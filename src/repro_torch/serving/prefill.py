@@ -27,5 +27,11 @@ def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
                  ) -> PrefillOutput:
     last_logits, state = M.prefill(params, batch, cfg, max_seq=max_seq,
                                    kv_block=kv_block)
+    if cfg.encoder_only:
+        # encode-and-ship: the "first token" is the first frame's argmax
+        # unit; prefill returned every frame's logits (B, S, V)
+        first = torch.argmax(last_logits[:, 0], dim=-1).to(torch.int32)
+        return PrefillOutput(first_token=first, last_logits=last_logits[:, -1],
+                             state=state)
     first = torch.argmax(last_logits, dim=-1).to(torch.int32)
     return PrefillOutput(first_token=first, last_logits=last_logits, state=state)

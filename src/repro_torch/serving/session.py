@@ -24,14 +24,26 @@ receiver's copy and counted in ``TransferStats.prefix_hit_bytes``.  The
 sender's shadow of the last turn stays on the bytes' device and is compared
 there, in the bit domain, in one pass a turn (:class:`PrefixIndex`).
 
+**The persistent executor** (``save(path, tree)`` / ``load(path)``): one
+SZ02 file per leaf plus a plan-derived JSON manifest (``szpersist-1``,
+``docs/wire_format.md`` §9), the same bytes the JAX package writes, so a
+directory either package saved loads in the other.  Loads verify each
+file's Fletcher-32 and the payload's frame table, re-read down the plan's
+retry budget, and raise :class:`~repro_torch.core.wire.WireIntegrityError`
+when the corruption persists.  ``distributed/checkpoint.py`` is a thin
+wrapper over it.
+
 Not ported yet, and rejected with ``NotImplementedError`` rather than
-ignored: the persistent executor, the ring collective, resharding and the
-mesh executor.
+ignored: the ring collective, resharding and the mesh executor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
+import tempfile
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -42,6 +54,8 @@ from repro_torch.core import tree as TR
 from repro_torch.core.backend import (CodecBackend, WireBackend,
                                       WireCompressed, get_backend)
 from repro_torch.core.pipeline import ChunkSchedule
+from repro_torch.core.wire import WireIntegrityError, WireStats, fletcher32
+from repro_torch.device import resolve_device
 from repro_torch.serving.faults import FaultChannel, resolve_faults
 from repro_torch.serving.plan import TransferPlan, TransferStats
 
@@ -50,6 +64,10 @@ from repro_torch.serving.plan import TransferPlan, TransferStats
 # explicitly-persistent adversarial plan can reach this — and then the
 # session fails LOUDLY instead of decoding garbage or spinning forever.
 _MAX_WIRE_ATTEMPTS = 32
+
+# persistent-executor manifest (docs/wire_format.md §9)
+PERSIST_MANIFEST = "manifest.json"
+PERSIST_FORMAT = "szpersist-1"
 
 
 class TransferIntegrityError(RuntimeError):
@@ -111,6 +129,31 @@ def _record_unit(stats: Optional[TransferStats], key: str, ok: bool,
 def _fp32_halves(leaf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     u = leaf.view(torch.int32)
     return C.narrow_u16((u >> 16) & 0xFFFF), C.narrow_u16(u & 0xFFFF)
+
+
+def _host_bytes(x: torch.Tensor) -> bytes:
+    """A tensor's bytes in memory order, as the host sees them."""
+    flat = C.signed_view(x).detach().contiguous().reshape(-1)
+    return flat.view(torch.uint8).cpu().numpy().tobytes()
+
+
+def _from_host_bytes(blob: bytes, dtype: torch.dtype, shape, device
+                     ) -> torch.Tensor:
+    """Inverse of :func:`_host_bytes`: a tensor of ``dtype`` and ``shape`` on
+    ``device``."""
+    u8 = (torch.frombuffer(bytearray(blob), dtype=torch.uint8) if blob
+          else torch.zeros(0, dtype=torch.uint8))
+    return u8.view(dtype).reshape(shape).to(device)
+
+
+def _persist_comp(payload: bytes, r, fmt: str, dtype: str, device
+                  ) -> WireCompressed:
+    """A persisted SZ02 payload as the wire backend's object, decoding onto
+    ``device``."""
+    stats = WireStats(n_elements=r.n_elements, n_escapes=0,
+                      payload_bytes=len(payload), raw_bytes=int(r.raw_bytes))
+    return WireCompressed(payload=payload, shape=r.shape, dtype=dtype,
+                          fmt=fmt, stats=stats, device=str(device))
 
 
 def encode_leaves(plan: TransferPlan, cache, *, scheduled: bool = True,
@@ -305,8 +348,12 @@ class TransferSession:
     :class:`~repro_torch.serving.faults.FaultPlan` into the channel."""
 
     def __init__(self, plan: TransferPlan, *, faults=None,
-                 verify: bool = False, retain_last: bool = False):
+                 verify: bool = False, retain_last: bool = False,
+                 device=None):
         self.plan = plan
+        # where ``load`` puts the leaves (None: the card, see
+        # repro_torch.device)
+        self.device = device
         self.verify = verify
         self.retain_last = retain_last
         self.faults = resolve_faults(faults)
@@ -649,13 +696,191 @@ class TransferSession:
                          .to(stream.device))
         return torch.cat(flags)
 
+    # -- persistent executor -------------------------------------------------
+    def save(self, path: str, tree, *, extra: Optional[Dict] = None,
+             check: bool = True) -> str:
+        """Write ``tree`` to ``path`` as one SZ02 file per routed leaf plus a
+        plan-derived JSON manifest (``docs/wire_format.md`` §9), byte for
+        byte what the JAX package writes for the same tree.
+
+        Routes run as on the wire: a 'splitzip' leaf becomes an SZ02 payload
+        (with its Fletcher-32 frame table), an 'fp32_hilo' leaf the SZ02
+        payload of its hi half followed by the raw lo bytes, an 'fp8' leaf
+        an SZ02 payload under the fp8 codebook, a 'raw' leaf its exact
+        bytes.  Everything is written into a temporary directory beside
+        ``path`` and renamed into place, so ``path`` is either absent or
+        complete.  Returns ``path``; the accounting is in ``last_stats``."""
+        if check:
+            self._check_structure(tree)
+        self._uid += 1
+        plan, tc = self.plan, self.plan.tc
+        wire_be = get_backend("wire")
+        stats = TransferStats(chunk_wire_bytes=[], chunk_ok=[],
+                              raw_passthrough_bytes=0.0,
+                              n_elements=plan.stream_len)
+        flat = TR.flatten_with_path(tree)[0]
+        parent = os.path.dirname(os.path.abspath(path)) or "."
+        os.makedirs(parent, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=parent, prefix=".tmp_persist_")
+        entries = []
+        try:
+            for i, ((_, leaf), r) in enumerate(zip(flat, plan.routes)):
+                fname = f"leaf_{i:05d}.szc"
+                payload, tail = b"", b""
+                if r.route == "splitzip":
+                    payload = wire_be.encode(leaf, tc.codebook,
+                                             chunk=tc.chunk).payload
+                    stats.leaf_wire_bytes[r.key] = float(len(payload))
+                    stats.leaf_ok[r.key] = True
+                elif r.route == "fp32_hilo":
+                    hi, lo = _fp32_halves(leaf)
+                    payload = wire_be.encode(hi, tc.codebook,
+                                             chunk=tc.chunk).payload
+                    tail = _host_bytes(lo)
+                    stats.leaf_wire_bytes[r.key] = float(len(payload))
+                    stats.leaf_ok[r.key] = True
+                    stats.fp32_lo_wire_bytes += float(len(tail))
+                elif r.route == "fp8":
+                    payload = wire_be.encode(leaf, plan.fp8_codebook,
+                                             chunk=tc.chunk).payload
+                    stats.fp8_wire_bytes += float(len(payload))
+                    stats.leaf_ok[r.key] = True
+                else:
+                    tail = _host_bytes(leaf)
+                    stats.raw_passthrough_bytes += float(len(tail))
+                blob = payload + tail
+                with open(os.path.join(tmp, fname), "wb") as f:
+                    f.write(blob)
+                entries.append({
+                    "key": r.key, "file": fname, "route": r.route,
+                    "shape": list(r.shape), "dtype": r.dtype,
+                    "sz_bytes": len(payload), "checksum": fletcher32(blob),
+                })
+            manifest = {"format": PERSIST_FORMAT,
+                        "codebook": {"fmt": tc.codebook.fmt,
+                                     "exponents": list(tc.codebook.exponents)},
+                        "extra": extra or {}, "leaves": entries}
+            with open(os.path.join(tmp, PERSIST_MANIFEST), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self.last_stats = stats
+        self._account()
+        return path
+
+    def load(self, path: str) -> Tuple[object, Dict]:
+        """Read a :meth:`save` directory back into the plan's structure, bit
+        for bit, onto the session's device.  Returns ``(tree, extra)``.
+
+        Every leaf file is verified twice: its Fletcher-32 against the
+        manifest, then the SZ02 payload's own frame table as it decodes
+        (``wire-verify``).  A mismatch, or a fault the session's
+        ``faults=`` plan injects as the file is read, re-reads the file down
+        the plan's retry budget (``retry_doublings + 1`` re-reads, counted in
+        ``last_stats.refetches``); corruption that persists raises
+        :class:`~repro_torch.core.wire.WireIntegrityError` after
+        ``last_stats`` is published, and the caller
+        (``distributed/checkpoint.py``) falls back to the previous step."""
+        plan, tc = self.plan, self.plan.tc
+        device = resolve_device(self.device)
+        self._uid += 1
+        with open(os.path.join(path, PERSIST_MANIFEST)) as f:
+            manifest = json.load(f)
+        entries = manifest["leaves"]
+        if manifest.get("format") != PERSIST_FORMAT:
+            raise ValueError(f"unknown persistent format "
+                             f"{manifest.get('format')!r} at {path}")
+        if len(entries) != len(plan.routes):
+            raise ValueError(
+                f"{path} holds {len(entries)} leaves; this plan expects "
+                f"{len(plan.routes)}: rebuild the plan for the structure")
+        wire_ver = get_backend("wire-verify")
+        stats = TransferStats(chunk_wire_bytes=[], chunk_ok=[],
+                              raw_passthrough_bytes=0.0,
+                              n_elements=plan.stream_len)
+        leaves = []
+        for i, (r, meta) in enumerate(zip(plan.routes, entries)):
+            if (meta["key"] != r.key or meta["route"] != r.route
+                    or tuple(meta["shape"]) != r.shape
+                    or meta["dtype"] != r.dtype):
+                raise ValueError(
+                    f"leaf {i} ({meta['key']!r}) does not match the plan "
+                    f"route {r.key!r}; structure drifted since save")
+            try:
+                blob = self._read_verified(os.path.join(path, meta["file"]),
+                                           meta, i, stats)
+            except WireIntegrityError:
+                # publish the partial accounting (verify failures, re-read
+                # bytes of the abandoned candidate) for the fallback policy
+                stats.leaf_ok[r.key] = False
+                self.last_stats = stats
+                self._account()
+                raise
+            sz = meta["sz_bytes"]
+            if r.route == "splitzip":
+                ct = _persist_comp(blob[:sz], r, tc.codebook.fmt, r.dtype,
+                                   device)
+                leaves.append(wire_ver.decode(ct))
+                stats.leaf_wire_bytes[r.key] = float(sz)
+                stats.leaf_ok[r.key] = True
+            elif r.route == "fp32_hilo":
+                ct = _persist_comp(blob[:sz], r, tc.codebook.fmt, "uint16",
+                                   device)
+                hi = C.widen(wire_ver.decode(ct)).to(torch.int64)
+                lo = _from_host_bytes(blob[sz:], torch.uint16, r.shape, device)
+                u = (hi << 16) | C.widen(lo).to(torch.int64)
+                leaves.append(C.narrow_u32(u).view(torch.int32)
+                              .view(torch.float32))
+                stats.leaf_wire_bytes[r.key] = float(sz)
+                stats.leaf_ok[r.key] = True
+                stats.fp32_lo_wire_bytes += float(len(blob) - sz)
+            elif r.route == "fp8":
+                ct = _persist_comp(blob[:sz], r, plan.fp8_codebook.fmt,
+                                   r.dtype, device)
+                leaves.append(wire_ver.decode(ct))
+                stats.fp8_wire_bytes += float(sz)
+                stats.leaf_ok[r.key] = True
+            else:
+                leaves.append(_from_host_bytes(
+                    blob, C.dtype_from_name(r.dtype), r.shape, device))
+                stats.raw_passthrough_bytes += float(len(blob))
+        tree = TR.unflatten(plan.treedef, leaves)
+        self.last_stats = stats
+        self._account()
+        return tree, manifest.get("extra", {})
+
+    def _read_verified(self, fpath: str, meta: Dict, ci: int,
+                       stats: TransferStats) -> bytes:
+        """One leaf file off disk, Fletcher-verified against the manifest and
+        read through the session's :class:`FaultChannel` when it has one (so
+        injected faults exercise the re-read path).  ``retry_doublings + 2``
+        reads at most, then :class:`WireIntegrityError` naming the leaf."""
+        budget = self.plan.tc.retry_doublings + 2
+        for attempt in range(budget):
+            with open(fpath, "rb") as f:
+                blob = f.read()
+            intact = True
+            if self._channel is not None:
+                frame = self._channel.ship(
+                    torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+                    if blob else torch.zeros(0, dtype=torch.uint8),
+                    self._uid, ci, attempt)
+                payload, intact = self._channel.deliver(frame)
+                stats.fault_delay_s += frame.delay_s
+                blob = payload.numpy().tobytes() if payload is not None else b""
+            if intact and fletcher32(blob) == meta["checksum"]:
+                return blob
+            stats.verify_failures += 1
+            if attempt + 1 < budget:
+                stats.refetches += 1
+                stats.refetch_wire_bytes += float(len(blob))
+        raise WireIntegrityError((ci,))
+
     # -- executors that are not ported yet -------------------------------------
-    def save(self, *args, **kwargs):
-        raise _not_ported("the persistent executor (save)")
-
-    def load(self, *args, **kwargs):
-        raise _not_ported("the persistent executor (load)")
-
     def ring_reduce(self, *args, **kwargs):
         raise _not_ported("the ring collective (ring_reduce)")
 

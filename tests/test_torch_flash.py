@@ -26,7 +26,8 @@ from repro_torch.models import layers as L
 #: the edge-case kinds, at sizes the interpreter runs quickly
 JAX_CASES = ("mha_causal_f32", "mha_full_bf16", "gqa3_ragged_bf16",
              "gqa3_ragged_f32", "gqa8_d128_bf16", "mla_96_64_bf16",
-             "cross_kv_longer_f32", "single_query_bf16", "scores_x30_f32")
+             "cross_kv_longer_f32", "single_query_bf16", "scores_x30_f32",
+             "mha_d80_full_bf16", "mha_d80_cross_bf16", "gqa4_d128_bf16")
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +131,8 @@ def test_wrapper_rejects_bad_operands():
 
 @pytest.mark.parametrize("args", [
     (8, 2048, 2048, 9, 3, 64, 64), (4, 1000, 1000, 40, 40, 96, 64),
-    (4, 2048, 2048, 32, 4, 128, 128), (1, 37, 150, 4, 2, 64, 64)])
+    (4, 2048, 2048, 32, 4, 128, 128), (1, 37, 150, 4, 2, 64, 64),
+    (8, 1500, 1500, 16, 16, 80, 80)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_work_counts_match_jax(jfa, args, causal):
     b, sq, skv, h, hkv, d, dv = args
@@ -147,10 +149,19 @@ def test_served_bounds():
     assert ops == 2.0 * 4 * 32 * 2048 * 2048 * 0.5 * 256
     assert abs(ops / 989e12 * 1e3 - 0.1390) < 1e-4
     assert FA.hbm_bytes(4, 2048, 2048, 32, 4, 128, 128) / 3.35e12 < ops / 989e12
+    # pixtral-12b's prefill (B 4, 256 patches + 1792 tokens, 32 / 8 heads)
+    # does the same work a layer; hubert-xlarge's 30 s of audio (B 8, 1500
+    # frames, 16 heads x 80, not causal) 92.2 GFLOP, 0.0932 ms
+    assert FA.flops(4, 2048, 2048, 32, 128, 128) == ops
+    hub = FA.flops(8, 1500, 1500, 16, 80, 80, causal=False)
+    assert hub == 4.0 * 8 * 16 * 1500 * 1500 * 80
+    assert abs(hub / 989e12 * 1e3 - 0.0932) < 1e-4
+    assert FA.hbm_bytes(8, 1500, 1500, 16, 16, 80, 80) / 3.35e12 < hub / 989e12
 
 
 #: the served prefills' (d, dv): smollm-135m, minicpm3-4b (MLA), qwen3-moe
-SERVED_WIDTHS = ((64, 64), (96, 64), (128, 128))
+#: and pixtral, hubert-xlarge
+SERVED_WIDTHS = ((64, 64), (96, 64), (128, 128), (80, 80))
 
 
 @pytest.mark.parametrize("dtype,d,dv,want", [

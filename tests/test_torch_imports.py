@@ -105,10 +105,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_other_families_not_yet_ported():
-    from repro_torch.configs.base import get_config
-    for arch in ("hubert-xlarge", "pixtral-12b", "qwen3-moe-235b-a22b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
+    """Every architecture is ported now: each ``ARCH_IDS`` entry loads, and
+    only an unknown name raises."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    assert {get_config(arch).name for arch in ARCH_IDS} == set(ARCH_IDS)
+    assert get_config("pixtral-12b").frontend == "vision_patches"
+    assert get_config("hubert-xlarge").encoder_only
+    assert get_config("qwen3-moe-235b-a22b").moe.num_experts == 128
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     for arch in ("smollm-135m", "llama3.2-3b", "qwen3-32b", "minicpm3-4b",

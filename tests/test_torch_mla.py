@@ -116,9 +116,11 @@ def test_mla_init_cache_matches():
     assert {k: tuple(v.shape) for k, v in jc.items()} == \
         {k: tuple(v.shape) for k, v in tc.items()}
     assert JK.cache_bytes(jc) == TK.cache_bytes(tc)
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError, match="GQA and MLA"):
             TK.require_dense(jget(arch))
+    # a vision frontend decodes text tokens over a dense GQA cache
+    TK.require_dense(jget("pixtral-12b"))
 
 
 def test_mla_prefill_and_decode_match_jax(models):

@@ -235,9 +235,12 @@ def test_unported_session_features_raise():
     jc, tc, cb, tcb_ = make_caches(heavy=False)
     _, tp = plans(jc, tc, cb, tcb_)
     sess = tp.session()
-    for name in ("save", "load", "ring_reduce", "reshard"):
+    # the persistent executor (save/load) is ported; the collectives wait
+    for name in ("ring_reduce", "reshard"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(sess, name)()
+    for name in ("save", "load"):
+        assert callable(getattr(sess, name))
     with pytest.raises(NotImplementedError, match="mesh"):
         TPL.TransferPlan.build(tc, tp.tc, mesh=object())
     # compressed residency is ported: the engine builds, and refuses the
