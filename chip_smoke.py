@@ -168,6 +168,30 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the refusal is checked first): 48 flash launches, every one
               on the tensor-core path, no cache, finite logits; its first
               and last layer's live q/k/v join ``flash_live``, not causal.
+8g. mesh    — the pod-to-pod hop across processes: 2 ranks spawned on the
+              one card over gloo (mesh (2, 1, 1), ``launch/mesh.py``; the
+              kernels are built by the parent first).  Rank 0, the prefill
+              pod, draws smollm-135m from the seed and prefills batch 8 x
+              2048 (30 flash launches, all wgmma); it ships the 380 MB
+              cache through the mesh executor at n_chunks 1 and 8, through
+              a compress-off plan, and with an all-escape first chunk of
+              ``k`` (3 capacity-schedule steps, the dense kernels).  Rank
+              1, the decode pod, holds every delivery bitwise against the
+              compress-off copy and decodes 16 tokens from each, equal to
+              rank 0's tokens from its own cache.  Per rank: wire and raw
+              bytes, the ratio, the host ms of the hop, its staging, wire
+              and codec parts, and the codec launches (each run counted
+              alone in its rank).
+8h. ring    — the compressed ring all-reduce: 4 ranks, contributions
+              shaped like smollm-135m's parameter tree (134.5 M bf16 a
+              rank) plus a leaf of 65536 values spread over 80 binades,
+              through ``grad_compress.compressed_cross_pod_mean``.
+              Small integers (compressed and raw): bitwise equal to
+              ``torch.mean``; normal values: bitwise equal to each rank's
+              ring-order f32 sum, and within the f32 summation bound of
+              rank 0's (the bf16 ulp spread reported); the wide leaf
+              overflows and re-runs raw.  Per rank: ms a hop, bytes
+              handed to gloo against ``cross_pod_wire_bytes``.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -197,7 +221,9 @@ right after it: the served transfer of phase 3 (``encode_fused``,
 ``launches_by_path``; phase 4d's turn-2 delta and the scheduler run with
 its re-sends), the served resident decode of phases 6
 (``paged_gqa_attention``), 7 (``paged_mla_attention``) and 8d, the
-persistent executor's save and load (phase 8e), and the served prefills of
+persistent executor's save and load (phase 8e), each mesh run on each of
+its two ranks and each compressed ring on rank 0 (phases 8g, 8h; counted
+inside the rank), and the served prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
 tensor-core path, or the run fails); the checks around those runs are not
@@ -2256,6 +2282,378 @@ def phase_audio(torch, device):
     return launches, flash
 
 
+# ---------------------------------------------------------------------------
+# phases mesh and ring: the collective executors across ranks on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 1, 1)           # pod x data x model: one prefill, one decode
+RING_RANKS = 4
+RANK_TIMEOUT_S = 420
+RING_WIDE_ELEMS = 65536          # the forced-overflow leaf, per contribution
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(body: str, world: int):
+    """``world`` processes of ``body(torch, rank, device)`` over gloo on the
+    one card (the kernels are built before, by the parent).  Each rank's
+    dict comes back through a queue; a rank that raises, or a world still
+    running after ``RANK_TIMEOUT_S``, fails the phase."""
+    import torch.multiprocessing as mp
+    q = mp.get_context("spawn").SimpleQueue()
+    procs = mp.start_processes(
+        _rank_main, args=(world, f"tcp://localhost:{_free_port()}", body, q),
+        nprocs=world, join=False, start_method="spawn")
+    results = {}
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while True:
+        while not q.empty():
+            rank, res = q.get()
+            results[rank] = res
+        if procs.join(timeout=1.0):
+            break
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise AssertionError(f"{body}: ranks still running after "
+                                 f"{RANK_TIMEOUT_S} s")
+    while not q.empty():
+        rank, res = q.get()
+        results[rank] = res
+    if sorted(results) != list(range(world)):
+        raise AssertionError(f"{body}: results from ranks {sorted(results)}")
+    return [results[r] for r in range(world)]
+
+
+def _rank_main(rank, world, addr, body, q):
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=addr, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        q.put((rank, globals()[body](torch, rank, torch.device("cuda", 0))))
+        dist.barrier()   # no rank tears its connections down under a peer
+    finally:
+        dist.destroy_process_group()
+
+
+def _comm(sess, seconds):
+    c = sess.last_comm
+    return dict(host_ms=seconds * 1e3, staging_ms=c.staging_s * 1e3,
+                wire_ms=c.wire_s * 1e3, codec_and_host_ms=c.codec_s * 1e3,
+                sent_bytes=c.sent_bytes, recv_bytes=c.recv_bytes,
+                header_bytes=c.header_bytes, messages=c.messages)
+
+
+def _bits_equal_trees(a, b):
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    return all(C.bits_equal(x, y) for x, y in zip(TR.leaves(a), TR.leaves(b)))
+
+
+def mesh_rank(torch, rank, device):
+    """One rank of phase ``mesh``.  Rank 0 (pod 0, the prefill pod) prefills
+    smollm-135m (B 8 x 2048) and ships its cache through the mesh executor
+    at n_chunks 1 and 8, through a compress-off plan, and once with an
+    all-escape first chunk; rank 1 (pod 1, the decode pod) receives each,
+    checks it bitwise against the compress-off copy and decodes 16 tokens
+    from each, which must equal rank 0's tokens from its own cache."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import codec as C
+    from repro_torch.core import tree as TR
+    from repro_torch.core.codebook import Codebook
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.kvcache import DecodeState
+    from repro_torch.serving.decode import decode_loop
+    from repro_torch.serving.engine import DisaggregatedEngine
+    from repro_torch.serving.plan import TransferConfig, TransferPlan
+
+    cfg = get_config(ARCH)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    mesh = make_mesh(MESH_SHAPE, ("pod", "data", "model"))
+    out = {"rank": rank, "pod": mesh.get_local_rank("pod")}
+    if rank == 0:
+        cb = serve.calibrate_on_model(cfg, params, device=device, seed=1)
+        prompt = serve.make_prompt(cfg, BATCH, PROMPT, device=device, seed=2)
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device)
+        max_seq = serve.prompt_positions(cfg, prompt) + 1 + NEW_TOKENS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, launches = counted(eng.prefill, prompt, max_seq)
+        torch.cuda.synchronize()
+        out.update(prefill_seconds=time.perf_counter() - t0,
+                   prefill_launches={k: launches[k] for k in
+                                     ("flash_attention", "flash_attention_tc")})
+        cache = pre.state.cache
+        flat, treedef = TR.flatten_with_path(cache)
+        meta = [cb.to_json(), treedef,
+                [(tuple(x.shape), C.dtype_name(x.dtype)) for _, x in flat],
+                pre.state.cache_len.cpu(), pre.first_token.cpu()]
+    else:
+        meta = [None] * 5
+    dist.broadcast_object_list(meta, src=0)
+    cb = Codebook.from_json(meta[0])
+    cache_len, first_token = meta[3].to(device), meta[4].to(device)
+    if rank == 1:
+        cache = TR.unflatten(meta[1], [torch.empty(s, dtype=getattr(torch, d),
+                                                   device="meta")
+                                       for s, d in meta[2]])
+
+    def heavy(c):
+        """``c`` with the first 1024 elements of ``k`` all escapes."""
+        c = {k: v.clone() for k, v in c.items()}
+        esc_e = next(e for e in range(256) if e not in cb.exponents)
+        bits = (torch.arange(1024, device=device, dtype=torch.int32) % 128) | (esc_e << 7)
+        C.signed_view(c["k"].view(torch.uint16)).reshape(-1)[:1024] = \
+            bits.to(torch.int16)
+        return c
+
+    runs, delivered = {}, {}
+    for label, kw in (("n1", dict(n_chunks=1)), ("n8", dict(n_chunks=8)),
+                      ("raw", dict(enabled=False)), ("escape", dict(n_chunks=1))):
+        src = cache if label != "escape" else (
+            heavy(cache) if rank == 0 else cache)
+        plan = TransferPlan.build(src, TransferConfig(codebook=cb, backend="cuda",
+                                                      **kw), mesh=mesh)
+        sess = plan.session(device=device)
+        sess.transfer(src if rank == 0 else None)   # warm: loads, pinned sizes
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, launches = counted(sess.transfer, src if rank == 0 else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        st = sess.last_stats
+        runs[label] = dict(
+            _comm(sess, seconds), n_chunks=max(1, plan.n_chunks),
+            raw_bytes=plan.raw_bytes(), wire_bytes=st.wire_bytes,
+            ratio=plan.raw_bytes() / st.wire_bytes,
+            retry_steps=st.n_retry_steps, all_ok=st.all_ok,
+            launches={k: launches[k] for k in KERNELS})
+        if rank == 1:
+            delivered[label] = got
+    if rank == 0:
+        tokens, _ = decode_loop(params, first_token,
+                                DecodeState(cache=cache, cache_len=cache_len),
+                                cfg, NEW_TOKENS)
+        tokens = [tokens.cpu()]
+    else:
+        tokens = [None]
+        ref = delivered["raw"]
+        for label in ("n1", "n8"):
+            if not _bits_equal_trees(delivered[label], ref):
+                raise AssertionError(f"mesh {label}: delivered != raw copy")
+        if not _bits_equal_trees(delivered["escape"], heavy(ref)):
+            raise AssertionError("mesh escape: delivered != sent")
+        decoded = {label: decode_loop(params, first_token,
+                                      DecodeState(cache=delivered[label],
+                                                  cache_len=cache_len),
+                                      cfg, NEW_TOKENS)[0].cpu()
+                   for label in ("n1", "n8", "raw")}
+    dist.broadcast_object_list(tokens, src=0)
+    if rank == 1:
+        for label, t in decoded.items():
+            if not torch.equal(t, tokens[0]):
+                raise AssertionError(f"mesh {label}: tokens differ from the "
+                                     "prefill rank's own")
+        out["tokens_equal"] = True
+    out["runs"] = runs
+    return out
+
+
+def _ring_tree(torch, shapes, treedef, device, seed, kind):
+    """Stacked (RING_RANKS, ...) contributions shaped like ``shapes`` plus
+    the forced-overflow leaf ``wide``, drawn from ``seed`` on the card."""
+    from repro_torch.core import tree as TR
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = RING_RANKS
+    leaves = []
+    for s in shapes:
+        if kind == "int":
+            x = torch.randint(-8, 8, (n,) + s, generator=gen, device=device)
+        else:
+            x = torch.randn((n,) + s, generator=gen, device=device) * 0.02
+        leaves.append(x.to(torch.bfloat16))
+    wide = torch.randn((n, RING_WIDE_ELEMS), generator=gen, device=device) * \
+        torch.exp2(torch.randint(-40, 40, (n, RING_WIDE_ELEMS), generator=gen,
+                                 device=device).float())
+    return {"params": TR.unflatten(treedef, leaves),
+            "wide": wide.to(torch.bfloat16)}
+
+
+def ring_rank(torch, rank, device):
+    """One rank of phase ``ring``: contributions shaped like smollm-135m's
+    parameter tree (and one wide leaf) through
+    ``grad_compress.compressed_cross_pod_mean`` on a 4-rank pod mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import grad_compress as GC
+
+    cfg = get_config(ARCH)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    flat, treedef = TR.flatten_with_path(params)
+    shapes = [tuple(x.shape) for _, x in flat]
+    del params, flat
+    mesh = make_mesh((RING_RANKS,), ("pod",))
+    n, i = RING_RANKS, rank
+    out = {"rank": rank, "elements_per_rank": sum(
+        int(torch.tensor(s).prod()) for s in shapes) + RING_WIDE_ELEMS}
+
+    def row0(tree):
+        return TR.unflatten(TR.flatten_with_path(tree)[1],
+                            [x[0] for x in TR.leaves(tree)])
+
+    def ring_order(x):
+        """Rank i's f32 sum in the ring's order: x_i, then x_{i-1}, ..."""
+        acc = x[i].float()
+        for h in range(1, n):
+            acc = acc + x[(i - h) % n].float()
+        return (acc / n).to(x.dtype)
+
+    for kind, seed in (("int", 11), ("normal", 12)):
+        grads = _ring_tree(torch, shapes, treedef, device, seed, kind)
+        cb = GC.calibrate_on_grads(row0(grads["params"]))
+        for compress in ((True, False) if kind == "int" else (True,)):
+            label = f"{kind}_{'comp' if compress else 'raw'}"
+            GC.compressed_cross_pod_mean(grads, mesh, cb, compress)   # warm
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, launches = counted(GC.compressed_cross_pod_mean, grads, mesh,
+                                     cb, compress)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            sess = next(s for s in GC._SESSIONS.values()
+                        if s.last_stats is GC.last_stats)
+            st = GC.last_stats
+            rec = dict(_comm(sess, seconds),
+                       hop_ms=[h * 1e3 for h in sess.last_comm.hop_s],
+                       wire_bytes_model=GC.cross_pod_wire_bytes(
+                           row0(grads), n_pod=n, compress=compress,
+                           codebook=cb),
+                       leaf_ok=st.leaf_ok, raw_refetches=st.raw_refetches,
+                       launches={k: launches[k] for k in KERNELS})
+            for x, m in zip(TR.leaves(grads), TR.leaves(mean)):
+                if not torch.equal(m.view(torch.int16),
+                                   ring_order(x).view(torch.int16)):
+                    raise AssertionError(f"ring {label}: != the ring-order "
+                                         "f32 sum")
+            if kind == "int":       # small integers: exact in any order
+                for x, m in zip(TR.leaves(grads["params"]),
+                                TR.leaves(mean["params"])):
+                    ref = torch.mean(x.float(), 0).to(x.dtype)
+                    if not torch.equal(m.view(torch.int16), ref.view(torch.int16)):
+                        raise AssertionError(f"ring {label}: != torch.mean")
+            else:
+                # rank 0's means against every rank's: in bf16 ulps, and
+                # against the f32 summation bound (each order's sum is
+                # within 3u·Σ|x| of the exact one, u = 2^-24; /n is exact;
+                # each side then rounds to bf16 once), which a sum that
+                # cancels can leave more than one ulp apart
+                def spread(pairs):
+                    worst, over1, beyond = 0, 0, 0
+                    for x, m in pairs:
+                        r0 = m.cpu().clone()
+                        dist.broadcast(r0, src=0)
+                        r0 = r0.to(device)
+                        key = lambda v: torch.where(v < 0, -(v & 0x7FFF), v)
+                        d = (key(m.view(torch.int16).int())
+                             - key(r0.view(torch.int16).int())).abs()
+                        worst = max(worst, int(d.max()))
+                        over1 += int((d > 1).sum())
+                        big = torch.maximum(m.float().abs(), r0.float().abs())
+                        ulp = ((big.to(torch.bfloat16).view(torch.int16) + 1)
+                               .view(torch.bfloat16).float() - big)
+                        sum_abs = x.float().abs().sum(0)
+                        bound = ulp.abs() + 6 * 2.0 ** -24 * sum_abs / n
+                        beyond += int(((m.float() - r0.float()).abs() > bound).sum())
+                    return worst, over1, beyond
+                (rec["max_ulps_vs_rank0"], rec["elements_over_1_ulp"],
+                 rec["elements_beyond_f32_bound"]) = spread(
+                    zip(TR.leaves(grads["params"]), TR.leaves(mean["params"])))
+                rec["wide_ulps_vs_rank0"] = spread(
+                    [(grads["wide"], mean["wide"])])[0]
+                if rec["elements_beyond_f32_bound"]:
+                    raise AssertionError(
+                        f"ring: {rec['elements_beyond_f32_bound']} elements "
+                        "differ across ranks by more than the f32 summation "
+                        "bound")
+            if compress and rec["leaf_ok"].get("wide", True):
+                raise AssertionError("ring: the wide leaf did not overflow")
+            out[label] = rec
+        del grads
+    return out
+
+
+def phase_mesh(torch, smi):
+    ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
+    src, dst = ranks
+    if src["prefill_launches"] != {"flash_attention": 30, "flash_attention_tc": 30}:
+        raise AssertionError(f"mesh prefill: flash launches {src['prefill_launches']}")
+    for label in ("n1", "n8", "escape"):
+        need_launches(f"mesh_{label} (source)", src["runs"][label]["launches"],
+                      ("encode_fused",))
+        need_launches(f"mesh_{label} (destination)", dst["runs"][label]["launches"],
+                      ("decode_fused",) if label != "escape" else ())
+    need_launches("mesh_escape (source)", src["runs"]["escape"]["launches"],
+                  ("encode_dense",))
+    need_launches("mesh_escape (destination)", dst["runs"]["escape"]["launches"],
+                  ("decode_dense",))
+    for r in ranks:
+        if r["runs"]["escape"]["retry_steps"] != 3 or not r["runs"]["escape"]["all_ok"]:
+            raise AssertionError(f"mesh escape: {r['runs']['escape']['retry_steps']}"
+                                 " retry steps, want 3 (cap, 2cap, 4cap, global)")
+        for label in ("n1", "n8", "raw"):
+            if r["runs"][label]["wire_bytes"] != src["runs"][label]["wire_bytes"]:
+                raise AssertionError(f"mesh {label}: the two ends count "
+                                     "different bytes")
+    emit(phase="mesh", nvidia_smi=smi, mesh=list(MESH_SHAPE), arch=ARCH,
+         batch=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, transport="gloo",
+         ranks=ranks, delivered_bitwise=True, tokens_equal=dst["tokens_equal"])
+    windows = {}
+    for label in ("n1", "n8", "escape"):
+        for side, r in (("src", src), ("dst", dst)):
+            windows[f"mesh_{label}_{side}"] = r["runs"][label]["launches"]
+    return windows
+
+
+def phase_ring(torch, smi):
+    ranks = run_ranks("ring_rank", RING_RANKS)
+    for r in ranks:
+        for label in ("int_comp", "normal_comp"):
+            need_launches(f"ring {label} rank {r['rank']}", r[label]["launches"],
+                          ("encode_fused", "decode_fused"))
+            if r[label]["raw_refetches"] != 1:
+                raise AssertionError(f"ring {label}: the wide leaf did not "
+                                     "re-run raw")
+    emit(phase="ring", nvidia_smi=smi, ranks_n=RING_RANKS, arch=ARCH,
+         transport="gloo", ranks=ranks, int_bitwise_mean=True,
+         normal_ring_order_bitwise=True)
+    return {f"ring_{label}": ranks[0][label]["launches"]
+            for label in ("int_comp", "normal_comp")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2343,6 +2741,9 @@ def main(argv=None) -> int:
     del vlm_cache
     torch.cuda.empty_cache()
     windows["audio"], flash[AUDIO_ARCH] = phase_audio(torch, device)
+    torch.cuda.empty_cache()
+    windows.update(phase_mesh(torch, smi))
+    windows.update(phase_ring(torch, smi))
     windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -2355,7 +2756,10 @@ def main(argv=None) -> int:
                       "verified_n8", "wire", "wire-verify", "wire_escapes",
                       "fp8_e5m2", "fp8_e4m3", "fleet_delta",
                       "fleet_resend", "minitron", "ssm", "hybrid", "vlm",
-                      "persist_save", "persist_load")
+                      "persist_save", "persist_load", "mesh_n1_src",
+                      "mesh_n1_dst", "mesh_n8_src", "mesh_n8_dst",
+                      "mesh_escape_src", "mesh_escape_dst", "ring_int_comp",
+                      "ring_normal_comp")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {

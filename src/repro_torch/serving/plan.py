@@ -26,7 +26,14 @@ exhaustion means the unconditional raw fallback.
 
 Leaves are walked in sorted-key order (:mod:`repro_torch.core.tree`), as JAX
 flattens dicts, so the folded stream and the per-leaf stats match the JAX
-package.  Only the local execution target is ported (no mesh).
+package.
+
+Execution targets: local (``mesh=None``) or a process mesh (``mesh=`` a
+``DeviceMesh`` with a ``"pod"`` dimension, :mod:`repro_torch.launch.mesh`).
+A mesh plan carries ``src_pod``/``dst_pod`` and one spec a leaf: a tuple
+naming a mesh dimension (or None) for each tensor dimension, the
+counterpart of a ``PartitionSpec``.  Mesh execution needs a stream backend
+(``torch``, ``cuda``): the collective executors ship the codec's streams.
 """
 
 from __future__ import annotations
@@ -39,11 +46,12 @@ import torch
 
 from repro_torch.core import codec as C
 from repro_torch.core import tree as TR
-from repro_torch.core.backend import CodecBackend, get_backend
+from repro_torch.core.backend import CodecBackend, WireBackend, get_backend
 from repro_torch.core.codebook import Codebook
 from repro_torch.core.pipeline import (CodecProfile, degraded_stage_times,
                                        expected_schedule_attempts,
                                        flowshop_makespan)
+from repro_torch.launch.mesh import mesh_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,22 +209,33 @@ class TransferPlan:
     backend: CodecBackend
     segments: Tuple[SegmentSpec, ...]   # chunked-granularity stream cuts
     stream_len: int                     # u16 elements folded into the stream
+    mesh: Any = None                    # DeviceMesh with a 'pod' dimension
+    src_pod: int = 0
+    dst_pod: int = 1
+    in_specs: Optional[Tuple[Tuple[Optional[str], ...], ...]] = None
 
     @classmethod
     def build(cls, cache_structure, tc: TransferConfig, mesh=None, *,
+              specs=None, src_pod: int = 0, dst_pod: int = 1,
               granularity: Optional[str] = None) -> "TransferPlan":
         """Resolve the full per-leaf policy from shapes + dtypes.
 
         ``cache_structure`` is a pytree of tensors (``meta`` tensors work:
         only ``.shape``/``.dtype`` are read).  ``granularity`` forces
         'chunked' (segment even when ``n_chunks == 1``) or 'tensor'; None
-        picks 'chunked' iff ``tc.n_chunks > 1``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh execution is not ported yet; build the plan with "
-                "mesh=None (local executors)")
+        picks 'chunked' iff ``tc.n_chunks > 1``.  ``mesh``: see the module
+        docstring; ``specs`` is one spec a leaf in leaf order (default
+        :meth:`_default_leaf_spec`)."""
         flat, treedef = TR.flatten_with_path(cache_structure)
         backend = get_backend(tc.backend)
+        if mesh is not None:
+            if isinstance(backend, WireBackend):
+                raise ValueError(
+                    f"backend {tc.backend!r} is host-side and cannot run on "
+                    "the mesh executor; use a stream backend ('torch', "
+                    "'cuda')")
+            if "pod" not in (mesh.mesh_dim_names or ()):
+                raise ValueError("mesh execution needs a 'pod' mesh axis")
         routes: List[LeafRoute] = []
         stream_len = 0
         for path, leaf in flat:
@@ -252,9 +271,54 @@ class TransferPlan:
                 stop = min(start + per, stream_len)
                 segments.append(SegmentSpec(start, stop,
                                             _resolve_cap(tc, stop - start)))
+        in_specs = None
+        if mesh is not None:
+            in_specs = (tuple(cls._default_leaf_spec(leaf, mesh)
+                              for _, leaf in flat) if specs is None
+                        else cls._check_specs(specs, routes, mesh))
         return cls(tc=tc, treedef=treedef, routes=tuple(routes),
                    backend=backend, segments=tuple(segments),
-                   stream_len=stream_len)
+                   stream_len=stream_len, mesh=mesh, src_pod=src_pod,
+                   dst_pod=dst_pod, in_specs=in_specs)
+
+    @staticmethod
+    def _default_leaf_spec(x, mesh) -> Tuple[Optional[str], ...]:
+        # cache leaves: (L, B, S, ...) — batch over data, replicated over
+        # pod/model (the prefill pod is the logical owner).  A mesh without
+        # a 'data' dimension replicates (the JAX spec reads mesh.shape
+        # ['data'] and raises there)
+        sizes = mesh_shape(mesh)
+        spec: List[Optional[str]] = [None] * len(x.shape)
+        if (len(x.shape) >= 2 and "data" in sizes
+                and x.shape[1] % sizes["data"] == 0):
+            spec[1] = "data"
+        return tuple(spec)
+
+    @staticmethod
+    def _check_specs(specs, routes, mesh):
+        """One spec a leaf, each padded with None to the leaf's rank; every
+        named dimension must exist and divide its tensor dimension."""
+        sizes = mesh_shape(mesh)
+        specs = tuple(tuple(s) for s in specs)
+        if len(specs) != len(routes):
+            raise ValueError(f"{len(specs)} specs for {len(routes)} leaves")
+        out = []
+        for spec, r in zip(specs, routes):
+            if len(spec) > len(r.shape):
+                raise ValueError(f"spec {spec} has more entries than leaf "
+                                 f"{r.key!r} has dimensions {r.shape}")
+            for d, name in enumerate(spec):
+                if name is None:
+                    continue
+                if name not in sizes:
+                    raise ValueError(f"spec {spec} names {name!r}, not a "
+                                     f"mesh dimension {tuple(sizes)}")
+                if r.shape[d] % sizes[name]:
+                    raise ValueError(f"leaf {r.key!r} dimension {d} "
+                                     f"({r.shape[d]}) does not divide over "
+                                     f"{name!r} ({sizes[name]})")
+            out.append(spec + (None,) * (len(r.shape) - len(spec)))
+        return tuple(out)
 
     # -- derived views -------------------------------------------------------
     @property
@@ -371,8 +435,10 @@ class TransferPlan:
         for r in self.routes:
             counts[r.route] = counts.get(r.route, 0) + 1
             bytes_[r.route] = bytes_.get(r.route, 0.0) + r.raw_bytes
+        target = ("local" if self.mesh is None
+                  else f"mesh(pod {self.src_pod}->{self.dst_pod})")
         lines = [f"TransferPlan[{self.granularity}, backend={self.backend.name}, "
-                 f"target=local, n_chunks={max(1, self.n_chunks)}]"]
+                 f"target={target}, n_chunks={max(1, self.n_chunks)}]"]
         for route in ("splitzip", "fp32_hilo", "fp8", "raw"):
             if route in counts:
                 lines.append(f"  {route:10s}: {counts[route]:3d} leaves, "

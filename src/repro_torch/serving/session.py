@@ -33,8 +33,25 @@ retry budget, and raise :class:`~repro_torch.core.wire.WireIntegrityError`
 when the corruption persists.  ``distributed/checkpoint.py`` is a thin
 wrapper over it.
 
-Not ported yet, and rejected with ``NotImplementedError`` rather than
-ignored: the ring collective, resharding and the mesh executor.
+**The collective executors** run across processes over
+``torch.distributed`` (gloo; :mod:`repro_torch.serving.collective` holds
+their bit-pinned wire and its host staging):
+
+* **mesh** (``plan.mesh``): every rank calls ``transfer(cache)``; each
+  slices its shard by the plan's specs, and the ranks of pod ``src_pod``
+  send their shards' streams to the ranks of pod ``dst_pod`` that share
+  their (data, model) coordinate, which decode them.  Tensor granularity
+  ships one message; chunked granularity drives ``ChunkSchedule`` with at
+  most two chunks in flight.  Unlike the JAX mesh executor, each shard
+  walks the capacity schedule on its concrete ``ok`` flag and falls back
+  to raw, so an overflowing shard arrives intact; source ranks decode
+  nothing; ``last_stats`` counts the bytes handed to ``torch.distributed``
+  (``last_comm`` the headers, staging and wire time).
+* **collective** (``ring_reduce(stacked)``): the rotating-ring all-reduce
+  over compressed streams; leaves whose hops overflowed anywhere re-run on
+  the raw ring.  ``training/grad_compress.py`` is a thin wrapper over it.
+* **reshard** (``reshard(tree, dst)``): the local wire hop, then placement
+  on ``dst``.
 """
 
 from __future__ import annotations
@@ -44,10 +61,12 @@ import json
 import os
 import shutil
 import tempfile
-from collections import OrderedDict
+import time
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import codec as C
 from repro_torch.core import tree as TR
@@ -55,7 +74,9 @@ from repro_torch.core.backend import (CodecBackend, WireBackend,
                                       WireCompressed, get_backend)
 from repro_torch.core.pipeline import ChunkSchedule
 from repro_torch.core.wire import WireIntegrityError, WireStats, fletcher32
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.serving import collective as CL
 from repro_torch.serving.faults import FaultChannel, resolve_faults
 from repro_torch.serving.plan import TransferPlan, TransferStats
 
@@ -74,12 +95,6 @@ class TransferIntegrityError(RuntimeError):
     """A wire unit could not be delivered intact within the attempt budget —
     every re-fetch, the terminal raw re-fetches included, failed
     verification.  Raised instead of ever decoding corrupt bytes."""
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet; the local tensor "
-        "and chunked executors are")
 
 
 def _backend_for(comp_obj, be: CodecBackend) -> CodecBackend:
@@ -357,6 +372,10 @@ class TransferSession:
         self.verify = verify
         self.retain_last = retain_last
         self.faults = resolve_faults(faults)
+        if plan.mesh is not None and (verify or self.faults is not None):
+            raise ValueError(
+                "verify/faults run on the host wire hop; the mesh path's "
+                "collective permute has no host-side frame to checksum")
         # the checksum-framed wire: active whenever faults are injected or
         # verification is on, so the plain hop pays nothing
         self._channel = (FaultChannel(self._object_checksum, self.faults)
@@ -374,6 +393,13 @@ class TransferSession:
         # (n_segments, per) comparison buffer of the segment shadows
         self._prefix_index: Optional[PrefixIndex] = None
         self._hit_buf: Optional[torch.Tensor] = None
+        # collective executors: the per-shard session of a mesh plan (its
+        # plan over the shard shapes), the ring's per-participant routes,
+        # and what the last call handed to torch.distributed
+        self._shard_session: Optional["TransferSession"] = None
+        self._shard_struct = None
+        self._ring_routes = None
+        self.last_comm: Optional[CL.CommStats] = None
 
     def _object_checksum(self, obj) -> int:
         """Fletcher-32 over any wire object: compressed streams, a wire
@@ -387,10 +413,12 @@ class TransferSession:
         structure validation for callers that already ran ``plan.matches``."""
         if self._staged is not None:
             raise RuntimeError("send() called twice without recv()")
-        if check:
+        if check and not (self.plan.mesh is not None and cache is None):
             self._check_structure(cache)
         self._uid += 1
-        if self.plan.granularity == "chunked":
+        if self.plan.mesh is not None:
+            self._staged = ("mesh", cache)
+        elif self.plan.granularity == "chunked":
             self._staged = ("chunked", self._send_chunked(cache))
         else:
             self._staged = ("tensor", self._send_tensor(cache))
@@ -405,31 +433,35 @@ class TransferSession:
                 "wire); build it with plan.session(verify=True) or faults=")
         self.verify = bool(verify)
 
-    def recv(self, verify: Optional[bool] = None):
+    def recv(self, select_dst: bool = True, verify: Optional[bool] = None):
         """Decode-side half: returns the reassembled cache pytree.
         ``verify=True`` enforces the checksum frames shipped by ``send``
         (re-fetch on mismatch), ``verify=False`` delivers without
-        enforcement, None keeps the session default."""
+        enforcement, None keeps the session default.  On a mesh plan this
+        runs the collective (see :meth:`_run_mesh` for ``select_dst``)."""
         if self._staged is None:
             raise RuntimeError("recv() called before send()")
         self._set_verify(verify)
         kind, payload = self._staged
         self._staged = None
-        if kind == "chunked":
+        if kind == "mesh":
+            out = self._run_mesh(payload, select_dst=select_dst)
+        elif kind == "chunked":
             out = self._recv_chunked(payload)
         else:
             out = self._recv_tensor(payload)
         self._account()
         return out
 
-    def transfer(self, cache, check: bool = True,
+    def transfer(self, cache, select_dst: bool = True, check: bool = True,
                  verify: Optional[bool] = None):
         """Fused send + recv.  The chunked path interleaves the stages on the
         explicit ``ChunkSchedule`` (encode t / ship t-1 / decode t-2); the
         result is bit-identical to split send()+recv().  ``verify=`` as on
-        ``recv``."""
+        ``recv``; ``select_dst`` as on :meth:`_run_mesh` (mesh plans; a
+        destination rank may pass ``cache=None``)."""
         self._set_verify(verify)
-        if self.plan.granularity == "chunked":
+        if self.plan.mesh is None and self.plan.granularity == "chunked":
             if self._staged is not None:
                 raise RuntimeError("transfer() called with a send() pending")
             if check:
@@ -439,7 +471,7 @@ class TransferSession:
             self._account()
             return out
         self.send(cache, check=check)
-        return self.recv()
+        return self.recv(select_dst=select_dst)
 
     def transfer_compressed(self, cache, check: bool = True,
                             verify: Optional[bool] = None):
@@ -447,9 +479,10 @@ class TransferSession:
         ``(comp, raw)`` in the ``encode_leaves`` key convention, after
         verified delivery when the session frames its wire.  Only the tensor
         path qualifies (chunked granularity re-segments leaves)."""
-        if self.plan.granularity == "chunked":
+        if self.plan.mesh is not None or self.plan.granularity == "chunked":
             raise ValueError(
-                "transfer_compressed requires the tensor path (n_chunks == 1)")
+                "transfer_compressed requires the local tensor path "
+                "(mesh=None, n_chunks == 1)")
         self._set_verify(verify)
         self.send(cache, check=check)
         _, payload = self._staged
@@ -467,10 +500,10 @@ class TransferSession:
         hop, no re-encode.  Returns the decoded cache, bit-identical to the
         original transfer's result; ``last_stats`` / ``total_wire_bytes``
         account the repeated hop like any other call."""
-        if self.plan.granularity == "chunked":
+        if self.plan.mesh is not None or self.plan.granularity == "chunked":
             raise ValueError(
-                "resend_last requires the tensor path (n_chunks == 1); "
-                "chunked transfers are not retained")
+                "resend_last requires the local tensor path (mesh=None, "
+                "n_chunks == 1); chunked/mesh transfers are not retained")
         if self._retained is None:
             raise RuntimeError(
                 "no retained transfer to re-send; build the session with "
@@ -527,10 +560,11 @@ class TransferSession:
         segments the destination already holds.  Chunked path only: delta
         granularity is the plan's codec-aligned segmentation.  Returns the
         index (idempotent; the first capacity wins)."""
-        if self.plan.granularity != "chunked":
+        if self.plan.mesh is not None or self.plan.granularity != "chunked":
             raise ValueError(
-                "prefix-delta transfer rides the chunked path (n_chunks > 1); "
-                "build the plan with granularity='chunked'")
+                "prefix-delta transfer rides the local chunked path "
+                "(mesh=None, n_chunks > 1); build the plan with "
+                "granularity='chunked'")
         if self._prefix_index is None:
             self._prefix_index = PrefixIndex(capacity_bytes)
         return self._prefix_index
@@ -710,6 +744,9 @@ class TransferSession:
         bytes.  Everything is written into a temporary directory beside
         ``path`` and renamed into place, so ``path`` is either absent or
         complete.  Returns ``path``; the accounting is in ``last_stats``."""
+        if self.plan.mesh is not None:
+            raise ValueError("save/load run on host files; build the plan "
+                             "with mesh=None")
         if check:
             self._check_structure(tree)
         self._uid += 1
@@ -785,6 +822,9 @@ class TransferSession:
         :class:`~repro_torch.core.wire.WireIntegrityError` after
         ``last_stats`` is published, and the caller
         (``distributed/checkpoint.py``) falls back to the previous step."""
+        if self.plan.mesh is not None:
+            raise ValueError("save/load run on host files; build the plan "
+                             "with mesh=None")
         plan, tc = self.plan, self.plan.tc
         device = resolve_device(self.device)
         self._uid += 1
@@ -880,12 +920,183 @@ class TransferSession:
                 stats.refetch_wire_bytes += float(len(blob))
         raise WireIntegrityError((ci,))
 
-    # -- executors that are not ported yet -------------------------------------
-    def ring_reduce(self, *args, **kwargs):
-        raise _not_ported("the ring collective (ring_reduce)")
+    # -- collective executor (compressed ring all-reduce) --------------------
+    def ring_reduce(self, stacked, *, axis: str = "pod", mean: bool = True,
+                    ratio: Optional[float] = None, check: bool = True):
+        """Rotating-ring compressed all-reduce over the mesh dimension
+        ``axis``: each participant's contribution circles the ring as a
+        compressed stream ((n - 1) hops: encode, send to ``i + 1``,
+        receive from ``i - 1``, decode, add in f32).  Input leaves carry a
+        leading ``axis``-stacked dimension and every rank passes the whole
+        stacked tree; rank ``i`` contributes its own row (the first of its
+        block, as the JAX body's ``lf[0]``).  Output leaves drop that
+        dimension, and each rank keeps its own f32 sum (the JAX output is
+        ``P()`` with ``check_vma=False``: device by device, not one
+        replicated value).
 
-    def reshard(self, *args, **kwargs):
-        raise _not_ported("resharding (reshard)")
+        Every hop counts its encode's ``ok``; the counts are summed over
+        the ring, and a leaf that falls short of n(n - 1) anywhere re-runs
+        on the raw, bit-pinned ring.  ``last_stats`` is the JAX package's
+        analytic ``_ring_stats`` (compressed hops priced at ``ratio``, else
+        raw); ``last_comm`` what this rank handed to ``torch.distributed``,
+        with the host time of each hop."""
+        plan = self.plan
+        if plan.mesh is None or axis not in (plan.mesh.mesh_dim_names or ()):
+            raise ValueError(f"ring_reduce needs a mesh plan with a "
+                             f"{axis!r} axis")
+        if check:
+            self._check_structure(stacked)
+        self._uid += 1
+        routes = self._ring_participant_routes(axis)
+        if any(r.route == "fp32_hilo" for r in routes):
+            raise ValueError(
+                "ring_reduce does not take the fp32 hi/lo route (build "
+                "the gradient plan with compress_fp32=False); fp32 "
+                "leaves ship raw, bit-pinned")
+        t0 = time.perf_counter()
+        n = mesh_shape(self.plan.mesh)[axis]
+        i = plan.mesh.get_local_rank(axis)
+        group = plan.mesh.get_group(axis)
+        comm = CL.CommStats(hop_s=[0.0] * (n - 1))
+        self.last_comm = comm
+        leaves = TR.leaves(stacked)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        link = CL.Link(group, device, comm)
+        xs = [leaf[i * (leaf.shape[0] // n)] for leaf in leaves]
+        books = {"splitzip": plan.tc.codebook, "fp8": plan.fp8_codebook}
+        sums, oks = [], []
+        for x, r in zip(xs, routes):
+            total, ok = self._ring_leaf(link, x, books.get(r.route), r.cap,
+                                        n, i)
+            sums.append(total)
+            oks.append(ok)
+        counts = torch.tensor(oks, dtype=torch.int64)
+        dist.all_reduce(counts, group=group)
+        failed = frozenset(j for j, c in enumerate(counts.tolist())
+                           if c != n * (n - 1))
+        for j in sorted(failed):
+            sums[j], _ = self._ring_leaf(link, xs[j], None, 0, n, i)
+        out = [((t / n) if mean else t).to(x.dtype) for t, x in zip(sums, xs)]
+        synchronize(device)
+        comm.seconds = time.perf_counter() - t0
+        self.last_stats = self._ring_stats(axis, ratio, failed)
+        self._account()
+        return TR.unflatten(plan.treedef, out)
+
+    def _ring_leaf(self, link: CL.Link, x: torch.Tensor, codebook, cap: int,
+                   n: int, i: int):
+        """One leaf around the ring: ``(f32 sum, hops whose encode held)``.
+        ``codebook=None`` is the raw ring.  The JAX order: ``acc = x``,
+        then ``acc += rotating`` a hop.  A stream that arrives with its
+        ``ok`` flag down is not decoded: the leaf re-runs raw anyway."""
+        tc, be = self.plan.tc, self.plan.backend
+        acc = x.to(torch.float32)
+        rotating, ok = x, 0
+        nxt, prv = (i + 1) % n, (i - 1) % n
+        for h in range(n - 1):
+            t0 = time.perf_counter()
+            if codebook is None:
+                rec, parts = CL.raw_unit(rotating)
+                ok += 1
+            else:
+                ct = be.encode(rotating, codebook, chunk=tc.chunk, cap=cap,
+                               layout=tc.layout)
+                ok += int(bool(be.ok(ct)))
+                rec, parts = CL.comp_unit(ct)
+            (got,), body = link.exchange(nxt, prv, [(rec, parts)], 1)
+            if got[0] == CL.RAW:
+                rotating = body.raw(tuple(x.shape), x.dtype)
+            else:
+                ct = body.comp(got, n=x.numel(), shape=tuple(x.shape),
+                               dtype=C.dtype_name(x.dtype),
+                               codebook=codebook, chunk=tc.chunk)
+                if bool(ct.ok):
+                    rotating = be.decode(ct).reshape(x.shape)
+            body.end_unit()
+            body.done()
+            acc = acc + rotating.to(torch.float32)
+            synchronize(x.device)
+            link.stats.hop_s[h] += time.perf_counter() - t0
+        return acc, ok
+
+    def _ring_participant_routes(self, axis: str):
+        """Per-participant routes: the plan was built over ``axis``-stacked
+        leaves, so re-resolve on the stripped shapes (the per-hop payloads)
+        — this is where ``tc.min_compress_elems`` bites."""
+        if self._ring_routes is None:
+            n = mesh_shape(self.plan.mesh)[axis]
+            local = []
+            for r in self.plan.routes:
+                if not r.shape or r.shape[0] % n:
+                    raise ValueError(
+                        f"ring_reduce leaf {r.key!r} has no leading "
+                        f"{axis}-divisible dimension (shape {r.shape})")
+                local.append(torch.empty(
+                    (r.shape[0] // n,) + r.shape[1:],
+                    dtype=C.dtype_from_name(r.dtype), device="meta"))
+            lp = TransferPlan.build(TR.unflatten(self.plan.treedef, local),
+                                    self.plan.tc, granularity="tensor")
+            self._ring_routes = lp.routes
+        return self._ring_routes
+
+    def _ring_stats(self, axis: str, ratio: Optional[float],
+                    failed: frozenset = frozenset()) -> TransferStats:
+        """Analytic per-call accounting for the collective executor, the
+        JAX package's: compressed hops at ``ratio`` (else raw), a failed
+        leaf's wasted compressed pass plus its raw re-run as a raw
+        re-fetch."""
+        hops = mesh_shape(self.plan.mesh)[axis] - 1
+        routes = self._ring_participant_routes(axis)
+        stats = TransferStats(chunk_wire_bytes=[], chunk_ok=[],
+                              raw_passthrough_bytes=0.0,
+                              n_elements=sum(r.n_elements for r in routes
+                                             if r.route != "raw"))
+        rho = ratio if ratio is not None else 1.0
+        for j, r in enumerate(routes):
+            if r.route == "raw":
+                stats.raw_passthrough_bytes += r.raw_bytes * hops
+            elif j in failed:
+                stats.leaf_wire_bytes[r.key] = r.raw_bytes / rho * hops
+                stats.leaf_ok[r.key] = False
+                stats.refetches += 1
+                stats.raw_refetches += 1
+                stats.refetch_wire_bytes += r.raw_bytes * hops
+            elif r.route == "fp8":
+                stats.fp8_wire_bytes += r.raw_bytes / rho * hops
+                stats.leaf_ok[r.key] = True
+            else:
+                stats.leaf_wire_bytes[r.key] = r.raw_bytes / rho * hops
+                stats.leaf_ok[r.key] = True
+        return stats
+
+    # -- reshard hop -----------------------------------------------------------
+    def reshard(self, tree, dst=None, *, check: bool = True,
+                verify: Optional[bool] = None):
+        """One reshard hop: encode every routed leaf, ship the streams
+        through this session's wire (integrity framing and re-fetches
+        included when the session carries ``verify=`` / ``faults=``),
+        decode, and place the result on ``dst``: None (where it decoded),
+        one device for every leaf, or a pytree of devices matching
+        ``tree`` (the counterpart of ``device_put`` onto shardings).
+        Bit-exact end to end."""
+        if self.plan.mesh is not None:
+            raise ValueError(
+                "reshard ships host-staged streams (the old mesh may not "
+                "exist anymore); build the plan with mesh=None")
+        self._set_verify(verify)
+        self.send(tree, check=check)
+        out = self.recv()
+        if dst is None:
+            return out
+        if isinstance(dst, (str, torch.device)):
+            return TR.unflatten(self.plan.treedef,
+                                [x.to(dst) for x in TR.leaves(out)])
+        devices = TR.leaves(dst)
+        if len(devices) != len(self.plan.routes):
+            raise ValueError(f"{len(devices)} devices for "
+                             f"{len(self.plan.routes)} leaves")
+        return TR.unflatten(self.plan.treedef,
+                            [x.to(d) for x, d in zip(TR.leaves(out), devices)])
 
     # -- internals -----------------------------------------------------------
     def _check_structure(self, cache) -> None:
@@ -1229,3 +1440,285 @@ class TransferSession:
         self.last_stats = stats
         return self._reassemble([decoded[i] for i in range(n)], lo,
                                 fp8_payload, raw)
+
+    # -- mesh ----------------------------------------------------------------
+    def _shard_plan_session(self) -> "TransferSession":
+        """The session over this rank's shard shapes, built once: the JAX
+        body re-resolves routing and segmentation on the per-shard views
+        (at trace time); here every rank resolves them from the plan, so a
+        destination rank needs no cache."""
+        if self._shard_session is None:
+            plan, sizes = self.plan, mesh_shape(self.plan.mesh)
+            local = [torch.empty(
+                tuple(d // sizes[a] if a is not None else d
+                      for d, a in zip(r.shape, spec)),
+                dtype=C.dtype_from_name(r.dtype), device="meta")
+                for r, spec in zip(plan.routes, plan.in_specs)]
+            self._shard_struct = TR.unflatten(plan.treedef, local)
+            lp = TransferPlan.build(self._shard_struct, plan.tc,
+                                    granularity=plan.granularity)
+            self._shard_session = TransferSession(lp, device=self.device)
+        return self._shard_session
+
+    def _slice_shard(self, cache):
+        """This rank's shard of every leaf, as ``shard_map`` hands it."""
+        mesh, sizes = self.plan.mesh, mesh_shape(self.plan.mesh)
+        out = []
+        for leaf, spec in zip(TR.leaves(cache), self.plan.in_specs):
+            for d, a in enumerate(spec):
+                if a is not None:
+                    size = leaf.shape[d] // sizes[a]
+                    leaf = leaf.narrow(d, mesh.get_local_rank(a) * size, size)
+            out.append(leaf.contiguous())
+        return TR.unflatten(self.plan.treedef, out)
+
+    def _run_mesh(self, cache, select_dst: bool = True):
+        """The pod-to-pod hop across processes.  Source ranks (pod
+        ``src_pod``) encode their shard down the capacity schedule (raw
+        fallback on exhaustion) and send it to the rank of pod ``dst_pod``
+        with their (data, model) coordinate; they decode nothing and
+        return None.  Destination ranks decode what arrives onto the
+        session's device and return, with ``select_dst=True``, the whole
+        cache (their pod's shards all-gathered over the non-pod
+        dimensions), else their own shard.  Ranks of other pods return
+        None.  ``last_stats``: the bytes handed to ``torch.distributed``
+        for each unit (the same on both ends); ``last_comm``: headers,
+        staging and wire time."""
+        plan = self.plan
+        if any(a == "pod" for spec in plan.in_specs for a in spec):
+            raise ValueError("mesh transfer specs shard over the data and "
+                             "model dimensions, not over 'pod'")
+        n_pod = mesh_shape(self.plan.mesh)["pod"]
+        if (plan.src_pod == plan.dst_pod
+                or not 0 <= min(plan.src_pod, plan.dst_pod)
+                or max(plan.src_pod, plan.dst_pod) >= n_pod):
+            raise ValueError(f"src_pod {plan.src_pod} and dst_pod "
+                             f"{plan.dst_pod} must be two pods of {n_pod}")
+        pod = plan.mesh.get_local_rank("pod")
+        self.last_stats = None
+        self.last_comm = comm = CL.CommStats()
+        if pod not in (plan.src_pod, plan.dst_pod):
+            return None
+        t0 = time.perf_counter()
+        loc = self._shard_plan_session()
+        chunked = loc.plan.granularity == "chunked"
+        group = plan.mesh.get_group("pod")
+        if pod == plan.src_pod:
+            if cache is None:
+                raise ValueError("a source rank passes the cache it sends")
+            shard = self._slice_shard(cache)
+            device = TR.leaves(shard)[0].device if plan.routes else "cpu"
+            link = CL.Link(group, device, comm)
+            send = self._mesh_send_chunked if chunked else self._mesh_send_tensor
+            records, out = send(loc, link, shard), None
+        else:
+            device = resolve_device(self.device)
+            link = CL.Link(group, device, comm)
+            recv = self._mesh_recv_chunked if chunked else self._mesh_recv_tensor
+            records, out = recv(loc, link)
+            if select_dst:
+                out = self._gather_pod(out, device, comm)
+        synchronize(device)
+        comm.seconds = time.perf_counter() - t0
+        comm.records = records
+        self.last_stats = _mesh_stats(loc.plan, records)
+        return out
+
+    def _mesh_send_tensor(self, loc, link: CL.Link, shard):
+        lp = loc.plan
+        scratch = TransferStats(chunk_wire_bytes=[], chunk_ok=[],
+                                raw_passthrough_bytes=0.0, n_elements=0)
+        comp, raw = encode_leaves(lp, shard, scheduled=True, stats=scratch)
+        steps = iter(scratch.chunk_retry_steps)
+        units = []
+        for leaf, r in zip(TR.leaves(shard), lp.routes):
+            if r.route == "raw":
+                rec, ps = CL.raw_unit(leaf)
+            else:
+                extra = next(steps)
+                key = r.key + "#hi" if r.route == "fp32_hilo" else r.key
+                if key not in comp:
+                    rec, ps = CL.raw_unit(leaf, CL.FALLBACK, extra)
+                else:
+                    rec, ps = CL.comp_unit(comp[key], extra)
+                    if r.route == "fp32_hilo":
+                        ps.append(raw[r.key + "#lo"])
+                        rec[4] += CL.nbytes(ps[-1:])
+            units.append((rec, ps))
+        link.wait(link.isend(self.plan.dst_pod, units))
+        return [rec for rec, _ in units]
+
+    def _mesh_recv_tensor(self, loc, link: CL.Link):
+        lp, tc = loc.plan, loc.plan.tc
+        records, body = link.recv(self.plan.src_pod, len(lp.routes))
+        comp: Dict[str, object] = {}
+        raw: Dict[str, torch.Tensor] = {}
+        for rec, r in zip(records, lp.routes):
+            if rec[0] != CL.COMP:
+                raw[r.key] = body.raw(r.shape, C.dtype_from_name(r.dtype))
+            elif r.route == "fp32_hilo":
+                comp[r.key + "#hi"] = body.comp(
+                    rec, n=r.n_elements, shape=r.shape, dtype="uint16",
+                    codebook=tc.codebook, chunk=tc.chunk)
+                raw[r.key + "#lo"] = body.raw(r.shape, torch.uint16)
+            else:
+                comp[r.key] = body.comp(
+                    rec, n=r.n_elements, shape=r.shape, dtype=r.dtype,
+                    codebook=lp.fp8_codebook if r.route == "fp8"
+                    else tc.codebook, chunk=tc.chunk)
+            body.end_unit()
+        body.done()
+        return records, decode_leaves(comp, raw, self._shard_struct,
+                                      lp.backend)
+
+    def _mesh_send_chunked(self, loc, link: CL.Link, shard):
+        """Per-chunk sends on ``ChunkSchedule``: encode chunk t while chunk
+        t-1 goes on the wire; at most two chunks in flight.  The sidecars
+        (fp32 lo halves, fp8 leaves, raw leaves) follow in one message."""
+        lp, n, dst = loc.plan, loc.plan.n_chunks, self.plan.dst_pod
+        scratch = loc._new_chunked_stats()
+        stream, lo, fp8_payload, raw = loc._chunked_sidecars(shard, scratch)
+        records, encoded, in_flight = [], {}, deque()
+        for enc_i, xfer_i, _ in ChunkSchedule(n).stages():
+            if 0 <= enc_i < n:
+                encoded[enc_i] = loc._encode_chunk(stream, enc_i)
+            if 0 <= xfer_i < n:
+                p = loc._ship_chunk(stream, xfer_i, encoded.pop(xfer_i),
+                                    scratch)
+                extra = scratch.chunk_retry_steps[xfer_i]
+                seg = lp.segments[xfer_i]
+                rec, parts = (CL.comp_unit(p, extra) if p is not None else
+                              CL.raw_unit(stream[seg.start:seg.stop],
+                                          CL.FALLBACK, extra))
+                if len(in_flight) == 2:
+                    link.wait(in_flight.popleft())
+                in_flight.append(link.isend(dst, [(rec, parts)]))
+                records.append(rec)
+        fp8_extra = iter(scratch.chunk_retry_steps[n:])
+        side = []
+        for r in lp.routes:
+            if r.route == "fp32_hilo":
+                rec, ps = CL.raw_unit(lo[r.key])
+            elif r.route == "fp8":
+                p, extra = fp8_payload[r.key], next(fp8_extra)
+                rec, ps = (CL.raw_unit(p, CL.FALLBACK, extra)
+                           if isinstance(p, torch.Tensor)
+                           else CL.comp_unit(p, extra))
+            elif r.route == "raw":
+                rec, ps = CL.raw_unit(raw[r.key])
+            else:
+                continue
+            side.append((rec, ps))
+        if side:
+            in_flight.append(link.isend(dst, side))
+        while in_flight:
+            link.wait(in_flight.popleft())
+        return records + [rec for rec, _ in side]
+
+    def _mesh_recv_chunked(self, loc, link: CL.Link):
+        lp, tc, n, src = loc.plan, loc.plan.tc, loc.plan.n_chunks, self.plan.src_pod
+        records, posted, decoded = [], {}, {}
+        for _, xfer_i, dec_i in ChunkSchedule(n).stages():
+            if 0 <= xfer_i < n:
+                (rec,) = link.recv_header(src, 1)
+                posted[xfer_i] = rec, link.irecv_body(src, [rec])
+            if 0 <= dec_i < n:
+                rec, pending = posted.pop(dec_i)
+                body = link.body(pending)
+                m = lp.segments[dec_i].n_elements
+                payload = (body.comp(rec, n=m, shape=(m,), dtype="uint16",
+                                     codebook=tc.codebook, chunk=tc.chunk)
+                           if rec[0] == CL.COMP
+                           else body.raw((m,), torch.uint16))
+                body.end_unit()
+                body.done()
+                decoded[dec_i] = loc._decode_chunk(None, dec_i, payload)
+                records.append(rec)
+        side_routes = [r for r in lp.routes
+                       if r.route in ("fp32_hilo", "fp8", "raw")]
+        lo: Dict[str, torch.Tensor] = {}
+        fp8_payload: Dict[str, object] = {}
+        raw: Dict[str, torch.Tensor] = {}
+        if side_routes:
+            side, body = link.recv(src, len(side_routes))
+            for rec, r in zip(side, side_routes):
+                dtype = C.dtype_from_name(r.dtype)
+                if r.route == "fp32_hilo":
+                    lo[r.key] = body.raw((r.n_elements,), torch.uint16)
+                elif r.route == "fp8" and rec[0] == CL.COMP:
+                    fp8_payload[r.key] = body.comp(
+                        rec, n=r.n_elements, shape=r.shape, dtype=r.dtype,
+                        codebook=lp.fp8_codebook, chunk=tc.chunk)
+                elif r.route == "fp8":
+                    fp8_payload[r.key] = body.raw(r.shape, dtype)
+                else:
+                    raw[r.key] = body.raw(r.shape, dtype)
+                body.end_unit()
+            body.done()
+            records += side
+        out = loc._reassemble([decoded[i] for i in range(n)], lo,
+                              fp8_payload, raw)
+        return records, out
+
+    def _gather_pod(self, shard, device, comm: CL.CommStats):
+        """A destination rank's whole cache: its pod's shards all-gathered
+        over every mesh dimension a leaf is split on."""
+        mesh = self.plan.mesh
+        out = []
+        for leaf, spec in zip(TR.leaves(shard), self.plan.in_specs):
+            for d, a in enumerate(spec):
+                if a is not None and mesh_shape(self.plan.mesh)[a] > 1:
+                    parts = CL.Link(mesh.get_group(a), device,
+                                    comm).all_gather(leaf)
+                    leaf = _cat_bits(parts, d)
+            out.append(leaf)
+        return TR.unflatten(self.plan.treedef, out)
+
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _cat_bits(parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat`` through same-width integer views (float8 and the
+    unsigned dtypes have no CPU concatenation of their own)."""
+    dtype = parts[0].dtype
+    if dtype == torch.bool:
+        return torch.cat(parts, dim)
+    w = _INT_OF_WIDTH[parts[0].element_size()]
+    return torch.cat([p.view(w) for p in parts], dim).view(dtype)
+
+
+def _mesh_stats(lp: TransferPlan, records) -> TransferStats:
+    """A mesh hop's accounting from its unit records (so both ends agree):
+    each unit's bytes as handed to ``torch.distributed``."""
+    n = lp.n_chunks
+    stats = TransferStats(chunk_wire_bytes=[0.0] * n, chunk_ok=[True] * n,
+                          raw_passthrough_bytes=0.0,
+                          n_elements=lp.stream_len if n else 0,
+                          chunk_retried=[False] * n,
+                          chunk_retry_steps=[0] * n)
+    it = iter(records)
+    for i in range(n):
+        kind, _, _, _, nb, extra = next(it)
+        stats.chunk_wire_bytes[i] = float(nb)
+        stats.chunk_ok[i] = kind == CL.COMP
+        stats.chunk_retried[i] = extra > 0
+        stats.chunk_retry_steps[i] = extra
+    for r in lp.routes:
+        if n and r.route == "splitzip":
+            continue                       # folded into the stream
+        kind, _, _, _, nb, extra = next(it)
+        nb, ok = float(nb), kind == CL.COMP
+        if r.route == "raw":
+            stats.raw_passthrough_bytes += nb
+        elif r.route == "fp32_hilo" and n:
+            stats.fp32_lo_wire_bytes += nb  # the lo sidecar; hi is folded
+        elif r.route == "fp8":
+            stats.fp8_wire_bytes += nb
+            _record_unit(stats, r.key, ok, extra)
+        else:
+            lo = 2.0 * r.n_elements if (ok and r.route == "fp32_hilo") else 0.0
+            stats.leaf_wire_bytes[r.key] = nb - lo
+            stats.fp32_lo_wire_bytes += lo
+            _record_unit(stats, r.key, ok, extra)
+    return stats

@@ -11,7 +11,8 @@ the analytic accounting: ``transfer_report`` (paper Fig. 3 / Fig. 4),
 :mod:`repro_torch.core.profile` (a calibrated ``profiles.json`` or the
 paper's figures).
 
-``transfer_cache_cross_pod`` (the mesh executor) is not ported and raises.
+``transfer_cache_cross_pod`` is the shim over a one-shot mesh plan; its
+JAX ``return_hlo`` (the lowered XLA program) has no counterpart and raises.
 """
 
 from __future__ import annotations
@@ -127,10 +128,24 @@ def transfer_cache_chunked(cache: Dict, tc: TransferConfig
     return out, stats
 
 
-def transfer_cache_cross_pod(*args, **kwargs):
-    raise NotImplementedError(
-        "mesh execution (transfer_cache_cross_pod) is not ported to the "
-        "PyTorch package yet; the local tensor and chunked executors are")
+def transfer_cache_cross_pod(cache, mesh, tc: TransferConfig,
+                             src_pod: int = 0, dst_pod: int = 1,
+                             return_hlo: bool = False, specs=None,
+                             select_dst: bool = True, device=None):
+    """One-shot mesh plan over ``torch.distributed``: ``TransferPlan.build(
+    cache, tc, mesh=mesh, specs=specs, src_pod=..., dst_pod=...).session(
+    device=device).transfer(cache, select_dst=select_dst)``, called on
+    every rank of ``mesh``.  ``tc.n_chunks > 1`` ships per-chunk streams,
+    at most two in flight; the result is bit-identical to the whole-tensor
+    hop.  ``return_hlo`` is JAX-only (there is no lowered program)."""
+    if return_hlo:
+        raise ValueError("return_hlo reads the lowered XLA program of the "
+                         "JAX mesh executor; the port runs eagerly and has "
+                         "none (see session.last_comm for its bytes)")
+    sess = TransferPlan.build(cache, tc, mesh=mesh, specs=specs,
+                              src_pod=src_pod, dst_pod=dst_pod).session(
+                                  device=device)
+    return sess.transfer(cache, select_dst=select_dst)
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,9 @@ def test_port_files_found():
     assert (PORT / "kernels" / "csrc" / "splitzip_decode.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "splitzip_attention.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").is_file()
-    for module in ("kernels/flash_attention.py", "models/moe.py"):
+    for module in ("kernels/flash_attention.py", "models/moe.py",
+                   "launch/mesh.py", "serving/collective.py",
+                   "training/grad_compress.py"):
         assert PORT / module in FILES, module
 
 

@@ -13,6 +13,7 @@ plans.  Also the one-shot transfer shims and the launcher's report line.
 import dataclasses
 import json
 import os
+import types
 
 import pytest
 
@@ -258,8 +259,12 @@ def test_engine_report_and_shims():
     for a, b in zip(jsegs, tsegs):
         np.testing.assert_array_equal(leaf_bytes(a), leaf_bytes(b))
     assert TT.raw_wire_bytes(tc) == JT.raw_wire_bytes(jc)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TT.transfer_cache_cross_pod(tc, None, tcfg)
+    with pytest.raises(ValueError, match="return_hlo"):
+        TT.transfer_cache_cross_pod(tc, None, tcfg, return_hlo=True)
+    no_pod = types.SimpleNamespace(mesh_dim_names=("data",),
+                                   mesh=torch.zeros(1))
+    with pytest.raises(ValueError, match="'pod' mesh axis"):
+        TT.transfer_cache_cross_pod(tc, no_pod, tcfg)
 
 
 def test_launcher_reports_the_profile(tmp_path, capsys):

@@ -10,6 +10,8 @@ accounting and capacity-schedule retry counts: whole-tensor and chunked
 ``global`` layout.  Inputs come from numpy with fixed seeds.
 """
 
+import types
+
 import pytest
 
 jax = pytest.importorskip("jax")
@@ -235,14 +237,18 @@ def test_unported_session_features_raise():
     jc, tc, cb, tcb_ = make_caches(heavy=False)
     _, tp = plans(jc, tc, cb, tcb_)
     sess = tp.session()
-    # the persistent executor (save/load) is ported; the collectives wait
-    for name in ("ring_reduce", "reshard"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(sess, name)()
+    # every executor is ported: the collectives refuse a local plan, and a
+    # mesh needs a 'pod' dimension
+    with pytest.raises(ValueError, match="needs a mesh plan with a 'pod'"):
+        sess.ring_reduce(tc)
+    with pytest.raises(ValueError, match="structure"):
+        sess.reshard({"k": tc["k"]}, None)
     for name in ("save", "load"):
         assert callable(getattr(sess, name))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TPL.TransferPlan.build(tc, tp.tc, mesh=object())
+    no_pod = types.SimpleNamespace(mesh_dim_names=("data",),
+                                   mesh=torch.zeros(1))
+    with pytest.raises(ValueError, match="'pod' mesh axis"):
+        TPL.TransferPlan.build(tc, tp.tc, mesh=no_pod)
     # compressed residency is ported: the engine builds, and refuses the
     # chunked streams its pool cannot page, as the JAX engine does
     cfg = get_config("smollm-135m").reduced()

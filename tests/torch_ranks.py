@@ -1,0 +1,240 @@
+"""Rank bodies for the port's multi-process tests (gloo on the CPU).
+
+Not a test module: ``tests/test_torch_{mesh,ring}.py`` spawn these with
+:func:`run_world`.  Each rank loads the JAX reference's ``.npz`` / ``.json``
+written by a JAX subprocess, runs the port's collective executors on the
+same inputs, asserts rank by rank, and writes a JSON summary the parent
+test reads.  Only torch, numpy and ``repro_torch`` are imported here, so
+a spawned rank never starts JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.core import backend as TB
+from repro_torch.core import tree as TR
+from repro_torch.core.codebook import Codebook
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.serving import collective as CL
+from repro_torch.serving.plan import TransferConfig, TransferPlan
+from repro_torch.serving.transfer import transfer_cache_cross_pod
+from repro_torch.training import grad_compress as GC
+
+_INT = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+_NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
+
+
+def run_world(fn, world: int, tmp_path: Path, *args, timeout: float = 180.0):
+    """Spawn ``world`` ranks of ``fn(rank, world, store, *args)`` and wait at
+    most ``timeout`` seconds; a rank's exception fails the caller."""
+    store = str(tmp_path / "store")
+    ctx = mp.start_processes(fn, args=(world, store) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{world}-rank world still running after "
+                               f"{timeout} s")
+
+
+def _init(rank: int, world: int, store: str) -> None:
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=90))
+
+
+def to_torch(bits: np.ndarray, dtype: str) -> torch.Tensor:
+    """JAX container bits (unsigned numpy) -> a torch tensor of ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(bits).view(_NP_INT[bits.dtype.itemsize]))
+    return t.view(getattr(torch, dtype))
+
+
+def as_bits(x: torch.Tensor) -> np.ndarray:
+    return x.contiguous().view(_INT[x.element_size()]).numpy()
+
+
+def _slice(x, spec, mesh, sizes):
+    for d, a in enumerate(spec):
+        if a is not None:
+            size = x.shape[d] // sizes[a]
+            x = x[(slice(None),) * d
+                  + (slice(mesh.get_local_rank(a) * size,
+                           (mesh.get_local_rank(a) + 1) * size),)]
+    return x
+
+
+def jax_permute_bytes(lp: TransferPlan, records) -> int:
+    """The bytes the JAX mesh body permutes for the same units.  Two pinned
+    differences a compressed unit: the JAX body ships its whole
+    fixed-capacity escape buffers (3 bytes a slot, 5 for the global
+    layout), where the port ships the used slots only; and XLA drops the
+    permutes of the escape counts and the ``ok`` flag (its decode reads
+    positions, not counts), which the port ships (4 bytes a row and 1):
+    the counts say which slots are used."""
+    if lp.n_chunks:
+        sizes = [s.n_elements for s in lp.segments] + [
+            r.n_elements for r in lp.routes
+            if r.route in ("fp32_hilo", "fp8", "raw")]
+    else:
+        sizes = [r.n_elements for r in lp.routes]
+    total = 0
+    for rec, n in zip(records, sizes):
+        total += rec[4]
+        if rec[0] == CL.COMP:
+            rows = 1 if rec[1] else -(-n // lp.tc.chunk)
+            total += (rows * rec[2] - rec[3]) * (5 if rec[1] else 3)
+            total -= 4 * rows + 1
+    return total
+
+
+def _count_decodes():
+    """Count every decode the torch backend runs in this process."""
+    calls = {"n": 0}
+    for name in ("decode", "decode_bits"):
+        orig = getattr(TB.TorchBackend, name)
+
+        def wrapped(self, comp, _orig=orig):
+            calls["n"] += 1
+            return _orig(self, comp)
+        setattr(TB.TorchBackend, name, wrapped)
+    return calls
+
+
+# ---------------------------------------------------------------------------
+# the mesh executor
+# ---------------------------------------------------------------------------
+
+def mesh_world(rank, world, store, ref_dir, shape, out_dir, noisy):
+    _init(rank, world, store)
+    try:
+        summary = _mesh_cases(shape, Path(ref_dir), noisy)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        dist.barrier()   # no rank tears its connections down under a peer
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cases(shape, ref_dir: Path, noisy: bool):
+    ref = np.load(ref_dir / "mesh.npz")
+    meta = json.loads((ref_dir / "mesh.json").read_text())
+    cb = Codebook.from_json(meta["codebook"])
+    group = "in_noisy" if noisy else "in"
+    cache = {k: to_torch(ref[f"{group}/{k}"], meta["dtypes"][group][k])
+             for k in meta["dtypes"][group]}
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    sizes = dict(zip(mesh.mesh_dim_names, shape))
+    name = "x".join(map(str, shape))
+    pod = mesh.get_local_rank("pod")
+    decodes = _count_decodes()
+    summary = {"pod": pod, "cases": {}, "specs": [
+        list(TransferPlan._default_leaf_spec(x, mesh)) for x in TR.leaves(cache)]}
+    for n_chunks in (1, 4):
+        key = f"{name}/n{n_chunks}" + ("noisy" if noisy else "")
+        tc = TransferConfig(codebook=cb, chunk=256, cap=16, n_chunks=n_chunks,
+                            compress_fp32=True)
+        plan = TransferPlan.build(cache, tc, mesh=mesh)
+        assert "target=mesh(pod 0->1)" in plan.describe()
+        sess = plan.session(device="cpu")
+        before = decodes["n"]
+        shard = sess.transfer(cache if pod == 0 else None, select_dst=False)
+        case = {"decodes": decodes["n"] - before,
+                "stats": dataclasses.asdict(sess.last_stats),
+                "sent": sess.last_comm.sent_bytes,
+                "received": sess.last_comm.recv_bytes,
+                "jax_bytes": jax_permute_bytes(sess._shard_session.plan,
+                                               sess.last_comm.records)}
+        if pod == 0:
+            assert shard is None
+        else:
+            jax_equal = True
+            for (k, x), spec in zip(sorted(cache.items()), plan.in_specs):
+                got = as_bits(shard[k])
+                assert np.array_equal(got, as_bits(_slice(x, spec, mesh, sizes))), k
+                jax_out = torch.from_numpy(ref[f"out/{key}/{k}"].view(
+                    _NP_INT[x.element_size()]))
+                jax_equal &= np.array_equal(
+                    got, _slice(jax_out, spec, mesh, sizes).contiguous().numpy())
+            case["jax_equal"] = jax_equal
+        # select_dst=True: the whole cache on every destination rank
+        whole = plan.session(device="cpu").transfer(
+            cache if pod == 0 else None, select_dst=True)
+        if pod == 0:
+            assert whole is None
+        else:
+            for k, x in cache.items():
+                assert np.array_equal(as_bits(whole[k]), as_bits(x)), k
+        summary["cases"][key] = case
+    if not noisy:
+        # the shim over a one-shot mesh plan: the same hop
+        tc = TransferConfig(codebook=cb, chunk=256, cap=16, compress_fp32=True)
+        out = transfer_cache_cross_pod(cache, mesh, tc, device="cpu")
+        assert (out is None) == (pod == 0)
+        if out is not None:
+            for k, x in cache.items():
+                assert np.array_equal(as_bits(out[k]), as_bits(x)), k
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the ring
+# ---------------------------------------------------------------------------
+
+def ring_world(rank, world, store, ref_dir, out_dir):
+    _init(rank, world, store)
+    try:
+        summary = _ring_cases(rank, Path(ref_dir))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        dist.barrier()   # no rank tears its connections down under a peer
+    finally:
+        dist.destroy_process_group()
+
+
+def _ring_cases(rank: int, ref_dir: Path):
+    ref = np.load(ref_dir / "ring.npz")
+    meta = json.loads((ref_dir / "ring.json").read_text())
+    mesh = make_mesh((4,), ("pod",))
+
+    def tree(name):
+        return {k: to_torch(ref[f"in/{name}/{k}"], "bfloat16")
+                for k in meta["keys"][name]}
+
+    def same_as_jax(out, name):
+        for k, x in out.items():
+            assert np.array_equal(as_bits(x), ref[f"out/{name}/{k}"][rank]
+                                  .view(np.int16)), (name, k)
+
+    summary = {}
+    small = tree("small")
+    mean = {k: torch.mean(g.float(), 0).to(g.dtype) for k, g in small.items()}
+    for tag, kw in (("raw", {"compress": False}),
+                    ("comp", {"codebook": Codebook.from_json(meta["codebook"])})):
+        out = GC.compressed_cross_pod_mean(small, mesh, **kw)
+        same_as_jax(out, f"small/{tag}")
+        for k, x in out.items():
+            assert np.array_equal(as_bits(x), as_bits(mean[k])), k
+        summary[f"small/{tag}"] = dataclasses.asdict(GC.last_stats)
+    cb_n = Codebook.from_json(meta["codebook_normal"])
+    out = GC.compressed_cross_pod_mean(tree("normal"), mesh, codebook=cb_n)
+    same_as_jax(out, "normal")
+    summary["normal"] = dataclasses.asdict(GC.last_stats)
+    wide = tree("wide")
+    sess = TransferPlan.build(wide, TransferConfig(codebook=cb_n, chunk=256,
+                                                   cap=8),
+                              mesh=mesh, specs=(("pod",),) * 2).session()
+    out = sess.ring_reduce(wide, ratio=1.3)
+    same_as_jax(out, "wide")
+    summary["wide"] = dataclasses.asdict(sess.last_stats)
+    summary["wide_hops"] = len(sess.last_comm.hop_s)
+    summary["wide_sent"] = sess.last_comm.sent_bytes
+    return summary
