@@ -192,6 +192,31 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               rank 0's (the bf16 ulp spread reported); the wide leaf
               overflows and re-runs raw.  Per rank: ms a hop, bytes
               handed to gloo against ``cross_pod_wire_bytes``.
+8i. train   — training at smollm-135m's full width (30 x 576, 9/3 heads
+              x 64, vocab 49152, tied embeddings; weights and data from
+              the seed), batch 8 x 2048, AdamW with the launcher's
+              defaults, through ``launch/train.py``'s ``make_run``.  (a) One
+              process under ``torch.use_deterministic_algorithms`` (and
+              ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): 6 steps uninterrupted,
+              then a ``ResilientTrainer`` with a ``Checkpointer`` on the
+              card (a checkpoint every 3 steps, a crash injected at step 4):
+              every loss finite, the restored state bitwise the one saved
+              at step 3, the resumed losses and final state bitwise the
+              uninterrupted run's.  Step ms (first apart), tok/s, peak GB,
+              save and restore ms, raw and directory bytes, escapes a row
+              of the parameters and of the moments' hi halves, leaves that
+              took the global re-encode.  (b) Two gloo ranks on the card,
+              ``--grad-compress``, 4 sequences a rank: one step under the
+              launcher's default gradient codebook (window
+              ``train_ring_default``: its encodes and raw re-runs), then 2
+              steps under a codebook calibrated on that step's pod-0
+              gradients (window ``train_ring``: encode and decode must
+              launch): the ranks' parameters bitwise equal after each
+              step, each rank's averaged gradients bitwise the f32 mean of
+              both half-batch gradients computed in the rank, cast to
+              bf16; ring ms and its share of the step, bytes handed to
+              gloo beside ``cross_pod_wire_bytes``, leaves routed raw.  No
+              train window launches the flash kernel.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -223,7 +248,11 @@ its re-sends), the served resident decode of phases 6
 (``paged_gqa_attention``), 7 (``paged_mla_attention``) and 8d, the
 persistent executor's save and load (phase 8e), each mesh run on each of
 its two ranks and each compressed ring on rank 0 (phases 8g, 8h; counted
-inside the rank), and the served prefills of
+inside the rank), the training checkpoint's saves and restore and each
+step's gradient ring on rank 0 (phase 8i, ``train_save``,
+``train_restore``, ``train_ring``, ``train_ring_default``: the launcher's
+default gradient codebook; the train steps, counted apart in
+``train_steps``, launch no flash kernel), and the served prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
 tensor-core path, or the run fails); the checks around those runs are not
@@ -237,6 +266,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2606,6 +2636,434 @@ def ring_rank(torch, rank, device):
     return out
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2048, 3e-4
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 6, 3, 4
+TRAIN_RANKS, TRAIN_RING_STEPS = 2, 2
+
+
+def _deterministic(torch):
+    """Deterministic CUDA algorithms for this process (cuBLAS needs its
+    workspace configured before its first call).  ``warn_only``: an op
+    without a deterministic path warns, and the warnings are reported; the
+    bitwise gates then decide."""
+    import os
+    import warnings
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("always")
+
+
+def _nondeterministic_warnings(caught):
+    return sorted({str(w.message)[:160] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def _clone_state(state):
+    from repro_torch.core import tree as TR
+    return TR.unflatten(TR.flatten_with_path(state)[1],
+                        [x.clone() for x in TR.leaves(state)])
+
+
+def _escapes(torch, leaves, cb, chunk: int = 1024):
+    """Escapes a ``chunk``-element row under ``cb`` of bf16 leaves and of
+    f32 leaves' hi halves (an f32 value's exponent is its hi half's bf16
+    exponent), as the codec and the ``fp32_hilo`` route see them."""
+    book = torch.zeros(256, dtype=torch.bool, device=leaves[0].device)
+    book[list(cb.exponents)] = True
+    esc = rows = 0
+    for x in leaves:
+        view, shift = ((torch.int16, 7) if x.dtype == torch.bfloat16
+                       else (torch.int32, 23))
+        e = (x.reshape(-1).view(view).to(torch.int32) >> shift) & 0xFF
+        miss = torch.nn.functional.pad(~book[e.to(torch.int64)],
+                                       (0, (-x.numel()) % chunk))
+        esc += int(miss.sum())
+        rows += miss.numel() // chunk
+    return dict(escapes=esc, rows=rows, per_row=esc / rows)
+
+
+def train_attention(torch, cfg, device):
+    """One layer's training attention at the step's shapes, CUDA events:
+    ``chunked_attention`` forward alone (remat's first pass runs without
+    grad) and forward + backward (the recompute and the backward), beside
+    ``scaled_dot_product_attention`` (causal, GQA) forward + backward, the
+    library yardstick of a fused backward.  Bound: the causal half of
+    both products, forward and backward (2.5x forward), on the bf16
+    tensor cores, over the q/k/v/o and their gradients' bytes."""
+    from repro_torch.kernels.timing import cuda_ms
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16).requires_grad_(True)
+
+    q, k, v = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+    go = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            L.chunked_attention(q, k, v, causal=True, kv_block=min(s, 1024))
+
+    def fwd_bwd():
+        L.chunked_attention(q, k, v, causal=True,
+                            kv_block=min(s, 1024)).backward(go)
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        o.backward(go.transpose(1, 2))
+
+    torch.cuda.reset_peak_memory_stats()
+    f, fb, lib = cuda_ms(fwd, 3), cuda_ms(fwd_bwd, 3), cuda_ms(sdpa, 3)
+    flops = 3.5 * 2.0 * b * h * (s * s / 2) * 2 * d     # fwd + 2.5x fwd
+    nbytes = 2 * 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    bound, by = bound_ms(nbytes, flops, H100_BF16_OPS_PER_S)
+    return dict(geometry=dict(B=b, S=s, H=h, Hkv=hkv, d=d), chunked_fwd_ms=f,
+                chunked_fwd_bwd_ms=fb, per_layer_ms=f + fb,
+                sdpa_fwd_bwd_ms=lib, bound_ms=bound, bound_by=by,
+                peak_gb=_peak_gb(torch))
+
+
+def train_rank(torch, rank, device):
+    """Phase ``train`` (a): one process, 6 steps uninterrupted, then the
+    ``ResilientTrainer`` run with a crash at step 4 restored from the
+    step-3 checkpoint."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.distributed.fault_tolerance import (FaultConfig,
+                                                         ResilientTrainer)
+    from repro_torch.launch import train as LT
+
+    _deterministic(torch)
+    cfg = get_config(ARCH)
+    out = {"warnings": []}
+
+    def make():
+        return LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                           steps=TRAIN_STEPS, seed=0, device=device)
+
+    def recording(step_at, log):
+        def step_fn(state, i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, metrics), launches = counted(step_at, state, i)
+            loss = float(metrics["loss"])
+            log.append(dict(step=i, loss=loss, ms=(time.perf_counter() - t0) * 1e3,
+                            flash=launches["flash_attention"],
+                            grad_norm=float(metrics["grad_norm"]),
+                            lr=float(metrics["lr"])))
+            return state, metrics
+        return step_fn
+
+    with warnings.catch_warnings(record=True) as caught:
+        torch.cuda.reset_peak_memory_stats()
+        state0, step_at = make()
+        whole, snaps = [], {}
+
+        def keep(step, state):
+            snaps[step] = _clone_state(state)
+
+        def no_restore():
+            raise AssertionError("train: the uninterrupted run restored")
+
+        ResilientTrainer(recording(step_at, whole), keep, no_restore,
+                         FaultConfig(checkpoint_every=TRAIN_EVERY)).run(
+            state0, TRAIN_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del state0
+        at3 = snaps[TRAIN_EVERY]
+        escapes = {name: _escapes(torch, TR.leaves(tree), CKPT.CKPT_CODEBOOK)
+                   for name, tree in (("params_bf16", at3.params),
+                                      ("m_hi", at3.opt.m), ("v_hi", at3.opt.v))}
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=ROOT / "build"))
+        try:
+            state0, step_at = make()
+            ck = CKPT.Checkpointer(str(tmp), device=device)
+            saved, io, restored = {}, {"save": [], "restore": []}, []
+            save, restore = ck.save, ck.restore
+
+            def timed(kind, fn, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, launches = counted(fn, *args)
+                torch.cuda.synchronize()
+                io[kind].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                     launches={k: launches[k] for k in
+                                               (*KERNELS, "flash_attention")}))
+                return res
+
+            def ck_save(step, state, extra=None):
+                saved[step] = _clone_state(state)
+                return timed("save", save, step, state, extra)
+
+            def ck_restore(like, step=None):
+                res = timed("restore", restore, like, step)
+                restored.append(res)
+                return res
+
+            ck.save, ck.restore = ck_save, ck_restore
+            fired = set()
+
+            def crash(step):
+                if step == TRAIN_CRASH and step not in fired:
+                    fired.add(step)
+                    return "crash"
+                return None
+
+            resumed = []
+            report = ResilientTrainer(recording(step_at, resumed),
+                                      cfg=FaultConfig(checkpoint_every=TRAIN_EVERY),
+                                      fault_source=crash, checkpointer=ck).run(
+                state0, TRAIN_STEPS)
+            final = saved[TRAIN_STEPS]
+            # one traced step: device time by kernel, and the busy share
+            wall_ms, dev, _ = profiled(torch, lambda: step_at(_clone_state(final), 0))
+            busy_ms = sum(ms for ms, _, _ in dev)
+            out["traced_step"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                                      busy_share=busy_ms / wall_ms,
+                                      top_device=dev[:12])
+            raw_bytes = sum(x.numel() * x.element_size()
+                            for x in TR.leaves(saved[TRAIN_EVERY]))
+            dir_bytes = CKPT.checkpoint_bytes(str(tmp), TRAIN_EVERY)
+            stats = ck.stats
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["warnings"] = _nondeterministic_warnings(caught)
+    # the SDPA yardstick's backward (cuDNN) is not deterministic: timed
+    # outside the window whose warnings the phase reports
+    out["attention"] = train_attention(torch, cfg, device)
+    (r_state, _extra, r_step), = restored
+    if r_step != TRAIN_EVERY:
+        raise AssertionError(f"train: restored step {r_step}, want {TRAIN_EVERY}")
+    losses = [x["loss"] for x in whole + resumed]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    out["restored_bitwise_saved"] = _bits_equal_trees(r_state, saved[TRAIN_EVERY])
+    out["restored_bitwise_uninterrupted"] = _bits_equal_trees(
+        r_state, snaps[TRAIN_EVERY])
+    by_step = {x["step"]: x["loss"] for x in whole}
+    out["resumed_losses_bitwise"] = [x["loss"] for x in resumed] == \
+        [by_step[x["step"]] for x in resumed]
+    out["final_state_bitwise"] = _bits_equal_trees(final, snaps[TRAIN_STEPS])
+    if not (out["restored_bitwise_saved"] and out["restored_bitwise_uninterrupted"]
+            and out["resumed_losses_bitwise"] and out["final_state_bitwise"]):
+        raise AssertionError(f"train: crash/resume is not bitwise: "
+                             f"{ {k: v for k, v in out.items() if k != 'warnings'} }; "
+                             f"nondeterministic ops: {out['warnings']}")
+    steady = [x["ms"] for x in whole[1:]]
+    out.update(
+        steps=whole, resumed_steps=resumed,
+        report=dict(steps_completed=report.steps_completed,
+                    restarts=report.restarts, final_loss=report.final_loss),
+        first_step_ms=whole[0]["ms"], step_ms=statistics.median(steady),
+        step_ms_all=steady,
+        tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (statistics.median(steady) / 1e3),
+        peak_gb=peak_gb, save=io["save"], restore=io["restore"],
+        checkpoint_raw_bytes=raw_bytes, checkpoint_directory_bytes=dir_bytes,
+        checkpoint_ratio=raw_bytes / dir_bytes,
+        leaf_wire_bytes=stats.leaf_wire_bytes,
+        fp32_lo_wire_bytes=stats.fp32_lo_wire_bytes,
+        raw_passthrough_bytes=stats.raw_passthrough_bytes,
+        escapes=escapes,
+        global_reencodes_per_save=[s["launches"]["encode_dense"] for s in io["save"]],
+        flash_in_steps=sum(x["flash"] for x in whole + resumed))
+    return out
+
+
+def train_ring_rank(torch, rank, device):
+    """Phase ``train`` (b): one of two pods of ``--grad-compress`` training,
+    the global batch split across the ranks.  First one step as the
+    launcher runs it, under the default gradient codebook (the KV cache's
+    exponents 112-127): smollm's gradients at initialisation escape past
+    the ring's capacity there, every stream re-runs raw and nothing is
+    decoded (window ``train_ring_default``).  Then ``TRAIN_RING_STEPS``
+    steps of a fresh run under a codebook calibrated on pod 0's gradients
+    of that first step, which only a caller of ``make_run`` can hand the
+    ring (window ``train_ring``).  Every step: the rank's averaged
+    gradients against the f32 mean of both pods' half-batch gradients."""
+    import hashlib
+    import warnings
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+
+    _deterministic(torch)
+    cfg = get_config(ARCH)
+    mesh = make_mesh((TRAIN_RANKS,), ("pod",))
+    rings = []
+    orig = GC.compressed_cross_pod_mean_own
+
+    def ring(own, mesh_, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, launches = counted(lambda: orig(own, mesh_, **kw))
+        torch.cuda.synchronize()
+        rings.append(dict(ms=(time.perf_counter() - t0) * 1e3, launches=launches,
+                          own=own, mean=mean))
+        return mean
+
+    half = TRAIN_BATCH // TRAIN_RANKS
+    data = SyntheticTokenStream(cfg, ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                DataConfig(seed=0), device=device)
+
+    def run(codebook, n_steps):
+        """``n_steps`` of a fresh launcher run (seed 0): each step's record,
+        and pod 0's gradients of the first step (this rank's own on rank
+        0, the ones it computes for the other pod on rank 1)."""
+        book = {} if codebook is None else {"grad_codebook": codebook}
+        state, step_at = LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                     lr=TRAIN_LR, steps=n_steps, seed=0,
+                                     device=device, mesh=mesh, grad_compress=True,
+                                     **book)
+        records, pod0 = [], None
+        for i in range(n_steps):
+            before = state.params
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_at(state, i)
+            loss = float(metrics["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            r = rings[-1]
+            # the other pod's half-batch gradients, computed here
+            other = 1 - rank
+            batch = {k: v[other * half:(other + 1) * half]
+                     for k, v in data.batch_at(i).items()}
+            _, theirs = TS.value_and_grad(before, batch, cfg,
+                                          kv_block=min(TRAIN_SEQ, 1024))
+            if i == 0:
+                pod0 = r["own"] if rank == 0 else theirs
+            want = TR.unflatten(TR.flatten_with_path(theirs)[1], [
+                ((a.float() + b.float()) / TRAIN_RANKS).to(b.dtype)
+                for a, b in zip(TR.leaves(r["own"]), TR.leaves(theirs))])
+            bitwise = _bits_equal_trees(r["mean"], want) and all(
+                m.dtype == p.dtype for m, p in zip(TR.leaves(r["mean"]),
+                                                   TR.leaves(before)))
+            del theirs, before, want
+            sha = hashlib.sha256()
+            for x in TR.leaves(state.params):
+                sha.update(x.view(torch.int16).cpu().numpy().tobytes())
+            sess = next(s for s in GC._SESSIONS.values()
+                        if s.last_stats is GC.last_stats)
+            routes = sess.plan.routes
+            records.append(dict(
+                step=i, loss=loss, ms=ms, ring_ms=r["ms"],
+                ring_share=r["ms"] / ms, mean_bitwise=bitwise,
+                params_sha=sha.hexdigest(),
+                sent_bytes=sess.last_comm.sent_bytes,
+                recv_bytes=sess.last_comm.recv_bytes,
+                wire_bytes_model=GC.cross_pod_wire_bytes(
+                    r["own"], n_pod=TRAIN_RANKS, compress=True,
+                    codebook=codebook or GC.DEFAULT_GRAD_CODEBOOK),
+                leaf_ok=GC.last_stats.leaf_ok,
+                raw_refetches=GC.last_stats.raw_refetches,
+                routed_raw=[x.key for x in routes if x.route == "raw"],
+                routed_splitzip=sum(x.route == "splitzip" for x in routes),
+                launches={k: r["launches"][k] for k in (*KERNELS, "flash_attention")}))
+            del r["own"], r["mean"]
+        return records, pod0
+
+    GC.compressed_cross_pod_mean_own = ring
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            default, g0 = run(None, 1)
+            cb = GC.calibrate_on_grads(g0)
+            default_escapes, calibrated_escapes = (
+                {TR.leaf_key(p): _escapes(torch, [x], book)["per_row"]
+                 for p, x in TR.flatten_with_path(g0)[0]}
+                for book in (GC.DEFAULT_GRAD_CODEBOOK, cb))
+            del g0
+            steps, _ = run(cb, TRAIN_RING_STEPS)
+    finally:
+        GC.compressed_cross_pod_mean_own = orig
+    return dict(rank=rank, default_steps=default, steps=steps,
+                codebook=list(cb.exponents),
+                escapes_default_codebook=default_escapes,
+                escapes_calibrated=calibrated_escapes,
+                warnings=_nondeterministic_warnings(caught))
+
+
+def phase_train(torch, smi):
+    t0 = time.perf_counter()
+    (one,) = run_ranks("train_rank", 1)
+    single_s = time.perf_counter() - t0
+    for s in one["save"]:
+        need_launches("train_save", s["launches"], ("encode_fused",))
+    need_launches("train_restore", one["restore"][0]["launches"], ("decode_fused",))
+    ranks = run_ranks("train_ring_rank", TRAIN_RANKS)
+    ring_s = time.perf_counter() - t0 - single_s
+    if len({tuple(r["codebook"]) for r in ranks}) != 1:
+        raise AssertionError("train ring: the ranks calibrated different "
+                             "gradient codebooks")
+    for run in ("default_steps", "steps"):
+        for i in range(len(ranks[0][run])):
+            if len({r[run][i]["params_sha"] for r in ranks}) != 1:
+                raise AssertionError(f"train ring ({run}): the ranks' "
+                                     f"parameters differ after step {i}")
+            for r in ranks:
+                st = r[run][i]
+                if not st["mean_bitwise"]:
+                    raise AssertionError(
+                        f"train ring ({run}): rank {r['rank']} step {i}: the "
+                        "averaged gradients are not the f32 mean of the two "
+                        "half-batch gradients")
+                if not math.isfinite(st["loss"]):
+                    raise AssertionError(f"train ring: loss {st['loss']}")
+    # a stream is decoded only where its encode held, and a leaf that
+    # overflows anywhere re-runs raw.  Window ``train_ring`` is the
+    # calibrated run, both steps together: under this codebook only the
+    # norm leaves hold, at step 1 (PERF.md §6).  Window
+    # ``train_ring_default`` is the launcher's own step, reported: it
+    # encodes, and decodes nothing when every stream overflows.
+    for r in ranks:
+        for run, window in (("steps", "launches"),
+                            ("default_steps", "launches_default")):
+            r[window] = {k: sum(st["launches"][k] for st in r[run])
+                         for k in (*KERNELS, "flash_attention")}
+        need_launches(f"train_ring rank {r['rank']}", r["launches"],
+                      ("encode_fused", "decode_fused"))
+        need_launches(f"train_ring_default rank {r['rank']}",
+                      r["launches_default"], ("encode_fused",))
+    windows = {"train_save": one["save"][0]["launches"],
+               "train_restore": one["restore"][0]["launches"],
+               "train_ring": ranks[0]["launches"],
+               "train_ring_default": ranks[0]["launches_default"],
+               "train_steps": {"flash_attention": one["flash_in_steps"]}}
+    flash = {w: c.get("flash_attention", 0) for w, c in windows.items()}
+    flash.update({f"{w} rank {r['rank']}": r[key]["flash_attention"]
+                  for r in ranks for w, key in (("train_ring", "launches"),
+                                                ("train_ring_default",
+                                                 "launches_default"))})
+    if any(flash.values()):
+        raise AssertionError(f"train: the flash kernel launched in a train "
+                             f"window: {flash}")
+    emit(phase="train", nvidia_smi=smi, arch=ARCH, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, steps=TRAIN_STEPS,
+         checkpoint_every=TRAIN_EVERY, crash_at=TRAIN_CRASH,
+         single=one, ring=dict(ranks=ranks, ranks_n=TRAIN_RANKS,
+                               steps=TRAIN_RING_STEPS, default_steps=1,
+                               transport="gloo"),
+         seconds=dict(single=single_s, ring=ring_s,
+                      phase=time.perf_counter() - t0),
+         flash_launches=flash)
+    return {w: {k: c.get(k, 0) for k in (*KERNELS, "flash_attention")}
+            for w, c in windows.items()}
+
+
 def phase_mesh(torch, smi):
     ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
     src, dst = ranks
@@ -2744,6 +3202,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     windows.update(phase_mesh(torch, smi))
     windows.update(phase_ring(torch, smi))
+    windows.update(phase_train(torch, smi))
     windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -2759,7 +3218,8 @@ def main(argv=None) -> int:
                       "persist_save", "persist_load", "mesh_n1_src",
                       "mesh_n1_dst", "mesh_n8_src", "mesh_n8_dst",
                       "mesh_escape_src", "mesh_escape_dst", "ring_int_comp",
-                      "ring_normal_comp")
+                      "ring_normal_comp", "train_save", "train_restore",
+                      "train_ring", "train_ring_default")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {

@@ -1,10 +1,16 @@
-"""Minimal pytree helpers over nested dicts / lists / tuples of tensors.
+"""Minimal pytree helpers over nested dicts / lists / tuples / NamedTuples
+of tensors.
 
 JAX flattens dicts in SORTED key order; ``torch.utils._pytree`` keeps
 insertion order.  Everything that folds leaves into one stream or keys
 per-leaf accounting (``TransferPlan``, ``TransferSession``) must walk leaves
 in JAX's order, or the folded chunked stream and the per-leaf stats stop
 matching the JAX package bit for bit.  These helpers sort explicitly.
+
+A ``NamedTuple`` (the train state, ``TrainState(params, opt)``) flattens in
+field order with ``.<field>`` path components, JAX's ``GetAttrKey``, so a
+train state's leaf keys (``.params/embed``, ``.opt/.m/embed``) are the JAX
+package's, and :func:`unflatten` rebuilds the same ``NamedTuple`` type.
 """
 
 from __future__ import annotations
@@ -19,6 +25,10 @@ def _walk(node, path, out):
         keys = sorted(node)
         return ("dict", tuple(keys),
                 tuple(_walk(node[k], path + (k,), out) for k in keys))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return (type(node), None,
+                tuple(_walk(getattr(node, f), path + (f".{f}",), out)
+                      for f in node._fields))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
         return (kind, len(node),
@@ -50,7 +60,9 @@ def _build(d, it):
     if kind == "dict":
         return {k: _build(c, it) for k, c in zip(meta, children)}
     vals = [_build(c, it) for c in children]
-    return vals if kind == "list" else tuple(vals)
+    if kind == "list":
+        return vals
+    return tuple(vals) if kind == "tuple" else kind._make(vals)
 
 
 def unflatten(treedef, flat_leaves):
@@ -60,5 +72,6 @@ def unflatten(treedef, flat_leaves):
 
 def leaf_key(path) -> str:
     """Canonical path -> string key, the JAX package's ``leaf_key``:
-    dict keys joined with '/' (sequence entries as ``[i]``)."""
+    dict keys joined with '/' (sequence entries as ``[i]``, NamedTuple
+    fields as ``.<field>``)."""
     return "/".join(str(k) for k in path)

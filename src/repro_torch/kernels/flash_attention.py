@@ -192,7 +192,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       over (B, S, H), an expanded head axis through its zero stride.
 
     Either way an operand is made contiguous over the head dimension only
-    if it is not."""
+    if it is not.
+
+    Neither kernel has a backward: under grad, with an operand that
+    requires it, the wrapper raises (on either device) instead of
+    returning an output no gradient flows through.  Training computes
+    attention with ``models.layers.chunked_attention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() "
+            "or on tensors that do not require grad (training attends "
+            "through models.layers.chunked_attention)")
     b, sq, skv, h, hkv, d, dv = _shapes(q, k, v)
     win = _check_window(window, sq, skv)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(d))

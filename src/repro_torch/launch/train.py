@@ -1,0 +1,188 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Runs real optimizer steps: the config, the synthetic data stream, the train
+step, SplitZip-compressed checkpoints (``--ckpt-dir``, ``--ckpt-every``,
+``--resume``) and, across processes, the compressed cross-pod gradient
+mean (``--grad-compress``).  Runs on the card unless ``--device`` names
+another (``--device cpu`` runs the codec kernels' plain versions); without
+CUDA and without ``--device`` it raises.  Weights and data come from
+``--seed``.
+
+``--mesh N`` makes N pods, one process each, over gloo; it needs
+``--grad-compress`` and a launch by ``torchrun``, which sets ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch smollm-135m --reduced --mesh 2 --grad-compress
+
+Rank 0 prints and writes the checkpoints.  ``--mesh`` takes ``N`` or
+``N,D,M`` (pod, data, model), where the JAX launcher's last axis is the
+model axis: a data or model axis above 1 needs the GSPMD sharding policy,
+which has no counterpart here, and is refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig, get_config
+from repro_torch.core.codebook import Codebook
+from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.distributed import checkpoint as CKPT
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.training import grad_compress as GC
+from repro_torch.training import optimizer as OPT
+from repro_torch.training import train_step as TS
+from repro_torch.training.data import DataConfig, SyntheticTokenStream
+
+
+def opt_config(lr: float, steps: int) -> OPT.AdamWConfig:
+    """The launcher's AdamW: cosine over the run, a tenth of it warm-up."""
+    return OPT.AdamWConfig(lr=lr, total_steps=max(steps, 2),
+                           warmup_steps=max(steps // 10, 1))
+
+
+def parse_mesh(spec: str) -> int:
+    """``N`` or ``N,D,M`` -> the number of pods N; D and M must be 1."""
+    dims = tuple(int(x) for x in spec.split(","))
+    if len(dims) not in (1, 3) or any(d < 1 for d in dims):
+        raise SystemExit(f"--mesh {spec!r}: give N pods or N,D,M "
+                         "(pod, data, model)")
+    if len(dims) == 3 and dims[1:] != (1, 1):
+        raise SystemExit(
+            f"--mesh {spec!r}: a data or model axis (data parallelism within "
+            "a pod, tensor parallelism) needs the GSPMD sharding policy, "
+            "which this package does not have; use one process a pod")
+    return dims[0]
+
+
+def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
+             seed: int = 0, device: DeviceLike = None, mesh=None,
+             grad_compress: bool = False,
+             grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK):
+    """The launcher's training run: ``(state, step_at)`` with
+    ``step_at(state, step) -> (state, metrics)`` the train step on the
+    data stream's batch ``step``.  Parameters and data come from
+    ``seed``.  The launcher averages gradients under the default
+    gradient codebook; ``grad_codebook`` lets a caller hand the ring one
+    calibrated on its own gradients (``GC.calibrate_on_grads``)."""
+    device = resolve_device(device)
+    shape = ShapeConfig("cli", seq_len=seq, global_batch=batch, kind="train")
+    step_fn = TS.make_train_step(cfg, opt_config(lr, steps), mesh,
+                                 grad_compress=grad_compress,
+                                 grad_codebook=grad_codebook,
+                                 kv_block=min(seq, 1024))
+    data = SyntheticTokenStream(cfg, shape, DataConfig(seed=seed), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = TS.init_state(cfg, gen, device)
+
+    def step_at(state, step: int):
+        return step_fn(state, data.batch_at(step))
+
+    return state, step_at
+
+
+def _join_group(n_pod: int, device: Optional[str]):
+    """The process group of a ``torchrun`` launch and this rank's device."""
+    if "WORLD_SIZE" not in os.environ:
+        raise SystemExit(f"--mesh {n_pod} runs one process a pod: launch with "
+                         f"torchrun --nproc-per-node {n_pod}")
+    if not dist.is_initialized():
+        dist.init_process_group("gloo")
+    if dist.get_world_size() != n_pod:
+        raise SystemExit(f"--mesh {n_pod} needs {n_pod} processes; "
+                         f"torchrun started {dist.get_world_size()}")
+    if device is None and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    return make_mesh((n_pod,), ("pod",)), device
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family config (CPU scale)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--mesh", default="",
+                    help="N pods (one process each, under torchrun)")
+    ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    n_pod = parse_mesh(args.mesh) if args.mesh else 1
+    mesh, device = None, args.device
+    if n_pod > 1:
+        if not args.grad_compress:
+            raise SystemExit(
+                f"--mesh {n_pod} needs --grad-compress: pods average their "
+                "gradients through the compressed ring (there is no implicit "
+                "all-reduce here)")
+        mesh, device = _join_group(n_pod, device)
+    device = resolve_device(device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+
+    state, step_at = make_run(cfg, batch=args.batch, seq=args.seq, lr=args.lr,
+                              steps=args.steps, seed=args.seed, device=device,
+                              mesh=mesh, grad_compress=args.grad_compress)
+    # one Checkpointer for the run: its plan is built once for the state's
+    # structure, and every save and restore adds to one TransferStats
+    ckpt = CKPT.Checkpointer(args.ckpt_dir, device=device) \
+        if args.ckpt_dir else None
+    start_step = 0
+    if args.resume and ckpt and CKPT.latest_step(args.ckpt_dir) is not None:
+        state, _extra, start_step = ckpt.restore(state)
+        say(f"resumed from step {start_step}")
+
+    synchronize(device)
+    t0 = time.time()
+    for step in range(start_step, args.steps):
+        state, metrics = step_at(state, step)
+        if step % args.log_every == 0:
+            say(f"step {step:5d}  loss {float(metrics['loss']):.4f}  "
+                f"ce {float(metrics['ce']):.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"lr {float(metrics['lr']):.2e}", flush=True)
+        if ckpt and lead and (step + 1) % args.ckpt_every == 0:
+            path = ckpt.save(step + 1, state, extra={"arch": cfg.name})
+            say(f"checkpointed -> {path}")
+    synchronize(device)
+    dt = time.time() - t0
+    tok = (args.steps - start_step) * args.batch * args.seq
+    say(f"done: {args.steps - start_step} steps, "
+        f"{tok / max(dt, 1e-9):.0f} tok/s")
+    if ckpt is not None and lead:
+        s = ckpt.stats
+        say(f"checkpoint plane: {s.wire_bytes:.0f} wire bytes  "
+            f"refetches {s.refetches}  verify_failures {s.verify_failures}")
+    if args.grad_compress and GC.last_stats is not None:
+        g = GC.last_stats
+        say(f"gradient plane (per step): {g.wire_bytes:.0f} wire bytes  "
+            f"raw ring fallbacks {g.raw_refetches}")
+    if mesh is not None:
+        dist.barrier()   # no rank tears its connections down under a peer
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -96,8 +96,11 @@ def mla_scale(cfg: MLAConfig) -> float:
 
 
 def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
-                kv_block: int = 1024) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention; returns (out, (c_kv, k_rope)) latent cache."""
+                kv_block: int = 1024, attention=prefill_attention
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence attention through ``attention`` (prefill's, or
+    ``chunked_attention`` in training); returns (out, (c_kv, k_rope))
+    latent cache."""
     b, s, _ = x.shape
     h = p["wq_b"].shape[1]
     q_nope, q_rope = queries(p, x, positions, cfg, theta)
@@ -109,7 +112,7 @@ def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
                                                         cfg.qk_rope_head_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    o = prefill_attention(q, k, v, causal=True, kv_block=kv_block)
+    o = attention(q, k, v, causal=True, kv_block=kv_block)
     return _heads_out(o, p["wo"]), (c_kv, k_rope)
 
 

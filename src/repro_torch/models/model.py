@@ -14,8 +14,15 @@ blocks), with the JAX package's keys, shapes and init scales, so
 ``models/weights.params_from_jax`` maps one package's parameters onto the
 other's.  The layer stacks are Python loops (the JAX package scans them).
 
-Public API: init_params / embed_inputs / forward / prefill / decode_step /
-resident_decode_step / make_inputs.
+Training (:func:`loss_fn`) computes attention with
+``layers.chunked_attention`` under autograd, the function the JAX training
+path computes: the flash-attention kernel serves prefill and has no
+backward (its wrapper raises under grad).  ``remat=True`` recomputes each
+layer (each hybrid triple and extra block) in the backward pass
+(``torch.utils.checkpoint``), as the JAX forward checkpoints its scan steps.
+
+Public API: init_params / embed_inputs / forward / loss_fn / prefill /
+decode_step / resident_decode_step / make_inputs.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import kvpool as KVP
@@ -179,26 +187,69 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
-            collect_cache: bool = False, logits_positions: str = "all"):
+            remat: bool = False, collect_cache: bool = False,
+            logits_positions: str = "all", attention=L.prefill_attention):
     """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
 
     ``logits_positions='last'`` projects only the final position through the
-    LM head (prefill needs just the first sampled token)."""
+    LM head (prefill needs just the first sampled token).  ``attention`` is
+    the attention function of every attention layer (MLA's included):
+    ``layers.prefill_attention`` for serving, ``layers.chunked_attention``
+    for training.  ``remat`` checkpoints each layer, hybrid triple and extra
+    block."""
     x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
+    run = _remat if remat else _call
     if cfg.hybrid is not None:
         x, cache = _hybrid_forward(params, x, positions, cfg, kv_block,
-                                   collect_cache)
+                                   collect_cache, attention, run)
     elif cfg.ssm is not None:
-        x, cache = _ssm_forward(params, x, cfg, collect_cache)
+        x, cache = _ssm_forward(params, x, cfg, collect_cache, run)
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
-                                       collect_cache)
+                                       collect_cache, attention, run)
     if logits_positions == "last":
         x = x[:, -1:]
     return lm_logits(params, x, cfg), cache, aux
+
+
+def loss_fn(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
+            remat: bool = True, aux_weight: float = 0.01):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE balance
+    loss: ``(total, (ce, aux))``, the arithmetic of
+    ``repro.models.model.loss_fn`` (log-softmax in f32, the label
+    log-probabilities gathered, their negative mean).  A vision config
+    scores its text positions only.  Attention is
+    ``layers.chunked_attention``."""
+    logits, _, aux = forward(params, batch, cfg, kv_block=kv_block,
+                             remat=remat, attention=L.chunked_attention)
+    labels = batch["labels"]
+    if cfg.frontend == "vision_patches":
+        logits = logits[:, -labels.shape[1]:]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    loss = -torch.mean(ll)
+    return loss + aux_weight * aux, (loss, aux)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unstack(stacked: Dict, n: int) -> list:
+    """The ``n`` per-layer slices of a layer-stacked parameter dict, cut by
+    one ``unbind`` a leaf (its backward is one ``stack``, where ``n``
+    separate selects would each write a whole-stack gradient)."""
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _recurrent_fwd(sub, x, cfg: ArchConfig):
@@ -210,35 +261,41 @@ def _recurrent_fwd(sub, x, cfg: ArchConfig):
     return x + L.mlp(sub["mlp"], h2), st
 
 
+def _triple_fwd(tp, x, positions, cfg: ArchConfig, kv_block: int,
+                attention):
+    """One (rglru, rglru, local_attn) triple: (x, k, v, recurrent states)."""
+    rec = []
+    for j in range(2):
+        x, st = _recurrent_fwd(layer_params(tp["rec"], j), x, cfg)
+        rec.append(st)
+    ap = tp["attn"]
+    h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
+    q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=True, window=cfg.hybrid.window,
+                  kv_block=kv_block)
+    x = x + L.attention_out(ap["block"], o)
+    h2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
+    return x + L.mlp(ap["mlp"], h2), k, v, rec
+
+
 def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                    collect_cache: bool):
+                    collect_cache: bool, attention, run):
     """The (rglru, rglru, local_attn) triples, then the extra blocks.  The
     cache keeps each triple's last ``min(window, S)`` keys and values."""
     window = cfg.hybrid.window
     nt, ne = n_triples_extra(cfg)
     caches = []
-    for i in range(nt):
-        tp = layer_params(params["triples"], i)
-        rec = []
-        for j in range(2):
-            x, st = _recurrent_fwd(layer_params(tp["rec"], j), x, cfg)
-            rec.append(st)
-        ap = tp["attn"]
-        h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
-        o = L.prefill_attention(q, k, v, causal=True, window=window,
-                                kv_block=kv_block)
-        x = x + L.attention_out(ap["block"], o)
-        h2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
-        x = x + L.mlp(ap["mlp"], h2)
+    for tp in _unstack(params["triples"], nt):
+        x, k, v, rec = run(_triple_fwd, tp, x, positions, cfg, kv_block,
+                           attention)
         if collect_cache:
             w = min(window, k.shape[1])
             caches.append({"attn_k": k[:, -w:], "attn_v": v[:, -w:],
                            "rec_h": torch.stack([r["h"] for r in rec]),
                            "rec_conv": torch.stack([r["conv"] for r in rec])})
     extra = []
-    for i in range(ne):
-        x, st = _recurrent_fwd(layer_params(params["extra"], i), x, cfg)
+    for ep in _unstack(params["extra"], ne) if ne else ():
+        x, st = run(_recurrent_fwd, ep, x, cfg)
         extra.append(st)
     if not collect_cache:
         return x, None
@@ -255,14 +312,17 @@ def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
     return x, cache
 
 
-def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool):
+def _ssm_layer(lp, x, cfg: ArchConfig):
+    h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    out, st = SSM.mamba2_forward(lp["mixer"], h, cfg.ssm, cfg.d_model)
+    return x + out, st
+
+
+def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run):
     """The Mamba-2 layers; the cache is their final (ssm, conv) states."""
     ssms, convs = [], []
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        out, st = SSM.mamba2_forward(lp["mixer"], h, cfg.ssm, cfg.d_model)
-        x = x + out
+    for lp in _unstack(params["layers"], cfg.num_layers):
+        x, st = run(_ssm_layer, lp, x, cfg)
         if collect_cache:
             ssms.append(st.ssm)
             convs.append(st.conv)
@@ -271,25 +331,31 @@ def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool):
     return x, {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
 
 
+def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention):
+    """One transformer layer: (x, the cache entries k/v or ckv/krope, the
+    MoE aux loss or None)."""
+    h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if cfg.mla is not None:
+        attn_out, (k, v) = MLA.mla_prefill(lp["attn"], h, positions, cfg.mla,
+                                           cfg.rope_theta, kv_block=kv_block,
+                                           attention=attention)
+    else:
+        q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
+        o = attention(q, k, v, causal=not cfg.encoder_only, kv_block=kv_block)
+        attn_out = L.attention_out(lp["attn"], o)
+    x = x + attn_out
+    h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    ffn_out, layer_aux = ffn(lp, h2, cfg)
+    return x + ffn_out, k, v, layer_aux
+
+
 def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                   collect_cache: bool):
+                   collect_cache: bool, attention, run):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if cfg.mla is not None:
-            attn_out, (k, v) = MLA.mla_prefill(lp["attn"], h, positions, cfg.mla,
-                                               cfg.rope_theta, kv_block=kv_block)
-        else:
-            q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
-            o = L.prefill_attention(q, k, v, causal=not cfg.encoder_only,
-                                    kv_block=kv_block)
-            attn_out = L.attention_out(lp["attn"], o)
-        x = x + attn_out
-        h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        ffn_out, layer_aux = ffn(lp, h2, cfg)
-        x = x + ffn_out
+    for lp in _unstack(params["layers"], cfg.num_layers):
+        x, k, v, layer_aux = run(_dense_layer, lp, x, positions, cfg,
+                                 kv_block, attention)
         if layer_aux is not None:
             aux = aux + layer_aux
         if collect_cache:

@@ -1,4 +1,5 @@
-"""Parameters from the JAX package, as numpy, into the port's layout.
+"""Parameters and train states from the JAX package, as numpy, into the
+port's layout.
 
 Both packages keep the same nested-dict parameter tree with the same shapes,
 so the conversion is per-array: bf16 arrays (``ml_dtypes.bfloat16``, or
@@ -28,3 +29,16 @@ def params_from_jax(np_tree: Any, device=None) -> Any:
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, device) for k, v in np_tree.items()}
     return _tensor(np.asarray(np_tree), device)
+
+
+def train_state_from_jax(np_state: Any, device=None):
+    """Map a numpy copy of ``repro.training.train_step.TrainState``
+    (``params``, ``AdamWState(step int32, m f32, v f32)``) onto the port's
+    ``TrainState`` on ``device`` (default CPU), every leaf's bits kept."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_step import TrainState
+    params, (step, m, v) = np_state
+    return TrainState(params=params_from_jax(params, device),
+                      opt=AdamWState(step=_tensor(np.asarray(step), device),
+                                     m=params_from_jax(m, device),
+                                     v=params_from_jax(v, device)))

@@ -940,12 +940,44 @@ class TransferSession:
         analytic ``_ring_stats`` (compressed hops priced at ``ratio``, else
         raw); ``last_comm`` what this rank handed to ``torch.distributed``,
         with the host time of each hop."""
-        plan = self.plan
-        if plan.mesh is None or axis not in (plan.mesh.mesh_dim_names or ()):
-            raise ValueError(f"ring_reduce needs a mesh plan with a "
-                             f"{axis!r} axis")
+        self._ring_axis(axis)
         if check:
             self._check_structure(stacked)
+        self._ring_participant_routes(axis)
+        n = mesh_shape(self.plan.mesh)[axis]
+        i = self.plan.mesh.get_local_rank(axis)
+        return self._ring_reduce([leaf[i * (leaf.shape[0] // n)]
+                                  for leaf in TR.leaves(stacked)],
+                                 axis, mean, ratio)
+
+    def ring_reduce_own(self, own, *, axis: str = "pod", mean: bool = True,
+                        ratio: Optional[float] = None):
+        """``ring_reduce`` from this rank's own contribution alone, for a
+        plan stacked one row a participant: ``own`` has the plan's
+        structure without the leading ``axis`` dimension (the row
+        ``ring_reduce`` would read), so no stacked tree is built."""
+        self._ring_axis(axis)
+        routes = self._ring_participant_routes(axis)
+        flat, treedef = TR.flatten_with_path(own)
+        if treedef != self.plan.treedef or len(flat) != len(routes) or any(
+                (1,) + tuple(x.shape) != r.shape
+                or C.dtype_name(x.dtype) != r.dtype
+                for (_, x), r in zip(flat, routes)):
+            raise ValueError(
+                "ring_reduce_own: the tree is not one participant's row of "
+                "this TransferPlan's structure")
+        return self._ring_reduce([x for _, x in flat], axis, mean, ratio)
+
+    def _ring_axis(self, axis: str) -> None:
+        mesh = self.plan.mesh
+        if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"ring_reduce needs a mesh plan with a "
+                             f"{axis!r} axis")
+
+    def _ring_reduce(self, xs, axis: str, mean: bool,
+                     ratio: Optional[float]):
+        """The ring over this rank's contributions ``xs`` (leaf order)."""
+        plan = self.plan
         self._uid += 1
         routes = self._ring_participant_routes(axis)
         if any(r.route == "fp32_hilo" for r in routes):
@@ -954,15 +986,13 @@ class TransferSession:
                 "the gradient plan with compress_fp32=False); fp32 "
                 "leaves ship raw, bit-pinned")
         t0 = time.perf_counter()
-        n = mesh_shape(self.plan.mesh)[axis]
+        n = mesh_shape(plan.mesh)[axis]
         i = plan.mesh.get_local_rank(axis)
         group = plan.mesh.get_group(axis)
         comm = CL.CommStats(hop_s=[0.0] * (n - 1))
         self.last_comm = comm
-        leaves = TR.leaves(stacked)
-        device = leaves[0].device if leaves else torch.device("cpu")
+        device = xs[0].device if xs else torch.device("cpu")
         link = CL.Link(group, device, comm)
-        xs = [leaf[i * (leaf.shape[0] // n)] for leaf in leaves]
         books = {"splitzip": plan.tc.codebook, "fp8": plan.fp8_codebook}
         sums, oks = [], []
         for x, r in zip(xs, routes):

@@ -30,6 +30,7 @@ from repro_torch.core import tree as TR
 from repro_torch.core.codebook import (Codebook,
                                        DEFAULT_BF16_CODEBOOK as DEFAULT_GRAD_CODEBOOK)
 from repro_torch.core.profile import resolve_profile
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.serving.plan import TransferConfig, TransferPlan, TransferStats
 
 # Leaves smaller than this ship raw: codec framing would not pay for itself.
@@ -95,6 +96,28 @@ def compressed_cross_pod_mean(grads_stacked, mesh,
     device = leaves[0].device if leaves else None
     sess = _session(grads_stacked, mesh, codebook, compress, device)
     out = sess.ring_reduce(grads_stacked, axis="pod", mean=True)
+    last_stats = sess.last_stats
+    return out
+
+
+def compressed_cross_pod_mean_own(grads, mesh,
+                                  codebook: Codebook = DEFAULT_GRAD_CODEBOOK,
+                                  compress: bool = True):
+    """``compressed_cross_pod_mean`` from this rank's own pod gradients:
+    every rank of ``mesh`` passes its pod's row alone, since the ring reads
+    no other row of the stacked tree.  The plan and session are those of
+    the stacked tree (built from its shapes, on the meta device)."""
+    global last_stats
+    if "pod" not in (mesh.mesh_dim_names or ()):
+        return grads            # one pod: its gradients are the mean
+    n = mesh_shape(mesh)["pod"]
+    flat, treedef = TR.flatten_with_path(grads)
+    like = TR.unflatten(treedef, [
+        torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device="meta")
+        for _, x in flat])
+    device = flat[0][1].device if flat else None
+    sess = _session(like, mesh, codebook, compress, device)
+    out = sess.ring_reduce_own(grads, axis="pod", mean=True)
     last_stats = sess.last_stats
     return out
 

@@ -43,7 +43,9 @@ def test_port_files_found():
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").is_file()
     for module in ("kernels/flash_attention.py", "models/moe.py",
                    "launch/mesh.py", "serving/collective.py",
-                   "training/grad_compress.py"):
+                   "training/grad_compress.py", "training/optimizer.py",
+                   "training/data.py", "training/train_step.py",
+                   "distributed/elastic.py", "launch/train.py"):
         assert PORT / module in FILES, module
 
 
@@ -104,6 +106,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         DisaggregatedEngine(cfg, {}, DEFAULT_BF16_CODEBOOK)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "smollm-135m", "--reduced"])
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distributed import elastic as EL
+    from repro_torch.launch import train
+    from repro_torch.training.data import SyntheticTokenStream
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticTokenStream(cfg, ShapeConfig("t", 8, 1, "train"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EL.reshard({"w": torch.zeros(4)}, None,
+                   EL.MeshPlan((1,), ("data",), 0.0))
 
 
 def test_other_families_not_yet_ported():

@@ -238,3 +238,95 @@ def _ring_cases(rank: int, ref_dir: Path):
     summary["wide_hops"] = len(sess.last_comm.hop_s)
     summary["wide_sent"] = sess.last_comm.sent_bytes
     return summary
+
+
+def _keystr(path) -> str:
+    """A port tree path as JAX's ``keystr`` prints it."""
+    return "".join(c if c.startswith((".", "[")) else f"['{c}']" for c in path)
+
+
+def train_world(rank, world, store, ref_dir, out_dir):
+    _init(rank, world, store)
+    try:
+        summary, arrays = _train_case(rank, world, Path(ref_dir))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        if rank == 0:
+            np.savez(Path(out_dir) / "rank0.npz", **arrays)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_case(rank: int, world: int, ref_dir: Path):
+    """One ``grad_compress`` train step of the reduced smollm from the JAX
+    reference's state and batch; the ring's output is recorded and held
+    bitwise against the f32 mean of both pods' gradients computed here."""
+    import hashlib
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    ref = np.load(ref_dir / "gc.npz")
+    cfg = get_config("smollm-135m").reduced()
+    like = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    flat, treedef = TR.flatten_with_path(like)
+    leaves = []
+    for path, x in flat:
+        a = ref["state/" + _keystr(path)]
+        leaves.append(to_torch(a, "bfloat16") if x.dtype == torch.bfloat16
+                      else torch.from_numpy(np.array(a)))
+    state = TR.unflatten(treedef, leaves)
+    toks = torch.from_numpy(ref["tokens"])
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    mesh = make_mesh((world,), ("pod",))
+    seen = []
+    orig = GC.compressed_cross_pod_mean_own
+
+    def recording(own, *a, **k):
+        seen.append((own, orig(own, *a, **k)))
+        return seen[-1][1]
+
+    GC.compressed_cross_pod_mean_own = recording
+    try:
+        step = TS.make_train_step(
+            cfg, OPT.AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=1), mesh,
+            grad_compress=True, kv_block=32)
+        new, metrics = step(state, batch)
+    finally:
+        GC.compressed_cross_pod_mean_own = orig
+    ((own, avg),) = seen
+    # the own-row entry against the JAX-shaped one: rank r's row of a
+    # stacked tree whose other rows the ring never reads
+    own_stats = dataclasses.asdict(GC.last_stats)
+    stacked = TR.unflatten(TR.flatten_with_path(own)[1], [
+        torch.zeros((world,) + tuple(x.shape), dtype=x.dtype).index_copy(
+            0, torch.tensor([rank]), x[None]) for x in TR.leaves(own)])
+    via_stacked = GC.compressed_cross_pod_mean(stacked, mesh)
+    own_matches_stacked = all(
+        np.array_equal(as_bits(a), as_bits(b))
+        for a, b in zip(TR.leaves(avg), TR.leaves(via_stacked))) and \
+        dataclasses.asdict(GC.last_stats) == own_stats
+    half = batch["tokens"].shape[0] // world
+    pods = [TS.value_and_grad(state.params, {k: v[i * half:(i + 1) * half]
+                                             for k, v in batch.items()},
+                              cfg, kv_block=32)[1] for i in range(world)]
+    mean_bitwise = all(
+        np.array_equal(as_bits(g), as_bits((sum(p.float() for p in ps) / world)
+                                           .to(g.dtype)))
+        for g, *ps in zip(TR.leaves(avg), *(TR.leaves(p) for p in pods)))
+    sha = hashlib.sha256()
+    for x in TR.leaves(new.params):
+        sha.update(as_bits(x).tobytes())
+    arrays = {}
+    for path, x in TR.flatten_with_path(avg)[0]:
+        arrays["grads/" + _keystr(path)] = x.float().numpy()
+    for path, x in TR.flatten_with_path(new.params)[0]:
+        arrays["params/" + _keystr(path)] = x.float().numpy()
+    summary = dict(
+        loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+        lr=float(metrics["lr"]), leaf_ok=GC.last_stats.leaf_ok,
+        mean_bitwise=bool(mean_bitwise), params_sha=sha.hexdigest(),
+        own_matches_stacked=bool(own_matches_stacked),
+        grads_bf16=all(g.dtype == p.dtype for g, p in
+                       zip(TR.leaves(avg), TR.leaves(state.params))))
+    return summary, arrays
