@@ -217,6 +217,28 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               bf16; ring ms and its share of the step, bytes handed to
               gloo beside ``cross_pod_wire_bytes``, leaves routed raw.  No
               train window launches the flash kernel.
+8j. shard   — the sharding policy and the sharded train step
+              (``make_run(policy=)``) at smollm-135m's full width, batch
+              8 x 2048, ranks spawned over gloo on the one card.  (a) Mesh
+              (pod 1, data 2, model 1), 2 steps with ``fsdp`` on and off:
+              the gathered parameters and moments bitwise equal across
+              ranks and between the two runs, each rank's held bytes
+              equal to the spec arithmetic, and the FSDP run within
+              ``tests/test_torch_shard_train.py``'s bounds of the
+              single-process step on the same batches (rank 0); the
+              token lookup's gradient at the train batch within one bf16
+              rounding of an f32 sum (indexing's reported beside it).  Per
+              rank: held bytes, peak memory, step ms, gather / reduce ms
+              and bytes.  (b) Mesh (pod 2, data 2, model 1), FSDP, one
+              step with ``grad_compress`` under phase ``train``'s
+              calibrated gradient codebook: the data-reduced shards cross
+              pods through the compressed ring (window ``shard_ring``:
+              encode and decode must launch on rank 0), the four ranks'
+              gathered parameters bitwise equal.  (c) The
+              ``pd_disaggregated`` policy's ``cache_specs`` on (pod 2,
+              data 2) drive smollm's served cache pod 0 -> 1: every
+              destination shard bitwise the one its source sent; bytes
+              each rank hands to gloo.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -224,6 +246,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the resident path as phase 6 (32-token pages).  Peak device
               memory is reported per phase.  Each family's model is freed
               before the next is drawn.
+
+Then a ``timing`` line: each phase's host seconds (build included), so a
+run that grows shows where.  Each phase's seconds also go to standard error
+as it ends.
 
 Prefill attention runs the flash-attention kernel in every attention layer,
 on its tensor-core (wgmma) path for every served family.  Phase ``flash``
@@ -252,7 +278,9 @@ inside the rank), the training checkpoint's saves and restore and each
 step's gradient ring on rank 0 (phase 8i, ``train_save``,
 ``train_restore``, ``train_ring``, ``train_ring_default``: the launcher's
 default gradient codebook; the train steps, counted apart in
-``train_steps``, launch no flash kernel), and the served prefills of
+``train_steps``, launch no flash kernel), the sharded step's ring on rank
+0 and the policy-specified hop on a source and a destination rank (phase
+8j, ``shard_ring``, ``shard_hop_src``, ``shard_hop_dst``), and the served prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
 tensor-core path, or the run fails); the checks around those runs are not
@@ -291,6 +319,21 @@ LOGITS_BOUND = 0.12
 
 def emit(**obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: each phase's host seconds in this run, in the order the phases ran
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its host seconds kept under ``name`` and told on
+    standard error."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"chip_smoke: phase {name} {PHASE_SECONDS[name]:.3f} s",
+          file=sys.stderr, flush=True)
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -2329,15 +2372,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(body: str, world: int):
-    """``world`` processes of ``body(torch, rank, device)`` over gloo on the
-    one card (the kernels are built before, by the parent).  Each rank's
-    dict comes back through a queue; a rank that raises, or a world still
-    running after ``RANK_TIMEOUT_S``, fails the phase."""
+def run_ranks(body: str, world: int, *args):
+    """``world`` processes of ``body(torch, rank, device, *args)`` over gloo
+    on the one card (the kernels are built before, by the parent).  Each
+    rank's dict comes back through a queue; a rank that raises, or a world
+    still running after ``RANK_TIMEOUT_S``, fails the phase."""
     import torch.multiprocessing as mp
     q = mp.get_context("spawn").SimpleQueue()
     procs = mp.start_processes(
-        _rank_main, args=(world, f"tcp://localhost:{_free_port()}", body, q),
+        _rank_main, args=(world, f"tcp://localhost:{_free_port()}", body, q,
+                          args),
         nprocs=world, join=False, start_method="spawn")
     results = {}
     deadline = time.monotonic() + RANK_TIMEOUT_S
@@ -2360,7 +2404,7 @@ def run_ranks(body: str, world: int):
     return [results[r] for r in range(world)]
 
 
-def _rank_main(rank, world, addr, body, q):
+def _rank_main(rank, world, addr, body, q, args=()):
     from datetime import timedelta
 
     import torch
@@ -2372,7 +2416,8 @@ def _rank_main(rank, world, addr, body, q):
                             world_size=world,
                             timeout=timedelta(seconds=RANK_TIMEOUT_S))
     try:
-        q.put((rank, globals()[body](torch, rank, torch.device("cuda", 0))))
+        q.put((rank, globals()[body](torch, rank, torch.device("cuda", 0),
+                                     *args)))
         dist.barrier()   # no rank tears its connections down under a peer
     finally:
         dist.destroy_process_group()
@@ -2881,8 +2926,9 @@ def train_rank(torch, rank, device):
 
 
 def train_ring_rank(torch, rank, device):
-    """Phase ``train`` (b): one of two pods of ``--grad-compress`` training,
-    the global batch split across the ranks.  First one step as the
+    """Phase ``train`` (b): one of two pods of ``--mesh 2,1,1
+    --grad-compress`` training under the launcher's policy, the global
+    batch split across the ranks.  First one step as the
     launcher runs it, under the default gradient codebook (the KV cache's
     exponents 112-127): smollm's gradients at initialisation escape past
     the ring's capacity there, every stream re-runs raw and nothing is
@@ -2896,6 +2942,7 @@ def train_ring_rank(torch, rank, device):
 
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.core import tree as TR
+    from repro_torch.distributed.sharding import ShardingPolicy
     from repro_torch.launch import train as LT
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training import grad_compress as GC
@@ -2904,7 +2951,8 @@ def train_ring_rank(torch, rank, device):
 
     _deterministic(torch)
     cfg = get_config(ARCH)
-    mesh = make_mesh((TRAIN_RANKS,), ("pod",))
+    # the launcher's policy for --mesh TRAIN_RANKS,1,1
+    policy = ShardingPolicy(make_mesh((TRAIN_RANKS, 1, 1), MESH_AXES))
     rings = []
     orig = GC.compressed_cross_pod_mean_own
 
@@ -2928,8 +2976,8 @@ def train_ring_rank(torch, rank, device):
         book = {} if codebook is None else {"grad_codebook": codebook}
         state, step_at = LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                                      lr=TRAIN_LR, steps=n_steps, seed=0,
-                                     device=device, mesh=mesh, grad_compress=True,
-                                     **book)
+                                     device=device, policy=policy,
+                                     grad_compress=True, **book)
         records, pod0 = [], None
         for i in range(n_steps):
             before = state.params
@@ -2991,7 +3039,7 @@ def train_ring_rank(torch, rank, device):
     finally:
         GC.compressed_cross_pod_mean_own = orig
     return dict(rank=rank, default_steps=default, steps=steps,
-                codebook=list(cb.exponents),
+                codebook=list(cb.exponents), codebook_json=cb.to_json(),
                 escapes_default_codebook=default_escapes,
                 escapes_calibrated=calibrated_escapes,
                 warnings=_nondeterministic_warnings(caught))
@@ -3060,6 +3108,368 @@ def phase_train(torch, smi):
          seconds=dict(single=single_s, ring=ring_s,
                       phase=time.perf_counter() - t0),
          flash_launches=flash)
+    return {w: {k: c.get(k, 0) for k in (*KERNELS, "flash_attention")}
+            for w, c in windows.items()}, ranks[0]["codebook_json"]
+
+
+# ---------------------------------------------------------------------------
+# phase shard: the sharding policy and the sharded train step across ranks
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 2
+SHARD_FSDP_MESH, SHARD_RING_MESH = (1, 2, 1), (2, 2, 1)
+MESH_AXES = ("pod", "data", "model")
+# the sharded step against the single-process one, the bounds of
+# tests/test_torch_shard_train.py: loss, grad-norm rtol, and each leaf's
+# relative L2 norm for the parameters and the moments
+SHARD_CE_ATOL, SHARD_GN_RTOL, SHARD_PARAM_RTOL, SHARD_MOMENT_RTOL = \
+    2e-3, 5e-3, 5e-3, 5e-2
+
+
+def _sha_tree(torch, tree) -> str:
+    import hashlib
+
+    from repro_torch.core import tree as TR
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sha = hashlib.sha256()
+    for x in TR.leaves(tree):
+        sha.update(x.contiguous().view(width[x.element_size()]).cpu()
+                   .numpy().tobytes())
+    return sha.hexdigest()
+
+
+def _held(state):
+    from repro_torch.core import tree as TR
+    return {k: sum(x.numel() * x.element_size() for x in TR.leaves(t))
+            for k, t in (("params", state.params), ("m", state.opt.m),
+                         ("v", state.opt.v))}
+
+
+def _spec_bytes(like, policy):
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import train_step as TS
+    specs = TS.state_specs(policy, like)
+    return {k: SH.held_bytes(t, s, policy.sizes) for k, t, s in (
+        ("params", like.params, specs.params), ("m", like.opt.m, specs.opt.m),
+        ("v", like.opt.v, specs.opt.v))}
+
+
+def _comm_record():
+    from repro_torch.training import train_step as TS
+    return {k: dict(ms=c.seconds * 1e3, wire_ms=c.wire_s * 1e3,
+                    staging_ms=c.staging_s * 1e3, sent_bytes=c.sent_bytes,
+                    recv_bytes=c.recv_bytes)
+            for k, c in TS.last_comm.items()}
+
+
+def _sharded_steps(torch, step_at, state, n_steps):
+    """``n_steps`` of a placed run, each timed (host clock around a
+    synchronized step) and counted: ``(state, records, launches)``."""
+    records, total = [], {}
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, metrics), launches = counted(step_at, state, i)
+        torch.cuda.synchronize()
+        records.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3,
+                            **{k: float(v) for k, v in metrics.items()},
+                            comm=_comm_record()))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return state, records, total
+
+
+def shard_fsdp_rank(torch, rank, device):
+    """Phase ``shard`` (a): 2 ranks on mesh (pod 1, data 2, model 1),
+    smollm-135m at full width, batch 8 x 2048 (4 sequences a rank),
+    ``SHARD_STEPS`` steps through ``make_run(policy=)``, with ``fsdp`` on
+    and off.  Each run: the bytes this rank holds against the spec
+    arithmetic, peak memory, step ms, the gather / reduce traffic, the
+    gathered state's hash.  Rank 0 then runs the single-process step on
+    the same global batches and holds the FSDP run's gathered state to it
+    within the bounds of ``tests/test_torch_shard_train.py``."""
+    import warnings
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_step as TS
+
+    _deterministic(torch)
+    cfg = get_config(ARCH)
+    mesh = make_mesh(SHARD_FSDP_MESH, MESH_AXES)
+    like = TS.abstract_state(cfg)
+    out, keep = {"rank": rank, "runs": {}}, None
+    with warnings.catch_warnings(record=True) as caught:
+        for fsdp in (True, False):
+            policy = ShardingPolicy(mesh, fsdp=fsdp)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state, step_at = LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                         lr=TRAIN_LR, steps=SHARD_STEPS,
+                                         seed=0, device=device, policy=policy)
+            held = _held(state)
+            state, records, launches = _sharded_steps(torch, step_at, state,
+                                                      SHARD_STEPS)
+            peak = _peak_gb(torch)
+            t0 = time.perf_counter()
+            whole = TS.gather_state(state, policy, like)
+            torch.cuda.synchronize()
+            gather_ms = (time.perf_counter() - t0) * 1e3
+            out["runs"]["fsdp" if fsdp else "replicated"] = dict(
+                held=held, spec_bytes=_spec_bytes(like, policy),
+                steps=records, peak_gb=peak, launches=launches,
+                gather_state_ms=gather_ms, sha=_sha_tree(torch, whole))
+            if fsdp and rank == 0:
+                keep = whole
+            del state, whole, step_at
+        if rank == 0:
+            out["reference"] = _against_single(torch, cfg, keep,
+                                               out["runs"]["fsdp"]["steps"])
+            del keep
+            out["embedding_backward"] = _embedding_backward(torch, cfg, device)
+    out["warnings"] = _nondeterministic_warnings(caught)
+    return out
+
+
+def _embedding_backward(torch, cfg, device):
+    """The token lookup's backward at the train batch's tokens (a random
+    upstream gradient) against an f32 ``index_add_``, relative L2: the
+    model's lookup (``embed_inputs``: ``F.embedding``, which sums a
+    token's rows in f32 on the card) beside indexing (which sums them in
+    bf16)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+    tokens = SyntheticTokenStream(
+        cfg, ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        DataConfig(seed=0), device=device).batch_at(0)["tokens"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    w = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                     device=device) * 0.02).to(torch.bfloat16)
+    up = torch.randn(tuple(tokens.shape) + (cfg.d_model,), generator=gen,
+                     device=device).to(torch.bfloat16)
+    ref = torch.zeros(w.shape, device=device).index_add_(
+        0, tokens.reshape(-1).long(), up.reshape(-1, cfg.d_model).float())
+    out = {"top_token_count": int(torch.bincount(tokens.reshape(-1)).max())}
+    for name, look in (
+            ("lookup", lambda p: M.embed_inputs({"embed": p},
+                                                {"tokens": tokens}, cfg)),
+            ("indexing", lambda p: p[tokens])):
+        p = w.clone().requires_grad_(True)
+        (look(p).float() * up.float()).sum().backward()
+        out[name] = float(torch.linalg.vector_norm(p.grad.float() - ref)
+                          / torch.linalg.vector_norm(ref))
+    return out
+
+
+def _against_single(torch, cfg, sharded, steps):
+    """The single-process step (``make_run`` without a policy) on the same
+    batches against the sharded run: the bounds and the worst leaf."""
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import train as LT
+    device = TR.leaves(sharded)[0].device
+    state, step_at = LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 lr=TRAIN_LR, steps=SHARD_STEPS, seed=0,
+                                 device=device)
+    metrics = []
+    for i in range(SHARD_STEPS):
+        state, m = step_at(state, i)
+        metrics.append({k: float(v) for k, v in m.items()})
+    worst, leaf = {"params": 0.0, "moments": 0.0}, {}
+    for (path, a), b in zip(TR.flatten_with_path(state)[0], TR.leaves(sharded)):
+        if a.dim() == 0:
+            continue
+        a32, b32 = a.float(), b.float()
+        r = float(torch.linalg.vector_norm(a32 - b32)
+                  / torch.clamp(torch.linalg.vector_norm(a32), min=1e-30))
+        key = "params" if path[0] == ".params" else "moments"
+        if r >= worst[key]:
+            worst[key], leaf[key] = r, TR.leaf_key(path)
+    loss = max(abs(s["loss"] - m["loss"]) for s, m in zip(steps, metrics))
+    gn = max(abs(s["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
+             for s, m in zip(steps, metrics))
+    ok = (loss <= SHARD_CE_ATOL and gn <= SHARD_GN_RTOL
+          and worst["params"] <= SHARD_PARAM_RTOL
+          and worst["moments"] <= SHARD_MOMENT_RTOL
+          and all(s["lr"] == m["lr"] for s, m in zip(steps, metrics)))
+    return dict(ok=ok, loss_abs=loss, grad_norm_rel=gn,
+                params_rel_l2=worst["params"], moments_rel_l2=worst["moments"],
+                worst_leaf=leaf,
+                single_losses=[m["loss"] for m in metrics])
+
+
+def shard_mesh_rank(torch, rank, device, grad_book):
+    """Phase ``shard`` (b) and (c), 4 ranks on mesh (pod 2, data 2, model
+    1).  (b) One step of smollm-135m at full width, batch 8 x 2048 (2
+    sequences a rank), ``fsdp=True`` and ``grad_compress`` under the
+    gradient codebook phase ``train`` calibrates: the data-reduced shards
+    cross pods through the compressed ring (window ``shard_ring``, counted
+    in the rank).  (c) The ``pd_disaggregated`` policy's ``cache_specs``
+    drive smollm's served cache (B 8 x 2048, prefilled on both pod-0
+    ranks) pod 0 -> 1: each source sends its data shard, each destination
+    receives the shard of its data coordinate (windows ``shard_hop_src``
+    / ``shard_hop_dst``); the shards' hashes come back to the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.core.codebook import Codebook
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DisaggregatedEngine
+    from repro_torch.serving.plan import TransferConfig, TransferPlan
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training import train_step as TS
+
+    _deterministic(torch)
+    cfg = get_config(ARCH)
+    mesh = make_mesh(SHARD_RING_MESH, MESH_AXES)
+    pod, data = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
+    out = {"rank": rank, "pod": pod, "data": data}
+    # (b) the pod ring on the data-reduced shards
+    policy = ShardingPolicy(mesh, fsdp=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, step_at = LT.make_run(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, steps=1, seed=0,
+        device=device, policy=policy, grad_compress=True,
+        grad_codebook=Codebook.from_json(grad_book))
+    held = _held(state)
+    state, records, launches = _sharded_steps(torch, step_at, state, 1)
+    sess = next(s for s in GC._SESSIONS.values() if s.last_stats is GC.last_stats)
+    out["ring"] = dict(
+        held=held, spec_bytes=_spec_bytes(TS.abstract_state(cfg), policy),
+        steps=records, launches=launches, peak_gb=_peak_gb(torch),
+        leaf_ok=GC.last_stats.leaf_ok, raw_refetches=GC.last_stats.raw_refetches,
+        ring_sent_bytes=sess.last_comm.sent_bytes,
+        ring_recv_bytes=sess.last_comm.recv_bytes,
+        ring_ms=sess.last_comm.seconds * 1e3,
+        sha=_sha_tree(torch, TS.gather_state(state, policy,
+                                             TS.abstract_state(cfg))))
+    del state, step_at
+    torch.cuda.empty_cache()
+    # (c) the policy-specified mesh hop
+    policy = ShardingPolicy(mesh, pd_disaggregated=True)
+    if pod == 0:
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                               device)
+        book = [serve.calibrate_on_model(cfg, params, device=device, seed=1)
+                .to_json() if rank == 0 else None]
+    else:
+        book = [None]
+    dist.broadcast_object_list(book, src=0)
+    cb = Codebook.from_json(book[0])
+    if pod == 0:
+        prompt = serve.make_prompt(cfg, BATCH, PROMPT, device=device, seed=2)
+        eng = DisaggregatedEngine(cfg, params, cb, backend="cuda", device=device)
+        max_seq = serve.prompt_positions(cfg, prompt) + 1 + NEW_TOKENS
+        cache = eng.prefill(prompt, max_seq).state.cache
+        del eng, params
+        shapes = [(tuple(x.shape), str(x.dtype).split(".")[-1])
+                  for x in TR.leaves(cache)]
+    meta = [shapes if rank == 0 else None]
+    dist.broadcast_object_list(meta, src=0)
+    if pod != 0:
+        cache = {k: torch.empty(s, dtype=getattr(torch, d), device="meta")
+                 for k, (s, d) in zip(("k", "v"), meta[0])}
+    specs = policy.cache_specs(cache)
+    plan = TransferPlan.build(cache, TransferConfig(codebook=cb, backend="cuda"),
+                              mesh=mesh, specs=specs)
+    sess = plan.session(device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard, hop_launches = counted(lambda: sess.transfer(
+        cache if pod == 0 else None, select_dst=False))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mine = (TR.unflatten(plan.treedef, [
+        SH.shard_slice(x, s, mesh) for x, s in zip(TR.leaves(cache),
+                                                    plan.in_specs)])
+        if pod == 0 else shard)
+    st = sess.last_stats
+    out["hop"] = dict(
+        in_specs=[list(s) for s in plan.in_specs], sha=_sha_tree(torch, mine),
+        launches=hop_launches, ok=bool(all(st.leaf_ok.values())
+                                       and all(st.chunk_ok)),
+        wire_bytes=st.wire_bytes, raw_bytes=float(sum(
+            x.numel() * x.element_size() for x in TR.leaves(mine))),
+        **_comm(sess, seconds))
+    return out
+
+
+def phase_shard(torch, smi, grad_book):
+    t0 = time.perf_counter()
+    a = run_ranks("shard_fsdp_rank", SHARD_FSDP_MESH[1])
+    a_s = time.perf_counter() - t0
+    for tag in ("fsdp", "replicated"):
+        if len({r["runs"][tag]["sha"] for r in a}) != 1:
+            raise AssertionError(f"shard ({tag}): the ranks gathered "
+                                 "different states")
+    if a[0]["runs"]["fsdp"]["sha"] != a[0]["runs"]["replicated"]["sha"]:
+        raise AssertionError("shard: FSDP on and off are not bitwise equal")
+    for r in a:
+        for tag, run in r["runs"].items():
+            if run["held"] != run["spec_bytes"]:
+                raise AssertionError(f"shard ({tag}) rank {r['rank']}: holds "
+                                     f"{run['held']}, the specs give "
+                                     f"{run['spec_bytes']}")
+            for st in run["steps"]:
+                if not math.isfinite(st["loss"]):
+                    raise AssertionError(f"shard ({tag}): loss {st['loss']}")
+    if not a[0]["reference"]["ok"]:
+        raise AssertionError(f"shard: the sharded step left the single-process "
+                             f"step's bounds: {a[0]['reference']}")
+    if a[0]["embedding_backward"]["lookup"] > 2 ** -8:
+        raise AssertionError(f"shard: the token lookup's gradient is more than "
+                             f"one bf16 rounding from its f32 sum: "
+                             f"{a[0]['embedding_backward']}")
+    t1 = time.perf_counter()
+    bc = run_ranks("shard_mesh_rank", math.prod(SHARD_RING_MESH), grad_book)
+    bc_s = time.perf_counter() - t1
+    if len({r["ring"]["sha"] for r in bc}) != 1:
+        raise AssertionError("shard ring: the ranks' gathered parameters differ")
+    for r in bc:
+        if r["ring"]["held"] != r["ring"]["spec_bytes"]:
+            raise AssertionError(f"shard ring rank {r['rank']}: holds "
+                                 f"{r['ring']['held']}, the specs give "
+                                 f"{r['ring']['spec_bytes']}")
+    need_launches("shard_ring rank 0", bc[0]["ring"]["launches"],
+                  ("encode_fused", "decode_fused"))
+    src = {r["data"]: r for r in bc if r["pod"] == 0}
+    for r in bc:
+        if r["pod"] == 1 and r["hop"]["sha"] != src[r["data"]]["hop"]["sha"]:
+            raise AssertionError(f"shard hop: rank {r['rank']}'s shard is not "
+                                 "the one its source sent")
+        need_launches(f"shard_hop rank {r['rank']}", r["hop"]["launches"],
+                      ("encode_fused",) if r["pod"] == 0 else ("decode_fused",))
+    windows = {"shard_ring": bc[0]["ring"]["launches"],
+               "shard_hop_src": bc[0]["hop"]["launches"],
+               "shard_hop_dst": next(r for r in bc if r["pod"] == 1)["hop"]["launches"]}
+    flash = {f"{w} rank {r['rank']}": r[k]["launches"]["flash_attention"]
+             for r in bc for w, k in (("shard_ring", "ring"),)}
+    flash.update({f"shard_fsdp {tag} rank {r['rank']}":
+                  r["runs"][tag]["launches"]["flash_attention"]
+                  for r in a for tag in r["runs"]})
+    if any(flash.values()):
+        raise AssertionError(f"shard: the flash kernel launched in a train "
+                             f"window: {flash}")
+    emit(phase="shard", nvidia_smi=smi, arch=ARCH, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, transport="gloo",
+         fsdp=dict(mesh=list(SHARD_FSDP_MESH), steps=SHARD_STEPS, ranks=a,
+                   bitwise_on_off=True),
+         ring=dict(mesh=list(SHARD_RING_MESH), steps=1, fsdp=True,
+                   ranks=[dict(r["ring"], rank=r["rank"]) for r in bc]),
+         hop=dict(mesh=list(SHARD_RING_MESH), pd_disaggregated=True,
+                  ranks=[dict(r["hop"], rank=r["rank"], pod=r["pod"],
+                              data=r["data"]) for r in bc]),
+         seconds=dict(fsdp=a_s, ring_and_hop=bc_s,
+                      phase=time.perf_counter() - t0))
     return {w: {k: c.get(k, 0) for k in (*KERNELS, "flash_attention")}
             for w, c in windows.items()}
 
@@ -3159,51 +3569,59 @@ def main(argv=None) -> int:
                 if "registers" in ln or "bytes smem" in ln or "spill" in ln])
 
     cfg = get_config(ARCH)
-    records = phase_kernels(torch, cfg, device)
-    records.update(phase_attention(torch, device))
-    phase_flash(torch, device)
+    records = timed("kernels", phase_kernels, torch, cfg, device)
+    records.update(timed("attention", phase_attention, torch, device))
+    timed("flash", phase_flash, torch, device)
 
     # each main-path run is counted alone (``counted``): the served
     # transfer (phase 3, cuda n_chunks 1), the capacity walk (phase 4), and
     # the served resident decodes of each family (phases 6, 7 and 9); the
     # served prefills of phases 3, 7 and 9 count the flash-attention kernel
-    cb, first, params, prompt, main_runs, main_results = phase_main(
-        torch, cfg, device)
+    cb, first, params, prompt, main_runs, main_results = timed(
+        "main", phase_main, torch, cfg, device)
     windows = {"main": main_runs["cuda_n1"], "main_n8": main_runs["cuda_n8"],
-               "capacity": phase_capacity(torch, cfg, cb, first, device)}
+               "capacity": timed("capacity", phase_capacity, torch, cfg, cb,
+                                 first, device)}
     served = dict(raw_bytes=main_results["cuda_n1"]["raw_bytes"],
                   wire_bytes=main_results["cuda_n1"]["wire_bytes"],
                   leaf_rows=first.prefill.state.cache["k"].numel() // 1024)
-    windows["profile"], cal = phase_profile(torch, records, served, smi, device)
-    windows.update(phase_verified(torch, cfg, params, cb, prompt, first,
-                                  main_runs, device))
-    windows.update(phase_wire(torch, cfg, cb, first, smi, device))
-    windows.update(phase_fp8(torch, cb, first, device))
+    windows["profile"], cal = timed("profile", phase_profile, torch, records,
+                                   served, smi, device)
+    windows.update(timed("verified", phase_verified, torch, cfg, params, cb,
+                         prompt, first, main_runs, device))
+    windows.update(timed("wire", phase_wire, torch, cfg, cb, first, smi,
+                         device))
+    windows.update(timed("fp8", phase_fp8, torch, cb, first, device))
     del first
-    windows.update(phase_fleet(torch, cfg, params, cb, cal,
-                               main_results["cuda_n1"]["seconds"], smi, device))
+    windows.update(timed("fleet", phase_fleet, torch, cfg, params, cb, cal,
+                         main_results["cuda_n1"]["seconds"], smi, device))
     flash = {}
-    windows["resident"], flash[ARCH] = phase_resident(torch, cfg, params, cb,
-                                                      prompt, device)
-    windows["mla"], flash[MLA_ARCH] = phase_mla(torch, device)
-    windows["demotion"] = phase_demotion(torch, cfg, params, prompt, device)
+    windows["resident"], flash[ARCH] = timed(
+        "resident", phase_resident, torch, cfg, params, cb, prompt, device)
+    windows["mla"], flash[MLA_ARCH] = timed("mla", phase_mla, torch, device)
+    windows["demotion"] = timed("demotion", phase_demotion, torch, cfg,
+                                params, prompt, device)
     del params, cb, prompt
     torch.cuda.empty_cache()
-    windows["minitron"] = phase_minitron(torch, device)
-    windows["ssm"] = phase_ssm(torch, device)
-    windows["hybrid"], flash[HYBRID_ARCH] = phase_hybrid(torch, device)
+    windows["minitron"] = timed("minitron", phase_minitron, torch, device)
+    windows["ssm"] = timed("ssm", phase_ssm, torch, device)
+    windows["hybrid"], flash[HYBRID_ARCH] = timed("hybrid", phase_hybrid,
+                                                  torch, device)
     windows["vlm"], windows["vlm_resident"], flash[VLM_ARCH], vlm_cache, vlm_cb = \
-        phase_vlm(torch, device)
-    windows["persist_save"], windows["persist_load"] = phase_persist(
-        torch, vlm_cache, vlm_cb, device)
+        timed("vlm", phase_vlm, torch, device)
+    windows["persist_save"], windows["persist_load"] = timed(
+        "persist", phase_persist, torch, vlm_cache, vlm_cb, device)
     del vlm_cache
     torch.cuda.empty_cache()
-    windows["audio"], flash[AUDIO_ARCH] = phase_audio(torch, device)
+    windows["audio"], flash[AUDIO_ARCH] = timed("audio", phase_audio, torch,
+                                                device)
     torch.cuda.empty_cache()
-    windows.update(phase_mesh(torch, smi))
-    windows.update(phase_ring(torch, smi))
-    windows.update(phase_train(torch, smi))
-    windows["moe"], flash[MOE_ARCH] = phase_moe(torch, device)
+    windows.update(timed("mesh", phase_mesh, torch, smi))
+    windows.update(timed("ring", phase_ring, torch, smi))
+    train_windows, grad_book = timed("train", phase_train, torch, smi)
+    windows.update(train_windows)
+    windows.update(timed("shard", phase_shard, torch, smi, grad_book))
+    windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
     owner = {"encode_fused": "main", "decode_fused": "main",
@@ -3219,7 +3637,8 @@ def main(argv=None) -> int:
                       "mesh_n1_dst", "mesh_n8_src", "mesh_n8_dst",
                       "mesh_escape_src", "mesh_escape_dst", "ring_int_comp",
                       "ring_normal_comp", "train_save", "train_restore",
-                      "train_ring", "train_ring_default")
+                      "train_ring", "train_ring_default", "shard_ring",
+                      "shard_hop_src", "shard_hop_dst")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
@@ -3275,6 +3694,8 @@ def main(argv=None) -> int:
     for w in ("persist_save", "persist_load"):
         if not windows[w]["encode_fused" if w == "persist_save" else "decode_fused"]:
             raise AssertionError(f"{w}: the codec kernel never launched")
+    emit(phase="timing", seconds=dict(build=build_s, **PHASE_SECONDS,
+                                      total=time.perf_counter() - t_start))
     emit(kernels=list(records.values()), seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

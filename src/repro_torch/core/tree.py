@@ -70,6 +70,37 @@ def unflatten(treedef, flat_leaves):
     return _build(treedef, iter(flat_leaves))
 
 
+def _up_to(d, node, out):
+    if d == LEAF:
+        out.append(node)
+        return
+    kind, meta, children = d
+    if kind == "dict":
+        if not isinstance(node, dict) or tuple(sorted(node)) != meta:
+            raise ValueError(f"expected a dict with keys {meta}, got {node!r}")
+        for k, c in zip(meta, children):
+            _up_to(c, node[k], out)
+        return
+    if kind in ("list", "tuple"):
+        ok = isinstance(node, (list, tuple)) and len(node) == meta
+    else:
+        ok = isinstance(node, kind)
+    if not ok:
+        raise ValueError(f"expected a {kind} node, got {node!r}")
+    for c, v in zip(children, node):
+        _up_to(c, v, out)
+
+
+def flatten_up_to(treedef, tree) -> list:
+    """The subtrees of ``tree`` at ``treedef``'s leaf positions (JAX's
+    ``treedef.flatten_up_to``): a tree whose leaves are tuples (sharding
+    specs) read against the tree it describes.  Raises where the
+    structures differ."""
+    out: list = []
+    _up_to(treedef, tree, out)
+    return out
+
+
 def leaf_key(path) -> str:
     """Canonical path -> string key, the JAX package's ``leaf_key``:
     dict keys joined with '/' (sequence entries as ``[i]``, NamedTuple

@@ -19,6 +19,8 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import torch.distributed as dist
+
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import Codebook
 from repro_torch.core.wire import WireIntegrityError
@@ -51,11 +53,22 @@ class Checkpointer:
     drills run the re-read machinery production would.  ``device`` is where
     ``restore`` puts the leaves (default: the card).  ``stats`` aggregates
     the :class:`TransferStats` of every save and restore this manager ran
-    (re-reads of abandoned candidate steps included)."""
+    (re-reads of abandoned candidate steps included).
+
+    With ``placement`` (a :class:`~repro_torch.distributed.sharding.
+    Placement`, e.g. ``training/train_step.py:placement``) the trees are
+    this rank's shards: ``save`` gathers the whole tree on every rank
+    (each holds it briefly) and rank 0 writes it, so the directory is the
+    unsharded one (the
+    unsharded trainer and the JAX ``Checkpointer`` load it); ``restore``
+    loads the whole tree (``placement.like`` is the template) and returns
+    this rank's shards."""
 
     def __init__(self, directory: str, *, codebook: Codebook = CKPT_CODEBOOK,
-                 compress_fp32: bool = True, faults=None, device=None):
+                 compress_fp32: bool = True, faults=None, device=None,
+                 placement=None):
         self.directory = directory
+        self.placement = placement
         self.tc = TransferConfig(codebook=codebook, backend="wire",
                                  compress_fp32=compress_fp32)
         self.faults = faults
@@ -92,10 +105,32 @@ class Checkpointer:
         agg.leaf_ok.update(s.leaf_ok)
 
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> str:
-        """Atomically write the checkpoint of ``step``; returns its path."""
+        """Atomically write the checkpoint of ``step``; returns its path.
+        Under a placement every rank calls it: the state is gathered, rank
+        0 writes it, and every rank returns once that write is complete,
+        or raises at once if it failed."""
+        path = _step_dir(self.directory, step)
+        if self.placement is None:
+            return self._write(path, tree, extra)
+        tree = self.placement.gather(tree)
+        failed, error = [None], None
+        if dist.get_rank() == 0:
+            try:
+                self._write(path, tree, extra)
+            except Exception as e:      # every rank hears of it, then raises
+                failed, error = [f"{type(e).__name__}: {e}"], e
+        del tree
+        dist.broadcast_object_list(failed, src=0)
+        if error is not None:
+            raise error
+        if failed[0] is not None:
+            raise RuntimeError(f"checkpoint of step {step}: rank 0's write "
+                               f"failed: {failed[0]}")
+        return path
+
+    def _write(self, path: str, tree, extra: Optional[Dict]) -> str:
         sess = self._session(tree)
-        path = sess.save(_step_dir(self.directory, step), tree,
-                         extra=extra or {})
+        path = sess.save(path, tree, extra=extra or {})
         self._merge(sess.last_stats)
         return path
 
@@ -104,16 +139,21 @@ class Checkpointer:
         """Load ``step`` (default: the latest) bit for bit; on corruption
         (integrity failure past the session's re-read budget, missing
         files, structure drift) fall back to the previous checkpoint.
-        Returns ``(tree, extra, step_loaded)``."""
+        Returns ``(tree, extra, step_loaded)``; under a placement the tree
+        is this rank's shards, and ``tree_like`` is not read."""
         steps = steps_available(self.directory)
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        if self.placement is not None:
+            tree_like = self.placement.like
         sess = self._session(tree_like)
         candidates = [s for s in steps if step is None or s == step]
         for s in reversed(candidates):
             try:
                 tree, extra = sess.load(_step_dir(self.directory, s))
                 self._merge(sess.last_stats)
+                if self.placement is not None:
+                    tree = self.placement.shard(tree)
                 return tree, extra, s
             except (WireIntegrityError, TransferIntegrityError, OSError,
                     KeyError, ValueError):

@@ -103,8 +103,8 @@ def visible_devices() -> int:
 def reshard(state, old_mesh_plan: Optional[MeshPlan],
             new_mesh_plan: MeshPlan, *, device: DeviceLike = None,
             codebook: Codebook = DEFAULT_BF16_CODEBOOK,
-            compress_fp32: bool = True, faults=None, verify: bool = False
-            ) -> Tuple[Any, TransferStats]:
+            compress_fp32: bool = True, faults=None, verify: bool = False,
+            placement=None) -> Tuple[Any, TransferStats]:
     """Ship ``state`` onto ``new_mesh_plan``'s configuration through the
     bulk-data plane: one :class:`TransferPlan` over the state tree, the
     ``wire`` backend's SZ02 streams through the session's reshard hop
@@ -112,7 +112,11 @@ def reshard(state, old_mesh_plan: Optional[MeshPlan],
     ``device`` (default: the card), replicated.  The old mesh may already
     be gone, so the hop touches none of its collectives.  ``faults=`` and
     ``verify=`` thread into the session, so recovery drills run the
-    re-fetch path.  Returns ``(state, TransferStats)``."""
+    re-fetch path.  With ``placement`` (the new mesh's
+    :class:`~repro_torch.distributed.sharding.Placement`, e.g.
+    ``training/train_step.py:placement``) ``state`` is the whole state and
+    the result this rank's shards under its policy.  Returns ``(state,
+    TransferStats)``."""
     n = visible_devices()
     if new_mesh_plan.n_devices > n:
         raise ValueError(
@@ -124,6 +128,8 @@ def reshard(state, old_mesh_plan: Optional[MeshPlan],
     sess = TransferPlan.build(state, tc).session(faults=faults, verify=verify,
                                                  device=device)
     out = sess.reshard(state, device)
+    if placement is not None:
+        out = placement.shard(out)
     return out, sess.last_stats
 
 

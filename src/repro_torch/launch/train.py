@@ -8,17 +8,27 @@ another (``--device cpu`` runs the codec kernels' plain versions); without
 CUDA and without ``--device`` it raises.  Weights and data come from
 ``--seed``.
 
-``--mesh N`` makes N pods, one process each, over gloo; it needs
-``--grad-compress`` and a launch by ``torchrun``, which sets ``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``::
+``--mesh N`` or ``--mesh N,D,1`` trains across N pods of D data ranks,
+one process a rank over gloo, under the sharding policy the JAX launcher
+builds, ``ShardingPolicy(make_mesh((N, D, 1), ("pod", "data", "model")))``
+(``distributed/sharding.py``; the sharded step of
+``training/train_step.py``): the global batch splits over the ranks, the
+gradients sum over ``data`` in f32, and pods average them through the
+compressed ring, so ``N > 1`` needs ``--grad-compress``; a data axis
+alone does not.  A launch by ``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``::
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-        --arch smollm-135m --reduced --mesh 2 --grad-compress
+        --arch smollm-135m --reduced --mesh 1,2,1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch smollm-135m --reduced --mesh 2,2,1 --grad-compress
 
-Rank 0 prints and writes the checkpoints.  ``--mesh`` takes ``N`` or
-``N,D,M`` (pod, data, model), where the JAX launcher's last axis is the
-model axis: a data or model axis above 1 needs the GSPMD sharding policy,
-which has no counterpart here, and is refused.
+Rank 0 prints and writes the checkpoints (the gathered state, which the
+unsharded trainer and the JAX ``Checkpointer`` load); every rank restores
+and takes its shards.  A model axis above 1 (tensor parallelism) is not
+ported yet and is refused.  The JAX launcher has no FSDP flag, so neither
+has this one: ``make_run(policy=ShardingPolicy(..., fsdp=True))`` trains
+with parameters and moments sharded over ``data``.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,6 +45,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, get_config
 from repro_torch.core.codebook import Codebook
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.distributed import checkpoint as CKPT
+from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.training import grad_compress as GC
 from repro_torch.training import optimizer as OPT
@@ -48,39 +59,45 @@ def opt_config(lr: float, steps: int) -> OPT.AdamWConfig:
                            warmup_steps=max(steps // 10, 1))
 
 
-def parse_mesh(spec: str) -> int:
-    """``N`` or ``N,D,M`` -> the number of pods N; D and M must be 1."""
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """``N`` or ``N,D,M`` -> ``(N, D)``: N pods of D data ranks; M (the
+    model axis) must be 1."""
     dims = tuple(int(x) for x in spec.split(","))
     if len(dims) not in (1, 3) or any(d < 1 for d in dims):
         raise SystemExit(f"--mesh {spec!r}: give N pods or N,D,M "
                          "(pod, data, model)")
-    if len(dims) == 3 and dims[1:] != (1, 1):
+    if len(dims) == 3 and dims[2] != 1:
         raise SystemExit(
-            f"--mesh {spec!r}: a data or model axis (data parallelism within "
-            "a pod, tensor parallelism) needs the GSPMD sharding policy, "
-            "which this package does not have; use one process a pod")
-    return dims[0]
+            f"--mesh {spec!r}: a model axis above 1 needs tensor-parallel "
+            "training (split products, a vocab-parallel loss), which is not "
+            "ported yet; use N,D,1")
+    return dims[0], (dims[1] if len(dims) == 3 else 1)
 
 
 def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
-             seed: int = 0, device: DeviceLike = None, mesh=None,
+             seed: int = 0, device: DeviceLike = None,
+             policy: Optional[ShardingPolicy] = None,
              grad_compress: bool = False,
              grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK):
     """The launcher's training run: ``(state, step_at)`` with
     ``step_at(state, step) -> (state, metrics)`` the train step on the
     data stream's batch ``step``.  Parameters and data come from
-    ``seed``.  The launcher averages gradients under the default
-    gradient codebook; ``grad_codebook`` lets a caller hand the ring one
-    calibrated on its own gradients (``GC.calibrate_on_grads``)."""
+    ``seed``.  Under ``policy`` the state is this rank's shards
+    (``TS.shard_train_step``) and every rank draws the global batch.  The
+    launcher averages gradients under the default gradient codebook;
+    ``grad_codebook`` lets a caller hand the ring one calibrated on its
+    own gradients (``GC.calibrate_on_grads``)."""
     device = resolve_device(device)
     shape = ShapeConfig("cli", seq_len=seq, global_batch=batch, kind="train")
-    step_fn = TS.make_train_step(cfg, opt_config(lr, steps), mesh,
+    step_fn = TS.make_train_step(cfg, opt_config(lr, steps), policy,
                                  grad_compress=grad_compress,
                                  grad_codebook=grad_codebook,
                                  kv_block=min(seq, 1024))
     data = SyntheticTokenStream(cfg, shape, DataConfig(seed=seed), device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = TS.init_state(cfg, gen, device)
+    if policy is not None:
+        step_fn, state = TS.shard_train_step(step_fn, policy, state)
 
     def step_at(state, step: int):
         return step_fn(state, data.batch_at(step))
@@ -88,20 +105,20 @@ def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
     return state, step_at
 
 
-def _join_group(n_pod: int, device: Optional[str]):
+def _join_group(world: int, device: Optional[str]):
     """The process group of a ``torchrun`` launch and this rank's device."""
     if "WORLD_SIZE" not in os.environ:
-        raise SystemExit(f"--mesh {n_pod} runs one process a pod: launch with "
-                         f"torchrun --nproc-per-node {n_pod}")
+        raise SystemExit(f"--mesh of {world} ranks runs one process a rank: "
+                         f"launch with torchrun --nproc-per-node {world}")
     if not dist.is_initialized():
         dist.init_process_group("gloo")
-    if dist.get_world_size() != n_pod:
-        raise SystemExit(f"--mesh {n_pod} needs {n_pod} processes; "
+    if dist.get_world_size() != world:
+        raise SystemExit(f"--mesh needs {world} processes; "
                          f"torchrun started {dist.get_world_size()}")
     if device is None and torch.cuda.is_available():
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = f"cuda:{local % torch.cuda.device_count()}"
-    return make_mesh((n_pod,), ("pod",)), device
+    return device
 
 
 def main(argv=None):
@@ -118,7 +135,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="N pods (one process each, under torchrun)")
+                    help="N or N,D,1: N pods of D data ranks (one process "
+                         "a rank, under torchrun)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
@@ -129,25 +147,30 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    n_pod = parse_mesh(args.mesh) if args.mesh else 1
-    mesh, device = None, args.device
-    if n_pod > 1:
-        if not args.grad_compress:
-            raise SystemExit(
-                f"--mesh {n_pod} needs --grad-compress: pods average their "
-                "gradients through the compressed ring (there is no implicit "
-                "all-reduce here)")
-        mesh, device = _join_group(n_pod, device)
+    n_pod, n_data = parse_mesh(args.mesh) if args.mesh else (1, 1)
+    policy, device = None, args.device
+    if n_pod > 1 and not args.grad_compress:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs --grad-compress: pods average their "
+            "gradients through the compressed ring (there is no implicit "
+            "all-reduce across pods here)")
+    if n_pod * n_data > 1:
+        device = _join_group(n_pod * n_data, device)
+        policy = ShardingPolicy(make_mesh((n_pod, n_data, 1),
+                                          ("pod", "data", "model")))
     device = resolve_device(device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
 
     state, step_at = make_run(cfg, batch=args.batch, seq=args.seq, lr=args.lr,
                               steps=args.steps, seed=args.seed, device=device,
-                              mesh=mesh, grad_compress=args.grad_compress)
+                              policy=policy, grad_compress=args.grad_compress)
     # one Checkpointer for the run: its plan is built once for the state's
-    # structure, and every save and restore adds to one TransferStats
-    ckpt = CKPT.Checkpointer(args.ckpt_dir, device=device) \
+    # structure, and every save and restore adds to one TransferStats;
+    # under a policy it saves the gathered state and restores shards
+    ckpt = CKPT.Checkpointer(
+        args.ckpt_dir, device=device,
+        placement=TS.placement(cfg, policy) if policy else None) \
         if args.ckpt_dir else None
     start_step = 0
     if args.resume and ckpt and CKPT.latest_step(args.ckpt_dir) is not None:
@@ -163,7 +186,7 @@ def main(argv=None):
                 f"ce {float(metrics['ce']):.4f}  "
                 f"gnorm {float(metrics['grad_norm']):.3f}  "
                 f"lr {float(metrics['lr']):.2e}", flush=True)
-        if ckpt and lead and (step + 1) % args.ckpt_every == 0:
+        if ckpt and (step + 1) % args.ckpt_every == 0:
             path = ckpt.save(step + 1, state, extra={"arch": cfg.name})
             say(f"checkpointed -> {path}")
     synchronize(device)
@@ -179,7 +202,7 @@ def main(argv=None):
         g = GC.last_stats
         say(f"gradient plane (per step): {g.wire_bytes:.0f} wire bytes  "
             f"raw ring fallbacks {g.raw_refetches}")
-    if mesh is not None:
+    if policy is not None:
         dist.barrier()   # no rank tears its connections down under a peer
         dist.destroy_process_group()
 

@@ -54,7 +54,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Seeded random parameters with ``repro.models.model.init_params``'s
     shapes and scales (normal * scale in f32, stored bf16), stacked over
     layers.  The numbers come from ``generator`` (on its own device) and
-    land on ``device`` (default: the generator's).  MoE stacks are drawn a
+    land on ``device`` (default: the generator's); on ``"meta"`` nothing is
+    drawn, so any width plans from shapes alone.  MoE stacks are drawn a
     layer at a time (``models.moe.init_moe``), the router kept in f32; the
     SSM's and the RG-LRU's decay parameters are f32 as in JAX.  A frontend
     family adds ``frontend_proj`` (frontend_dim, d_model)."""
@@ -63,6 +64,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
 
     def draw(shape, scale):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device="meta")
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32) * scale
         return x.to(device=device)
@@ -167,7 +170,11 @@ def embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.frontend == "audio_frames":
         return torch.matmul(batch["frames"].to(torch.bfloat16),
                             params["frontend_proj"])
-    tok = params["embed"][batch["tokens"]]
+    # F.embedding, not indexing: on the card its backward sums a token's
+    # rows in f32 and rounds once, where indexing's backward adds them in
+    # bf16 and loses much of a frequent token's gradient (Zipf tokens at
+    # a full training batch); on the CPU the two are the same bits
+    tok = F.embedding(batch["tokens"], params["embed"])
     if cfg.frontend == "vision_patches":
         patches = torch.matmul(batch["patches"].to(torch.bfloat16),
                                params["frontend_proj"])

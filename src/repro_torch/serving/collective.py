@@ -300,6 +300,24 @@ class Link:
         self.wait(pending)
         return got
 
+    def all_to_all(self, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Block ``j`` of ``blocks`` (one a group rank, all of one shape
+        and dtype) to group rank ``j``: the blocks every group rank sent
+        this one, in group-rank order, on the codec's device (gloo's
+        all-to-all over one host buffer, each block padded to ``ALIGN``)."""
+        shape, dtype = tuple(blocks[0].shape), blocks[0].dtype
+        host = self._to_host([(None, [b]) for b in blocks])
+        out = self._host_buffer(host.numel())
+        t0 = time.perf_counter()
+        dist.all_to_all_single(out, host, group=self.group)
+        self.stats.wire_s += time.perf_counter() - t0
+        per = host.numel() // len(blocks)
+        self.stats.sent_bytes += per * (len(blocks) - 1)
+        self.stats.recv_bytes += per * (len(blocks) - 1)
+        body = self._to_device(out)
+        return [Body(body[j * per:(j + 1) * per]).raw(shape, dtype)
+                for j in range(len(blocks))]
+
     def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every group rank's ``x`` (same shape and dtype everywhere), in
         group-rank order, on the codec's device."""

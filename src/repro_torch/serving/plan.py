@@ -39,6 +39,7 @@ counterpart of a ``PartitionSpec``.  Mesh execution needs a stream backend
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -51,6 +52,7 @@ from repro_torch.core.codebook import Codebook
 from repro_torch.core.pipeline import (CodecProfile, degraded_stage_times,
                                        expected_schedule_attempts,
                                        flowshop_makespan)
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import mesh_shape
 
 
@@ -82,6 +84,18 @@ class TransferConfig:
 FP8_DEFAULT_CODEBOOK = Codebook(fmt="fp8_e5m2", exponents=tuple(range(8, 24)))
 
 leaf_key = TR.leaf_key
+
+
+def _leaf_order(specs, treedef):
+    """Mesh specs in leaf order: a tree like the cache read up to its
+    leaves, else a sequence already in leaf order (always so for a bare
+    tensor, whose one spec is itself a tuple)."""
+    if treedef == TR.LEAF:
+        return specs
+    try:
+        return TR.flatten_up_to(treedef, specs)
+    except ValueError:
+        return specs
 
 
 def _resolve_cap(tc: TransferConfig, n: int) -> int:
@@ -224,8 +238,11 @@ class TransferPlan:
         only ``.shape``/``.dtype`` are read).  ``granularity`` forces
         'chunked' (segment even when ``n_chunks == 1``) or 'tensor'; None
         picks 'chunked' iff ``tc.n_chunks > 1``.  ``mesh``: see the module
-        docstring; ``specs`` is one spec a leaf in leaf order (default
-        :meth:`_default_leaf_spec`)."""
+        docstring; ``specs`` is a tree like the cache with a spec at each
+        leaf (``ShardingPolicy.cache_specs``) or one spec a leaf in leaf
+        order (default :meth:`_default_leaf_spec`).  A spec entry is
+        None, an axis name or a tuple of axis names
+        (``distributed/sharding.py``)."""
         flat, treedef = TR.flatten_with_path(cache_structure)
         backend = get_backend(tc.backend)
         if mesh is not None:
@@ -275,7 +292,8 @@ class TransferPlan:
         if mesh is not None:
             in_specs = (tuple(cls._default_leaf_spec(leaf, mesh)
                               for _, leaf in flat) if specs is None
-                        else cls._check_specs(specs, routes, mesh))
+                        else cls._check_specs(_leaf_order(specs, treedef),
+                                              routes, mesh))
         return cls(tc=tc, treedef=treedef, routes=tuple(routes),
                    backend=backend, segments=tuple(segments),
                    stream_len=stream_len, mesh=mesh, src_pod=src_pod,
@@ -297,7 +315,8 @@ class TransferPlan:
     @staticmethod
     def _check_specs(specs, routes, mesh):
         """One spec a leaf, each padded with None to the leaf's rank; every
-        named dimension must exist and divide its tensor dimension."""
+        named axis must exist and the product of an entry's axes divide
+        its tensor dimension."""
         sizes = mesh_shape(mesh)
         specs = tuple(tuple(s) for s in specs)
         if len(specs) != len(routes):
@@ -307,16 +326,16 @@ class TransferPlan:
             if len(spec) > len(r.shape):
                 raise ValueError(f"spec {spec} has more entries than leaf "
                                  f"{r.key!r} has dimensions {r.shape}")
-            for d, name in enumerate(spec):
-                if name is None:
-                    continue
-                if name not in sizes:
-                    raise ValueError(f"spec {spec} names {name!r}, not a "
-                                     f"mesh dimension {tuple(sizes)}")
-                if r.shape[d] % sizes[name]:
+            for d, entry in enumerate(spec):
+                for name in SH.entry_axes(entry):
+                    if name not in sizes:
+                        raise ValueError(f"spec {spec} names {name!r}, not a "
+                                         f"mesh dimension {tuple(sizes)}")
+                n = math.prod(sizes[a] for a in SH.entry_axes(entry))
+                if r.shape[d] % n:
                     raise ValueError(f"leaf {r.key!r} dimension {d} "
                                      f"({r.shape[d]}) does not divide over "
-                                     f"{name!r} ({sizes[name]})")
+                                     f"{entry!r} ({n})")
             out.append(spec + (None,) * (len(r.shape) - len(spec)))
         return tuple(out)
 

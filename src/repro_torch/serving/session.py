@@ -75,6 +75,7 @@ from repro_torch.core.backend import (CodecBackend, WireBackend,
 from repro_torch.core.pipeline import ChunkSchedule
 from repro_torch.core.wire import WireIntegrityError, WireStats, fletcher32
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.serving import collective as CL
 from repro_torch.serving.faults import FaultChannel, resolve_faults
@@ -1479,11 +1480,10 @@ class TransferSession:
         destination rank needs no cache."""
         if self._shard_session is None:
             plan, sizes = self.plan, mesh_shape(self.plan.mesh)
-            local = [torch.empty(
-                tuple(d // sizes[a] if a is not None else d
-                      for d, a in zip(r.shape, spec)),
-                dtype=C.dtype_from_name(r.dtype), device="meta")
-                for r, spec in zip(plan.routes, plan.in_specs)]
+            local = [torch.empty(SH.local_shape(r.shape, spec, sizes),
+                                 dtype=C.dtype_from_name(r.dtype),
+                                 device="meta")
+                     for r, spec in zip(plan.routes, plan.in_specs)]
             self._shard_struct = TR.unflatten(plan.treedef, local)
             lp = TransferPlan.build(self._shard_struct, plan.tc,
                                     granularity=plan.granularity)
@@ -1492,15 +1492,9 @@ class TransferSession:
 
     def _slice_shard(self, cache):
         """This rank's shard of every leaf, as ``shard_map`` hands it."""
-        mesh, sizes = self.plan.mesh, mesh_shape(self.plan.mesh)
-        out = []
-        for leaf, spec in zip(TR.leaves(cache), self.plan.in_specs):
-            for d, a in enumerate(spec):
-                if a is not None:
-                    size = leaf.shape[d] // sizes[a]
-                    leaf = leaf.narrow(d, mesh.get_local_rank(a) * size, size)
-            out.append(leaf.contiguous())
-        return TR.unflatten(self.plan.treedef, out)
+        return TR.unflatten(self.plan.treedef, [
+            SH.shard_slice(leaf, spec, self.plan.mesh)
+            for leaf, spec in zip(TR.leaves(cache), self.plan.in_specs)])
 
     def _run_mesh(self, cache, select_dst: bool = True):
         """The pod-to-pod hop across processes.  Source ranks (pod
@@ -1515,7 +1509,8 @@ class TransferSession:
         for each unit (the same on both ends); ``last_comm``: headers,
         staging and wire time."""
         plan = self.plan
-        if any(a == "pod" for spec in plan.in_specs for a in spec):
+        if any("pod" in SH.entry_axes(e) for spec in plan.in_specs
+               for e in spec):
             raise ValueError("mesh transfer specs shard over the data and "
                              "model dimensions, not over 'pod'")
         n_pod = mesh_shape(self.plan.mesh)["pod"]
@@ -1693,29 +1688,9 @@ class TransferSession:
     def _gather_pod(self, shard, device, comm: CL.CommStats):
         """A destination rank's whole cache: its pod's shards all-gathered
         over every mesh dimension a leaf is split on."""
-        mesh = self.plan.mesh
-        out = []
-        for leaf, spec in zip(TR.leaves(shard), self.plan.in_specs):
-            for d, a in enumerate(spec):
-                if a is not None and mesh_shape(self.plan.mesh)[a] > 1:
-                    parts = CL.Link(mesh.get_group(a), device,
-                                    comm).all_gather(leaf)
-                    leaf = _cat_bits(parts, d)
-            out.append(leaf)
-        return TR.unflatten(self.plan.treedef, out)
-
-
-_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-
-
-def _cat_bits(parts: List[torch.Tensor], dim: int) -> torch.Tensor:
-    """``torch.cat`` through same-width integer views (float8 and the
-    unsigned dtypes have no CPU concatenation of their own)."""
-    dtype = parts[0].dtype
-    if dtype == torch.bool:
-        return torch.cat(parts, dim)
-    w = _INT_OF_WIDTH[parts[0].element_size()]
-    return torch.cat([p.view(w) for p in parts], dim).view(dtype)
+        return TR.unflatten(self.plan.treedef, [
+            SH.gather(leaf.to(device), spec, self.plan.mesh, comm)
+            for leaf, spec in zip(TR.leaves(shard), self.plan.in_specs)])
 
 
 def _mesh_stats(lp: TransferPlan, records) -> TransferStats:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,9 +75,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """``(grads scaled to at most max_norm, their global norm)``."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """``(grads scaled to at most max_norm, their global norm)``; ``norm``
+    is the whole tree's norm when ``grads`` are one rank's shards."""
+    norm = global_norm(grads) if norm is None else norm
     limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
     scale = torch.clamp(limit / torch.clamp(norm, min=1e-9), max=1.0)
     flat, treedef = TR.flatten_with_path(grads)
@@ -93,10 +95,15 @@ def _decay_mask(path) -> bool:
                                        "A_log", "D"))
 
 
-def update(cfg: AdamWConfig, grads, state: AdamWState, params
+def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
+           gnorm: Optional[torch.Tensor] = None
            ) -> Tuple[Any, AdamWState, dict]:
-    """One AdamW step: ``(new params, new state, {"grad_norm", "lr"})``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step: ``(new params, new state, {"grad_norm", "lr"})``.
+    A caller that holds shards of ``grads``, ``state`` and ``params``
+    passes the whole tree's gradient norm as ``gnorm``
+    (``training/train_step.py:sharded_global_norm``); the update is
+    elementwise, so the shards update as the whole tree would."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

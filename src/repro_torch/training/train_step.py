@@ -1,33 +1,49 @@
 """The training step: loss -> gradients -> (optionally compressed)
 cross-pod mean -> AdamW (the port of ``repro.training.train_step``).
 
-Two gradient modes:
+Without a policy the step is one process's: the loss of the global
+batch, ``backward`` and the update.
 
-* ``grad_compress=False``: the loss of one process's global batch,
-  ``backward`` and the update.
-* ``grad_compress=True`` on a mesh with a ``pod`` axis
-  (``launch/mesh.py:make_mesh``, one process a pod): rank ``r`` takes pod
-  ``r``'s slice of the global batch (the JAX step's pod split), computes
-  its pod's gradients and averages them across pods through the
-  compressed ring (``training/grad_compress.py``).  The JAX step stacks
-  the pods' gradients on a leading pod dimension; the ring reads only a
-  rank's own row, so each rank hands it its own gradients
-  (``compressed_cross_pod_mean_own``).  The metrics are each pod's,
-  averaged across the ranks.
+Under a :class:`~repro_torch.distributed.sharding.ShardingPolicy`
+(``make_train_step(cfg, opt_cfg, policy)``, one process a mesh rank; the
+launcher's ``--mesh N,D,1``) the step is the explicit form of what GSPMD
+makes of the JAX step: every rank takes its block of the global batch
+under ``spec_for_activation("tokens")``, all-gathers each parameter its
+spec splits (FSDP: over ``data``), runs ``value_and_grad`` on its block,
+and sums the gradients over ``data`` in f32 in rank order.  A leaf with an
+FSDP block is reduce-scattered into it (and, replicated, its rounded
+blocks are all-gathered back); a leaf too small to split is all-gathered
+whole.  Without the ring the sum goes on over ``pod`` in f32 and is
+divided by ``dp_size`` and rounded once to the parameter dtype (the "f32
+mean" of the ring).  With ``grad_compress`` and pods the data mean is
+rounded, then the pods average it through the compressed ring on
+``mesh.get_group("pod")``, the ranks of this rank's data coordinate: data
+reduced first, pods over the ring, the order of the JAX docstring.  On a
+mesh of pods alone a rank's block is its pod's slice of the batch, the
+JAX step's pod split; JAX stacks the pods' gradients on a leading pod
+dimension and the ring reads only a rank's own row, so each rank hands it
+its own (``compressed_cross_pod_mean_own``).  AdamW runs on the shards
+(:func:`sharded_global_norm` gives it the whole tree's norm), and the
+metrics are the mean over the data-parallel ranks.  A ``model`` axis
+above 1 (tensor-parallel products and a vocab-parallel loss) is refused,
+and so is a MoE config whose batch would split in a way the JAX step's
+does not (its capacity and balance loss are global-batch quantities).
 
 Gradients keep the parameter dtype, as ``jax.grad`` returns them: bf16
 gradients ride the codec, f32 ones (the MoE router, the SSM's ``A_log``, …)
 ship raw.  Attention in training is ``layers.chunked_attention`` under
 autograd (``models.model.loss_fn``), never the flash kernel.
 
-``jit_train_step`` (ahead-of-time compilation with in/out shardings) and
-the ``ShardingPolicy`` it takes are JAX-only: the step here runs eagerly,
-replicated on every rank.
+:func:`shard_train_step` stands where the JAX ``jit_train_step`` stands:
+it places the state under the policy and returns the step.  Nothing is
+compiled; the step runs eagerly on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import dataclasses
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,10 +51,16 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import Codebook
-from repro_torch.launch.mesh import mesh_shape
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
+from repro_torch.serving import collective as CL
 from repro_torch.training import grad_compress as GC
 from repro_torch.training import optimizer as OPT
+
+#: the sharded step's traffic of its last call: ``gather`` (parameters),
+#: ``reduce`` (gradients over data, and over pod without the ring) and
+#: ``norm`` (partial norms), each a ``CommStats`` (host clock)
+last_comm: Dict[str, CL.CommStats] = {}
 
 
 class TrainState(NamedTuple):
@@ -70,34 +92,240 @@ def value_and_grad(params, batch: Dict, cfg: ArchConfig, *,
             TR.unflatten(treedef, list(grads)))
 
 
+def abstract_state(cfg: ArchConfig) -> TrainState:
+    """The state's whole shapes and dtypes as ``meta`` tensors, nothing
+    drawn (the JAX ``abstract_state``): what the policy's specs and a
+    sharded state's restore template are built from."""
+    return init_state(cfg, torch.Generator(), "meta")
+
+
 def make_train_step(cfg: ArchConfig,
                     opt_cfg: OPT.AdamWConfig = OPT.AdamWConfig(),
-                    mesh=None, *, grad_compress: bool = False,
+                    policy: Optional[SH.ShardingPolicy] = None, *,
+                    grad_compress: bool = False,
                     grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK,
                     kv_block: int = 1024, remat: bool = True):
     """``step(state, batch) -> (state, metrics)``; metrics are 0-d tensors
-    ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``.  ``mesh`` is a
-    ``DeviceMesh`` over an initialised group; it matters only with
-    ``grad_compress``."""
-    n_pod = mesh_shape(mesh).get("pod", 1) if mesh is not None else 1
+    ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``.  With ``policy``
+    the step takes the global batch and the state :func:`shard_state`
+    places (module docstring); ``grad_compress`` matters only on a policy
+    mesh with pods."""
+    if policy is not None:
+        return _sharded_step(cfg, opt_cfg, policy, grad_compress,
+                             grad_codebook, kv_block, remat)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        if grad_compress and n_pod > 1:
-            r = mesh.get_local_rank("pod")
-            mine = {k: x.reshape(n_pod, x.shape[0] // n_pod, *x.shape[1:])[r]
-                    for k, x in batch.items()}
-            (total, (ce, aux)), g = value_and_grad(
-                state.params, mine, cfg, kv_block=kv_block, remat=remat)
-            grads = GC.compressed_cross_pod_mean_own(
-                g, mesh, codebook=grad_codebook)
-            del g
-            m = torch.stack([total, ce, aux]).to("cpu", torch.float32)
-            dist.all_reduce(m, group=mesh.get_group("pod"))
-            total, ce, aux = (m / n_pod).to(total.device).unbind()
-        else:
-            (total, (ce, aux)), grads = value_and_grad(
-                state.params, batch, cfg, kv_block=kv_block, remat=remat)
+        (total, (ce, aux)), grads = value_and_grad(
+            state.params, batch, cfg, kv_block=kv_block, remat=remat)
         params, opt, om = OPT.update(opt_cfg, grads, state.opt, state.params)
+        metrics = {"loss": total, "ce": ce, "aux": aux, **om}
+        return TrainState(params=params, opt=opt), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+def _check_policy(cfg: ArchConfig, policy: SH.ShardingPolicy,
+                 grad_compress: bool) -> None:
+    """The step's refusals: tensor parallelism, and a MoE batch split the
+    JAX step does not make."""
+    sizes = policy.sizes
+    if policy.tp_size() > 1:
+        raise NotImplementedError(
+            f"a 'model' axis of {policy.tp_size()}: tensor-parallel training "
+            "(column/row-split products, a vocab-parallel loss) is not "
+            "ported yet; train on a (pod, data) mesh")
+    split = [a for a in policy.dp_axes() if sizes[a] > 1
+             and not (a == "pod" and grad_compress)]
+    if cfg.moe is not None and split:
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE batch split over {split}: the capacity and "
+            "the load-balance loss are global-batch quantities, so a "
+            "per-rank split computes another function (the per-pod split "
+            "under grad_compress is the JAX step's)")
+
+
+def state_specs(policy: SH.ShardingPolicy, like: TrainState) -> TrainState:
+    """The specs of a train state of ``like``'s whole shapes: the moments
+    shard exactly like their parameters, the step is replicated."""
+    ps = policy.param_specs(like.params)
+    return TrainState(params=ps, opt=OPT.AdamWState(step=(), m=ps, v=ps))
+
+
+def placement(cfg: ArchConfig, policy: SH.ShardingPolicy) -> SH.Placement:
+    """The train state's placement under ``policy``: what a
+    ``Checkpointer`` or ``reshard`` takes to save the gathered state and
+    to restore into shards."""
+    like = abstract_state(cfg)
+    return SH.Placement(policy, state_specs(policy, like), like)
+
+
+def shard_state(state: TrainState, policy: SH.ShardingPolicy) -> TrainState:
+    """This rank's shards of a whole train state (fresh tensors: the whole
+    state can be freed)."""
+    return SH.shard_tree(state, state_specs(policy, state), policy.mesh)
+
+
+def gather_state(state: TrainState, policy: SH.ShardingPolicy,
+                 like: TrainState, comm: Optional[CL.CommStats] = None
+                 ) -> TrainState:
+    """The whole train state from every rank's shards (every rank calls
+    it); ``like`` carries the whole shapes (:func:`abstract_state`)."""
+    return SH.gather_tree(state, state_specs(policy, like), policy.mesh, comm)
+
+
+def shard_train_step(step_fn, policy: SH.ShardingPolicy, state: TrainState):
+    """``(step, placed state)``: where the JAX ``jit_train_step`` compiles
+    the step with the policy's in/out shardings, this places the whole
+    ``state`` under the policy (:func:`shard_state`); ``step_fn`` is
+    ``make_train_step(..., policy=policy)``, which takes the global batch
+    and the placed state and returns them so placed."""
+    return step_fn, shard_state(state, policy)
+
+
+def _data_dim(spec) -> Optional[int]:
+    for d, e in enumerate(spec):
+        if "data" in SH.entry_axes(e):
+            return d
+    return None
+
+
+def _ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The f32 sum of ``parts`` in rank order."""
+    acc = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(torch.float32)
+    return acc
+
+
+def sharded_global_norm(grads: List[torch.Tensor], blocks: List[tuple],
+                        specs: List[tuple], policy: SH.ShardingPolicy,
+                        comm: Optional[CL.CommStats] = None) -> torch.Tensor:
+    """The whole tree's gradient norm from this rank's shards ``grads``
+    (placed by ``specs``).  It is summed in FSDP blocks whatever the
+    layout: a leaf that ``fsdp=True`` would split over ``data`` (its spec
+    in ``blocks``) adds its blocks' f32 sums of squares in data-rank order
+    (each rank squares its own block, the partial sums are all-gathered
+    over ``data``), every other leaf its whole f32 sum of squares once,
+    leaves in the JAX leaf order.  So FSDP on and off clip by bitwise the
+    same norm, and with one data rank it is ``OPT.global_norm``."""
+    mesh, sizes = policy.mesh, policy.sizes
+    n = sizes.get("data", 1)
+    mine, whole = [], {}
+    for i, (g, b, s) in enumerate(zip(grads, blocks, specs)):
+        if n > 1 and _data_dim(b) is not None:
+            blk = g if _data_dim(s) is not None else SH.shard_slice(g, b, mesh)
+            mine.append((i, torch.sum(blk.to(torch.float32) ** 2)))
+        else:
+            whole[i] = torch.sum(g.to(torch.float32) ** 2)
+    if mine:
+        parts = CL.Link(mesh.get_group("data"), grads[0].device, comm) \
+            .all_gather(torch.stack([v for _, v in mine]))
+        for j, (i, _) in enumerate(mine):
+            whole[i] = _ordered_sum([p[j] for p in parts])
+    total = 0
+    for i in range(len(grads)):
+        total = total + whole[i]
+    return torch.sqrt(total)
+
+
+def reduce_gradients(grads: List[torch.Tensor], specs: List[tuple],
+                     blocks: List[tuple], policy: SH.ShardingPolicy, *,
+                     ring: bool = False,
+                     comm: Optional[CL.CommStats] = None) -> List[torch.Tensor]:
+    """This rank's part of the gradient mean over the data-parallel ranks
+    (``grads``: its whole gradients, leaf by leaf; ``specs``: the leaves'
+    placement; ``blocks``: their specs under the policy with
+    ``fsdp=True``, the blocks the norm is summed in too).  A leaf is
+    summed in f32 in rank order over ``data``, then over ``pod`` (raw)
+    unless the ring follows (``ring``: the mean is over ``data`` alone),
+    and rounded once to its dtype.  A leaf with an FSDP block is
+    reduce-scattered into it and, where the leaf itself is replicated,
+    its rounded blocks are all-gathered back: about twice the gradient's
+    bytes on the wire whatever the data size, the same f32 sums as
+    FSDP's.  A leaf too small to split is all-gathered whole."""
+    mesh, sizes, dp = policy.mesh, policy.sizes, policy.dp_axes()
+    n_data = sizes["data"] if "data" in dp else 1
+    n_pod = sizes["pod"] if "pod" in dp and not ring else 1
+    comm = CL.CommStats() if comm is None else comm
+    device = grads[0].device
+    link_data = (CL.Link(mesh.get_group("data"), device, comm)
+                 if n_data > 1 else None)
+    link_pod = (CL.Link(mesh.get_group("pod"), device, comm)
+                if n_pod > 1 else None)
+    out = []
+    for g, spec, block in zip(grads, specs, blocks):
+        d = _data_dim(block) if n_data > 1 else None
+        if d is not None:
+            acc = _ordered_sum(link_data.all_to_all(
+                [b.contiguous() for b in g.chunk(n_data, d)]))
+        elif n_data > 1:
+            acc = _ordered_sum(link_data.all_gather(g))
+        else:
+            acc = g.to(torch.float32)
+        if n_pod > 1:
+            acc = _ordered_sum(link_pod.all_gather(acc))
+        r = (acc / (n_data * n_pod)).to(g.dtype)
+        if d is not None and _data_dim(spec) is None:
+            r = SH.cat_bits(link_data.all_gather(r), d)
+        out.append(r)
+    return out
+
+
+def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
+                  kv_block, remat):
+    _check_policy(cfg, policy, grad_compress)
+    mesh, sizes = policy.mesh, policy.sizes
+    dp = policy.dp_axes()
+    ring = grad_compress and "pod" in dp and sizes["pod"] > 1
+    like = abstract_state(cfg)
+    specs = SH.leaf_specs(policy.param_specs(like.params), like.params)
+    blocks = SH.leaf_specs(
+        dataclasses.replace(policy, fsdp=True).param_specs(like.params),
+        like.params)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        global last_comm
+        comm = {"gather": CL.CommStats(), "reduce": CL.CommStats(),
+                "norm": CL.CommStats()}
+        mine = {k: SH.shard_slice(
+                    x, policy.spec_for_activation("tokens", tuple(x.shape)), mesh)
+                for k, x in batch.items()}
+        leaves = TR.leaves(state.params)
+        device = leaves[0].device
+        t0 = time.perf_counter()
+        whole = [SH.gather(p, s, mesh, comm["gather"]) if SH.splits(s, sizes)
+                 else p for p, s in zip(leaves, specs)]
+        comm["gather"].seconds = time.perf_counter() - t0
+        treedef = TR.flatten_with_path(state.params)[1]
+        (total, (ce, aux)), g = value_and_grad(
+            TR.unflatten(treedef, whole), mine, cfg, kv_block=kv_block,
+            remat=remat)
+        del whole
+        t0 = time.perf_counter()
+        grads = reduce_gradients(TR.leaves(g), specs, blocks, policy,
+                                 ring=ring, comm=comm["reduce"])
+        del g
+        comm["reduce"].seconds = time.perf_counter() - t0
+        grads = TR.unflatten(treedef, grads)
+        if ring:
+            grads = GC.compressed_cross_pod_mean_own(grads, mesh,
+                                                     codebook=grad_codebook)
+        t0 = time.perf_counter()
+        gnorm = sharded_global_norm(TR.leaves(grads), blocks, specs, policy,
+                                    comm["norm"])
+        comm["norm"].seconds = time.perf_counter() - t0
+        params, opt, om = OPT.update(opt_cfg, grads, state.opt, state.params,
+                                     gnorm=gnorm)
+        m = torch.stack([total, ce, aux]).to("cpu", torch.float32)
+        for a in dp:
+            if sizes[a] > 1:
+                dist.all_reduce(m, group=mesh.get_group(a))
+        total, ce, aux = (m / policy.dp_size()).to(device).unbind()
+        last_comm = comm
         metrics = {"loss": total, "ce": ce, "aux": aux, **om}
         return TrainState(params=params, opt=opt), metrics
 

@@ -45,7 +45,8 @@ def test_port_files_found():
                    "launch/mesh.py", "serving/collective.py",
                    "training/grad_compress.py", "training/optimizer.py",
                    "training/data.py", "training/train_step.py",
-                   "distributed/elastic.py", "launch/train.py"):
+                   "distributed/elastic.py", "launch/train.py",
+                   "distributed/sharding.py"):
         assert PORT / module in FILES, module
 
 

@@ -111,6 +111,22 @@ JAX_MESH_SCRIPT = textwrap.dedent(r"""
                     res[f"out/{key}/{p[0].key}"] = bits(np.asarray(x)[sess.plan.dst_pod])
                     res[f"src/{key}/{p[0].key}"] = bits(np.asarray(x)[sess.plan.src_pod])
                 meta["hlo_bytes"][key] = permute_bytes(compiled.as_text())
+    # the pd_disaggregated policy's cache specs drive the hop (the dry
+    # run's TransferPlan.build(mesh=, specs=policy.cache_specs(cache)))
+    from repro.distributed.sharding import ShardingPolicy
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2, 1),
+                ("pod", "data", "model"))
+    kvc = {"k": cache["k"], "v": cache["v"]}
+    specs = ShardingPolicy(mesh, pd_disaggregated=True).cache_specs(kvc)
+    for n_chunks in (1, 4):
+        tc = TransferConfig(codebook=cb, chunk=256, cap=16, n_chunks=n_chunks)
+        sess = TransferPlan.build(kvc, tc, mesh=mesh, specs=specs).session()
+        leaves, treedef = jax.tree_util.tree_flatten(kvc)
+        out = jax.tree_util.tree_unflatten(
+            treedef, jax.jit(sess._build_mesh_fn())(*leaves))
+        for k, x in out.items():
+            res[f"out/pd/n{n_chunks}/{k}"] = bits(np.asarray(x)[sess.plan.dst_pod])
+        meta["pd_in_specs"] = [list(s) for s in sess.plan.in_specs]
     np.savez(os.path.join(out_dir, "mesh.npz"), **res)
     with open(os.path.join(out_dir, "mesh.json"), "w") as f:
         json.dump(meta, f)
@@ -180,6 +196,27 @@ def test_mesh_hop_matches_jax(tmp_path, jax_ref, shape):
         assert src == dst
     # (a), the JAX side: index src_pod holds a decode of zero-filled streams
     assert not np.array_equal(ref[f"src/{name}/n1/k"], ref["in/k"])
+
+
+def test_policy_cache_specs_drive_mesh_hop(tmp_path, jax_ref):
+    """The port's ``pd_disaggregated`` policy on (pod 2, data 2): its
+    ``cache_specs`` build the plan whose ``in_specs`` equal the JAX plan's
+    from the JAX policy's specs, and every destination shard equals the
+    JAX mesh program's output at ``dst_pod`` and the input, bitwise
+    (asserted in the ranks), at n_chunks 1 and 4."""
+    ref_dir, ref, meta = jax_ref
+    out = tmp_path / "ranks"
+    out.mkdir()
+    torch_ranks.run_world(torch_ranks.mesh_policy_world, 4, tmp_path,
+                          str(ref_dir), str(out), timeout=240)
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(4)]
+    for r in ranks:
+        assert r["in_specs"] == meta["pd_in_specs"]
+        assert r["in_specs"][0][1] == "data"
+        if r["pod"] == 1:
+            assert r["jax_equal"] == [True, True] and r["whole_equal"]
+        else:
+            assert r["sent"] > 0
 
 
 def test_overflowing_shard_arrives_intact(tmp_path, jax_ref):

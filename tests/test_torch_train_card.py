@@ -56,3 +56,27 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for a, b in zip(TR.leaves(want.params), TR.leaves(got.params)):
         assert b.device.type == "cuda" and b.dtype == a.dtype
         assert _rel(a, b) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_embedding_gradient_sums_in_f32_on_card(cuda_device):
+    """The token lookup's backward on the card sums a token's rows in f32
+    and rounds once: within one bf16 rounding of an f32 ``index_add_``,
+    with one token taking half the batch (indexing's backward adds the
+    rows in bf16 and drifts on such a token)."""
+    from repro_torch.models import model as M
+    cfg = get_config("smollm-135m").reduced()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = (torch.randn(cfg.vocab_size, cfg.d_model, generator=g,
+                     device=cuda_device) * 0.02).to(torch.bfloat16)
+    w.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    tokens[:, ::2] = 0
+    up = torch.randn(8, 1024, cfg.d_model, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    x = M.embed_inputs({"embed": w}, {"tokens": tokens}, cfg)
+    (x.float() * up.float()).sum().backward()
+    ref = torch.zeros(w.shape, device=cuda_device).index_add_(
+        0, tokens.reshape(-1).long(), up.reshape(-1, cfg.d_model).float())
+    assert _rel(ref, w.grad) <= 2 ** -8

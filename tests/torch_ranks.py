@@ -186,6 +186,54 @@ def _mesh_cases(shape, ref_dir: Path, noisy: bool):
     return summary
 
 
+def mesh_policy_world(rank, world, store, ref_dir, out_dir):
+    _init(rank, world, store)
+    try:
+        summary = _mesh_policy_case(Path(ref_dir))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_policy_case(ref_dir: Path):
+    """The pd_disaggregated policy's cache specs through the mesh hop."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+    ref = np.load(ref_dir / "mesh.npz")
+    meta = json.loads((ref_dir / "mesh.json").read_text())
+    cb = Codebook.from_json(meta["codebook"])
+    cache = {k: to_torch(ref[f"in/{k}"], "bfloat16") for k in ("k", "v")}
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    policy = ShardingPolicy(mesh, pd_disaggregated=True)
+    pod = mesh.get_local_rank("pod")
+    sizes = dict(zip(mesh.mesh_dim_names, (2, 2, 1)))
+    summary = {"pod": pod, "jax_equal": [], "sent": 0}
+    for n_chunks in (1, 4):
+        tc = TransferConfig(codebook=cb, chunk=256, cap=16, n_chunks=n_chunks)
+        plan = TransferPlan.build(cache, tc, mesh=mesh,
+                                  specs=policy.cache_specs(cache))
+        summary["in_specs"] = [list(s) for s in plan.in_specs]
+        sess = plan.session(device="cpu")
+        shard = sess.transfer(cache if pod == 0 else None, select_dst=False)
+        summary["sent"] += sess.last_comm.sent_bytes
+        if pod == 1:
+            ok = True
+            for (k, x), spec in zip(sorted(cache.items()), plan.in_specs):
+                got = as_bits(shard[k])
+                ok &= np.array_equal(got, as_bits(_slice(x, spec, mesh, sizes)))
+                jax_out = torch.from_numpy(ref[f"out/pd/n{n_chunks}/{k}"]
+                                           .view(np.int16))
+                ok &= np.array_equal(got, _slice(jax_out, spec, mesh, sizes)
+                                     .contiguous().numpy())
+            summary["jax_equal"].append(bool(ok))
+    whole = plan.session(device="cpu").transfer(cache if pod == 0 else None)
+    if pod == 1:
+        summary["whole_equal"] = all(np.array_equal(as_bits(whole[k]),
+                                                    as_bits(x))
+                                     for k, x in cache.items())
+    return summary
+
+
 # ---------------------------------------------------------------------------
 # the ring
 # ---------------------------------------------------------------------------
@@ -259,11 +307,13 @@ def train_world(rank, world, store, ref_dir, out_dir):
 
 def _train_case(rank: int, world: int, ref_dir: Path):
     """One ``grad_compress`` train step of the reduced smollm from the JAX
-    reference's state and batch; the ring's output is recorded and held
-    bitwise against the f32 mean of both pods' gradients computed here."""
+    reference's state and batch, under the policy of a mesh of pods (the
+    launcher's path); the ring's output is recorded and held bitwise
+    against the f32 mean of both pods' gradients computed here."""
     import hashlib
 
     from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy
     from repro_torch.training import optimizer as OPT
     from repro_torch.training import train_step as TS
     ref = np.load(ref_dir / "gc.npz")
@@ -289,8 +339,8 @@ def _train_case(rank: int, world: int, ref_dir: Path):
     GC.compressed_cross_pod_mean_own = recording
     try:
         step = TS.make_train_step(
-            cfg, OPT.AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=1), mesh,
-            grad_compress=True, kv_block=32)
+            cfg, OPT.AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=1),
+            ShardingPolicy(mesh), grad_compress=True, kv_block=32)
         new, metrics = step(state, batch)
     finally:
         GC.compressed_cross_pod_mean_own = orig
@@ -330,3 +380,210 @@ def _train_case(rank: int, world: int, ref_dir: Path):
         grads_bf16=all(g.dtype == p.dtype for g, p in
                        zip(TR.leaves(avg), TR.leaves(state.params))))
     return summary, arrays
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step
+# ---------------------------------------------------------------------------
+
+def _state_from_ref(ref, cfg):
+    """The JAX reference's initial train state (``state/<keystr>`` bits)."""
+    from repro_torch.training import train_step as TS
+    like = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    flat, treedef = TR.flatten_with_path(like)
+    leaves = []
+    for path, x in flat:
+        a = ref["state/" + _keystr(path)]
+        leaves.append(to_torch(a, "bfloat16") if x.dtype == torch.bfloat16
+                      else torch.from_numpy(np.array(a)))
+    return TR.unflatten(treedef, leaves)
+
+
+def _sha(tree) -> str:
+    import hashlib
+    sha = hashlib.sha256()
+    for x in TR.leaves(tree):
+        sha.update(as_bits(x).tobytes())
+    return sha.hexdigest()
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in TR.leaves(tree))
+
+
+def shard_train_world(rank, world, store, ref_dir, out_dir, arch, shape,
+                      kv_block, grad_compress):
+    _init(rank, world, store)
+    try:
+        summary, arrays = _shard_train_cases(Path(ref_dir), Path(out_dir), arch,
+                                             tuple(shape), kv_block, grad_compress)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        if rank == 0:
+            np.savez(Path(out_dir) / "rank0.npz", **arrays)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_train_cases(ref_dir: Path, out_dir: Path, arch, shape, kv_block,
+                       grad_compress):
+    """The JAX reference's steps through the sharded step, FSDP on and
+    off: per run the metrics, the gathered state's bits and its hash, the
+    bytes this rank holds against the spec arithmetic, and (FSDP on) a
+    checkpoint through a placed ``Checkpointer``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.distributed import elastic as EL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    ref = np.load(ref_dir / "shard.npz")
+    meta = json.loads((ref_dir / "shard.json").read_text())
+    cfg = get_config(arch).reduced()
+    state0 = _state_from_ref(ref, cfg)
+    like = TS.abstract_state(cfg)
+    opt_cfg = OPT.AdamWConfig(**meta["opt"])
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    summary, arrays = {"runs": {}}, {}
+    for fsdp in (True, False):
+        policy = SH.ShardingPolicy(mesh, fsdp=fsdp)
+        step, placed = TS.shard_train_step(
+            TS.make_train_step(cfg, opt_cfg, policy=policy,
+                               grad_compress=grad_compress, kv_block=kv_block),
+            policy, state0)
+        specs = TS.state_specs(policy, like)
+        run = {"held": {k: _nbytes(getattr(placed.opt, k) if k != "params"
+                                   else placed.params)
+                        for k in ("params", "m", "v")},
+               "spec_bytes": {
+                   "params": SH.held_bytes(like.params, specs.params,
+                                           policy.sizes),
+                   "m": SH.held_bytes(like.opt.m, specs.opt.m, policy.sizes),
+                   "v": SH.held_bytes(like.opt.v, specs.opt.v, policy.sizes)},
+               "moments_like_params": all(
+                   tuple(m.shape) == tuple(p.shape) == tuple(v.shape)
+                   for p, m, v in zip(TR.leaves(placed.params),
+                                      TR.leaves(placed.opt.m),
+                                      TR.leaves(placed.opt.v))),
+               "split_leaves": sum(SH.splits(s, policy.sizes) for s in
+                                   SH.leaf_specs(specs.params, like.params)),
+               "metrics": []}
+        for i in range(len(meta["batches"])):
+            toks = torch.from_numpy(ref[f"batch{i}"])
+            batch = {"tokens": toks[:, :-1].contiguous(),
+                     "labels": toks[:, 1:].contiguous()}
+            placed, metrics = step(placed, batch)
+            run["metrics"].append({k: float(v) for k, v in metrics.items()})
+        run["comm"] = {k: c.sent_bytes for k, c in TS.last_comm.items()}
+        whole = TS.gather_state(placed, policy, like)
+        run["sha"] = _sha(whole)
+        tag = "fsdp" if fsdp else "replicated"
+        for path, x in TR.flatten_with_path(whole)[0]:
+            arrays[f"{tag}/{_keystr(path)}"] = as_bits(x)
+        if fsdp:
+            ckpt = CKPT.Checkpointer(str(out_dir / "ckpt"), device="cpu",
+                                     placement=TS.placement(cfg, policy))
+            ckpt.save(len(meta["batches"]), placed, extra={"arch": cfg.name})
+            back, extra, s = ckpt.restore(None)
+            run["restored_shards_bitwise"] = (
+                s == len(meta["batches"]) and extra == {"arch": cfg.name}
+                and _sha(back) == _sha(placed))
+            moved, _ = EL.reshard(whole, None, EL.MeshPlan(shape, (
+                "pod", "data", "model"), 0.0), device="cpu",
+                placement=TS.placement(cfg, policy))
+            run["reshard_shards_bitwise"] = _sha(moved) == _sha(placed)
+        summary["runs"][tag] = run
+    return summary, arrays
+
+
+def reduce_world(rank, world, store, out_dir):
+    """The sharded step's gradient reduction on mesh (1, world, 1), FSDP
+    on and off, on seeded gradients of every rank, against their f32
+    rank-order mean; then a placed ``Checkpointer`` whose write fails on
+    rank 0."""
+    _init(rank, world, store)
+    try:
+        summary = _reduce_cases(rank, world, Path(out_dir))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _reduce_cases(rank, world, out_dir: Path):
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import train_step as TS
+    mesh = make_mesh((1, world, 1), ("pod", "data", "model"))
+    policy = SH.ShardingPolicy(mesh)
+    # two leaves with an FSDP block over data, one too small to split
+    shapes = [((64 * world, 32), torch.bfloat16),
+              ((16 * world, 8), torch.float32), ((3,), torch.bfloat16)]
+    blocks = [("data", None), ("data", None), (None,)]
+    replicated = [(None,) * len(s) for s, _ in shapes]
+
+    def grads_of(r):
+        g = torch.Generator().manual_seed(100 + r)
+        return [torch.randn(s, generator=g).to(dt) for s, dt in shapes]
+
+    every = [grads_of(r) for r in range(world)]
+    want = []
+    for parts in zip(*every):
+        acc = parts[0].float()
+        for x in parts[1:]:
+            acc = acc + x.float()
+        want.append((acc / world).to(parts[0].dtype))
+    out = {}
+    for tag, specs in (("replicated", replicated), ("fsdp", blocks)):
+        comm = CL.CommStats()
+        got = TS.reduce_gradients(every[rank], specs, blocks, policy,
+                                  comm=comm)
+        out[f"{tag}_bitwise"] = all(
+            np.array_equal(as_bits(g), as_bits(SH.shard_slice(w, s, mesh)))
+            for g, w, s in zip(got, want, specs))
+        out[f"{tag}_shapes"] = [list(g.shape) for g in got]
+        # the two leaves that split, alone: what the reduction receives
+        comm = CL.CommStats()
+        TS.reduce_gradients(every[rank][:2], specs[:2], blocks[:2], policy,
+                            comm=comm)
+        out[f"{tag}_recv_bytes"] = comm.recv_bytes
+    out["split_whole_bytes"] = sum(x.numel() * x.element_size()
+                                   for x in every[rank][:2])
+    # a placed save whose write fails on rank 0 fails on every rank at once
+    like = {"w": torch.empty((8 * world, 6), dtype=torch.bfloat16,
+                             device="meta")}
+    ckpt = CKPT.Checkpointer(
+        str(out_dir / "ckpt"), device="cpu",
+        placement=SH.Placement(SH.ShardingPolicy(mesh, fsdp=True),
+                               {"w": ("data", None)}, like))
+    if rank == 0:
+        def no_space(*a, **k):
+            raise OSError("no space left on device")
+        ckpt._write = no_space
+    shard = {"w": torch.ones((8, 6), dtype=torch.bfloat16)}
+    t0 = time.monotonic()
+    try:
+        ckpt.save(1, shard)
+        out["save_raised"] = None
+    except (OSError, RuntimeError) as e:
+        out["save_raised"] = f"{type(e).__name__}: {e}"
+    out["save_seconds"] = time.monotonic() - t0
+    return out
+
+
+def launch_world(rank, world, store, ckpt_dir, out_dir):
+    """``launch/train.py --mesh 1,<world>,1`` on this rank; the launcher
+    tears the group down itself."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.launch import train as LT
+    _init(rank, world, store)
+    os.environ["WORLD_SIZE"] = str(world)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        LT.main(["--arch", "smollm-135m", "--reduced", "--batch", "4",
+                 "--seq", "16", "--device", "cpu", "--mesh", f"1,{world},1",
+                 "--steps", "2", "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"])
+    (Path(out_dir) / f"rank{rank}.txt").write_text(buf.getvalue())
