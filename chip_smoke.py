@@ -239,6 +239,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               data 2) drive smollm's served cache pod 0 -> 1: every
               destination shard bitwise the one its source sent; bytes
               each rank hands to gloo.
+8k. tp      — tensor-parallel training over the model axis
+              (``distributed/tensor_parallel.py``) at smollm-135m's full
+              width, batch 4 x 2048, 2 steps, ranks spawned over gloo on
+              the one card.  (a) Mesh (pod 1, data 1, model 3): 9 / 3
+              heads split (attention case ``heads``), every split leaf a
+              third a rank; (b) mesh (1, 2, 2) with FSDP: 9 heads do not
+              split over 2, the ``seq`` fallback.  Gates: the ranks'
+              gathered states bitwise equal, each leaf replicated over
+              model bitwise equal across the model ranks, held bytes
+              equal to the spec arithmetic, no parameter gathered over
+              model (the step's gather bytes are the data axis's), no
+              flash launch (windows ``tp_heads``, ``tp_seq``), and rank 0
+              within ``tests/test_torch_shard_train.py``'s bounds of the
+              single-process step on the same batches.  Per rank: held
+              bytes, step ms, the activation collectives' bytes and ms
+              forward and backward, gather / reduce / norm, peak memory.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -280,7 +296,9 @@ step's gradient ring on rank 0 (phase 8i, ``train_save``,
 default gradient codebook; the train steps, counted apart in
 ``train_steps``, launch no flash kernel), the sharded step's ring on rank
 0 and the policy-specified hop on a source and a destination rank (phase
-8j, ``shard_ring``, ``shard_hop_src``, ``shard_hop_dst``), and the served prefills of
+8j, ``shard_ring``, ``shard_hop_src``, ``shard_hop_dst``), the
+tensor-parallel steps on rank 0 (phase 8k, ``tp_heads``, ``tp_seq``: no
+flash launch), and the served prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
 tensor-core path, or the run fails); the checks around those runs are not
@@ -3265,13 +3283,13 @@ def _embedding_backward(torch, cfg, device):
     return out
 
 
-def _against_single(torch, cfg, sharded, steps):
+def _against_single(torch, cfg, sharded, steps, batch=TRAIN_BATCH):
     """The single-process step (``make_run`` without a policy) on the same
     batches against the sharded run: the bounds and the worst leaf."""
     from repro_torch.core import tree as TR
     from repro_torch.launch import train as LT
     device = TR.leaves(sharded)[0].device
-    state, step_at = LT.make_run(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    state, step_at = LT.make_run(cfg, batch=batch, seq=TRAIN_SEQ,
                                  lr=TRAIN_LR, steps=SHARD_STEPS, seed=0,
                                  device=device)
     metrics = []
@@ -3474,6 +3492,139 @@ def phase_shard(torch, smi, grad_book):
             for w, c in windows.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase tp: tensor-parallel training over the model axis across ranks
+# ---------------------------------------------------------------------------
+
+TP_BATCH, TP_STEPS = 4, 2
+TP_HEADS_MESH, TP_SEQ_MESH = (1, 1, 3), (1, 2, 2)
+
+
+def tp_rank(torch, rank, device, shape, fsdp):
+    """Phase ``tp``: smollm-135m at full width on mesh ``shape``, batch
+    ``TP_BATCH`` x 2048, ``TP_STEPS`` steps through ``make_run(policy=)``
+    (``fsdp`` on the data axis).  (a) (1, 1, 3): 9 / 3 heads split over 3
+    model ranks (attention case ``heads``); (b) (1, 2, 2): 9 heads do not
+    split over 2, the ``seq`` fallback.  Each rank: its attention case,
+    the bytes it holds against the spec arithmetic, step ms and the step's
+    traffic (``train_step.last_comm``: activation collectives forward and
+    backward, parameter gathers over data, gradient reduction, norm),
+    the parameter-gather bytes the data axis alone accounts for, peak
+    memory, the hash of its shards of the leaves replicated over
+    ``model`` and of the gathered state.  Rank 0 then runs the
+    single-process step on the same batches and holds the gathered state
+    to it within the ``SHARD_*`` bounds."""
+    import warnings
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.collective import _padded
+    from repro_torch.training import train_step as TS
+
+    _deterministic(torch)
+    cfg = get_config(ARCH)
+    mesh = make_mesh(shape, MESH_AXES)
+    policy = SH.ShardingPolicy(mesh, fsdp=fsdp)
+    like = TS.abstract_state(cfg)
+    specs = SH.leaf_specs(TS.state_specs(policy, like), like)
+    out = {"rank": rank, "coord": SH.coordinate(mesh),
+           "case": TP.TensorParallel(mesh.get_group("model"), cfg)
+           .attention(TRAIN_SEQ)}
+    seconds, t0 = {}, time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step_at = LT.make_run(cfg, batch=TP_BATCH, seq=TRAIN_SEQ,
+                                     lr=TRAIN_LR, steps=TP_STEPS, seed=0,
+                                     device=device, policy=policy)
+        seconds["setup"] = time.perf_counter() - t0
+        out["held"] = _held(state)
+        out["spec_bytes"] = _spec_bytes(like, policy)
+        out["data_gather_bytes"] = sum(
+            _padded(x.numel() * x.element_size())
+            for x, s in zip(TR.leaves(state.params), specs)
+            if SH.splits(SH.restrict(s, ("data",)), policy.sizes))
+        t0 = time.perf_counter()
+        state, out["steps"], out["launches"] = _sharded_steps(
+            torch, step_at, state, TP_STEPS)
+        seconds["steps"] = time.perf_counter() - t0
+        out["peak_gb"] = _peak_gb(torch)
+        t0 = time.perf_counter()
+        out["replicated_sha"] = _sha_tree(torch, [
+            x for x, s in zip(TR.leaves(state), specs)
+            if not any("model" in SH.entry_axes(e) for e in s)])
+        whole = TS.gather_state(state, policy, like)
+        out["sha"] = _sha_tree(torch, whole)
+        seconds["gather_and_hash"] = time.perf_counter() - t0
+        del state, step_at
+        if rank == 0:
+            t0 = time.perf_counter()
+            out["reference"] = _against_single(torch, cfg, whole, out["steps"],
+                                               batch=TP_BATCH)
+            seconds["reference"] = time.perf_counter() - t0
+        del whole
+    out["warnings"] = _nondeterministic_warnings(caught)
+    out["seconds"] = seconds
+    return out
+
+
+def _tp_gates(tag, ranks, want_case):
+    """Phase ``tp``'s gates on one run's ranks."""
+    if {r["case"] for r in ranks} != {want_case}:
+        raise AssertionError(f"tp ({tag}): attention case "
+                             f"{[r['case'] for r in ranks]}, want {want_case}")
+    if len({r["sha"] for r in ranks}) != 1:
+        raise AssertionError(f"tp ({tag}): the ranks gathered different states")
+    replicas = {}
+    for r in ranks:
+        c = r["coord"]
+        replicas.setdefault((c["pod"], c["data"]), set()).add(r["replicated_sha"])
+        if r["held"] != r["spec_bytes"]:
+            raise AssertionError(f"tp ({tag}) rank {r['rank']}: holds "
+                                 f"{r['held']}, the specs give {r['spec_bytes']}")
+        for st in r["steps"]:
+            if st["comm"]["gather"]["sent_bytes"] != r["data_gather_bytes"]:
+                raise AssertionError(
+                    f"tp ({tag}) rank {r['rank']}: parameter gathers of "
+                    f"{st['comm']['gather']['sent_bytes']} bytes, the data axis "
+                    f"accounts for {r['data_gather_bytes']}: a parameter "
+                    "crossed the model group")
+            if not math.isfinite(st["loss"]):
+                raise AssertionError(f"tp ({tag}): loss {st['loss']}")
+        if r["launches"]["flash_attention"]:
+            raise AssertionError(f"tp ({tag}) rank {r['rank']}: the flash "
+                                 "kernel launched in a train window")
+    if any(len(v) != 1 for v in replicas.values()):
+        raise AssertionError(f"tp ({tag}): a leaf replicated over model "
+                             "differs between model ranks")
+    if not ranks[0]["reference"]["ok"]:
+        raise AssertionError(f"tp ({tag}): the sharded step left the "
+                             f"single-process step's bounds: "
+                             f"{ranks[0]['reference']}")
+
+
+def phase_tp(torch, smi):
+    t0 = time.perf_counter()
+    a = run_ranks("tp_rank", math.prod(TP_HEADS_MESH), TP_HEADS_MESH, False)
+    a_s = time.perf_counter() - t0
+    _tp_gates("heads", a, "heads")
+    b = run_ranks("tp_rank", math.prod(TP_SEQ_MESH), TP_SEQ_MESH, True)
+    b_s = time.perf_counter() - t0 - a_s
+    _tp_gates("seq", b, "seq")
+    emit(phase="tp", nvidia_smi=smi, arch=ARCH, batch=TP_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, steps=TP_STEPS, transport="gloo",
+         heads=dict(mesh=list(TP_HEADS_MESH), fsdp=False, ranks=a),
+         seq_fallback=dict(mesh=list(TP_SEQ_MESH), fsdp=True, ranks=b),
+         seconds=dict(heads=a_s, seq_fallback=b_s,
+                      phase=time.perf_counter() - t0))
+    return {w: {k: r[0]["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")}
+            for w, r in (("tp_heads", a), ("tp_seq", b))}
+
+
 def phase_mesh(torch, smi):
     ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
     src, dst = ranks
@@ -3621,6 +3772,7 @@ def main(argv=None) -> int:
     train_windows, grad_book = timed("train", phase_train, torch, smi)
     windows.update(train_windows)
     windows.update(timed("shard", phase_shard, torch, smi, grad_book))
+    windows.update(timed("tp", phase_tp, torch, smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)

@@ -26,7 +26,9 @@ Not ported: ``constrain``, ``constrain_tree``, ``param_sharding`` and
 ``cache_sharding``.  In JAX they are GSPMD layout hints inside a jitted
 program and ``NamedSharding`` objects for its in/out shardings; the port
 places tensors explicitly (``training/train_step.py:shard_state``, the mesh
-executor's shard slicing), so the model code does not change.  Nor are
+executor's shard slicing), and the model code takes a tensor-parallel
+context as an argument where GSPMD reads the hints
+(``distributed/tensor_parallel.py``).  Nor are
 ``use_policy`` and ``current_policy``: the thread-local policy's only
 reader in JAX is ``constrain``, and the port's step takes its policy as an
 argument.
@@ -380,6 +382,13 @@ def gather_tree(tree, specs_tree, mesh, comm=None):
     return TR.unflatten(treedef, [
         gather(x, s, mesh, comm) if splits(s, sizes) else x
         for (_, x), s in zip(flat, TR.flatten_up_to(treedef, specs_tree))])
+
+
+def restrict(spec: Spec, axes) -> Spec:
+    """``spec`` with only the entries that name ``axes`` (the others
+    replicated): what a block split over those axes alone is placed by."""
+    return tuple(e if e is not None and set(entry_axes(e)) <= set(axes)
+                 else None for e in spec)
 
 
 def splits(spec: Spec, sizes: Mapping[str, int]) -> bool:

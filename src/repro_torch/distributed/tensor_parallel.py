@@ -1,0 +1,268 @@
+"""Tensor parallelism over the policy's ``model`` axis: the context the
+model code takes as ``tp=``, and the collectives of split products as
+autograd functions.
+
+The JAX package has no counterpart module.  There GSPMD partitions the
+jitted train step itself: the policy's ``model`` specs (``heads_mid``,
+``heads_first``, ``ff_col``, ``ff_row``, ``vocab_row``, ``vocab_col``,
+``mla_b``; ``distributed/sharding.py``) and the ``constrain`` hints make
+XLA split the products and insert the collectives.  The port places its
+shards explicitly, so the model code runs on a rank's shards and calls the
+collectives below where GSPMD inserts its own:
+
+* :func:`region` -- the input of a split region: identity forward, the sum
+  over ``model`` backward (each rank's products give a part of the
+  input's gradient);
+* :func:`reduce` -- a row-split product's output: the sum over ``model``
+  forward, identity backward;
+* :func:`gather` -- an output split over ``model`` along one dimension
+  (the ``seq`` fallback's attention blocks; a column-split ``wq_a``,
+  ``wkv_a`` or ``frontend_proj`` product, whose output is normed over its
+  whole width or joins the residual stream whole): all-gathered forward,
+  the rank's slice of the whole gradient backward;
+* :func:`vocab_embedding` -- the token lookup in a vocab-split table:
+  each rank looks up its range, zeros elsewhere, summed over ``model``;
+* :func:`vocab_log_prob` -- each position's label log-probability over a
+  vocab split over ``model``: the log-softmax's max and sum and the
+  label's logit reduced over ``model``, forward and backward.
+
+Every sum adds the ranks' parts in f32 in rank order and rounds once
+(:func:`ordered_sum`): an activation or gradient sum
+(:meth:`TensorParallel.sum`) as a reduce-scatter (each rank sums its
+slice, ``Link.all_to_all``) and an all-gather of the rounded slices
+(``Link.all_gather``), the loss's per-position statistics as one
+all-gather.  So every model rank holds bitwise the same activation and
+the same gradient.  The model code computes a row-split product in f32
+(the exact bf16 products, unrounded) and rounds the sum.
+
+Attention (:meth:`TensorParallel.attention`) has four cases: ``heads``
+(query and KV heads split), ``kv`` (query heads split, the KV heads not:
+each rank computes K/V whole and takes the heads its queries read),
+``seq`` (query heads do not split and the policy's ``attn_fallback`` is
+``seq``: each rank attends its block of query positions over the keys up
+to the block's end, the blocks gathered before ``wo``) and ``none``
+(replicated).  The leaves replicated over ``model`` whose gradients are
+then partial on each rank (:func:`partial_leaf`) are summed over ``model``
+by the train step's gradient reduction; every other leaf's gradient is
+its whole gradient (or its shard's) on every rank.
+
+Families: the dense GQA and MLA models and the vision and audio front
+ends.  MoE (expert parallelism), Mamba-2's SSD and the RG-LRU hybrid are
+refused (:func:`refuse`).
+
+Each collective's bytes and host time go to the context's ``fwd`` (the
+forward pass, remat's recomputation included) or ``bwd`` ``CommStats``.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.serving import collective as CL
+
+#: the model families tensor parallelism does not cover yet, and why
+REFUSED = {"moe": "expert parallelism (the 'expert' spec) is not ported",
+           "ssm": "Mamba-2's in_proj/out_proj split is not ported",
+           "hybrid": "the RG-LRU's 'lru_sq' split is not ported"}
+
+
+def refuse(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming the family where ``cfg`` is one
+    that tensor parallelism does not cover."""
+    kind = ("moe" if cfg.moe is not None else "ssm" if cfg.ssm is not None
+            else "hybrid" if cfg.hybrid is not None else None)
+    if kind is not None:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family}): a 'model' axis above 1: "
+            f"{REFUSED[kind]}; train it on a (pod, data) mesh")
+
+
+def ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The f32 sum of ``parts`` in rank order."""
+    acc = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(torch.float32)
+    return acc
+
+
+class TensorParallel:
+    """One rank's view of the ``model`` axis for one model: the process
+    group, this rank's index and the group's size, the model's head
+    counts and the policy's ``attn_fallback``, and the traffic of the
+    collectives (``fwd``, ``bwd``)."""
+
+    def __init__(self, group, cfg: ArchConfig, *, attn_fallback: str = "seq"):
+        refuse(cfg)
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.heads = cfg.num_heads
+        self.kv_heads = cfg.num_heads if cfg.mla is not None else cfg.num_kv_heads
+        self.attn_fallback = attn_fallback
+        self.fwd, self.bwd = CL.CommStats(), CL.CommStats()
+
+    def splits(self, n: int) -> bool:
+        """Whether a dimension of ``n`` splits over ``model``: the policy's
+        rule (``ShardingPolicy._maybe``)."""
+        return self.size > 1 and n % self.size == 0
+
+    def attention(self, seq: int) -> str:
+        """The attention case at ``seq`` positions (module docstring)."""
+        if self.splits(self.heads):
+            return "heads" if self.splits(self.kv_heads) else "kv"
+        if self.attn_fallback == "seq" and self.splits(seq):
+            return "seq"
+        return "none"
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` positions."""
+        size = n // self.size
+        return slice(self.rank * size, (self.rank + 1) * size)
+
+    def link(self, backward: bool, device) -> CL.Link:
+        return CL.Link(self.group, device, self.bwd if backward else self.fwd)
+
+    def sum(self, x: torch.Tensor, dtype: torch.dtype, backward: bool
+            ) -> torch.Tensor:
+        """The sum of every rank's ``x`` in f32 in rank order, rounded once
+        to ``dtype``: a reduce-scatter of equal slices, then an all-gather
+        of the rounded slices."""
+        link = self.link(backward, x.device)
+        flat = x.reshape(-1)
+        n = flat.numel()
+        per = -(-n // self.size)
+        flat = F.pad(flat, (0, per * self.size - n))
+        mine = ordered_sum(link.all_to_all(list(flat.split(per)))).to(dtype)
+        return torch.cat(link.all_gather(mine))[:n].reshape(x.shape)
+
+
+def partial_leaf(path: str, tp: TensorParallel, seq: int) -> bool:
+    """Whether the gradient of the parameter at ``path`` (``/``-joined) is
+    partial on each model rank at ``seq`` positions: the attention leaves
+    replicated over ``model`` that a rank uses for its heads or its block
+    of positions only (case ``kv``: ``wk``, ``wv``; case ``seq``: ``wq``,
+    ``wk``, ``wv``, MLA's ``wq_b`` and ``wkv_b``)."""
+    parts = path.split("/")
+    if "attn" not in parts:
+        return False
+    names = {"kv": ("wk", "wv"),
+             "seq": ("wq", "wk", "wv", "wq_b", "wkv_b")}.get(tp.attention(seq), ())
+    return parts[-1] in names
+
+
+class _Region(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.sum(g, g.dtype, backward=True), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dtype):
+        ctx.in_dtype = x.dtype
+        return tp.sum(x, dtype, backward=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return torch.cat(tp.link(False, x.device).all_gather(x.contiguous()),
+                         dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n).contiguous()
+        return mine, None, None
+
+
+def region(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x`` as the input of a split region (its gradient summed over
+    ``model``)."""
+    return _Region.apply(x, tp)
+
+
+def reduce(x: torch.Tensor, tp: TensorParallel,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The sum over ``model`` of every rank's ``x`` (a row-split product's
+    part), rounded once to ``dtype``."""
+    return _Reduce.apply(x, tp, dtype)
+
+
+def gather(x: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    gradient of the whole is the same on every rank; a rank keeps its
+    slice)."""
+    return _Gather.apply(x, tp, dim)
+
+
+def row_product(a: torch.Tensor, w: torch.Tensor,
+                tp: TensorParallel) -> torch.Tensor:
+    """``a @ w`` where ``a``'s last dimension and ``w``'s rows are this
+    rank's part of a split contraction: the f32 products of the bf16
+    values, summed over ``model`` and rounded once to ``a``'s dtype."""
+    return reduce(torch.matmul(a.float(), w.float()), tp, a.dtype)
+
+
+def vocab_embedding(tokens: torch.Tensor, table: torch.Tensor,
+                    tp: TensorParallel) -> torch.Tensor:
+    """The rows of ``tokens`` from a table whose rows (the vocab) split over
+    ``model``: this rank looks up the tokens of its range and zeros the
+    others, and the parts are summed (exact: one part is not zero)."""
+    vr = table.shape[0]
+    local = tokens - tp.rank * vr
+    mine = (local >= 0) & (local < vr)
+    rows = F.embedding(torch.where(mine, local, torch.zeros_like(local)), table)
+    return reduce(rows.masked_fill(~mine[..., None], 0), tp, table.dtype)
+
+
+class _VocabLogProb(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        x = logits.float()
+        vr = x.shape[-1]
+        local = labels.long() - tp.rank * vr
+        mine = (local >= 0) & (local < vr)
+        idx = torch.where(mine, local, torch.zeros_like(local))
+        link = tp.link(False, x.device)
+        m = torch.stack(link.all_gather(x.amax(-1))).amax(0)
+        shifted = x - m[..., None]
+        z = torch.where(mine, shifted.gather(-1, idx[..., None])[..., 0],
+                        torch.zeros_like(m))
+        s, z = ordered_sum(link.all_gather(
+            torch.stack([torch.exp(shifted).sum(-1), z]))).unbind()
+        log_s = torch.log(s)
+        ctx.save_for_backward(shifted, log_s, mine, idx)
+        ctx.in_dtype = logits.dtype
+        return z - log_s
+
+    @staticmethod
+    def backward(ctx, g):
+        shifted, log_s, mine, idx = ctx.saved_tensors
+        grad = -torch.exp(shifted - log_s[..., None]) * g[..., None]
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(mine, g, torch.zeros_like(g))[..., None])
+        return grad.to(ctx.in_dtype), None, None
+
+
+def vocab_log_prob(logits: torch.Tensor, labels: torch.Tensor,
+                   tp: TensorParallel) -> torch.Tensor:
+    """``log_softmax(logits.float())`` at ``labels`` (f32, labels' shape),
+    where ``logits`` holds this rank's columns of a vocab split over
+    ``model``; the arithmetic of ``torch.log_softmax``: ``(x - max) -
+    log(sum(exp(x - max)))``."""
+    return _VocabLogProb.apply(logits, labels, tp)

@@ -8,27 +8,33 @@ another (``--device cpu`` runs the codec kernels' plain versions); without
 CUDA and without ``--device`` it raises.  Weights and data come from
 ``--seed``.
 
-``--mesh N`` or ``--mesh N,D,1`` trains across N pods of D data ranks,
-one process a rank over gloo, under the sharding policy the JAX launcher
-builds, ``ShardingPolicy(make_mesh((N, D, 1), ("pod", "data", "model")))``
+``--mesh N`` or ``--mesh N,D,M`` trains across N pods of D data ranks of
+M model ranks, one process a rank over gloo (``N·D·M`` processes), under
+the sharding policy the JAX launcher builds,
+``ShardingPolicy(make_mesh((N, D, M), ("pod", "data", "model")))``
 (``distributed/sharding.py``; the sharded step of
-``training/train_step.py``): the global batch splits over the ranks, the
-gradients sum over ``data`` in f32, and pods average them through the
-compressed ring, so ``N > 1`` needs ``--grad-compress``; a data axis
-alone does not.  A launch by ``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
-``MASTER_ADDR`` and ``MASTER_PORT``::
+``training/train_step.py``): the global batch splits over the pod and
+data ranks, the gradients sum over ``data`` in f32, and pods average them
+through the compressed ring, so ``N > 1`` needs ``--grad-compress``; a
+data or model axis alone does not.  ``M > 1`` is tensor parallelism
+(``distributed/tensor_parallel.py``) for the dense, MLA and front-end
+families; the MoE, SSM and hybrid families are refused.  The JAX
+launcher's ``--mesh D,M`` has no pod axis: here ``N,D,M`` always names
+all three (and a single ``N`` the pods).  A launch by ``torchrun`` sets
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``::
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch smollm-135m --reduced --mesh 1,2,1
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-135m --reduced --mesh 2,2,1 --grad-compress
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch smollm-135m --mesh 1,2,2
 
 Rank 0 prints and writes the checkpoints (the gathered state, which the
 unsharded trainer and the JAX ``Checkpointer`` load); every rank restores
-and takes its shards.  A model axis above 1 (tensor parallelism) is not
-ported yet and is refused.  The JAX launcher has no FSDP flag, so neither
-has this one: ``make_run(policy=ShardingPolicy(..., fsdp=True))`` trains
-with parameters and moments sharded over ``data``.
+and takes its shards.  The JAX launcher has no FSDP flag, so neither has
+this one: ``make_run(policy=ShardingPolicy(..., fsdp=True))`` trains with
+parameters and moments sharded over ``data``.
 """
 
 from __future__ import annotations
@@ -59,19 +65,14 @@ def opt_config(lr: float, steps: int) -> OPT.AdamWConfig:
                            warmup_steps=max(steps // 10, 1))
 
 
-def parse_mesh(spec: str) -> Tuple[int, int]:
-    """``N`` or ``N,D,M`` -> ``(N, D)``: N pods of D data ranks; M (the
-    model axis) must be 1."""
+def parse_mesh(spec: str) -> Tuple[int, int, int]:
+    """``N`` or ``N,D,M`` -> ``(N, D, M)``: N pods of D data ranks of M
+    model ranks (``N`` alone: ``(N, 1, 1)``)."""
     dims = tuple(int(x) for x in spec.split(","))
     if len(dims) not in (1, 3) or any(d < 1 for d in dims):
         raise SystemExit(f"--mesh {spec!r}: give N pods or N,D,M "
                          "(pod, data, model)")
-    if len(dims) == 3 and dims[2] != 1:
-        raise SystemExit(
-            f"--mesh {spec!r}: a model axis above 1 needs tensor-parallel "
-            "training (split products, a vocab-parallel loss), which is not "
-            "ported yet; use N,D,1")
-    return dims[0], (dims[1] if len(dims) == 3 else 1)
+    return dims if len(dims) == 3 else (dims[0], 1, 1)
 
 
 def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
@@ -135,8 +136,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="N or N,D,1: N pods of D data ranks (one process "
-                         "a rank, under torchrun)")
+                    help="N or N,D,M: N pods of D data ranks of M model "
+                         "ranks (one process a rank, under torchrun)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
@@ -147,17 +148,17 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    n_pod, n_data = parse_mesh(args.mesh) if args.mesh else (1, 1)
+    shape = parse_mesh(args.mesh) if args.mesh else (1, 1, 1)
+    n_pod, world = shape[0], shape[0] * shape[1] * shape[2]
     policy, device = None, args.device
     if n_pod > 1 and not args.grad_compress:
         raise SystemExit(
             f"--mesh {args.mesh} needs --grad-compress: pods average their "
             "gradients through the compressed ring (there is no implicit "
             "all-reduce across pods here)")
-    if n_pod * n_data > 1:
-        device = _join_group(n_pod * n_data, device)
-        policy = ShardingPolicy(make_mesh((n_pod, n_data, 1),
-                                          ("pod", "data", "model")))
+    if world > 1:
+        device = _join_group(world, device)
+        policy = ShardingPolicy(make_mesh(shape, ("pod", "data", "model")))
     device = resolve_device(device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)

@@ -8,6 +8,13 @@ weights ``(D, H, hd)`` / ``(H, hd, D)`` — and so are the dtypes: bf16
 activations and weights, f32 softmax statistics and accumulators.  A
 "bf16 x bf16 -> f32" product (JAX's ``preferred_element_type=f32``) is
 computed as an f32 matmul of the bf16 values, which is exact per product.
+
+Under tensor parallelism (``tp``, a
+:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) the
+weights are a rank's shards: :func:`attention_tp` runs the attention
+block in each of the context's attention cases, :func:`attention_out` and
+:func:`mlp` take row-split ``wo`` / ``w_down`` and sum their f32 products
+over ``model``.  Without ``tp`` (serving) nothing changes.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import flash_attention as FA
 
 NEG_INF = -1e30
@@ -166,10 +174,53 @@ def attention_qkv(p, x, positions, theta):
     return q, k, v
 
 
-def attention_out(p, o):
-    """'bshk,hkd->bsd'."""
+def attention_out(p, o, tp=None):
+    """'bshk,hkd->bsd'.  Under ``tp``, ``o`` holds this rank's heads and
+    ``p["wo"]`` their rows: the parts are summed over ``model``."""
     h, k, d = p["wo"].shape
-    return torch.matmul(o.reshape(*o.shape[:-2], h * k), p["wo"].reshape(h * k, d))
+    o, wo = o.reshape(*o.shape[:-2], h * k), p["wo"].reshape(h * k, d)
+    if tp is not None:
+        return TP.row_product(o, wo, tp)
+    return torch.matmul(o, wo)
+
+
+def attention_tp(p, x, positions, theta, tp, *, causal=True, kv_block=1024):
+    """One GQA attention block's output (B, S, D), whole on every model
+    rank, from this rank's shards of ``p`` under ``tp``, attending through
+    :func:`chunked_attention` (training's attention):
+
+    * ``heads``: the rank's query heads and their KV heads;
+    * ``kv``: the rank's query heads; K/V from the replicated ``wk`` /
+      ``wv``, whole, then the KV head each query head reads
+      (``h // (H / Hkv)``);
+    * ``seq``: the replicated weights; the rank's block of query positions
+      over the keys up to the block's end (all keys when not causal), the
+      blocks gathered over ``model`` before the whole ``wo``;
+    * ``none``: the whole block on every rank."""
+    s = x.shape[1]
+    case = tp.attention(s)
+    if case == "none":
+        q, k, v = attention_qkv(p, x, positions, theta)
+        o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
+        return attention_out(p, o)
+    xf = TP.region(x, tp)
+    if case == "seq":
+        blk = tp.block(s)
+        end = blk.stop if causal else s
+        q = apply_rope(_proj_in(xf[:, blk], p["wq"]), positions[:, blk], theta)
+        k = apply_rope(_proj_in(xf[:, :end], p["wk"]), positions[:, :end], theta)
+        v = _proj_in(xf[:, :end], p["wv"])
+        o = chunked_attention(q, k, v, causal=causal, q_offset=blk.start,
+                              kv_block=kv_block)
+        return attention_out(p, TP.gather(o, tp, 1))
+    q, k, v = attention_qkv(p, xf, positions, theta)
+    if case == "kv":
+        hl = q.shape[2]
+        idx = (tp.rank * hl + torch.arange(hl, device=x.device)) \
+            // (tp.heads // tp.kv_heads)
+        k, v = k[:, :, idx], v[:, :, idx]
+    o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
+    return attention_out(p, o, tp)
 
 
 def full_attention_block(p, x, positions, theta, *, causal=True, window=None,
@@ -201,7 +252,14 @@ def decode_attention_block(p, x, cache_k, cache_v, cache_len, theta, *,
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp(p, x):
+def mlp(p, x, tp=None):
+    """SwiGLU.  Under ``tp`` the weights are this rank's columns of
+    ``w_gate`` / ``w_up`` and rows of ``w_down`` (d_ff split over
+    ``model``): the parts are summed over ``model``."""
+    if tp is not None:
+        x = TP.region(x, tp)
     g = torch.matmul(x, p["w_gate"])
     u = torch.matmul(x, p["w_up"])
+    if tp is not None:
+        return TP.row_product(F.silu(g) * u, p["w_down"], tp)
     return torch.matmul(F.silu(g) * u, p["w_down"])

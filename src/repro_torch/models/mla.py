@@ -11,6 +11,10 @@ with a value width that differs from the query/key width).  Decode uses the
 projection into the output, so a step costs O(S · kv_lora_rank) instead of
 re-expanding the whole cache.  Layouts and bf16 rounding points follow the
 JAX package: every einsum there is a bf16 x bf16 -> bf16 product here.
+
+Under tensor parallelism (``mla_prefill(tp=)``, training) the latents are
+whole on every rank and the heads split as the policy's ``mla_b`` /
+``heads_first`` specs say (:func:`_mla_prefill_tp`).
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MLAConfig
-from repro_torch.models.layers import NEG_INF, apply_rope, prefill_attention, rms_norm
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.models.layers import (NEG_INF, apply_rope, attention_out,
+                                       chunked_attention, prefill_attention,
+                                       rms_norm)
 
 
 def init_mla(normal, ones, n_layers: int, d_model: int, num_heads: int,
@@ -59,18 +66,37 @@ def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.reshape(*o.shape[:-2], h * v), w.reshape(h * v, d))
 
 
-def queries(p, x, positions, cfg: MLAConfig, theta: float):
-    """(q_nope, q_rope), each (B, S, H, ·); rope applied to q_rope."""
-    q_lat = rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"])
+def _down(x, w, width: int, tp=None):
+    """``x @ w`` (B, S, ``width``), whole.  Under ``tp`` with ``width``
+    split over ``model`` (``ff_col``), ``w`` holds this rank's columns and
+    the product's parts are gathered: the output is normed over its whole
+    width, so the port gathers the product, never the parameter."""
+    if tp is None or not tp.splits(width):
+        return torch.matmul(x, w)
+    return TP.gather(torch.matmul(TP.region(x, tp), w), tp, -1)
+
+
+def q_latent(p, x, cfg: MLAConfig, tp=None):
+    """The normed query latent (B, S, q_lora_rank)."""
+    return rms_norm(_down(x, p["wq_a"], cfg.q_lora_rank, tp), p["q_norm"])
+
+
+def _q_heads(p, q_lat, positions, cfg: MLAConfig, theta: float):
     q = _heads_in(q_lat, p["wq_b"])
     q_nope = q[..., : cfg.qk_nope_head_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, theta)
     return q_nope, q_rope
 
 
-def latent_kv(p, x, positions, cfg: MLAConfig, theta: float):
-    """(c_kv (B, S, kv_lora_rank), k_rope (B, S, rope)): the cache entries."""
-    kv = torch.matmul(x, p["wkv_a"])
+def queries(p, x, positions, cfg: MLAConfig, theta: float):
+    """(q_nope, q_rope), each (B, S, H, ·); rope applied to q_rope."""
+    return _q_heads(p, q_latent(p, x, cfg), positions, cfg, theta)
+
+
+def latent_kv(p, x, positions, cfg: MLAConfig, theta: float, tp=None):
+    """(c_kv (B, S, kv_lora_rank), k_rope (B, S, rope)): the cache entries.
+    Under ``tp`` a column-split ``wkv_a``'s product is gathered."""
+    kv = _down(x, p["wkv_a"], cfg.kv_lora_rank + cfg.qk_rope_head_dim, tp)
     c_kv = rms_norm(kv[..., : cfg.kv_lora_rank], p["kv_norm"])
     k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
                         theta)[:, :, 0, :]
@@ -95,25 +121,61 @@ def mla_scale(cfg: MLAConfig) -> float:
     return 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
 
 
-def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
-                kv_block: int = 1024, attention=prefill_attention
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention through ``attention`` (prefill's, or
-    ``chunked_attention`` in training); returns (out, (c_kv, k_rope))
-    latent cache."""
-    b, s, _ = x.shape
-    h = p["wq_b"].shape[1]
-    q_nope, q_rope = queries(p, x, positions, cfg, theta)
-    c_kv, k_rope = latent_kv(p, x, positions, cfg, theta)
+def _expand(p, c_kv, k_rope, cfg: MLAConfig):
+    """Per-head keys (nope and the shared rope part) and values of the
+    latent, for the heads ``p["wkv_b"]`` holds."""
+    b, s, _ = c_kv.shape
+    h = p["wkv_b"].shape[1]
     kv = _heads_in(c_kv, p["wkv_b"])
     k_nope = kv[..., : cfg.qk_nope_head_dim]
     v = kv[..., cfg.qk_nope_head_dim:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h,
                                                         cfg.qk_rope_head_dim)],
                   dim=-1)
+    return k, v
+
+
+def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
+                kv_block: int = 1024, attention=prefill_attention, tp=None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence attention through ``attention`` (prefill's, or
+    ``chunked_attention`` in training); returns (out, (c_kv, k_rope))
+    latent cache.  Under ``tp`` (training: ``chunked_attention``) the
+    attention runs on this rank's shards: :func:`_mla_prefill_tp`."""
+    if tp is not None:
+        return _mla_prefill_tp(p, x, positions, cfg, theta, kv_block, tp)
+    q_nope, q_rope = queries(p, x, positions, cfg, theta)
+    c_kv, k_rope = latent_kv(p, x, positions, cfg, theta)
+    k, v = _expand(p, c_kv, k_rope, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = attention(q, k, v, causal=True, kv_block=kv_block)
     return _heads_out(o, p["wo"]), (c_kv, k_rope)
+
+
+def _mla_prefill_tp(p, x, positions, cfg: MLAConfig, theta: float,
+                    kv_block: int, tp):
+    """MLA under tensor parallelism: the latents whole on every rank
+    (``wq_a`` / ``wkv_a`` column-split products gathered), then the
+    attention case (``tp.attention``; MLA's KV heads are its heads):
+    ``heads``, the rank's heads of ``wq_b`` / ``wkv_b`` and rows of
+    ``wo``, the parts summed; ``seq``, the replicated weights on the
+    rank's block of query positions over the keys up to its end, the
+    blocks gathered before ``wo``; ``none``, replicated."""
+    s = x.shape[1]
+    case = tp.attention(s)
+    q_lat = q_latent(p, x, cfg, tp)
+    c_kv, k_rope = latent_kv(p, x, positions, cfg, theta, tp)
+    if case != "none":
+        q_lat, c_kv, k_rope = (TP.region(t, tp) for t in (q_lat, c_kv, k_rope))
+    rows = tp.block(s) if case == "seq" else slice(0, s)
+    q_nope, q_rope = _q_heads(p, q_lat[:, rows], positions[:, rows], cfg, theta)
+    k, v = _expand(p, c_kv[:, :rows.stop], k_rope[:, :rows.stop], cfg)
+    o = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                          causal=True, q_offset=rows.start, kv_block=kv_block)
+    if case == "seq":
+        o = TP.gather(o, tp, 1)
+    out = attention_out(p, o, tp if case == "heads" else None)
+    return out, (c_kv, k_rope)
 
 
 def mla_decode(p, x, cache_ckv, cache_krope, cache_len, cfg: MLAConfig,

@@ -21,6 +21,14 @@ backward (its wrapper raises under grad).  ``remat=True`` recomputes each
 layer (each hybrid triple and extra block) in the backward pass
 (``torch.utils.checkpoint``), as the JAX forward checkpoints its scan steps.
 
+``forward(tp=)`` and ``loss_fn(tp=)`` run the dense and MLA families (and
+the front ends) on one rank's shards under tensor parallelism (``tp``, a
+:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`): the
+vocab-split embedding and head, the split attention and SwiGLU products
+and the vocab-parallel cross-entropy; the logits ``forward`` returns are
+then this rank's vocab columns.  Serving passes no ``tp`` and is
+unchanged.
+
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
 """
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import kvpool as KVP
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -151,39 +160,70 @@ def layer_params(stacked: Dict, i: int) -> Dict:
             for k, v in stacked.items()}
 
 
-def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig
+def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig, tp=None
         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The layer's FFN: the MoE FFN and its aux loss, or SwiGLU and None."""
+    """The layer's FFN: the MoE FFN and its aux loss, or SwiGLU and None
+    (under ``tp``, split over ``model`` where d_ff divides it)."""
     if cfg.moe is not None:
         return MOE.moe_ffn(lp["ffn"], h, cfg.moe)
-    return L.mlp(lp["ffn"], h), None
+    return L.mlp(lp["ffn"], h, _split(tp, cfg.d_ff)), None
+
+
+def _split(tp, n: int):
+    """``tp`` where a dimension of ``n`` splits over ``model``, else None."""
+    return tp if tp is not None and tp.splits(n) else None
 
 
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+def _frontend(params, inputs: torch.Tensor, cfg: ArchConfig, tp=None):
+    """Frames or patches through ``frontend_proj`` (under ``tp``, its
+    columns split over ``model`` where d_model divides it: the rank's
+    columns of the product, gathered whole for the residual stream)."""
+    tp = _split(tp, cfg.d_model)
+    y = torch.matmul(inputs.to(torch.bfloat16), params["frontend_proj"])
+    return y if tp is None else TP.gather(y, tp, -1)
+
+
+def embed_inputs(params, batch: Dict, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """(B, S, d_model) bf16 input of the first layer: projected audio frames,
     patch projections prepended to the token embeddings, or the token
-    embeddings alone."""
+    embeddings alone.  Under ``tp`` a vocab-split table is looked up rank
+    by rank and summed (``vocab_embedding``; the same bits)."""
     if cfg.frontend == "audio_frames":
-        return torch.matmul(batch["frames"].to(torch.bfloat16),
-                            params["frontend_proj"])
+        return _frontend(params, batch["frames"], cfg, tp)
     # F.embedding, not indexing: on the card its backward sums a token's
     # rows in f32 and rounds once, where indexing's backward adds them in
     # bf16 and loses much of a frequent token's gradient (Zipf tokens at
     # a full training batch); on the CPU the two are the same bits
-    tok = F.embedding(batch["tokens"], params["embed"])
+    vtp = _split(tp, cfg.vocab_size)
+    if vtp is None:
+        tok = F.embedding(batch["tokens"], params["embed"])
+    else:
+        tok = TP.vocab_embedding(batch["tokens"], params["embed"], vtp)
     if cfg.frontend == "vision_patches":
-        patches = torch.matmul(batch["patches"].to(torch.bfloat16),
-                               params["frontend_proj"])
-        tok = torch.cat([patches, tok], dim=1)
+        tok = torch.cat([_frontend(params, batch["patches"], cfg, tp), tok],
+                        dim=1)
     return tok
 
 
-def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def input_positions(batch: Dict, cfg: ArchConfig) -> int:
+    """The number of positions the first layer sees: frames, or the text
+    tokens after a vision config's patches."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].shape[1]
+    s = batch["tokens"].shape[1]
+    return s + batch["patches"].shape[1] if cfg.frontend == "vision_patches" else s
+
+
+def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
+    """The head's logits; under ``tp`` with the vocab split over ``model``,
+    this rank's columns."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if _split(tp, cfg.vocab_size) is not None:
+        x = TP.region(x, tp)
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"].t())
     return torch.matmul(x, params["lm_head"])
@@ -195,7 +235,8 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
             remat: bool = False, collect_cache: bool = False,
-            logits_positions: str = "all", attention=L.prefill_attention):
+            logits_positions: str = "all", attention=L.prefill_attention,
+            tp=None):
     """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
 
     ``logits_positions='last'`` projects only the final position through the
@@ -203,8 +244,9 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     the attention function of every attention layer (MLA's included):
     ``layers.prefill_attention`` for serving, ``layers.chunked_attention``
     for training.  ``remat`` checkpoints each layer, hybrid triple and extra
-    block."""
-    x = embed_inputs(params, batch, cfg)
+    block.  ``tp``: one rank's shards under tensor parallelism (module
+    docstring; attention is ``chunked_attention``, no cache)."""
+    x = embed_inputs(params, batch, cfg, tp)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
@@ -216,27 +258,33 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
         x, cache = _ssm_forward(params, x, cfg, collect_cache, run)
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
-                                       collect_cache, attention, run)
+                                       collect_cache, attention, run, tp)
     if logits_positions == "last":
         x = x[:, -1:]
-    return lm_logits(params, x, cfg), cache, aux
+    return lm_logits(params, x, cfg, tp), cache, aux
 
 
 def loss_fn(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
-            remat: bool = True, aux_weight: float = 0.01):
+            remat: bool = True, aux_weight: float = 0.01, tp=None):
     """Next-token cross-entropy plus ``aux_weight`` times the MoE balance
     loss: ``(total, (ce, aux))``, the arithmetic of
     ``repro.models.model.loss_fn`` (log-softmax in f32, the label
     log-probabilities gathered, their negative mean).  A vision config
     scores its text positions only.  Attention is
-    ``layers.chunked_attention``."""
+    ``layers.chunked_attention``.  Under ``tp`` with the vocab split over
+    ``model`` the log-softmax is the vocab-parallel one
+    (``tensor_parallel.vocab_log_prob``)."""
     logits, _, aux = forward(params, batch, cfg, kv_block=kv_block,
-                             remat=remat, attention=L.chunked_attention)
+                             remat=remat, attention=L.chunked_attention, tp=tp)
     labels = batch["labels"]
     if cfg.frontend == "vision_patches":
         logits = logits[:, -labels.shape[1]:]
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    vtp = _split(tp, cfg.vocab_size)
+    if vtp is not None:
+        ll = TP.vocab_log_prob(logits, labels, vtp)
+    else:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
     loss = -torch.mean(ll)
     return loss + aux_weight * aux, (loss, aux)
 
@@ -338,31 +386,37 @@ def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run):
     return x, {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
 
 
-def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention):
+def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
+                 tp=None):
     """One transformer layer: (x, the cache entries k/v or ckv/krope, the
-    MoE aux loss or None)."""
+    MoE aux loss or None; under ``tp`` no cache entries)."""
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    k = v = None
     if cfg.mla is not None:
         attn_out, (k, v) = MLA.mla_prefill(lp["attn"], h, positions, cfg.mla,
                                            cfg.rope_theta, kv_block=kv_block,
-                                           attention=attention)
+                                           attention=attention, tp=tp)
+    elif tp is not None:
+        attn_out = L.attention_tp(lp["attn"], h, positions, cfg.rope_theta, tp,
+                                  causal=not cfg.encoder_only,
+                                  kv_block=kv_block)
     else:
         q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
         o = attention(q, k, v, causal=not cfg.encoder_only, kv_block=kv_block)
         attn_out = L.attention_out(lp["attn"], o)
     x = x + attn_out
     h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    ffn_out, layer_aux = ffn(lp, h2, cfg)
+    ffn_out, layer_aux = ffn(lp, h2, cfg, tp)
     return x + ffn_out, k, v, layer_aux
 
 
 def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                   collect_cache: bool, attention, run):
+                   collect_cache: bool, attention, run, tp=None):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
     for lp in _unstack(params["layers"], cfg.num_layers):
         x, k, v, layer_aux = run(_dense_layer, lp, x, positions, cfg,
-                                 kv_block, attention)
+                                 kv_block, attention, tp)
         if layer_aux is not None:
             aux = aux + layer_aux
         if collect_cache:

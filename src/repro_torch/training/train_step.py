@@ -6,14 +6,21 @@ batch, ``backward`` and the update.
 
 Under a :class:`~repro_torch.distributed.sharding.ShardingPolicy`
 (``make_train_step(cfg, opt_cfg, policy)``, one process a mesh rank; the
-launcher's ``--mesh N,D,1``) the step is the explicit form of what GSPMD
+launcher's ``--mesh N,D,M``) the step is the explicit form of what GSPMD
 makes of the JAX step: every rank takes its block of the global batch
 under ``spec_for_activation("tokens")``, all-gathers each parameter its
-spec splits (FSDP: over ``data``), runs ``value_and_grad`` on its block,
-and sums the gradients over ``data`` in f32 in rank order.  A leaf with an
-FSDP block is reduce-scattered into it (and, replicated, its rounded
-blocks are all-gathered back); a leaf too small to split is all-gathered
-whole.  Without the ring the sum goes on over ``pod`` in f32 and is
+spec splits over ``data`` (FSDP), runs ``value_and_grad`` on its block,
+and sums the gradients over ``data`` in f32 in rank order.  A ``model``
+axis above 1 is tensor parallelism: no parameter is gathered over
+``model``; the model code runs on the rank's ``model`` shards
+(``distributed/tensor_parallel.py``, ``loss_fn(tp=)``), and the leaves
+replicated over ``model`` whose gradients are partial on each rank
+(``tensor_parallel.partial_leaf``: attention leaves a rank uses for some
+heads or positions only) are summed over ``model`` in f32 in rank order
+first; every other gradient is already whole on each model rank.  A leaf
+with an FSDP block is reduce-scattered into it (and, replicated, its
+rounded blocks are all-gathered back); a leaf too small to split is
+all-gathered whole.  Without the ring the sum goes on over ``pod`` in f32 and is
 divided by ``dp_size`` and rounded once to the parameter dtype (the "f32
 mean" of the ring).  With ``grad_compress`` and pods the data mean is
 rounded, then the pods average it through the compressed ring on
@@ -24,10 +31,11 @@ JAX step's pod split; JAX stacks the pods' gradients on a leading pod
 dimension and the ring reads only a rank's own row, so each rank hands it
 its own (``compressed_cross_pod_mean_own``).  AdamW runs on the shards
 (:func:`sharded_global_norm` gives it the whole tree's norm), and the
-metrics are the mean over the data-parallel ranks.  A ``model`` axis
-above 1 (tensor-parallel products and a vocab-parallel loss) is refused,
-and so is a MoE config whose batch would split in a way the JAX step's
-does not (its capacity and balance loss are global-batch quantities).
+metrics are the mean over the data-parallel ranks.  Refused: a ``model``
+axis above 1 for the MoE, SSM and hybrid families
+(``tensor_parallel.refuse``), and a MoE config whose batch would split in
+a way the JAX step's does not (its capacity and balance loss are
+global-batch quantities).
 
 Gradients keep the parameter dtype, as ``jax.grad`` returns them: bf16
 gradients ride the codec, f32 ones (the MoE router, the SSM's ``A_log``, …)
@@ -52,14 +60,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import Codebook
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import model as M
 from repro_torch.serving import collective as CL
 from repro_torch.training import grad_compress as GC
 from repro_torch.training import optimizer as OPT
 
-#: the sharded step's traffic of its last call: ``gather`` (parameters),
-#: ``reduce`` (gradients over data, and over pod without the ring) and
-#: ``norm`` (partial norms), each a ``CommStats`` (host clock)
+#: the sharded step's traffic of its last call, each a ``CommStats``
+#: (host clock): ``gather`` (parameters, over data), ``reduce`` (gradients:
+#: partial ones over model, then over data, and over pod without the
+#: ring), ``norm`` (partial norms), and under tensor parallelism
+#: ``tp_fwd`` / ``tp_bwd`` (the activation and loss collectives of the
+#: forward passes, remat's included, and of the backward pass; their
+#: ``seconds`` are the staging and wire time)
 last_comm: Dict[str, CL.CommStats] = {}
 
 
@@ -77,15 +90,17 @@ def init_state(cfg: ArchConfig, generator: torch.Generator,
 
 
 def value_and_grad(params, batch: Dict, cfg: ArchConfig, *,
-                   kv_block: int = 1024, remat: bool = True):
+                   kv_block: int = 1024, remat: bool = True, tp=None):
     """``((total, (ce, aux)), grads)``: ``loss_fn`` and its gradients in
     the parameters' dtypes (zeros for a parameter the loss does not
-    reach), as ``jax.value_and_grad(loss_fn, has_aux=True)`` returns."""
+    reach), as ``jax.value_and_grad(loss_fn, has_aux=True)`` returns.
+    Under ``tp`` the parameters are a rank's ``model`` shards."""
     flat, treedef = TR.flatten_with_path(params)
     leaves = [p.detach().requires_grad_(True) for _, p in flat]
     with torch.enable_grad():
         total, (ce, aux) = M.loss_fn(TR.unflatten(treedef, leaves), batch,
-                                     cfg, kv_block=kv_block, remat=remat)
+                                     cfg, kv_block=kv_block, remat=remat,
+                                     tp=tp)
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                     materialize_grads=True)
     return ((total.detach(), (ce.detach(), aux.detach())),
@@ -130,14 +145,11 @@ def make_train_step(cfg: ArchConfig,
 
 def _check_policy(cfg: ArchConfig, policy: SH.ShardingPolicy,
                  grad_compress: bool) -> None:
-    """The step's refusals: tensor parallelism, and a MoE batch split the
-    JAX step does not make."""
+    """The step's refusals: a family tensor parallelism does not cover,
+    and a MoE batch split the JAX step does not make."""
     sizes = policy.sizes
     if policy.tp_size() > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {policy.tp_size()}: tensor-parallel training "
-            "(column/row-split products, a vocab-parallel loss) is not "
-            "ported yet; train on a (pod, data) mesh")
+        TP.refuse(cfg)
     split = [a for a in policy.dp_axes() if sizes[a] > 1
              and not (a == "pod" and grad_compress)]
     if cfg.moe is not None and split:
@@ -186,19 +198,23 @@ def shard_train_step(step_fn, policy: SH.ShardingPolicy, state: TrainState):
     return step_fn, shard_state(state, policy)
 
 
-def _data_dim(spec) -> Optional[int]:
+def _axis_dim(spec, axis: str) -> Optional[int]:
     for d, e in enumerate(spec):
-        if "data" in SH.entry_axes(e):
+        if axis in SH.entry_axes(e):
             return d
     return None
 
 
-def _ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
-    """The f32 sum of ``parts`` in rank order."""
-    acc = parts[0].to(torch.float32)
-    for p in parts[1:]:
-        acc = acc + p.to(torch.float32)
-    return acc
+def _sum_over(axis: str, idx: List[int], values: List[torch.Tensor],
+              policy: SH.ShardingPolicy, comm) -> None:
+    """``values[i]`` for ``i`` in ``idx``: summed over ``axis`` in rank
+    order (one all-gather of them all)."""
+    if not idx:
+        return
+    parts = CL.Link(policy.mesh.get_group(axis), values[0].device, comm) \
+        .all_gather(torch.stack([values[i] for i in idx]))
+    for j, i in enumerate(idx):
+        values[i] = TP.ordered_sum([p[j] for p in parts])
 
 
 def sharded_global_norm(grads: List[torch.Tensor], blocks: List[tuple],
@@ -209,44 +225,51 @@ def sharded_global_norm(grads: List[torch.Tensor], blocks: List[tuple],
     layout: a leaf that ``fsdp=True`` would split over ``data`` (its spec
     in ``blocks``) adds its blocks' f32 sums of squares in data-rank order
     (each rank squares its own block, the partial sums are all-gathered
-    over ``data``), every other leaf its whole f32 sum of squares once,
-    leaves in the JAX leaf order.  So FSDP on and off clip by bitwise the
-    same norm, and with one data rank it is ``OPT.global_norm``."""
+    over ``data``); a leaf split over ``model`` then adds its model
+    blocks' sums in model-rank order; every other leaf adds its whole f32
+    sum of squares once, leaves in the JAX leaf order.  So FSDP on and off
+    clip by bitwise the same norm, every rank by the same norm, and with
+    one rank it is ``OPT.global_norm``."""
     mesh, sizes = policy.mesh, policy.sizes
     n = sizes.get("data", 1)
-    mine, whole = [], {}
-    for i, (g, b, s) in enumerate(zip(grads, blocks, specs)):
-        if n > 1 and _data_dim(b) is not None:
-            blk = g if _data_dim(s) is not None else SH.shard_slice(g, b, mesh)
-            mine.append((i, torch.sum(blk.to(torch.float32) ** 2)))
-        else:
-            whole[i] = torch.sum(g.to(torch.float32) ** 2)
-    if mine:
-        parts = CL.Link(mesh.get_group("data"), grads[0].device, comm) \
-            .all_gather(torch.stack([v for _, v in mine]))
-        for j, (i, _) in enumerate(mine):
-            whole[i] = _ordered_sum([p[j] for p in parts])
+    keep = [n > 1 and _axis_dim(b, "data") is not None for b in blocks]
+    sq = []
+    for g, b, s, k in zip(grads, blocks, specs, keep):
+        if k and _axis_dim(s, "data") is None:
+            g = SH.shard_slice(g, SH.restrict(b, ("data",)), mesh)
+        sq.append(torch.sum(g.to(torch.float32) ** 2))
+    _sum_over("data", [i for i, k in enumerate(keep) if k], sq, policy, comm)
+    if sizes.get("model", 1) > 1:
+        _sum_over("model", [i for i, b in enumerate(blocks)
+                            if _axis_dim(b, "model") is not None],
+                  sq, policy, comm)
     total = 0
-    for i in range(len(grads)):
-        total = total + whole[i]
+    for v in sq:
+        total = total + v
     return torch.sqrt(total)
 
 
 def reduce_gradients(grads: List[torch.Tensor], specs: List[tuple],
                      blocks: List[tuple], policy: SH.ShardingPolicy, *,
                      ring: bool = False,
-                     comm: Optional[CL.CommStats] = None) -> List[torch.Tensor]:
+                     comm: Optional[CL.CommStats] = None,
+                     partial: Optional[List[bool]] = None) -> List[torch.Tensor]:
     """This rank's part of the gradient mean over the data-parallel ranks
-    (``grads``: its whole gradients, leaf by leaf; ``specs``: the leaves'
-    placement; ``blocks``: their specs under the policy with
-    ``fsdp=True``, the blocks the norm is summed in too).  A leaf is
+    (``grads``: the gradients of its ``model`` shards, whole over
+    ``data``, leaf by leaf; ``specs``: the leaves' placement; ``blocks``:
+    their specs under the policy with ``fsdp=True``, the blocks the norm
+    is summed in too).  A leaf is
     summed in f32 in rank order over ``data``, then over ``pod`` (raw)
     unless the ring follows (``ring``: the mean is over ``data`` alone),
     and rounded once to its dtype.  A leaf with an FSDP block is
     reduce-scattered into it and, where the leaf itself is replicated,
     its rounded blocks are all-gathered back: about twice the gradient's
     bytes on the wire whatever the data size, the same f32 sums as
-    FSDP's.  A leaf too small to split is all-gathered whole."""
+    FSDP's.  A leaf too small to split is all-gathered whole.  A leaf
+    marked in ``partial`` (a gradient partial on each ``model`` rank) is
+    first summed over ``model`` in f32 in rank order, and that f32 sum
+    goes on over ``data``: one rounding; every model rank ends with the
+    same bits."""
     mesh, sizes, dp = policy.mesh, policy.sizes, policy.dp_axes()
     n_data = sizes["data"] if "data" in dp else 1
     n_pod = sizes["pod"] if "pod" in dp and not ring else 1
@@ -256,20 +279,26 @@ def reduce_gradients(grads: List[torch.Tensor], specs: List[tuple],
                  if n_data > 1 else None)
     link_pod = (CL.Link(mesh.get_group("pod"), device, comm)
                 if n_pod > 1 else None)
+    partial = partial or [False] * len(grads)
+    link_model = (CL.Link(mesh.get_group("model"), device, comm)
+                  if any(partial) else None)
     out = []
-    for g, spec, block in zip(grads, specs, blocks):
-        d = _data_dim(block) if n_data > 1 else None
+    for g, spec, block, part in zip(grads, specs, blocks, partial):
+        dtype = g.dtype
+        if part:
+            g = TP.ordered_sum(link_model.all_gather(g))
+        d = _axis_dim(block, "data") if n_data > 1 else None
         if d is not None:
-            acc = _ordered_sum(link_data.all_to_all(
+            acc = TP.ordered_sum(link_data.all_to_all(
                 [b.contiguous() for b in g.chunk(n_data, d)]))
         elif n_data > 1:
-            acc = _ordered_sum(link_data.all_gather(g))
+            acc = TP.ordered_sum(link_data.all_gather(g))
         else:
             acc = g.to(torch.float32)
         if n_pod > 1:
-            acc = _ordered_sum(link_pod.all_gather(acc))
-        r = (acc / (n_data * n_pod)).to(g.dtype)
-        if d is not None and _data_dim(spec) is None:
+            acc = TP.ordered_sum(link_pod.all_gather(acc))
+        r = (acc / (n_data * n_pod)).to(dtype)
+        if d is not None and _axis_dim(spec, "data") is None:
             r = SH.cat_bits(link_data.all_gather(r), d)
         out.append(r)
     return out
@@ -282,7 +311,11 @@ def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
     dp = policy.dp_axes()
     ring = grad_compress and "pod" in dp and sizes["pod"] > 1
     like = abstract_state(cfg)
+    flat, treedef = TR.flatten_with_path(like.params)
+    paths = [SH.path_str(p) for p, _ in flat]
     specs = SH.leaf_specs(policy.param_specs(like.params), like.params)
+    # FSDP gathers over data only: a rank computes on its model shards
+    fsdp_specs = [SH.restrict(s, ("data",)) for s in specs]
     blocks = SH.leaf_specs(
         dataclasses.replace(policy, fsdp=True).param_specs(like.params),
         like.params)
@@ -296,18 +329,28 @@ def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
                 for k, x in batch.items()}
         leaves = TR.leaves(state.params)
         device = leaves[0].device
+        tp, partial = None, None
+        if policy.tp_size() > 1:
+            tp = TP.TensorParallel(mesh.get_group("model"), cfg,
+                                   attn_fallback=policy.attn_fallback)
+            seq = M.input_positions(mine, cfg)
+            partial = [TP.partial_leaf(p, tp, seq) for p in paths]
         t0 = time.perf_counter()
         whole = [SH.gather(p, s, mesh, comm["gather"]) if SH.splits(s, sizes)
-                 else p for p, s in zip(leaves, specs)]
+                 else p for p, s in zip(leaves, fsdp_specs)]
         comm["gather"].seconds = time.perf_counter() - t0
-        treedef = TR.flatten_with_path(state.params)[1]
         (total, (ce, aux)), g = value_and_grad(
             TR.unflatten(treedef, whole), mine, cfg, kv_block=kv_block,
-            remat=remat)
+            remat=remat, tp=tp)
         del whole
+        if tp is not None:
+            for k, c in (("tp_fwd", tp.fwd), ("tp_bwd", tp.bwd)):
+                c.seconds = c.staging_s + c.wire_s
+                comm[k] = c
         t0 = time.perf_counter()
         grads = reduce_gradients(TR.leaves(g), specs, blocks, policy,
-                                 ring=ring, comm=comm["reduce"])
+                                 ring=ring, comm=comm["reduce"],
+                                 partial=partial)
         del g
         comm["reduce"].seconds = time.perf_counter() - t0
         grads = TR.unflatten(treedef, grads)

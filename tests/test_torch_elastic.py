@@ -364,13 +364,14 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refusals(capsys, monkeypatch):
-    with pytest.raises(SystemExit, match="model axis"):
-        _launch(capsys, "--mesh", "2,1,2", "--grad-compress")
     with pytest.raises(SystemExit, match="needs --grad-compress"):
         _launch(capsys, "--mesh", "2")
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit, match="torchrun"):
         _launch(capsys, "--mesh", "2", "--grad-compress")
+    # a model axis is tensor parallelism: one process for each of 2 x 1 x 2
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
+        _launch(capsys, "--mesh", "2,1,2", "--grad-compress")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             LT.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])

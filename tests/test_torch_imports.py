@@ -46,7 +46,8 @@ def test_port_files_found():
                    "training/grad_compress.py", "training/optimizer.py",
                    "training/data.py", "training/train_step.py",
                    "distributed/elastic.py", "launch/train.py",
-                   "distributed/sharding.py"):
+                   "distributed/sharding.py",
+                   "distributed/tensor_parallel.py"):
         assert PORT / module in FILES, module
 
 

@@ -587,3 +587,129 @@ def launch_world(rank, world, store, ckpt_dir, out_dir):
                  "--seq", "16", "--device", "cpu", "--mesh", f"1,{world},1",
                  "--steps", "2", "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"])
     (Path(out_dir) / f"rank{rank}.txt").write_text(buf.getvalue())
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training
+# ---------------------------------------------------------------------------
+
+def _torch_batch(ref, i: int):
+    """Batch ``i`` of a reference ``.npz`` (``batch{i}/<key>``): integer
+    ids as they are, f32 front-end inputs cast to bf16."""
+    out = {}
+    for k in ref.files:
+        if k.startswith(f"batch{i}/"):
+            x = torch.from_numpy(np.array(ref[k]))
+            out[k.split("/", 1)[1]] = (x.to(torch.bfloat16)
+                                       if x.dtype == torch.float32 else x)
+    return out
+
+
+def tp_train_world(rank, world, store, ref_dir, out_dir, cases, launch_steps):
+    """The cases of ``tests/test_torch_tensor_parallel.py`` on this world,
+    then (``launch_steps``) ``launch/train.py --mesh 1,1,<world>``, which
+    tears the group down itself."""
+    import contextlib
+    import io
+    import os
+    _init(rank, world, store)
+    try:
+        summary, arrays = {}, {}
+        for case in cases:
+            summary[case["name"]], got = _tp_case(Path(ref_dir), Path(out_dir),
+                                                  case)
+            arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        if rank == 0:
+            np.savez(Path(out_dir) / "rank0.npz", **arrays)
+        if launch_steps:
+            from repro_torch.launch import train as LT
+            os.environ["WORLD_SIZE"] = str(world)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                LT.main(["--arch", "smollm-135m", "--reduced", "--batch", "4",
+                         "--seq", "16", "--device", "cpu", "--mesh",
+                         f"1,1,{world}", "--steps", str(launch_steps)])
+            (Path(out_dir) / f"launch{rank}.txt").write_text(buf.getvalue())
+        else:
+            dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tp_case(ref_dir: Path, out_dir: Path, case: dict):
+    """One case: the reference's steps through the sharded step on mesh
+    ``case["shape"]``; per rank the metrics, its coordinate, the attention
+    case, held bytes against the spec arithmetic, the step's traffic (and
+    the parameter-gather bytes the data axis alone accounts for), the
+    hash of its shards of the leaves replicated over ``model``, the
+    gathered state's hash (rank 0: its bits), and with ``ckpt`` a placed
+    save restored into mesh ``(1, world, 1)``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TPM
+    from repro_torch.models import model as M
+    from repro_torch.serving.collective import _padded
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    ref = np.load(ref_dir / f"{case['ref']}.npz")
+    meta = json.loads((ref_dir / f"{case['ref']}.json").read_text())
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case["over"])
+    state0 = _state_from_ref(ref, cfg)
+    like = TS.abstract_state(cfg)
+    shape = tuple(case["shape"])
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    policy = SH.ShardingPolicy(mesh, fsdp=case["fsdp"],
+                               attn_fallback=case["attn_fallback"])
+    step, placed = TS.shard_train_step(
+        TS.make_train_step(cfg, OPT.AdamWConfig(**meta["opt"]), policy,
+                           grad_compress=case["grad_compress"],
+                           kv_block=meta["kv_block"]),
+        policy, state0)
+    specs = TS.state_specs(policy, like)
+    leaf = SH.leaf_specs(specs, like)
+    out = {"coord": SH.coordinate(mesh),
+           "case": TPM.TensorParallel(mesh.get_group("model"), cfg,
+                                      attn_fallback=case["attn_fallback"])
+           .attention(M.input_positions(_torch_batch(ref, 0), cfg)),
+           "held": _nbytes(placed),
+           "spec_bytes": SH.held_bytes(like, specs, policy.sizes),
+           "split_over_model": sum("model" in SH.entry_axes(e) for s in leaf
+                                   for e in s),
+           "data_gather_bytes": sum(
+               _padded(x.numel() * x.element_size())
+               for x, s in zip(TR.leaves(placed.params),
+                               SH.leaf_specs(specs.params, like.params))
+               if SH.splits(SH.restrict(s, ("data",)), policy.sizes)),
+           "metrics": []}
+    for i in range(meta["steps"]):
+        placed, metrics = step(placed, _torch_batch(ref, i))
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    out["comm"] = {k: c.sent_bytes for k, c in TS.last_comm.items()}
+    out["replicated_sha"] = _sha([x for x, s in zip(TR.leaves(placed), leaf)
+                                  if not any("model" in SH.entry_axes(e)
+                                             for e in s)])
+    whole = TS.gather_state(placed, policy, like)
+    out["sha"] = _sha(whole)
+    arrays = {_keystr(p): as_bits(x) for p, x in TR.flatten_with_path(whole)[0]}
+    if case.get("ckpt"):
+        ckpt_dir = str(out_dir / case["name"] / "ckpt")
+        CKPT.Checkpointer(ckpt_dir, device="cpu",
+                          placement=TS.placement(cfg, policy)).save(
+            meta["steps"], placed, extra={"arch": cfg.name})
+        other = SH.ShardingPolicy(make_mesh((1, dist.get_world_size(), 1),
+                                            ("pod", "data", "model")),
+                                  fsdp=True)
+        back, extra, s = CKPT.Checkpointer(
+            ckpt_dir, device="cpu",
+            placement=TS.placement(cfg, other)).restore(None)
+        out["restored"] = dict(step=s, extra=extra,
+                               sha=_sha(TS.gather_state(back, other, like)),
+                               held=_nbytes(back),
+                               spec_bytes=SH.held_bytes(
+                                   like, TS.state_specs(other, like),
+                                   other.sizes))
+    return out, arrays
