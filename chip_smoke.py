@@ -255,6 +255,34 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               single-process step on the same batches.  Per rank: held
               bytes, step ms, the activation collectives' bytes and ms
               forward and backward, gather / reduce / norm, peak memory.
+8l. ep      — MoE training under the model and data axes: expert
+              parallelism and global-batch routing
+              (``distributed/expert_parallel.py``) at qwen3-moe-30b-a3b's
+              full width (d_model 2048, 32 / 4 heads x 128, 128 experts
+              top-8, d_ff_expert 768, vocab 151,936, capacity factor
+              1.25) cut to 2 layers, batch 2 x 2048 (capacity 320 a
+              layer), 2 steps through ``make_run(policy=)``, ranks
+              spawned over gloo.  The single-process step runs first, in
+              this process, and saves its state after each step as bf16
+              under ``build/`` (removed after the phase); each rank maps
+              it and reads its blocks, so the 18.7 GB state crosses
+              neither gloo nor the ranks' share of the card.  (a) Mesh
+              (1, 1, 2): 64 experts, 16 / 2 heads and half the vocab a
+              rank; (b) (1, 2, 2) with FSDP: one sequence a data rank
+              (capacity 160 alone, 320 over the routing group).  Gates:
+              the leaves replicated over model bitwise across the model
+              ranks, held bytes equal to the spec arithmetic, the state
+              after each step within the ``SHARD_*`` bounds of the
+              single-process step (the ranks' shares of each leaf's
+              distance summed), no parameter gathered over model, no
+              flash or codec launch (windows ``ep_heads``, ``ep_fsdp``),
+              and each layer's dropped choices and slots on its
+              first-step input equal to the single-process FFN's on the
+              same router logits (whether the rank's own router product
+              gave the whole product's bits is reported, with the run's
+              own drops).  Per rank: step ms, every collective's bytes
+              and ms (the expert-output gathers ``ep_gather``), peak
+              memory, dropped choices a layer.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -298,7 +326,9 @@ default gradient codebook; the train steps, counted apart in
 0 and the policy-specified hop on a source and a destination rank (phase
 8j, ``shard_ring``, ``shard_hop_src``, ``shard_hop_dst``), the
 tensor-parallel steps on rank 0 (phase 8k, ``tp_heads``, ``tp_seq``: no
-flash launch), and the served prefills of
+flash launch), the expert-parallel steps on rank 0 (phase 8l,
+``ep_heads``, ``ep_fsdp``: no flash or codec launch), and the served
+prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
 tensor-core path, or the run fails); the checks around those runs are not
@@ -3625,6 +3655,326 @@ def phase_tp(torch, smi):
             for w, r in (("tp_heads", a), ("tp_seq", b))}
 
 
+# ---------------------------------------------------------------------------
+# phase ep: MoE training under the model and data axes across ranks
+# ---------------------------------------------------------------------------
+
+EP_LAYERS, EP_BATCH, EP_STEPS = 2, 2, 2
+EP_HEADS_MESH, EP_FSDP_MESH = (1, 1, 2), (1, 2, 2)
+
+
+def ep_config():
+    """qwen3-moe-30b-a3b at full width, cut in depth to ``EP_LAYERS``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=EP_LAYERS)
+
+
+def ep_reference(torch, device, out_dir):
+    """The single-process step (``make_run`` without a policy) on phase
+    ``ep``'s batches: after each step the state's leaves as bf16 (the
+    parameters as they are, the f32 moments rounded: 2^-9 against the
+    moments' bound of 5e-2) saved under ``out_dir``, one file a step,
+    which each rank maps (``torch.load(mmap=True)``) and reads its blocks
+    of: the 18.7 GB state crosses neither gloo nor the ranks' share of
+    the card; and the metrics."""
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import train as LT
+    cfg = ep_config()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_at = LT.make_run(cfg, batch=EP_BATCH, seq=TRAIN_SEQ,
+                                 lr=TRAIN_LR, steps=EP_STEPS, seed=0,
+                                 device=device)
+    steps, metrics = [], []
+    for i in range(EP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_at(state, i)
+        torch.cuda.synchronize()
+        metrics.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                            **{k: float(v) for k, v in m.items()}))
+        path = out_dir / f"step{i}.pt"
+        torch.save([x.to(torch.bfloat16).cpu() for x in TR.leaves(state)],
+                   path)
+        steps.append(str(path))
+    del state, step_at
+    peak = _peak_gb(torch)
+    torch.cuda.empty_cache()
+    return dict(steps=steps, metrics=metrics, peak_gb=peak)
+
+
+def _ep_drops(torch, cfg, records, device):
+    """Each recorded layer's dropped choices on its first-step input:
+    the run's (``route`` on the rank's rows, summed over the routing
+    group), and on the same logits, the expert-parallel ``route_logits``
+    of the rank's rows of the whole group batch's logits against the
+    single-process ``route_logits`` of them all (slots and drops); whether
+    the rank's own (T/n, d) x (d, E) router product gave the whole
+    product's bits.  Every rank calls it (the group's gathers)."""
+    from repro_torch.distributed import expert_parallel as EP
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving import collective as CL
+    mc = cfg.moe
+    e = mc.num_experts
+    out = []
+    for x, router, group in records:
+        ep = EP.ExpertParallel(cfg, group)
+        xf = x.reshape(-1, x.shape[-1])
+        t = xf.shape[0]
+        cap = MOE.capacity(t * ep.size, mc)
+        link = CL.Link(group, device, CL.CommStats()) if group is not None else None
+
+        def group_sum(n):
+            n = n.reshape(1)
+            return int(torch.stack(link.all_gather(n)).sum() if link else n)
+
+        whole = torch.cat(link.all_gather(xf)) if link else xf
+        logits = torch.matmul(whole.float(), router)
+        rows = slice(ep.rank * t, (ep.rank + 1) * t)
+        own = torch.matmul(xf.float(), router)
+        run = MOE.route(router, xf, mc, cap, ep)
+        same = MOE.route_logits(logits[rows], mc, cap, ep)
+        single = MOE.route_logits(logits, mc, cap)
+        mine = torch.empty_like(same["slot"])
+        mine[same["order"]] = same["slot"]
+        every = torch.empty_like(single["slot"])
+        every[single["order"]] = single["slot"]
+        k = mc.top_k
+        out.append(dict(
+            cap=cap, cap_local=MOE.capacity(t, mc), group_size=ep.size,
+            logits_bitwise=bool(torch.equal(own, logits[rows])),
+            run_dropped=group_sum((run["slot"] == e * cap).sum()),
+            dropped=group_sum((same["slot"] == e * cap).sum()),
+            single_dropped=int((single["slot"] == e * cap).sum()),
+            slots_bitwise=bool(torch.equal(
+                mine, every[rows.start * k:rows.stop * k]))))
+    return out
+
+
+def _ep_against(torch, state, path, specs, mesh, coord):
+    """This rank's share of each leaf's distance to the reference leaves
+    saved at ``path`` (bf16, mapped): ``[diff^2, ref^2]`` a leaf over its
+    block, from the one rank of each block (coordinate 0 on every axis the
+    leaf's spec does not name), else None."""
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import sharding as SH
+    ref = torch.load(path, mmap=True)
+    out = []
+    for x, r, spec in zip(TR.leaves(state), ref, specs):
+        named = {a for e in spec for a in SH.entry_axes(e)}
+        if x.dim() == 0 or any(coord[a] for a in coord if a not in named):
+            out.append(None)
+            continue
+        a = SH.shard_slice(r, spec, mesh).to(x.device).float()
+        b = x.float()
+        out.append([float(torch.sum((a - b) ** 2)), float(torch.sum(a * a))])
+    return out
+
+
+def ep_rank(torch, rank, device, shape, fsdp, ref):
+    """Phase ``ep``: qwen3-moe-30b-a3b at full width, 2 layers, on mesh
+    ``shape``, batch ``EP_BATCH`` x 2048, ``EP_STEPS`` steps through
+    ``make_run(policy=)`` (``fsdp`` on the data axis).  (a) (1, 1, 2): 64
+    experts, 16 / 2 heads and half the vocab a rank; (b) (1, 2, 2) with
+    FSDP: one sequence a data rank (capacity 160 alone, 320 over the
+    routing group).  Each rank: the bytes it holds against the spec
+    arithmetic, step ms, the step's traffic (``train_step.last_comm``),
+    the parameter-gather bytes the data axis alone accounts for, launches,
+    peak memory, the hash of its leaves replicated over ``model``, its
+    share of each leaf's distance to the single-process step's state
+    after each step (``ref``: the files it is saved in), and each layer's dropped
+    choices (``_ep_drops``)."""
+    import warnings
+
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving.collective import _padded
+    from repro_torch.training import train_step as TS
+
+    _deterministic(torch)
+    cfg = ep_config()
+    mesh = make_mesh(shape, MESH_AXES)
+    policy = SH.ShardingPolicy(mesh, fsdp=fsdp)
+    like = TS.abstract_state(cfg)
+    specs = SH.leaf_specs(TS.state_specs(policy, like), like)
+    coord = SH.coordinate(mesh)
+    out = {"rank": rank, "coord": coord, "steps": [], "against": []}
+    seconds, t0 = {}, time.perf_counter()
+    records, orig = [], MOE.moe_ffn
+
+    def recording(p, x, mc, ep=None):
+        if (ep is not None and len(records) < cfg.num_layers
+                and torch._C._current_graph_task_id() == -1):
+            records.append((x.detach().clone(), p["router"].detach().clone(),
+                            ep.group))
+        return orig(p, x, mc, ep)
+
+    with warnings.catch_warnings(record=True) as caught:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step_at = LT.make_run(cfg, batch=EP_BATCH, seq=TRAIN_SEQ,
+                                     lr=TRAIN_LR, steps=EP_STEPS, seed=0,
+                                     device=device, policy=policy)
+        torch.cuda.synchronize()
+        seconds["setup"] = time.perf_counter() - t0
+        out["setup_peak_gb"] = _peak_gb(torch)
+        out["held"] = _held(state)
+        out["spec_bytes"] = _spec_bytes(like, policy)
+        out["data_gather_bytes"] = sum(
+            _padded(x.numel() * x.element_size())
+            for x, s in zip(TR.leaves(state.params), specs)
+            if SH.splits(SH.restrict(s, ("data",)), policy.sizes))
+        launches = {}
+        MOE.moe_ffn = recording
+        try:
+            for i in range(EP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (state, metrics), counts = counted(step_at, state, i)
+                torch.cuda.synchronize()
+                out["steps"].append(dict(
+                    step=i, ms=(time.perf_counter() - t0) * 1e3,
+                    **{k: float(v) for k, v in metrics.items()},
+                    comm=_comm_record()))
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                out["against"].append(_ep_against(torch, state, ref["steps"][i],
+                                                  specs, mesh, coord))
+        finally:
+            MOE.moe_ffn = orig
+        out["launches"] = launches
+        out["peak_gb"] = _peak_gb(torch)
+        out["replicated_sha"] = _sha_tree(torch, [
+            x for x, s in zip(TR.leaves(state), specs)
+            if not any("model" in SH.entry_axes(e) for e in s)])
+        t0 = time.perf_counter()
+        out["layers"] = _ep_drops(torch, cfg, records, device)
+        seconds["drops"] = time.perf_counter() - t0
+        del state, step_at, records
+    out["warnings"] = _nondeterministic_warnings(caught)
+    out["seconds"] = seconds
+    return out
+
+
+def _ep_distance(ranks, ref):
+    """Each leaf's relative L2 distance to the reference after each step,
+    from the ranks' shares; the worst parameter and moment leaf a step."""
+    from repro_torch.core import tree as TR
+    from repro_torch.training import train_step as TS
+    paths = [TR.leaf_key(p) for p, _ in
+             TR.flatten_with_path(TS.abstract_state(ep_config()))[0]]
+    out = []
+    for i in range(EP_STEPS):
+        worst = {"params": (0.0, None), "moments": (0.0, None)}
+        for j, path in enumerate(paths):
+            parts = [r["against"][i][j] for r in ranks if r["against"][i][j]]
+            if not parts:
+                continue
+            d = math.sqrt(sum(p[0] for p in parts)
+                          / max(sum(p[1] for p in parts), 1e-30))
+            key = "params" if path.startswith(".params") else "moments"
+            if d >= worst[key][0]:
+                worst[key] = (d, path)
+        out.append({k: dict(rel_l2=v[0], leaf=v[1]) for k, v in worst.items()})
+    return out
+
+
+def _ep_gates(tag, ranks, ref):
+    """Phase ``ep``'s gates on one world's ranks; returns the distances."""
+    from repro_torch.models import moe as MOE
+    want_cap = MOE.capacity(EP_BATCH * TRAIN_SEQ, ep_config().moe)
+    replicas = {}
+    for r in ranks:
+        c = r["coord"]
+        replicas.setdefault((c["pod"], c["data"]), set()).add(r["replicated_sha"])
+        if r["held"] != r["spec_bytes"]:
+            raise AssertionError(f"ep ({tag}) rank {r['rank']}: holds "
+                                 f"{r['held']}, the specs give {r['spec_bytes']}")
+        for st in r["steps"]:
+            if st["comm"]["gather"]["sent_bytes"] != r["data_gather_bytes"]:
+                raise AssertionError(
+                    f"ep ({tag}) rank {r['rank']}: parameter gathers of "
+                    f"{st['comm']['gather']['sent_bytes']} bytes, the data axis "
+                    f"accounts for {r['data_gather_bytes']}: a parameter "
+                    "crossed the model group")
+            if "ep_gather" not in st["comm"]:
+                raise AssertionError(f"ep ({tag}): the experts did not split "
+                                     "over model")
+            if not math.isfinite(st["loss"]):
+                raise AssertionError(f"ep ({tag}): loss {st['loss']}")
+        if any(r["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")):
+            raise AssertionError(f"ep ({tag}) rank {r['rank']}: a flash or "
+                                 f"codec kernel launched: {r['launches']}")
+        for layer in r["layers"]:
+            if layer["cap"] != want_cap \
+                    or layer["dropped"] != layer["single_dropped"] \
+                    or not layer["slots_bitwise"] or (
+                        layer["logits_bitwise"]
+                        and layer["run_dropped"] != layer["single_dropped"]):
+                raise AssertionError(f"ep ({tag}) rank {r['rank']}: routing "
+                                     f"against the single-process FFN: {layer}")
+    if any(len(v) != 1 for v in replicas.values()):
+        raise AssertionError(f"ep ({tag}): a leaf replicated over model "
+                             "differs between model ranks")
+    dist_ = _ep_distance(ranks, ref)
+    for i, (d, st, m) in enumerate(zip(dist_, ranks[0]["steps"], ref["metrics"])):
+        ok = (abs(st["loss"] - m["loss"]) <= SHARD_CE_ATOL
+              and abs(st["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
+              <= SHARD_GN_RTOL and st["lr"] == m["lr"]
+              and d["params"]["rel_l2"] <= SHARD_PARAM_RTOL
+              and d["moments"]["rel_l2"] <= SHARD_MOMENT_RTOL)
+        d.update(loss_abs=abs(st["loss"] - m["loss"]),
+                 grad_norm_rel=abs(st["grad_norm"] - m["grad_norm"])
+                 / m["grad_norm"], ok=ok)
+        if not ok:
+            raise AssertionError(f"ep ({tag}) step {i}: the sharded step left "
+                                 f"the single-process step's bounds: {d}")
+    return dist_
+
+
+def phase_ep(torch, smi):
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ref_dir = Path(tempfile.mkdtemp(prefix="ep_reference_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        ref = ep_reference(torch, device, ref_dir)
+        ref_s = time.perf_counter() - t0
+        a = run_ranks("ep_rank", math.prod(EP_HEADS_MESH), EP_HEADS_MESH,
+                      False, ref)
+        a_s = time.perf_counter() - t0 - ref_s
+        a_dist = _ep_gates("heads", a, ref)
+        b = run_ranks("ep_rank", math.prod(EP_FSDP_MESH), EP_FSDP_MESH,
+                      True, ref)
+        b_s = time.perf_counter() - t0 - ref_s - a_s
+        b_dist = _ep_gates("fsdp", b, ref)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    cfg = ep_config()
+    for r in a + b:
+        del r["against"]
+    emit(phase="ep", nvidia_smi=smi, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+         capacity_factor=cfg.moe.capacity_factor, batch=EP_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, steps=EP_STEPS, transport="gloo",
+         reference=dict(metrics=ref["metrics"], peak_gb=ref["peak_gb"]),
+         heads=dict(mesh=list(EP_HEADS_MESH), fsdp=False, ranks=a,
+                    against_single=a_dist),
+         fsdp=dict(mesh=list(EP_FSDP_MESH), fsdp=True, ranks=b,
+                   against_single=b_dist),
+         seconds=dict(reference=ref_s, heads=a_s, fsdp=b_s,
+                      phase=time.perf_counter() - t0))
+    return {w: {k: r[0]["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")}
+            for w, r in (("ep_heads", a), ("ep_fsdp", b))}
+
+
 def phase_mesh(torch, smi):
     ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
     src, dst = ranks
@@ -3773,6 +4123,7 @@ def main(argv=None) -> int:
     windows.update(train_windows)
     windows.update(timed("shard", phase_shard, torch, smi, grad_book))
     windows.update(timed("tp", phase_tp, torch, smi))
+    windows.update(timed("ep", phase_ep, torch, smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)

@@ -46,9 +46,10 @@ then partial on each rank (:func:`partial_leaf`) are summed over ``model``
 by the train step's gradient reduction; every other leaf's gradient is
 its whole gradient (or its shard's) on every rank.
 
-Families: the dense GQA and MLA models and the vision and audio front
-ends.  MoE (expert parallelism), Mamba-2's SSD and the RG-LRU hybrid are
-refused (:func:`refuse`).
+Families: the dense GQA and MLA models, the vision and audio front ends,
+and MoE, whose FFN splits by experts (``distributed/expert_parallel.py``;
+its attention, embedding and head are the dense ones here).  Mamba-2's
+SSD and the RG-LRU hybrid are refused (:func:`refuse`).
 
 Each collective's bytes and host time go to the context's ``fwd`` (the
 forward pass, remat's recomputation included) or ``bwd`` ``CommStats``.
@@ -63,18 +64,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.serving import collective as CL
 
 #: the model families tensor parallelism does not cover yet, and why
-REFUSED = {"moe": "expert parallelism (the 'expert' spec) is not ported",
-           "ssm": "Mamba-2's in_proj/out_proj split is not ported",
+REFUSED = {"ssm": "Mamba-2's in_proj/out_proj split is not ported",
            "hybrid": "the RG-LRU's 'lru_sq' split is not ported"}
 
 
 def refuse(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the family where ``cfg`` is one
     that tensor parallelism does not cover."""
-    kind = ("moe" if cfg.moe is not None else "ssm" if cfg.ssm is not None
+    kind = ("ssm" if cfg.ssm is not None
             else "hybrid" if cfg.hybrid is not None else None)
     if kind is not None:
         raise NotImplementedError(
@@ -104,6 +103,9 @@ class TensorParallel:
         self.heads = cfg.num_heads
         self.kv_heads = cfg.num_heads if cfg.mla is not None else cfg.num_kv_heads
         self.attn_fallback = attn_fallback
+        # imported here, not with the module: the serving package imports
+        # the model stack, and models.layers imports this module
+        from repro_torch.serving import collective as CL
         self.fwd, self.bwd = CL.CommStats(), CL.CommStats()
 
     def splits(self, n: int) -> bool:
@@ -124,15 +126,20 @@ class TensorParallel:
         size = n // self.size
         return slice(self.rank * size, (self.rank + 1) * size)
 
-    def link(self, backward: bool, device) -> CL.Link:
-        return CL.Link(self.group, device, self.bwd if backward else self.fwd)
+    def link(self, backward: bool, device, stats=None):
+        """A ``serving.collective.Link`` over ``model`` counting into
+        ``stats`` (default: ``bwd`` or ``fwd``)."""
+        from repro_torch.serving import collective as CL
+        if stats is None:
+            stats = self.bwd if backward else self.fwd
+        return CL.Link(self.group, device, stats)
 
-    def sum(self, x: torch.Tensor, dtype: torch.dtype, backward: bool
-            ) -> torch.Tensor:
+    def sum(self, x: torch.Tensor, dtype: torch.dtype, backward: bool,
+            stats=None) -> torch.Tensor:
         """The sum of every rank's ``x`` in f32 in rank order, rounded once
         to ``dtype``: a reduce-scatter of equal slices, then an all-gather
         of the rounded slices."""
-        link = self.link(backward, x.device)
+        link = self.link(backward, x.device, stats)
         flat = x.reshape(-1)
         n = flat.numel()
         per = -(-n // self.size)
@@ -157,13 +164,13 @@ def partial_leaf(path: str, tp: TensorParallel, seq: int) -> bool:
 
 class _Region(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
+    def forward(ctx, x, tp, stats):
+        ctx.tp, ctx.stats = tp, stats
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.tp.sum(g, g.dtype, backward=True), None
+        return ctx.tp.sum(g, g.dtype, True, ctx.stats), None, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -179,21 +186,21 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp, dim):
+    def forward(ctx, x, tp, dim, stats):
         ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
-        return torch.cat(tp.link(False, x.device).all_gather(x.contiguous()),
-                         dim)
+        return torch.cat(tp.link(False, x.device, stats)
+                         .all_gather(x.contiguous()), dim)
 
     @staticmethod
     def backward(ctx, g):
         mine = g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n).contiguous()
-        return mine, None, None
+        return mine, None, None, None
 
 
-def region(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+def region(x: torch.Tensor, tp: TensorParallel, stats=None) -> torch.Tensor:
     """``x`` as the input of a split region (its gradient summed over
-    ``model``)."""
-    return _Region.apply(x, tp)
+    ``model``; the traffic counted into ``stats``, default ``tp.bwd``)."""
+    return _Region.apply(x, tp, stats)
 
 
 def reduce(x: torch.Tensor, tp: TensorParallel,
@@ -203,11 +210,12 @@ def reduce(x: torch.Tensor, tp: TensorParallel,
     return _Reduce.apply(x, tp, dtype)
 
 
-def gather(x: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
+def gather(x: torch.Tensor, tp: TensorParallel, dim: int,
+           stats=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (the
     gradient of the whole is the same on every rank; a rank keeps its
-    slice)."""
-    return _Gather.apply(x, tp, dim)
+    slice; the traffic counted into ``stats``, default ``tp.fwd``)."""
+    return _Gather.apply(x, tp, dim, stats)
 
 
 def row_product(a: torch.Tensor, w: torch.Tensor,

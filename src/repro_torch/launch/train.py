@@ -14,11 +14,15 @@ the sharding policy the JAX launcher builds,
 ``ShardingPolicy(make_mesh((N, D, M), ("pod", "data", "model")))``
 (``distributed/sharding.py``; the sharded step of
 ``training/train_step.py``): the global batch splits over the pod and
-data ranks, the gradients sum over ``data`` in f32, and pods average them
-through the compressed ring, so ``N > 1`` needs ``--grad-compress``; a
-data or model axis alone does not.  ``M > 1`` is tensor parallelism
-(``distributed/tensor_parallel.py``) for the dense, MLA and front-end
-families; the MoE, SSM and hybrid families are refused.  The JAX
+data ranks and the gradients sum over ``data`` in f32; with
+``--grad-compress`` pods average them through the compressed ring,
+without it the sum goes on over ``pod`` in f32, as the JAX launcher's
+step averages over pod and data.  ``M > 1`` is tensor parallelism
+(``distributed/tensor_parallel.py``) for the dense, MLA, MoE (split by
+experts, ``distributed/expert_parallel.py``) and front-end families; the
+SSM and hybrid families are refused.  A MoE config routes over the
+ranks that share one loss (pods and data, or a pod's data ranks under
+the ring), as the JAX step's global-batch FFN does.  The JAX
 launcher's ``--mesh D,M`` has no pod axis: here ``N,D,M`` always names
 all three (and a single ``N`` the pods).  A launch by ``torchrun`` sets
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``::
@@ -29,6 +33,8 @@ all three (and a single ``N`` the pods).  A launch by ``torchrun`` sets
         --arch smollm-135m --reduced --mesh 2,2,1 --grad-compress
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-135m --mesh 1,2,2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-moe-30b-a3b --reduced --mesh 2
 
 Rank 0 prints and writes the checkpoints (the gathered state, which the
 unsharded trainer and the JAX ``Checkpointer`` load); every rank restores
@@ -83,8 +89,10 @@ def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
     """The launcher's training run: ``(state, step_at)`` with
     ``step_at(state, step) -> (state, metrics)`` the train step on the
     data stream's batch ``step``.  Parameters and data come from
-    ``seed``.  Under ``policy`` the state is this rank's shards
-    (``TS.shard_train_step``) and every rank draws the global batch.  The
+    ``seed``.  Under ``policy`` the state is this rank's shards, drawn leaf
+    by leaf and cut at once (``TS.init_state(policy=)``, bitwise
+    ``TS.shard_state`` of the whole state), and every rank draws the
+    global batch.  The
     launcher averages gradients under the default gradient codebook;
     ``grad_codebook`` lets a caller hand the ring one calibrated on its
     own gradients (``GC.calibrate_on_grads``)."""
@@ -96,9 +104,7 @@ def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
                                  kv_block=min(seq, 1024))
     data = SyntheticTokenStream(cfg, shape, DataConfig(seed=seed), device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    state = TS.init_state(cfg, gen, device)
-    if policy is not None:
-        step_fn, state = TS.shard_train_step(step_fn, policy, state)
+    state = TS.init_state(cfg, gen, device, policy)
 
     def step_at(state, step: int):
         return step_fn(state, data.batch_at(step))
@@ -149,13 +155,8 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     shape = parse_mesh(args.mesh) if args.mesh else (1, 1, 1)
-    n_pod, world = shape[0], shape[0] * shape[1] * shape[2]
+    world = shape[0] * shape[1] * shape[2]
     policy, device = None, args.device
-    if n_pod > 1 and not args.grad_compress:
-        raise SystemExit(
-            f"--mesh {args.mesh} needs --grad-compress: pods average their "
-            "gradients through the compressed ring (there is no implicit "
-            "all-reduce across pods here)")
     if world > 1:
         device = _join_group(world, device)
         policy = ShardingPolicy(make_mesh(shape, ("pod", "data", "model")))

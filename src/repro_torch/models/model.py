@@ -59,7 +59,7 @@ from repro_torch.models.kvcache import (DecodeState, n_triples_extra,
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Dict:
+                device=None, place=None) -> Dict:
     """Seeded random parameters with ``repro.models.model.init_params``'s
     shapes and scales (normal * scale in f32, stored bf16), stacked over
     layers.  The numbers come from ``generator`` (on its own device) and
@@ -67,8 +67,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     drawn, so any width plans from shapes alone.  MoE stacks are drawn a
     layer at a time (``models.moe.init_moe``), the router kept in f32; the
     SSM's and the RG-LRU's decay parameters are f32 as in JAX.  A frontend
-    family adds ``frontend_proj`` (frontend_dim, d_model)."""
+    family adds ``frontend_proj`` (frontend_dim, d_model).
+
+    ``place(keys, x, layers=None)``, where given, takes each leaf (its
+    dict keys, the whole tensor) as soon as it is drawn and returns what
+    to keep of it (a rank's block under a sharding policy): the MoE stacks
+    go to it a layer at a time (``layers``: the stack's depth, of which
+    ``x`` is one layer), so no whole stack is held.  The draws and their
+    order do not change."""
     device = device if device is not None else generator.device
+    keep = place if place is not None else (lambda keys, x: x)
+
+    def put(keys, tree):
+        if isinstance(tree, dict):
+            return {k: put(keys + (k,), v) for k, v in tree.items()}
+        return keep(keys, tree)
     nl, d, h, hkv, hd, dff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
 
@@ -85,33 +98,33 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, dtype=torch.bfloat16, device=device)
 
-    p: Dict = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
+    p: Dict = {"embed": put(("embed",), normal((cfg.vocab_size, d), 0.02)),
+               "final_norm": put(("final_norm",), ones(d))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+        p["lm_head"] = put(("lm_head",), normal((d, cfg.vocab_size), 0.02))
     if cfg.frontend is not None:
-        p["frontend_proj"] = normal((cfg.frontend_dim, d),
-                                    cfg.frontend_dim ** -0.5)
+        p["frontend_proj"] = put(("frontend_proj",), normal(
+            (cfg.frontend_dim, d), cfg.frontend_dim ** -0.5))
     if cfg.ssm is not None:
-        p["layers"] = {"norm1": ones((nl, d)),
-                       "mixer": SSM.init_mamba2(normal, nl, d, cfg.ssm, device)}
+        p["layers"] = put(("layers",), {
+            "norm1": ones((nl, d)),
+            "mixer": SSM.init_mamba2(normal, nl, d, cfg.ssm, device)})
         return p
     if cfg.hybrid is not None:
-        p.update(_init_hybrid(normal, ones, cfg, device))
+        p.update(put((), _init_hybrid(normal, ones, cfg, device)))
         return p
     if cfg.mla is not None:
         attn = MLA.init_mla(normal, ones, nl, d, h, cfg.mla)
     else:
         attn = _attention_params(normal, (nl,), d, h, hkv, hd)
+    layers = {"norm1": ones((nl, d)), "norm2": ones((nl, d)), "attn": attn}
+    p["layers"] = put(("layers",), layers)
     if cfg.moe is not None:
-        ffn = MOE.init_moe(draw, nl, d, cfg.moe, device)
+        p["layers"]["ffn"] = MOE.init_moe(draw, nl, d, cfg.moe, device,
+                                          place)
     else:
-        ffn = _mlp_params(normal, (nl,), d, dff)
-    p["layers"] = {
-        "norm1": ones((nl, d)),
-        "norm2": ones((nl, d)),
-        "attn": attn,
-        "ffn": ffn,
-    }
+        p["layers"]["ffn"] = put(("layers", "ffn"),
+                                 _mlp_params(normal, (nl,), d, dff))
     return p
 
 
@@ -160,12 +173,13 @@ def layer_params(stacked: Dict, i: int) -> Dict:
             for k, v in stacked.items()}
 
 
-def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig, tp=None
+def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig, tp=None, ep=None
         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The layer's FFN: the MoE FFN and its aux loss, or SwiGLU and None
+    """The layer's FFN: the MoE FFN and its aux loss (under ``ep``, routed
+    over the routing group and split by experts), or SwiGLU and None
     (under ``tp``, split over ``model`` where d_ff divides it)."""
     if cfg.moe is not None:
-        return MOE.moe_ffn(lp["ffn"], h, cfg.moe)
+        return MOE.moe_ffn(lp["ffn"], h, cfg.moe, ep)
     return L.mlp(lp["ffn"], h, _split(tp, cfg.d_ff)), None
 
 
@@ -236,7 +250,7 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor
 def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
             remat: bool = False, collect_cache: bool = False,
             logits_positions: str = "all", attention=L.prefill_attention,
-            tp=None):
+            tp=None, ep=None):
     """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
 
     ``logits_positions='last'`` projects only the final position through the
@@ -245,7 +259,8 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     ``layers.prefill_attention`` for serving, ``layers.chunked_attention``
     for training.  ``remat`` checkpoints each layer, hybrid triple and extra
     block.  ``tp``: one rank's shards under tensor parallelism (module
-    docstring; attention is ``chunked_attention``, no cache)."""
+    docstring; attention is ``chunked_attention``, no cache); ``ep``: the
+    MoE FFN's expert parallelism and routing group."""
     x = embed_inputs(params, batch, cfg, tp)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
@@ -258,14 +273,16 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
         x, cache = _ssm_forward(params, x, cfg, collect_cache, run)
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
-                                       collect_cache, attention, run, tp)
+                                       collect_cache, attention, run, tp,
+                                       ep)
     if logits_positions == "last":
         x = x[:, -1:]
     return lm_logits(params, x, cfg, tp), cache, aux
 
 
 def loss_fn(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
-            remat: bool = True, aux_weight: float = 0.01, tp=None):
+            remat: bool = True, aux_weight: float = 0.01, tp=None,
+            ep=None):
     """Next-token cross-entropy plus ``aux_weight`` times the MoE balance
     loss: ``(total, (ce, aux))``, the arithmetic of
     ``repro.models.model.loss_fn`` (log-softmax in f32, the label
@@ -273,9 +290,11 @@ def loss_fn(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     scores its text positions only.  Attention is
     ``layers.chunked_attention``.  Under ``tp`` with the vocab split over
     ``model`` the log-softmax is the vocab-parallel one
-    (``tensor_parallel.vocab_log_prob``)."""
+    (``tensor_parallel.vocab_log_prob``); under ``ep`` the balance loss is
+    the routing group's."""
     logits, _, aux = forward(params, batch, cfg, kv_block=kv_block,
-                             remat=remat, attention=L.chunked_attention, tp=tp)
+                             remat=remat, attention=L.chunked_attention, tp=tp,
+                             ep=ep)
     labels = batch["labels"]
     if cfg.frontend == "vision_patches":
         logits = logits[:, -labels.shape[1]:]
@@ -387,7 +406,7 @@ def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run):
 
 
 def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
-                 tp=None):
+                 tp=None, ep=None):
     """One transformer layer: (x, the cache entries k/v or ckv/krope, the
     MoE aux loss or None; under ``tp`` no cache entries)."""
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -406,17 +425,17 @@ def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
         attn_out = L.attention_out(lp["attn"], o)
     x = x + attn_out
     h2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    ffn_out, layer_aux = ffn(lp, h2, cfg, tp)
+    ffn_out, layer_aux = ffn(lp, h2, cfg, tp, ep)
     return x + ffn_out, k, v, layer_aux
 
 
 def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                   collect_cache: bool, attention, run, tp=None):
+                   collect_cache: bool, attention, run, tp=None, ep=None):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
     for lp in _unstack(params["layers"], cfg.num_layers):
         x, k, v, layer_aux = run(_dense_layer, lp, x, positions, cfg,
-                                 kv_block, attention, tp)
+                                 kv_block, attention, tp, ep)
         if layer_aux is not None:
             aux = aux + layer_aux
         if collect_cache:

@@ -18,38 +18,62 @@ served with and without compression would then differ.
 
 Every decode step computes all ``E x capacity`` slots (capacity 8 at decode
 batch sizes), so it reads every expert's weights, as the JAX function does.
+
+In training under a sharding policy (``moe_ffn(ep=)``,
+``distributed/expert_parallel.py``) the FFN computes the function GSPMD
+makes of the JAX one, which runs over the global batch.  ``x`` is a rank's
+block of its routing group's batch (the ranks that share one loss: data,
+and pods without the compressed ring): the capacity comes from the
+group's token count, a choice's rank within its expert adds the expert's
+counts on the group ranks before this one (the stable sort puts their
+tokens first), and the balance loss takes its means over the group's
+gathered probabilities and top-1 experts, bitwise one process's.  Where
+``model`` splits the experts a rank fills and multiplies its own expert
+block only, ``(E/M, cap, d)`` against its ``w_gate_up`` / ``w_down``
+shards, and the expert outputs are all-gathered over ``model`` into
+``(E cap, d)`` before the combine, which stays as above: the model
+replicas stay bitwise equal, and equal to the unsharded order.  Without
+``ep`` (serving) nothing changes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import tensor_parallel as TP
 
 
 def init_moe(draw: Callable, n_layers: int, d_model: int, cfg: MoEConfig,
-             device) -> Dict:
+             device, place: Optional[Callable] = None) -> Dict:
     """Layer-stacked MoE parameters with ``repro.models.moe.init_moe``'s
     shapes, dtypes and scales: ``router`` f32 (L, d, E), ``w_gate_up`` bf16
     (L, E, d, 2f), ``w_down`` bf16 (L, E, f, d).
 
     ``draw(shape, scale)`` gives f32 normals times ``scale``; the stacks are
     filled one layer at a time, so no f32 copy of a whole stack (77 GB for
-    qwen3-moe-30b-a3b's ``w_gate_up``) ever exists."""
+    qwen3-moe-30b-a3b's ``w_gate_up``) ever exists.  ``place(keys, x,
+    n_layers)``, where given (``model.init_params``), keeps a part of
+    each layer's draw of the stack at ``("layers", "ffn", name)`` (a
+    rank's block), and the stacks are that part's shape."""
     e, f, d = cfg.num_experts, cfg.d_ff_expert, d_model
     s_in = d ** -0.5
-    p = {"router": torch.empty((n_layers, d, e), dtype=torch.float32, device=device),
-         "w_gate_up": torch.empty((n_layers, e, d, 2 * f), dtype=torch.bfloat16,
-                                  device=device),
-         "w_down": torch.empty((n_layers, e, f, d), dtype=torch.bfloat16,
-                               device=device)}
+    leaves = {"router": ((d, e), s_in, torch.float32),
+              "w_gate_up": ((e, d, 2 * f), s_in, torch.bfloat16),
+              "w_down": ((e, f, d), f ** -0.5, torch.bfloat16)}
+    p = {}
     for i in range(n_layers):
-        p["router"][i] = draw((d, e), s_in)
-        p["w_gate_up"][i] = draw((e, d, 2 * f), s_in)
-        p["w_down"][i] = draw((e, f, d), f ** -0.5)
+        for name, (shape, scale, dtype) in leaves.items():
+            x = draw(shape, scale)
+            if place is not None:
+                x = place(("layers", "ffn", name), x, n_layers)
+            if i == 0:
+                p[name] = torch.empty((n_layers,) + tuple(x.shape),
+                                      dtype=dtype, device=device)
+            p[name][i] = x
     return p
 
 
@@ -65,16 +89,25 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig, cap: int
-          ) -> Dict[str, torch.Tensor]:
-    """The dispatch of ``repro.models.moe.moe_ffn`` for tokens ``xf`` (T, d).
+def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig, cap: int,
+          ep=None) -> Dict[str, torch.Tensor]:
+    """The dispatch of ``repro.models.moe.moe_ffn`` for tokens ``xf`` (T, d):
+    :func:`route_logits` of the f32 router logits."""
+    return route_logits(torch.matmul(xf.float(), router), cfg, cap, ep)
+
+
+def route_logits(logits: torch.Tensor, cfg: MoEConfig, cap: int, ep=None
+                 ) -> Dict[str, torch.Tensor]:
+    """The dispatch from router ``logits`` (T, E) f32.
 
     Returns ``probs`` (T, E) f32, ``gate`` (T, k) f32 renormalized,
     ``expert_idx`` (T, k), and over the T*k choices in sorted order:
     ``order`` (flat choice index), ``slot`` (``expert * cap + rank``, or
-    ``E * cap`` when dropped) and ``token_of``."""
-    t, k, e = xf.shape[0], cfg.top_k, cfg.num_experts
-    logits = torch.matmul(xf.float(), router)
+    ``E * cap`` when dropped) and ``token_of``.  Under ``ep`` the tokens
+    are this rank's block of the routing group's batch, and a choice's
+    rank within its expert counts the group ranks before this one
+    (``ExpertParallel.offsets``)."""
+    t, k, e = logits.shape[0], cfg.top_k, cfg.num_experts
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = top_k(probs, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -83,41 +116,60 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig, cap: int
     e_sorted = flat_e[order]
     counts = torch.bincount(flat_e, minlength=e)
     starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=xf.device) - starts[e_sorted]
+    if ep is not None:
+        starts = starts - ep.offsets(counts)
+    rank = torch.arange(t * k, device=logits.device) - starts[e_sorted]
     slot = torch.where(rank < cap, e_sorted * cap + rank,
                        torch.full_like(rank, e * cap))
     return dict(probs=probs, gate=gate, expert_idx=expert_idx, order=order,
                 slot=slot, token_of=order // k)
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar f32)."""
+def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig, ep=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar f32).  Under ``ep``
+    (an :class:`~repro_torch.distributed.expert_parallel.ExpertParallel`)
+    ``x`` is this rank's block of the routing group's batch and ``p`` its
+    shards: the capacity, ranks and balance loss are the group's, and the
+    rank computes its expert block (module docstring)."""
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.num_experts
-    cap = capacity(t, cfg)
+    cap = capacity(t * (ep.size if ep is not None else 1), cfg)
     xf = x.reshape(t, d)
-    r = route(p["router"], xf, cfg, cap)
+    r = route(p["router"], xf, cfg, cap, ep)
 
     # load-balance aux loss: E * sum_e f_e . p_e (Switch Transformer form)
-    me = r["probs"].mean(dim=0)
-    fe = F.one_hot(r["expert_idx"][:, 0], e).float().mean(dim=0)
+    probs, top1 = r["probs"], r["expert_idx"][:, 0]
+    if ep is not None:
+        probs, top1 = ep.whole(probs), ep.whole(top1)
+    me = probs.mean(dim=0)
+    fe = F.one_hot(top1, e).float().mean(dim=0)
     aux = e * torch.sum(fe * me)
 
-    # dispatch: row E*cap takes every dropped choice and is cut off
-    slot = r["slot"]
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = xf[r["token_of"]]
-    h = buf[: e * cap].reshape(e, cap, d)
+    # dispatch: row n*cap takes every choice dropped or another rank's
+    # expert's and is cut off
+    slot, n = r["slot"], e
+    xd = xf
+    if ep is not None and ep.model is not None:
+        lo, n = ep.experts.start * cap, ep.experts.stop - ep.experts.start
+        own = (slot >= lo) & (slot < lo + n * cap)
+        slot = torch.where(own, slot - lo, torch.full_like(slot, n * cap))
+        xd = TP.region(xf, ep.model, ep.dispatch)
+    buf = torch.zeros((n * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = xd[r["token_of"]]
+    h = buf[: n * cap].reshape(n, cap, d)
 
     # experts: two batched products over the expert axis
     gu = torch.bmm(h, p["w_gate_up"])
     g, u = gu.chunk(2, dim=-1)
-    out = torch.bmm(F.silu(g) * u, p["w_down"]).reshape(e * cap, d)
+    out = torch.bmm(F.silu(g) * u, p["w_down"]).reshape(n * cap, d)
+    if ep is not None and ep.model is not None:
+        out = TP.gather(out, ep.model, 0, ep.out_gather)
 
     # combine: dropped -> 0; each token's k contributions in sorted order
     out = torch.cat([out, out.new_zeros((1, d))])
     gate_sorted = r["gate"].reshape(-1)[r["order"]].to(x.dtype)
-    contrib = out[slot] * gate_sorted[:, None]                 # (T*k, d)
+    contrib = out[r["slot"]] * gate_sorted[:, None]            # (T*k, d)
     sorted_pos = torch.empty_like(r["order"])
     sorted_pos[r["order"]] = torch.arange(t * k, device=x.device)
     mine = torch.sort(sorted_pos.reshape(t, k), dim=1).values  # (T, k)

@@ -17,7 +17,12 @@ axis above 1 is tensor parallelism: no parameter is gathered over
 replicated over ``model`` whose gradients are partial on each rank
 (``tensor_parallel.partial_leaf``: attention leaves a rank uses for some
 heads or positions only) are summed over ``model`` in f32 in rank order
-first; every other gradient is already whole on each model rank.  A leaf
+first; every other gradient is already whole on each model rank.  A MoE
+FFN (``distributed/expert_parallel.py``, ``loss_fn(ep=)``) routes over
+its routing group, the ranks that share one loss (data, and pods
+without the ring): the capacity, each choice's rank within its expert
+and the balance loss are the group's, as GSPMD partitions the JAX step's
+global-batch FFN; ``model`` splits it by experts.  A leaf
 with an FSDP block is reduce-scattered into it (and, replicated, its
 rounded blocks are all-gathered back); a leaf too small to split is
 all-gathered whole.  Without the ring the sum goes on over ``pod`` in f32 and is
@@ -31,11 +36,10 @@ JAX step's pod split; JAX stacks the pods' gradients on a leading pod
 dimension and the ring reads only a rank's own row, so each rank hands it
 its own (``compressed_cross_pod_mean_own``).  AdamW runs on the shards
 (:func:`sharded_global_norm` gives it the whole tree's norm), and the
-metrics are the mean over the data-parallel ranks.  Refused: a ``model``
-axis above 1 for the MoE, SSM and hybrid families
-(``tensor_parallel.refuse``), and a MoE config whose batch would split in
-a way the JAX step's does not (its capacity and balance loss are
-global-batch quantities).
+metrics are the mean over the data-parallel ranks (a MoE ``aux`` is its
+routing group's: replicated without the ring, the pods' mean with it, as
+JAX reports them).  Refused: a ``model`` axis above 1 for the SSM and
+hybrid families (``tensor_parallel.refuse``).
 
 Gradients keep the parameter dtype, as ``jax.grad`` returns them: bf16
 gradients ride the codec, f32 ones (the MoE router, the SSM's ``A_log``, …)
@@ -59,6 +63,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import Codebook
+from repro_torch.distributed import expert_parallel as EP
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import model as M
@@ -69,10 +74,15 @@ from repro_torch.training import optimizer as OPT
 #: the sharded step's traffic of its last call, each a ``CommStats``
 #: (host clock): ``gather`` (parameters, over data), ``reduce`` (gradients:
 #: partial ones over model, then over data, and over pod without the
-#: ring), ``norm`` (partial norms), and under tensor parallelism
+#: ring), ``norm`` (partial norms), under tensor parallelism
 #: ``tp_fwd`` / ``tp_bwd`` (the activation and loss collectives of the
 #: forward passes, remat's included, and of the backward pass; their
-#: ``seconds`` are the staging and wire time)
+#: ``seconds`` are the staging and wire time), and for a MoE config
+#: ``route_fwd`` / ``route_bwd`` (the routing group's counts and
+#: statistics, and their gradient sums) and, where ``model`` splits the
+#: experts, ``ep_gather`` (the expert outputs' all-gathers over ``model``,
+#: forward and remat) and ``ep_dispatch`` (the dispatched tokens' gradient
+#: sums over ``model``), timed alike
 last_comm: Dict[str, CL.CommStats] = {}
 
 
@@ -82,25 +92,45 @@ class TrainState(NamedTuple):
 
 
 def init_state(cfg: ArchConfig, generator: torch.Generator,
-               device=None) -> TrainState:
+               device=None, policy: Optional[SH.ShardingPolicy] = None
+               ) -> TrainState:
     """Seeded parameters (``models.model.init_params``) and a fresh AdamW
-    state, on ``device`` (default: the generator's)."""
-    params = M.init_params(cfg, generator, device)
+    state, on ``device`` (default: the generator's).  Under ``policy``,
+    this rank's shards, bitwise ``shard_state`` of the whole state: each
+    leaf (each MoE layer) is drawn whole and cut to the rank's block at
+    once, and the moments are made at the block's shape, so no rank holds
+    the whole state."""
+    place = None
+    if policy is not None:
+        sizes = policy.sizes
+
+        def place(keys, x, layers=None):
+            shape = tuple(x.shape) if layers is None \
+                else (layers,) + tuple(x.shape)
+            spec = policy.spec_for_param("/".join(keys), shape)
+            if layers is not None:      # one layer of the stack
+                spec = spec[1:]
+            if not SH.splits(spec, sizes):
+                return x
+            return SH.shard_slice(x, spec, policy.mesh).clone()
+    params = M.init_params(cfg, generator, device, place)
     return TrainState(params=params, opt=OPT.init(params))
 
 
 def value_and_grad(params, batch: Dict, cfg: ArchConfig, *,
-                   kv_block: int = 1024, remat: bool = True, tp=None):
+                   kv_block: int = 1024, remat: bool = True, tp=None,
+                   ep=None):
     """``((total, (ce, aux)), grads)``: ``loss_fn`` and its gradients in
     the parameters' dtypes (zeros for a parameter the loss does not
     reach), as ``jax.value_and_grad(loss_fn, has_aux=True)`` returns.
-    Under ``tp`` the parameters are a rank's ``model`` shards."""
+    Under ``tp`` the parameters are a rank's ``model`` shards; ``ep`` is
+    the MoE FFN's context."""
     flat, treedef = TR.flatten_with_path(params)
     leaves = [p.detach().requires_grad_(True) for _, p in flat]
     with torch.enable_grad():
         total, (ce, aux) = M.loss_fn(TR.unflatten(treedef, leaves), batch,
                                      cfg, kv_block=kv_block, remat=remat,
-                                     tp=tp)
+                                     tp=tp, ep=ep)
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                     materialize_grads=True)
     return ((total.detach(), (ce.detach(), aux.detach())),
@@ -142,23 +172,6 @@ def make_train_step(cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 # the sharded step
 # ---------------------------------------------------------------------------
-
-def _check_policy(cfg: ArchConfig, policy: SH.ShardingPolicy,
-                 grad_compress: bool) -> None:
-    """The step's refusals: a family tensor parallelism does not cover,
-    and a MoE batch split the JAX step does not make."""
-    sizes = policy.sizes
-    if policy.tp_size() > 1:
-        TP.refuse(cfg)
-    split = [a for a in policy.dp_axes() if sizes[a] > 1
-             and not (a == "pod" and grad_compress)]
-    if cfg.moe is not None and split:
-        raise NotImplementedError(
-            f"{cfg.name}: a MoE batch split over {split}: the capacity and "
-            "the load-balance loss are global-batch quantities, so a "
-            "per-rank split computes another function (the per-pod split "
-            "under grad_compress is the JAX step's)")
-
 
 def state_specs(policy: SH.ShardingPolicy, like: TrainState) -> TrainState:
     """The specs of a train state of ``like``'s whole shapes: the moments
@@ -306,10 +319,14 @@ def reduce_gradients(grads: List[torch.Tensor], specs: List[tuple],
 
 def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
                   kv_block, remat):
-    _check_policy(cfg, policy, grad_compress)
+    if policy.tp_size() > 1:
+        TP.refuse(cfg)
     mesh, sizes = policy.mesh, policy.sizes
     dp = policy.dp_axes()
     ring = grad_compress and "pod" in dp and sizes["pod"] > 1
+    # the MoE routing group, made on the first call (every rank's first
+    # step; a group over pod and data is made once)
+    route = []
     like = abstract_state(cfg)
     flat, treedef = TR.flatten_with_path(like.params)
     paths = [SH.path_str(p) for p, _ in flat]
@@ -335,18 +352,30 @@ def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
                                    attn_fallback=policy.attn_fallback)
             seq = M.input_positions(mine, cfg)
             partial = [TP.partial_leaf(p, tp, seq) for p in paths]
+        ep = None
+        if cfg.moe is not None:
+            if not route:
+                route.append(EP.routing_group(policy, ring))
+            ep = EP.ExpertParallel(cfg, route[0], tp)
         t0 = time.perf_counter()
         whole = [SH.gather(p, s, mesh, comm["gather"]) if SH.splits(s, sizes)
                  else p for p, s in zip(leaves, fsdp_specs)]
         comm["gather"].seconds = time.perf_counter() - t0
         (total, (ce, aux)), g = value_and_grad(
             TR.unflatten(treedef, whole), mine, cfg, kv_block=kv_block,
-            remat=remat, tp=tp)
+            remat=remat, tp=tp, ep=ep)
         del whole
+        ctxs = []
         if tp is not None:
-            for k, c in (("tp_fwd", tp.fwd), ("tp_bwd", tp.bwd)):
-                c.seconds = c.staging_s + c.wire_s
-                comm[k] = c
+            ctxs += [("tp_fwd", tp.fwd), ("tp_bwd", tp.bwd)]
+        if ep is not None:
+            ctxs += [("route_fwd", ep.fwd), ("route_bwd", ep.bwd)]
+            if ep.model is not None:
+                ctxs += [("ep_gather", ep.out_gather),
+                         ("ep_dispatch", ep.dispatch)]
+        for k, c in ctxs:
+            c.seconds = c.staging_s + c.wire_s
+            comm[k] = c
         t0 = time.perf_counter()
         grads = reduce_gradients(TR.leaves(g), specs, blocks, policy,
                                  ring=ring, comm=comm["reduce"],

@@ -364,9 +364,10 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refusals(capsys, monkeypatch):
-    with pytest.raises(SystemExit, match="needs --grad-compress"):
-        _launch(capsys, "--mesh", "2")
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    # pods without the ring (a raw sum over pod) reach the process group
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
+        _launch(capsys, "--mesh", "2")
     with pytest.raises(SystemExit, match="torchrun"):
         _launch(capsys, "--mesh", "2", "--grad-compress")
     # a model axis is tensor parallelism: one process for each of 2 x 1 x 2

@@ -47,7 +47,8 @@ def test_port_files_found():
                    "training/data.py", "training/train_step.py",
                    "distributed/elastic.py", "launch/train.py",
                    "distributed/sharding.py",
-                   "distributed/tensor_parallel.py"):
+                   "distributed/tensor_parallel.py",
+                   "distributed/expert_parallel.py"):
         assert PORT / module in FILES, module
 
 
@@ -87,6 +88,34 @@ def test_importing_the_port_builds_nothing():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_every_module_imports_first():
+    """Each module imports as the first of the port (the port's modules
+    dropped from ``sys.modules`` before each, in a fresh interpreter): no
+    import cycle catches a module half made, whichever a test file or a
+    user imports first."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys, traceback
+        sys.path.insert(0, {str(REPO / "src")!r})
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                        "repro_torch.")]
+        failed = []
+        for name in names:
+            for k in [k for k in sys.modules if k.startswith("repro_torch.")]:
+                del sys.modules[k]
+            try:
+                importlib.import_module(name)
+            except Exception:
+                failed.append((name, traceback.format_exc(limit=-3)))
+        assert not failed, failed
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.strip()) >= 20
 
 

@@ -209,8 +209,8 @@ def margins(monkeypatch):
     seen = []
     route = TMOE.route
 
-    def recording(router, xf, cfg, cap):
-        out = route(router, xf, cfg, cap)
+    def recording(router, xf, cfg, cap, ep=None):
+        out = route(router, xf, cfg, cap, ep)
         top = torch.sort(out["probs"], dim=-1, descending=True).values
         seen.append(top[:, cfg.top_k - 1] - top[:, cfg.top_k])
         return out

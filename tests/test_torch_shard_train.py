@@ -250,7 +250,9 @@ def test_parse_mesh_accepts_model_axis(spec, want):
 
 def test_pods_without_ring_refused_data_axis_alone_not(capsys, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    with pytest.raises(SystemExit, match="needs --grad-compress"):
+    # pods without the ring sum raw over pod (the JAX launcher's step):
+    # it gets as far as the process group
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
         LT.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
                  "--mesh", "2,2,1"])
     # a data axis alone needs no ring: it gets as far as the process group
@@ -263,9 +265,14 @@ def test_pods_without_ring_refused_data_axis_alone_not(capsys, monkeypatch):
                                          ("recurrentgemma-9b", "hybrid"),
                                          ("qwen3-moe-30b-a3b", "moe")])
 def test_tensor_parallel_refused(arch, family):
-    """Tensor parallelism covers the dense, MLA and front-end families;
-    the others are refused at a model axis of 2, naming the family."""
+    """Tensor parallelism covers the dense, MLA, MoE (split by experts)
+    and front-end families; the SSM and hybrid ones are refused at a model
+    axis of 2, naming the family."""
     cfg = tget(arch).reduced()
+    if family == "moe":
+        TTS.make_train_step(cfg, policy=ShardingPolicy(
+            {"pod": 1, "data": 1, "model": 2}))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"family {family}\\): a 'model' axis above 1"):
         TTS.make_train_step(cfg, policy=ShardingPolicy(
@@ -273,14 +280,16 @@ def test_tensor_parallel_refused(arch, family):
 
 
 def test_moe_with_data_axis_refused():
+    """No longer refused: a MoE batch split over data, or over pods with or
+    without the ring, routes over its routing group (global-batch
+    capacity and balance loss; ``distributed/expert_parallel.py``)."""
     cfg = tget("qwen3-moe-30b-a3b").reduced()
     for sizes, ring in (({"pod": 1, "data": 2, "model": 1}, False),
                         ({"pod": 2, "data": 2, "model": 1}, True),
                         ({"pod": 2, "data": 1, "model": 1}, False)):
-        with pytest.raises(NotImplementedError, match="global-batch"):
-            TTS.make_train_step(cfg, policy=ShardingPolicy(sizes),
-                                grad_compress=ring)
-    # the per-pod split under grad_compress is the JAX step's: allowed
+        TTS.make_train_step(cfg, policy=ShardingPolicy(sizes),
+                            grad_compress=ring)
+    # the per-pod split under grad_compress is the JAX step's
     TTS.make_train_step(cfg, policy=ShardingPolicy(
         {"pod": 2, "data": 1, "model": 1}), grad_compress=True)
     TTS.make_train_step(cfg, policy=ShardingPolicy({"data": 1, "model": 1}))

@@ -713,3 +713,254 @@ def _tp_case(ref_dir: Path, out_dir: Path, case: dict):
                                    like, TS.state_specs(other, like),
                                    other.sizes))
     return out, arrays
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: MoE training under the model and data axes
+# ---------------------------------------------------------------------------
+
+def _moe_config(arch: str, capacity_factor: float):
+    """Reduced ``arch`` with its MoE ``capacity_factor`` replaced."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+
+
+def ep_train_world(rank, world, store, ref_dir, out_dir, cases, route_meshes,
+                   launch=None):
+    """The routing collectives on ``route_meshes``, then the cases of
+    ``tests/test_torch_expert_parallel.py`` on this world, then (``launch``:
+    its arguments) ``launch/train.py``, which tears the group down itself."""
+    import contextlib
+    import io
+    import os
+    _init(rank, world, store)
+    try:
+        summary, arrays = {"route": {}}, {}
+        for shape in route_meshes:
+            tag = ",".join(map(str, shape))
+            summary["route"][tag], got = _ep_route(Path(ref_dir), tuple(shape))
+            arrays.update({f"route{tag}/{k}": v for k, v in got.items()})
+        for case in cases:
+            summary[case["name"]], got = _ep_case(Path(ref_dir),
+                                                  Path(out_dir), case)
+            arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        if rank == 0:
+            np.savez(Path(out_dir) / "rank0.npz", **arrays)
+        if launch:
+            from repro_torch.launch import train as LT
+            os.environ["WORLD_SIZE"] = str(world)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                LT.main(launch)
+            (Path(out_dir) / f"launch{rank}.txt").write_text(buf.getvalue())
+        else:
+            dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _ep_route(ref_dir: Path, shape):
+    """The MoE FFN of ``route.npz``'s one layer on mesh ``shape`` (pod 1):
+    this rank takes its data block of the (B, S, d) tokens and its expert
+    block, routes and runs ``moe_ffn(ep=)`` and back-propagates the mean
+    over its rows of ``y . up`` plus 0.01 aux.  Held here against the
+    unsharded ``route`` / ``moe_ffn`` on the whole tokens: the slots of
+    this rank's choices, its output rows and the group's drops, ``me``,
+    ``fe`` and aux bitwise; the data-reduced gradients (the train step's
+    f32 rank-order mean) beside the whole ones.  Returns the reduced
+    gradients for the parent to hold against JAX."""
+    from repro_torch.distributed import expert_parallel as EP
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.distributed.tensor_parallel import ordered_sum
+    from repro_torch.models import moe as MOE
+    ref = np.load(ref_dir / "route.npz")
+    cfg = _moe_config("qwen3-moe-30b-a3b", float(ref["capacity_factor"]))
+    mc, e = cfg.moe, cfg.moe.num_experts
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    policy = ShardingPolicy(mesh)
+    group = EP.routing_group(policy, ring=False)
+    tp = (TP.TensorParallel(mesh.get_group("model"), cfg)
+          if policy.tp_size() > 1 else None)
+    ep = EP.ExpertParallel(cfg, group, tp)
+    x = to_torch(ref["x"], "bfloat16")
+    up = to_torch(ref["up"], "bfloat16")
+    p = {"router": torch.from_numpy(np.array(ref["router"])),
+         "w_gate_up": to_torch(ref["w_gate_up"], "bfloat16"),
+         "w_down": to_torch(ref["w_down"], "bfloat16")}
+    b, s, _ = x.shape
+    n = shape[1]
+    rows = slice(mesh.get_local_rank("data") * b // n,
+                 (mesh.get_local_rank("data") + 1) * b // n)
+    cap, cap_local = MOE.capacity(b * s, mc), MOE.capacity(b * s // n, mc)
+
+    def loss(y, aux, up_):
+        return (y.float() * up_.float()).sum(-1).mean() + 0.01 * aux
+
+    # the whole batch in one process
+    pw = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    xw = x.clone().requires_grad_(True)
+    yw, aw = MOE.moe_ffn(pw, xw, mc)
+    loss(yw, aw, up).backward()
+    rw = MOE.route(p["router"], x.reshape(b * s, -1), mc, cap)
+    # this rank's block
+    ps = {k: (v if k == "router" else v[ep.experts]).clone().requires_grad_(True)
+          for k, v in p.items()}
+    xs = x[rows].clone().requires_grad_(True)
+    ys, a_s = MOE.moe_ffn(ps, xs, mc, ep)
+    loss(ys, a_s, up[rows]).backward()
+    rs = MOE.route(p["router"], x[rows].reshape(-1, x.shape[-1]), mc, cap, ep)
+    k = mc.top_k
+    t0 = rows.start * s * k
+    slot_whole = torch.empty_like(rw["slot"])
+    slot_whole[rw["order"]] = rw["slot"]
+    slot_mine = torch.empty_like(rs["slot"])
+    slot_mine[rs["order"]] = rs["slot"]
+    drops = _group_sum((rs["slot"] == e * cap).sum(), group)
+    whole_top1 = ep.whole(rs["expert_idx"][:, 0])
+    whole_probs = ep.whole(rs["probs"].detach())
+
+    def reduce(g, split_model):
+        """The step's gradient reduction of one leaf: the f32 sum over the
+        routing group in rank order, divided by its size; expert leaves
+        gathered over model."""
+        if group is not None:
+            g = ordered_sum(CL.Link(group, "cpu", CL.CommStats())
+                            .all_gather(g)) / n
+        if split_model and ep.model is not None:
+            g = torch.cat(CL.Link(ep.model.group, "cpu",
+                                  CL.CommStats()).all_gather(g.contiguous()))
+        return g
+
+    grads = {kk: reduce(v.grad.float(), kk != "router") for kk, v in ps.items()}
+    out = dict(
+        cap=cap, cap_local=cap_local, group_size=ep.size,
+        split_experts=ep.model is not None,
+        slots_bitwise=torch.equal(slot_mine, slot_whole[t0:t0 + slot_mine.numel()]),
+        out_bitwise=torch.equal(as_bits_t(ys), as_bits_t(yw[rows])),
+        aux_bitwise=torch.equal(a_s.detach(), aw.detach()),
+        me_bitwise=torch.equal(whole_probs.mean(0), rw["probs"].mean(0)),
+        fe_bitwise=torch.equal(
+            torch.nn.functional.one_hot(whole_top1, e).float().mean(0),
+            torch.nn.functional.one_hot(rw["expert_idx"][:, 0], e).float().mean(0)),
+        drops=int(drops), drops_whole=int((rw["slot"] == e * cap).sum()),
+        aux=float(a_s.detach()),
+        x_grad_rel=_rel(xs.grad.float() / n, xw.grad[rows].float()),
+        grad_rel={kk: _rel(g, pw[kk].grad.float()) for kk, g in grads.items()})
+    arrays = {f"grad/{kk}": g.numpy() for kk, g in grads.items()}
+    arrays["out"] = ys.detach().float().numpy()
+    arrays["rows"] = np.array([rows.start, rows.stop])
+    return out, arrays
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """An integer count summed over ``group`` (None: this rank alone)."""
+    if group is None:
+        return x
+    return torch.stack(CL.Link(group, "cpu", CL.CommStats())
+                       .all_gather(x.reshape(1))).sum()
+
+
+def as_bits_t(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(_INT[x.element_size()])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp(min=1e-30))
+
+
+def _ep_case(ref_dir: Path, out_dir: Path, case: dict):
+    """One case: the reference's steps through the sharded step on mesh
+    ``case["shape"]``; per rank the metrics, the capacity and routing-group
+    size each MoE layer used and the group's dropped choices (first step's
+    forward), held bytes against the spec arithmetic, whether the leaf-by-
+    leaf placed init is bitwise ``shard_state`` of the whole one, the
+    step's traffic and the parameter-gather bytes the data axis accounts
+    for, the hash of the leaves replicated over ``model`` and of the
+    gathered state (rank 0: its bits)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving.collective import _padded
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    ref = np.load(ref_dir / f"{case['ref']}.npz")
+    meta = json.loads((ref_dir / f"{case['ref']}.json").read_text())
+    cfg = _moe_config(case["arch"], meta["capacity_factor"])
+    state0 = _state_from_ref(ref, cfg)
+    like = TS.abstract_state(cfg)
+    shape = tuple(case["shape"])
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    policy = SH.ShardingPolicy(mesh, fsdp=case["fsdp"])
+    step, placed = TS.shard_train_step(
+        TS.make_train_step(cfg, OPT.AdamWConfig(**meta["opt"]), policy,
+                           grad_compress=case["grad_compress"],
+                           kv_block=meta["kv_block"]),
+        policy, state0)
+    seeded = TS.init_state(cfg, torch.Generator().manual_seed(3), "cpu", policy)
+    whole = TS.shard_state(TS.init_state(cfg, torch.Generator().manual_seed(3),
+                                         "cpu"), policy)
+    specs = TS.state_specs(policy, like)
+    leaf = SH.leaf_specs(specs, like)
+    out = {"coord": SH.coordinate(mesh),
+           "placed_init_bitwise": _sha(seeded) == _sha(whole),
+           "held": _nbytes(placed),
+           "spec_bytes": SH.held_bytes(like, specs, policy.sizes),
+           "split_over_model": sum("model" in SH.entry_axes(e) for s in leaf
+                                   for e in s),
+           "data_gather_bytes": sum(
+               _padded(x.numel() * x.element_size())
+               for x, s in zip(TR.leaves(placed.params),
+                               SH.leaf_specs(specs.params, like.params))
+               if SH.splits(SH.restrict(s, ("data",)), policy.sizes)),
+           "metrics": [], "layers": []}
+    seen, routes, orig = [], [], MOE.moe_ffn
+
+    def recording(p, x, mc, ep=None):
+        y, aux = orig(p, x, mc, ep)
+        if torch._C._current_graph_task_id() == -1:    # not remat's re-run
+            size = ep.size if ep is not None else 1
+            cap = MOE.capacity(x.shape[0] * x.shape[1] * size, mc)
+            with torch.no_grad():
+                r = MOE.route(p["router"], x.reshape(-1, x.shape[-1]), mc,
+                              cap, ep)
+                dropped = _group_sum((r["slot"] == mc.num_experts * cap).sum(),
+                                     ep.group if ep is not None else None)
+            routes.append(r["expert_idx"].numpy())
+            if len(seen) < cfg.num_layers:
+                seen.append(dict(cap=cap, group_size=size,
+                                 dropped=int(dropped)))
+        return y, aux
+
+    arrays = {}
+    MOE.moe_ffn = recording
+    try:
+        for i in range(meta["steps"]):
+            placed, metrics = step(placed, _torch_batch(ref, i))
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if i == 0:          # the gathered state after the first step
+                arrays.update({"step1/" + _keystr(p): as_bits(x) for p, x in
+                               TR.flatten_with_path(TS.gather_state(
+                                   placed, policy, like))[0]})
+    finally:
+        MOE.moe_ffn = orig
+    out["layers"] = seen
+    out["comm"] = {k: c.sent_bytes for k, c in TS.last_comm.items()}
+    out["replicated_sha"] = _sha([x for x, s in zip(TR.leaves(placed), leaf)
+                                  if not any("model" in SH.entry_axes(e)
+                                             for e in s)])
+    whole = TS.gather_state(placed, policy, like)
+    out["sha"] = _sha(whole)
+    arrays.update({_keystr(p): as_bits(x)
+                   for p, x in TR.flatten_with_path(whole)[0]})
+    # this rank's top-k experts, (step, layer) in call order, for the
+    # parent's replay of the run's routing
+    np.savez(out_dir / f"{case['name']}.rank{dist.get_rank()}.npz",
+             **{f"route/{j}": r for j, r in enumerate(routes)})
+    return out, arrays
