@@ -283,6 +283,34 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               own drops).  Per rank: step ms, every collective's bytes
               and ms (the expert-output gathers ``ep_gather``), peak
               memory, dropped choices a layer.
+8m. tp_recurrent — tensor-parallel training of Mamba-2 and the RG-LRU
+              hybrid over the model axis, ranks spawned over gloo, each
+              world's single-process step run first and saved as in
+              phase ``ep``.  (a) mamba2-2.7b at full width (2560, 80
+              heads x 64, d_state 128, in_proj K 10,576, vocab 50,280)
+              cut to 4 layers, mesh (1, 2, 2) with FSDP, batch 2 x 2048
+              (one sequence a data rank): ``in_proj``'s product gathered,
+              the SSD scan whole on every model rank, ``out_proj`` a row
+              product; (b) recurrentgemma-9b at full width (4096, LRU
+              4096, d_ff 12,288, 16 heads over 1 KV head x 256, vocab
+              256,000, window 2048) cut to one triple and 2 extra
+              recurrent blocks, mesh (1, 1, 2), batch 1 x 4096 (the window
+              bites), lr 3e-5 (at 3e-4 its first step diverges, 13.35 ->
+              18.21, and amplifies round-off past the loss bound): the
+              RG-LRU on a rank's half of the channels, the local attention
+              in case ``kv``.  2 steps each, each step donating its state
+              (``make_run(donate=True)``: the hybrid's 3.2 B parameters'
+              reference holds one state, not two).  Gates as in
+              ``ep``: model replicas bitwise, held bytes exact, no
+              parameter gathered over model, no flash or codec launch
+              (windows ``tpr_ssm``, ``tpr_hybrid``), each step and the
+              state after it within the ``SHARD_*`` bounds of the
+              single-process step; a leaf initialised to 0 (``conv_b``,
+              ``dt_bias``, ``b_a``, ``b_x``) is its AdamW updates alone,
+              whose signs round-off may flip, so its elements are held
+              within the two updates' distance plus one rounding and the
+              flipped ones counted.  Per rank: step ms, every
+              collective's bytes and ms, held bytes, peak memory.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -327,7 +355,9 @@ default gradient codebook; the train steps, counted apart in
 8j, ``shard_ring``, ``shard_hop_src``, ``shard_hop_dst``), the
 tensor-parallel steps on rank 0 (phase 8k, ``tp_heads``, ``tp_seq``: no
 flash launch), the expert-parallel steps on rank 0 (phase 8l,
-``ep_heads``, ``ep_fsdp``: no flash or codec launch), and the served
+``ep_heads``, ``ep_fsdp``: no flash or codec launch), the recurrent
+families' tensor-parallel steps on rank 0 (phase 8m, ``tpr_ssm``,
+``tpr_hybrid``: no flash or codec launch), and the served
 prefills of
 phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
 attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
@@ -3752,23 +3782,43 @@ def _ep_drops(torch, cfg, records, device):
     return out
 
 
-def _ep_against(torch, state, path, specs, mesh, coord):
+def _against_reference(torch, state, path, specs, mesh, coord, zero=None,
+                       allow=0.0):
     """This rank's share of each leaf's distance to the reference leaves
     saved at ``path`` (bf16, mapped): ``[diff^2, ref^2]`` a leaf over its
     block, from the one rank of each block (coordinate 0 on every axis the
-    leaf's spec does not name), else None."""
+    leaf's spec does not name), else None.  ``zero`` maps the index of a
+    parameter initialised to 0 (its AdamW updates alone) to the
+    reference's first moment after one step, saved at that path: such a
+    leaf's sums are taken over the elements whose first gradient exceeds
+    ``ZERO_GRAD_FRAC`` of the leaf's largest, and it adds the largest
+    excess of another element's distance over ``allow`` plus one bf16
+    rounding (at most 0 where it holds), the number of elements whose
+    distance exceeds half of ``allow`` (the flipped updates), and its
+    element count."""
     from repro_torch.core import tree as TR
     from repro_torch.distributed import sharding as SH
     ref = torch.load(path, mmap=True)
+    first = torch.load(zero["path"], mmap=True) if zero else {}
     out = []
-    for x, r, spec in zip(TR.leaves(state), ref, specs):
+    for i, (x, r, spec) in enumerate(zip(TR.leaves(state), ref, specs)):
         named = {a for e in spec for a in SH.entry_axes(e)}
         if x.dim() == 0 or any(coord[a] for a in coord if a not in named):
             out.append(None)
             continue
         a = SH.shard_slice(r, spec, mesh).to(x.device).float()
         b = x.float()
-        out.append([float(torch.sum((a - b) ** 2)), float(torch.sum(a * a))])
+        if i not in first:
+            out.append([float(torch.sum((a - b) ** 2)), float(torch.sum(a * a))])
+            continue
+        g = first[i].abs()
+        above = SH.shard_slice(g, spec, mesh).to(x.device) > ZERO_GRAD_FRAC * g.max()
+        gap = (a - b).abs()
+        below = gap - allow - 2 ** -7 * torch.maximum(a.abs(), b.abs())
+        out.append([float(torch.sum(((a - b) ** 2)[above])),
+                    float(torch.sum((a * a)[above])),
+                    float(torch.max(torch.where(above, -math.inf, below))),
+                    int(torch.sum(gap > allow / 2)), a.numel()])
     return out
 
 
@@ -3842,8 +3892,8 @@ def ep_rank(torch, rank, device, shape, fsdp, ref):
                     comm=_comm_record()))
                 for k, v in counts.items():
                     launches[k] = launches.get(k, 0) + v
-                out["against"].append(_ep_against(torch, state, ref["steps"][i],
-                                                  specs, mesh, coord))
+                out["against"].append(_against_reference(
+                    torch, state, ref["steps"][i], specs, mesh, coord))
         finally:
             MOE.moe_ffn = orig
         out["launches"] = launches
@@ -3860,55 +3910,109 @@ def ep_rank(torch, rank, device, shape, fsdp, ref):
     return out
 
 
-def _ep_distance(ranks, ref):
-    """Each leaf's relative L2 distance to the reference after each step,
-    from the ranks' shares; the worst parameter and moment leaf a step."""
+def _reference_distance(ranks, ref, cfg, steps):
+    """Each leaf's relative L2 distance to the reference after each step
+    whose state the reference saved (None for the others), from the
+    ranks' shares; the worst parameter and moment leaf a step.  The
+    leaves initialised to 0 (``_against_reference``'s ``zero``) are held
+    apart: the worst relative L2 over their elements above the gradient
+    threshold, the largest excess of the others over the allowance, and
+    the flipped elements of all their elements."""
     from repro_torch.core import tree as TR
     from repro_torch.training import train_step as TS
     paths = [TR.leaf_key(p) for p, _ in
-             TR.flatten_with_path(TS.abstract_state(ep_config()))[0]]
+             TR.flatten_with_path(TS.abstract_state(cfg))[0]]
     out = []
-    for i in range(EP_STEPS):
+    for i in range(steps):
+        if ref["steps"][i] is None:
+            out.append(None)
+            continue
         worst = {"params": (0.0, None), "moments": (0.0, None)}
+        zero = dict(rel_l2=0.0, leaf=None, excess=-math.inf, flipped=0,
+                    elements=0, leaves=0)
         for j, path in enumerate(paths):
             parts = [r["against"][i][j] for r in ranks if r["against"][i][j]]
             if not parts:
                 continue
             d = math.sqrt(sum(p[0] for p in parts)
                           / max(sum(p[1] for p in parts), 1e-30))
+            if len(parts[0]) > 2:
+                if d >= zero["rel_l2"]:
+                    zero.update(rel_l2=d, leaf=path)
+                zero["excess"] = max([zero["excess"]] + [p[2] for p in parts])
+                zero["flipped"] += sum(p[3] for p in parts)
+                zero["elements"] += sum(p[4] for p in parts)
+                zero["leaves"] += 1
+                continue
             key = "params" if path.startswith(".params") else "moments"
             if d >= worst[key][0]:
                 worst[key] = (d, path)
         out.append({k: dict(rel_l2=v[0], leaf=v[1]) for k, v in worst.items()})
+        if zero["leaves"]:
+            out[-1]["zero_init"] = zero
     return out
+
+
+def _world_gates(name, ranks, ref, cfg, steps):
+    """The gates every world of phases ``ep`` and ``tp_recurrent`` shares
+    (``name`` labels its failures): the leaves replicated over model
+    bitwise across the model ranks, held bytes equal to the specs,
+    parameter gathers the data axis's alone, finite losses, no flash or
+    codec launch, each step within the ``SHARD_*`` bounds of the
+    single-process step, and so each state the reference saved (a
+    zero-initialised leaf within ``SHARD_PARAM_RTOL`` above its gradient
+    threshold, within its allowance below it, and at most
+    ``ZERO_FLIP_FRAC`` of its elements flipped); returns the distances."""
+    replicas = {}
+    for r in ranks:
+        c = r["coord"]
+        replicas.setdefault((c["pod"], c["data"]), set()).add(r["replicated_sha"])
+        if r["held"] != r["spec_bytes"]:
+            raise AssertionError(f"{name} rank {r['rank']}: holds "
+                                 f"{r['held']}, the specs give {r['spec_bytes']}")
+        for st in r["steps"]:
+            if st["comm"]["gather"]["sent_bytes"] != r["data_gather_bytes"]:
+                raise AssertionError(
+                    f"{name} rank {r['rank']}: parameter gathers of "
+                    f"{st['comm']['gather']['sent_bytes']} bytes, the data axis "
+                    f"accounts for {r['data_gather_bytes']}: a parameter "
+                    "crossed the model group")
+            if not math.isfinite(st["loss"]):
+                raise AssertionError(f"{name}: loss {st['loss']}")
+        if any(r["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")):
+            raise AssertionError(f"{name} rank {r['rank']}: a flash or "
+                                 f"codec kernel launched: {r['launches']}")
+    if any(len(v) != 1 for v in replicas.values()):
+        raise AssertionError(f"{name}: a leaf replicated over model "
+                             "differs between model ranks")
+    dist_ = _reference_distance(ranks, ref, cfg, steps)
+    for i, (st, m) in enumerate(zip(ranks[0]["steps"], ref["metrics"])):
+        d = dist_[i] = dist_[i] or {}
+        z = d.get("zero_init", dict(rel_l2=0, excess=0, flipped=0, elements=1))
+        ok = (abs(st["loss"] - m["loss"]) <= SHARD_CE_ATOL
+              and abs(st["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
+              <= SHARD_GN_RTOL and st["lr"] == m["lr"]
+              and d.get("params", {}).get("rel_l2", 0) <= SHARD_PARAM_RTOL
+              and d.get("moments", {}).get("rel_l2", 0) <= SHARD_MOMENT_RTOL
+              and z["rel_l2"] <= SHARD_PARAM_RTOL and z["excess"] <= 0
+              and z["flipped"] <= ZERO_FLIP_FRAC * z["elements"])
+        d.update(loss_abs=abs(st["loss"] - m["loss"]),
+                 grad_norm_rel=abs(st["grad_norm"] - m["grad_norm"])
+                 / m["grad_norm"], ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} step {i}: the sharded step left "
+                                 f"the single-process step's bounds: {d}")
+    return dist_
 
 
 def _ep_gates(tag, ranks, ref):
     """Phase ``ep``'s gates on one world's ranks; returns the distances."""
     from repro_torch.models import moe as MOE
     want_cap = MOE.capacity(EP_BATCH * TRAIN_SEQ, ep_config().moe)
-    replicas = {}
     for r in ranks:
-        c = r["coord"]
-        replicas.setdefault((c["pod"], c["data"]), set()).add(r["replicated_sha"])
-        if r["held"] != r["spec_bytes"]:
-            raise AssertionError(f"ep ({tag}) rank {r['rank']}: holds "
-                                 f"{r['held']}, the specs give {r['spec_bytes']}")
-        for st in r["steps"]:
-            if st["comm"]["gather"]["sent_bytes"] != r["data_gather_bytes"]:
-                raise AssertionError(
-                    f"ep ({tag}) rank {r['rank']}: parameter gathers of "
-                    f"{st['comm']['gather']['sent_bytes']} bytes, the data axis "
-                    f"accounts for {r['data_gather_bytes']}: a parameter "
-                    "crossed the model group")
-            if "ep_gather" not in st["comm"]:
-                raise AssertionError(f"ep ({tag}): the experts did not split "
-                                     "over model")
-            if not math.isfinite(st["loss"]):
-                raise AssertionError(f"ep ({tag}): loss {st['loss']}")
-        if any(r["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")):
-            raise AssertionError(f"ep ({tag}) rank {r['rank']}: a flash or "
-                                 f"codec kernel launched: {r['launches']}")
+        if any("ep_gather" not in st["comm"] for st in r["steps"]):
+            raise AssertionError(f"ep ({tag}): the experts did not split "
+                                 "over model")
         for layer in r["layers"]:
             if layer["cap"] != want_cap \
                     or layer["dropped"] != layer["single_dropped"] \
@@ -3917,23 +4021,7 @@ def _ep_gates(tag, ranks, ref):
                         and layer["run_dropped"] != layer["single_dropped"]):
                 raise AssertionError(f"ep ({tag}) rank {r['rank']}: routing "
                                      f"against the single-process FFN: {layer}")
-    if any(len(v) != 1 for v in replicas.values()):
-        raise AssertionError(f"ep ({tag}): a leaf replicated over model "
-                             "differs between model ranks")
-    dist_ = _ep_distance(ranks, ref)
-    for i, (d, st, m) in enumerate(zip(dist_, ranks[0]["steps"], ref["metrics"])):
-        ok = (abs(st["loss"] - m["loss"]) <= SHARD_CE_ATOL
-              and abs(st["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
-              <= SHARD_GN_RTOL and st["lr"] == m["lr"]
-              and d["params"]["rel_l2"] <= SHARD_PARAM_RTOL
-              and d["moments"]["rel_l2"] <= SHARD_MOMENT_RTOL)
-        d.update(loss_abs=abs(st["loss"] - m["loss"]),
-                 grad_norm_rel=abs(st["grad_norm"] - m["grad_norm"])
-                 / m["grad_norm"], ok=ok)
-        if not ok:
-            raise AssertionError(f"ep ({tag}) step {i}: the sharded step left "
-                                 f"the single-process step's bounds: {d}")
-    return dist_
+    return _world_gates(f"ep ({tag})", ranks, ref, ep_config(), EP_STEPS)
 
 
 def phase_ep(torch, smi):
@@ -3973,6 +4061,260 @@ def phase_ep(torch, smi):
                       phase=time.perf_counter() - t0))
     return {w: {k: r[0]["launches"].get(k, 0) for k in (*KERNELS, "flash_attention")}
             for w, r in (("ep_heads", a), ("ep_fsdp", b))}
+
+
+# ---------------------------------------------------------------------------
+# phase tp_recurrent: Mamba-2 and the RG-LRU hybrid under the model axis
+# ---------------------------------------------------------------------------
+
+TPR_STEPS = 2
+# a parameter initialised to 0 is its AdamW updates alone, about lr times
+# its gradients' signs, which round-off flips where a gradient is near 0:
+# its elements whose first gradient (the reference's first moment after
+# one step) exceeds ZERO_GRAD_FRAC of the leaf's largest are held as a
+# leaf (the CPU tests saw flips up to 0.82% of it), the others within the
+# updates' distance; at most ZERO_FLIP_FRAC of its elements may flip
+# (phase tp_recurrent's first runs on the H100: 19 of 21,824 and 58 of
+# 49,152)
+ZERO_GRAD_FRAC, ZERO_FLIP_FRAC = 2e-2, 5e-3
+# world -> the config cut in depth, its mesh, FSDP, batch and sequence
+# and the attention case it must take (None: no attention), the steps
+# after which the reference's state is saved and compared (the hybrid's
+# 19.2 GB only after the last), and the learning rate: the hybrid's is a
+# tenth of the launcher's, at which its random full-width first step
+# diverges (loss 13.35 -> 18.21, gradient norm 30 -> 156) and the second
+# step's loss moves by round-off past the loss bound while the states stay
+# within theirs (``--lr-witness`` measures that gap against the single
+# process's own under another reduction order)
+TPR_WORLDS = {
+    "ssm": dict(arch=SSM_ARCH, layers=4, mesh=(1, 2, 2), fsdp=True, batch=2,
+                seq=TRAIN_SEQ, case=None, saved=(0, 1), lr=TRAIN_LR),
+    "hybrid": dict(arch=HYBRID_ARCH, layers=5, mesh=(1, 1, 2), fsdp=False,
+                   batch=1, seq=4096, case="kv", saved=(1,), lr=TRAIN_LR / 10),
+}
+
+
+def tpr_config(world):
+    """World ``world``'s config: full width, cut to its layers."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    w = TPR_WORLDS[world]
+    return dataclasses.replace(get_config(w["arch"]), num_layers=w["layers"])
+
+
+def tpr_reference(torch, device, out_dir, world, lr=None, kv_block=None,
+                  save=True):
+    """World ``world``'s single-process step (``make_run`` without a
+    policy), its state saved after each step of ``saved`` as
+    ``ep_reference`` saves it (None for the others), and the first moment
+    after one step of the parameter leaves initialised to 0, by leaf
+    index (``_against_reference``'s ``zero``).  ``lr`` and ``kv_block``
+    replace the world's (``--lr-witness``); ``save=False`` keeps the
+    metrics alone."""
+    from repro_torch.core import tree as TR
+    from repro_torch.launch import train as LT
+    w = TPR_WORLDS[world]
+    torch.cuda.reset_peak_memory_stats()
+    state, step_at = LT.make_run(tpr_config(world), batch=w["batch"],
+                                 seq=w["seq"], lr=lr or w["lr"],
+                                 steps=TPR_STEPS, seed=0, device=device,
+                                 donate=True, kv_block=kv_block)
+    zero = [i for i, x in enumerate(TR.leaves(state.params)) if not bool(x.any())]
+    steps, metrics, first = [], [], None
+    for i in range(TPR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_at(state, i)
+        torch.cuda.synchronize()
+        metrics.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                            **{k: float(v) for k, v in m.items()}))
+        if save and i == 0:
+            m1 = TR.leaves(state.opt.m)
+            first = dict(path=str(out_dir / f"{world}_first.pt"), leaves=len(zero))
+            torch.save({j: m1[j].float().cpu() for j in zero}, first["path"])
+        steps.append(None)
+        if save and i in w["saved"]:
+            steps[-1] = str(out_dir / f"{world}_step{i}.pt")
+            torch.save([x.to(torch.bfloat16).cpu() for x in TR.leaves(state)],
+                       steps[-1])
+    del state, step_at
+    peak = _peak_gb(torch)
+    torch.cuda.empty_cache()
+    return dict(steps=steps, metrics=metrics, peak_gb=peak, zero=first)
+
+
+def tpr_rank(torch, rank, device, world, ref, lr=None):
+    """Phase ``tp_recurrent``, world ``world`` (``TPR_WORLDS``):
+    ``TPR_STEPS`` steps through ``make_run(policy=)``.  Each rank: which
+    dimensions split over model, its attention case, the bytes it holds
+    against the spec arithmetic, step ms, the step's traffic
+    (``train_step.last_comm``), the parameter-gather bytes the data axis
+    alone accounts for, launches, peak memory, the hash of its leaves
+    replicated over ``model``, and its share of each leaf's distance to
+    the single-process step's state after each step it saved (``ref``).
+    ``lr`` replaces the world's (``--lr-witness``)."""
+    import warnings
+
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving.collective import _padded
+    from repro_torch.training import train_step as TS
+
+    _deterministic(torch)
+    cfg, w = tpr_config(world), TPR_WORLDS[world]
+    mesh = make_mesh(w["mesh"], MESH_AXES)
+    policy = SH.ShardingPolicy(mesh, fsdp=w["fsdp"])
+    like = TS.abstract_state(cfg)
+    specs = SH.leaf_specs(TS.state_specs(policy, like), like)
+    coord = SH.coordinate(mesh)
+    tp = TP.TensorParallel(mesh.get_group("model"), cfg)
+    if cfg.ssm is not None:
+        d_inner, heads, conv = SSM.dims(cfg.d_model, cfg.ssm)
+        split = {"in_proj": tp.splits(d_inner + conv + heads),
+                 "out_proj": tp.splits(d_inner)}
+        case = None
+    else:
+        split = {"lru_width": tp.splits(tp.lru_width),
+                 "d_ff": tp.splits(cfg.d_ff)}
+        case = tp.attention(w["seq"])
+    out = {"rank": rank, "coord": coord, "split": split, "case": case,
+           "steps": [], "against": []}
+    seconds, t0 = {}, time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step_at = LT.make_run(cfg, batch=w["batch"], seq=w["seq"],
+                                     lr=lr or w["lr"], steps=TPR_STEPS, seed=0,
+                                     device=device, policy=policy, donate=True)
+        torch.cuda.synchronize()
+        seconds["setup"] = time.perf_counter() - t0
+        out["setup_peak_gb"] = _peak_gb(torch)
+        out["held"] = _held(state)
+        out["spec_bytes"] = _spec_bytes(like, policy)
+        out["data_gather_bytes"] = sum(
+            _padded(x.numel() * x.element_size())
+            for x, s in zip(TR.leaves(state.params), specs)
+            if SH.splits(SH.restrict(s, ("data",)), policy.sizes))
+        launches, allow = {}, 0.0
+        for i in range(TPR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, metrics), counts = counted(step_at, state, i)
+            torch.cuda.synchronize()
+            out["steps"].append(dict(
+                step=i, ms=(time.perf_counter() - t0) * 1e3,
+                **{k: float(v) for k, v in metrics.items()},
+                comm=_comm_record()))
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            allow += 2 * ref["metrics"][i]["lr"]
+            out["against"].append(None)
+            if ref["steps"][i] is not None:
+                t0 = time.perf_counter()
+                out["against"][-1] = _against_reference(
+                    torch, state, ref["steps"][i], specs, mesh, coord,
+                    ref["zero"], allow)
+                seconds[f"against{i}"] = time.perf_counter() - t0
+        out["launches"] = launches
+        out["peak_gb"] = _peak_gb(torch)
+        out["replicated_sha"] = _sha_tree(torch, [
+            x for x, s in zip(TR.leaves(state), specs)
+            if not any("model" in SH.entry_axes(e) for e in s)])
+        del state, step_at
+    out["warnings"] = _nondeterministic_warnings(caught)
+    out["seconds"] = seconds
+    return out
+
+
+def _tpr_gates(world, ranks, ref):
+    """Phase ``tp_recurrent``'s gates on one world's ranks; returns the
+    distances."""
+    for r in ranks:
+        if not all(r["split"].values()) or r["case"] != TPR_WORLDS[world]["case"]:
+            raise AssertionError(f"tp_recurrent ({world}): a dimension did not "
+                                 f"split over model: {r['split']}, attention "
+                                 f"case {r['case']}")
+    return _world_gates(f"tp_recurrent ({world})", ranks, ref,
+                        tpr_config(world), TPR_STEPS)
+
+
+def phase_tp_recurrent(torch, smi):
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    worlds, windows = {}, {}
+    for world, w in TPR_WORLDS.items():
+        ref_dir = Path(tempfile.mkdtemp(prefix="tpr_reference_",
+                                        dir=ROOT / "build"))
+        try:
+            t0 = time.perf_counter()
+            ref = tpr_reference(torch, device, ref_dir, world)
+            ref_s = time.perf_counter() - t0
+            ranks = run_ranks("tpr_rank", math.prod(w["mesh"]), world, ref)
+            ranks_s = time.perf_counter() - t0 - ref_s
+            against = _tpr_gates(world, ranks, ref)
+        finally:
+            shutil.rmtree(ref_dir, ignore_errors=True)
+        for r in ranks:
+            del r["against"]
+        cfg = tpr_config(world)
+        worlds[world] = dict(
+            arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            vocab=cfg.vocab_size, mesh=list(w["mesh"]), fsdp=w["fsdp"],
+            batch=w["batch"], seq=w["seq"], lr=w["lr"],
+            reference=dict(metrics=ref["metrics"], peak_gb=ref["peak_gb"],
+                           zero_init_leaves=ref["zero"]["leaves"],
+                           saved_after=list(w["saved"])),
+            ranks=ranks, against_single=against,
+            seconds=dict(reference=ref_s, ranks=ranks_s))
+        windows[f"tpr_{world}"] = {k: ranks[0]["launches"].get(k, 0)
+                                   for k in (*KERNELS, "flash_attention")}
+    emit(phase="tp_recurrent", nvidia_smi=smi, steps=TPR_STEPS,
+         transport="gloo", **worlds,
+         seconds=dict(phase=time.perf_counter() - t_phase))
+    return windows
+
+
+def lr_witness(torch, smi):
+    """``--lr-witness``: how far round-off alone moves world ``hybrid``'s
+    second-step loss, at the launcher's lr and at the world's.  At each,
+    the single-process step with the attention's keys in blocks of 1024
+    (the default) and of 512 (another order of the online softmax's sums);
+    at the launcher's, also the tensor-parallel world.  Prints the losses
+    and each run's gap to the single-process default."""
+    device = torch.device("cuda", 0)
+    w = TPR_WORLDS["hybrid"]
+    t0 = time.perf_counter()
+    out = {}
+    for lr in (TRAIN_LR, w["lr"]):
+        runs = {kv: tpr_reference(torch, device, None, "hybrid", lr=lr,
+                                  kv_block=kv, save=False)["metrics"]
+                for kv in (1024, 512)}
+        if lr == TRAIN_LR:
+            ref = dict(steps=[None] * TPR_STEPS, metrics=runs[1024], zero=None)
+            ranks = run_ranks("tpr_rank", math.prod(w["mesh"]), "hybrid", ref,
+                              lr)
+            runs["tp"] = ranks[0]["steps"]
+        out[f"lr {lr:g}"] = {
+            name: dict(loss=[m["loss"] for m in ms],
+                       grad_norm=[m["grad_norm"] for m in ms],
+                       loss_gap=[abs(m["loss"] - b["loss"])
+                                 for m, b in zip(ms, runs[1024])])
+            for name, ms in (("single kv_block 1024", runs[1024]),
+                             ("single kv_block 512", runs[512]),
+                             ("tp (1, 1, 2)", runs.get("tp"))) if ms}
+    emit(phase="lr_witness", nvidia_smi=smi, arch=tpr_config("hybrid").name,
+         layers=w["layers"], batch=w["batch"], seq=w["seq"], steps=TPR_STEPS,
+         loss_bound=SHARD_CE_ATOL, runs=out,
+         seconds=time.perf_counter() - t0)
+    return 0
 
 
 def phase_mesh(torch, smi):
@@ -4027,6 +4369,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="directory for the kernel build log (default: none)")
+    ap.add_argument("--lr-witness", action="store_true",
+                    help="run only the hybrid train world's round-off "
+                         "witness (lr_witness) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -4045,6 +4390,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
+    if args.lr_witness:
+        print(smi, flush=True)
+        return lr_witness(torch, smi)
     t_start = t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
@@ -4124,6 +4472,7 @@ def main(argv=None) -> int:
     windows.update(timed("shard", phase_shard, torch, smi, grad_book))
     windows.update(timed("tp", phase_tp, torch, smi))
     windows.update(timed("ep", phase_ep, torch, smi))
+    windows.update(timed("tp_recurrent", phase_tp_recurrent, torch, smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)

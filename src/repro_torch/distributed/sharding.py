@@ -13,7 +13,9 @@ A spec is a tuple with one entry a dimension.  An entry is ``None``
 row-major over them, the first axis major, as a JAX ``PartitionSpec``
 entry splits it (``NamedSharding.devices_indices_map``).  The rules return
 the JAX ``ShardingPolicy``'s specs entry for entry, singleton tuples
-unwrapped to the bare name (``_maybe``).
+unwrapped to the bare name (``_maybe``), except at the hybrid's stacked
+recurrent leaves (``triples/rec/``, ``extra/``), whose stack dimensions
+the port strips before the rules apply (:func:`stack_dims`).
 
 The policy takes a ``DeviceMesh`` (``launch/mesh.py:make_mesh``) or a plain
 ``{axis: size}`` mapping; the mapping plans shards without a process group
@@ -218,12 +220,19 @@ class ShardingPolicy:
     )
 
     def spec_for_param(self, path: str, shape: Tuple[int, ...]) -> Spec:
+        """The spec of the parameter at ``path`` (``/``-joined) of whole
+        ``shape``.  The stack dimensions in front of a block's own shape
+        are never split: one for ``layers/``, ``/stack/``, ``triples/attn/``
+        and ``extra/``, two for ``triples/rec/`` (a triple's pair of
+        recurrent blocks, ``(nt, 2, ...)``); the rules and FSDP see the
+        block's shape.  A deliberate difference from the JAX policy, which
+        strips one dimension for ``layers/``, ``/stack/`` and ``triples/``
+        only, so that there the hybrid's row-split ``triples/rec/`` and
+        ``extra/`` leaves split a stack dimension, not their rows; every
+        other family's specs are the JAX policy's."""
         tp = self._tp()
-        # leading layer-stack dim (scan over layers) is never sharded
-        lead: Tuple[Any, ...] = ()
-        if path.startswith("layers/") or "/stack/" in path or path.startswith("triples/"):
-            lead = (None,)
-            shape = shape[1:]
+        lead: Tuple[Any, ...] = (None,) * stack_dims(path)
+        shape = shape[len(lead):]
         kind = "replicate"
         leaf = path.split("/")[-1]
         for rx, k in self.PARAM_RULES:
@@ -270,6 +279,16 @@ class ShardingPolicy:
         """A tree like ``params`` with a spec at each leaf (the AdamW
         moments take their parameters' specs)."""
         return _tree_of_specs(params, self.spec_for_param)
+
+
+def stack_dims(path: str) -> int:
+    """The number of stack dimensions in front of the block's own shape of
+    the parameter at ``path`` (``ShardingPolicy.spec_for_param``)."""
+    if path.startswith("triples/rec/"):
+        return 2
+    if path.startswith(("layers/", "triples/", "extra/")) or "/stack/" in path:
+        return 1
+    return 0
 
 
 def _key_str(k: str) -> str:

@@ -17,9 +17,11 @@ collectives below where GSPMD inserts its own:
   forward, identity backward;
 * :func:`gather` -- an output split over ``model`` along one dimension
   (the ``seq`` fallback's attention blocks; a column-split ``wq_a``,
-  ``wkv_a`` or ``frontend_proj`` product, whose output is normed over its
-  whole width or joins the residual stream whole): all-gathered forward,
-  the rank's slice of the whole gradient backward;
+  ``wkv_a``, ``frontend_proj`` or Mamba-2 ``in_proj`` product, whose
+  output is normed over its whole width, joins the residual stream whole
+  or is split into z, x, B, C and dt; the RG-LRU's post-conv block, which
+  the gate products read whole): all-gathered forward, the rank's slice
+  of the whole gradient backward;
 * :func:`vocab_embedding` -- the token lookup in a vocab-split table:
   each rank looks up its range, zeros elsewhere, summed over ``model``;
 * :func:`vocab_log_prob` -- each position's label log-probability over a
@@ -47,9 +49,20 @@ by the train step's gradient reduction; every other leaf's gradient is
 its whole gradient (or its shard's) on every rank.
 
 Families: the dense GQA and MLA models, the vision and audio front ends,
-and MoE, whose FFN splits by experts (``distributed/expert_parallel.py``;
-its attention, embedding and head are the dense ones here).  Mamba-2's
-SSD and the RG-LRU hybrid are refused (:func:`refuse`).
+MoE, whose FFN splits by experts (``distributed/expert_parallel.py``;
+its attention, embedding and head are the dense ones here), Mamba-2 and
+the RG-LRU hybrid.  Mamba-2 (``models/ssm.py:mamba2_forward``): a split
+``in_proj``'s product is gathered, the conv, the SSD scan, the ``D`` skip
+and the gated norm run whole on every model rank, and a split
+``out_proj`` is a row product over the rank's d_inner rows; its
+replicated leaves get whole gradients.  The RG-LRU
+(``models/rglru.py:recurrent_block_forward``): everything after the
+products is per channel, so a rank runs its block of the LRU width
+exactly, the post-conv block gathered whole for the ``w_a`` / ``w_x``
+products only; the replicated per-channel leaves it slices (``conv_w``,
+``conv_b``, ``b_a``, ``b_x``, ``lam``) then have partial gradients
+(:func:`partial_leaf`).  The hybrid's local attention is the GQA block
+with its window.
 
 Each collective's bytes and host time go to the context's ``fwd`` (the
 forward pass, remat's recomputation included) or ``bwd`` ``CommStats``.
@@ -65,20 +78,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 
-#: the model families tensor parallelism does not cover yet, and why
-REFUSED = {"ssm": "Mamba-2's in_proj/out_proj split is not ported",
-           "hybrid": "the RG-LRU's 'lru_sq' split is not ported"}
-
-
-def refuse(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the family where ``cfg`` is one
-    that tensor parallelism does not cover."""
-    kind = ("ssm" if cfg.ssm is not None
-            else "hybrid" if cfg.hybrid is not None else None)
-    if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}): a 'model' axis above 1: "
-            f"{REFUSED[kind]}; train it on a (pod, data) mesh")
+#: the RG-LRU's replicated per-channel leaves a rank uses its block of
+RG_SLICED = ("conv_w", "conv_b", "b_a", "b_x", "lam")
 
 
 def ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -92,16 +93,18 @@ def ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
 class TensorParallel:
     """One rank's view of the ``model`` axis for one model: the process
     group, this rank's index and the group's size, the model's head
-    counts and the policy's ``attn_fallback``, and the traffic of the
-    collectives (``fwd``, ``bwd``)."""
+    counts, the RG-LRU's width (0 outside the hybrid) and the policy's
+    ``attn_fallback``, and the traffic of the collectives (``fwd``,
+    ``bwd``)."""
 
     def __init__(self, group, cfg: ArchConfig, *, attn_fallback: str = "seq"):
-        refuse(cfg)
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.heads = cfg.num_heads
         self.kv_heads = cfg.num_heads if cfg.mla is not None else cfg.num_kv_heads
+        self.lru_width = ((cfg.hybrid.lru_width or cfg.d_model)
+                          if cfg.hybrid is not None else 0)
         self.attn_fallback = attn_fallback
         # imported here, not with the module: the serving package imports
         # the model stack, and models.layers imports this module
@@ -153,8 +156,13 @@ def partial_leaf(path: str, tp: TensorParallel, seq: int) -> bool:
     partial on each model rank at ``seq`` positions: the attention leaves
     replicated over ``model`` that a rank uses for its heads or its block
     of positions only (case ``kv``: ``wk``, ``wv``; case ``seq``: ``wq``,
-    ``wk``, ``wv``, MLA's ``wq_b`` and ``wkv_b``)."""
+    ``wk``, ``wv``, MLA's ``wq_b`` and ``wkv_b``), and where the LRU width
+    splits, the RG-LRU's per-channel leaves a rank slices
+    (:data:`RG_SLICED`: its block nonzero, zeros elsewhere)."""
     parts = path.split("/")
+    if parts[0] == "extra" or parts[:2] == ["triples", "rec"]:
+        return (parts[-2] == "block" and parts[-1] in RG_SLICED
+                and tp.splits(tp.lru_width))
     if "attn" not in parts:
         return False
     names = {"kv": ("wk", "wv"),

@@ -18,9 +18,9 @@ data ranks and the gradients sum over ``data`` in f32; with
 ``--grad-compress`` pods average them through the compressed ring,
 without it the sum goes on over ``pod`` in f32, as the JAX launcher's
 step averages over pod and data.  ``M > 1`` is tensor parallelism
-(``distributed/tensor_parallel.py``) for the dense, MLA, MoE (split by
-experts, ``distributed/expert_parallel.py``) and front-end families; the
-SSM and hybrid families are refused.  A MoE config routes over the
+(``distributed/tensor_parallel.py``) for every family: dense, MLA, MoE
+(split by experts, ``distributed/expert_parallel.py``), the front ends,
+Mamba-2 and the RG-LRU hybrid.  A MoE config routes over the
 ranks that share one loss (pods and data, or a pod's data ranks under
 the ring), as the JAX step's global-batch FFN does.  The JAX
 launcher's ``--mesh D,M`` has no pod axis: here ``N,D,M`` always names
@@ -35,6 +35,8 @@ all three (and a single ``N`` the pods).  A launch by ``torchrun`` sets
         --arch smollm-135m --mesh 1,2,2
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch qwen3-moe-30b-a3b --reduced --mesh 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch mamba2-2.7b --reduced --mesh 1,1,2
 
 Rank 0 prints and writes the checkpoints (the gathered state, which the
 unsharded trainer and the JAX ``Checkpointer`` load); every rank restores
@@ -85,7 +87,8 @@ def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
              seed: int = 0, device: DeviceLike = None,
              policy: Optional[ShardingPolicy] = None,
              grad_compress: bool = False,
-             grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK):
+             grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK,
+             donate: bool = False, kv_block: Optional[int] = None):
     """The launcher's training run: ``(state, step_at)`` with
     ``step_at(state, step) -> (state, metrics)`` the train step on the
     data stream's batch ``step``.  Parameters and data come from
@@ -95,13 +98,16 @@ def make_run(cfg: ArchConfig, *, batch: int, seq: int, lr: float, steps: int,
     global batch.  The
     launcher averages gradients under the default gradient codebook;
     ``grad_codebook`` lets a caller hand the ring one calibrated on its
-    own gradients (``GC.calibrate_on_grads``)."""
+    own gradients (``GC.calibrate_on_grads``).  ``donate``: each step
+    updates the state it is given in place (``TS.make_train_step``).
+    ``kv_block``: the attention's key block (default ``min(seq, 1024)``)."""
     device = resolve_device(device)
     shape = ShapeConfig("cli", seq_len=seq, global_batch=batch, kind="train")
     step_fn = TS.make_train_step(cfg, opt_config(lr, steps), policy,
                                  grad_compress=grad_compress,
                                  grad_codebook=grad_codebook,
-                                 kv_block=min(seq, 1024))
+                                 kv_block=kv_block or min(seq, 1024),
+                                 donate=donate)
     data = SyntheticTokenStream(cfg, shape, DataConfig(seed=seed), device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = TS.init_state(cfg, gen, device, policy)

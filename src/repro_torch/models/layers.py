@@ -184,10 +184,12 @@ def attention_out(p, o, tp=None):
     return torch.matmul(o, wo)
 
 
-def attention_tp(p, x, positions, theta, tp, *, causal=True, kv_block=1024):
+def attention_tp(p, x, positions, theta, tp, *, causal=True, window=None,
+                 kv_block=1024):
     """One GQA attention block's output (B, S, D), whole on every model
     rank, from this rank's shards of ``p`` under ``tp``, attending through
-    :func:`chunked_attention` (training's attention):
+    :func:`chunked_attention` (training's attention; a sliding ``window``
+    in every case, the ``seq`` block's keeping its absolute positions):
 
     * ``heads``: the rank's query heads and their KV heads;
     * ``kv``: the rank's query heads; K/V from the replicated ``wk`` /
@@ -201,7 +203,8 @@ def attention_tp(p, x, positions, theta, tp, *, causal=True, kv_block=1024):
     case = tp.attention(s)
     if case == "none":
         q, k, v = attention_qkv(p, x, positions, theta)
-        o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              kv_block=kv_block)
         return attention_out(p, o)
     xf = TP.region(x, tp)
     if case == "seq":
@@ -211,7 +214,7 @@ def attention_tp(p, x, positions, theta, tp, *, causal=True, kv_block=1024):
         k = apply_rope(_proj_in(xf[:, :end], p["wk"]), positions[:, :end], theta)
         v = _proj_in(xf[:, :end], p["wv"])
         o = chunked_attention(q, k, v, causal=causal, q_offset=blk.start,
-                              kv_block=kv_block)
+                              window=window, kv_block=kv_block)
         return attention_out(p, TP.gather(o, tp, 1))
     q, k, v = attention_qkv(p, xf, positions, theta)
     if case == "kv":
@@ -219,7 +222,8 @@ def attention_tp(p, x, positions, theta, tp, *, causal=True, kv_block=1024):
         idx = (tp.rank * hl + torch.arange(hl, device=x.device)) \
             // (tp.heads // tp.kv_heads)
         k, v = k[:, :, idx], v[:, :, idx]
-    o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
+    o = chunked_attention(q, k, v, causal=causal, window=window,
+                          kv_block=kv_block)
     return attention_out(p, o, tp)
 
 

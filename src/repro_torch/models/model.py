@@ -21,13 +21,14 @@ backward (its wrapper raises under grad).  ``remat=True`` recomputes each
 layer (each hybrid triple and extra block) in the backward pass
 (``torch.utils.checkpoint``), as the JAX forward checkpoints its scan steps.
 
-``forward(tp=)`` and ``loss_fn(tp=)`` run the dense and MLA families (and
-the front ends) on one rank's shards under tensor parallelism (``tp``, a
+``forward(tp=)`` and ``loss_fn(tp=)`` run every family on one rank's
+shards under tensor parallelism (``tp``, a
 :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`): the
-vocab-split embedding and head, the split attention and SwiGLU products
-and the vocab-parallel cross-entropy; the logits ``forward`` returns are
-then this rank's vocab columns.  Serving passes no ``tp`` and is
-unchanged.
+vocab-split embedding and head, the split attention and SwiGLU products,
+Mamba-2's split ``in_proj`` / ``out_proj``, the RG-LRU's block of
+channels, and the vocab-parallel cross-entropy; the logits ``forward``
+returns are then this rank's vocab columns.  Serving passes no ``tp``
+and is unchanged.
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
@@ -268,9 +269,9 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     run = _remat if remat else _call
     if cfg.hybrid is not None:
         x, cache = _hybrid_forward(params, x, positions, cfg, kv_block,
-                                   collect_cache, attention, run)
+                                   collect_cache, attention, run, tp)
     elif cfg.ssm is not None:
-        x, cache = _ssm_forward(params, x, cfg, collect_cache, run)
+        x, cache = _ssm_forward(params, x, cfg, collect_cache, run, tp)
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
                                        collect_cache, attention, run, tp,
@@ -326,50 +327,60 @@ def _unstack(stacked: Dict, n: int) -> list:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _recurrent_fwd(sub, x, cfg: ArchConfig):
-    """One residual recurrent block + its MLP; returns (x, {"h", "conv"})."""
+def _recurrent_fwd(sub, x, cfg: ArchConfig, tp=None):
+    """One residual recurrent block + its MLP; returns (x, {"h", "conv"};
+    under ``tp`` where the LRU width splits, the rank's block of them)."""
     h = L.rms_norm(x, sub["norm"], cfg.norm_eps)
-    out, st = RG.recurrent_block_forward(sub["block"], h)
+    out, st = RG.recurrent_block_forward(
+        sub["block"], h, tp=_split(tp, cfg.hybrid.lru_width or cfg.d_model))
     x = x + out
     h2 = L.rms_norm(x, sub["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp(sub["mlp"], h2), st
+    return x + L.mlp(sub["mlp"], h2, _split(tp, cfg.d_ff)), st
 
 
-def _triple_fwd(tp, x, positions, cfg: ArchConfig, kv_block: int,
-                attention):
-    """One (rglru, rglru, local_attn) triple: (x, k, v, recurrent states)."""
+def _triple_fwd(triple, x, positions, cfg: ArchConfig, kv_block: int,
+                attention, tp=None):
+    """One (rglru, rglru, local_attn) triple: (x, k, v, recurrent states;
+    under ``tp`` no k and v)."""
     rec = []
     for j in range(2):
-        x, st = _recurrent_fwd(layer_params(tp["rec"], j), x, cfg)
+        x, st = _recurrent_fwd(layer_params(triple["rec"], j), x, cfg, tp)
         rec.append(st)
-    ap = tp["attn"]
+    ap = triple["attn"]
     h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
-    q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=True, window=cfg.hybrid.window,
-                  kv_block=kv_block)
-    x = x + L.attention_out(ap["block"], o)
+    k = v = None
+    if tp is not None:
+        attn_out = L.attention_tp(ap["block"], h, positions, cfg.rope_theta,
+                                  tp, window=cfg.hybrid.window,
+                                  kv_block=kv_block)
+    else:
+        q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
+        o = attention(q, k, v, causal=True, window=cfg.hybrid.window,
+                      kv_block=kv_block)
+        attn_out = L.attention_out(ap["block"], o)
+    x = x + attn_out
     h2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp(ap["mlp"], h2), k, v, rec
+    return x + L.mlp(ap["mlp"], h2, _split(tp, cfg.d_ff)), k, v, rec
 
 
 def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                    collect_cache: bool, attention, run):
+                    collect_cache: bool, attention, run, tp=None):
     """The (rglru, rglru, local_attn) triples, then the extra blocks.  The
     cache keeps each triple's last ``min(window, S)`` keys and values."""
     window = cfg.hybrid.window
     nt, ne = n_triples_extra(cfg)
     caches = []
-    for tp in _unstack(params["triples"], nt):
-        x, k, v, rec = run(_triple_fwd, tp, x, positions, cfg, kv_block,
-                           attention)
+    for triple in _unstack(params["triples"], nt):
+        x, k, v, rec = run(_triple_fwd, triple, x, positions, cfg, kv_block,
+                           attention, tp)
         if collect_cache:
             w = min(window, k.shape[1])
             caches.append({"attn_k": k[:, -w:], "attn_v": v[:, -w:],
                            "rec_h": torch.stack([r["h"] for r in rec]),
                            "rec_conv": torch.stack([r["conv"] for r in rec])})
     extra = []
-    for ep in _unstack(params["extra"], ne) if ne else ():
-        x, st = run(_recurrent_fwd, ep, x, cfg)
+    for block in _unstack(params["extra"], ne) if ne else ():
+        x, st = run(_recurrent_fwd, block, x, cfg, tp)
         extra.append(st)
     if not collect_cache:
         return x, None
@@ -386,17 +397,18 @@ def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
     return x, cache
 
 
-def _ssm_layer(lp, x, cfg: ArchConfig):
+def _ssm_layer(lp, x, cfg: ArchConfig, tp=None):
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    out, st = SSM.mamba2_forward(lp["mixer"], h, cfg.ssm, cfg.d_model)
+    out, st = SSM.mamba2_forward(lp["mixer"], h, cfg.ssm, cfg.d_model, tp=tp)
     return x + out, st
 
 
-def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run):
+def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run,
+                 tp=None):
     """The Mamba-2 layers; the cache is their final (ssm, conv) states."""
     ssms, convs = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
-        x, st = run(_ssm_layer, lp, x, cfg)
+        x, st = run(_ssm_layer, lp, x, cfg, tp)
         if collect_cache:
             ssms.append(st.ssm)
             convs.append(st.conv)
@@ -545,15 +557,15 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
     """One token through the triples and extra blocks; a new cache dict."""
     ks, vs, hs, convs = [], [], [], []
     for i in range(cache["attn_k"].shape[0]):
-        tp = layer_params(params["triples"], i)
+        triple = layer_params(params["triples"], i)
         rh, rc = [], []
         for j in range(2):
-            x, st = _recurrent_step(layer_params(tp["rec"], j), x,
+            x, st = _recurrent_step(layer_params(triple["rec"], j), x,
                                     cache["rec_h"][i, j], cache["rec_conv"][i, j],
                                     cfg)
             rh.append(st["h"])
             rc.append(st["conv"])
-        ap = tp["attn"]
+        ap = triple["attn"]
         hh = L.rms_norm(x, ap["norm"], cfg.norm_eps)
         out, ck, cv = _windowed_decode(ap["block"], hh, cache["attn_k"][i],
                                        cache["attn_v"][i], cache_len, cfg)

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
+
 RGLRU_C = 8.0
 BF16 = torch.bfloat16
 
@@ -54,15 +56,21 @@ def init_rglru_block(normal, lead: tuple, d_model: int, lru_width: int,
     }
 
 
-def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (..., U) post-conv activations -> (a, gated input), both f32."""
+def _gates(p, x: torch.Tensor, x_blk: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., U) post-conv activations -> (a, gated input), both f32.
+    With ``x_blk`` (tensor parallelism) the gates are those of a block of
+    channels: ``x`` is read whole by the products with the block's columns
+    of ``w_a`` / ``w_x`` and ``p``'s vectors are the block's, and the
+    gated input is ``x_blk``'s."""
+    x_blk = x if x_blk is None else x_blk
     r = torch.sigmoid(torch.matmul(x, p["w_a"]).float() + p["b_a"])
     i = torch.sigmoid(torch.matmul(x, p["w_x"]).float() + p["b_x"])
     log_a = -RGLRU_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) in f32, numerically guarded
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a, beta * i * x.float()
+    return a, beta * i * x_blk.float()
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
@@ -123,10 +131,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def recurrent_block_forward(p, x: torch.Tensor, state: Optional[dict] = None
-                            ) -> Tuple[torch.Tensor, dict]:
+def recurrent_block_forward(p, x: torch.Tensor, state: Optional[dict] = None,
+                            tp=None) -> Tuple[torch.Tensor, dict]:
     """Griffin recurrent block over a full sequence: x (B, S, D) -> (out,
-    {"h": (B, U) f32, "conv": (B, conv_width-1, U) pre-conv inputs})."""
+    {"h": (B, U) f32, "conv": (B, conv_width-1, U) pre-conv inputs}).
+
+    Under ``tp`` (training's tensor parallelism, the LRU width U split
+    over ``model``) ``p`` holds this rank's columns of ``w_gate_branch``,
+    ``w_in``, ``w_a`` and ``w_x`` and its rows of ``w_out`` (:func:`_tp_forward`)."""
+    if tp is not None:
+        return _tp_forward(p, x, tp)
     gate = _gelu(torch.matmul(x, p["w_gate_branch"]))
     u = torch.matmul(x, p["w_in"])
     uc = _causal_conv(u, p["conv_w"], p["conv_b"])
@@ -134,6 +148,35 @@ def recurrent_block_forward(p, x: torch.Tensor, state: Optional[dict] = None
     out = torch.matmul(hseq * gate, p["w_out"])
     width = p["conv_w"].shape[0]
     return out, {"h": h_last, "conv": u[:, -(width - 1):, :]}
+
+
+def _tp_forward(p, x: torch.Tensor, tp) -> Tuple[torch.Tensor, dict]:
+    """The recurrent block on this rank's block of U channels.  After the
+    products everything is per channel (the conv rounds a channel's taps
+    in order, the gates and the scan are elementwise), so the block's
+    gate branch, conv, gates and scan are the whole block's bits at those
+    channels: the conv takes the block's slice of the replicated
+    ``conv_w`` / ``conv_b``, and the gates the block's ``b_a``, ``b_x``
+    and ``lam`` (their gradients are partial: the block here, zeros
+    elsewhere; ``tensor_parallel.partial_leaf``).  The ``w_a`` / ``w_x``
+    products read the post-conv activations whole: the block is gathered
+    over ``model`` under a :func:`~TP.region`, whose backward sums the
+    ranks' partial gradients so that the gather's backward slices a whole
+    one.  ``w_out`` is a row product over the block.  The state returned
+    is the block's."""
+    blk = tp.block(tp.lru_width)
+    xr = TP.region(x, tp)
+    gate = _gelu(torch.matmul(xr, p["w_gate_branch"]))
+    u = torch.matmul(xr, p["w_in"])
+    uc = _causal_conv(u, p["conv_w"][:, blk], p["conv_b"][blk])
+    whole = TP.region(TP.gather(uc, tp, -1), tp)
+    gp = {"w_a": p["w_a"], "w_x": p["w_x"], "b_a": p["b_a"][blk],
+          "b_x": p["b_x"][blk], "lam": p["lam"][blk]}
+    a, b = _gates(gp, whole, uc)
+    _, hh = linear_scan(a, b, dim=1)
+    out = TP.row_product(hh.to(uc.dtype) * gate, p["w_out"], tp)
+    width = p["conv_w"].shape[0]
+    return out, {"h": hh[:, -1], "conv": u[:, -(width - 1):, :]}
 
 
 def recurrent_block_step(p, x: torch.Tensor, state: dict

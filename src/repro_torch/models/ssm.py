@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.layers import rms_norm
 
 BF16 = torch.bfloat16
@@ -157,13 +158,28 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, cfg: SSMConfig,
 
 
 def mamba2_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
-                   initial_state: Optional[SSMState] = None
+                   initial_state: Optional[SSMState] = None, tp=None
                    ) -> Tuple[torch.Tensor, SSMState]:
-    """Full-sequence Mamba-2 block: (B, S, D) -> (B, S, D) + final state."""
+    """Full-sequence Mamba-2 block: (B, S, D) -> (B, S, D) + final state.
+
+    Under ``tp`` (training's tensor parallelism) ``p["in_proj"]`` holds
+    this rank's columns where its K splits over ``model`` and
+    ``p["out_proj"]`` this rank's rows where d_inner splits, each on its
+    own.  K concatenates z, x, B, C and dt, so a column block is no head
+    group: the rank's ``in_proj`` product is gathered whole, the conv, the
+    SSD scan, the ``D`` skip and the gated norm run whole on every rank
+    (the replicated leaves get whole gradients, the same bits on every
+    rank), and ``out_proj`` is a row product over the rank's d_inner
+    rows."""
     d_inner, heads, _ = dims(d_model, cfg)
     bsz, s, _ = x.shape
     gn = cfg.n_groups * cfg.d_state
-    zxbcdt = torch.matmul(x, p["in_proj"])
+    in_split = tp is not None and tp.splits(2 * d_inner + 2 * gn + heads)
+    out_split = tp is not None and tp.splits(d_inner)
+    if in_split:
+        zxbcdt = TP.gather(torch.matmul(TP.region(x, tp), p["in_proj"]), tp, -1)
+    else:
+        zxbcdt = torch.matmul(x, p["in_proj"])
     z, xbc, dt = _split_proj(zxbcdt, d_inner, cfg.n_groups, cfg.d_state, heads)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :d_inner].reshape(bsz, s, heads, cfg.head_dim)
@@ -176,7 +192,12 @@ def mamba2_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(bsz, s, d_inner)
     y = rms_norm(y * F.silu(z), p["norm"])
-    out = torch.matmul(y, p["out_proj"])
+    if out_split:
+        # the region first: the rank's rows' gradient comes back whole
+        y_blk = TP.region(y, tp)[..., tp.block(d_inner)]
+        out = TP.row_product(y_blk, p["out_proj"], tp)
+    else:
+        out = torch.matmul(y, p["out_proj"])
 
     # conv state for decode continuation: the last (width-1) PRE-conv xBC
     tail = zxbcdt[:, -(cfg.conv_width - 1):, :]

@@ -80,11 +80,18 @@ def clip_by_global_norm(grads, max_norm: float,
     """``(grads scaled to at most max_norm, their global norm)``; ``norm``
     is the whole tree's norm when ``grads`` are one rank's shards."""
     norm = global_norm(grads) if norm is None else norm
-    limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
-    scale = torch.clamp(limit / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(max_norm, norm)
     flat, treedef = TR.flatten_with_path(grads)
-    return TR.unflatten(treedef, [(g.to(torch.float32) * scale).to(g.dtype)
-                                  for _, g in flat]), norm
+    return TR.unflatten(treedef, [_clipped(g, scale) for _, g in flat]), norm
+
+
+def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+    limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
+    return torch.clamp(limit / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.to(torch.float32) * scale).to(g.dtype)
 
 
 def _decay_mask(path) -> bool:
@@ -96,14 +103,20 @@ def _decay_mask(path) -> bool:
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
-           gnorm: Optional[torch.Tensor] = None
+           gnorm: Optional[torch.Tensor] = None, inplace: bool = False
            ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step: ``(new params, new state, {"grad_norm", "lr"})``.
     A caller that holds shards of ``grads``, ``state`` and ``params``
     passes the whole tree's gradient norm as ``gnorm``
     (``training/train_step.py:sharded_global_norm``); the update is
-    elementwise, so the shards update as the whole tree would."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
+    elementwise, so the shards update as the whole tree would.  Each
+    gradient is clipped as its leaf is updated (``clip_by_global_norm``'s
+    bits, one leaf's copy at a time).  ``inplace``: the new moments and
+    parameters are written into ``state``'s and ``params``' tensors, which
+    are returned (the same bits; the old values are gone, as a JAX step
+    donates its state), so no second state is held."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
+    scale = _clip_scale(cfg.grad_clip, gnorm)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -116,13 +129,20 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
     new_m, new_v, out = [], [], []
     for (path, p), g, m, v in zip(flat_p, flat_g, TR.leaves(state.m),
                                   TR.leaves(state.v)):
-        g32 = g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g32
-        v = b2 * v + (1 - b2) * torch.square(g32)
+        g32 = _clipped(g, scale).to(torch.float32)
+        if inplace:
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
+        else:
+            m = b1 * m + (1 - b1) * g32
+            v = b2 * v + (1 - b2) * torch.square(g32)
+        del g32     # one leaf's f32 temporaries at a time
         upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if _decay_mask(path):
             upd = upd + cfg.weight_decay * p.to(torch.float32)
-        out.append((p.to(torch.float32) - lr * upd).to(p.dtype))
+        new = (p.to(torch.float32) - lr * upd).to(p.dtype)
+        del upd
+        out.append(p.copy_(new) if inplace else new)
         new_m.append(m)
         new_v.append(v)
     new_state = AdamWState(step=step, m=TR.unflatten(treedef, new_m),

@@ -13,11 +13,12 @@ spec splits over ``data`` (FSDP), runs ``value_and_grad`` on its block,
 and sums the gradients over ``data`` in f32 in rank order.  A ``model``
 axis above 1 is tensor parallelism: no parameter is gathered over
 ``model``; the model code runs on the rank's ``model`` shards
-(``distributed/tensor_parallel.py``, ``loss_fn(tp=)``), and the leaves
-replicated over ``model`` whose gradients are partial on each rank
-(``tensor_parallel.partial_leaf``: attention leaves a rank uses for some
-heads or positions only) are summed over ``model`` in f32 in rank order
-first; every other gradient is already whole on each model rank.  A MoE
+(``distributed/tensor_parallel.py``, ``loss_fn(tp=)``), every family,
+and the leaves replicated over ``model`` whose gradients are partial on
+each rank (``tensor_parallel.partial_leaf``: attention leaves a rank
+uses for some heads or positions only, the RG-LRU's per-channel leaves
+a rank uses its block of) are summed over ``model`` in f32 in rank
+order first; every other gradient is already whole on each model rank.  A MoE
 FFN (``distributed/expert_parallel.py``, ``loss_fn(ep=)``) routes over
 its routing group, the ranks that share one loss (data, and pods
 without the ring): the capacity, each choice's rank within its expert
@@ -38,8 +39,7 @@ its own (``compressed_cross_pod_mean_own``).  AdamW runs on the shards
 (:func:`sharded_global_norm` gives it the whole tree's norm), and the
 metrics are the mean over the data-parallel ranks (a MoE ``aux`` is its
 routing group's: replicated without the ring, the pods' mean with it, as
-JAX reports them).  Refused: a ``model`` axis above 1 for the SSM and
-hybrid families (``tensor_parallel.refuse``).
+JAX reports them).
 
 Gradients keep the parameter dtype, as ``jax.grad`` returns them: bf16
 gradients ride the codec, f32 ones (the MoE router, the SSM's ``A_log``, …)
@@ -149,20 +149,25 @@ def make_train_step(cfg: ArchConfig,
                     policy: Optional[SH.ShardingPolicy] = None, *,
                     grad_compress: bool = False,
                     grad_codebook: Codebook = GC.DEFAULT_GRAD_CODEBOOK,
-                    kv_block: int = 1024, remat: bool = True):
+                    kv_block: int = 1024, remat: bool = True,
+                    donate: bool = False):
     """``step(state, batch) -> (state, metrics)``; metrics are 0-d tensors
     ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``.  With ``policy``
     the step takes the global batch and the state :func:`shard_state`
     places (module docstring); ``grad_compress`` matters only on a policy
-    mesh with pods."""
+    mesh with pods.  ``donate``: the step writes the new state into the
+    tensors of the state it is given and returns them (the same bits; the
+    JAX ``jit_train_step``'s ``donate_argnums``), so the caller must not
+    use the old state again, and a step holds one state, not two."""
     if policy is not None:
         return _sharded_step(cfg, opt_cfg, policy, grad_compress,
-                             grad_codebook, kv_block, remat)
+                             grad_codebook, kv_block, remat, donate)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         (total, (ce, aux)), grads = value_and_grad(
             state.params, batch, cfg, kv_block=kv_block, remat=remat)
-        params, opt, om = OPT.update(opt_cfg, grads, state.opt, state.params)
+        params, opt, om = OPT.update(opt_cfg, grads, state.opt, state.params,
+                                     inplace=donate)
         metrics = {"loss": total, "ce": ce, "aux": aux, **om}
         return TrainState(params=params, opt=opt), metrics
 
@@ -318,9 +323,7 @@ def reduce_gradients(grads: List[torch.Tensor], specs: List[tuple],
 
 
 def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
-                  kv_block, remat):
-    if policy.tp_size() > 1:
-        TP.refuse(cfg)
+                  kv_block, remat, donate):
     mesh, sizes = policy.mesh, policy.sizes
     dp = policy.dp_axes()
     ring = grad_compress and "pod" in dp and sizes["pod"] > 1
@@ -391,7 +394,7 @@ def _sharded_step(cfg, opt_cfg, policy, grad_compress, grad_codebook,
                                     comm["norm"])
         comm["norm"].seconds = time.perf_counter() - t0
         params, opt, om = OPT.update(opt_cfg, grads, state.opt, state.params,
-                                     gnorm=gnorm)
+                                     gnorm=gnorm, inplace=donate)
         m = torch.stack([total, ce, aux]).to("cpu", torch.float32)
         for a in dp:
             if sizes[a] > 1:

@@ -54,6 +54,7 @@ from repro.training import train_step as JTS  # noqa: E402
 from repro_torch.configs.base import get_config as tget  # noqa: E402
 from repro_torch.core import tree as TR  # noqa: E402
 from repro_torch.distributed import checkpoint as TCK  # noqa: E402
+from repro_torch.distributed import tensor_parallel as TPM  # noqa: E402
 from repro_torch.distributed.sharding import ShardingPolicy  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
@@ -264,19 +265,19 @@ def test_pods_without_ring_refused_data_axis_alone_not(capsys, monkeypatch):
 @pytest.mark.parametrize("arch,family", [("mamba2-2.7b", "ssm"),
                                          ("recurrentgemma-9b", "hybrid"),
                                          ("qwen3-moe-30b-a3b", "moe")])
-def test_tensor_parallel_refused(arch, family):
-    """Tensor parallelism covers the dense, MLA, MoE (split by experts)
-    and front-end families; the SSM and hybrid ones are refused at a model
-    axis of 2, naming the family."""
+def test_tensor_parallel_accepted(arch, family):
+    """Tensor parallelism covers every family: the SSM and hybrid ones
+    build at a model axis of 2 with pods through the ring, MoE (split by
+    experts) at a model axis of 2; and ``tensor_parallel`` refuses no
+    family any more."""
     cfg = tget(arch).reduced()
+    assert not hasattr(TPM, "REFUSED") and not hasattr(TPM, "refuse")
     if family == "moe":
         TTS.make_train_step(cfg, policy=ShardingPolicy(
             {"pod": 1, "data": 1, "model": 2}))
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"family {family}\\): a 'model' axis above 1"):
-        TTS.make_train_step(cfg, policy=ShardingPolicy(
-            {"pod": 2, "data": 1, "model": 2}), grad_compress=True)
+    TTS.make_train_step(cfg, policy=ShardingPolicy(
+        {"pod": 2, "data": 1, "model": 2}), grad_compress=True)
 
 
 def test_moe_with_data_axis_refused():

@@ -10,11 +10,20 @@ with ``fsdp``, ``pd_disaggregated`` and ``moe_dispatch_sharding`` on and
 off.  A JAX spec entry that is a tuple of axes is a tuple in the port's
 spec too; a kind the JAX policy declines (``None``) is ``None``.
 
+One deliberate difference: the port strips the hybrid's stack dimensions
+before the rules apply (two for ``triples/rec/``, one for ``extra/``), so
+there its spec is the JAX rule applied to the block's own shape with
+``None`` on each stack dimension; the JAX policy strips one for
+``triples/`` and none for ``extra/`` and splits the row-split leaves
+(``w_out``, ``mlp/w_down``) on a stack dimension
+(:func:`test_jax_policy_splits_hybrid_stack_dimensions` pins it).
+
 One subprocess on 8 host devices holds :func:`shard_slice` at every mesh
 coordinate against ``NamedSharding(...).devices_indices_map``, tuple
 entries included (row-major over the named axes, the first axis major).
 """
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -98,14 +107,66 @@ def test_axes_and_sizes_match_jax(mesh, flags):
             assert tp._maybe(dim, axes) == jp._maybe(dim, axes), (dim, axes)
 
 
+def block_rule(jp, path, shape):
+    """The JAX policy's spec for the parameter at ``path`` of whole
+    ``shape`` as the port places it: the JAX rule on the block's own shape
+    for the hybrid's stacked recurrent leaves (``None`` on each stack
+    dimension), the JAX spec itself elsewhere."""
+    n = 2 if path.startswith("triples/rec/") else 1 if path.startswith("extra/") else 0
+    if n == 0:
+        return tuple(jp.spec_for_param(path, shape))
+    # the leaf's name alone: a path the JAX rule strips nothing from
+    return (None,) * n + tuple(jp.spec_for_param(path.split("/")[-1], shape[n:]))
+
+
 @pytest.mark.parametrize("mesh,flags", CASES, ids=IDS)
 def test_param_specs_match_jax(mesh, flags):
-    """Every architecture at full width, and qwen3-32b."""
+    """Every architecture at full width, and qwen3-32b: the JAX policy's
+    specs, the hybrid's stacked recurrent leaves by the JAX rule on the
+    block's shape (module docstring)."""
     jp, tp = policies(mesh, flags)
     for arch in ARCHS:
-        want = {k: tuple(v) for k, v in jax_keyed(jp.param_specs(jparams(arch))).items()}
+        shapes = {k: tuple(v.shape) for k, v in jax_keyed(jparams(arch)).items()}
+        want = {k: block_rule(jp, k, shapes[k])
+                for k in jax_keyed(jp.param_specs(jparams(arch)))}
         got = port_keyed(tp.param_specs(tparams(arch)), tparams(arch))
         assert got == want, arch
+
+
+def test_jax_policy_splits_hybrid_stack_dimensions():
+    """The difference, pinned: reduced recurrentgemma at 5 layers (one
+    triple, 2 extra blocks) under a model axis of 2.  The JAX policy
+    splits the row-split leaves on a stack dimension (the triple's pair
+    of recurrent blocks, the extra blocks' stack), the port their rows
+    (U for ``w_out``, F for ``mlp/w_down``); the column-split ``w_in``
+    both on U."""
+    jc = dataclasses.replace(jget("recurrentgemma-9b").reduced(), num_layers=5)
+    tc = dataclasses.replace(tget("recurrentgemma-9b").reduced(), num_layers=5)
+    jp = JPolicy(AbstractMesh((2,), ("model",)))
+    tp = SH.ShardingPolicy({"model": 2})
+    jshapes = jax.eval_shape(lambda: JM.init_params(jc, jax.random.PRNGKey(0)))
+    jax_specs = {k: tuple(v) for k, v in jax_keyed(jp.param_specs(jshapes)).items()}
+    port = port_keyed(tp.param_specs(TM.init_params(tc, torch.Generator(), "meta")),
+                      TM.init_params(tc, torch.Generator(), "meta"))
+    want_jax = {"triples/rec/block/w_out": (None, "model", None, None),
+                "triples/rec/mlp/w_down": (None, "model", None, None),
+                "extra/block/w_out": ("model", None, None),
+                "extra/mlp/w_down": ("model", None, None),
+                "triples/rec/block/w_in": (None, None, None, "model"),
+                "extra/block/w_in": (None, None, "model")}
+    want_port = {"triples/rec/block/w_out": (None, None, "model", None),
+                 "triples/rec/mlp/w_down": (None, None, "model", None),
+                 "extra/block/w_out": (None, "model", None),
+                 "extra/mlp/w_down": (None, "model", None),
+                 "triples/rec/block/w_in": (None, None, None, "model"),
+                 "extra/block/w_in": (None, None, "model")}
+    assert {k: jax_specs[k] for k in want_jax} == want_jax
+    assert {k: port[k] for k in want_port} == want_port
+    # every other leaf of the config: the same spec in both packages
+    assert {k: v for k, v in port.items()
+            if not k.startswith(("triples/rec/", "extra/"))} == \
+        {k: v for k, v in jax_specs.items()
+         if not k.startswith(("triples/rec/", "extra/"))}
 
 
 @pytest.mark.parametrize("mesh,flags", CASES, ids=IDS)

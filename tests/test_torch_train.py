@@ -286,6 +286,35 @@ def test_update_matches_jax_across_warmup():
                 np.testing.assert_allclose(f32(b), f32(a), rtol=2 ** -7, atol=0)
 
 
+def test_update_in_place_is_bitwise_and_holds_one_state():
+    """``update(inplace=True)`` (a donated state) writes the bits the
+    out-of-place update returns into the state's and the parameters'
+    own tensors, across clipped and unclipped steps."""
+    from repro_torch.models import model as TM
+    tc = tget("smollm-135m").reduced()
+    cfg = TO.AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=8)
+    p0 = TM.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    a_p, a_s = p0, TO.init(p0)
+    b_p = TR.unflatten(TR.flatten_with_path(p0)[1],
+                       [x.clone() for x in TR.leaves(p0)])
+    b_s = TO.init(b_p)
+    own = [x.data_ptr() for x in TR.leaves(b_p) + TR.leaves(b_s.m)
+           + TR.leaves(b_s.v)]
+    rng = np.random.default_rng(1)
+    for k in range(4):
+        scale = 3.0 if k % 2 == 0 else 0.05
+        g = TR.unflatten(TR.flatten_with_path(p0)[1], [
+            torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)
+                             * scale).to(x.dtype) for x in TR.leaves(p0)])
+        a_p, a_s, am = TO.update(cfg, g, a_s, a_p)
+        b_p, b_s, bm = TO.update(cfg, g, b_s, b_p, inplace=True)
+        assert float(am["grad_norm"]) == float(bm["grad_norm"])
+        for x, y in zip(TR.leaves((a_p, a_s)), TR.leaves((b_p, b_s))):
+            assert np.array_equal(torch_ranks.as_bits(x), torch_ranks.as_bits(y))
+    assert [x.data_ptr() for x in TR.leaves(b_p) + TR.leaves(b_s.m)
+            + TR.leaves(b_s.v)] == own
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_decay_mask_matches_jax(arch):
     jp = jax.eval_shape(lambda: JM.init_params(jget(arch).reduced(),

@@ -605,10 +605,25 @@ def _torch_batch(ref, i: int):
     return out
 
 
-def tp_train_world(rank, world, store, ref_dir, out_dir, cases, launch_steps):
+def with_overrides(cfg, over: dict):
+    """``cfg`` with the fields of ``over`` replaced; a dict value replaces
+    fields of the nested config it names (``{"ssm": {"head_dim": 128}}``)."""
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+          else v for k, v in over.items()}
+    return dataclasses.replace(cfg, **kw)
+
+
+def launch_name(arch: str, rank: int) -> str:
+    """The file of ``tp_train_world``'s launcher output for ``arch``."""
+    return f"launch{rank}.txt" if arch == "smollm-135m" else f"launch-{arch}{rank}.txt"
+
+
+def tp_train_world(rank, world, store, ref_dir, out_dir, cases, launch_steps,
+                   launch_archs=("smollm-135m",)):
     """The cases of ``tests/test_torch_tensor_parallel.py`` on this world,
-    then (``launch_steps``) ``launch/train.py --mesh 1,1,<world>``, which
-    tears the group down itself."""
+    then (``launch_steps``) ``launch/train.py --mesh 1,1,<world>`` for each
+    of ``launch_archs``; the launcher tears the group down itself, so each
+    further launch joins a new one."""
     import contextlib
     import io
     import os
@@ -625,12 +640,16 @@ def tp_train_world(rank, world, store, ref_dir, out_dir, cases, launch_steps):
         if launch_steps:
             from repro_torch.launch import train as LT
             os.environ["WORLD_SIZE"] = str(world)
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                LT.main(["--arch", "smollm-135m", "--reduced", "--batch", "4",
-                         "--seq", "16", "--device", "cpu", "--mesh",
-                         f"1,1,{world}", "--steps", str(launch_steps)])
-            (Path(out_dir) / f"launch{rank}.txt").write_text(buf.getvalue())
+            for i, arch in enumerate(launch_archs):
+                if i:
+                    _init(rank, world, f"{store}.{i}")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    LT.main(["--arch", arch, "--reduced", "--batch", "4",
+                             "--seq", "16", "--device", "cpu", "--mesh",
+                             f"1,1,{world}", "--steps", str(launch_steps)])
+                (Path(out_dir) / launch_name(arch, rank)).write_text(
+                    buf.getvalue())
         else:
             dist.barrier()
     finally:
@@ -641,7 +660,9 @@ def tp_train_world(rank, world, store, ref_dir, out_dir, cases, launch_steps):
 def _tp_case(ref_dir: Path, out_dir: Path, case: dict):
     """One case: the reference's steps through the sharded step on mesh
     ``case["shape"]``; per rank the metrics, its coordinate, the attention
-    case, held bytes against the spec arithmetic, the step's traffic (and
+    case (None for a config without attention), the leaves whose
+    gradients are partial over ``model``, held bytes against the spec
+    arithmetic, the step's traffic (and
     the parameter-gather bytes the data axis alone accounts for), the
     hash of its shards of the leaves replicated over ``model``, the
     gathered state's hash (rank 0: its bits), and with ``ckpt`` a placed
@@ -656,8 +677,7 @@ def _tp_case(ref_dir: Path, out_dir: Path, case: dict):
     from repro_torch.training import train_step as TS
     ref = np.load(ref_dir / f"{case['ref']}.npz")
     meta = json.loads((ref_dir / f"{case['ref']}.json").read_text())
-    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
-                              **case["over"])
+    cfg = with_overrides(get_config(case["arch"]).reduced(), case["over"])
     state0 = _state_from_ref(ref, cfg)
     like = TS.abstract_state(cfg)
     shape = tuple(case["shape"])
@@ -667,14 +687,19 @@ def _tp_case(ref_dir: Path, out_dir: Path, case: dict):
     step, placed = TS.shard_train_step(
         TS.make_train_step(cfg, OPT.AdamWConfig(**meta["opt"]), policy,
                            grad_compress=case["grad_compress"],
-                           kv_block=meta["kv_block"]),
+                           kv_block=meta["kv_block"],
+                           donate=case.get("donate", False)),
         policy, state0)
     specs = TS.state_specs(policy, like)
     leaf = SH.leaf_specs(specs, like)
+    tpm = TPM.TensorParallel(mesh.get_group("model"), cfg,
+                             attn_fallback=case["attn_fallback"])
+    seq = M.input_positions(_torch_batch(ref, 0), cfg)
     out = {"coord": SH.coordinate(mesh),
-           "case": TPM.TensorParallel(mesh.get_group("model"), cfg,
-                                      attn_fallback=case["attn_fallback"])
-           .attention(M.input_positions(_torch_batch(ref, 0), cfg)),
+           "case": tpm.attention(seq) if cfg.num_heads else None,
+           "partial": sorted(SH.path_str(p) for p, _ in
+                             TR.flatten_with_path(like.params)[0]
+                             if TPM.partial_leaf(SH.path_str(p), tpm, seq)),
            "held": _nbytes(placed),
            "spec_bytes": SH.held_bytes(like, specs, policy.sizes),
            "split_over_model": sum("model" in SH.entry_axes(e) for s in leaf
@@ -901,7 +926,8 @@ def _ep_case(ref_dir: Path, out_dir: Path, case: dict):
     step, placed = TS.shard_train_step(
         TS.make_train_step(cfg, OPT.AdamWConfig(**meta["opt"]), policy,
                            grad_compress=case["grad_compress"],
-                           kv_block=meta["kv_block"]),
+                           kv_block=meta["kv_block"],
+                           donate=case.get("donate", False)),
         policy, state0)
     seeded = TS.init_state(cfg, torch.Generator().manual_seed(3), "cpu", policy)
     whole = TS.shard_state(TS.init_state(cfg, torch.Generator().manual_seed(3),
