@@ -311,6 +311,34 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               within the two updates' distance plus one rounding and the
               flipped ones counted.  Per rank: step ms, every
               collective's bytes and ms, held bytes, peak memory.
+8n. serve_tp — sharded serving of the dense family
+              (``serving/sharded.py``): qwen3-32b at full width (5120, 64
+              / 8 heads x 128, d_ff 25,600, vocab 151,936, untied) cut to
+              8 layers, batch 2, prompt 2048, max_seq 4096, 16 decoded
+              tokens, each rank drawing its block of the seeded
+              parameters in turn.  (a) mesh (2, 1, 2) under
+              ``pd_disaggregated``, the dry-run's ``xfer_chunked``: pod 0
+              prefills at model 2 (case ``heads``; the cache's 4096 slots
+              split, rank 0's block the prompt, rank 1's zeros until
+              decode writes it), each pod-0 rank ships its own shard
+              through ``transfer_shard`` with the first token and
+              ``cache_len``, pod 1 decodes 16 tokens from the shards; then
+              one ``xfer_global`` hop of the same shards.  (b) mesh (1, 2,
+              2): the batch over data, ``prefill_step(tp=)`` then
+              ``decode_loop(tp=)``.  Then the single-process replay: the
+              whole parameters, the prefill and each decode rank's tokens
+              teacher-forced, and its round-off witness (the same run with
+              the row products f32, rounded once).  Gates: pod 1's shards
+              bitwise pod 0's (both hops), held bytes equal the spec
+              arithmetic (parameters, cache, ``init_cache(policy=)``),
+              model replicas bitwise (parameter blocks, replicated leaves,
+              tokens), no parameter storage handed to a collective over
+              ``model``, one tensor-core flash launch a layer on every
+              prefill rank and none in decode, the hops' codec launches,
+              logits within the CPU tests' bound or 1.5 times the
+              witness's distance.  Per rank: prefill and decode-step ms
+              (host clock), held and received bytes, the hop's wire
+              bytes and ratio, peak memory.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -357,12 +385,13 @@ tensor-parallel steps on rank 0 (phase 8k, ``tp_heads``, ``tp_seq``: no
 flash launch), the expert-parallel steps on rank 0 (phase 8l,
 ``ep_heads``, ``ep_fsdp``: no flash or codec launch), the recurrent
 families' tensor-parallel steps on rank 0 (phase 8m, ``tpr_ssm``,
-``tpr_hybrid``: no flash or codec launch), and the served
+``tpr_hybrid``: no flash or codec launch), each sharded serving rank's
+prefill, decode and hops (phase 8n, ``serve_tp_*``), and the served
 prefills of
-phases 3, 7, 8a, 8c, 8d, 8f and 9 (``flash_attention``: one launch per
-attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 48, every one on the
-tensor-core path, or the run fails); the checks around those runs are not
-counted.  The
+phases 3, 7, 8a, 8c, 8d, 8f, 8n's base rank 0 and 9
+(``flash_attention``: one launch per attention layer, 30 + 62 + 32 + 12 +
+40 + 48 + 8 + 48, every one on the tensor-core path, or the run fails);
+the checks around those runs are not counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
 a checkout, it exits non-zero before printing any result.
@@ -4317,6 +4346,490 @@ def lr_witness(torch, smi):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase serve_tp: sharded serving of the dense family across ranks
+# ---------------------------------------------------------------------------
+
+SERVE_TP_ARCH, SERVE_TP_LAYERS = "qwen3-32b", 8
+SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_MAX_SEQ = 2, 2048, 4096
+SERVE_TP_STEPS, SERVE_TP_SEED = 16, 0
+#: world -> its mesh, whether pods are prefill and decode workers, and the
+#: dry-run transfer variant of its hop
+SERVE_TP_WORLDS = {
+    "xfer": dict(mesh=(2, 1, 2), pd=True, variant="xfer_chunked"),
+    "base": dict(mesh=(1, 2, 2), pd=False, variant=None),
+}
+#: the prefill bound of tests/test_torch_serve_tp.py (its docstring says
+#: why), for the last logits and the teacher-forced decode logits; at full
+#: width the single-process run moves farther than that when only its row
+#: products round elsewhere (the replay's witness), and the ranks are held
+#: within SERVE_TP_WITNESS times that distance where it is the larger
+SERVE_TP_ATOL, SERVE_TP_RTOL, SERVE_TP_WITNESS = 4e-2, 2e-2, 1.5
+
+
+def serve_tp_config():
+    """qwen3-32b at full width, cut in depth to ``SERVE_TP_LAYERS``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(SERVE_TP_ARCH),
+                               num_layers=SERVE_TP_LAYERS)
+
+
+def serve_tp_tokens(torch, cfg):
+    """The prompt, drawn on the host from a seed: every rank and the
+    single-process replay draw the same."""
+    g = torch.Generator().manual_seed(SERVE_TP_SEED + 1)
+    return torch.randint(0, cfg.vocab_size, (SERVE_TP_BATCH, SERVE_TP_PROMPT),
+                         generator=g, dtype=torch.int64)
+
+
+def _model_collectives(group, seen):
+    """Record the storage of every tensor this process hands to a
+    collective over ``group`` (``Link.all_to_all``, ``all_to_all_v``,
+    ``all_gather``) into ``seen``: a parameter's storage there would be a
+    parameter moving over that group."""
+    from repro_torch.serving import collective as CL
+    for name in ("all_to_all", "all_to_all_v", "all_gather"):
+        orig = getattr(CL.Link, name)
+
+        def rec(self, x, *a, _orig=orig, **k):
+            if self.group.group_name == group.group_name:
+                for t in (x if isinstance(x, (list, tuple)) else [x]):
+                    if t.numel():
+                        seen.add(t.untyped_storage().data_ptr())
+            return _orig(self, x, *a, **k)
+        setattr(CL.Link, name, rec)
+
+
+def serve_tp_rank(torch, rank, device, world, out_dir):
+    """Phase ``serve_tp``, world ``world`` (``SERVE_TP_WORLDS``): qwen3-32b
+    at full width cut to ``SERVE_TP_LAYERS`` layers, each rank drawing its
+    block of the seeded parameters (``serving/sharded.place_params``).
+    ``xfer``: ``disaggregated_step`` (pod 0 prefills at model 2 and ships
+    each rank's own cache shard, pod 1 decodes ``SERVE_TP_STEPS`` tokens
+    from it), then an ``xfer_global`` hop of the same shards.  ``base``:
+    ``prefill_step(tp=)`` on the rank's row, then ``decode_loop(tp=)``.
+    Each main-path run counted alone.  Per rank: its coordinate and
+    attention case, held bytes against the spec arithmetic (parameters and
+    cache), the hashes of its parameters and of its leaves replicated over
+    ``model``, the storages it handed to collectives over ``model`` that
+    are a parameter's, launches, prefill and decode-step ms (host clock
+    around synchronized calls), the hop's stats, peak memory.  Its vocab
+    columns of the prefill and of every step's logits, the first token and
+    the tokens go to ``out_dir`` for the single-process replay."""
+    import torch.distributed as dist
+
+    from repro_torch.core import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import kvcache as KC
+    from repro_torch.models import model as M
+    from repro_torch.serving import sharded as SV
+    from repro_torch.serving.decode import decode_loop
+    from repro_torch.serving.prefill import prefill_step
+
+    cfg, w = serve_tp_config(), SERVE_TP_WORLDS[world]
+    b, m, steps = SERVE_TP_BATCH, SERVE_TP_MAX_SEQ, SERVE_TP_STEPS
+    mesh = make_mesh(w["mesh"], MESH_AXES)
+    policy = SH.ShardingPolicy(mesh, pd_disaggregated=w["pd"])
+    coord = SH.coordinate(mesh)
+    tp = SV.tensor_parallel(policy, cfg)
+    seconds, t0 = {}, time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the ranks draw in turns: a whole stacked leaf's f32 draw (4.2 GB for
+    # w_gate) on top of the blocks, four ranks at once, does not fit
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            params = SV.place_params(cfg, torch.Generator(
+                device=device).manual_seed(SERVE_TP_SEED), policy, device)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    seconds["params"] = time.perf_counter() - t0
+    like_p = M.init_params(cfg, torch.Generator(), "meta")
+    like_c = SV.cache_like(cfg, b, m)
+    pspecs = SH.leaf_specs(policy.param_specs(like_p), like_p)
+    nbytes = (lambda tree: sum(x.numel() * x.element_size()
+                               for x in TR.leaves(tree)))
+    out = {"rank": rank, "coord": coord, "case": tp.attention(SERVE_TP_PROMPT),
+           "held_params": nbytes(params),
+           "spec_params": SH.held_bytes(like_p, policy.param_specs(like_p),
+                                        policy.sizes),
+           "spec_cache": SH.held_bytes(like_c, policy.cache_specs(like_c),
+                                       policy.sizes),
+           "init_cache": nbytes(KC.init_cache(cfg, b, m, device="meta",
+                                              policy=policy)),
+           "params_sha": _sha_tree(torch, params),
+           "replicated_sha": _sha_tree(torch, [
+               x for x, s in zip(TR.leaves(params), pspecs)
+               if not any("model" in SH.entry_axes(e) for e in s)])}
+    seen = set()
+    _model_collectives(mesh.get_group("model"), seen)
+    tokens = serve_tp_tokens(torch, cfg).to(device)
+    rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
+        "tokens", (b,)), mesh).tolist()
+    logits, stamps = [], []
+
+    def on_logits(i, lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        logits.append(lg.float().cpu())
+
+    saved = {"rows": rows}
+    if w["pd"]:
+        tc = SV.transfer_config(w["variant"], backend="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: SV.disaggregated_step(
+            params, {"tokens": tokens}, cfg, policy, tc, max_seq=m,
+            num_steps=steps, device=device, on_logits=on_logits))
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        st, comm = res.session.last_stats, res.session.last_comm
+        tp = res.tp
+        out.update(pod=res.pod, launches=launches, window_ms=window_ms,
+                   hop=dict(ms=comm.seconds * 1e3, wire_bytes=st.wire_bytes,
+                            staging_ms=comm.staging_s * 1e3,
+                            wire_ms=comm.wire_s * 1e3,
+                            sent_bytes=comm.sent_bytes,
+                            recv_bytes=comm.recv_bytes,
+                            retry_steps=st.n_retry_steps,
+                            leaf_ok=st.leaf_ok),
+                   side_bytes=res.side.sent_bytes + res.side.recv_bytes)
+        gtc = SV.transfer_config("xfer_global", backend="cuda")
+        gsess = SV.hop_plan(cfg, policy, gtc, b, m).session(device=device)
+        dist.barrier()   # both pods start the second hop together
+        if res.pod == 0:
+            blocks = res.prefill.state.cache
+            out["held_cache"] = nbytes(blocks)
+            out["shard_sha"] = _sha_tree(torch, blocks)
+            out["hop"]["raw_bytes"] = nbytes(blocks)
+            out["prefill_ms"] = window_ms - comm.seconds * 1e3
+            saved.update(prefill=res.prefill.last_logits.float().cpu(),
+                         first=res.prefill.first_token.cpu())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, glaunch = counted(gsess.transfer_shard, blocks)
+        else:
+            out["held_cache"] = nbytes(res.received)
+            out["shard_sha"] = _sha_tree(torch, res.received)
+            out["hop"]["raw_bytes"] = nbytes(res.received)
+            out["tokens"] = res.tokens.tolist()
+            saved.update(steps=torch.stack(logits), first=res.first_token.cpu(),
+                         tokens=res.tokens.cpu())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, glaunch = counted(gsess.transfer_shard, None)
+            out["global_sha"] = _sha_tree(torch, got)
+            del got
+        torch.cuda.synchronize()
+        gst = gsess.last_stats
+        out["global"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                             wire_bytes=gst.wire_bytes,
+                             retry_steps=gst.n_retry_steps,
+                             leaf_ok=gst.leaf_ok, launches=glaunch)
+    else:
+        local = SV.local_batch({"tokens": tokens}, policy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, launches = counted(lambda: prefill_step(
+            params, local, cfg, max_seq=m, tp=tp))
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["held_cache"] = nbytes(pre.state.cache)
+        saved.update(prefill=pre.last_logits.float().cpu(),
+                     first=pre.first_token.cpu())
+        (toks, _), dl = counted(lambda: decode_loop(
+            params, pre.first_token, pre.state, cfg, steps, tp=tp, max_seq=m,
+            on_logits=on_logits))
+        out["tokens"] = toks.tolist()
+        saved.update(steps=torch.stack(logits), tokens=toks.cpu())
+        out["launches"], out["decode_launches"] = launches, dl
+    if len(stamps) > 1:
+        out["decode_step_ms"] = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+    out["tp_fwd"] = dict(sent_bytes=tp.fwd.sent_bytes,
+                         recv_bytes=tp.fwd.recv_bytes,
+                         wire_ms=tp.fwd.wire_s * 1e3,
+                         staging_ms=tp.fwd.staging_s * 1e3)
+    ptrs = {x.untyped_storage().data_ptr() for x in TR.leaves(params)}
+    out["param_storages_over_model"] = len(ptrs & seen)
+    out["storages_over_model"] = len(seen)
+    out["peak_gb"] = _peak_gb(torch)
+    out["seconds"] = seconds
+    torch.save(saved, Path(out_dir) / f"{world}_rank{rank}.pt")
+    return out
+
+
+def serve_tp_replay(torch, device, worlds, out_dir):
+    """The single-process run the ranks are held to: the whole seeded
+    parameters, ``prefill_step`` on the whole batch, and for each decode
+    rank ``serve_step`` on the tokens it chose (teacher-forced); and the
+    round-off witness, the same run with every row product (``wo``,
+    ``w_down``) an f32 product rounded once, as the ranks' sums are,
+    unsplit.  Per world and rank: the largest excess of its vocab
+    columns' distance from the replay's over ``rtol |ref|``, prefill and
+    decode apart, the largest distance itself and its token agreement
+    with the replay's greedy choice; and the witness's excess over the
+    whole vocabulary, prefill and decode."""
+    from repro_torch.models import model as M
+
+    cfg = serve_tp_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        SERVE_TP_SEED), device)
+    saved = {(world, r["rank"]): (r, torch.load(
+        Path(out_dir) / f"{world}_rank{r['rank']}.pt"))
+        for world, ranks in worlds.items() for r in ranks}
+    ref = _replay_logits(torch, device, cfg, params, saved)
+    with _f32_row_products():
+        wit = _replay_logits(torch, device, cfg, params, saved)
+    del params
+    torch.cuda.synchronize()
+    seconds, peak = time.perf_counter() - t0, _peak_gb(torch)
+
+    def dist_(got, want):
+        d = (got - want).abs()
+        return (d - SERVE_TP_RTOL * want.abs()).max().item(), d.max().item()
+
+    out = {"witness": {}}
+    out["witness"]["prefill_excess"], out["witness"]["prefill_max_abs"] = \
+        dist_(wit["prefill"], ref["prefill"])
+    steps = [k for k in ref if k != "prefill"]
+    out["witness"]["decode_excess"] = max(
+        dist_(wit[k], ref[k])[0] for k in steps)
+    out["witness"]["decode_max_abs"] = max(
+        dist_(wit[k], ref[k])[1] for k in steps)
+    v = ref["prefill"].shape[-1]
+    for (world, rank), (r, sv) in saved.items():
+        local = sv["prefill"] if "prefill" in sv else sv["steps"][0]
+        n = local.shape[-1]
+        mr = r["coord"]["model"] % (v // n)
+        cols = slice(mr * n, (mr + 1) * n)
+        rec = {"rank": rank}
+        if "prefill" in sv:
+            rec["prefill_excess"], rec["prefill_max_abs"] = dist_(
+                sv["prefill"], ref["prefill"][sv["rows"]][:, cols])
+        if "steps" in sv:
+            lg = ref[(world, rank)]
+            rec["decode_excess"], rec["decode_max_abs"] = dist_(
+                sv["steps"], lg[..., cols])
+            rec["token_agreement"] = float(
+                (torch.argmax(lg, -1).T == sv["tokens"].long()).float().mean())
+        out.setdefault(world, []).append(rec)
+    return out, seconds, peak
+
+
+class _f32_row_products:
+    """Within: the single-process model's row products (``attention_out``'s
+    ``wo``, the SwiGLU's ``w_down``) as f32 products of the bf16 values
+    rounded once, the arithmetic of the ranks' ``row_product`` without the
+    split (the replay's round-off witness)."""
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.models import layers as L
+        self.saved = L.attention_out, L.mlp
+        out, mlp = self.saved
+
+        def attention_out(p, o, tp=None):
+            if tp is not None:
+                return out(p, o, tp)
+            h, k, d = p["wo"].shape
+            return torch.matmul(o.reshape(*o.shape[:-2], h * k).float(),
+                                p["wo"].reshape(h * k, d).float()).to(o.dtype)
+
+        def swiglu(p, x, tp=None):
+            if tp is not None:
+                return mlp(p, x, tp)
+            a = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
+            return torch.matmul(a.float(), p["w_down"].float()).to(x.dtype)
+        L.attention_out, L.mlp = attention_out, swiglu
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.attention_out, L.mlp = self.saved
+        return False
+
+
+def _replay_logits(torch, device, cfg, params, saved):
+    """The single-process prefill's last logits (B, V) and, for each decode
+    rank, its teacher-forced steps' logits (steps, B_rank, V), f32 on the
+    host."""
+    from repro_torch.models.kvcache import DecodeState
+    from repro_torch.serving.decode import serve_step
+    from repro_torch.serving.prefill import prefill_step
+
+    pre = prefill_step(params, {"tokens": serve_tp_tokens(torch, cfg).to(device)},
+                       cfg, max_seq=SERVE_TP_MAX_SEQ)
+    out = {"prefill": pre.last_logits.float().cpu()}
+    for key, (_, sv) in saved.items():
+        if "steps" not in sv:
+            continue
+        rows = sv["rows"]
+        st = DecodeState(cache={k: x[:, rows].clone()
+                                for k, x in pre.state.cache.items()},
+                         cache_len=pre.state.cache_len[rows])
+        feed = torch.cat([sv["first"][:, None], sv["tokens"][:, :-1]],
+                         dim=1).to(device, torch.int32)
+        steps = []
+        for i in range(feed.shape[1]):
+            lg, st = serve_step(params, feed[:, i:i + 1], st, cfg)
+            steps.append(lg.float().cpu())
+        out[key] = torch.stack(steps)
+        del st
+    del pre
+    return out
+
+
+def _serve_tp_gates(world, ranks, replay):
+    """Phase ``serve_tp``'s gates on one world's ranks; returns the
+    numbers each gate read."""
+    w = SERVE_TP_WORLDS[world]
+    tag = f"serve_tp ({world})"
+    gates = {}
+    for r in ranks:
+        if r["case"] != "heads":
+            raise AssertionError(f"{tag} rank {r['rank']}: attention case "
+                                 f"{r['case']}, want heads")
+        if r["held_params"] != r["spec_params"]:
+            raise AssertionError(f"{tag} rank {r['rank']}: holds "
+                                 f"{r['held_params']} parameter bytes, the "
+                                 f"specs give {r['spec_params']}")
+        if not r["held_cache"] == r["spec_cache"] == r["init_cache"]:
+            raise AssertionError(f"{tag} rank {r['rank']}: cache bytes "
+                                 f"{r['held_cache']}, specs {r['spec_cache']}, "
+                                 f"init_cache {r['init_cache']}")
+        if r["param_storages_over_model"] or not r["storages_over_model"]:
+            raise AssertionError(
+                f"{tag} rank {r['rank']}: {r['param_storages_over_model']} "
+                f"parameter storages of {r['storages_over_model']} handed to "
+                "collectives over model (want 0 of some)")
+    gates["held_bytes"] = {r["rank"]: [r["held_params"], r["held_cache"]]
+                           for r in ranks}
+    # model replicas: every rank of one model coordinate holds the same
+    # parameter blocks, every rank the same replicated leaves, every model
+    # rank of one (pod, data) coordinate the same tokens
+    by_model, toks = {}, {}
+    for r in ranks:
+        c = r["coord"]
+        by_model.setdefault(c["model"], set()).add(r["params_sha"])
+        if "tokens" in r:
+            toks.setdefault((c["pod"], c["data"]), set()).add(str(r["tokens"]))
+    if any(len(v) != 1 for v in by_model.values()) or \
+            len({r["replicated_sha"] for r in ranks}) != 1 or \
+            any(len(v) != 1 for v in toks.values()):
+        raise AssertionError(f"{tag}: model replicas disagree")
+    gates["replicas"] = {"param_blocks": len(by_model),
+                         "token_sets": len(toks)}
+    # flash: one tensor-core launch a layer on every prefill rank, none in
+    # decode
+    for r in ranks:
+        prefills = ("pod" not in r) or r["pod"] == 0
+        want = SERVE_TP_LAYERS if prefills else 0
+        got = (r["launches"]["flash_attention"],
+               r["launches"]["flash_attention_tc"])
+        if got != (want, want) or r.get("decode_launches", {}).get(
+                "flash_attention", 0):
+            raise AssertionError(f"{tag} rank {r['rank']}: flash launches "
+                                 f"{got}, want {want} (tensor-core), and none "
+                                 "in decode")
+    gates["flash"] = {r["rank"]: r["launches"]["flash_attention_tc"]
+                      for r in ranks}
+    if w["pd"]:
+        by = {(r["coord"]["pod"], r["coord"]["data"], r["coord"]["model"]): r
+              for r in ranks}
+        for (pod, d, mo), r in by.items():
+            if pod == 1:
+                src = by[(0, d, mo)]
+                if not r["shard_sha"] == src["shard_sha"] == r["global_sha"]:
+                    raise AssertionError(f"{tag}: pod 1's shard ({d}, {mo}) "
+                                         "is not pod 0's")
+        enc = sum(r["launches"]["encode_fused"] for r in ranks if r["pod"] == 0)
+        dec = sum(r["launches"]["decode_fused"] for r in ranks if r["pod"] == 1)
+        genc = sum(r["global"]["launches"][k] for r in ranks if r["pod"] == 0
+                   for k in ("encode_fused", "encode_dense"))
+        gdec = sum(r["global"]["launches"][k] for r in ranks if r["pod"] == 1
+                   for k in ("decode_fused", "decode_dense"))
+        if not (enc and dec and genc and gdec):
+            raise AssertionError(f"{tag}: the hop's codec launches: chunked "
+                                 f"encode {enc} decode {dec}, global encode "
+                                 f"{genc} decode {gdec}")
+        gates["hop_codec"] = dict(encode=enc, decode=dec, global_encode=genc,
+                                  global_decode=gdec)
+    # the ranks' logits against the single-process replay's: within the
+    # CPU tests' bound, or within SERVE_TP_WITNESS times the distance the
+    # replay itself moves when only its row products round elsewhere
+    worst, allowed = {}, {}
+    for rec in replay[world]:
+        for k in ("prefill_excess", "decode_excess"):
+            if k in rec:
+                worst[k] = max(worst.get(k, -1e30), rec[k])
+                allowed[k] = max(SERVE_TP_ATOL,
+                                 SERVE_TP_WITNESS * replay["witness"][k])
+    if not worst or any(worst[k] > allowed[k] for k in worst):
+        raise AssertionError(f"{tag}: logits {worst} beyond {allowed} "
+                             f"(atol {SERVE_TP_ATOL} or {SERVE_TP_WITNESS} x "
+                             f"the witness {replay['witness']}) over rtol "
+                             f"{SERVE_TP_RTOL} |ref| of the single-process "
+                             f"replay: {replay[world]}")
+    gates["logits_excess"] = dict(worst=worst, allowed=allowed,
+                                  within_cpu_bound=max(worst.values())
+                                  <= SERVE_TP_ATOL)
+    return gates
+
+
+def phase_serve_tp(torch, smi):
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
+    worlds, seconds = {}, {}
+    try:
+        for world, w in SERVE_TP_WORLDS.items():
+            t0 = time.perf_counter()
+            worlds[world] = run_ranks("serve_tp_rank", math.prod(w["mesh"]),
+                                      world, str(out_dir))
+            seconds[world] = time.perf_counter() - t0
+        replay, seconds["replay"], replay_peak = serve_tp_replay(
+            torch, device, worlds, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gates = {world: _serve_tp_gates(world, ranks, replay)
+             for world, ranks in worlds.items()}
+    cfg = serve_tp_config()
+    emit(phase="serve_tp", nvidia_smi=smi, arch=cfg.name,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
+         max_seq=SERVE_TP_MAX_SEQ, steps=SERVE_TP_STEPS, transport="gloo",
+         worlds={k: dict(mesh=list(SERVE_TP_WORLDS[k]["mesh"]),
+                         variant=SERVE_TP_WORLDS[k]["variant"], ranks=v)
+                 for k, v in worlds.items()},
+         replay=replay, replay_peak_gb=replay_peak, gates=gates,
+         bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL),
+         seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
+    windows = {}
+    for r in worlds["xfer"]:
+        side = "src" if r["pod"] == 0 else "dst"
+        name = f"serve_tp_xfer_{side}{r['coord']['model']}"
+        windows[name] = r["launches"]
+        windows[f"serve_tp_global_{side}{r['coord']['model']}"] = \
+            r["global"]["launches"]
+    for r in worlds["base"]:
+        windows[f"serve_tp_base_prefill{r['rank']}"] = r["launches"]
+        windows[f"serve_tp_base_decode{r['rank']}"] = r["decode_launches"]
+    return windows
+
+
 def phase_mesh(torch, smi):
     ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
     src, dst = ranks
@@ -4473,6 +4986,7 @@ def main(argv=None) -> int:
     windows.update(timed("tp", phase_tp, torch, smi))
     windows.update(timed("ep", phase_ep, torch, smi))
     windows.update(timed("tp_recurrent", phase_tp_recurrent, torch, smi))
+    windows.update(timed("serve_tp", phase_serve_tp, torch, smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -4490,7 +5004,11 @@ def main(argv=None) -> int:
                       "mesh_escape_src", "mesh_escape_dst", "ring_int_comp",
                       "ring_normal_comp", "train_save", "train_restore",
                       "train_ring", "train_ring_default", "shard_ring",
-                      "shard_hop_src", "shard_hop_dst")
+                      "shard_hop_src", "shard_hop_dst", "serve_tp_xfer_src0",
+                      "serve_tp_xfer_src1", "serve_tp_xfer_dst0",
+                      "serve_tp_xfer_dst1", "serve_tp_global_src0",
+                      "serve_tp_global_src1", "serve_tp_global_dst0",
+                      "serve_tp_global_dst1")
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
@@ -4501,7 +5019,9 @@ def main(argv=None) -> int:
     served_prefills = {ARCH: ("main", 30), MLA_ARCH: ("mla", 62),
                        MOE_ARCH: ("moe", 48), MINITRON_ARCH: ("minitron", 32),
                        HYBRID_ARCH: ("hybrid", 12), VLM_ARCH: ("vlm", 40),
-                       AUDIO_ARCH: ("audio", 48)}
+                       AUDIO_ARCH: ("audio", 48),
+                       SERVE_TP_ARCH: ("serve_tp_base_prefill0",
+                                       SERVE_TP_LAYERS)}
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "

@@ -433,6 +433,24 @@ class Placement:
         return gather_tree(tree, self.specs, self.policy.mesh, comm)
 
 
+def param_placer(policy: ShardingPolicy):
+    """``models.model.init_params``'s ``place``: each leaf (an MoE stack a
+    layer at a time, ``layers`` its depth) cut to this rank's block under
+    ``policy.spec_for_param`` as soon as it is drawn (a fresh tensor, so
+    the whole leaf can be freed; a replicated leaf kept as drawn)."""
+    sizes = policy.sizes
+
+    def place(keys, x, layers=None):
+        shape = tuple(x.shape) if layers is None else (layers,) + tuple(x.shape)
+        spec = policy.spec_for_param("/".join(keys), shape)
+        if layers is not None:      # one layer of the stack
+            spec = spec[1:]
+        if not splits(spec, sizes):
+            return x
+        return shard_slice(x, spec, policy.mesh).clone()
+    return place
+
+
 def held_bytes(tree, specs_tree, sizes: Mapping[str, int]) -> int:
     """Bytes one rank holds of ``tree`` (whole-tensor shapes) under
     ``specs_tree``: the spec arithmetic a placed tree must match."""

@@ -64,6 +64,17 @@ products only; the replicated per-channel leaves it slices (``conv_w``,
 (:func:`partial_leaf`).  The hybrid's local attention is the GQA block
 with its window.
 
+Serving (the dense GQA family; ``serving/sharded.py``) runs the same
+context without autograd.  The policy's cache splits its sequence axis
+over ``model`` (``spec_for_cache``: a ``max_seq``-slot cache in blocks of
+``max_seq / model`` slots, every KV head, where ``max_seq`` divides; else
+replicated), which no attention case leaves on a rank:
+:func:`prefill_cache_block` moves the prefill's K and V there (an
+all-to-all of exactly the blocks that move, ``Link.all_to_all_v``, or a
+local slice), :func:`merge_partials` joins the ranks' partial softmaxes of
+a decode step over their key blocks, and :func:`vocab_argmax` takes the
+greedy token from a rank's vocab columns.
+
 Each collective's bytes and host time go to the context's ``fwd`` (the
 forward pass, remat's recomputation included) or ``bwd`` ``CommStats``.
 """
@@ -282,3 +293,113 @@ def vocab_log_prob(logits: torch.Tensor, labels: torch.Tensor,
     ``model``; the arithmetic of ``torch.log_softmax``: ``(x - max) -
     log(sum(exp(x - max)))``."""
     return _VocabLogProb.apply(logits, labels, tp)
+
+
+# ---------------------------------------------------------------------------
+# serving: the cache's sequence split, partial attention, the greedy token
+# ---------------------------------------------------------------------------
+
+def cache_span(tp: TensorParallel, max_seq: int, rank: int = None) -> slice:
+    """The cache positions group rank ``rank`` (default: this one) holds of
+    a ``max_seq``-slot cache: its block where ``max_seq`` splits over
+    ``model`` (the policy's ``spec_for_cache``), else all of them."""
+    rank = tp.rank if rank is None else rank
+    if not tp.splits(max_seq):
+        return slice(0, max_seq)
+    size = max_seq // tp.size
+    return slice(rank * size, (rank + 1) * size)
+
+
+def _clip(s: slice, lo: int, hi: int) -> slice:
+    """``s`` cut to ``[lo, hi)`` (an empty slice where they do not meet)."""
+    start = min(max(s.start, lo), hi)
+    return slice(start, max(start, min(s.stop, hi)))
+
+
+def prefill_cache_block(x: torch.Tensor, case: str, tp: TensorParallel,
+                        seq: int, max_seq: int) -> torch.Tensor:
+    """This rank's block of a ``max_seq``-slot cache leaf, (B, |span|, Hkv,
+    hd) with zeros past the prompt's ``seq`` positions, from the K or V the
+    attention ``case`` left on the rank (``x``):
+
+    * ``heads``: the rank's KV heads over all ``seq`` positions; each rank
+      sends every other its heads at that rank's span (an all-to-all), the
+      heads concatenated in rank order;
+    * ``kv`` and ``none``: every head over every position; a local slice;
+    * ``seq``: every head over the positions up to the end of the rank's
+      query block.  A rank takes the positions of its span inside query
+      block ``i`` from itself for ``i`` up to its own (it holds them) and
+      from rank ``i`` above it.
+
+    The traffic (exactly the blocks that move) counts into ``tp.fwd``."""
+    n = tp.size
+    spans = [_clip(cache_span(tp, max_seq, r), 0, seq) for r in range(n)]
+    mine = spans[tp.rank]
+    b, _, h, d = x.shape
+    if case in ("kv", "none"):
+        real = x[:, mine]
+    elif case == "heads":
+        got = tp.link(False, x.device).all_to_all_v(
+            [x[:, s].contiguous() for s in spans],
+            [(b, mine.stop - mine.start, h, d)] * n)
+        real = torch.cat(got, dim=2)
+    elif case == "seq":
+        qb = seq // n
+        part = [[_clip(spans[j], i * qb, (i + 1) * qb) for i in range(n)]
+                for j in range(n)]
+        me = tp.rank
+        got = tp.link(False, x.device).all_to_all_v(
+            [x[:, part[j][me]].contiguous() if j < me else x[:, :0]
+             for j in range(n)],
+            [(b, part[me][i].stop - part[me][i].start, h, d) if i > me
+             else (b, 0, h, d) for i in range(n)])
+        real = torch.cat([x[:, part[me][i]] if i <= me else got[i]
+                          for i in range(n)], dim=1)
+    else:
+        raise ValueError(f"unknown attention case {case!r}")
+    span = cache_span(tp, max_seq)
+    out = x.new_zeros((b, span.stop - span.start) + tuple(real.shape[2:]))
+    out[:, :real.shape[1]] = real
+    return out
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   tp: TensorParallel) -> torch.Tensor:
+    """Attention over keys split over ``model``: each rank's f32 running max
+    ``m`` (...), sum ``l`` (...) and unnormalised ``acc`` (..., dv) over its
+    keys, all-gathered and merged in rank order (each part rescaled to the
+    largest max), then normalised: (..., dv) f32.  A rank that saw no key
+    (``m`` = -1e30) adds exactly 0."""
+    parts = tp.link(False, m.device).all_gather(
+        torch.cat([m[..., None], l[..., None], acc], dim=-1).float())
+    top = torch.stack([p[..., 0] for p in parts]).amax(0)
+    tot_l = torch.zeros_like(top)
+    tot = torch.zeros_like(acc, dtype=torch.float32)
+    for p in parts:
+        corr = torch.exp(p[..., 0] - top)
+        tot_l = tot_l + p[..., 1] * corr
+        tot = tot + p[..., 2:] * corr[..., None]
+    return tot / torch.clamp(tot_l[..., None], min=1e-30)
+
+
+def vocab_argmax(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The greedy token (int64, ``logits.shape[:-1]``) of logits whose last
+    dimension is this rank's columns of a vocab split over ``model``: each
+    rank's largest value and its first index, all-gathered (value bits and
+    global index in one int64 pair), and the first rank with the largest
+    value wins, so a tie goes to the whole vocabulary's first index, as
+    ``torch.argmax`` gives it."""
+    vr = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0].float()
+    pair = torch.stack([val.view(torch.int32).to(torch.int64),
+                        idx + tp.rank * vr], dim=-1)
+    parts = tp.link(False, logits.device).all_gather(pair)
+    best_v = parts[0][..., 0].to(torch.int32).view(torch.float32)
+    best_i = parts[0][..., 1]
+    for p in parts[1:]:
+        v = p[..., 0].to(torch.int32).view(torch.float32)
+        better = v > best_v
+        best_v = torch.where(better, v, best_v)
+        best_i = torch.where(better, p[..., 1], best_i)
+    return best_i

@@ -26,6 +26,13 @@ tensor-core kernel (``sz_flash_attention_tc``: wgmma, TMA-fed tiles),
 everything else (f32, or a bf16 width that is not a multiple of 16) to the
 CUDA-core kernel (``sz_flash_attention``).  ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_tc`` the tensor-core ones.
+
+The causal mask places query row ``i`` at position ``i``: it is aligned to
+the start of the keys, not to their end, so with Sq < Skv a row sees keys
+``0..i``.  A block of queries that starts later (the tensor-parallel
+``seq`` case: positions ``[start, stop)`` over keys ``[0, stop)``) is
+attended through ``models.layers.prefill_attention(q_offset=start)``,
+which puts ``start`` zero rows before the block and drops their outputs.
 """
 
 from __future__ import annotations

@@ -73,43 +73,53 @@ def n_triples_extra(cfg: ArchConfig):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, policy=None) -> dict:
     """Zero-filled cache of the family's layout (module docstring); the
     recurrent families' state does not grow with ``max_seq``, and the
     hybrid's window holds ``min(window, max_seq)`` positions.  ``device=
     "meta"`` allocates nothing (the scheduler's bucket plans).  An
-    encoder-only config has no cache: ``{}``."""
+    encoder-only config has no cache: ``{}``.
+
+    ``policy`` (a ``distributed.sharding.ShardingPolicy``): only this
+    rank's block of each leaf (``local_shape`` of the whole shape under
+    ``spec_for_cache``; a dimension that does not divide its axes is
+    replicated, as the policy's rules keep it).  ``batch`` and
+    ``max_seq`` are the whole cache's."""
     if cfg.encoder_only:
         return {}
     l, b, s = cfg.num_layers, batch, max_seq
 
-    def zeros(shape, dt=dtype):
+    def zeros(name, shape, dt=dtype):
+        if policy is not None:
+            from repro_torch.distributed import sharding as SH
+            shape = SH.local_shape(shape, policy.spec_for_cache(name, shape),
+                                   policy.sizes)
         return torch.zeros(shape, dtype=dt, device=device)
 
     if cfg.ssm is not None:
         m = cfg.ssm
         d_inner = m.expand * cfg.d_model
         conv_ch = d_inner + 2 * m.n_groups * m.d_state
-        return {"ssm": zeros((l, b, d_inner // m.head_dim, m.head_dim,
-                              m.d_state), torch.float32),
-                "conv": zeros((l, b, m.conv_width - 1, conv_ch))}
+        return {"ssm": zeros("ssm", (l, b, d_inner // m.head_dim, m.head_dim,
+                                     m.d_state), torch.float32),
+                "conv": zeros("conv", (l, b, m.conv_width - 1, conv_ch))}
     if cfg.hybrid is not None:
         nt, ne = n_triples_extra(cfg)
         w = min(cfg.hybrid.window, max_seq)
         u = cfg.hybrid.lru_width or cfg.d_model
         cw = cfg.hybrid.conv_width
         kv = (nt, b, w, cfg.num_kv_heads, cfg.head_dim)
-        return {"attn_k": zeros(kv), "attn_v": zeros(kv),
-                "rec_h": zeros((nt, 2, b, u), torch.float32),
-                "rec_conv": zeros((nt, 2, b, cw - 1, u)),
-                "extra_h": zeros((ne, b, u), torch.float32),
-                "extra_conv": zeros((ne, b, cw - 1, u))}
+        return {"attn_k": zeros("attn_k", kv), "attn_v": zeros("attn_v", kv),
+                "rec_h": zeros("rec_h", (nt, 2, b, u), torch.float32),
+                "rec_conv": zeros("rec_conv", (nt, 2, b, cw - 1, u)),
+                "extra_h": zeros("extra_h", (ne, b, u), torch.float32),
+                "extra_conv": zeros("extra_conv", (ne, b, cw - 1, u))}
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": zeros((l, b, s, m.kv_lora_rank)),
-                "krope": zeros((l, b, s, m.qk_rope_head_dim))}
+        return {"ckv": zeros("ckv", (l, b, s, m.kv_lora_rank)),
+                "krope": zeros("krope", (l, b, s, m.qk_rope_head_dim))}
     shape = (l, b, s, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": zeros(shape), "v": zeros(shape)}
+    return {"k": zeros("k", shape), "v": zeros("v", shape)}
 
 
 def cache_bytes(cache: dict) -> int:

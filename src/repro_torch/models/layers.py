@@ -14,7 +14,11 @@ Under tensor parallelism (``tp``, a
 weights are a rank's shards: :func:`attention_tp` runs the attention
 block in each of the context's attention cases, :func:`attention_out` and
 :func:`mlp` take row-split ``wo`` / ``w_down`` and sum their f32 products
-over ``model``.  Without ``tp`` (serving) nothing changes.
+over ``model``.  Serving under ``tp``: :func:`attention_tp` also returns
+the K and V its case leaves on the rank, which the prefill reshards into
+the cache's sequence split, and :func:`decode_attention_tp` attends one
+token over a rank's block of such a cache.  Without ``tp`` nothing
+changes.
 """
 
 from __future__ import annotations
@@ -112,7 +116,8 @@ def chunked_attention(
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: Optional[int] = None,
+                      causal: bool = True, q_offset: int = 0,
+                      window: Optional[int] = None,
                       kv_block: int = 1024) -> torch.Tensor:
     """Prefill attention of every attention layer.
 
@@ -120,11 +125,23 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``kernels.flash_attention``), which keeps ``p`` in f32 for ``p . v``
     and takes the sliding ``window`` (recurrentgemma's local attention)
     itself.  On the CPU: :func:`chunked_attention`, the function the JAX
-    prefill computes on every backend (``p`` rounded to bf16)."""
+    prefill computes on every backend (``p`` rounded to bf16).
+
+    ``q_offset`` is the absolute position of ``q[:, 0]`` (the tensor-
+    parallel ``seq`` case's query block over the keys up to its end).  The
+    kernel places query row ``i`` at position ``i`` (its causal mask is
+    aligned to the start of the keys), so on the card the block is
+    preceded by ``q_offset`` zero rows, whose outputs are dropped: the
+    rows kept see exactly their keys, and the zero rows cost their share
+    of the kernel's work."""
     if q.device.type == "cuda":
-        return FA.flash_attention(q, k, v, causal=causal, window=window)
-    return chunked_attention(q, k, v, causal=causal, window=window,
-                             kv_block=kv_block)
+        if q_offset:
+            q = torch.cat([q.new_zeros((q.shape[0], q_offset) + q.shape[2:]),
+                           q], dim=1)
+        o = FA.flash_attention(q, k, v, causal=causal, window=window)
+        return o[:, q_offset:]
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             window=window, kv_block=kv_block)
 
 
 def decode_attention(
@@ -185,11 +202,13 @@ def attention_out(p, o, tp=None):
 
 
 def attention_tp(p, x, positions, theta, tp, *, causal=True, window=None,
-                 kv_block=1024):
+                 kv_block=1024, attention=chunked_attention):
     """One GQA attention block's output (B, S, D), whole on every model
-    rank, from this rank's shards of ``p`` under ``tp``, attending through
-    :func:`chunked_attention` (training's attention; a sliding ``window``
-    in every case, the ``seq`` block's keeping its absolute positions):
+    rank, and ``(case, k, v)``, from this rank's shards of ``p`` under
+    ``tp``, attending through ``attention`` (training's
+    :func:`chunked_attention` by default, serving prefill's
+    :func:`prefill_attention`; a sliding ``window`` in every case, the
+    ``seq`` block's keeping its absolute positions):
 
     * ``heads``: the rank's query heads and their KV heads;
     * ``kv``: the rank's query heads; K/V from the replicated ``wk`` /
@@ -198,33 +217,40 @@ def attention_tp(p, x, positions, theta, tp, *, causal=True, window=None,
     * ``seq``: the replicated weights; the rank's block of query positions
       over the keys up to the block's end (all keys when not causal), the
       blocks gathered over ``model`` before the whole ``wo``;
-    * ``none``: the whole block on every rank."""
+    * ``none``: the whole block on every rank.
+
+    ``k`` and ``v`` are what the case left on the rank (the rank's KV
+    heads; every head; every head up to the query block's end; every
+    head), which a prefill reshards into its cache."""
     s = x.shape[1]
     case = tp.attention(s)
     if case == "none":
         q, k, v = attention_qkv(p, x, positions, theta)
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              kv_block=kv_block)
-        return attention_out(p, o)
-    xf = TP.region(x, tp)
-    if case == "seq":
+        o = attention(q, k, v, causal=causal, window=window,
+                      kv_block=kv_block)
+        out = attention_out(p, o)
+    elif case == "seq":
+        xf = TP.region(x, tp)
         blk = tp.block(s)
         end = blk.stop if causal else s
         q = apply_rope(_proj_in(xf[:, blk], p["wq"]), positions[:, blk], theta)
         k = apply_rope(_proj_in(xf[:, :end], p["wk"]), positions[:, :end], theta)
         v = _proj_in(xf[:, :end], p["wv"])
-        o = chunked_attention(q, k, v, causal=causal, q_offset=blk.start,
-                              window=window, kv_block=kv_block)
-        return attention_out(p, TP.gather(o, tp, 1))
-    q, k, v = attention_qkv(p, xf, positions, theta)
-    if case == "kv":
-        hl = q.shape[2]
-        idx = (tp.rank * hl + torch.arange(hl, device=x.device)) \
-            // (tp.heads // tp.kv_heads)
-        k, v = k[:, :, idx], v[:, :, idx]
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          kv_block=kv_block)
-    return attention_out(p, o, tp)
+        o = attention(q, k, v, causal=causal, q_offset=blk.start,
+                      window=window, kv_block=kv_block)
+        out = attention_out(p, TP.gather(o, tp, 1))
+    else:
+        q, k, v = attention_qkv(p, TP.region(x, tp), positions, theta)
+        ka, va = k, v
+        if case == "kv":
+            hl = q.shape[2]
+            idx = (tp.rank * hl + torch.arange(hl, device=x.device)) \
+                // (tp.heads // tp.kv_heads)
+            ka, va = k[:, :, idx], v[:, :, idx]
+        o = attention(q, ka, va, causal=causal, window=window,
+                      kv_block=kv_block)
+        out = attention_out(p, o, tp)
+    return out, (case, k, v)
 
 
 def full_attention_block(p, x, positions, theta, *, causal=True, window=None,
@@ -250,6 +276,81 @@ def decode_attention_block(p, x, cache_k, cache_v, cache_len, theta, *,
     cache_v[rows, idx] = v[:, 0]
     o = decode_attention(q, cache_k, cache_v, cache_len + 1, window=window)
     return attention_out(p, o), (cache_k, cache_v)
+
+
+def decode_attention_tp(p, x, cache_k, cache_v, cache_len, theta, tp, *,
+                        max_seq: int, window=None):
+    """One token's GQA attention block under ``tp`` over a cache whose
+    positions split over ``model`` (the policy's cache layout): x (B, 1,
+    D) whole on every model rank; ``cache_k`` / ``cache_v`` this rank's
+    block (B, |span|, Hkv, hd) of a ``max_seq``-slot cache, every KV head
+    (``tensor_parallel.cache_span``; all ``max_seq`` slots where
+    ``max_seq`` does not split).  The JAX ``decode_attention_block`` on
+    the whole:
+
+    * q (B, 1, H, hd) and the new token's k and v are made whole on every
+      rank: the rank's heads gathered over ``model`` (case ``heads``: q,
+      k and v in one all-gather; ``kv``: q, with k and v from the
+      replicated weights; ``none``: all from the replicated weights);
+    * the rank whose span holds slot ``cache_len`` of a row writes it there
+      IN PLACE (past the end: the last slot, ``dynamic_update_slice``'s
+      clamp, the last rank's);
+    * each rank attends its keys at ``pos < cache_len + 1`` (and inside the
+      ``window``) with f32 running max, sum and accumulator (``p`` rounded
+      to bf16 before ``p . v``, as :func:`chunked_attention` does), and the
+      partials are merged in rank order (``tensor_parallel.merge_partials``);
+      a cache replicated over ``model`` is attended whole
+      (:func:`decode_attention`);
+    * the rank's heads go through its rows of ``wo`` (``row_product``); in
+      case ``none`` the whole ``wo``.
+
+    Returns (B, 1, D) and the cache blocks."""
+    case = tp.attention(1)
+    positions = cache_len[:, None]
+    q, k, v = attention_qkv(p, x, positions, theta)
+    if case == "heads":
+        hq, hk = q.shape[2], k.shape[2]
+        parts = TP.gather(torch.cat([q, k, v], dim=2), tp, 2)
+        per = hq + 2 * hk
+        ranks = [parts[:, :, r * per:(r + 1) * per] for r in range(tp.size)]
+        q = torch.cat([t[:, :, :hq] for t in ranks], dim=2)
+        k = torch.cat([t[:, :, hq:hq + hk] for t in ranks], dim=2)
+        v = torch.cat([t[:, :, hq + hk:] for t in ranks], dim=2)
+    elif case == "kv":
+        q = TP.gather(q, tp, 2)
+    span = TP.cache_span(tp, max_seq)
+    b = x.shape[0]
+    idx = torch.clamp(cache_len, max=max_seq - 1).to(torch.int64)
+    mine = (idx >= span.start) & (idx < span.stop)
+    rows = torch.arange(b, device=x.device)[mine]
+    cache_k[rows, idx[mine] - span.start] = k[mine, 0]
+    cache_v[rows, idx[mine] - span.start] = v[mine, 0]
+    if span.stop - span.start == max_seq:
+        o = decode_attention(q, cache_k, cache_v, cache_len + 1, window=window)
+    else:
+        h, d = q.shape[2], q.shape[3]
+        hkv, dv = cache_k.shape[2], cache_v.shape[-1]
+        qg = q.reshape(b, 1, hkv, h // hkv, d).permute(0, 2, 3, 1, 4).float()
+        kf = cache_k.permute(0, 2, 1, 3).float()[:, :, None]
+        sc = torch.matmul(qg, kf.transpose(-1, -2)) / np.sqrt(d)   # (B,Hkv,G,1,S)
+        pos = span.start + torch.arange(span.stop - span.start, device=x.device)
+        n = cache_len[:, None] + 1
+        valid = pos[None, :] < n
+        if window is not None:
+            valid &= pos[None, :] >= n - window
+        sc = torch.where(valid[:, None, None, None, :], sc,
+                         torch.tensor(NEG_INF, device=x.device))
+        m = sc.amax(dim=-1)
+        pr = torch.exp(sc - m[..., None])
+        acc = torch.matmul(pr.to(cache_v.dtype).float(),
+                           cache_v.permute(0, 2, 1, 3).float()[:, :, None])
+        o = TP.merge_partials(m, pr.sum(dim=-1), acc, tp)
+        o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dv).to(q.dtype)
+    if case == "none":
+        return attention_out(p, o), (cache_k, cache_v)
+    hl = p["wo"].shape[0]
+    mine_h = o[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    return attention_out(p, mine_h, tp), (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

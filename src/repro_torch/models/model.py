@@ -27,8 +27,13 @@ shards under tensor parallelism (``tp``, a
 vocab-split embedding and head, the split attention and SwiGLU products,
 Mamba-2's split ``in_proj`` / ``out_proj``, the RG-LRU's block of
 channels, and the vocab-parallel cross-entropy; the logits ``forward``
-returns are then this rank's vocab columns.  Serving passes no ``tp``
-and is unchanged.
+returns are then this rank's vocab columns.  Serving under ``tp`` is the
+dense GQA family's (:func:`prefill`, :func:`decode_step`): the prefill
+attends through the flash kernel on the rank's heads or query block and
+leaves each rank its block of the cache in the policy's layout (the
+sequence split over ``model``, ``tensor_parallel.prefill_cache_block``);
+a decode step attends over those blocks and merges the partials
+(``layers.decode_attention_tp``).  The other families raise there.
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
@@ -251,7 +256,7 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor
 def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
             remat: bool = False, collect_cache: bool = False,
             logits_positions: str = "all", attention=L.prefill_attention,
-            tp=None, ep=None):
+            tp=None, ep=None, cache_seq: Optional[int] = None):
     """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
 
     ``logits_positions='last'`` projects only the final position through the
@@ -260,8 +265,13 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     ``layers.prefill_attention`` for serving, ``layers.chunked_attention``
     for training.  ``remat`` checkpoints each layer, hybrid triple and extra
     block.  ``tp``: one rank's shards under tensor parallelism (module
-    docstring; attention is ``chunked_attention``, no cache); ``ep``: the
-    MoE FFN's expert parallelism and routing group."""
+    docstring); with ``collect_cache`` (the dense GQA family only) the
+    cache is the rank's blocks of a ``cache_seq``-slot cache in the
+    policy's layout (:func:`prefill`); ``ep``: the MoE FFN's expert
+    parallelism and routing group."""
+    if tp is not None and collect_cache and cache_seq is None:
+        raise ValueError("a cache under tp is cut for cache_seq slots: pass "
+                         "it (models.model.prefill does)")
     x = embed_inputs(params, batch, cfg, tp)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
@@ -275,7 +285,7 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
                                        collect_cache, attention, run, tp,
-                                       ep)
+                                       ep, cache_seq)
     if logits_positions == "last":
         x = x[:, -1:]
     return lm_logits(params, x, cfg, tp), cache, aux
@@ -350,7 +360,7 @@ def _triple_fwd(triple, x, positions, cfg: ArchConfig, kv_block: int,
     h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
     k = v = None
     if tp is not None:
-        attn_out = L.attention_tp(ap["block"], h, positions, cfg.rope_theta,
+        attn_out, _ = L.attention_tp(ap["block"], h, positions, cfg.rope_theta,
                                   tp, window=cfg.hybrid.window,
                                   kv_block=kv_block)
     else:
@@ -418,19 +428,27 @@ def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run,
 
 
 def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
-                 tp=None, ep=None):
+                 tp=None, ep=None, cache_seq=None):
     """One transformer layer: (x, the cache entries k/v or ckv/krope, the
-    MoE aux loss or None; under ``tp`` no cache entries)."""
+    MoE aux loss or None; under ``tp`` the rank's blocks of a
+    ``cache_seq``-slot cache, or no cache entries without ``cache_seq``)."""
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     k = v = None
     if cfg.mla is not None:
         attn_out, (k, v) = MLA.mla_prefill(lp["attn"], h, positions, cfg.mla,
                                            cfg.rope_theta, kv_block=kv_block,
                                            attention=attention, tp=tp)
+    elif tp is not None and cache_seq is not None:
+        attn_out, (case, k, v) = L.attention_tp(
+            lp["attn"], h, positions, cfg.rope_theta, tp, kv_block=kv_block,
+            attention=attention)
+        s = x.shape[1]
+        k, v = (TP.prefill_cache_block(t, case, tp, s, cache_seq)
+                for t in (k, v))
     elif tp is not None:
-        attn_out = L.attention_tp(lp["attn"], h, positions, cfg.rope_theta, tp,
+        attn_out, _ = L.attention_tp(lp["attn"], h, positions, cfg.rope_theta, tp,
                                   causal=not cfg.encoder_only,
-                                  kv_block=kv_block)
+                                  kv_block=kv_block, attention=attention)
     else:
         q, k, v = L.attention_qkv(lp["attn"], h, positions, cfg.rope_theta)
         o = attention(q, k, v, causal=not cfg.encoder_only, kv_block=kv_block)
@@ -442,12 +460,14 @@ def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
 
 
 def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                   collect_cache: bool, attention, run, tp=None, ep=None):
+                   collect_cache: bool, attention, run, tp=None, ep=None,
+                   cache_seq=None):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
     for lp in _unstack(params["layers"], cfg.num_layers):
         x, k, v, layer_aux = run(_dense_layer, lp, x, positions, cfg,
-                                 kv_block, attention, tp, ep)
+                                 kv_block, attention, tp, ep,
+                                 cache_seq if collect_cache else None)
         if layer_aux is not None:
             aux = aux + layer_aux
         if collect_cache:
@@ -464,8 +484,30 @@ def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
 # prefill
 # ---------------------------------------------------------------------------
 
+#: the queued slice of sharded serving of each family that has none yet
+TP_SERVING_QUEUE = {"mla": "MLA", "moe": "MoE under expert parallelism",
+                    "ssm": "Mamba-2", "hybrid": "the RG-LRU hybrid",
+                    "vlm": "the vision front end", "audio": "the audio front end"}
+
+
+def require_tp_serving(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense GQA
+    family, the one family with a sharded serving path (prefill and decode
+    under ``tp``); the others' slices are queued (ROADMAP, queue 1)."""
+    fam = ("mla" if cfg.mla is not None else "moe" if cfg.moe is not None
+           else "ssm" if cfg.ssm is not None
+           else "hybrid" if cfg.hybrid is not None
+           else "audio" if cfg.encoder_only or cfg.frontend == "audio_frames"
+           else "vlm" if cfg.frontend is not None else None)
+    if fam is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded serving (tp=) runs the dense GQA family "
+            f"only; that of {TP_SERVING_QUEUE[fam]} is queued (ROADMAP, "
+            "queue 1)")
+
+
 def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
-            kv_block: int = 1024) -> Tuple[torch.Tensor, DecodeState]:
+            kv_block: int = 1024, tp=None) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return (last-position logits, decode state).
 
     The cache of the positional families (dense, MoE, MLA, vlm) is padded
@@ -477,8 +519,26 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     ``batch["lengths"]`` (B,) marks each row's true prompt length (rows
     right-padded to a common S); last-token logits are gathered at
     ``lengths - 1`` and ``cache_len`` starts at ``lengths``.  The recurrent
-    and the frontend families reject ragged input."""
+    and the frontend families reject ragged input.
+
+    Under ``tp`` (dense GQA only, :func:`require_tp_serving`) the
+    parameters are a rank's shards and ``batch`` the rank's rows: the
+    logits are the rank's vocab columns (where the vocab splits) and the
+    cache is the rank's blocks, every KV head over its span of
+    ``max_seq`` (``tensor_parallel.cache_span``), zeros past the prompt."""
     lengths = batch.get("lengths")
+    if tp is not None:
+        require_tp_serving(cfg)
+        if lengths is not None:
+            raise ValueError("ragged prefill (batch['lengths']) under tp is "
+                             "not ported")
+        b, s = batch["tokens"].shape
+        logits, cache, _ = forward(params, batch, cfg, kv_block=kv_block,
+                                   collect_cache=True, logits_positions="last",
+                                   tp=tp, cache_seq=max_seq or s)
+        return logits[:, -1], DecodeState(
+            cache=cache, cache_len=torch.full((b,), s, dtype=torch.int32,
+                                              device=logits.device))
     recurrent = cfg.ssm is not None or cfg.hybrid is not None
     if lengths is not None:
         if recurrent:
@@ -605,15 +665,23 @@ def _ssm_decode(params, x, cache: dict, cfg: ArchConfig):
 
 
 def decode_step(params, tokens: torch.Tensor, state: DecodeState,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, DecodeState]:
+                cfg: ArchConfig, tp=None, max_seq: Optional[int] = None
+                ) -> Tuple[torch.Tensor, DecodeState]:
     """One autoregressive step.  tokens: (B, 1) int -> logits (B, V).
 
     Dense, MoE and MLA: the new k/v (ckv/krope) are written INTO
     ``state.cache`` (in place, saving a copy of the cache per step); the
     returned state shares that cache.  SSM and hybrid: the returned state
     holds a new cache (the recurrent states and the shifted window), as the
-    JAX step returns one.  Either way ``cache_len`` advances."""
+    JAX step returns one.  Either way ``cache_len`` advances.
+
+    Under ``tp`` (dense GQA only): a rank's shards, rows and cache blocks
+    of a ``max_seq``-slot cache (:func:`prefill`'s layout; ``max_seq`` is
+    required: the blocks alone do not say whether the slots split); the
+    logits are the rank's vocab columns."""
     require_decoder(cfg)
+    if tp is not None:
+        return _decode_step_tp(params, tokens, state, cfg, tp, max_seq)
     x = params["embed"][tokens]
     cache_len = state.cache_len
     if cfg.hybrid is not None or cfg.ssm is not None:
@@ -639,6 +707,33 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
         x = y + ffn(lp, h2, cfg)[0]
     logits = lm_logits(params, x, cfg)[:, -1]
+    return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
+
+
+def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
+                    max_seq: Optional[int]):
+    require_tp_serving(cfg)
+    k_all, v_all = state.cache["k"], state.cache["v"]
+    if max_seq is None:
+        raise ValueError("decode_step under tp needs max_seq: a rank's cache "
+                         "blocks do not say whether the slots split")
+    span = TP.cache_span(tp, max_seq)
+    if k_all.shape[2] != span.stop - span.start:
+        raise ValueError(f"cache blocks of {k_all.shape[2]} slots are not a "
+                         f"rank's span of {max_seq} over {tp.size} ranks")
+    vtp = _split(tp, cfg.vocab_size)
+    x = (TP.vocab_embedding(tokens, params["embed"], vtp) if vtp is not None
+         else F.embedding(tokens, params["embed"]))
+    cache_len = state.cache_len
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        out, _ = L.decode_attention_tp(lp["attn"], h, k_all[i], v_all[i],
+                                       cache_len, cfg.rope_theta, tp,
+                                       max_seq=max_seq)
+        y = x + out
+        h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
+        x = y + ffn(lp, h2, cfg, tp)[0]
+    logits = lm_logits(params, x, cfg, tp)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
 
 

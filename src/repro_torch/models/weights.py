@@ -23,12 +23,24 @@ def _tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_jax(np_tree: Any, device=None) -> Any:
+def params_from_jax(np_tree: Any, device=None, policy=None) -> Any:
     """Map a numpy copy of ``repro.models.model.init_params``'s tree onto
-    tensors on ``device`` (default CPU)."""
-    if isinstance(np_tree, dict):
-        return {k: params_from_jax(v, device) for k, v in np_tree.items()}
-    return _tensor(np.asarray(np_tree), device)
+    tensors on ``device`` (default CPU).  ``policy`` (a
+    ``distributed.sharding.ShardingPolicy``): only this rank's block of
+    each leaf (``sharding.param_placer``, the cut ``init_params(place=)``
+    makes of its own draws), so a rank holds the bytes its specs give."""
+    if policy is None:
+        place = None
+    else:
+        from repro_torch.distributed.sharding import param_placer
+        place = param_placer(policy)
+
+    def conv(keys, tree):
+        if isinstance(tree, dict):
+            return {k: conv(keys + (k,), v) for k, v in tree.items()}
+        x = _tensor(np.asarray(tree), device)
+        return x if place is None else place(keys, x)
+    return conv((), np_tree)
 
 
 def train_state_from_jax(np_state: Any, device=None):

@@ -212,6 +212,11 @@ class Link:
                 dev = ps[0].device if ps else torch.device("cpu")
                 ps.append(torch.zeros(pad, dtype=torch.uint8, device=dev))
             flat.extend(ps)
+        return self._stage(flat)
+
+    def _stage(self, flat) -> torch.Tensor:
+        """Byte tensors back to back in one buffer on the host (pinned, for
+        bytes on the card)."""
         if not flat:
             return torch.zeros(0, dtype=torch.uint8)
         body = torch.cat(flat) if len(flat) > 1 else flat[0]
@@ -317,6 +322,35 @@ class Link:
         body = self._to_device(out)
         return [Body(body[j * per:(j + 1) * per]).raw(shape, dtype)
                 for j in range(len(blocks))]
+
+    def all_to_all_v(self, blocks: Sequence[torch.Tensor],
+                     shapes: Sequence[Tuple[int, ...]]) -> List[torch.Tensor]:
+        """Block ``j`` of ``blocks`` (one a group rank, one dtype, any
+        shapes, empty ones too) to group rank ``j``; ``shapes[j]`` is the
+        shape of the block group rank ``j`` sends this one.  The blocks
+        every group rank sent this one, in group-rank order, on the codec's
+        device (gloo's all-to-all with split sizes over one host buffer,
+        unpadded).  The bytes a rank sends itself are not counted."""
+        dtype = blocks[0].dtype
+        size = torch.empty(0, dtype=dtype).element_size()
+        me = dist.get_rank(self.group)
+        sent = [b.numel() * size for b in blocks]
+        got = [math.prod(s) * size for s in shapes]
+        host = self._stage([byte_view(b) for b in blocks if b.numel()])
+        out = self._host_buffer(sum(got))
+        t0 = time.perf_counter()
+        dist.all_to_all_single(out, host, output_split_sizes=got,
+                               input_split_sizes=sent, group=self.group)
+        self.stats.wire_s += time.perf_counter() - t0
+        self.stats.sent_bytes += sum(sent) - sent[me]
+        self.stats.recv_bytes += sum(got) - got[me]
+        self.stats.messages += 1
+        body = self._to_device(out)
+        outs, off = [], 0
+        for s, n in zip(shapes, got):
+            outs.append(Body(body[off:off + n]).raw(tuple(s), dtype))
+            off += n
+        return outs
 
     def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every group rank's ``x`` (same shape and dtype everywhere), in

@@ -9,6 +9,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import model as M
 from repro_torch.models.kvcache import DecodeState
 
@@ -23,10 +24,19 @@ class PrefillOutput:
 
 @torch.no_grad()
 def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
-                 max_seq: Optional[int] = None, kv_block: int = 1024
-                 ) -> PrefillOutput:
+                 max_seq: Optional[int] = None, kv_block: int = 1024,
+                 tp=None) -> PrefillOutput:
+    """Run the prompt; the greedy first token, the last logits and the
+    cache.  Under ``tp`` (the dense GQA family, ``models.model.prefill``):
+    a rank's shards and rows, ``last_logits`` the rank's vocab columns
+    (the whole rows are never needed: the first token comes from the
+    vocab-parallel argmax, ``tensor_parallel.vocab_argmax``, which moves
+    two numbers a row) and the cache the rank's blocks."""
     last_logits, state = M.prefill(params, batch, cfg, max_seq=max_seq,
-                                   kv_block=kv_block)
+                                   kv_block=kv_block, tp=tp)
+    if tp is not None:
+        return PrefillOutput(first_token=greedy(last_logits, cfg, tp),
+                             last_logits=last_logits, state=state)
     if cfg.encoder_only:
         # encode-and-ship: the "first token" is the first frame's argmax
         # unit; prefill returned every frame's logits (B, S, V)
@@ -35,3 +45,13 @@ def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
                              state=state)
     first = torch.argmax(last_logits, dim=-1).to(torch.int32)
     return PrefillOutput(first_token=first, last_logits=last_logits, state=state)
+
+
+def greedy(logits: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
+    """The greedy token (int32) of logits (..., V): ``torch.argmax``, or
+    under ``tp`` with the vocab split over ``model`` the vocab-parallel
+    argmax of the rank's columns (the same token: ties to the first
+    index)."""
+    if tp is not None and tp.splits(cfg.vocab_size):
+        return TP.vocab_argmax(logits, tp).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)

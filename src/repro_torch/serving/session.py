@@ -474,6 +474,24 @@ class TransferSession:
         self.send(cache, check=check)
         return self.recv(select_dst=select_dst)
 
+    def transfer_shard(self, shard):
+        """The mesh hop of each source rank's OWN shard: a sharded prefill
+        worker holds only its ``(data, model)`` block of every leaf and
+        passes that (each leaf's shape checked against ``local_shape`` of
+        the plan's whole shape under its spec); destination ranks pass
+        None and return their own shard, as ``transfer(select_dst=False)``
+        does.  Units, records, ``last_stats`` and the capacity walk are the
+        whole-cache path's, and so are the bytes: that path slices the
+        same block out of the whole cache first."""
+        if self.plan.mesh is None:
+            raise ValueError("transfer_shard runs a mesh plan's hop")
+        if self._staged is not None:
+            raise RuntimeError("transfer_shard() called with a send() pending")
+        self._uid += 1
+        out = self._run_mesh(shard, select_dst=False, own=True)
+        self._account()
+        return out
+
     def transfer_compressed(self, cache, check: bool = True,
                             verify: Optional[bool] = None):
         """Tensor-path transfer that STOPS at the compressed streams: returns
@@ -1496,7 +1514,23 @@ class TransferSession:
             SH.shard_slice(leaf, spec, self.plan.mesh)
             for leaf, spec in zip(TR.leaves(cache), self.plan.in_specs)])
 
-    def _run_mesh(self, cache, select_dst: bool = True):
+    def _own_shard(self, shard):
+        """``shard`` checked to be this rank's block of the plan's cache:
+        its tree, dtypes and ``local_shape`` shapes."""
+        plan, sizes = self.plan, mesh_shape(self.plan.mesh)
+        flat, treedef = TR.flatten_with_path(shard)
+        if treedef != plan.treedef or len(flat) != len(plan.routes):
+            raise ValueError("the shard's tree is not the plan's cache tree")
+        for (path, leaf), r, spec in zip(flat, plan.routes, plan.in_specs):
+            want = SH.local_shape(r.shape, spec, sizes)
+            if tuple(leaf.shape) != want or C.dtype_name(leaf.dtype) != r.dtype:
+                raise ValueError(
+                    f"{r.key}: a shard of {tuple(leaf.shape)} "
+                    f"{C.dtype_name(leaf.dtype)}; this rank's block of "
+                    f"{r.shape} under {spec} is {want} {r.dtype}")
+        return shard
+
+    def _run_mesh(self, cache, select_dst: bool = True, own: bool = False):
         """The pod-to-pod hop across processes.  Source ranks (pod
         ``src_pod``) encode their shard down the capacity schedule (raw
         fallback on exhaustion) and send it to the rank of pod ``dst_pod``
@@ -1507,7 +1541,8 @@ class TransferSession:
         dimensions), else their own shard.  Ranks of other pods return
         None.  ``last_stats``: the bytes handed to ``torch.distributed``
         for each unit (the same on both ends); ``last_comm``: headers,
-        staging and wire time."""
+        staging and wire time.  ``own``: a source passes its own shard,
+        not the whole cache (:meth:`transfer_shard`)."""
         plan = self.plan
         if any("pod" in SH.entry_axes(e) for spec in plan.in_specs
                for e in spec):
@@ -1531,7 +1566,7 @@ class TransferSession:
         if pod == plan.src_pod:
             if cache is None:
                 raise ValueError("a source rank passes the cache it sends")
-            shard = self._slice_shard(cache)
+            shard = self._own_shard(cache) if own else self._slice_shard(cache)
             device = TR.leaves(shard)[0].device if plan.routes else "cpu"
             link = CL.Link(group, device, comm)
             send = self._mesh_send_chunked if chunked else self._mesh_send_tensor

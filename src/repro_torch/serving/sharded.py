@@ -1,0 +1,303 @@
+"""Sharded serving under a ``ShardingPolicy``: the port's counterpart of the
+prefill, decode and ``xfer_*`` branches of the JAX dry-run's
+``build_lowerable`` (``repro/launch/dryrun.py:132-239``).
+
+There each branch is one jitted program whose in/out shardings come from
+the policy, and GSPMD splits it across the mesh.  Here every rank runs its
+part explicitly, over ``torch.distributed`` (gloo), on its shards:
+
+* :func:`place_params` -- this rank's block of the seeded parameters
+  (``init_params(place=)``, as the sharded train state is drawn), and
+  :func:`local_batch` its rows of a global batch (the policy's ``tokens``
+  spec, the JAX ``batch_sh``);
+* :func:`serve` -- the prefill cells (``dryrun.py:203-219``:
+  ``prefill_step`` under the policy) and the decode cells (``:221-239``:
+  ``serve_step`` over a cache laid out by ``cache_sharding``): the rank's
+  prefill under the ``model`` axis's tensor parallelism leaves it its
+  block of the cache (the sequence split over ``model``, the batch over
+  the data axes), then ``decode_loop`` steps on those blocks;
+* :func:`disaggregated_step` -- the ``xfer_*`` cells (``:162-192``), the
+  paper's pipeline "prefill -> SplitZip -> DCN hop -> decode pod": under
+  ``ShardingPolicy(pd_disaggregated=True)`` pod 0 prefills, each pod-0
+  rank ships its own cache shard (``TransferSession.transfer_shard``) to
+  the pod-1 rank with its ``(data, model)`` coordinate, the first token
+  and ``cache_len`` going with it, and pod 1 decodes from the shards it
+  received, never assembling the whole cache.  The JAX cell stops at the
+  moved cache; decoding there is the decode cells' ``serve_step``.
+
+:func:`transfer_config` is the dry-run's ``_transfer_config``
+(``dryrun.py:110-129``) for its transfer variants.
+
+The dense GQA family only (``models.model.require_tp_serving``): the other
+families raise.  Nothing falls back: a collective's failure fails the
+call, and a sharded step never runs whole on one rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree as TR
+from repro_torch.core.codebook import DEFAULT_BF16_CODEBOOK, Codebook
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.models import kvcache as KC
+from repro_torch.models import model as M
+from repro_torch.models.kvcache import DecodeState
+from repro_torch.serving import collective as CL
+from repro_torch.serving.decode import decode_loop
+from repro_torch.serving.plan import TransferConfig, TransferPlan
+from repro_torch.serving.prefill import PrefillOutput, prefill_step
+
+#: the dry-run's transfer variants (``_transfer_config``): the keyword
+#: arguments of each one's ``TransferConfig`` beside its codebook, by the
+#: variant's suffix
+TRANSFER_VARIANTS = {
+    "raw": dict(enabled=False),
+    "chunked": dict(chunk=1024, cap=64),
+    "fp32": dict(layout="global", global_budget=0.0025, compress_fp32=True),
+    "pipelined": dict(chunk=1024, cap=64, n_chunks=8),
+    "tight": dict(layout="global", global_budget=0.0025),
+    "global": dict(layout="global"),
+}
+
+
+def transfer_config(variant: str, codebook: Codebook = DEFAULT_BF16_CODEBOOK,
+                    **over) -> TransferConfig:
+    """The ``TransferConfig`` of a dry-run transfer ``variant``
+    (``xfer_raw``, ``xfer_chunked``, ``xfer_global``, ``xferonly_*``): the
+    default bf16 codebook and the variant's knobs; a variant without a
+    known suffix gets the ``global`` layout, as in the JAX table.
+    ``over`` sets further fields (the codec ``backend``)."""
+    suffix = variant.rsplit("_", 1)[-1]
+    kw = TRANSFER_VARIANTS.get(suffix, TRANSFER_VARIANTS["global"])
+    return TransferConfig(codebook=codebook, **{**kw, **over})
+
+
+def tensor_parallel(policy: SH.ShardingPolicy, cfg: ArchConfig
+                    ) -> TP.TensorParallel:
+    """This rank's context over the policy mesh's ``model`` axis."""
+    return TP.TensorParallel(policy.mesh.get_group("model"), cfg,
+                             attn_fallback=policy.attn_fallback)
+
+
+def place_params(cfg: ArchConfig, generator: torch.Generator,
+                 policy: SH.ShardingPolicy, device=None) -> Dict:
+    """This rank's block of ``init_params(cfg, generator)`` under the
+    policy's parameter specs, every leaf cut as it is drawn."""
+    return M.init_params(cfg, generator, device, SH.param_placer(policy))
+
+
+def local_batch(batch: Dict, policy: SH.ShardingPolicy) -> Dict:
+    """This rank's rows of a global batch (the ``tokens`` spec: the batch
+    over the data axes where it divides them, else whole)."""
+    return {k: SH.shard_slice(x, policy.spec_for_activation(
+        "tokens", tuple(x.shape)), policy.mesh) for k, x in batch.items()}
+
+
+def cache_like(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
+    """The whole cache's shapes and dtypes (``meta`` tensors): what the
+    policy's ``cache_specs`` and a mesh ``TransferPlan`` are built from."""
+    return KC.init_cache(cfg, batch, max_seq, device="meta")
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """One rank's sharded serving: the prefill's output (its rows, its
+    vocab columns and its cache blocks), the greedy tokens decoded after
+    the first (B_rank, num_steps), the decode state after them, and the
+    tensor-parallel context whose ``fwd`` counted the collectives."""
+    prefill: PrefillOutput
+    tokens: torch.Tensor
+    state: DecodeState
+    tp: TP.TensorParallel
+
+
+def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
+          max_seq: int, num_steps: int, kv_block: int = 1024,
+          on_logits=None) -> ServeResult:
+    """The prefill and decode cells of one rank: ``params`` are the rank's
+    shards (:func:`place_params`), ``batch`` the global batch, of which the
+    rank runs its rows; the prefill (``prefill_step(tp=)``) leaves the
+    rank its cache blocks, on which ``decode_loop(tp=)`` decodes
+    ``num_steps`` tokens (``on_logits(i, logits)`` sees each step's
+    logits, the rank's vocab columns)."""
+    M.require_tp_serving(cfg)
+    tp = tensor_parallel(policy, cfg)
+    out = prefill_step(params, local_batch(batch, policy), cfg,
+                       max_seq=max_seq, kv_block=kv_block, tp=tp)
+    toks, st = decode_loop(params, out.first_token, out.state, cfg,
+                           num_steps, tp=tp, max_seq=max_seq,
+                           on_logits=on_logits)
+    return ServeResult(prefill=out, tokens=toks, state=st, tp=tp)
+
+
+@dataclasses.dataclass
+class HopResult:
+    """One rank's disaggregated step.  A prefill rank (pod 0): its prefill
+    output and the session whose ``last_stats`` / ``last_comm`` account
+    the hop; ``tokens`` and ``state`` None.  A decode rank (pod 1): the
+    shard it received (``received``), the first token and ``cache_len``
+    that came with it, the tokens decoded from it and the final state;
+    ``prefill`` None.  ``side`` counts the first token's and
+    ``cache_len``'s message, ``tp.fwd`` the collectives over ``model``."""
+    pod: int
+    session: object
+    side: CL.CommStats
+    tp: TP.TensorParallel
+    prefill: Optional[PrefillOutput] = None
+    received: Optional[Dict] = None
+    first_token: Optional[torch.Tensor] = None
+    tokens: Optional[torch.Tensor] = None
+    state: Optional[DecodeState] = None
+
+
+def hop_plan(cfg: ArchConfig, policy: SH.ShardingPolicy, tc: TransferConfig,
+             batch: int, max_seq: int) -> TransferPlan:
+    """The mesh plan of a ``batch`` x ``max_seq`` cache under the policy's
+    ``cache_specs`` (from shapes alone: no rank holds the whole cache)."""
+    like = cache_like(cfg, batch, max_seq)
+    return TransferPlan.build(like, tc, mesh=policy.mesh,
+                              specs=policy.cache_specs(like))
+
+
+def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
+                       policy: SH.ShardingPolicy, tc: TransferConfig, *,
+                       max_seq: int, num_steps: int, kv_block: int = 1024,
+                       device=None, on_logits=None) -> HopResult:
+    """The ``xfer_*`` cell of one rank (module docstring) on a ``(pod,
+    data, model)`` mesh under a ``pd_disaggregated`` policy: pod 0
+    prefills its rows of ``batch`` and ships its cache blocks, pod 1
+    decodes ``num_steps`` tokens from them; the hop's session (of
+    :func:`hop_plan`'s plan, its codec on ``device``) comes back in the
+    result."""
+    if not policy.pd_disaggregated:
+        raise ValueError("the disaggregated step needs a pd_disaggregated "
+                         "policy: pods are prefill and decode workers")
+    M.require_tp_serving(cfg)
+    mesh, sizes = policy.mesh, policy.sizes
+    if sizes.get("pod", 1) != 2:
+        raise ValueError(f"the disaggregated step runs on 2 pods, not "
+                         f"{sizes.get('pod', 1)}")
+    b = next(iter(batch.values())).shape[0]
+    session = hop_plan(cfg, policy, tc, b, max_seq).session(device=device)
+    plan = session.plan
+    pod = mesh.get_local_rank("pod")
+    tp = tensor_parallel(policy, cfg)
+    side = CL.CommStats()
+    if pod == plan.src_pod:
+        out = prefill_step(params, local_batch(batch, policy), cfg,
+                           max_seq=max_seq, kv_block=kv_block, tp=tp)
+        session.transfer_shard(out.state.cache)
+        link = CL.Link(mesh.get_group("pod"), out.first_token.device, side)
+        link.wait(link.isend(plan.dst_pod, [
+            CL.raw_unit(out.first_token), CL.raw_unit(out.state.cache_len)]))
+        return HopResult(pod=pod, session=session, side=side, tp=tp,
+                         prefill=out)
+    shard = session.transfer_shard(None)
+    dev = TR.leaves(shard)[0].device
+    rows = SH.local_shape((b,), policy.spec_for_activation("tokens", (b,)),
+                          sizes)
+    link = CL.Link(mesh.get_group("pod"), dev, side)
+    _, body = link.recv(plan.src_pod, 2)
+    first = body.raw(rows, torch.int32)
+    body.end_unit()
+    cache_len = body.raw(rows, torch.int32)
+    body.end_unit()
+    body.done()
+    state = DecodeState(cache=shard, cache_len=cache_len)
+    toks, st = decode_loop(params, first, state, cfg, num_steps, tp=tp,
+                           max_seq=max_seq, on_logits=on_logits)
+    return HopResult(pod=pod, session=session, side=side, tp=tp,
+                     received=shard, first_token=first, tokens=toks, state=st)
+
+
+def main(argv=None) -> None:
+    """One rank of a sharded serving run, launched with ``torchrun``::
+
+        torchrun --nproc-per-node 4 -m repro_torch.serving.sharded \\
+            --arch smollm-135m --reduced --device cpu --mesh 1,2,2
+        torchrun --nproc-per-node 4 -m repro_torch.serving.sharded \\
+            --arch smollm-135m --reduced --device cpu --mesh 2,1,2 \\
+            --variant xfer_chunked
+
+    ``--variant base`` runs :func:`serve` (the prefill and decode cells);
+    an ``xfer_*`` variant runs :func:`disaggregated_step` under a
+    ``pd_disaggregated`` policy on 2 pods.  Parameters and the prompt come
+    from ``--seed``.  Without ``--device`` each rank takes the card."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _join_group, parse_mesh
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.serving.sharded")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", required=True, help="N,D,M: pods, data, model")
+    ap.add_argument("--variant", default="base",
+                    help="base, or a dry-run transfer variant (xfer_raw, "
+                         "xfer_chunked, xfer_global, ...)")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="cache slots (default: twice the prompt)")
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--codec-backend", default=None,
+                    help="the hop's codec (default: cuda on the card, else "
+                         "torch)")
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    shape = parse_mesh(args.mesh)
+    device = resolve_device(_join_group(shape[0] * shape[1] * shape[2],
+                                        args.device))
+    xfer = args.variant != "base"
+    policy = SH.ShardingPolicy(make_mesh(shape, ("pod", "data", "model")),
+                               pd_disaggregated=xfer)
+    max_seq = args.max_seq or 2 * args.prompt_len
+    params = place_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), policy, device)
+    g = torch.Generator().manual_seed(args.seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (args.batch, args.prompt_len),
+                                     generator=g).to(device)}
+    coord = SH.coordinate(policy.mesh)
+    if xfer:
+        backend = args.codec_backend or ("cuda" if device.type == "cuda"
+                                         else "torch")
+        res = disaggregated_step(
+            params, batch, cfg, policy,
+            transfer_config(args.variant, backend=backend), max_seq=max_seq,
+            num_steps=args.new_tokens, device=device)
+        st = res.session.last_stats
+        raw = sum(x.numel() * x.element_size() for x in TR.leaves(
+            res.prefill.state.cache if res.pod == 0 else res.received))
+        print(f"rank {dist.get_rank()} {coord}: hop {raw} raw bytes, "
+              f"{st.wire_bytes:.0f} wire bytes (ratio "
+              f"{raw / max(st.wire_bytes, 1):.4f}), retry steps "
+              f"{st.n_retry_steps}", flush=True)
+        tokens = res.tokens
+    else:
+        tokens = serve(params, batch, cfg, policy, max_seq=max_seq,
+                       num_steps=args.new_tokens).tokens
+    if tokens is not None and coord["model"] == 0:
+        print(f"rank {dist.get_rank()} {coord}: tokens {tokens.tolist()}",
+              flush=True)
+    dist.barrier()   # no rank tears its connections down under a peer
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -100,19 +100,7 @@ def init_state(cfg: ArchConfig, generator: torch.Generator,
     leaf (each MoE layer) is drawn whole and cut to the rank's block at
     once, and the moments are made at the block's shape, so no rank holds
     the whole state."""
-    place = None
-    if policy is not None:
-        sizes = policy.sizes
-
-        def place(keys, x, layers=None):
-            shape = tuple(x.shape) if layers is None \
-                else (layers,) + tuple(x.shape)
-            spec = policy.spec_for_param("/".join(keys), shape)
-            if layers is not None:      # one layer of the stack
-                spec = spec[1:]
-            if not SH.splits(spec, sizes):
-                return x
-            return SH.shard_slice(x, spec, policy.mesh).clone()
+    place = SH.param_placer(policy) if policy is not None else None
     params = M.init_params(cfg, generator, device, place)
     return TrainState(params=params, opt=OPT.init(params))
 

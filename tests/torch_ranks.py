@@ -990,3 +990,270 @@ def _ep_case(ref_dir: Path, out_dir: Path, case: dict):
     np.savez(out_dir / f"{case['name']}.rank{dist.get_rank()}.npz",
              **{f"route/{j}": r for j, r in enumerate(routes)})
     return out, arrays
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: prefill and decode under the policy, the shard hop
+# ---------------------------------------------------------------------------
+
+def _np_params(ref) -> dict:
+    """The nested numpy parameter tree of a reference ``.npz``
+    (``params/<a>/<b>`` keys; bf16 leaves as their uint16 bits)."""
+    tree: dict = {}
+    for k in ref.files:
+        if k.startswith("params/"):
+            node = tree
+            *path, leaf = k.split("/")[1:]
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = np.array(ref[k])
+    return tree
+
+
+def _stats_dict(stats) -> dict:
+    return json.loads(json.dumps(dataclasses.asdict(stats), default=str))
+
+
+def _bits_list(x: torch.Tensor) -> list:
+    return as_bits(x).reshape(-1).tolist()
+
+
+def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=()):
+    """The cases of ``tests/test_torch_serve_tp.py`` on this world: each a
+    serve case (prefill, teacher-forced ``serve_step``, greedy
+    ``decode_loop``) or a hop case (the disaggregated step and the
+    whole-cache hop); then the unit checks of the merge and the vocab
+    argmax.  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
+    argument list of ``cli`` through ``serving/sharded.py``'s ``main``
+    (which tears the group down itself, so each joins a new one), its
+    output in ``cli<i>_rank<r>.txt``."""
+    import contextlib
+    import io
+    import os
+    _init(rank, world, store)
+    try:
+        summary, arrays = {}, {}
+        for case in cases:
+            run = _serve_case if case["kind"] == "serve" else _hop_case
+            summary[case["name"]], got = run(Path(ref_dir), case)
+            arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
+        summary["units"] = _serve_units(rank)
+        summary["placed_draws"] = _placed_draws()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
+        dist.barrier()
+        if cli:
+            from repro_torch.serving import sharded as SV
+            os.environ["WORLD_SIZE"] = str(world)
+            for i, argv in enumerate(cli):
+                if i:
+                    _init(rank, world, f"{store}.{i}")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    SV.main(list(argv))
+                (Path(out_dir) / f"cli{i}_rank{rank}.txt").write_text(
+                    buf.getvalue())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve_setup(ref_dir: Path, case: dict):
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import kvcache as KC
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.serving import sharded as SV
+    ref = np.load(ref_dir / f"{case['ref']}.npz")
+    cfg = get_config(case["arch"]).reduced()
+    mesh = make_mesh(tuple(case["shape"]), ("pod", "data", "model"))
+    policy = SH.ShardingPolicy(mesh, pd_disaggregated=case.get("pd", False),
+                               attn_fallback=case.get("attn_fallback", "seq"))
+    params = params_from_jax(_np_params(ref), "cpu", policy=policy)
+    tokens = torch.from_numpy(np.array(ref["tokens"]))
+    b, s = tokens.shape
+    m = int(ref["max_seq"])
+    like_p = M.init_params(cfg, torch.Generator(), "meta")
+    like_c = KC.init_cache(cfg, b, m, device="meta")
+    tp = SV.tensor_parallel(policy, cfg)
+    rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
+        "tokens", (b,)), mesh)
+    out = {"coord": SH.coordinate(mesh), "case": tp.attention(s),
+           "rows": rows.tolist(), "vocab_split": tp.splits(cfg.vocab_size),
+           "cache_split": tp.splits(m), "tp_rank": tp.rank,
+           "tp_size": tp.size,
+           "held_params": _nbytes(params),
+           "spec_params": SH.held_bytes(like_p, policy.param_specs(like_p),
+                                        policy.sizes),
+           "spec_cache": SH.held_bytes(like_c, policy.cache_specs(like_c),
+                                       policy.sizes),
+           "init_cache": _nbytes(KC.init_cache(cfg, b, m, policy=policy)),
+           "split_over_model": sum(
+               "model" in SH.entry_axes(e) for sp in SH.leaf_specs(
+                   policy.param_specs(like_p), like_p) for e in sp)}
+    return ref, cfg, policy, params, tokens, m, tp, out
+
+
+def _serve_case(ref_dir: Path, case: dict):
+    """One serve case: the rank's prefill, ``STEPS`` teacher-forced
+    ``serve_step``s on the JAX run's tokens, and ``decode_loop``'s greedy
+    tokens; the rank's last logits, step logits and cache blocks after the
+    prefill and after the steps, as arrays."""
+    from repro_torch.serving import sharded as SV
+    from repro_torch.serving.decode import serve_step
+    from repro_torch.serving.prefill import prefill_step
+    ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
+    rows = out["rows"]
+    pre = prefill_step(params, SV.local_batch({"tokens": tokens}, policy),
+                       cfg, max_seq=m, kv_block=4, tp=tp)
+    out["prefill_bytes"] = tp.fwd.sent_bytes
+    out["held_cache"] = _nbytes(pre.state.cache)
+    out["first_token"] = pre.first_token.tolist()
+    arrays = {"last_logits": pre.last_logits.float().numpy(),
+              "k": as_bits(pre.state.cache["k"]),
+              "v": as_bits(pre.state.cache["v"])}
+    st = type(pre.state)(cache={k: v.clone() for k, v in pre.state.cache.items()},
+                         cache_len=pre.state.cache_len)
+    feed = np.array(ref["step_inputs"])
+    logits = []
+    for i in range(feed.shape[0]):
+        lg, st = serve_step(params, torch.from_numpy(feed[i][rows])[:, None],
+                            st, cfg, tp=tp, max_seq=m)
+        logits.append(lg.float().numpy())
+    arrays["step_logits"] = np.stack(logits)
+    arrays["k_after"] = as_bits(st.cache["k"])
+    arrays["v_after"] = as_bits(st.cache["v"])
+    res = SV.serve(params, {"tokens": tokens}, cfg, policy, max_seq=m,
+                   num_steps=feed.shape[0], kv_block=4)
+    out["greedy"] = res.tokens.tolist()
+    out["greedy_first"] = res.prefill.first_token.tolist()
+    return out, arrays
+
+
+def _hop_case(ref_dir: Path, case: dict):
+    """One hop case on a (2, data, model) ``pd_disaggregated`` world: the
+    disaggregated step (pod 0 prefills and ships its own shards, pod 1
+    decodes ``STEPS`` greedy tokens from them, each step's logits kept),
+    then the same plan's whole-cache hop of pod 0's gathered cache.  Per
+    rank: the shards' hash (sent or received, each way), both hops'
+    ``TransferStats``, the first token, the tokens."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.serving import sharded as SV
+    ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
+    tc = SV.transfer_config(case["variant"])
+    b = tokens.shape[0]
+    steps = np.array(ref["step_inputs"]).shape[0]
+    logits = []
+    res = SV.disaggregated_step(params, {"tokens": tokens}, cfg, policy, tc,
+                                max_seq=m, num_steps=steps, kv_block=4,
+                                device="cpu",
+                                on_logits=lambda i, lg: logits.append(
+                                    lg.float().numpy()))
+    out["pod"] = res.pod
+    out["stats"] = _stats_dict(res.session.last_stats)
+    out["side_bytes"] = res.side.sent_bytes + res.side.recv_bytes
+    whole_sess = SV.hop_plan(cfg, policy, tc, b, m).session(device="cpu")
+    arrays = {}
+    if res.pod == 0:
+        blocks = res.prefill.state.cache
+        out["sha"] = _sha(blocks)
+        out["first_token"] = res.prefill.first_token.tolist()
+        out["held_cache"] = _nbytes(blocks)
+        # the whole cache only to drive the whole-cache path: gathered over
+        # pod 0's (data, model) ranks
+        whole = SH.gather_tree(blocks, policy.cache_specs(
+            SV.cache_like(cfg, b, m)), policy.mesh)
+        whole_sess.transfer(whole, select_dst=False)
+        arrays["last_logits"] = res.prefill.last_logits.float().numpy()
+    else:
+        out["sha"] = _sha(res.received)
+        out["held_cache"] = _nbytes(res.received)
+        out["first_token"] = res.first_token.tolist()
+        out["tokens"] = res.tokens.tolist()
+        got = whole_sess.transfer(None, select_dst=False)
+        out["whole_sha"] = _sha(got)
+        arrays["step_logits"] = np.stack(logits)
+    out["whole_stats"] = _stats_dict(whole_sess.last_stats)
+    return out, arrays
+
+
+def _serve_units(rank: int) -> dict:
+    """The merge of partial attention against whole-key attention, and the
+    vocab-parallel argmax with forced ties, on this world's model axis
+    (the whole world as one ``model`` group)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import tensor_parallel as TPM
+    from repro_torch.models import layers as L
+    world = dist.get_world_size()
+    cfg = get_config("smollm-135m").reduced()
+    tp = TPM.TensorParallel(dist.group.WORLD, cfg)
+    g = torch.Generator().manual_seed(11)
+    b, h, d, s = 3, 4, 8, 6 * world
+    q = torch.randn((b, 1, h, d), generator=g).to(torch.bfloat16)
+    k = torch.randn((b, s, 2, d), generator=g).to(torch.bfloat16)
+    v = torch.randn((b, s, 2, d), generator=g).to(torch.bfloat16)
+    n = torch.tensor([1, s // 2 + 1, s], dtype=torch.int32)  # row 0: rank 0 only
+    qg = q.reshape(b, 1, 2, 2, d).permute(0, 2, 3, 1, 4).float()
+
+    def scores(blk):
+        sc = torch.matmul(qg, k[:, blk].permute(0, 2, 1, 3).float()[:, :, None]
+                          .transpose(-1, -2)) / np.sqrt(d)
+        pos = torch.arange(blk.start, blk.stop)
+        return torch.where((pos[None, :] < n[:, None])[:, None, None, None, :],
+                           sc, torch.tensor(L.NEG_INF))
+
+    def values(blk):
+        return v[:, blk].permute(0, 2, 1, 3).float()[:, :, None]
+    # whole-key attention in f32 (p unrounded, as the partials keep it)
+    whole = torch.matmul(torch.softmax(scores(slice(0, s)), -1),
+                         values(slice(0, s)))
+    blk = slice(rank * 6, (rank + 1) * 6)
+    sc = scores(blk)
+    mx = sc.amax(-1)
+    p = torch.exp(sc - mx[..., None])
+    merged = TPM.merge_partials(mx, p.sum(-1), torch.matmul(p, values(blk)), tp)
+    # vocab argmax: each rank 5 columns; row 0 ties across every rank (the
+    # first rank's first column wins), row 1 ties inside the last rank,
+    # row 2 a single largest value on rank 1's last column
+    vr = 5
+    lg = torch.zeros((3, vr), dtype=torch.float32)
+    lg[0, 2] = 7.0
+    lg[0, 0] = 7.0 if rank == 0 else 3.0
+    if rank == world - 1:
+        lg[1, 1] = lg[1, 3] = 9.0
+    if rank == 1:
+        lg[2, 4] = 2.5
+    got = TPM.vocab_argmax(lg, tp)
+    parts = [torch.empty_like(lg) for _ in range(world)]
+    dist.all_gather(parts, lg)
+    whole_lg = torch.cat(parts, dim=-1)
+    return {"merge_max_abs": float((merged - whole).abs().max()),
+            "argmax": got.tolist(),
+            "argmax_whole": torch.argmax(whole_lg, dim=-1).tolist()}
+
+
+def _placed_draws() -> dict:
+    """The port's own draws carried through ``params_from_jax(policy=)``
+    against ``init_params(place=)`` under the same policy (the world as
+    (1, 1, world) and, where it divides, (1, 2, world / 2))."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.serving import sharded as SV
+    world = dist.get_world_size()
+    cfg = get_config("smollm-135m").reduced()
+    whole = M.init_params(cfg, torch.Generator().manual_seed(5))
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else as_bits(v).view(np.uint16)
+                if v.dtype == torch.bfloat16 else v.numpy() for k, v in tree.items()}
+    np_whole = conv(whole)
+    out = {}
+    shapes = [(1, 1, world)] + ([(1, 2, world // 2)] if world % 2 == 0 else [])
+    for shape in shapes:
+        policy = SH.ShardingPolicy(make_mesh(shape, ("pod", "data", "model")))
+        placed = SV.place_params(cfg, torch.Generator().manual_seed(5), policy)
+        carried = params_from_jax(np_whole, "cpu", policy=policy)
+        out["x".join(map(str, shape))] = _sha(placed) == _sha(carried)
+    return out
