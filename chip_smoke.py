@@ -218,8 +218,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               gloo beside ``cross_pod_wire_bytes``, leaves routed raw.  No
               train window launches the flash kernel.
 8j. shard   — the sharding policy and the sharded train step
-              (``make_run(policy=)``) at smollm-135m's full width, batch
-              8 x 2048, ranks spawned over gloo on the one card.  (a) Mesh
+              (``make_run(policy=)``) at smollm-135m's full width cut to
+              6 layers (``SHARD_LAYERS``), batch 8 x 2048, ranks spawned
+              over gloo on the one card.  (a) Mesh
               (pod 1, data 2, model 1), 2 steps with ``fsdp`` on and off:
               the gathered parameters and moments bitwise equal across
               ranks and between the two runs, each rank's held bytes
@@ -236,16 +237,17 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               encode and decode must launch on rank 0), the four ranks'
               gathered parameters bitwise equal.  (c) The
               ``pd_disaggregated`` policy's ``cache_specs`` on (pod 2,
-              data 2) drive smollm's served cache pod 0 -> 1: every
+              data 2) drive that model's served cache pod 0 -> 1: every
               destination shard bitwise the one its source sent; bytes
               each rank hands to gloo.
 8k. tp      — tensor-parallel training over the model axis
               (``distributed/tensor_parallel.py``) at smollm-135m's full
-              width, batch 4 x 2048, 2 steps, ranks spawned over gloo on
-              the one card.  (a) Mesh (pod 1, data 1, model 3): 9 / 3
-              heads split (attention case ``heads``), every split leaf a
-              third a rank; (b) mesh (1, 2, 2) with FSDP: 9 heads do not
-              split over 2, the ``seq`` fallback.  Gates: the ranks'
+              width cut to 6 layers (``SHARD_LAYERS``), batch 4 x 2048, 2
+              steps, ranks spawned over gloo on the one card.  (a) Mesh
+              (pod 1, data 1, model 3): 9 / 3 heads split (attention
+              case ``heads``), every split leaf a third a rank; (b) mesh
+              (1, 2, 2) with FSDP: 9 heads do not split over 2, the
+              ``seq`` fallback.  Gates: the ranks'
               gathered states bitwise equal, each leaf replicated over
               model bitwise equal across the model ranks, held bytes
               equal to the spec arithmetic, no parameter gathered over
@@ -261,9 +263,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               full width (d_model 2048, 32 / 4 heads x 128, 128 experts
               top-8, d_ff_expert 768, vocab 151,936, capacity factor
               1.25) cut to 2 layers, batch 2 x 2048 (capacity 320 a
-              layer), 2 steps through ``make_run(policy=)``, ranks
-              spawned over gloo.  The single-process step runs first, in
-              this process, and saves its state after each step as bf16
+              layer), one step (``EP_STEPS``) through
+              ``make_run(policy=)``, ranks spawned over gloo.  The
+              single-process step runs first, in this process, and saves
+              its state after each step as bf16
               under ``build/`` (removed after the phase); each rank maps
               it and reads its blocks, so the 18.7 GB state crosses
               neither gloo nor the ranks' share of the card.  (a) Mesh
@@ -314,7 +317,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8n. serve_tp — sharded serving of the dense family
               (``serving/sharded.py``): qwen3-32b at full width (5120, 64
               / 8 heads x 128, d_ff 25,600, vocab 151,936, untied) cut to
-              8 layers, batch 2, prompt 2048, max_seq 4096, 16 decoded
+              4 layers, batch 2, prompt 2048, max_seq 4096, 16 decoded
               tokens, each rank drawing its block of the seeded
               parameters in turn.  (a) mesh (2, 1, 2) under
               ``pd_disaggregated``, the dry-run's ``xfer_chunked``: pod 0
@@ -339,6 +342,28 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               witness's distance.  Per rank: prefill and decode-step ms
               (host clock), held and received bytes, the hop's wire
               bytes and ratio, peak memory.
+8o. serve_tp_families — sharded serving of MLA and of MoE under
+              expert parallelism, phase ``serve_tp``'s worlds, machinery
+              and gates, each world's ranks spawned once for both
+              families: minicpm3-4b at full width (2560, 40 heads, MLA
+              ranks 768 / 256, nope / rope / v 64 / 32 / 64, d_ff 6400,
+              vocab 73,448) cut to 8 layers, whose latent cache
+              (``ckv``, ``krope``) splits its 4096 slots over model and
+              whose decode is the absorbed form over a rank's span
+              (``mla.mla_decode_tp``); then qwen3-moe-30b-a3b at full
+              width (2048, 32 / 4 heads x 128, 128 experts top-8, expert
+              d_ff 768, vocab 151,936) cut to 2 layers, 64 experts a
+              rank, routed over the data axis
+              (``serving/sharded.expert_parallel``).  The replay of a MoE
+              is routed as the ranks recorded (a world's prefill as its
+              prefill ranks, each decode rank's steps as it did), so the
+              logits gates read the sharding's round-off, not routing
+              flips.  Gates as ``serve_tp``'s, and the decoded tokens equal
+              the replay's greedy choice (MoE: where its top logit leads
+              by 1e-2).  A line a rank and family: prefill and
+              decode-step ms, ``tp.fwd`` and the expert-parallel bytes
+              and ms, the hops' raw and wire bytes, ratio and retry steps,
+              held bytes, peak GB.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -386,11 +411,12 @@ flash launch), the expert-parallel steps on rank 0 (phase 8l,
 ``ep_heads``, ``ep_fsdp``: no flash or codec launch), the recurrent
 families' tensor-parallel steps on rank 0 (phase 8m, ``tpr_ssm``,
 ``tpr_hybrid``: no flash or codec launch), each sharded serving rank's
-prefill, decode and hops (phase 8n, ``serve_tp_*``), and the served
-prefills of
-phases 3, 7, 8a, 8c, 8d, 8f, 8n's base rank 0 and 9
+prefill, decode and hops (phase 8n, ``serve_tp_*``; phase 8o,
+``serve_fam_mla_*``, ``serve_fam_moe_*``), and the served prefills of
+phases 3, 7, 8a, 8c, 8d, 8f, 8n's and 8o's base rank 0 and 9
 (``flash_attention``: one launch per attention layer, 30 + 62 + 32 + 12 +
-40 + 48 + 8 + 48, every one on the tensor-core path, or the run fails);
+40 + 48 + 4 + 8 + 2 + 48, every one on the tensor-core path, or the run
+fails);
 the checks around those runs are not counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
@@ -2483,13 +2509,17 @@ def run_ranks(body: str, world: int, *args):
     """``world`` processes of ``body(torch, rank, device, *args)`` over gloo
     on the one card (the kernels are built before, by the parent).  Each
     rank's dict comes back through a queue; a rank that raises, or a world
-    still running after ``RANK_TIMEOUT_S``, fails the phase."""
+    still running after ``RANK_TIMEOUT_S``, fails the phase.  The ranks
+    fork from a server that imported torch once (``forkserver``; it never
+    touches CUDA): a spawned rank imports torch itself, 8-10 s a world on
+    the card's host, a forked one starts in under a second."""
     import torch.multiprocessing as mp
-    q = mp.get_context("spawn").SimpleQueue()
+    mp.set_forkserver_preload(["torch", "torch.distributed"])
+    q = mp.get_context("forkserver").SimpleQueue()
     procs = mp.start_processes(
         _rank_main, args=(world, f"tcp://localhost:{_free_port()}", body, q,
                           args),
-        nprocs=world, join=False, start_method="spawn")
+        nprocs=world, join=False, start_method="forkserver")
     results = {}
     deadline = time.monotonic() + RANK_TIMEOUT_S
     while True:
@@ -3224,6 +3254,11 @@ def phase_train(torch, smi):
 # ---------------------------------------------------------------------------
 
 SHARD_STEPS = 2
+#: phases shard and tp train smollm-135m at full width cut to this depth
+#: (at 30 layers they took 98 and 110 s of a 1092-s run of this script on
+#: an H100 80GB HBM3 at 700 W; the layers repeat, so the gates read the
+#: same arithmetic)
+SHARD_LAYERS = 6
 SHARD_FSDP_MESH, SHARD_RING_MESH = (1, 2, 1), (2, 2, 1)
 MESH_AXES = ("pod", "data", "model")
 # the sharded step against the single-process one, the bounds of
@@ -3241,7 +3276,7 @@ def _sha_tree(torch, tree) -> str:
     sha = hashlib.sha256()
     for x in TR.leaves(tree):
         sha.update(x.contiguous().view(width[x.element_size()]).cpu()
-                   .numpy().tobytes())
+                   .numpy().reshape(-1))
     return sha.hexdigest()
 
 
@@ -3288,7 +3323,8 @@ def _sharded_steps(torch, step_at, state, n_steps):
 
 def shard_fsdp_rank(torch, rank, device):
     """Phase ``shard`` (a): 2 ranks on mesh (pod 1, data 2, model 1),
-    smollm-135m at full width, batch 8 x 2048 (4 sequences a rank),
+    smollm-135m at full width cut to ``SHARD_LAYERS`` layers, batch 8 x
+    2048 (4 sequences a rank),
     ``SHARD_STEPS`` steps through ``make_run(policy=)``, with ``fsdp`` on
     and off.  Each run: the bytes this rank holds against the spec
     arithmetic, peak memory, step ms, the gather / reduce traffic, the
@@ -3297,7 +3333,6 @@ def shard_fsdp_rank(torch, rank, device):
     within the bounds of ``tests/test_torch_shard_train.py``."""
     import warnings
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core import tree as TR
     from repro_torch.distributed.sharding import ShardingPolicy
     from repro_torch.launch import train as LT
@@ -3305,7 +3340,7 @@ def shard_fsdp_rank(torch, rank, device):
     from repro_torch.training import train_step as TS
 
     _deterministic(torch)
-    cfg = get_config(ARCH)
+    cfg = _depth_cut(ARCH, SHARD_LAYERS)
     mesh = make_mesh(SHARD_FSDP_MESH, MESH_AXES)
     like = TS.abstract_state(cfg)
     out, keep = {"rank": rank, "runs": {}}, None
@@ -3410,18 +3445,18 @@ def _against_single(torch, cfg, sharded, steps, batch=TRAIN_BATCH):
 
 def shard_mesh_rank(torch, rank, device, grad_book):
     """Phase ``shard`` (b) and (c), 4 ranks on mesh (pod 2, data 2, model
-    1).  (b) One step of smollm-135m at full width, batch 8 x 2048 (2
-    sequences a rank), ``fsdp=True`` and ``grad_compress`` under the
-    gradient codebook phase ``train`` calibrates: the data-reduced shards
-    cross pods through the compressed ring (window ``shard_ring``, counted
-    in the rank).  (c) The ``pd_disaggregated`` policy's ``cache_specs``
-    drive smollm's served cache (B 8 x 2048, prefilled on both pod-0
+    1).  (b) One step of smollm-135m at full width cut to
+    ``SHARD_LAYERS`` layers, batch 8 x 2048 (2 sequences a rank),
+    ``fsdp=True`` and ``grad_compress`` under the gradient codebook
+    phase ``train`` calibrates: the data-reduced shards cross pods
+    through the compressed ring (window ``shard_ring``, counted in the
+    rank).  (c) The ``pd_disaggregated`` policy's ``cache_specs``
+    drive that model's served cache (B 8 x 2048, prefilled on both pod-0
     ranks) pod 0 -> 1: each source sends its data shard, each destination
     receives the shard of its data coordinate (windows ``shard_hop_src``
     / ``shard_hop_dst``); the shards' hashes come back to the parent."""
     import torch.distributed as dist
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core import tree as TR
     from repro_torch.core.codebook import Codebook
     from repro_torch.distributed import sharding as SH
@@ -3436,7 +3471,7 @@ def shard_mesh_rank(torch, rank, device, grad_book):
     from repro_torch.training import train_step as TS
 
     _deterministic(torch)
-    cfg = get_config(ARCH)
+    cfg = _depth_cut(ARCH, SHARD_LAYERS)
     mesh = make_mesh(SHARD_RING_MESH, MESH_AXES)
     pod, data = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
     out = {"rank": rank, "pod": pod, "data": data}
@@ -3566,7 +3601,8 @@ def phase_shard(torch, smi, grad_book):
     if any(flash.values()):
         raise AssertionError(f"shard: the flash kernel launched in a train "
                              f"window: {flash}")
-    emit(phase="shard", nvidia_smi=smi, arch=ARCH, batch=TRAIN_BATCH,
+    emit(phase="shard", nvidia_smi=smi, arch=ARCH, layers=SHARD_LAYERS,
+         batch=TRAIN_BATCH,
          seq=TRAIN_SEQ, lr=TRAIN_LR, transport="gloo",
          fsdp=dict(mesh=list(SHARD_FSDP_MESH), steps=SHARD_STEPS, ranks=a,
                    bitwise_on_off=True),
@@ -3590,7 +3626,8 @@ TP_HEADS_MESH, TP_SEQ_MESH = (1, 1, 3), (1, 2, 2)
 
 
 def tp_rank(torch, rank, device, shape, fsdp):
-    """Phase ``tp``: smollm-135m at full width on mesh ``shape``, batch
+    """Phase ``tp``: smollm-135m at full width cut to ``SHARD_LAYERS``
+    layers on mesh ``shape``, batch
     ``TP_BATCH`` x 2048, ``TP_STEPS`` steps through ``make_run(policy=)``
     (``fsdp`` on the data axis).  (a) (1, 1, 3): 9 / 3 heads split over 3
     model ranks (attention case ``heads``); (b) (1, 2, 2): 9 heads do not
@@ -3605,7 +3642,6 @@ def tp_rank(torch, rank, device, shape, fsdp):
     to it within the ``SHARD_*`` bounds."""
     import warnings
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core import tree as TR
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import tensor_parallel as TP
@@ -3615,7 +3651,7 @@ def tp_rank(torch, rank, device, shape, fsdp):
     from repro_torch.training import train_step as TS
 
     _deterministic(torch)
-    cfg = get_config(ARCH)
+    cfg = _depth_cut(ARCH, SHARD_LAYERS)
     mesh = make_mesh(shape, MESH_AXES)
     policy = SH.ShardingPolicy(mesh, fsdp=fsdp)
     like = TS.abstract_state(cfg)
@@ -3704,7 +3740,8 @@ def phase_tp(torch, smi):
     b = run_ranks("tp_rank", math.prod(TP_SEQ_MESH), TP_SEQ_MESH, True)
     b_s = time.perf_counter() - t0 - a_s
     _tp_gates("seq", b, "seq")
-    emit(phase="tp", nvidia_smi=smi, arch=ARCH, batch=TP_BATCH,
+    emit(phase="tp", nvidia_smi=smi, arch=ARCH, layers=SHARD_LAYERS,
+         batch=TP_BATCH,
          seq=TRAIN_SEQ, lr=TRAIN_LR, steps=TP_STEPS, transport="gloo",
          heads=dict(mesh=list(TP_HEADS_MESH), fsdp=False, ranks=a),
          seq_fallback=dict(mesh=list(TP_SEQ_MESH), fsdp=True, ranks=b),
@@ -3718,7 +3755,8 @@ def phase_tp(torch, smi):
 # phase ep: MoE training under the model and data axes across ranks
 # ---------------------------------------------------------------------------
 
-EP_LAYERS, EP_BATCH, EP_STEPS = 2, 2, 2
+#: one step (two took 133 s of the 1092-s run above)
+EP_LAYERS, EP_BATCH, EP_STEPS = 2, 2, 1
 EP_HEADS_MESH, EP_FSDP_MESH = (1, 1, 2), (1, 2, 2)
 
 
@@ -4347,10 +4385,12 @@ def lr_witness(torch, smi):
 
 
 # ---------------------------------------------------------------------------
-# phase serve_tp: sharded serving of the dense family across ranks
+# phases serve_tp, serve_tp_families: sharded serving across ranks
 # ---------------------------------------------------------------------------
 
-SERVE_TP_ARCH, SERVE_TP_LAYERS = "qwen3-32b", 8
+#: qwen3-32b cut to 4 layers (8 took 75 s of the 1092-s run above, with
+#: phase serve_tp_families after it)
+SERVE_TP_ARCH, SERVE_TP_LAYERS = "qwen3-32b", 4
 SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_MAX_SEQ = 2, 2048, 4096
 SERVE_TP_STEPS, SERVE_TP_SEED = 16, 0
 #: world -> its mesh, whether pods are prefill and decode workers, and the
@@ -4365,15 +4405,31 @@ SERVE_TP_WORLDS = {
 #: products round elsewhere (the replay's witness), and the ranks are held
 #: within SERVE_TP_WITNESS times that distance where it is the larger
 SERVE_TP_ATOL, SERVE_TP_RTOL, SERVE_TP_WITNESS = 4e-2, 2e-2, 1.5
+#: phase serve_tp_families: each family's configuration at full width and
+#: the depth it is cut to, in the order each rank serves them
+SERVE_FAMILIES = {"mla": ("minicpm3-4b", 8), "moe": ("qwen3-moe-30b-a3b", 2)}
+#: phase serve_tp_families holds the decoded tokens equal to the replay's
+#: greedy choice where the replay's largest logit leads the next by at
+#: least this much and by twice the rank's largest logit distance from the
+#: replay (a lead round-off of that size cannot overturn)
+SERVE_FAM_MARGIN = 1e-2
 
 
 def serve_tp_config():
     """qwen3-32b at full width, cut in depth to ``SERVE_TP_LAYERS``."""
+    return _depth_cut(SERVE_TP_ARCH, SERVE_TP_LAYERS)
+
+
+def serve_family_config(fam):
+    """Phase ``serve_tp_families``' ``fam`` at full width, cut in depth."""
+    return _depth_cut(*SERVE_FAMILIES[fam])
+
+
+def _depth_cut(arch, layers):
     import dataclasses
 
     from repro_torch.configs.base import get_config
-    return dataclasses.replace(get_config(SERVE_TP_ARCH),
-                               num_layers=SERVE_TP_LAYERS)
+    return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
 def serve_tp_tokens(torch, cfg):
@@ -4392,32 +4448,108 @@ def _model_collectives(group, seen):
     from repro_torch.serving import collective as CL
     for name in ("all_to_all", "all_to_all_v", "all_gather"):
         orig = getattr(CL.Link, name)
+        if hasattr(orig, "seen_by"):
+            orig.seen_by = (group.group_name, seen)
+            continue
 
         def rec(self, x, *a, _orig=orig, **k):
-            if self.group.group_name == group.group_name:
+            name_, sink = rec.seen_by
+            if self.group.group_name == name_:
                 for t in (x if isinstance(x, (list, tuple)) else [x]):
                     if t.numel():
-                        seen.add(t.untyped_storage().data_ptr())
+                        sink.add(t.untyped_storage().data_ptr())
             return _orig(self, x, *a, **k)
+        rec.seen_by = (group.group_name, seen)
         setattr(CL.Link, name, rec)
+
+
+class _recorded_routes:
+    """Within: the MoE FFN's top-k choices, each call's (T, k) experts
+    (on the device), appended to ``calls`` in call order."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.orig = orig = MOE.top_k
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, k)
+            self.calls.append(idx)
+            return vals, idx
+        MOE.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.top_k = self.orig
+        return False
+
+
+class _forced_routes:
+    """Within: the MoE FFN routed to the given experts, one (T, k) tensor a
+    call in call order; the gates are the run's own probabilities there."""
+
+    def __init__(self, calls):
+        self.calls = list(calls)
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.orig = MOE.top_k
+
+        def top_k(probs, k):
+            idx = self.calls.pop(0).to(probs.device).long()
+            return probs.gather(-1, idx), idx
+        MOE.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.top_k = self.orig
+        if not exc[0] and self.calls:
+            raise AssertionError(f"{len(self.calls)} forced routes unused")
+        return False
 
 
 def serve_tp_rank(torch, rank, device, world, out_dir):
     """Phase ``serve_tp``, world ``world`` (``SERVE_TP_WORLDS``): qwen3-32b
-    at full width cut to ``SERVE_TP_LAYERS`` layers, each rank drawing its
-    block of the seeded parameters (``serving/sharded.place_params``).
-    ``xfer``: ``disaggregated_step`` (pod 0 prefills at model 2 and ships
-    each rank's own cache shard, pod 1 decodes ``SERVE_TP_STEPS`` tokens
-    from it), then an ``xfer_global`` hop of the same shards.  ``base``:
-    ``prefill_step(tp=)`` on the rank's row, then ``decode_loop(tp=)``.
-    Each main-path run counted alone.  Per rank: its coordinate and
-    attention case, held bytes against the spec arithmetic (parameters and
-    cache), the hashes of its parameters and of its leaves replicated over
-    ``model``, the storages it handed to collectives over ``model`` that
-    are a parameter's, launches, prefill and decode-step ms (host clock
-    around synchronized calls), the hop's stats, peak memory.  Its vocab
-    columns of the prefill and of every step's logits, the first token and
-    the tokens go to ``out_dir`` for the single-process replay."""
+    at full width cut to ``SERVE_TP_LAYERS`` layers (:func:`serve_world`)."""
+    return serve_world(torch, rank, device, serve_tp_config(), world, out_dir,
+                       world)
+
+
+def serve_families_rank(torch, rank, device, world, out_dir):
+    """Phase ``serve_tp_families``, world ``world``: each of
+    ``SERVE_FAMILIES`` served in turn by the same ranks
+    (:func:`serve_world`), each model freed before the next is drawn."""
+    out = {}
+    for fam in SERVE_FAMILIES:
+        out[fam] = serve_world(torch, rank, device, serve_family_config(fam),
+                               world, out_dir, f"{fam}_{world}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_world(torch, rank, device, cfg, world, out_dir, tag):
+    """One rank of one world (``SERVE_TP_WORLDS``) serving ``cfg``, each
+    rank drawing its block of the seeded parameters
+    (``serving/sharded.place_params``).  ``xfer``: ``disaggregated_step``
+    (pod 0 prefills at model 2 and ships each rank's own cache shard, pod
+    1 decodes ``SERVE_TP_STEPS`` tokens from it), then an ``xfer_global``
+    hop of the same shards.  ``base``: ``prefill_step(tp=, ep=)`` on the
+    rank's row, then ``decode_loop(tp=, ep=)``; a MoE's ``ep`` is
+    ``serving/sharded.expert_parallel``'s.  Each main-path run counted
+    alone.  Per rank: its coordinate and attention case, held bytes
+    against the spec arithmetic (parameters and cache), the hashes of its
+    parameters and of its leaves replicated over ``model``, the storages
+    it handed to collectives over ``model`` that are a parameter's,
+    launches, prefill and decode-step ms (host clock around synchronized
+    calls), the collectives over ``model`` (``tp.fwd``) and a MoE's
+    routing and expert-output collectives, the hop's stats, peak memory.
+    Its vocab columns of the prefill and of every step's logits, the first
+    token, the tokens and a MoE's top-k choices (call order) go to
+    ``out_dir`` as ``<tag>_rank<r>.pt`` for the single-process replay."""
     import torch.distributed as dist
 
     from repro_torch.core import tree as TR
@@ -4429,7 +4561,7 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
     from repro_torch.serving.decode import decode_loop
     from repro_torch.serving.prefill import prefill_step
 
-    cfg, w = serve_tp_config(), SERVE_TP_WORLDS[world]
+    w = SERVE_TP_WORLDS[world]
     b, m, steps = SERVE_TP_BATCH, SERVE_TP_MAX_SEQ, SERVE_TP_STEPS
     mesh = make_mesh(w["mesh"], MESH_AXES)
     policy = SH.ShardingPolicy(mesh, pd_disaggregated=w["pd"])
@@ -4439,7 +4571,8 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # the ranks draw in turns: a whole stacked leaf's f32 draw (4.2 GB for
-    # w_gate) on top of the blocks, four ranks at once, does not fit
+    # qwen3-32b's w_gate) on top of the blocks, four ranks at once, does
+    # not fit
     for turn in range(dist.get_world_size()):
         if turn == rank:
             params = SV.place_params(cfg, torch.Generator(
@@ -4453,7 +4586,8 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
     pspecs = SH.leaf_specs(policy.param_specs(like_p), like_p)
     nbytes = (lambda tree: sum(x.numel() * x.element_size()
                                for x in TR.leaves(tree)))
-    out = {"rank": rank, "coord": coord, "case": tp.attention(SERVE_TP_PROMPT),
+    out = {"rank": rank, "coord": coord, "arch": cfg.name,
+           "case": tp.attention(SERVE_TP_PROMPT),
            "held_params": nbytes(params),
            "spec_params": SH.held_bytes(like_p, policy.param_specs(like_p),
                                         policy.sizes),
@@ -4470,7 +4604,7 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
     tokens = serve_tp_tokens(torch, cfg).to(device)
     rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
         "tokens", (b,)), mesh).tolist()
-    logits, stamps = [], []
+    logits, stamps, routes = [], [], []
 
     def on_logits(i, lg):
         torch.cuda.synchronize()
@@ -4478,26 +4612,49 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
         logits.append(lg.float().cpu())
 
     saved = {"rows": rows}
+    ep = None
+    with _recorded_routes(routes):
+        if w["pd"]:
+            tc = SV.transfer_config(w["variant"], backend="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, launches = counted(lambda: SV.disaggregated_step(
+                params, {"tokens": tokens}, cfg, policy, tc, max_seq=m,
+                num_steps=steps, device=device, on_logits=on_logits))
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+            st, comm = res.session.last_stats, res.session.last_comm
+            tp, ep = res.tp, res.ep
+            out.update(pod=res.pod, launches=launches, window_ms=window_ms,
+                       hop=dict(ms=comm.seconds * 1e3, wire_bytes=st.wire_bytes,
+                                staging_ms=comm.staging_s * 1e3,
+                                wire_ms=comm.wire_s * 1e3,
+                                sent_bytes=comm.sent_bytes,
+                                recv_bytes=comm.recv_bytes,
+                                retry_steps=st.n_retry_steps,
+                                leaf_ok=st.leaf_ok),
+                       side_bytes=res.side.sent_bytes + res.side.recv_bytes)
+        else:
+            ep = SV.expert_parallel(policy, cfg, tp)
+            local = SV.local_batch({"tokens": tokens}, policy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre, launches = counted(lambda: prefill_step(
+                params, local, cfg, max_seq=m, tp=tp, ep=ep))
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["held_cache"] = nbytes(pre.state.cache)
+            saved.update(prefill=pre.last_logits.float().cpu(),
+                         first=pre.first_token.cpu())
+            (toks, _), dl = counted(lambda: decode_loop(
+                params, pre.first_token, pre.state, cfg, steps, tp=tp,
+                max_seq=m, on_logits=on_logits, ep=ep))
+            out["tokens"] = toks.tolist()
+            saved.update(steps=torch.stack(logits), tokens=toks.cpu())
+            out["launches"], out["decode_launches"] = launches, dl
+    if cfg.moe is not None:
+        saved["routes"] = [r.cpu() for r in routes]
     if w["pd"]:
-        tc = SV.transfer_config(w["variant"], backend="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res, launches = counted(lambda: SV.disaggregated_step(
-            params, {"tokens": tokens}, cfg, policy, tc, max_seq=m,
-            num_steps=steps, device=device, on_logits=on_logits))
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-        st, comm = res.session.last_stats, res.session.last_comm
-        tp = res.tp
-        out.update(pod=res.pod, launches=launches, window_ms=window_ms,
-                   hop=dict(ms=comm.seconds * 1e3, wire_bytes=st.wire_bytes,
-                            staging_ms=comm.staging_s * 1e3,
-                            wire_ms=comm.wire_s * 1e3,
-                            sent_bytes=comm.sent_bytes,
-                            recv_bytes=comm.recv_bytes,
-                            retry_steps=st.n_retry_steps,
-                            leaf_ok=st.leaf_ok),
-                   side_bytes=res.side.sent_bytes + res.side.recv_bytes)
         gtc = SV.transfer_config("xfer_global", backend="cuda")
         gsess = SV.hop_plan(cfg, policy, gtc, b, m).session(device=device)
         dist.barrier()   # both pods start the second hop together
@@ -4530,58 +4687,55 @@ def serve_tp_rank(torch, rank, device, world, out_dir):
                              wire_bytes=gst.wire_bytes,
                              retry_steps=gst.n_retry_steps,
                              leaf_ok=gst.leaf_ok, launches=glaunch)
-    else:
-        local = SV.local_batch({"tokens": tokens}, policy)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pre, launches = counted(lambda: prefill_step(
-            params, local, cfg, max_seq=m, tp=tp))
-        torch.cuda.synchronize()
-        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-        out["held_cache"] = nbytes(pre.state.cache)
-        saved.update(prefill=pre.last_logits.float().cpu(),
-                     first=pre.first_token.cpu())
-        (toks, _), dl = counted(lambda: decode_loop(
-            params, pre.first_token, pre.state, cfg, steps, tp=tp, max_seq=m,
-            on_logits=on_logits))
-        out["tokens"] = toks.tolist()
-        saved.update(steps=torch.stack(logits), tokens=toks.cpu())
-        out["launches"], out["decode_launches"] = launches, dl
     if len(stamps) > 1:
         out["decode_step_ms"] = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
     out["tp_fwd"] = dict(sent_bytes=tp.fwd.sent_bytes,
                          recv_bytes=tp.fwd.recv_bytes,
                          wire_ms=tp.fwd.wire_s * 1e3,
                          staging_ms=tp.fwd.staging_s * 1e3)
+    if ep is not None:
+        out["ep"] = {k: dict(recv_bytes=c.recv_bytes, sent_bytes=c.sent_bytes,
+                             wire_ms=c.wire_s * 1e3,
+                             staging_ms=c.staging_s * 1e3)
+                     for k, c in (("route", ep.fwd),
+                                  ("out_gather", ep.out_gather))}
+        out["ep"]["group_size"] = ep.size
+        out["ep"]["experts"] = [ep.experts.start, ep.experts.stop]
     ptrs = {x.untyped_storage().data_ptr() for x in TR.leaves(params)}
     out["param_storages_over_model"] = len(ptrs & seen)
     out["storages_over_model"] = len(seen)
     out["peak_gb"] = _peak_gb(torch)
     out["seconds"] = seconds
-    torch.save(saved, Path(out_dir) / f"{world}_rank{rank}.pt")
+    torch.save(saved, Path(out_dir) / f"{tag}_rank{rank}.pt")
     return out
 
 
-def serve_tp_replay(torch, device, worlds, out_dir):
-    """The single-process run the ranks are held to: the whole seeded
-    parameters, ``prefill_step`` on the whole batch, and for each decode
-    rank ``serve_step`` on the tokens it chose (teacher-forced); and the
-    round-off witness, the same run with every row product (``wo``,
-    ``w_down``) an f32 product rounded once, as the ranks' sums are,
-    unsplit.  Per world and rank: the largest excess of its vocab
-    columns' distance from the replay's over ``rtol |ref|``, prefill and
-    decode apart, the largest distance itself and its token agreement
-    with the replay's greedy choice; and the witness's excess over the
-    whole vocabulary, prefill and decode."""
+def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
+    """The single-process run the ranks of ``worlds`` (``world -> ranks``,
+    their files ``<tag_of(world)>_rank<r>.pt``) are held to: the whole
+    seeded parameters, ``prefill_step`` on the whole batch, and for each
+    decode rank ``serve_step`` on the tokens it chose (teacher-forced; the
+    model ranks of one (pod, data) coordinate share one replay where
+    their tokens agree); a MoE routed as the ranks recorded, each world's
+    prefill as its prefill ranks and each decode rank's steps as it did
+    (:class:`_forced_routes`); and the round-off witness, the same run
+    with every row product (``wo``, the SwiGLU's ``w_down``) an f32
+    product rounded once, as the ranks' sums are, unsplit.  Per world and
+    rank: the largest excess of its vocab columns' distance from the
+    replay's over ``rtol |ref|``, prefill and decode apart, the largest
+    distance itself, its tokens' agreement with the replay's greedy
+    choice, how many of them the replay's top logit leads by
+    ``SERVE_FAM_MARGIN`` and by twice that largest distance, how many of
+    those differ, and the replay's leads where they differ; and the
+    witness's excess over the whole vocabulary, prefill and decode."""
     from repro_torch.models import model as M
 
-    cfg = serve_tp_config()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
         SERVE_TP_SEED), device)
     saved = {(world, r["rank"]): (r, torch.load(
-        Path(out_dir) / f"{world}_rank{r['rank']}.pt"))
+        Path(out_dir) / f"{tag_of(world)}_rank{r['rank']}.pt"))
         for world, ranks in worlds.items() for r in ranks}
     ref = _replay_logits(torch, device, cfg, params, saved)
     with _f32_row_products():
@@ -4594,15 +4748,14 @@ def serve_tp_replay(torch, device, worlds, out_dir):
         d = (got - want).abs()
         return (d - SERVE_TP_RTOL * want.abs()).max().item(), d.max().item()
 
-    out = {"witness": {}}
-    out["witness"]["prefill_excess"], out["witness"]["prefill_max_abs"] = \
-        dist_(wit["prefill"], ref["prefill"])
-    steps = [k for k in ref if k != "prefill"]
-    out["witness"]["decode_excess"] = max(
-        dist_(wit[k], ref[k])[0] for k in steps)
-    out["witness"]["decode_max_abs"] = max(
-        dist_(wit[k], ref[k])[1] for k in steps)
-    v = ref["prefill"].shape[-1]
+    pre_keys = [k for k in ref if k[0] == "prefill"]
+    steps = [k for k in ref if k[0] != "prefill"]
+    out = {"witness": {
+        "prefill_excess": max(dist_(wit[k], ref[k])[0] for k in pre_keys),
+        "prefill_max_abs": max(dist_(wit[k], ref[k])[1] for k in pre_keys),
+        "decode_excess": max(dist_(wit[k], ref[k])[0] for k in steps),
+        "decode_max_abs": max(dist_(wit[k], ref[k])[1] for k in steps)}}
+    v = cfg.vocab_size
     for (world, rank), (r, sv) in saved.items():
         local = sv["prefill"] if "prefill" in sv else sv["steps"][0]
         n = local.shape[-1]
@@ -4611,87 +4764,169 @@ def serve_tp_replay(torch, device, worlds, out_dir):
         rec = {"rank": rank}
         if "prefill" in sv:
             rec["prefill_excess"], rec["prefill_max_abs"] = dist_(
-                sv["prefill"], ref["prefill"][sv["rows"]][:, cols])
+                sv["prefill"], ref[("prefill", world)][sv["rows"]][:, cols])
         if "steps" in sv:
-            lg = ref[(world, rank)]
+            lg = ref[_decode_key(world, r, sv)]
             rec["decode_excess"], rec["decode_max_abs"] = dist_(
                 sv["steps"], lg[..., cols])
-            rec["token_agreement"] = float(
-                (torch.argmax(lg, -1).T == sv["tokens"].long()).float().mean())
+            greedy = torch.argmax(lg, -1).T
+            same = greedy == sv["tokens"].long()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            lead = (top2[..., 0] - top2[..., 1]).T
+            held = lead >= max(SERVE_FAM_MARGIN, 2 * rec["decode_max_abs"])
+            rec["token_agreement"] = float(same.float().mean())
+            rec["tokens_held"] = int(held.sum())
+            rec["tokens_held_differ"] = int((held & ~same).sum())
+            rec["leads_of_differing"] = lead[~same].tolist()
         out.setdefault(world, []).append(rec)
     return out, seconds, peak
 
 
+def _decode_key(world, r, sv):
+    """The replay of a decode rank: one a (pod, data) coordinate and its
+    tokens."""
+    c = r["coord"]
+    return (world, c["pod"], c["data"], str(sv["tokens"].tolist()))
+
+
 class _f32_row_products:
     """Within: the single-process model's row products (``attention_out``'s
-    ``wo``, the SwiGLU's ``w_down``) as f32 products of the bf16 values
-    rounded once, the arithmetic of the ranks' ``row_product`` without the
-    split (the replay's round-off witness)."""
+    ``wo``, MLA's ``wo`` product, the SwiGLU's ``w_down``) as f32 products
+    of the bf16 values rounded once, the arithmetic of the ranks'
+    ``row_product`` without the split; and the decode steps' attention
+    as the ranks' merged partials compute it over one span (the
+    unnormalised ``p`` rounded to bf16, ``p . v`` or ``p . ckv`` in f32,
+    normalised and rounded once: ``layers.decode_attention_tp``'s and
+    ``mla.latent_partials``' arithmetic).  The replay's round-off
+    witness."""
 
     def __enter__(self):
+        import numpy as np
         import torch
         import torch.nn.functional as F
 
         from repro_torch.models import layers as L
-        self.saved = L.attention_out, L.mlp
-        out, mlp = self.saved
+        from repro_torch.models import mla as MLA
+        self.saved = (L.attention_out, L.mlp, MLA._heads_out,
+                      MLA.latent_attention, L.decode_attention)
+        out, mlp, _, _, _ = self.saved
 
         def attention_out(p, o, tp=None):
             if tp is not None:
                 return out(p, o, tp)
-            h, k, d = p["wo"].shape
+            return heads_out(o, p["wo"])
+
+        def heads_out(o, w):
+            h, k, d = w.shape
             return torch.matmul(o.reshape(*o.shape[:-2], h * k).float(),
-                                p["wo"].reshape(h * k, d).float()).to(o.dtype)
+                                w.reshape(h * k, d).float()).to(o.dtype)
 
         def swiglu(p, x, tp=None):
             if tp is not None:
                 return mlp(p, x, tp)
             a = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
             return torch.matmul(a.float(), p["w_down"].float()).to(x.dtype)
-        L.attention_out, L.mlp = attention_out, swiglu
+
+        def latent_attention(q_lat, q_rope, ckv, krope, n_valid, scale):
+            m, l, acc = MLA.latent_partials(q_lat, q_rope, ckv, krope, 0,
+                                            n_valid, scale)
+            return (acc / l[..., None]).to(ckv.dtype)
+
+        def decode_attention(q, k, v, cache_len, *, window=None, scale=None):
+            b, sq, h, d = q.shape
+            hkv, dv = k.shape[2], v.shape[-1]
+            qg = q.reshape(b, sq, hkv, h // hkv, d).permute(0, 2, 3, 1, 4).float()
+            sc = torch.matmul(qg, k.permute(0, 2, 1, 3).float()[:, :, None]
+                              .transpose(-1, -2))
+            sc = sc * scale if scale is not None else sc / np.sqrt(d)
+            pos = torch.arange(k.shape[1], device=q.device)
+            valid = pos[None, :] < cache_len[:, None]
+            if window is not None:
+                valid &= pos[None, :] >= cache_len[:, None] - window
+            sc = torch.where(valid[:, None, None, None, :], sc,
+                             torch.tensor(L.NEG_INF, device=q.device))
+            m = sc.amax(dim=-1)
+            pr = torch.exp(sc - m[..., None])
+            acc = torch.matmul(pr.to(v.dtype).float(),
+                               v.permute(0, 2, 1, 3).float()[:, :, None])
+            o = acc / pr.sum(dim=-1)[..., None]
+            return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+        (L.attention_out, L.mlp, MLA._heads_out, MLA.latent_attention,
+         L.decode_attention) = (attention_out, swiglu, heads_out,
+                                latent_attention, decode_attention)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import layers as L
-        L.attention_out, L.mlp = self.saved
+        from repro_torch.models import mla as MLA
+        (L.attention_out, L.mlp, MLA._heads_out, MLA.latent_attention,
+         L.decode_attention) = self.saved
         return False
 
 
 def _replay_logits(torch, device, cfg, params, saved):
-    """The single-process prefill's last logits (B, V) and, for each decode
-    rank, its teacher-forced steps' logits (steps, B_rank, V), f32 on the
-    host."""
+    """The single-process prefill's last logits (B, V) of each world
+    (``("prefill", world)``; one run for every world but a MoE's, routed
+    as each world's prefill ranks were) and, for each decode (pod, data)
+    coordinate (:func:`_decode_key`), its teacher-forced steps' logits
+    (steps, B_rank, V), f32 on the host."""
+    import contextlib
+
     from repro_torch.models.kvcache import DecodeState
     from repro_torch.serving.decode import serve_step
     from repro_torch.serving.prefill import prefill_step
 
-    pre = prefill_step(params, {"tokens": serve_tp_tokens(torch, cfg).to(device)},
-                       cfg, max_seq=SERVE_TP_MAX_SEQ)
-    out = {"prefill": pre.last_logits.float().cpu()}
-    for key, (_, sv) in saved.items():
-        if "steps" not in sv:
-            continue
-        rows = sv["rows"]
-        st = DecodeState(cache={k: x[:, rows].clone()
-                                for k, x in pre.state.cache.items()},
-                         cache_len=pre.state.cache_len[rows])
-        feed = torch.cat([sv["first"][:, None], sv["tokens"][:, :-1]],
-                         dim=1).to(device, torch.int32)
-        steps = []
-        for i in range(feed.shape[1]):
-            lg, st = serve_step(params, feed[:, i:i + 1], st, cfg)
-            steps.append(lg.float().cpu())
-        out[key] = torch.stack(steps)
-        del st
+    moe = cfg.moe is not None
+    tokens = serve_tp_tokens(torch, cfg).to(device)
+    out, pre = {}, None
+    for world in sorted({w for w, _ in saved}):
+        ranks = [(r, sv) for (w, _), (r, sv) in saved.items() if w == world]
+        if pre is None or moe:
+            forced = contextlib.nullcontext()
+            if moe:
+                heads = sorted(((r["coord"]["data"], sv) for r, sv in ranks
+                                if "prefill" in sv and r["coord"]["model"] == 0),
+                               key=lambda t: t[0])
+                forced = _forced_routes(
+                    [torch.cat([sv["routes"][i] for _, sv in heads])
+                     for i in range(cfg.num_layers)])
+            del pre
+            with forced:
+                pre = prefill_step(params, {"tokens": tokens}, cfg,
+                                   max_seq=SERVE_TP_MAX_SEQ)
+        out[("prefill", world)] = pre.last_logits.float().cpu()
+        for r, sv in ranks:
+            key = _decode_key(world, r, sv) if "steps" in sv else None
+            if key is None or key in out:
+                continue
+            rows = sv["rows"]
+            st = DecodeState(cache={k: x[:, rows].clone()
+                                    for k, x in pre.state.cache.items()},
+                             cache_len=pre.state.cache_len[rows])
+            feed = torch.cat([sv["first"][:, None], sv["tokens"][:, :-1]],
+                             dim=1).to(device, torch.int32)
+            forced = contextlib.nullcontext()
+            if moe:
+                n_pre = cfg.num_layers if "prefill" in sv else 0
+                forced = _forced_routes(sv["routes"][n_pre:])
+            steps = []
+            with forced:
+                for i in range(feed.shape[1]):
+                    lg, st = serve_step(params, feed[:, i:i + 1], st, cfg)
+                    steps.append(lg.float().cpu())
+            out[key] = torch.stack(steps)
+            del st
     del pre
     return out
 
 
-def _serve_tp_gates(world, ranks, replay):
-    """Phase ``serve_tp``'s gates on one world's ranks; returns the
-    numbers each gate read."""
+def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False):
+    """Sharded serving's gates on one world's ranks (``layers`` attention
+    layers; ``tokens``: the decoded tokens held equal to the replay's
+    greedy choice where its lead allows, :func:`serve_replay`); returns
+    the numbers each gate read."""
     w = SERVE_TP_WORLDS[world]
-    tag = f"serve_tp ({world})"
+    tag = f"{tag} ({world})"
     gates = {}
     for r in ranks:
         if r["case"] != "heads":
@@ -4731,7 +4966,7 @@ def _serve_tp_gates(world, ranks, replay):
     # decode
     for r in ranks:
         prefills = ("pod" not in r) or r["pod"] == 0
-        want = SERVE_TP_LAYERS if prefills else 0
+        want = layers if prefills else 0
         got = (r["launches"]["flash_attention"],
                r["launches"]["flash_attention_tc"])
         if got != (want, want) or r.get("decode_launches", {}).get(
@@ -4781,7 +5016,46 @@ def _serve_tp_gates(world, ranks, replay):
     gates["logits_excess"] = dict(worst=worst, allowed=allowed,
                                   within_cpu_bound=max(worst.values())
                                   <= SERVE_TP_ATOL)
+    if tokens:
+        decs = [rec for rec in replay[world] if "token_agreement" in rec]
+        bad = [rec for rec in decs if rec["tokens_held_differ"]]
+        if not decs or bad:
+            raise AssertionError(f"{tag}: decoded tokens differ from the "
+                                 f"replay's greedy choice where its lead is "
+                                 f"at least {SERVE_FAM_MARGIN} and twice the "
+                                 f"logits' distance: {bad}")
+        gates["tokens"] = {rec["rank"]: dict(
+            agreement=rec["token_agreement"], held=rec["tokens_held"])
+            for rec in decs}
     return gates
+
+
+def _serve_windows(prefix, worlds):
+    """Each rank's launch windows: ``<prefix>_xfer_src<m>`` / ``_dst<m>``,
+    ``<prefix>_global_*`` and ``<prefix>_base_prefill<r>`` /
+    ``_decode<r>``."""
+    windows = {}
+    for r in worlds["xfer"]:
+        side = "src" if r["pod"] == 0 else "dst"
+        windows[f"{prefix}_xfer_{side}{r['coord']['model']}"] = r["launches"]
+        windows[f"{prefix}_global_{side}{r['coord']['model']}"] = \
+            r["global"]["launches"]
+    for r in worlds["base"]:
+        windows[f"{prefix}_base_prefill{r['rank']}"] = r["launches"]
+        windows[f"{prefix}_base_decode{r['rank']}"] = r["decode_launches"]
+    return windows
+
+
+def _spawn_serving(body, out_dir):
+    """Each world of ``SERVE_TP_WORLDS`` spawned once for ``body``: its
+    ranks' dicts and the seconds it took."""
+    worlds, seconds = {}, {}
+    for world, w in SERVE_TP_WORLDS.items():
+        t0 = time.perf_counter()
+        worlds[world] = run_ranks(body, math.prod(w["mesh"]), world,
+                                  str(out_dir))
+        seconds[world] = time.perf_counter() - t0
+    return worlds, seconds
 
 
 def phase_serve_tp(torch, smi):
@@ -4791,21 +5065,17 @@ def phase_serve_tp(torch, smi):
     (ROOT / "build").mkdir(exist_ok=True)
     t_phase = time.perf_counter()
     out_dir = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
-    worlds, seconds = {}, {}
+    cfg = serve_tp_config()
     try:
-        for world, w in SERVE_TP_WORLDS.items():
-            t0 = time.perf_counter()
-            worlds[world] = run_ranks("serve_tp_rank", math.prod(w["mesh"]),
-                                      world, str(out_dir))
-            seconds[world] = time.perf_counter() - t0
-        replay, seconds["replay"], replay_peak = serve_tp_replay(
-            torch, device, worlds, out_dir)
+        worlds, seconds = _spawn_serving("serve_tp_rank", out_dir)
+        replay, seconds["replay"], replay_peak = serve_replay(
+            torch, device, cfg, worlds, out_dir, lambda world: world)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    gates = {world: _serve_tp_gates(world, ranks, replay)
+    gates = {world: _serve_tp_gates(world, ranks, replay, SERVE_TP_LAYERS,
+                                    "serve_tp")
              for world, ranks in worlds.items()}
-    cfg = serve_tp_config()
     emit(phase="serve_tp", nvidia_smi=smi, arch=cfg.name,
          layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
          kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -4817,16 +5087,79 @@ def phase_serve_tp(torch, smi):
          replay=replay, replay_peak_gb=replay_peak, gates=gates,
          bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL),
          seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
-    windows = {}
-    for r in worlds["xfer"]:
-        side = "src" if r["pod"] == 0 else "dst"
-        name = f"serve_tp_xfer_{side}{r['coord']['model']}"
-        windows[name] = r["launches"]
-        windows[f"serve_tp_global_{side}{r['coord']['model']}"] = \
-            r["global"]["launches"]
-    for r in worlds["base"]:
-        windows[f"serve_tp_base_prefill{r['rank']}"] = r["launches"]
-        windows[f"serve_tp_base_decode{r['rank']}"] = r["decode_launches"]
+    return _serve_windows("serve_tp", worlds)
+
+
+def phase_serve_tp_families(torch, smi):
+    """Sharded serving of MLA and of MoE under expert parallelism: each
+    world spawned once for both families (``serve_families_rank``), then
+    each family's single-process replay and gates; a line a rank and
+    family, then the phase's line."""
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="serve_fam_", dir=ROOT / "build"))
+    replays, windows, gates, seconds = {}, {}, {}, {}
+    try:
+        both, seconds = _spawn_serving("serve_families_rank", out_dir)
+        worlds = {fam: {world: [r[fam] for r in ranks]
+                        for world, ranks in both.items()}
+                  for fam in SERVE_FAMILIES}
+        for fam in SERVE_FAMILIES:
+            cfg = serve_family_config(fam)
+            replays[fam], seconds[f"replay_{fam}"], peak = serve_replay(
+                torch, device, cfg, worlds[fam], out_dir,
+                lambda world, fam=fam: f"{fam}_{world}")
+            replays[fam]["peak_gb"] = peak
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    failed = []
+    for fam in SERVE_FAMILIES:
+        cfg = serve_family_config(fam)
+        gates[fam] = {}
+        for world, ranks in worlds[fam].items():
+            try:
+                gates[fam][world] = _serve_tp_gates(
+                    world, ranks, replays[fam], cfg.num_layers,
+                    f"serve_tp_families {fam}", tokens=True)
+            except AssertionError as e:   # every gate read, then raised
+                gates[fam][world] = {"failed": str(e)}
+                failed.append(str(e))
+        windows.update(_serve_windows(f"serve_fam_{fam}", worlds[fam]))
+        for world, ranks in worlds[fam].items():
+            for r in ranks:
+                hop = r.get("hop")
+                emit(phase="serve_tp_families_rank", family=fam,
+                     arch=cfg.name, world=world, rank=r["rank"],
+                     coord=r["coord"], prefill_ms=r.get("prefill_ms"),
+                     decode_step_ms=r.get("decode_step_ms"),
+                     tp_fwd=r["tp_fwd"], ep=r.get("ep"),
+                     hop=None if hop is None else dict(
+                         raw_bytes=hop["raw_bytes"],
+                         wire_bytes=hop["wire_bytes"],
+                         ratio=hop["raw_bytes"] / max(hop["wire_bytes"], 1),
+                         retry_steps=hop["retry_steps"], ms=hop["ms"]),
+                     global_hop=r.get("global"),
+                     held=dict(params=r["held_params"],
+                               cache=r["held_cache"]),
+                     peak_gb=r["peak_gb"])
+    emit(phase="serve_tp_families", nvidia_smi=smi,
+         families={fam: dict(arch=serve_family_config(fam).name,
+                             layers=serve_family_config(fam).num_layers)
+                   for fam in SERVE_FAMILIES},
+         batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
+         max_seq=SERVE_TP_MAX_SEQ, steps=SERVE_TP_STEPS, transport="gloo",
+         worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"])
+                 for k, v in SERVE_TP_WORLDS.items()},
+         replay=replays, gates=gates,
+         bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
+                    witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
+         seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
+    if failed:
+        raise AssertionError("serve_tp_families: " + " | ".join(failed))
     return windows
 
 
@@ -4987,6 +5320,8 @@ def main(argv=None) -> int:
     windows.update(timed("ep", phase_ep, torch, smi))
     windows.update(timed("tp_recurrent", phase_tp_recurrent, torch, smi))
     windows.update(timed("serve_tp", phase_serve_tp, torch, smi))
+    windows.update(timed("serve_tp_families", phase_serve_tp_families, torch,
+                         smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -5008,7 +5343,10 @@ def main(argv=None) -> int:
                       "serve_tp_xfer_src1", "serve_tp_xfer_dst0",
                       "serve_tp_xfer_dst1", "serve_tp_global_src0",
                       "serve_tp_global_src1", "serve_tp_global_dst0",
-                      "serve_tp_global_dst1")
+                      "serve_tp_global_dst1") + tuple(
+        f"serve_fam_{fam}_{hop}_{side}{m}" for fam in SERVE_FAMILIES
+        for hop in ("xfer", "global") for side in ("src", "dst")
+        for m in (0, 1))
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
     records["paged_gqa_attention"]["launches_by_arch"] = {
@@ -5022,6 +5360,9 @@ def main(argv=None) -> int:
                        AUDIO_ARCH: ("audio", 48),
                        SERVE_TP_ARCH: ("serve_tp_base_prefill0",
                                        SERVE_TP_LAYERS)}
+    served_prefills.update({
+        f"{arch} (serve_tp_families)": (f"serve_fam_{fam}_base_prefill0", layers)
+        for fam, (arch, layers) in SERVE_FAMILIES.items()})
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "

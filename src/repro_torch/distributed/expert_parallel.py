@@ -48,6 +48,12 @@ router's gradient is whole on every model rank and does not.  Where
 on every model rank and the FFN runs replicated, with no model
 collective.
 
+Sharded serving (``serving/sharded.expert_parallel``) builds the same
+context once on every rank, routed over the policy's data axes (``ring``
+False; under ``pd_disaggregated`` the data ranks of one pod) and with
+``balance=False``: nothing is differentiated, so the balance loss's
+gathers are skipped and the FFN returns no aux loss.
+
 The model-axis collectives run on the step's
 :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`.  The
 routing collectives' bytes and host time go to the context's ``fwd``
@@ -103,10 +109,15 @@ class ExpertParallel:
     alone), the expert block this rank computes and, where ``model``
     splits the experts, the step's
     :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`
-    ``tp`` (``model``; else None)."""
+    ``tp`` (``model``; else None).  ``balance``: whether the FFN computes
+    the balance loss over the group's gathered statistics (training);
+    serving, which differentiates nothing, sets it False and the FFN skips
+    those gathers and returns no aux loss."""
 
-    def __init__(self, cfg: ArchConfig, group=None, tp=None):
+    def __init__(self, cfg: ArchConfig, group=None, tp=None,
+                 balance: bool = True):
         e = cfg.moe.num_experts
+        self.balance = balance
         self.group = group
         self.rank = dist.get_rank(group) if group is not None else 0
         self.size = dist.get_world_size(group) if group is not None else 1

@@ -64,16 +64,18 @@ products only; the replicated per-channel leaves it slices (``conv_w``,
 (:func:`partial_leaf`).  The hybrid's local attention is the GQA block
 with its window.
 
-Serving (the dense GQA family; ``serving/sharded.py``) runs the same
-context without autograd.  The policy's cache splits its sequence axis
-over ``model`` (``spec_for_cache``: a ``max_seq``-slot cache in blocks of
-``max_seq / model`` slots, every KV head, where ``max_seq`` divides; else
-replicated), which no attention case leaves on a rank:
-:func:`prefill_cache_block` moves the prefill's K and V there (an
-all-to-all of exactly the blocks that move, ``Link.all_to_all_v``, or a
-local slice), :func:`merge_partials` joins the ranks' partial softmaxes of
-a decode step over their key blocks, and :func:`vocab_argmax` takes the
-greedy token from a rank's vocab columns.
+Serving (the dense GQA, MLA and MoE families; ``serving/sharded.py``)
+runs the same context without autograd.  The policy's cache splits its
+sequence axis over ``model`` (``spec_for_cache``: a ``max_seq``-slot cache
+in blocks of ``max_seq / model`` slots, every KV head or the whole latent
+width, where ``max_seq`` divides; else replicated), which no attention
+case leaves on a rank: :func:`prefill_cache_block` moves the prefill's K
+and V there (an all-to-all of exactly the blocks that move,
+``Link.all_to_all_v``, or a local slice; MLA's latents are whole on every
+rank, a local slice), :func:`merge_partials` joins the ranks' partial
+softmaxes of a decode step over their key blocks (GQA's
+``layers.decode_attention_tp``, MLA's ``mla.mla_decode_tp``), and
+:func:`vocab_argmax` takes the greedy token from a rank's vocab columns.
 
 Each collective's bytes and host time go to the context's ``fwd`` (the
 forward pass, remat's recomputation included) or ``bwd`` ``CommStats``.
@@ -319,8 +321,9 @@ def _clip(s: slice, lo: int, hi: int) -> slice:
 def prefill_cache_block(x: torch.Tensor, case: str, tp: TensorParallel,
                         seq: int, max_seq: int) -> torch.Tensor:
     """This rank's block of a ``max_seq``-slot cache leaf, (B, |span|, Hkv,
-    hd) with zeros past the prompt's ``seq`` positions, from the K or V the
-    attention ``case`` left on the rank (``x``):
+    hd) or (B, |span|, r) with zeros past the prompt's ``seq`` positions,
+    from the K or V the attention ``case`` left on the rank, or an MLA
+    latent (``x``):
 
     * ``heads``: the rank's KV heads over all ``seq`` positions; each rank
       sends every other its heads at that rank's span (an all-to-all), the
@@ -329,21 +332,24 @@ def prefill_cache_block(x: torch.Tensor, case: str, tp: TensorParallel,
     * ``seq``: every head over the positions up to the end of the rank's
       query block.  A rank takes the positions of its span inside query
       block ``i`` from itself for ``i`` up to its own (it holds them) and
-      from rank ``i`` above it.
+      from rank ``i`` above it;
+    * a 3-D latent (MLA's ``c_kv`` / ``k_rope``, B, S, r) is whole on every
+      rank in every case: a local slice.
 
     The traffic (exactly the blocks that move) counts into ``tp.fwd``."""
     n = tp.size
     spans = [_clip(cache_span(tp, max_seq, r), 0, seq) for r in range(n)]
     mine = spans[tp.rank]
-    b, _, h, d = x.shape
-    if case in ("kv", "none"):
+    if x.dim() == 3 or case in ("kv", "none"):
         real = x[:, mine]
     elif case == "heads":
+        b, _, h, d = x.shape
         got = tp.link(False, x.device).all_to_all_v(
             [x[:, s].contiguous() for s in spans],
             [(b, mine.stop - mine.start, h, d)] * n)
         real = torch.cat(got, dim=2)
     elif case == "seq":
+        b, _, h, d = x.shape
         qb = seq // n
         part = [[_clip(spans[j], i * qb, (i + 1) * qb) for i in range(n)]
                 for j in range(n)]
@@ -358,7 +364,8 @@ def prefill_cache_block(x: torch.Tensor, case: str, tp: TensorParallel,
     else:
         raise ValueError(f"unknown attention case {case!r}")
     span = cache_span(tp, max_seq)
-    out = x.new_zeros((b, span.stop - span.start) + tuple(real.shape[2:]))
+    out = x.new_zeros((x.shape[0], span.stop - span.start)
+                      + tuple(real.shape[2:]))
     out[:, :real.shape[1]] = real
     return out
 

@@ -12,9 +12,12 @@ projection into the output, so a step costs O(S · kv_lora_rank) instead of
 re-expanding the whole cache.  Layouts and bf16 rounding points follow the
 JAX package: every einsum there is a bf16 x bf16 -> bf16 product here.
 
-Under tensor parallelism (``mla_prefill(tp=)``, training) the latents are
-whole on every rank and the heads split as the policy's ``mla_b`` /
-``heads_first`` specs say (:func:`_mla_prefill_tp`).
+Under tensor parallelism (``mla_prefill(tp=)``, training and serving's
+prefill) the latents are whole on every rank and the heads split as the
+policy's ``mla_b`` / ``heads_first`` specs say (:func:`_mla_prefill_tp`);
+serving's decode under ``tp`` (:func:`mla_decode_tp`) runs the absorbed
+form over a rank's span of the latent cache, whose positions split over
+``model`` as the policy's cache specs say.
 """
 
 from __future__ import annotations
@@ -97,6 +100,11 @@ def latent_kv(p, x, positions, cfg: MLAConfig, theta: float, tp=None):
     """(c_kv (B, S, kv_lora_rank), k_rope (B, S, rope)): the cache entries.
     Under ``tp`` a column-split ``wkv_a``'s product is gathered."""
     kv = _down(x, p["wkv_a"], cfg.kv_lora_rank + cfg.qk_rope_head_dim, tp)
+    return _kv_latents(p, kv, positions, cfg, theta)
+
+
+def _kv_latents(p, kv, positions, cfg: MLAConfig, theta: float):
+    """The cache entries of the whole ``wkv_a`` product ``kv``."""
     c_kv = rms_norm(kv[..., : cfg.kv_lora_rank], p["kv_norm"])
     k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
                         theta)[:, :, 0, :]
@@ -140,10 +148,11 @@ def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention through ``attention`` (prefill's, or
     ``chunked_attention`` in training); returns (out, (c_kv, k_rope))
-    latent cache.  Under ``tp`` (training: ``chunked_attention``) the
-    attention runs on this rank's shards: :func:`_mla_prefill_tp`."""
+    latent cache.  Under ``tp`` the attention runs on this rank's shards
+    (:func:`_mla_prefill_tp`), through the same ``attention``."""
     if tp is not None:
-        return _mla_prefill_tp(p, x, positions, cfg, theta, kv_block, tp)
+        return _mla_prefill_tp(p, x, positions, cfg, theta, kv_block, tp,
+                               attention)
     q_nope, q_rope = queries(p, x, positions, cfg, theta)
     c_kv, k_rope = latent_kv(p, x, positions, cfg, theta)
     k, v = _expand(p, c_kv, k_rope, cfg)
@@ -153,14 +162,16 @@ def mla_prefill(p, x, positions, cfg: MLAConfig, theta: float,
 
 
 def _mla_prefill_tp(p, x, positions, cfg: MLAConfig, theta: float,
-                    kv_block: int, tp):
+                    kv_block: int, tp, attention=chunked_attention):
     """MLA under tensor parallelism: the latents whole on every rank
     (``wq_a`` / ``wkv_a`` column-split products gathered), then the
     attention case (``tp.attention``; MLA's KV heads are its heads):
     ``heads``, the rank's heads of ``wq_b`` / ``wkv_b`` and rows of
     ``wo``, the parts summed; ``seq``, the replicated weights on the
-    rank's block of query positions over the keys up to its end, the
-    blocks gathered before ``wo``; ``none``, replicated."""
+    rank's block of query positions over the keys up to its end
+    (``q_offset``), the blocks gathered before ``wo``; ``none``,
+    replicated.  ``attention`` is training's ``chunked_attention`` or
+    serving's ``prefill_attention`` (the flash kernel on the card)."""
     s = x.shape[1]
     case = tp.attention(s)
     q_lat = q_latent(p, x, cfg, tp)
@@ -170,8 +181,8 @@ def _mla_prefill_tp(p, x, positions, cfg: MLAConfig, theta: float,
     rows = tp.block(s) if case == "seq" else slice(0, s)
     q_nope, q_rope = _q_heads(p, q_lat[:, rows], positions[:, rows], cfg, theta)
     k, v = _expand(p, c_kv[:, :rows.stop], k_rope[:, :rows.stop], cfg)
-    o = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                          causal=True, q_offset=rows.start, kv_block=kv_block)
+    o = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                  q_offset=rows.start, kv_block=kv_block)
     if case == "seq":
         o = TP.gather(o, tp, 1)
     out = attention_out(p, o, tp if case == "heads" else None)
@@ -196,12 +207,128 @@ def mla_decode(p, x, cache_ckv, cache_krope, cache_len, cfg: MLAConfig,
     cache_krope[rows, idx] = kr_new[:, 0]
 
     q_lat, w_v = absorbed_query(p, q_nope, cfg)
-    sc = (torch.einsum("bqhr,bsr->bqhs", q_lat, cache_ckv)
-          + torch.einsum("bqhp,bsp->bqhs", q_rope, cache_krope)).float()
-    sc = sc * mla_scale(cfg)
-    valid = torch.arange(s_len, device=x.device)[None, :] < (cache_len + 1)[:, None]
-    sc = torch.where(valid[:, None, None, :], sc,
-                     torch.tensor(NEG_INF, device=x.device))
-    prob = torch.softmax(sc, dim=-1)
-    ctx_lat = torch.einsum("bqhs,bsr->bqhr", prob.to(cache_ckv.dtype), cache_ckv)
+    ctx_lat = latent_attention(q_lat, q_rope, cache_ckv, cache_krope,
+                               cache_len + 1, mla_scale(cfg))
     return latent_out(p, ctx_lat, w_v), (cache_ckv, cache_krope)
+
+
+def _latent_scores(q_lat, q_rope, ckv, krope, start: int, n_valid, scale):
+    """The f32 scores (B, 1, H, S_r) of absorbed queries over latent cache
+    positions ``start ..``, those at or past ``n_valid`` (B,) masked."""
+    sc = (torch.einsum("bqhr,bsr->bqhs", q_lat, ckv)
+          + torch.einsum("bqhp,bsp->bqhs", q_rope, krope)).float() * scale
+    pos = start + torch.arange(ckv.shape[1], device=ckv.device)
+    valid = pos[None, :] < n_valid[:, None]
+    return torch.where(valid[:, None, None, :], sc,
+                       torch.tensor(NEG_INF, device=ckv.device))
+
+
+def latent_attention(q_lat, q_rope, ckv, krope, n_valid, scale):
+    """The absorbed attention over a whole latent cache, the positions
+    below ``n_valid`` (B,) valid: the f32 softmax, ``p`` rounded to
+    ``ckv``'s dtype, ``p . ckv`` in it (B, 1, H, r)."""
+    prob = torch.softmax(_latent_scores(q_lat, q_rope, ckv, krope, 0,
+                                        n_valid, scale), dim=-1)
+    return torch.einsum("bqhs,bsr->bqhr", prob.to(ckv.dtype), ckv)
+
+
+def _down_pair(p, x, cfg: MLAConfig, tp):
+    """The ``wq_a`` and ``wkv_a`` products of ``x``, whole.  Where both
+    split over ``model`` the rank's columns of the two go out in one
+    all-gather (the bits of two: each column is the same product), which
+    halves a decode step's collectives for them."""
+    qr, kvw = cfg.q_lora_rank, cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    if not (tp.splits(qr) and tp.splits(kvw)):
+        return _down(x, p["wq_a"], qr, tp), _down(x, p["wkv_a"], kvw, tp)
+    xr = TP.region(x, tp)
+    both = torch.cat([torch.matmul(xr, p["wq_a"]), torch.matmul(xr, p["wkv_a"])],
+                     dim=-1)
+    lead = x.shape[:-1]
+    parts = TP.gather(both, tp, -1).reshape(*lead, tp.size, -1)
+    nq = qr // tp.size
+    return (parts[..., :nq].reshape(*lead, qr),
+            parts[..., nq:].reshape(*lead, kvw))
+
+
+def latent_partials(q_lat, q_rope, ckv, krope, start: int, n_valid, scale):
+    """The absorbed attention of queries (B, 1, H, r) / (B, 1, H, p) over
+    one span of latent cache positions ``start ..`` (``ckv`` (B, S_r, r),
+    ``krope`` (B, S_r, p)), the positions below ``n_valid`` (B,) valid:
+    the f32 running max (B, 1, H), sum (B, 1, H) and unnormalised latent
+    accumulator (B, 1, H, r), ``p`` rounded to ``ckv``'s dtype before
+    ``p . ckv`` (f32 inputs: not rounded)."""
+    sc = _latent_scores(q_lat, q_rope, ckv, krope, start, n_valid, scale)
+    m = sc.amax(dim=-1)
+    pr = torch.exp(sc - m[..., None])
+    acc = torch.einsum("bqhs,bsr->bqhr", pr.to(ckv.dtype).float(), ckv.float())
+    return m, pr.sum(dim=-1), acc
+
+
+def mla_decode_tp(p, x, cache_ckv, cache_krope, cache_len, cfg: MLAConfig,
+                  theta: float, tp, *, max_seq: int):
+    """One token's absorbed MLA decode under ``tp`` over a latent cache
+    whose positions split over ``model`` (the policy's cache layout): x
+    (B, 1, D) whole on every model rank; ``cache_ckv`` (B, |span|, r) /
+    ``cache_krope`` (B, |span|, p) this rank's block of a ``max_seq``-slot
+    cache (``tensor_parallel.cache_span``; all ``max_seq`` slots where it
+    does not split).  :func:`mla_decode` on the whole:
+
+    * the ``wq_a`` / ``wkv_a`` products whole on every rank (the split
+      columns in one all-gather, :func:`_down_pair`), so the new latents
+      ``c_new`` / ``kr_new`` are whole on every rank;
+    * the rank whose span holds slot ``cache_len`` of a row writes it there
+      IN PLACE (past the end: the last slot, as ``dynamic_update_slice``
+      clamps, the last rank's);
+    * each rank forms the absorbed query ``q_lat`` (B, 1, H_r, r) and
+      ``q_rope`` of its own heads (``wq_b`` / ``wkv_b`` split by heads);
+      where the cache splits, one all-gather over ``model`` makes them
+      whole, each rank scores every head over its span at ``pos <
+      cache_len + 1`` (:func:`latent_partials`), and the partials merge in
+      rank order (``tensor_parallel.merge_partials``); a cache replicated
+      over ``model`` is attended whole, the rank's heads only, as
+      :func:`mla_decode` does;
+    * the rank keeps its heads' latent context, applies its ``w_v`` and
+      its rows of ``wo`` (``row_product``: the parts summed over
+      ``model``).  Where the heads do not split the weights are
+      replicated, every rank computes every head and the output is whole.
+
+    Rounding points that differ from JAX's ``mla_decode``: JAX normalises
+    the f32 softmax over all keys, rounds ``p`` to bf16 and rounds ``p .
+    ckv`` to bf16; a split cache rounds each rank's unnormalised ``exp(s -
+    m_rank)`` to bf16, accumulates ``p . ckv`` in f32, merges in f32 and
+    rounds the latent context once.  The ``wo`` product is the f32 sum of
+    the ranks' parts rounded once, where JAX rounds one bf16 product.
+    Returns (B, 1, D) and the cache blocks."""
+    b = x.shape[0]
+    positions = cache_len[:, None]
+    q_down, kv = _down_pair(p, x, cfg, tp)
+    q_nope, q_rope = _q_heads(p, rms_norm(q_down, p["q_norm"]), positions,
+                              cfg, theta)
+    c_new, kr_new = _kv_latents(p, kv, positions, cfg, theta)
+    span = TP.cache_span(tp, max_seq)
+    idx = torch.clamp(cache_len, max=max_seq - 1).to(torch.int64)
+    mine = (idx >= span.start) & (idx < span.stop)
+    rows = torch.arange(b, device=x.device)[mine]
+    cache_ckv[rows, idx[mine] - span.start] = c_new[mine, 0]
+    cache_krope[rows, idx[mine] - span.start] = kr_new[mine, 0]
+    q_lat, w_v = absorbed_query(p, q_nope, cfg)
+    split = tp.splits(tp.heads)
+    scale = mla_scale(cfg)
+    if span.stop - span.start == max_seq:
+        ctx = latent_attention(q_lat, q_rope, cache_ckv, cache_krope,
+                               cache_len + 1, scale)
+    else:
+        hl, r = q_lat.shape[2], q_lat.shape[3]
+        qa, qra = q_lat, q_rope
+        if split:
+            both = TP.gather(torch.cat([q_lat, q_rope], dim=-1), tp, 2)
+            qa, qra = both[..., :r], both[..., r:]
+        m, l, acc = latent_partials(qa, qra, cache_ckv, cache_krope,
+                                    span.start, cache_len + 1, scale)
+        ctx = TP.merge_partials(m, l, acc, tp).to(x.dtype)
+        if split:
+            ctx = ctx[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    o = torch.einsum("bqhr,rhv->bqhv", ctx, w_v)
+    if split:
+        return attention_out(p, o, tp), (cache_ckv, cache_krope)
+    return _heads_out(o, p["wo"]), (cache_ckv, cache_krope)

@@ -27,13 +27,16 @@ shards under tensor parallelism (``tp``, a
 vocab-split embedding and head, the split attention and SwiGLU products,
 Mamba-2's split ``in_proj`` / ``out_proj``, the RG-LRU's block of
 channels, and the vocab-parallel cross-entropy; the logits ``forward``
-returns are then this rank's vocab columns.  Serving under ``tp`` is the
-dense GQA family's (:func:`prefill`, :func:`decode_step`): the prefill
-attends through the flash kernel on the rank's heads or query block and
-leaves each rank its block of the cache in the policy's layout (the
-sequence split over ``model``, ``tensor_parallel.prefill_cache_block``);
-a decode step attends over those blocks and merges the partials
-(``layers.decode_attention_tp``).  The other families raise there.
+returns are then this rank's vocab columns.  Serving under ``tp``
+(:func:`prefill`, :func:`decode_step`) runs the dense GQA, MLA and MoE
+families: the prefill attends through the flash kernel on the rank's
+heads or query block and leaves each rank its block of the cache in the
+policy's layout (the sequence split over ``model``,
+``tensor_parallel.prefill_cache_block``); a decode step attends over those
+blocks and merges the partials (``layers.decode_attention_tp``, MLA's
+absorbed ``mla.mla_decode_tp``); a MoE's FFN runs under ``ep`` (its
+routing group and expert split).  The other families raise there
+(:func:`require_tp_serving`).
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
@@ -182,9 +185,16 @@ def layer_params(stacked: Dict, i: int) -> Dict:
 def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig, tp=None, ep=None
         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's FFN: the MoE FFN and its aux loss (under ``ep``, routed
-    over the routing group and split by experts), or SwiGLU and None
-    (under ``tp``, split over ``model`` where d_ff divides it)."""
+    over the routing group and split by experts; None when ``ep`` gathers
+    no balance statistics, in serving), or SwiGLU and None (under ``tp``,
+    split over ``model`` where d_ff divides it).  A MoE under ``tp``
+    needs ``ep``: its parameters are a rank's expert block."""
     if cfg.moe is not None:
+        if tp is not None and ep is None:
+            raise ValueError(f"{cfg.name}: the MoE FFN under tp needs ep= "
+                             "(distributed.expert_parallel.ExpertParallel): "
+                             "a rank holds its expert block, not all "
+                             f"{cfg.moe.num_experts} experts")
         return MOE.moe_ffn(lp["ffn"], h, cfg.moe, ep)
     return L.mlp(lp["ffn"], h, _split(tp, cfg.d_ff)), None
 
@@ -265,9 +275,9 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     ``layers.prefill_attention`` for serving, ``layers.chunked_attention``
     for training.  ``remat`` checkpoints each layer, hybrid triple and extra
     block.  ``tp``: one rank's shards under tensor parallelism (module
-    docstring); with ``collect_cache`` (the dense GQA family only) the
-    cache is the rank's blocks of a ``cache_seq``-slot cache in the
-    policy's layout (:func:`prefill`); ``ep``: the MoE FFN's expert
+    docstring); with ``collect_cache`` (the dense GQA, MLA and MoE
+    families) the cache is the rank's blocks of a ``cache_seq``-slot cache
+    in the policy's layout (:func:`prefill`); ``ep``: the MoE FFN's expert
     parallelism and routing group."""
     if tp is not None and collect_cache and cache_seq is None:
         raise ValueError("a cache under tp is cut for cache_seq slots: pass "
@@ -438,6 +448,10 @@ def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
         attn_out, (k, v) = MLA.mla_prefill(lp["attn"], h, positions, cfg.mla,
                                            cfg.rope_theta, kv_block=kv_block,
                                            attention=attention, tp=tp)
+        if tp is not None and cache_seq is not None:
+            s = x.shape[1]
+            k, v = (TP.prefill_cache_block(t, tp.attention(s), tp, s,
+                                           cache_seq) for t in (k, v))
     elif tp is not None and cache_seq is not None:
         attn_out, (case, k, v) = L.attention_tp(
             lp["attn"], h, positions, cfg.rope_theta, tp, kv_block=kv_block,
@@ -485,29 +499,29 @@ def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
 # ---------------------------------------------------------------------------
 
 #: the queued slice of sharded serving of each family that has none yet
-TP_SERVING_QUEUE = {"mla": "MLA", "moe": "MoE under expert parallelism",
-                    "ssm": "Mamba-2", "hybrid": "the RG-LRU hybrid",
+TP_SERVING_QUEUE = {"ssm": "Mamba-2", "hybrid": "the RG-LRU hybrid",
                     "vlm": "the vision front end", "audio": "the audio front end"}
 
 
 def require_tp_serving(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense GQA
-    family, the one family with a sharded serving path (prefill and decode
-    under ``tp``); the others' slices are queued (ROADMAP, queue 1)."""
-    fam = ("mla" if cfg.mla is not None else "moe" if cfg.moe is not None
-           else "ssm" if cfg.ssm is not None
+    """Raise ``NotImplementedError`` unless ``cfg`` is of a family with a
+    sharded serving path (prefill and decode under ``tp``): the dense GQA,
+    MLA and MoE families; the others' slices are queued (ROADMAP, queue
+    1)."""
+    fam = ("ssm" if cfg.ssm is not None
            else "hybrid" if cfg.hybrid is not None
            else "audio" if cfg.encoder_only or cfg.frontend == "audio_frames"
            else "vlm" if cfg.frontend is not None else None)
     if fam is not None:
         raise NotImplementedError(
-            f"{cfg.name}: sharded serving (tp=) runs the dense GQA family "
-            f"only; that of {TP_SERVING_QUEUE[fam]} is queued (ROADMAP, "
-            "queue 1)")
+            f"{cfg.name}: sharded serving (tp=) runs the dense GQA, MLA and "
+            f"MoE families; that of {TP_SERVING_QUEUE[fam]} is queued "
+            "(ROADMAP, queue 1)")
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
-            kv_block: int = 1024, tp=None) -> Tuple[torch.Tensor, DecodeState]:
+            kv_block: int = 1024, tp=None, ep=None
+            ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return (last-position logits, decode state).
 
     The cache of the positional families (dense, MoE, MLA, vlm) is padded
@@ -521,11 +535,12 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     ``lengths - 1`` and ``cache_len`` starts at ``lengths``.  The recurrent
     and the frontend families reject ragged input.
 
-    Under ``tp`` (dense GQA only, :func:`require_tp_serving`) the
-    parameters are a rank's shards and ``batch`` the rank's rows: the
-    logits are the rank's vocab columns (where the vocab splits) and the
-    cache is the rank's blocks, every KV head over its span of
-    ``max_seq`` (``tensor_parallel.cache_span``), zeros past the prompt."""
+    Under ``tp`` (:func:`require_tp_serving`) the parameters are a rank's
+    shards and ``batch`` the rank's rows: the logits are the rank's vocab
+    columns (where the vocab splits) and the cache is the rank's blocks,
+    every KV head or the whole latent over its span of ``max_seq``
+    (``tensor_parallel.cache_span``), zeros past the prompt; a MoE's FFN
+    runs under ``ep`` (its routing group's batch, its expert block)."""
     lengths = batch.get("lengths")
     if tp is not None:
         require_tp_serving(cfg)
@@ -535,7 +550,7 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
         b, s = batch["tokens"].shape
         logits, cache, _ = forward(params, batch, cfg, kv_block=kv_block,
                                    collect_cache=True, logits_positions="last",
-                                   tp=tp, cache_seq=max_seq or s)
+                                   tp=tp, ep=ep, cache_seq=max_seq or s)
         return logits[:, -1], DecodeState(
             cache=cache, cache_len=torch.full((b,), s, dtype=torch.int32,
                                               device=logits.device))
@@ -665,8 +680,8 @@ def _ssm_decode(params, x, cache: dict, cfg: ArchConfig):
 
 
 def decode_step(params, tokens: torch.Tensor, state: DecodeState,
-                cfg: ArchConfig, tp=None, max_seq: Optional[int] = None
-                ) -> Tuple[torch.Tensor, DecodeState]:
+                cfg: ArchConfig, tp=None, max_seq: Optional[int] = None,
+                ep=None) -> Tuple[torch.Tensor, DecodeState]:
     """One autoregressive step.  tokens: (B, 1) int -> logits (B, V).
 
     Dense, MoE and MLA: the new k/v (ckv/krope) are written INTO
@@ -675,13 +690,14 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
     holds a new cache (the recurrent states and the shifted window), as the
     JAX step returns one.  Either way ``cache_len`` advances.
 
-    Under ``tp`` (dense GQA only): a rank's shards, rows and cache blocks
-    of a ``max_seq``-slot cache (:func:`prefill`'s layout; ``max_seq`` is
-    required: the blocks alone do not say whether the slots split); the
-    logits are the rank's vocab columns."""
+    Under ``tp`` (:func:`require_tp_serving`): a rank's shards, rows and
+    cache blocks of a ``max_seq``-slot cache (:func:`prefill`'s layout;
+    ``max_seq`` is required: the blocks alone do not say whether the slots
+    split); the logits are the rank's vocab columns; a MoE's FFN runs
+    under ``ep``."""
     require_decoder(cfg)
     if tp is not None:
-        return _decode_step_tp(params, tokens, state, cfg, tp, max_seq)
+        return _decode_step_tp(params, tokens, state, cfg, tp, max_seq, ep)
     x = params["embed"][tokens]
     cache_len = state.cache_len
     if cfg.hybrid is not None or cfg.ssm is not None:
@@ -711,9 +727,11 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
 
 
 def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
-                    max_seq: Optional[int]):
+                    max_seq: Optional[int], ep=None):
     require_tp_serving(cfg)
-    k_all, v_all = state.cache["k"], state.cache["v"]
+    mla = cfg.mla is not None
+    k_all, v_all = (state.cache["ckv"], state.cache["krope"]) if mla else \
+        (state.cache["k"], state.cache["v"])
     if max_seq is None:
         raise ValueError("decode_step under tp needs max_seq: a rank's cache "
                          "blocks do not say whether the slots split")
@@ -727,12 +745,17 @@ def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
     cache_len = state.cache_len
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        out, _ = L.decode_attention_tp(lp["attn"], h, k_all[i], v_all[i],
-                                       cache_len, cfg.rope_theta, tp,
+        if mla:
+            out, _ = MLA.mla_decode_tp(lp["attn"], h, k_all[i], v_all[i],
+                                       cache_len, cfg.mla, cfg.rope_theta, tp,
                                        max_seq=max_seq)
+        else:
+            out, _ = L.decode_attention_tp(lp["attn"], h, k_all[i], v_all[i],
+                                           cache_len, cfg.rope_theta, tp,
+                                           max_seq=max_seq)
         y = x + out
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
-        x = y + ffn(lp, h2, cfg, tp)[0]
+        x = y + ffn(lp, h2, cfg, tp, ep)[0]
     logits = lm_logits(params, x, cfg, tp)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
 

@@ -33,7 +33,16 @@ block only, ``(E/M, cap, d)`` against its ``w_gate_up`` / ``w_down``
 shards, and the expert outputs are all-gathered over ``model`` into
 ``(E cap, d)`` before the combine, which stays as above: the model
 replicas stay bitwise equal, and equal to the unsharded order.  Without
-``ep`` (serving) nothing changes.
+``ep`` nothing changes.
+
+Sharded serving (``serving/sharded.py``) runs the same FFN under an ``ep``
+whose routing group is the policy's data axes (under ``pd_disaggregated``
+the data ranks of one pod, which route their pod's batch), so a prefill's
+capacity is the whole batch's and a decode step at B rows routes as one
+process does on B tokens (capacity 8).  Nothing is differentiated there,
+so its ``ep`` gathers no balance statistics (``ExpertParallel(balance=
+False)``): the FFN returns no aux loss and moves only the counts prefix
+and, where ``model`` splits the experts, the expert outputs.
 """
 
 from __future__ import annotations
@@ -126,12 +135,13 @@ def route_logits(logits: torch.Tensor, cfg: MoEConfig, cap: int, ep=None
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig, ep=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar f32).  Under ``ep``
     (an :class:`~repro_torch.distributed.expert_parallel.ExpertParallel`)
     ``x`` is this rank's block of the routing group's batch and ``p`` its
     shards: the capacity, ranks and balance loss are the group's, and the
-    rank computes its expert block (module docstring)."""
+    rank computes its expert block (module docstring); an ``ep`` without
+    ``balance`` (serving) returns None for the aux loss."""
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.num_experts
     cap = capacity(t * (ep.size if ep is not None else 1), cfg)
@@ -139,12 +149,14 @@ def moe_ffn(p, x: torch.Tensor, cfg: MoEConfig, ep=None
     r = route(p["router"], xf, cfg, cap, ep)
 
     # load-balance aux loss: E * sum_e f_e . p_e (Switch Transformer form)
-    probs, top1 = r["probs"], r["expert_idx"][:, 0]
-    if ep is not None:
-        probs, top1 = ep.whole(probs), ep.whole(top1)
-    me = probs.mean(dim=0)
-    fe = F.one_hot(top1, e).float().mean(dim=0)
-    aux = e * torch.sum(fe * me)
+    aux = None
+    if ep is None or ep.balance:
+        probs, top1 = r["probs"], r["expert_idx"][:, 0]
+        if ep is not None:
+            probs, top1 = ep.whole(probs), ep.whole(top1)
+        me = probs.mean(dim=0)
+        fe = F.one_hot(top1, e).float().mean(dim=0)
+        aux = e * torch.sum(fe * me)
 
     # dispatch: row n*cap takes every choice dropped or another rank's
     # expert's and is cut off

@@ -2,7 +2,8 @@
 port of ``repro.serving.decode``; the JAX ``lax.scan`` is a Python loop).
 
 ``serve_step`` is one step; ``decode_loop`` decodes a raw cache (both
-also under tensor parallelism, ``tp=``, over a rank's cache blocks);
+also under tensor parallelism, ``tp=``, over a rank's cache blocks, and a
+MoE's expert parallelism, ``ep=``);
 ``resident_decode_loop`` decodes a compressed-resident one
 (:class:`~repro_torch.models.kvpool.ResidentState`) and demotes to
 ``decode_loop`` if a tail flush cannot stay resident."""
@@ -22,29 +23,31 @@ from repro_torch.serving.prefill import greedy
 
 @torch.no_grad()
 def serve_step(params, tokens: torch.Tensor, state: DecodeState,
-               cfg: ArchConfig, tp=None, max_seq: Optional[int] = None
-               ) -> Tuple[torch.Tensor, DecodeState]:
+               cfg: ArchConfig, tp=None, max_seq: Optional[int] = None,
+               ep=None) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step: (B, 1) tokens -> ((B, V) logits, new state), the
     unit the JAX dry-run lowers for its decode cells.  The cache is written
-    in place (``models.model.decode_step``).  Under ``tp`` (dense GQA): a
-    rank's shards, rows and cache blocks of a ``max_seq``-slot cache, and
-    the logits are the rank's vocab columns, not gathered: the next token
-    needs only the vocab-parallel argmax (``prefill.greedy``), and a
-    gather would move B x V values a step to every rank."""
-    return M.decode_step(params, tokens, state, cfg, tp=tp, max_seq=max_seq)
+    in place (``models.model.decode_step``).  Under ``tp`` (dense GQA, MLA,
+    MoE with its ``ep``): a rank's shards, rows and cache blocks of a
+    ``max_seq``-slot cache, and the logits are the rank's vocab columns,
+    not gathered: the next token needs only the vocab-parallel argmax
+    (``prefill.greedy``), and a gather would move B x V values a step to
+    every rank."""
+    return M.decode_step(params, tokens, state, cfg, tp=tp, max_seq=max_seq,
+                         ep=ep)
 
 
 @torch.no_grad()
 def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
                 cfg: ArchConfig, num_steps: int, tp=None,
-                max_seq: Optional[int] = None, on_logits=None
+                max_seq: Optional[int] = None, on_logits=None, ep=None
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """Greedy generation of ``num_steps`` tokens -> ((B, num_steps), state).
 
     The loop decodes into ONE copy of ``state.cache`` (``decode_step``
     writes in place), so the caller's state is left as it was.  Under
-    ``tp`` as :func:`serve_step`, each token from the vocab-parallel
-    argmax.  ``on_logits(i, logits)``, where given, sees step ``i``'s
+    ``tp`` (and ``ep``) as :func:`serve_step`, each token from the
+    vocab-parallel argmax.  ``on_logits(i, logits)``, where given, sees step ``i``'s
     logits (the rank's columns under ``tp``)."""
     st = DecodeState(cache={k: v.clone() for k, v in state.cache.items()},
                      cache_len=state.cache_len)
@@ -52,7 +55,7 @@ def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
     toks = []
     for i in range(num_steps):
         logits, st = M.decode_step(params, tok[:, None], st, cfg, tp=tp,
-                                   max_seq=max_seq)
+                                   max_seq=max_seq, ep=ep)
         if on_logits is not None:
             on_logits(i, logits)
         tok = greedy(logits, cfg, tp)

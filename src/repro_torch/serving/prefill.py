@@ -25,15 +25,16 @@ class PrefillOutput:
 @torch.no_grad()
 def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
                  max_seq: Optional[int] = None, kv_block: int = 1024,
-                 tp=None) -> PrefillOutput:
+                 tp=None, ep=None) -> PrefillOutput:
     """Run the prompt; the greedy first token, the last logits and the
-    cache.  Under ``tp`` (the dense GQA family, ``models.model.prefill``):
-    a rank's shards and rows, ``last_logits`` the rank's vocab columns
-    (the whole rows are never needed: the first token comes from the
-    vocab-parallel argmax, ``tensor_parallel.vocab_argmax``, which moves
-    two numbers a row) and the cache the rank's blocks."""
+    cache.  Under ``tp`` (the dense GQA, MLA and MoE families,
+    ``models.model.prefill``; a MoE's FFN under ``ep``): a rank's shards
+    and rows, ``last_logits`` the rank's vocab columns (the whole rows are
+    never needed: the first token comes from the vocab-parallel argmax,
+    ``tensor_parallel.vocab_argmax``, which moves two numbers a row) and
+    the cache the rank's blocks."""
     last_logits, state = M.prefill(params, batch, cfg, max_seq=max_seq,
-                                   kv_block=kv_block, tp=tp)
+                                   kv_block=kv_block, tp=tp, ep=ep)
     if tp is not None:
         return PrefillOutput(first_token=greedy(last_logits, cfg, tp),
                              last_logits=last_logits, state=state)

@@ -28,9 +28,18 @@ part explicitly, over ``torch.distributed`` (gloo), on its shards:
 :func:`transfer_config` is the dry-run's ``_transfer_config``
 (``dryrun.py:110-129``) for its transfer variants.
 
-The dense GQA family only (``models.model.require_tp_serving``): the other
-families raise.  Nothing falls back: a collective's failure fails the
-call, and a sharded step never runs whole on one rank.
+Families (``models.model.require_tp_serving``): dense GQA (K/V heads
+split, the cache's K/V blocks moved into each rank's span); MLA, whose
+latent cache (``ckv``, ``krope``) is whole on every model rank after the
+prefill's gathered down products, so each rank slices its span, and whose
+decode is the absorbed form over the span (``mla.mla_decode_tp``); and
+MoE, whose FFN runs under expert parallelism (:func:`expert_parallel`,
+built once on every rank, outside the steps: the routing group is the
+policy's data axes, under ``pd_disaggregated`` the pod's data ranks, and
+the experts split over ``model`` where they divide it).  The hop carries
+whatever leaves the cache has.  Mamba-2, the RG-LRU hybrid and the front
+ends raise.  Nothing falls back: a collective's failure fails the call,
+and a sharded step never runs whole on one rank.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import DEFAULT_BF16_CODEBOOK, Codebook
+from repro_torch.distributed import expert_parallel as EP
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import kvcache as KC
@@ -85,6 +95,19 @@ def tensor_parallel(policy: SH.ShardingPolicy, cfg: ArchConfig
                              attn_fallback=policy.attn_fallback)
 
 
+def expert_parallel(policy: SH.ShardingPolicy, cfg: ArchConfig,
+                    tp: TP.TensorParallel) -> Optional[EP.ExpertParallel]:
+    """A MoE config's serving context for its FFN (None for any other):
+    routed over the policy's data axes (``routing_group``, collective:
+    every rank calls it, in one order), the experts over ``tp``'s
+    ``model`` where they divide it, and no balance statistics (serving
+    differentiates nothing)."""
+    if cfg.moe is None:
+        return None
+    return EP.ExpertParallel(cfg, EP.routing_group(policy, ring=False), tp,
+                             balance=False)
+
+
 def place_params(cfg: ArchConfig, generator: torch.Generator,
                  policy: SH.ShardingPolicy, device=None) -> Dict:
     """This rank's block of ``init_params(cfg, generator)`` under the
@@ -109,12 +132,15 @@ def cache_like(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
 class ServeResult:
     """One rank's sharded serving: the prefill's output (its rows, its
     vocab columns and its cache blocks), the greedy tokens decoded after
-    the first (B_rank, num_steps), the decode state after them, and the
-    tensor-parallel context whose ``fwd`` counted the collectives."""
+    the first (B_rank, num_steps), the decode state after them, the
+    tensor-parallel context whose ``fwd`` counted the collectives, and a
+    MoE's expert-parallel context (its ``fwd`` the routing collectives,
+    ``out_gather`` the expert outputs'; else None)."""
     prefill: PrefillOutput
     tokens: torch.Tensor
     state: DecodeState
     tp: TP.TensorParallel
+    ep: Optional[EP.ExpertParallel] = None
 
 
 def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
@@ -128,12 +154,13 @@ def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
     logits, the rank's vocab columns)."""
     M.require_tp_serving(cfg)
     tp = tensor_parallel(policy, cfg)
+    ep = expert_parallel(policy, cfg, tp)
     out = prefill_step(params, local_batch(batch, policy), cfg,
-                       max_seq=max_seq, kv_block=kv_block, tp=tp)
+                       max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep)
     toks, st = decode_loop(params, out.first_token, out.state, cfg,
                            num_steps, tp=tp, max_seq=max_seq,
-                           on_logits=on_logits)
-    return ServeResult(prefill=out, tokens=toks, state=st, tp=tp)
+                           on_logits=on_logits, ep=ep)
+    return ServeResult(prefill=out, tokens=toks, state=st, tp=tp, ep=ep)
 
 
 @dataclasses.dataclass
@@ -144,11 +171,13 @@ class HopResult:
     shard it received (``received``), the first token and ``cache_len``
     that came with it, the tokens decoded from it and the final state;
     ``prefill`` None.  ``side`` counts the first token's and
-    ``cache_len``'s message, ``tp.fwd`` the collectives over ``model``."""
+    ``cache_len``'s message, ``tp.fwd`` the collectives over ``model``,
+    a MoE's ``ep`` its routing and expert-output collectives."""
     pod: int
     session: object
     side: CL.CommStats
     tp: TP.TensorParallel
+    ep: Optional[EP.ExpertParallel] = None
     prefill: Optional[PrefillOutput] = None
     received: Optional[Dict] = None
     first_token: Optional[torch.Tensor] = None
@@ -188,15 +217,16 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     plan = session.plan
     pod = mesh.get_local_rank("pod")
     tp = tensor_parallel(policy, cfg)
+    ep = expert_parallel(policy, cfg, tp)
     side = CL.CommStats()
     if pod == plan.src_pod:
         out = prefill_step(params, local_batch(batch, policy), cfg,
-                           max_seq=max_seq, kv_block=kv_block, tp=tp)
+                           max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep)
         session.transfer_shard(out.state.cache)
         link = CL.Link(mesh.get_group("pod"), out.first_token.device, side)
         link.wait(link.isend(plan.dst_pod, [
             CL.raw_unit(out.first_token), CL.raw_unit(out.state.cache_len)]))
-        return HopResult(pod=pod, session=session, side=side, tp=tp,
+        return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
                          prefill=out)
     shard = session.transfer_shard(None)
     dev = TR.leaves(shard)[0].device
@@ -211,8 +241,8 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     body.done()
     state = DecodeState(cache=shard, cache_len=cache_len)
     toks, st = decode_loop(params, first, state, cfg, num_steps, tp=tp,
-                           max_seq=max_seq, on_logits=on_logits)
-    return HopResult(pod=pod, session=session, side=side, tp=tp,
+                           max_seq=max_seq, on_logits=on_logits, ep=ep)
+    return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
                      received=shard, first_token=first, tokens=toks, state=st)
 
 
@@ -225,7 +255,10 @@ def main(argv=None) -> None:
             --arch smollm-135m --reduced --device cpu --mesh 2,1,2 \\
             --variant xfer_chunked
 
-    ``--variant base`` runs :func:`serve` (the prefill and decode cells);
+    ``--arch`` is any family with a sharded serving path: dense GQA,
+    ``minicpm3-4b`` (MLA), ``qwen3-moe-30b-a3b`` (MoE, its experts over
+    ``model``).  ``--variant base`` runs :func:`serve` (the prefill and
+    decode cells);
     an ``xfer_*`` variant runs :func:`disaggregated_step` under a
     ``pd_disaggregated`` policy on 2 pods.  Parameters and the prompt come
     from ``--seed``.  Without ``--device`` each rank takes the card."""

@@ -1019,25 +1019,32 @@ def _bits_list(x: torch.Tensor) -> list:
 
 
 def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=()):
-    """The cases of ``tests/test_torch_serve_tp.py`` on this world: each a
-    serve case (prefill, teacher-forced ``serve_step``, greedy
-    ``decode_loop``) or a hop case (the disaggregated step and the
-    whole-cache hop); then the unit checks of the merge and the vocab
+    """The cases of ``tests/test_torch_serve_tp.py`` and
+    ``tests/test_torch_serve_families.py`` on this world: each a serve
+    case (prefill, teacher-forced ``serve_step``, greedy ``decode_loop``)
+    or a hop case (the disaggregated step and the whole-cache hop), a MoE
+    case's routing recorded (:class:`RouteRecorder`); then the unit
+    checks of the merges (GQA's and MLA's latent one) and the vocab
     argmax.  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
     argument list of ``cli`` through ``serving/sharded.py``'s ``main``
     (which tears the group down itself, so each joins a new one), its
-    output in ``cli<i>_rank<r>.txt``."""
+    output in ``cli<i>_rank<r>.txt``.  One thread a rank: the products
+    are tiny and the worlds run side by side."""
     import contextlib
     import io
     import os
+    torch.set_num_threads(1)
     _init(rank, world, store)
     try:
         summary, arrays = {}, {}
         for case in cases:
             run = _serve_case if case["kind"] == "serve" else _hop_case
-            summary[case["name"]], got = run(Path(ref_dir), case)
+            rec = RouteRecorder() if case.get("moe") else None
+            with rec if rec is not None else contextlib.nullcontext():
+                summary[case["name"]], got = run(Path(ref_dir), case, rec)
             arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
         summary["units"] = _serve_units(rank)
+        summary["units"]["latent_merge_max_abs"] = _latent_merge(rank)
         summary["placed_draws"] = _placed_draws()
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
         np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
@@ -1095,43 +1102,54 @@ def _serve_setup(ref_dir: Path, case: dict):
     return ref, cfg, policy, params, tokens, m, tp, out
 
 
-def _serve_case(ref_dir: Path, case: dict):
+def _serve_case(ref_dir: Path, case: dict, rec=None):
     """One serve case: the rank's prefill, ``STEPS`` teacher-forced
     ``serve_step``s on the JAX run's tokens, and ``decode_loop``'s greedy
     tokens; the rank's last logits, step logits and cache blocks after the
-    prefill and after the steps, as arrays."""
+    prefill and after the steps, as arrays.  A MoE case runs under
+    ``serving/sharded.expert_parallel`` and ``rec`` (a
+    :class:`RouteRecorder`) keeps its routing: the prefill's and the
+    teacher-forced steps' top-k experts as arrays."""
     from repro_torch.serving import sharded as SV
     from repro_torch.serving.decode import serve_step
     from repro_torch.serving.prefill import prefill_step
     ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
+    ep = SV.expert_parallel(policy, cfg, tp)
     rows = out["rows"]
     pre = prefill_step(params, SV.local_batch({"tokens": tokens}, policy),
-                       cfg, max_seq=m, kv_block=4, tp=tp)
+                       cfg, max_seq=m, kv_block=4, tp=tp, ep=ep)
+    n_pre = len(rec.calls) if rec is not None else 0
     out["prefill_bytes"] = tp.fwd.sent_bytes
     out["held_cache"] = _nbytes(pre.state.cache)
     out["first_token"] = pre.first_token.tolist()
-    arrays = {"last_logits": pre.last_logits.float().numpy(),
-              "k": as_bits(pre.state.cache["k"]),
-              "v": as_bits(pre.state.cache["v"])}
+    arrays = {"last_logits": pre.last_logits.float().numpy()}
+    arrays.update({k: as_bits(x) for k, x in pre.state.cache.items()})
     st = type(pre.state)(cache={k: v.clone() for k, v in pre.state.cache.items()},
                          cache_len=pre.state.cache_len)
     feed = np.array(ref["step_inputs"])
     logits = []
     for i in range(feed.shape[0]):
         lg, st = serve_step(params, torch.from_numpy(feed[i][rows])[:, None],
-                            st, cfg, tp=tp, max_seq=m)
+                            st, cfg, tp=tp, max_seq=m, ep=ep)
         logits.append(lg.float().numpy())
     arrays["step_logits"] = np.stack(logits)
-    arrays["k_after"] = as_bits(st.cache["k"])
-    arrays["v_after"] = as_bits(st.cache["v"])
+    arrays.update({k + "_after": as_bits(x) for k, x in st.cache.items()})
+    if rec is not None:
+        n_steps = len(rec.calls)
+        arrays.update(rec.arrays(0, n_pre, "prefill", 1))
+        arrays.update(rec.arrays(n_pre, n_steps, "steps", feed.shape[0]))
     res = SV.serve(params, {"tokens": tokens}, cfg, policy, max_seq=m,
                    num_steps=feed.shape[0], kv_block=4)
     out["greedy"] = res.tokens.tolist()
     out["greedy_first"] = res.prefill.first_token.tolist()
+    if rec is not None:
+        out["routing"] = rec.summary()
+        out["ep_fwd_bytes"] = res.ep.fwd.sent_bytes
+        out["ep_gather_bytes"] = res.ep.out_gather.sent_bytes
     return out, arrays
 
 
-def _hop_case(ref_dir: Path, case: dict):
+def _hop_case(ref_dir: Path, case: dict, rec=None):
     """One hop case on a (2, data, model) ``pd_disaggregated`` world: the
     disaggregated step (pod 0 prefills and ships its own shards, pod 1
     decodes ``STEPS`` greedy tokens from them, each step's logits kept),
@@ -1151,6 +1169,11 @@ def _hop_case(ref_dir: Path, case: dict):
                                 on_logits=lambda i, lg: logits.append(
                                     lg.float().numpy()))
     out["pod"] = res.pod
+    if rec is not None:
+        arrays_rec = rec.arrays(0, len(rec.calls),
+                                "prefill" if res.pod == 0 else "steps",
+                                1 if res.pod == 0 else steps)
+        out["routing"] = rec.summary()
     out["stats"] = _stats_dict(res.session.last_stats)
     out["side_bytes"] = res.side.sent_bytes + res.side.recv_bytes
     whole_sess = SV.hop_plan(cfg, policy, tc, b, m).session(device="cpu")
@@ -1175,6 +1198,8 @@ def _hop_case(ref_dir: Path, case: dict):
         out["whole_sha"] = _sha(got)
         arrays["step_logits"] = np.stack(logits)
     out["whole_stats"] = _stats_dict(whole_sess.last_stats)
+    if rec is not None:
+        arrays.update(arrays_rec)
     return out, arrays
 
 
@@ -1257,3 +1282,115 @@ def _placed_draws() -> dict:
         carried = params_from_jax(np_whole, "cpu", policy=policy)
         out["x".join(map(str, shape))] = _sha(placed) == _sha(carried)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded serving of MLA and MoE
+# ---------------------------------------------------------------------------
+
+class RouteRecorder:
+    """Within: every MoE FFN call under ``ep`` keeps this rank's top-k
+    experts (``calls``) and holds the routing collectives against one
+    process on the routing group's whole batch: the slots of this rank's
+    choices (the counts prefix) and its output rows, bitwise, against
+    ``route`` / ``moe_ffn`` on the group's gathered tokens with every
+    expert (the expert blocks gathered over ``model``)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.orig = orig = MOE.moe_ffn
+
+        def recording(p, x, mc, ep=None):
+            y, aux = orig(p, x, mc, ep)
+            if ep is not None:
+                self.calls.append(_route_check(orig, p, x, y, mc, ep))
+            return y, aux
+        MOE.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.moe_ffn = self.orig
+        return False
+
+    def arrays(self, lo: int, hi: int, name: str, steps: int) -> dict:
+        """Calls ``lo:hi`` as ``route/<name>``: (steps, layers, T, k)."""
+        idx = [c["expert_idx"] for c in self.calls[lo:hi]]
+        n = len(idx) // steps
+        return {f"route/{name}": np.stack(
+            [np.stack(idx[i * n:(i + 1) * n]) for i in range(steps)])}
+
+    def summary(self) -> dict:
+        return {"calls": len(self.calls),
+                "slots_bitwise": all(c["slots_ok"] for c in self.calls),
+                "out_bitwise": all(c["out_ok"] for c in self.calls),
+                "caps": sorted({c["cap"] for c in self.calls}),
+                "group_sizes": sorted({c["group"] for c in self.calls}),
+                "split_experts": all(c["split"] for c in self.calls)}
+
+
+def _route_check(orig, p, x, y, mc, ep) -> dict:
+    from repro_torch.models import moe as MOE
+    b, s, d = x.shape
+    t, k = b * s, mc.top_k
+    cap = MOE.capacity(t * ep.size, mc)
+    stats = CL.CommStats()
+    r = MOE.route(p["router"], x.reshape(t, d), mc, cap, ep)
+
+    def gathered(z, group):
+        if group is None:
+            return z
+        return torch.cat(CL.Link(group, z.device, stats).all_gather(
+            z.contiguous()))
+    xs = gathered(x, ep.group)
+    rw = MOE.route(p["router"], xs.reshape(-1, d), mc, cap)
+    mine = torch.empty_like(r["slot"])
+    mine[r["order"]] = r["slot"]
+    whole = torch.empty_like(rw["slot"])
+    whole[rw["order"]] = rw["slot"]
+    pw = dict(p)
+    if ep.model is not None:
+        for name in ("w_gate_up", "w_down"):
+            pw[name] = gathered(p[name], ep.model.group)
+    yw, _ = orig(pw, xs, mc)
+    me = ep.rank
+    return {"expert_idx": r["expert_idx"].numpy(), "cap": cap,
+            "group": ep.size, "split": ep.model is not None,
+            "slots_ok": torch.equal(mine, whole[me * t * k:(me + 1) * t * k]),
+            "out_ok": torch.equal(as_bits_t(y),
+                                  as_bits_t(yw[me * b:(me + 1) * b]))}
+
+
+def _latent_merge(rank: int) -> float:
+    """``mla.latent_partials`` over each rank's span of an f32 latent cache
+    (its ``p`` then unrounded), merged over the world as one ``model``
+    group (``merge_partials``), against whole-key absorbed attention in
+    f32: the largest absolute difference."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import tensor_parallel as TPM
+    from repro_torch.models import mla as MLA
+    world = dist.get_world_size()
+    cfg = get_config("minicpm3-4b").reduced()
+    tp = TPM.TensorParallel(dist.group.WORLD, cfg)
+    g = torch.Generator().manual_seed(13)
+    b, h, r, pr, span = 3, 4, 16, 8, 5
+    s = span * world
+    q_lat = torch.randn((b, 1, h, r), generator=g)
+    q_rope = torch.randn((b, 1, h, pr), generator=g)
+    ckv = torch.randn((b, s, r), generator=g)
+    krope = torch.randn((b, s, pr), generator=g)
+    n = torch.tensor([1, s // 2 + 1, s])          # row 0: rank 0's keys only
+    scale = MLA.mla_scale(cfg.mla)
+    sc = (torch.einsum("bqhr,bsr->bqhs", q_lat, ckv)
+          + torch.einsum("bqhp,bsp->bqhs", q_rope, krope)) * scale
+    valid = torch.arange(s)[None, :] < n[:, None]
+    sc = torch.where(valid[:, None, None, :], sc, torch.tensor(-1e30))
+    whole = torch.einsum("bqhs,bsr->bqhr", torch.softmax(sc, -1), ckv)
+    blk = slice(rank * span, (rank + 1) * span)
+    m, l, acc = MLA.latent_partials(q_lat, q_rope, ckv[:, blk], krope[:, blk],
+                                    blk.start, n, scale)
+    merged = TPM.merge_partials(m, l, acc, tp)
+    return float((merged - whole).abs().max())
