@@ -364,6 +364,28 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               decode-step ms, ``tp.fwd`` and the expert-parallel bytes
               and ms, the hops' raw and wire bytes, ratio and retry steps,
               held bytes, peak GB.
+8p. serve_tp_recurrent — sharded serving of Mamba-2 and of the RG-LRU
+              hybrid, whose states split heads, channels or the window's
+              KV heads (never the sequence): phase ``serve_tp``'s worlds
+              and machinery, each world's ranks spawned once for both
+              families, the (2, 1, 2) hop ``xfer_chunked`` (the f32
+              states raw) then ``xfer_fp32`` (their hi halves through the
+              dense codec pair, ``fp32_hilo``).  mamba2-2.7b at full width
+              (2560, 80 heads x 64, d_state 128, vocab 50,280) cut to 4
+              layers, prompt 2048, 4096 slots; recurrentgemma-9b at full
+              width (4096, 16 heads x 256 over one KV head, U 4096, window
+              2048, d_ff 12,288, vocab 256,000) cut to one triple and 2
+              extra blocks, prompt 4096 (twice the window), 8192 slots.
+              Gates as ``serve_tp_families``', the replicated window's
+              replicas bitwise, the f32 states' routes, the dense pair
+              launched under ``xfer_fp32``, no ``chunked_attention`` in a
+              served window (every serving phase), recurrentgemma's one
+              flash launch a prefill rank and Mamba-2's none.  A line a
+              rank and family: prefill and decode-step ms, ``tp.fwd``
+              bytes and ms, the decode step's collectives over ``model``,
+              each hop's raw and wire bytes, ratio and retry steps by
+              route, held bytes, peak GB, the f32 state blocks' largest
+              distance from the replay's.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -412,11 +434,11 @@ flash launch), the expert-parallel steps on rank 0 (phase 8l,
 families' tensor-parallel steps on rank 0 (phase 8m, ``tpr_ssm``,
 ``tpr_hybrid``: no flash or codec launch), each sharded serving rank's
 prefill, decode and hops (phase 8n, ``serve_tp_*``; phase 8o,
-``serve_fam_mla_*``, ``serve_fam_moe_*``), and the served prefills of
-phases 3, 7, 8a, 8c, 8d, 8f, 8n's and 8o's base rank 0 and 9
-(``flash_attention``: one launch per attention layer, 30 + 62 + 32 + 12 +
-40 + 48 + 4 + 8 + 2 + 48, every one on the tensor-core path, or the run
-fails);
+``serve_fam_mla_*``, ``serve_fam_moe_*``; phase 8p, ``serve_rec_ssm_*``,
+``serve_rec_hybrid_*``), and the served prefills of phases 3, 7, 8a, 8c,
+8d, 8f, 8n's, 8o's and 8p's base rank 0 and 9 (``flash_attention``: one
+launch per attention layer, 30 + 62 + 32 + 12 + 40 + 48 + 4 + 8 + 2 + 1 +
+48, every one on the tensor-core path, or the run fails);
 the checks around those runs are not counted.  The
 ``kernels`` JSON line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}`` close the output.  Without CUDA, or outside
@@ -4408,6 +4430,15 @@ SERVE_TP_ATOL, SERVE_TP_RTOL, SERVE_TP_WITNESS = 4e-2, 2e-2, 1.5
 #: phase serve_tp_families: each family's configuration at full width and
 #: the depth it is cut to, in the order each rank serves them
 SERVE_FAMILIES = {"mla": ("minicpm3-4b", 8), "moe": ("qwen3-moe-30b-a3b", 2)}
+#: phase serve_tp_recurrent: each recurrent family at full width, the depth
+#: it is cut to (as phase tp_recurrent), its prompt and cache slots
+#: (recurrentgemma's prompt twice its 2048-token window: the prefill's
+#: band cuts and every decode step shifts a full window)
+SERVE_RECURRENT = {
+    "ssm": dict(arch="mamba2-2.7b", layers=4, prompt=2048, max_seq=4096),
+    "hybrid": dict(arch="recurrentgemma-9b", layers=5, prompt=4096,
+                   max_seq=8192),
+}
 #: phase serve_tp_families holds the decoded tokens equal to the replay's
 #: greedy choice where the replay's largest logit leads the next by at
 #: least this much and by twice the rank's largest logit distance from the
@@ -4432,35 +4463,64 @@ def _depth_cut(arch, layers):
     return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
-def serve_tp_tokens(torch, cfg):
+def serve_tp_tokens(torch, cfg, prompt=SERVE_TP_PROMPT):
     """The prompt, drawn on the host from a seed: every rank and the
     single-process replay draw the same."""
     g = torch.Generator().manual_seed(SERVE_TP_SEED + 1)
-    return torch.randint(0, cfg.vocab_size, (SERVE_TP_BATCH, SERVE_TP_PROMPT),
+    return torch.randint(0, cfg.vocab_size, (SERVE_TP_BATCH, prompt),
                          generator=g, dtype=torch.int64)
 
 
-def _model_collectives(group, seen):
+def _model_collectives(group, seen, calls):
     """Record the storage of every tensor this process hands to a
     collective over ``group`` (``Link.all_to_all``, ``all_to_all_v``,
-    ``all_gather``) into ``seen``: a parameter's storage there would be a
-    parameter moving over that group."""
+    ``all_gather``) into ``seen``, and count the collectives in
+    ``calls[0]``: a parameter's storage there would be a parameter moving
+    over that group."""
     from repro_torch.serving import collective as CL
     for name in ("all_to_all", "all_to_all_v", "all_gather"):
         orig = getattr(CL.Link, name)
         if hasattr(orig, "seen_by"):
-            orig.seen_by = (group.group_name, seen)
+            orig.seen_by = (group.group_name, seen, calls)
             continue
 
         def rec(self, x, *a, _orig=orig, **k):
-            name_, sink = rec.seen_by
+            name_, sink, n = rec.seen_by
             if self.group.group_name == name_:
+                n[0] += 1
                 for t in (x if isinstance(x, (list, tuple)) else [x]):
                     if t.numel():
                         sink.add(t.untyped_storage().data_ptr())
             return _orig(self, x, *a, **k)
-        rec.seen_by = (group.group_name, seen)
+        rec.seen_by = (group.group_name, seen, calls)
         setattr(CL.Link, name, rec)
+
+
+class _calls_of:
+    """Within: the Python-level calls of ``fn`` (its code object's starts,
+    ``sys.monitoring``; any caller, a default argument's too) counted in
+    ``n``."""
+
+    def __init__(self, fn):
+        self.code, self.n = fn.__code__, 0
+
+    def __enter__(self):
+        mon = sys.monitoring
+        self.tool = next(i for i in (3, 4) if mon.get_tool(i) is None)
+        mon.use_tool_id(self.tool, "chip_smoke")
+
+        def start(code, offset):
+            self.n += 1
+        mon.register_callback(self.tool, mon.events.PY_START, start)
+        mon.set_local_events(self.tool, self.code, mon.events.PY_START)
+        return self
+
+    def __exit__(self, *exc):
+        mon = sys.monitoring
+        mon.set_local_events(self.tool, self.code, 0)
+        mon.register_callback(self.tool, mon.events.PY_START, None)
+        mon.free_tool_id(self.tool)
+        return False
 
 
 class _recorded_routes:
@@ -4531,24 +4591,49 @@ def serve_families_rank(torch, rank, device, world, out_dir):
     return out
 
 
-def serve_world(torch, rank, device, cfg, world, out_dir, tag):
-    """One rank of one world (``SERVE_TP_WORLDS``) serving ``cfg``, each
-    rank drawing its block of the seeded parameters
-    (``serving/sharded.place_params``).  ``xfer``: ``disaggregated_step``
-    (pod 0 prefills at model 2 and ships each rank's own cache shard, pod
-    1 decodes ``SERVE_TP_STEPS`` tokens from it), then an ``xfer_global``
-    hop of the same shards.  ``base``: ``prefill_step(tp=, ep=)`` on the
+def serve_recurrent_rank(torch, rank, device, world, out_dir):
+    """Phase ``serve_tp_recurrent``, world ``world``: each of
+    ``SERVE_RECURRENT`` served in turn by the same ranks
+    (:func:`serve_world`, the second hop ``xfer_fp32``), each model freed
+    before the next is drawn."""
+    out = {}
+    for fam, c in SERVE_RECURRENT.items():
+        out[fam] = serve_world(torch, rank, device,
+                               _depth_cut(c["arch"], c["layers"]), world,
+                               out_dir, f"rec_{fam}_{world}",
+                               prompt=c["prompt"], max_seq=c["max_seq"],
+                               second="xfer_fp32")
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
+                prompt=SERVE_TP_PROMPT, max_seq=SERVE_TP_MAX_SEQ,
+                second="xfer_global"):
+    """One rank of one world (``SERVE_TP_WORLDS``) serving ``cfg`` at a
+    ``prompt``-token prompt and ``max_seq`` cache slots, each rank drawing
+    its block of the seeded parameters (``serving/sharded.place_params``).
+    ``xfer``: ``disaggregated_step`` (pod 0 prefills at model 2 and ships
+    each rank's own cache shard, pod 1 decodes ``SERVE_TP_STEPS`` tokens
+    from it), then a ``second`` hop of the same shards (``xfer_global``;
+    the recurrent families' ``xfer_fp32``), kept under the variant's
+    suffix.  ``base``: ``prefill_step(tp=, ep=)`` on the
     rank's row, then ``decode_loop(tp=, ep=)``; a MoE's ``ep`` is
     ``serving/sharded.expert_parallel``'s.  Each main-path run counted
     alone.  Per rank: its coordinate and attention case, held bytes
     against the spec arithmetic (parameters and cache), the hashes of its
-    parameters and of its leaves replicated over ``model``, the storages
-    it handed to collectives over ``model`` that are a parameter's,
-    launches, prefill and decode-step ms (host clock around synchronized
-    calls), the collectives over ``model`` (``tp.fwd``) and a MoE's
-    routing and expert-output collectives, the hop's stats, peak memory.
-    Its vocab columns of the prefill and of every step's logits, the first
-    token, the tokens and a MoE's top-k choices (call order) go to
+    parameters, of its parameter leaves replicated over ``model`` and of
+    its cache leaves replicated over ``model`` (after the prefill and after
+    the decode), the storages it handed to collectives over ``model`` that
+    are a parameter's, the collectives over ``model`` a decode step
+    issues, the calls of ``chunked_attention`` in the served prefill (the
+    flash kernel is serving's), launches, prefill and decode-step ms (host
+    clock around synchronized calls), the collectives over ``model``
+    (``tp.fwd``) and a MoE's routing and expert-output collectives, the
+    hops' stats and each route's raw and wire bytes, peak memory.  Its
+    vocab columns of the prefill and of every step's logits, the first
+    token, the tokens, a MoE's top-k choices (call order) and a recurrent
+    family's f32 state blocks (after the prefill, after the steps) go to
     ``out_dir`` as ``<tag>_rank<r>.pt`` for the single-process replay."""
     import torch.distributed as dist
 
@@ -4556,13 +4641,14 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import kvcache as KC
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serving import sharded as SV
     from repro_torch.serving.decode import decode_loop
     from repro_torch.serving.prefill import prefill_step
 
     w = SERVE_TP_WORLDS[world]
-    b, m, steps = SERVE_TP_BATCH, SERVE_TP_MAX_SEQ, SERVE_TP_STEPS
+    b, m, steps = SERVE_TP_BATCH, max_seq, SERVE_TP_STEPS
     mesh = make_mesh(w["mesh"], MESH_AXES)
     policy = SH.ShardingPolicy(mesh, pd_disaggregated=w["pd"])
     coord = SH.coordinate(mesh)
@@ -4582,12 +4668,25 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
         dist.barrier()
     seconds["params"] = time.perf_counter() - t0
     like_p = M.init_params(cfg, torch.Generator(), "meta")
-    like_c = SV.cache_like(cfg, b, m)
+    like_c = SV.cache_like(cfg, b, m, prompt)
     pspecs = SH.leaf_specs(policy.param_specs(like_p), like_p)
+    cspecs = SH.leaf_specs(policy.cache_specs(like_c), like_c)
     nbytes = (lambda tree: sum(x.numel() * x.element_size()
                                for x in TR.leaves(tree)))
+
+    def over_model(specs):
+        return [any("model" in SH.entry_axes(e) for e in sp) for sp in specs]
+
+    def replicated_cache(cache):
+        return _sha_tree(torch, [x for x, split in zip(
+            TR.leaves(cache), over_model(cspecs)) if not split])
+
+    def f32_blocks(cache):
+        return {k: x.cpu() for k, x in cache.items()
+                if x.dtype == torch.float32}
+
     out = {"rank": rank, "coord": coord, "arch": cfg.name,
-           "case": tp.attention(SERVE_TP_PROMPT),
+           "case": tp.attention(prompt) if cfg.num_heads else None,
            "held_params": nbytes(params),
            "spec_params": SH.held_bytes(like_p, policy.param_specs(like_p),
                                         policy.sizes),
@@ -4597,11 +4696,11 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
                                               policy=policy)),
            "params_sha": _sha_tree(torch, params),
            "replicated_sha": _sha_tree(torch, [
-               x for x, s in zip(TR.leaves(params), pspecs)
-               if not any("model" in SH.entry_axes(e) for e in s)])}
-    seen = set()
-    _model_collectives(mesh.get_group("model"), seen)
-    tokens = serve_tp_tokens(torch, cfg).to(device)
+               x for x, split in zip(TR.leaves(params), over_model(pspecs))
+               if not split])}
+    seen, calls = set(), [0]
+    _model_collectives(mesh.get_group("model"), seen, calls)
+    tokens = serve_tp_tokens(torch, cfg, prompt).to(device)
     rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
         "tokens", (b,)), mesh).tolist()
     logits, stamps, routes = [], [], []
@@ -4613,7 +4712,8 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
 
     saved = {"rows": rows}
     ep = None
-    with _recorded_routes(routes):
+    chunked = _calls_of(L.chunked_attention)
+    with _recorded_routes(routes), chunked:
         if w["pd"]:
             tc = SV.transfer_config(w["variant"], backend="cuda")
             torch.cuda.synchronize()
@@ -4632,8 +4732,11 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
                                 sent_bytes=comm.sent_bytes,
                                 recv_bytes=comm.recv_bytes,
                                 retry_steps=st.n_retry_steps,
-                                leaf_ok=st.leaf_ok),
+                                leaf_ok=st.leaf_ok,
+                                routes=_hop_routes(res.session, comm)),
                        side_bytes=res.side.sent_bytes + res.side.recv_bytes)
+            if res.pod == 1:
+                out["decode_collectives"] = calls[0] / steps
         else:
             ep = SV.expert_parallel(policy, cfg, tp)
             local = SV.local_batch({"tokens": tokens}, policy)
@@ -4644,28 +4747,39 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
             torch.cuda.synchronize()
             out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
             out["held_cache"] = nbytes(pre.state.cache)
+            out["cache_replicated_sha"] = replicated_cache(pre.state.cache)
             saved.update(prefill=pre.last_logits.float().cpu(),
-                         first=pre.first_token.cpu())
-            (toks, _), dl = counted(lambda: decode_loop(
+                         first=pre.first_token.cpu(),
+                         state_prefill=f32_blocks(pre.state.cache))
+            calls[0] = 0
+            (toks, after), dl = counted(lambda: decode_loop(
                 params, pre.first_token, pre.state, cfg, steps, tp=tp,
                 max_seq=m, on_logits=on_logits, ep=ep))
+            out["decode_collectives"] = calls[0] / steps
             out["tokens"] = toks.tolist()
-            saved.update(steps=torch.stack(logits), tokens=toks.cpu())
+            out["after_replicated_sha"] = replicated_cache(after.cache)
+            saved.update(steps=torch.stack(logits), tokens=toks.cpu(),
+                         state_after=f32_blocks(after.cache))
             out["launches"], out["decode_launches"] = launches, dl
+    out["chunked_attention_calls"] = chunked.n
     if cfg.moe is not None:
         saved["routes"] = [r.cpu() for r in routes]
     if w["pd"]:
-        gtc = SV.transfer_config("xfer_global", backend="cuda")
-        gsess = SV.hop_plan(cfg, policy, gtc, b, m).session(device=device)
+        key = second.rsplit("_", 1)[-1]
+        gtc = SV.transfer_config(second, backend="cuda")
+        gsess = SV.hop_plan(cfg, policy, gtc, b, m, prompt).session(
+            device=device)
         dist.barrier()   # both pods start the second hop together
         if res.pod == 0:
             blocks = res.prefill.state.cache
             out["held_cache"] = nbytes(blocks)
             out["shard_sha"] = _sha_tree(torch, blocks)
+            out["cache_replicated_sha"] = replicated_cache(blocks)
             out["hop"]["raw_bytes"] = nbytes(blocks)
             out["prefill_ms"] = window_ms - comm.seconds * 1e3
             saved.update(prefill=res.prefill.last_logits.float().cpu(),
-                         first=res.prefill.first_token.cpu())
+                         first=res.prefill.first_token.cpu(),
+                         state_prefill=f32_blocks(blocks))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, glaunch = counted(gsess.transfer_shard, blocks)
@@ -4674,19 +4788,22 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
             out["shard_sha"] = _sha_tree(torch, res.received)
             out["hop"]["raw_bytes"] = nbytes(res.received)
             out["tokens"] = res.tokens.tolist()
+            out["after_replicated_sha"] = replicated_cache(res.state.cache)
             saved.update(steps=torch.stack(logits), first=res.first_token.cpu(),
-                         tokens=res.tokens.cpu())
+                         tokens=res.tokens.cpu(),
+                         state_after=f32_blocks(res.state.cache))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got, glaunch = counted(gsess.transfer_shard, None)
-            out["global_sha"] = _sha_tree(torch, got)
+            out[key + "_sha"] = _sha_tree(torch, got)
             del got
         torch.cuda.synchronize()
-        gst = gsess.last_stats
-        out["global"] = dict(ms=(time.perf_counter() - t0) * 1e3,
-                             wire_bytes=gst.wire_bytes,
-                             retry_steps=gst.n_retry_steps,
-                             leaf_ok=gst.leaf_ok, launches=glaunch)
+        gst, gcomm = gsess.last_stats, gsess.last_comm
+        out[key] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                        wire_bytes=gst.wire_bytes,
+                        retry_steps=gst.n_retry_steps,
+                        leaf_ok=gst.leaf_ok, launches=glaunch,
+                        routes=_hop_routes(gsess, gcomm))
     if len(stamps) > 1:
         out["decode_step_ms"] = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
     out["tp_fwd"] = dict(sent_bytes=tp.fwd.sent_bytes,
@@ -4710,7 +4827,29 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag):
     return out
 
 
-def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
+def _hop_routes(session, comm):
+    """A mesh hop's bytes by route (``splitzip``, ``fp32_hilo``, ``raw``)
+    from its unit records, one a leaf in plan order (the tensor path): the
+    shard's raw bytes, the wire bytes handed to gloo, the units that fell
+    back raw and the capacity steps they took."""
+    from repro_torch.serving import collective as CL
+    shard = session._shard_plan_session().plan
+    out = {}
+    for r, rec in zip(shard.routes, comm.records):
+        d = out.setdefault(r.route, dict(raw=0, wire=0, units=0, fallback=0,
+                                         retry_steps=0))
+        d["raw"] += r.n_elements * (4 if r.dtype == "float32" else 2)
+        d["wire"] += rec[4]
+        d["units"] += 1
+        d["fallback"] += rec[0] == CL.FALLBACK
+        d["retry_steps"] += rec[5]
+    for d in out.values():
+        d["ratio"] = d["raw"] / max(d["wire"], 1)
+    return out
+
+
+def serve_replay(torch, device, cfg, worlds, out_dir, tag_of, *,
+                 prompt=SERVE_TP_PROMPT, max_seq=SERVE_TP_MAX_SEQ):
     """The single-process run the ranks of ``worlds`` (``world -> ranks``,
     their files ``<tag_of(world)>_rank<r>.pt``) are held to: the whole
     seeded parameters, ``prefill_step`` on the whole batch, and for each
@@ -4723,7 +4862,9 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
     product rounded once, as the ranks' sums are, unsplit.  Per world and
     rank: the largest excess of its vocab columns' distance from the
     replay's over ``rtol |ref|``, prefill and decode apart, the largest
-    distance itself, its tokens' agreement with the replay's greedy
+    distance itself, a recurrent family's largest distance of its f32
+    state blocks from the replay's (after the prefill, after the steps),
+    its tokens' agreement with the replay's greedy
     choice, how many of them the replay's top logit leads by
     ``SERVE_FAM_MARGIN`` and by twice that largest distance, how many of
     those differ, and the replay's leads where they differ; and the
@@ -4737,9 +4878,10 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
     saved = {(world, r["rank"]): (r, torch.load(
         Path(out_dir) / f"{tag_of(world)}_rank{r['rank']}.pt"))
         for world, ranks in worlds.items() for r in ranks}
-    ref = _replay_logits(torch, device, cfg, params, saved)
+    ref = _replay_logits(torch, device, cfg, params, saved, prompt, max_seq)
     with _f32_row_products():
-        wit = _replay_logits(torch, device, cfg, params, saved)
+        wit = _replay_logits(torch, device, cfg, params, saved, prompt,
+                             max_seq)
     del params
     torch.cuda.synchronize()
     seconds, peak = time.perf_counter() - t0, _peak_gb(torch)
@@ -4748,6 +4890,8 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
         d = (got - want).abs()
         return (d - SERVE_TP_RTOL * want.abs()).max().item(), d.max().item()
 
+    states = ref.pop("states")
+    wit.pop("states")
     pre_keys = [k for k in ref if k[0] == "prefill"]
     steps = [k for k in ref if k[0] != "prefill"]
     out = {"witness": {
@@ -4778,8 +4922,36 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of):
             rec["tokens_held"] = int(held.sum())
             rec["tokens_held_differ"] = int((held & ~same).sum())
             rec["leads_of_differing"] = lead[~same].tolist()
+        for when, key in (("prefill", ("prefill", world)),
+                          ("after", _decode_key(world, r, sv)
+                           if "steps" in sv else None)):
+            got = sv.get("state_" + when)
+            if got:
+                rec[f"state_{when}_max_abs"] = max(
+                    (x - _state_block(states[key][k], k, r["coord"], world))
+                    .abs().max().item() for k, x in got.items())
         out.setdefault(world, []).append(rec)
     return out, seconds, peak
+
+
+def _batch_dim(name):
+    """The batch dimension of a cache leaf (``models/kvcache.py``): 2 for
+    the hybrid's (nt, 2, B, ...) recurrent leaves, else 1."""
+    return 2 if name in ("rec_h", "rec_conv") else 1
+
+
+def _state_block(whole, name, coord, world):
+    """A rank's block of a whole cache leaf of the replay (its rows
+    already cut to the rank's data coordinate where a decode replay ran
+    them) under the world's policy (on a ``{axis: size}`` mesh)."""
+    from repro_torch.distributed import sharding as SH
+    w = SERVE_TP_WORLDS[world]
+    sizes = dict(zip(MESH_AXES, w["mesh"]))
+    policy = SH.ShardingPolicy(sizes, pd_disaggregated=w["pd"])
+    spec = list(policy.spec_for_cache(name, tuple(whole.shape)))
+    if whole.shape[_batch_dim(name)] != SERVE_TP_BATCH:
+        spec[_batch_dim(name)] = None          # the rows are cut already
+    return SH.shard_slice(whole, tuple(spec), sizes, coord)
 
 
 def _decode_key(world, r, sv):
@@ -4864,12 +5036,13 @@ class _f32_row_products:
         return False
 
 
-def _replay_logits(torch, device, cfg, params, saved):
+def _replay_logits(torch, device, cfg, params, saved, prompt, max_seq):
     """The single-process prefill's last logits (B, V) of each world
     (``("prefill", world)``; one run for every world but a MoE's, routed
     as each world's prefill ranks were) and, for each decode (pod, data)
     coordinate (:func:`_decode_key`), its teacher-forced steps' logits
-    (steps, B_rank, V), f32 on the host."""
+    (steps, B_rank, V), f32 on the host; under ``"states"`` the f32 cache
+    leaves after each (a recurrent family's states; on the host)."""
     import contextlib
 
     from repro_torch.models.kvcache import DecodeState
@@ -4877,8 +5050,12 @@ def _replay_logits(torch, device, cfg, params, saved):
     from repro_torch.serving.prefill import prefill_step
 
     moe = cfg.moe is not None
-    tokens = serve_tp_tokens(torch, cfg).to(device)
-    out, pre = {}, None
+    tokens = serve_tp_tokens(torch, cfg, prompt).to(device)
+    out, pre, states = {}, None, {}
+
+    def f32(cache):
+        return {k: x.cpu() for k, x in cache.items()
+                if x.dtype == torch.float32}
     for world in sorted({w for w, _ in saved}):
         ranks = [(r, sv) for (w, _), (r, sv) in saved.items() if w == world]
         if pre is None or moe:
@@ -4893,14 +5070,15 @@ def _replay_logits(torch, device, cfg, params, saved):
             del pre
             with forced:
                 pre = prefill_step(params, {"tokens": tokens}, cfg,
-                                   max_seq=SERVE_TP_MAX_SEQ)
+                                   max_seq=max_seq)
         out[("prefill", world)] = pre.last_logits.float().cpu()
+        states[("prefill", world)] = f32(pre.state.cache)
         for r, sv in ranks:
             key = _decode_key(world, r, sv) if "steps" in sv else None
             if key is None or key in out:
                 continue
-            rows = sv["rows"]
-            st = DecodeState(cache={k: x[:, rows].clone()
+            rows = torch.as_tensor(sv["rows"], device=device)
+            st = DecodeState(cache={k: x.index_select(_batch_dim(k), rows)
                                     for k, x in pre.state.cache.items()},
                              cache_len=pre.state.cache_len[rows])
             feed = torch.cat([sv["first"][:, None], sv["tokens"][:, :-1]],
@@ -4915,23 +5093,31 @@ def _replay_logits(torch, device, cfg, params, saved):
                     lg, st = serve_step(params, feed[:, i:i + 1], st, cfg)
                     steps.append(lg.float().cpu())
             out[key] = torch.stack(steps)
+            states[key] = f32(st.cache)
             del st
     del pre
+    out["states"] = states
     return out
 
 
-def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False):
+def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
+                    case="heads", second="global"):
     """Sharded serving's gates on one world's ranks (``layers`` attention
-    layers; ``tokens``: the decoded tokens held equal to the replay's
-    greedy choice where its lead allows, :func:`serve_replay`); returns
-    the numbers each gate read."""
+    layers of attention ``case``, None for an attention-free family;
+    ``tokens``: the decoded tokens held equal to the replay's greedy choice
+    where its lead allows, :func:`serve_replay`; ``second``: the second
+    hop's variant suffix); returns the numbers each gate read."""
     w = SERVE_TP_WORLDS[world]
     tag = f"{tag} ({world})"
     gates = {}
     for r in ranks:
-        if r["case"] != "heads":
+        if r["case"] != case:
             raise AssertionError(f"{tag} rank {r['rank']}: attention case "
-                                 f"{r['case']}, want heads")
+                                 f"{r['case']}, want {case}")
+        if r["chunked_attention_calls"]:
+            raise AssertionError(f"{tag} rank {r['rank']}: "
+                                 f"{r['chunked_attention_calls']} calls of "
+                                 "chunked_attention in a served window")
         if r["held_params"] != r["spec_params"]:
             raise AssertionError(f"{tag} rank {r['rank']}: holds "
                                  f"{r['held_params']} parameter bytes, the "
@@ -4950,18 +5136,23 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False):
     # model replicas: every rank of one model coordinate holds the same
     # parameter blocks, every rank the same replicated leaves, every model
     # rank of one (pod, data) coordinate the same tokens
-    by_model, toks = {}, {}
+    by_model, toks, states = {}, {}, {}
     for r in ranks:
         c = r["coord"]
         by_model.setdefault(c["model"], set()).add(r["params_sha"])
         if "tokens" in r:
             toks.setdefault((c["pod"], c["data"]), set()).add(str(r["tokens"]))
+        for k in ("cache_replicated_sha", "after_replicated_sha"):
+            if k in r:
+                states.setdefault((k, c["pod"], c["data"]), set()).add(r[k])
     if any(len(v) != 1 for v in by_model.values()) or \
             len({r["replicated_sha"] for r in ranks}) != 1 or \
-            any(len(v) != 1 for v in toks.values()):
+            any(len(v) != 1 for v in toks.values()) or \
+            any(len(v) != 1 for v in states.values()):
         raise AssertionError(f"{tag}: model replicas disagree")
     gates["replicas"] = {"param_blocks": len(by_model),
-                         "token_sets": len(toks)}
+                         "token_sets": len(toks),
+                         "cache_replica_sets": len(states)}
     # flash: one tensor-core launch a layer on every prefill rank, none in
     # decode
     for r in ranks:
@@ -4982,19 +5173,19 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False):
         for (pod, d, mo), r in by.items():
             if pod == 1:
                 src = by[(0, d, mo)]
-                if not r["shard_sha"] == src["shard_sha"] == r["global_sha"]:
+                if not r["shard_sha"] == src["shard_sha"] == r[second + "_sha"]:
                     raise AssertionError(f"{tag}: pod 1's shard ({d}, {mo}) "
                                          "is not pod 0's")
         enc = sum(r["launches"]["encode_fused"] for r in ranks if r["pod"] == 0)
         dec = sum(r["launches"]["decode_fused"] for r in ranks if r["pod"] == 1)
-        genc = sum(r["global"]["launches"][k] for r in ranks if r["pod"] == 0
+        genc = sum(r[second]["launches"][k] for r in ranks if r["pod"] == 0
                    for k in ("encode_fused", "encode_dense"))
-        gdec = sum(r["global"]["launches"][k] for r in ranks if r["pod"] == 1
+        gdec = sum(r[second]["launches"][k] for r in ranks if r["pod"] == 1
                    for k in ("decode_fused", "decode_dense"))
         if not (enc and dec and genc and gdec):
             raise AssertionError(f"{tag}: the hop's codec launches: chunked "
-                                 f"encode {enc} decode {dec}, global encode "
-                                 f"{genc} decode {gdec}")
+                                 f"encode {enc} decode {dec}, {second} "
+                                 f"encode {genc} decode {gdec}")
         gates["hop_codec"] = dict(encode=enc, decode=dec, global_encode=genc,
                                   global_decode=gdec)
     # the ranks' logits against the single-process replay's: within the
@@ -5030,16 +5221,16 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False):
     return gates
 
 
-def _serve_windows(prefix, worlds):
+def _serve_windows(prefix, worlds, second="global"):
     """Each rank's launch windows: ``<prefix>_xfer_src<m>`` / ``_dst<m>``,
-    ``<prefix>_global_*`` and ``<prefix>_base_prefill<r>`` /
+    ``<prefix>_<second>_*`` and ``<prefix>_base_prefill<r>`` /
     ``_decode<r>``."""
     windows = {}
     for r in worlds["xfer"]:
         side = "src" if r["pod"] == 0 else "dst"
         windows[f"{prefix}_xfer_{side}{r['coord']['model']}"] = r["launches"]
-        windows[f"{prefix}_global_{side}{r['coord']['model']}"] = \
-            r["global"]["launches"]
+        windows[f"{prefix}_{second}_{side}{r['coord']['model']}"] = \
+            r[second]["launches"]
     for r in worlds["base"]:
         windows[f"{prefix}_base_prefill{r['rank']}"] = r["launches"]
         windows[f"{prefix}_base_decode{r['rank']}"] = r["decode_launches"]
@@ -5160,6 +5351,114 @@ def phase_serve_tp_families(torch, smi):
          seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
     if failed:
         raise AssertionError("serve_tp_families: " + " | ".join(failed))
+    return windows
+
+
+def _recurrent_gates(fam, world, ranks):
+    """Phase ``serve_tp_recurrent``'s gates beside :func:`_serve_tp_gates`:
+    on the hop's ranks the f32 states ship raw under ``xfer_chunked`` and
+    on the ``fp32_hilo`` route under ``xfer_fp32``, whose codec is the
+    dense pair (``layout='global'``) on both ends; returns what it read."""
+    if not SERVE_TP_WORLDS[world]["pd"]:
+        return {}
+    tag = f"serve_tp_recurrent {fam} ({world})"
+    for r in ranks:
+        if "raw" not in r["hop"]["routes"] or \
+                "fp32_hilo" not in r["fp32"]["routes"]:
+            raise AssertionError(f"{tag} rank {r['rank']}: routes "
+                                 f"{sorted(r['hop']['routes'])} / "
+                                 f"{sorted(r['fp32']['routes'])}: the f32 "
+                                 "states ship raw, then as fp32_hilo")
+    enc = sum(r["fp32"]["launches"]["encode_dense"] for r in ranks
+              if r["pod"] == 0)
+    dec = sum(r["fp32"]["launches"]["decode_dense"] for r in ranks
+              if r["pod"] == 1)
+    if not (enc and dec):
+        raise AssertionError(f"{tag}: xfer_fp32's dense codec launches: "
+                             f"encode {enc}, decode {dec}")
+    return dict(fp32_dense_encode=enc, fp32_dense_decode=dec)
+
+
+def phase_serve_tp_recurrent(torch, smi):
+    """Sharded serving of Mamba-2 and of the RG-LRU hybrid: each world of
+    ``SERVE_TP_WORLDS`` spawned once for both families
+    (``serve_recurrent_rank``), the (2, 1, 2) hop under ``xfer_chunked``
+    then ``xfer_fp32``; then each family's single-process replay and
+    gates; a line a rank and family, then the phase's line."""
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="serve_rec_", dir=ROOT / "build"))
+    replays, windows, gates = {}, {}, {}
+    try:
+        both, seconds = _spawn_serving("serve_recurrent_rank", out_dir)
+        worlds = {fam: {world: [r[fam] for r in ranks]
+                        for world, ranks in both.items()}
+                  for fam in SERVE_RECURRENT}
+        for fam, c in SERVE_RECURRENT.items():
+            replays[fam], seconds[f"replay_{fam}"], peak = serve_replay(
+                torch, device, _depth_cut(c["arch"], c["layers"]),
+                worlds[fam], out_dir, lambda world, fam=fam: f"rec_{fam}_{world}",
+                prompt=c["prompt"], max_seq=c["max_seq"])
+            replays[fam]["peak_gb"] = peak
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    failed = []
+    for fam, c in SERVE_RECURRENT.items():
+        cfg = _depth_cut(c["arch"], c["layers"])
+        attn = cfg.num_layers // 3 if cfg.hybrid is not None else 0
+        gates[fam] = {}
+        for world, ranks in worlds[fam].items():
+            try:
+                gates[fam][world] = _serve_tp_gates(
+                    world, ranks, replays[fam], attn,
+                    f"serve_tp_recurrent {fam}", tokens=True,
+                    case="kv" if attn else None, second="fp32")
+                gates[fam][world].update(_recurrent_gates(fam, world, ranks))
+            except AssertionError as e:   # every gate read, then raised
+                gates[fam][world] = {"failed": str(e)}
+                failed.append(str(e))
+        windows.update(_serve_windows(f"serve_rec_{fam}", worlds[fam],
+                                      second="fp32"))
+        for world, ranks in worlds[fam].items():
+            rep_of = {rec["rank"]: rec for rec in replays[fam][world]}
+            for r in ranks:
+                hop = r.get("hop")
+                emit(phase="serve_tp_recurrent_rank", family=fam,
+                     arch=cfg.name, world=world, rank=r["rank"],
+                     coord=r["coord"], prefill_ms=r.get("prefill_ms"),
+                     decode_step_ms=r.get("decode_step_ms"),
+                     decode_collectives=r.get("decode_collectives"),
+                     tp_fwd=r["tp_fwd"],
+                     hop=None if hop is None else dict(
+                         raw_bytes=hop["raw_bytes"],
+                         wire_bytes=hop["wire_bytes"],
+                         ratio=hop["raw_bytes"] / max(hop["wire_bytes"], 1),
+                         retry_steps=hop["retry_steps"], ms=hop["ms"],
+                         routes=hop["routes"]),
+                     fp32_hop=r.get("fp32"),
+                     held=dict(params=r["held_params"],
+                               cache=r["held_cache"]),
+                     peak_gb=r["peak_gb"],
+                     state_max_abs={k: rep_of[r["rank"]].get(
+                         f"state_{k}_max_abs") for k in ("prefill", "after")})
+    emit(phase="serve_tp_recurrent", nvidia_smi=smi,
+         families={fam: dict(arch=c["arch"], layers=c["layers"],
+                             prompt=c["prompt"], max_seq=c["max_seq"])
+                   for fam, c in SERVE_RECURRENT.items()},
+         batch=SERVE_TP_BATCH, steps=SERVE_TP_STEPS, transport="gloo",
+         worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"],
+                         second="xfer_fp32" if v["pd"] else None)
+                 for k, v in SERVE_TP_WORLDS.items()},
+         replay=replays, gates=gates,
+         bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
+                    witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
+         seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
+    if failed:
+        raise AssertionError("serve_tp_recurrent: " + " | ".join(failed))
     return windows
 
 
@@ -5322,6 +5621,8 @@ def main(argv=None) -> int:
     windows.update(timed("serve_tp", phase_serve_tp, torch, smi))
     windows.update(timed("serve_tp_families", phase_serve_tp_families, torch,
                          smi))
+    windows.update(timed("serve_tp_recurrent", phase_serve_tp_recurrent, torch,
+                         smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -5346,6 +5647,9 @@ def main(argv=None) -> int:
                       "serve_tp_global_dst1") + tuple(
         f"serve_fam_{fam}_{hop}_{side}{m}" for fam in SERVE_FAMILIES
         for hop in ("xfer", "global") for side in ("src", "dst")
+        for m in (0, 1)) + tuple(
+        f"serve_rec_{fam}_{hop}_{side}{m}" for fam in SERVE_RECURRENT
+        for hop in ("xfer", "fp32") for side in ("src", "dst")
         for m in (0, 1))
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
@@ -5363,6 +5667,9 @@ def main(argv=None) -> int:
     served_prefills.update({
         f"{arch} (serve_tp_families)": (f"serve_fam_{fam}_base_prefill0", layers)
         for fam, (arch, layers) in SERVE_FAMILIES.items()})
+    served_prefills[f"{HYBRID_ARCH} (serve_tp_recurrent)"] = (
+        "serve_rec_hybrid_base_prefill0",
+        SERVE_RECURRENT["hybrid"]["layers"] // 3)
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "

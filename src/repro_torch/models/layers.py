@@ -186,9 +186,13 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention_qkv(p, x, positions, theta):
     q = apply_rope(_proj_in(x, p["wq"]), positions, theta)
-    k = apply_rope(_proj_in(x, p["wk"]), positions, theta)
-    v = _proj_in(x, p["wv"])
-    return q, k, v
+    return (q,) + attention_kv(p, x, positions, theta)
+
+
+def attention_kv(p, x, positions, theta):
+    """The keys (roped) and values of ``x`` at ``positions``."""
+    return (apply_rope(_proj_in(x, p["wk"]), positions, theta),
+            _proj_in(x, p["wv"]))
 
 
 def attention_out(p, o, tp=None):

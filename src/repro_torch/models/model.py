@@ -28,14 +28,20 @@ vocab-split embedding and head, the split attention and SwiGLU products,
 Mamba-2's split ``in_proj`` / ``out_proj``, the RG-LRU's block of
 channels, and the vocab-parallel cross-entropy; the logits ``forward``
 returns are then this rank's vocab columns.  Serving under ``tp``
-(:func:`prefill`, :func:`decode_step`) runs the dense GQA, MLA and MoE
-families: the prefill attends through the flash kernel on the rank's
-heads or query block and leaves each rank its block of the cache in the
-policy's layout (the sequence split over ``model``,
+(:func:`prefill`, :func:`decode_step`) runs the dense GQA, MLA, MoE,
+Mamba-2 and RG-LRU hybrid families: the prefill attends through the flash
+kernel on the rank's heads or query block and leaves each rank its block
+of the cache in the policy's layout (the sequence split over ``model``,
 ``tensor_parallel.prefill_cache_block``); a decode step attends over those
 blocks and merges the partials (``layers.decode_attention_tp``, MLA's
 absorbed ``mla.mla_decode_tp``); a MoE's FFN runs under ``ep`` (its
-routing group and expert split).  The other families raise there
+routing group and expert split).  The recurrent families' states split
+heads, channels or the window's KV heads, never the sequence: a prefill
+keeps its block of each final state (Mamba-2's are whole on every rank,
+``ssm.state_block``; the RG-LRU's are the block of U a rank runs; the
+window as :func:`_triple_fwd` says), and a decode step runs on those
+blocks (``ssm.mamba2_decode_tp``, ``rglru.recurrent_block_step_tp``,
+:func:`_windowed_decode_tp`).  The front ends raise there
 (:func:`require_tp_serving`).
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
@@ -359,25 +365,42 @@ def _recurrent_fwd(sub, x, cfg: ArchConfig, tp=None):
 
 
 def _triple_fwd(triple, x, positions, cfg: ArchConfig, kv_block: int,
-                attention, tp=None):
-    """One (rglru, rglru, local_attn) triple: (x, k, v, recurrent states;
-    under ``tp`` no k and v)."""
+                attention, tp=None, collect: bool = True):
+    """One (rglru, rglru, local_attn) triple: (x, the window's keys and
+    values (its last ``min(window, S)`` positions), recurrent states).
+
+    Under ``tp`` the attention is ``layers.attention_tp`` (through
+    ``attention``: serving prefill's flash kernel), and the window is what
+    the policy's ``attn_k`` / ``attn_v`` rule gives a rank, None unless
+    ``collect``: case ``heads`` its KV heads, ``kv`` and ``none`` every
+    head (the same bits on every rank, from the replicated ``wk`` / ``wv``
+    on the whole residual stream); case ``seq`` leaves the window's last
+    positions on the last rank only, so every rank recomputes the window's
+    K/V from the replicated ``wk`` / ``wv`` (no bytes move, and every
+    replica holds the same bits)."""
     rec = []
     for j in range(2):
         x, st = _recurrent_fwd(layer_params(triple["rec"], j), x, cfg, tp)
         rec.append(st)
     ap = triple["attn"]
     h = L.rms_norm(x, ap["norm"], cfg.norm_eps)
-    k = v = None
+    w = min(cfg.hybrid.window, x.shape[1])
     if tp is not None:
-        attn_out, _ = L.attention_tp(ap["block"], h, positions, cfg.rope_theta,
-                                  tp, window=cfg.hybrid.window,
-                                  kv_block=kv_block)
+        attn_out, (case, k, v) = L.attention_tp(
+            ap["block"], h, positions, cfg.rope_theta, tp,
+            window=cfg.hybrid.window, kv_block=kv_block, attention=attention)
+        if not collect:
+            k = v = None
+        elif case == "seq":
+            k, v = L.attention_kv(ap["block"], h[:, -w:], positions[:, -w:],
+                                  cfg.rope_theta)
     else:
         q, k, v = L.attention_qkv(ap["block"], h, positions, cfg.rope_theta)
         o = attention(q, k, v, causal=True, window=cfg.hybrid.window,
                       kv_block=kv_block)
         attn_out = L.attention_out(ap["block"], o)
+    if k is not None:
+        k, v = k[:, -w:], v[:, -w:]
     x = x + attn_out
     h2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
     return x + L.mlp(ap["mlp"], h2, _split(tp, cfg.d_ff)), k, v, rec
@@ -386,16 +409,17 @@ def _triple_fwd(triple, x, positions, cfg: ArchConfig, kv_block: int,
 def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
                     collect_cache: bool, attention, run, tp=None):
     """The (rglru, rglru, local_attn) triples, then the extra blocks.  The
-    cache keeps each triple's last ``min(window, S)`` keys and values."""
-    window = cfg.hybrid.window
+    cache keeps each triple's last ``min(window, S)`` keys and values;
+    under ``tp`` each leaf is the rank's block (``_triple_fwd``; the
+    recurrent states the block of U channels a rank runs, where U
+    splits)."""
     nt, ne = n_triples_extra(cfg)
     caches = []
     for triple in _unstack(params["triples"], nt):
         x, k, v, rec = run(_triple_fwd, triple, x, positions, cfg, kv_block,
-                           attention, tp)
+                           attention, tp, collect_cache)
         if collect_cache:
-            w = min(window, k.shape[1])
-            caches.append({"attn_k": k[:, -w:], "attn_v": v[:, -w:],
+            caches.append({"attn_k": k, "attn_v": v,
                            "rec_h": torch.stack([r["h"] for r in rec]),
                            "rec_conv": torch.stack([r["conv"] for r in rec])})
     extra = []
@@ -406,6 +430,8 @@ def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
         return x, None
     cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
     b, u = x.shape[0], cfg.hybrid.lru_width or cfg.d_model
+    if _split(tp, u) is not None:
+        u //= tp.size
     if extra:
         cache["extra_h"] = torch.stack([e["h"] for e in extra])
         cache["extra_conv"] = torch.stack([e["conv"] for e in extra])
@@ -425,11 +451,15 @@ def _ssm_layer(lp, x, cfg: ArchConfig, tp=None):
 
 def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run,
                  tp=None):
-    """The Mamba-2 layers; the cache is their final (ssm, conv) states."""
+    """The Mamba-2 layers; the cache is their final (ssm, conv) states
+    (under ``tp`` whole on every rank, of which each keeps its block:
+    ``ssm.state_block``)."""
     ssms, convs = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
         x, st = run(_ssm_layer, lp, x, cfg, tp)
         if collect_cache:
+            if tp is not None:
+                st = SSM.state_block(st, cfg.ssm, cfg.d_model, tp)
             ssms.append(st.ssm)
             convs.append(st.conv)
     if not collect_cache:
@@ -499,24 +529,21 @@ def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
 # ---------------------------------------------------------------------------
 
 #: the queued slice of sharded serving of each family that has none yet
-TP_SERVING_QUEUE = {"ssm": "Mamba-2", "hybrid": "the RG-LRU hybrid",
-                    "vlm": "the vision front end", "audio": "the audio front end"}
+TP_SERVING_QUEUE = {"vlm": "the vision front end", "audio": "the audio front end"}
 
 
 def require_tp_serving(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is of a family with a
     sharded serving path (prefill and decode under ``tp``): the dense GQA,
-    MLA and MoE families; the others' slices are queued (ROADMAP, queue
-    1)."""
-    fam = ("ssm" if cfg.ssm is not None
-           else "hybrid" if cfg.hybrid is not None
-           else "audio" if cfg.encoder_only or cfg.frontend == "audio_frames"
+    MLA, MoE, Mamba-2 and RG-LRU hybrid families; the front ends' slices
+    are queued (ROADMAP, queue 1)."""
+    fam = ("audio" if cfg.encoder_only or cfg.frontend == "audio_frames"
            else "vlm" if cfg.frontend is not None else None)
     if fam is not None:
         raise NotImplementedError(
-            f"{cfg.name}: sharded serving (tp=) runs the dense GQA, MLA and "
-            f"MoE families; that of {TP_SERVING_QUEUE[fam]} is queued "
-            "(ROADMAP, queue 1)")
+            f"{cfg.name}: sharded serving (tp=) runs the dense GQA, MLA, "
+            f"MoE, Mamba-2 and RG-LRU hybrid families; that of "
+            f"{TP_SERVING_QUEUE[fam]} is queued (ROADMAP, queue 1)")
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
@@ -539,8 +566,9 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     shards and ``batch`` the rank's rows: the logits are the rank's vocab
     columns (where the vocab splits) and the cache is the rank's blocks,
     every KV head or the whole latent over its span of ``max_seq``
-    (``tensor_parallel.cache_span``), zeros past the prompt; a MoE's FFN
-    runs under ``ep`` (its routing group's batch, its expert block)."""
+    (``tensor_parallel.cache_span``), zeros past the prompt, or a
+    recurrent family's state blocks (module docstring); a MoE's FFN runs
+    under ``ep`` (its routing group's batch, its expert block)."""
     lengths = batch.get("lengths")
     if tp is not None:
         require_tp_serving(cfg)
@@ -599,37 +627,86 @@ def _windowed_decode(ap, x, k_cache, v_cache, cache_len, cfg: ArchConfig):
     """Sliding-window decode with a right-aligned shift-insert cache: the new
     key and value enter at the right end and the oldest slot drops out; the
     last ``min(cache_len + 1, w)`` slots are attended."""
-    w = k_cache.shape[1]
     q, k, v = L.attention_qkv(ap, x, cache_len[:, None], cfg.rope_theta)
     k_cache = torch.cat([k_cache[:, 1:], k], dim=1)
     v_cache = torch.cat([v_cache[:, 1:], v], dim=1)
+    o = _window_attention(q, k_cache, v_cache, cache_len)
+    return L.attention_out(ap, o), k_cache, v_cache
+
+
+def _window_attention(q, k_cache, v_cache, cache_len):
+    """q (B, 1, H, d) over the last ``min(cache_len + 1, w)`` slots of a
+    right-aligned window (B, w, Hkv, d): f32 scores and softmax, ``p``
+    rounded to the cache's dtype before ``p . v``."""
+    w = k_cache.shape[1]
     n_valid = torch.clamp(cache_len + 1, max=w)                       # (B,)
-    mask = torch.arange(w, device=x.device)[None, :] >= (w - n_valid)[:, None]
+    mask = torch.arange(w, device=q.device)[None, :] >= (w - n_valid)[:, None]
     b, _, h, dq = q.shape
     hkv = k_cache.shape[2]
     qg = q.reshape(b, hkv, h // hkv, dq).float()                      # (B,Hkv,G,d)
     sc = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / np.sqrt(dq)
     sc = torch.where(mask[:, None, None, :], sc,
-                     torch.tensor(L.NEG_INF, device=x.device))
+                     torch.tensor(L.NEG_INF, device=q.device))
     p_ = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p_.to(v_cache.dtype).float(),
                      v_cache.float())
-    o = o.reshape(b, 1, h, dq).to(x.dtype)
-    return L.attention_out(ap, o), k_cache, v_cache
+    return o.reshape(b, 1, h, dq).to(q.dtype)
 
 
-def _recurrent_step(sub, x, h_state, conv_state, cfg: ArchConfig):
-    """One residual recurrent block + its MLP, a single token."""
+def _windowed_decode_tp(ap, x, k_cache, v_cache, cache_len, cfg: ArchConfig,
+                        tp):
+    """:func:`_windowed_decode` on this rank's shards and window block (the
+    policy's ``attn_k`` / ``attn_v`` rule: the KV heads over ``model``
+    where they split, else the whole window on every rank), by the decode
+    attention case (``tp.attention(1)``):
+
+    * ``heads``: the rank's query heads and KV heads; the new K/V
+      shift-insert into its block of the window;
+    * ``kv``: the rank's query heads; the new K/V from the replicated
+      ``wk`` / ``wv``, whole (the same bits on every rank), shift-inserted
+      into the whole window, of which each query head reads its KV head;
+    * ``none``: the whole step on every rank (every weight replicated).
+
+    In the first two ``wo`` is a row product over the rank's heads (f32
+    products summed over ``model`` in rank order, rounded once: a
+    reduce-scatter and an all-gather into ``tp.fwd``); nothing else
+    moves."""
+    case = tp.attention(1)
+    if case == "none":
+        return _windowed_decode(ap, x, k_cache, v_cache, cache_len, cfg)
+    q, k, v = L.attention_qkv(ap, x, cache_len[:, None], cfg.rope_theta)
+    k_cache = torch.cat([k_cache[:, 1:], k], dim=1)
+    v_cache = torch.cat([v_cache[:, 1:], v], dim=1)
+    kc, vc = k_cache, v_cache
+    if case == "kv":
+        hl = q.shape[2]
+        idx = (tp.rank * hl + torch.arange(hl, device=x.device)) \
+            // (tp.heads // tp.kv_heads)
+        kc, vc = k_cache[:, :, idx], v_cache[:, :, idx]
+    o = _window_attention(q, kc, vc, cache_len)
+    return L.attention_out(ap, o, tp), k_cache, v_cache
+
+
+def _recurrent_step(sub, x, h_state, conv_state, cfg: ArchConfig, tp=None):
+    """One residual recurrent block + its MLP, a single token (under
+    ``tp``, the rank's block of U channels where U splits, and the MLP
+    split over d_ff where it divides)."""
     hh = L.rms_norm(x, sub["norm"], cfg.norm_eps)
-    out, st = RG.recurrent_block_step(sub["block"], hh,
-                                      {"h": h_state, "conv": conv_state})
+    state = {"h": h_state, "conv": conv_state}
+    if _split(tp, cfg.hybrid.lru_width or cfg.d_model) is not None:
+        out, st = RG.recurrent_block_step_tp(sub["block"], hh, state, tp)
+    else:
+        out, st = RG.recurrent_block_step(sub["block"], hh, state)
     x = x + out
     hh2 = L.rms_norm(x, sub["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp(sub["mlp"], hh2), st
+    return x + L.mlp(sub["mlp"], hh2, _split(tp, cfg.d_ff)), st
 
 
-def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
-    """One token through the triples and extra blocks; a new cache dict."""
+def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig,
+                   tp=None):
+    """One token through the triples and extra blocks; a new cache dict
+    (under ``tp``, of the rank's blocks: :func:`_recurrent_step`,
+    :func:`_windowed_decode_tp`)."""
     ks, vs, hs, convs = [], [], [], []
     for i in range(cache["attn_k"].shape[0]):
         triple = layer_params(params["triples"], i)
@@ -637,16 +714,22 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
         for j in range(2):
             x, st = _recurrent_step(layer_params(triple["rec"], j), x,
                                     cache["rec_h"][i, j], cache["rec_conv"][i, j],
-                                    cfg)
+                                    cfg, tp)
             rh.append(st["h"])
             rc.append(st["conv"])
         ap = triple["attn"]
         hh = L.rms_norm(x, ap["norm"], cfg.norm_eps)
-        out, ck, cv = _windowed_decode(ap["block"], hh, cache["attn_k"][i],
-                                       cache["attn_v"][i], cache_len, cfg)
+        if tp is None:
+            out, ck, cv = _windowed_decode(ap["block"], hh, cache["attn_k"][i],
+                                           cache["attn_v"][i], cache_len, cfg)
+        else:
+            out, ck, cv = _windowed_decode_tp(ap["block"], hh,
+                                              cache["attn_k"][i],
+                                              cache["attn_v"][i], cache_len,
+                                              cfg, tp)
         x = x + out
         hh2 = L.rms_norm(x, ap["norm_mlp"], cfg.norm_eps)
-        x = x + L.mlp(ap["mlp"], hh2)
+        x = x + L.mlp(ap["mlp"], hh2, _split(tp, cfg.d_ff))
         ks.append(ck)
         vs.append(cv)
         hs.append(torch.stack(rh))
@@ -656,7 +739,8 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
     eh, ec = [], []
     for i in range(cache["extra_h"].shape[0]):
         x, st = _recurrent_step(layer_params(params["extra"], i), x,
-                                cache["extra_h"][i], cache["extra_conv"][i], cfg)
+                                cache["extra_h"][i], cache["extra_conv"][i], cfg,
+                                tp)
         eh.append(st["h"])
         ec.append(st["conv"])
     if eh:
@@ -665,14 +749,19 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig):
     return x, new
 
 
-def _ssm_decode(params, x, cache: dict, cfg: ArchConfig):
+def _ssm_decode(params, x, cache: dict, cfg: ArchConfig, tp=None):
+    """One token through the Mamba-2 layers; a new cache dict (under
+    ``tp``, of the rank's state blocks: ``ssm.mamba2_decode_tp``)."""
     ssms, convs = [], []
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        out, st = SSM.mamba2_decode(
-            lp["mixer"], h, SSM.SSMState(cache["ssm"][i], cache["conv"][i]),
-            cfg.ssm, cfg.d_model)
+        st = SSM.SSMState(cache["ssm"][i], cache["conv"][i])
+        if tp is None:
+            out, st = SSM.mamba2_decode(lp["mixer"], h, st, cfg.ssm, cfg.d_model)
+        else:
+            out, st = SSM.mamba2_decode_tp(lp["mixer"], h, st, cfg.ssm,
+                                           cfg.d_model, tp)
         x = x + out
         ssms.append(st.ssm)
         convs.append(st.conv)
@@ -692,21 +781,24 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
 
     Under ``tp`` (:func:`require_tp_serving`): a rank's shards, rows and
     cache blocks of a ``max_seq``-slot cache (:func:`prefill`'s layout;
-    ``max_seq`` is required: the blocks alone do not say whether the slots
-    split); the logits are the rank's vocab columns; a MoE's FFN runs
-    under ``ep``."""
+    ``max_seq`` is required where the cache is positional: the blocks
+    alone do not say whether the slots split; the recurrent families'
+    blocks split heads, channels or the window's KV heads, and take no
+    ``max_seq``); the logits are the rank's vocab columns; a MoE's FFN
+    runs under ``ep``."""
     require_decoder(cfg)
+    cache_len = state.cache_len
+    if cfg.hybrid is not None or cfg.ssm is not None:
+        x = _embed_tokens(params, tokens, cfg, tp)
+        if cfg.hybrid is not None:
+            x, cache = _hybrid_decode(params, x, state.cache, cache_len, cfg, tp)
+        else:
+            x, cache = _ssm_decode(params, x, state.cache, cfg, tp)
+        logits = lm_logits(params, x, cfg, tp)[:, -1]
+        return logits, DecodeState(cache=cache, cache_len=cache_len + 1)
     if tp is not None:
         return _decode_step_tp(params, tokens, state, cfg, tp, max_seq, ep)
     x = params["embed"][tokens]
-    cache_len = state.cache_len
-    if cfg.hybrid is not None or cfg.ssm is not None:
-        if cfg.hybrid is not None:
-            x, cache = _hybrid_decode(params, x, state.cache, cache_len, cfg)
-        else:
-            x, cache = _ssm_decode(params, x, state.cache, cfg)
-        logits = lm_logits(params, x, cfg)[:, -1]
-        return logits, DecodeState(cache=cache, cache_len=cache_len + 1)
     mla = cfg.mla is not None
     c0, c1 = (state.cache["ckv"], state.cache["krope"]) if mla else \
         (state.cache["k"], state.cache["v"])
@@ -739,9 +831,7 @@ def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
     if k_all.shape[2] != span.stop - span.start:
         raise ValueError(f"cache blocks of {k_all.shape[2]} slots are not a "
                          f"rank's span of {max_seq} over {tp.size} ranks")
-    vtp = _split(tp, cfg.vocab_size)
-    x = (TP.vocab_embedding(tokens, params["embed"], vtp) if vtp is not None
-         else F.embedding(tokens, params["embed"]))
+    x = _embed_tokens(params, tokens, cfg, tp)
     cache_len = state.cache_len
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -758,6 +848,16 @@ def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
         x = y + ffn(lp, h2, cfg, tp, ep)[0]
     logits = lm_logits(params, x, cfg, tp)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
+
+
+def _embed_tokens(params, tokens, cfg: ArchConfig, tp=None) -> torch.Tensor:
+    """A decode step's token rows: under ``tp`` with the vocab split over
+    ``model`` the vocab-parallel lookup, else the table's rows (the same
+    bits)."""
+    vtp = _split(tp, cfg.vocab_size)
+    if vtp is not None:
+        return TP.vocab_embedding(tokens, params["embed"], vtp)
+    return F.embedding(tokens, params["embed"])
 
 
 def resident_decode_step(params, tokens: torch.Tensor,

@@ -191,3 +191,37 @@ def recurrent_block_step(p, x: torch.Tensor, state: dict
     h_out, h_new = rglru_step(p, uc, state["h"])
     out = torch.matmul(h_out * gate, p["w_out"])[:, None, :]
     return out, {"h": h_new, "conv": window[:, 1:, :]}
+
+
+def recurrent_block_step_tp(p, x: torch.Tensor, state: dict, tp
+                            ) -> Tuple[torch.Tensor, dict]:
+    """:func:`recurrent_block_step` on this rank's block of the LRU width U
+    (split over ``model``; where U does not split, call
+    :func:`recurrent_block_step` on the whole): x (B, 1, D) whole on every
+    model rank, ``p`` the rank's columns of ``w_gate_branch``, ``w_in``,
+    ``w_a`` and ``w_x`` and rows of ``w_out`` (``conv_w``, ``conv_b``,
+    ``b_a``, ``b_x`` and ``lam`` whole, sliced to the block), ``state`` the
+    block's ``h`` (B, U/m) f32 and ``conv`` (B, W-1, U/m).  As in
+    training's :func:`_tp_forward`, everything after the products is per
+    channel: the gate branch and ``w_in`` products are the block's
+    columns, the conv step sums the block's window in f32 and rounds once
+    (the whole step's bits at those channels), the post-conv block is
+    all-gathered (the one collective before ``w_out``) for the ``w_a`` /
+    ``w_x`` products, whose columns are the block's, and ``rglru_step``
+    updates the block's ``h``.  ``w_out`` is a row product over the block:
+    f32 products summed over ``model`` in rank order, rounded once (a
+    reduce-scatter and an all-gather).  The collectives count into
+    ``tp.fwd``.  Returns the output (B, 1, D), whole on every rank, and
+    the block's new state."""
+    blk = tp.block(tp.lru_width)
+    gate = _gelu(torch.matmul(x, p["w_gate_branch"]))[:, 0]        # (B, U/m)
+    u = torch.matmul(x, p["w_in"])[:, 0]
+    window = torch.cat([state["conv"], u[:, None, :]], dim=1)
+    uc = (window.float() * p["conv_w"][:, blk].float()).sum(dim=1) \
+        .to(x.dtype) + p["conv_b"][blk]
+    gp = {"w_a": p["w_a"], "w_x": p["w_x"], "b_a": p["b_a"][blk],
+          "b_x": p["b_x"][blk], "lam": p["lam"][blk]}
+    a, b = _gates(gp, TP.gather(uc, tp, -1), uc)
+    h_new = a * state["h"].float() + b
+    out = TP.row_product(h_new.to(uc.dtype) * gate, p["w_out"], tp)
+    return out[:, None, :], {"h": h_new, "conv": window[:, 1:, :]}

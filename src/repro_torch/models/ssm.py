@@ -237,3 +237,88 @@ def mamba2_decode(p, x: torch.Tensor, state: SSMState, cfg: SSMConfig,
     y = rms_norm(y * F.silu(z), p["norm"])
     out = torch.matmul(y, p["out_proj"])[:, None, :]
     return out, SSMState(ssm=new_ssm, conv=window[:, 1:, :])
+
+
+def state_block(state: SSMState, cfg: SSMConfig, d_model: int, tp
+                ) -> SSMState:
+    """This rank's block of a whole state under the policy's cache rules
+    (``spec_for_cache``): ``ssm`` its heads where H splits over ``model``,
+    ``conv`` its channels where C splits, each on its own."""
+    _, heads, conv_ch = dims(d_model, cfg)
+    ssm, conv = state.ssm, state.conv
+    if tp.splits(heads):
+        ssm = ssm[:, tp.block(heads)]
+    if tp.splits(conv_ch):
+        conv = conv[..., tp.block(conv_ch)]
+    return SSMState(ssm=ssm.contiguous(), conv=conv.contiguous())
+
+
+def mamba2_decode_tp(p, x: torch.Tensor, state: SSMState, cfg: SSMConfig,
+                     d_model: int, tp) -> Tuple[torch.Tensor, SSMState]:
+    """:func:`mamba2_decode` on this rank's shards and state blocks
+    (:func:`state_block`'s layout): x (B, 1, D) whole on every model rank.
+
+    * ``in_proj``: where its K splits, the rank's columns' product is
+      all-gathered (collective 1), so z, x, B, C and dt are whole;
+    * the conv step runs on the rank's C block with its conv state and
+      the block's taps and bias: each channel's f32 sum over the window is
+      rounded once, so the block holds the whole step's bits at those
+      channels; where C splits the post-conv block is all-gathered
+      (collective 2), whole x, B and C on every rank (a C block is no head
+      group: C concatenates x, B and C);
+    * the SSM step updates the rank's heads of ``ssm`` (every head where H
+      does not split): decays, inputs and the read-out in f32, each head
+      as the whole step computes it; its heads' ``y`` rounded to bf16 and
+      all-gathered where H splits (collective 3);
+    * the gated norm runs over all of d_inner on every rank (the same
+      bits); ``out_proj`` is a row product over the rank's d_inner rows
+      where d_inner splits: f32 products summed over ``model`` in rank
+      order and rounded once (a reduce-scatter and an all-gather,
+      collectives 4-5), else the whole bf16 product.
+
+    Each split is taken where its dimension divides ``model``, each on its
+    own (at mamba2-2.7b, model 2, all five; reduced at model 3 only C's).
+    The collectives count into ``tp.fwd``.  Returns the output (B, 1, D),
+    whole on every rank, and the rank's new state blocks."""
+    d_inner, heads, conv_ch = dims(d_model, cfg)
+    bsz = x.shape[0]
+    gn = cfg.n_groups * cfg.d_state
+    k = 2 * d_inner + 2 * gn + heads
+    zxbcdt = torch.matmul(x, p["in_proj"])[:, 0]                     # (B, K/k)
+    if tp.splits(k):
+        zxbcdt = TP.gather(zxbcdt, tp, -1)
+    z, xbc_new, dt = _split_proj(zxbcdt, d_inner, cfg.n_groups, cfg.d_state, heads)
+
+    cblk = tp.block(conv_ch) if tp.splits(conv_ch) else slice(0, conv_ch)
+    window = torch.cat([state.conv, xbc_new[:, None, cblk]], dim=1)  # (B, W, c)
+    conv_out = (window.float() * p["conv_w"][:, cblk].float()).sum(dim=1) \
+        .to(x.dtype) + p["conv_b"][cblk]
+    xbc = F.silu(conv_out)
+    if tp.splits(conv_ch):
+        xbc = TP.gather(xbc, tp, -1)
+    hblk = tp.block(heads) if tp.splits(heads) else slice(0, heads)
+    hl = hblk.stop - hblk.start
+    xs = xbc[..., :d_inner].reshape(bsz, heads, cfg.head_dim)[:, hblk]
+    b_vec = xbc[..., d_inner: d_inner + gn].reshape(bsz, cfg.n_groups, cfg.d_state)
+    c_vec = xbc[..., d_inner + gn:].reshape(bsz, cfg.n_groups, cfg.d_state)
+    dt = F.softplus(dt[:, hblk].float() + p["dt_bias"][hblk])         # (B, h)
+
+    a = -torch.exp(p["A_log"][hblk])
+    da = torch.exp(dt * a)
+    group = torch.arange(hblk.start, hblk.stop, device=x.device) \
+        // (heads // cfg.n_groups)
+    bh = b_vec[:, group].float()                                     # (B, h, N)
+    ch = c_vec[:, group].float()
+    xd = xs.float() * dt[..., None]
+    new_ssm = state.ssm * da[:, :, None, None] + xd[..., None] * bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", new_ssm, ch)
+    y = y + p["D"][hblk][None, :, None] * xs.float()
+    y = y.reshape(bsz, hl * cfg.head_dim).to(x.dtype)
+    if tp.splits(heads):
+        y = TP.gather(y, tp, -1)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    if tp.splits(d_inner):
+        out = TP.row_product(y[:, tp.block(d_inner)], p["out_proj"], tp)
+    else:
+        out = torch.matmul(y, p["out_proj"])
+    return out[:, None, :], SSMState(ssm=new_ssm, conv=window[:, 1:, :])

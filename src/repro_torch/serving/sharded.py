@@ -14,8 +14,9 @@ part explicitly, over ``torch.distributed`` (gloo), on its shards:
   ``prefill_step`` under the policy) and the decode cells (``:221-239``:
   ``serve_step`` over a cache laid out by ``cache_sharding``): the rank's
   prefill under the ``model`` axis's tensor parallelism leaves it its
-  block of the cache (the sequence split over ``model``, the batch over
-  the data axes), then ``decode_loop`` steps on those blocks;
+  block of the cache (the sequence split over ``model``, or a recurrent
+  state's heads or channels; the batch over the data axes), then
+  ``decode_loop`` steps on those blocks;
 * :func:`disaggregated_step` -- the ``xfer_*`` cells (``:162-192``), the
   paper's pipeline "prefill -> SplitZip -> DCN hop -> decode pod": under
   ``ShardingPolicy(pd_disaggregated=True)`` pod 0 prefills, each pod-0
@@ -36,10 +37,22 @@ decode is the absorbed form over the span (``mla.mla_decode_tp``); and
 MoE, whose FFN runs under expert parallelism (:func:`expert_parallel`,
 built once on every rank, outside the steps: the routing group is the
 policy's data axes, under ``pd_disaggregated`` the pod's data ranks, and
-the experts split over ``model`` where they divide it).  The hop carries
-whatever leaves the cache has.  Mamba-2, the RG-LRU hybrid and the front
-ends raise.  Nothing falls back: a collective's failure fails the call,
-and a sharded step never runs whole on one rank.
+the experts split over ``model`` where they divide it); and the recurrent
+families, Mamba-2 and the RG-LRU hybrid, whose state does not grow with
+the sequence and splits on heads or channels, never on it: Mamba-2's
+``ssm`` (L, B, H, P, N) over H and ``conv`` (L, B, W-1, C) over C, each
+where it divides ``model``; the hybrid's ``rec_h`` / ``rec_conv`` /
+``extra_h`` / ``extra_conv`` over the LRU width U and its window
+``attn_k`` / ``attn_v`` over the KV heads (recurrentgemma's one MQA head
+does not split, so every model rank holds the whole window).  No span, no
+merge of partials: a decode step runs on the rank's state blocks
+(``models.model.decode_step``).  The hop carries whatever leaves the cache
+has: the f32 states ship raw, or, under ``compress_fp32`` (the
+``xfer_fp32`` variant), their hi halves through the codec
+(``fp32_hilo``); a leaf replicated over ``model`` is shipped by every
+model rank to its pod-1 peer, so each copy is counted where it is sent.
+The front ends raise.  Nothing falls back: a collective's failure fails
+the call, and a sharded step never runs whole on one rank.
 """
 
 from __future__ import annotations
@@ -122,9 +135,17 @@ def local_batch(batch: Dict, policy: SH.ShardingPolicy) -> Dict:
         "tokens", tuple(x.shape)), policy.mesh) for k, x in batch.items()}
 
 
-def cache_like(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
-    """The whole cache's shapes and dtypes (``meta`` tensors): what the
-    policy's ``cache_specs`` and a mesh ``TransferPlan`` are built from."""
+def cache_like(cfg: ArchConfig, batch: int, max_seq: int,
+               prompt_len: Optional[int] = None) -> Dict:
+    """The whole cache's shapes and dtypes (``meta`` tensors) after a
+    prefill of ``prompt_len`` positions (default: any, at least the
+    hybrid's window): what the policy's ``cache_specs`` and a mesh
+    ``TransferPlan`` are built from.  The hybrid's window holds
+    ``min(window, prompt_len)`` positions after a prefill (``init_cache``
+    allots ``min(window, max_seq)``), so a prompt shorter than the window
+    plans that many; no other family's shapes depend on the prompt."""
+    if cfg.hybrid is not None and prompt_len is not None:
+        max_seq = min(max_seq, prompt_len)
     return KC.init_cache(cfg, batch, max_seq, device="meta")
 
 
@@ -186,10 +207,12 @@ class HopResult:
 
 
 def hop_plan(cfg: ArchConfig, policy: SH.ShardingPolicy, tc: TransferConfig,
-             batch: int, max_seq: int) -> TransferPlan:
-    """The mesh plan of a ``batch`` x ``max_seq`` cache under the policy's
+             batch: int, max_seq: int,
+             prompt_len: Optional[int] = None) -> TransferPlan:
+    """The mesh plan of a ``batch`` x ``max_seq`` cache after a prefill of
+    ``prompt_len`` positions (:func:`cache_like`) under the policy's
     ``cache_specs`` (from shapes alone: no rank holds the whole cache)."""
-    like = cache_like(cfg, batch, max_seq)
+    like = cache_like(cfg, batch, max_seq, prompt_len)
     return TransferPlan.build(like, tc, mesh=policy.mesh,
                               specs=policy.cache_specs(like))
 
@@ -212,8 +235,8 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     if sizes.get("pod", 1) != 2:
         raise ValueError(f"the disaggregated step runs on 2 pods, not "
                          f"{sizes.get('pod', 1)}")
-    b = next(iter(batch.values())).shape[0]
-    session = hop_plan(cfg, policy, tc, b, max_seq).session(device=device)
+    b, s = next(iter(batch.values())).shape[:2]
+    session = hop_plan(cfg, policy, tc, b, max_seq, s).session(device=device)
     plan = session.plan
     pod = mesh.get_local_rank("pod")
     tp = tensor_parallel(policy, cfg)
@@ -257,9 +280,10 @@ def main(argv=None) -> None:
 
     ``--arch`` is any family with a sharded serving path: dense GQA,
     ``minicpm3-4b`` (MLA), ``qwen3-moe-30b-a3b`` (MoE, its experts over
-    ``model``).  ``--variant base`` runs :func:`serve` (the prefill and
-    decode cells);
-    an ``xfer_*`` variant runs :func:`disaggregated_step` under a
+    ``model``), ``mamba2-2.7b`` (Mamba-2; ``--variant xfer_fp32`` sends
+    its f32 state's hi halves through the codec) and
+    ``recurrentgemma-9b`` (the RG-LRU hybrid).  ``--variant base`` runs
+    :func:`serve` (the prefill and decode cells); an ``xfer_*`` variant runs :func:`disaggregated_step` under a
     ``pd_disaggregated`` policy on 2 pods.  Parameters and the prompt come
     from ``--seed``.  Without ``--device`` each rank takes the card."""
     import argparse

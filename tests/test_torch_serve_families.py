@@ -52,8 +52,10 @@ whole batch), MLA's merged partial latent attention against whole-key
 attention in f32 within 1e-5, held parameter and cache bytes (and
 ``init_cache(policy=)``), pod 1's shards bitwise pod 0's, and the hop of a
 rank's own shard giving the bytes and ``TransferStats`` of the whole-cache
-hop.  ``require_tp_serving`` still refuses Mamba-2, the hybrid and the two
-front ends, and a MoE under ``tp`` without ``ep`` raises.
+hop.  ``require_tp_serving`` still refuses the two front ends and passes
+every family with a sharded serving path (Mamba-2 and the hybrid are
+held in ``tests/test_torch_serve_recurrent.py``), and a MoE under ``tp``
+without ``ep`` raises.
 """
 
 import concurrent.futures
@@ -532,8 +534,7 @@ def test_sharded_cli_runs_both_families(worlds):
                for r in rows)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
-                                  "pixtral-12b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
 def test_queued_families_still_refuse(arch):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -541,7 +542,8 @@ def test_queued_families_still_refuse(arch):
         M.require_tp_serving(get_config(arch))
 
 
-@pytest.mark.parametrize("arch", [MLA, MOE, "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", [MLA, MOE, "qwen3-moe-235b-a22b",
+                                  "mamba2-2.7b", "recurrentgemma-9b"])
 def test_served_families_pass(arch):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M

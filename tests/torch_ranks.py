@@ -1018,14 +1018,17 @@ def _bits_list(x: torch.Tensor) -> list:
     return as_bits(x).reshape(-1).tolist()
 
 
-def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=()):
-    """The cases of ``tests/test_torch_serve_tp.py`` and
-    ``tests/test_torch_serve_families.py`` on this world: each a serve
+def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=(),
+                   units="attention"):
+    """The cases of ``tests/test_torch_serve_tp.py``,
+    ``tests/test_torch_serve_families.py`` and
+    ``tests/test_torch_serve_recurrent.py`` on this world: each a serve
     case (prefill, teacher-forced ``serve_step``, greedy ``decode_loop``)
     or a hop case (the disaggregated step and the whole-cache hop), a MoE
     case's routing recorded (:class:`RouteRecorder`); then the unit
-    checks of the merges (GQA's and MLA's latent one) and the vocab
-    argmax.  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
+    checks: ``units="attention"`` the merges (GQA's and MLA's latent one),
+    the vocab argmax and the placed draws, ``"recurrent"`` the recurrent
+    decode steps (:func:`_recurrent_units`).  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
     argument list of ``cli`` through ``serving/sharded.py``'s ``main``
     (which tears the group down itself, so each joins a new one), its
     output in ``cli<i>_rank<r>.txt``.  One thread a rank: the products
@@ -1043,9 +1046,12 @@ def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=()):
             with rec if rec is not None else contextlib.nullcontext():
                 summary[case["name"]], got = run(Path(ref_dir), case, rec)
             arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
-        summary["units"] = _serve_units(rank)
-        summary["units"]["latent_merge_max_abs"] = _latent_merge(rank)
-        summary["placed_draws"] = _placed_draws()
+        if units == "recurrent":
+            summary["units"] = _recurrent_units(rank)
+        else:
+            summary["units"] = _serve_units(rank)
+            summary["units"]["latent_merge_max_abs"] = _latent_merge(rank)
+            summary["placed_draws"] = _placed_draws()
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
         np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
         dist.barrier()
@@ -1073,7 +1079,8 @@ def _serve_setup(ref_dir: Path, case: dict):
     from repro_torch.models.weights import params_from_jax
     from repro_torch.serving import sharded as SV
     ref = np.load(ref_dir / f"{case['ref']}.npz")
-    cfg = get_config(case["arch"]).reduced()
+    cfg = with_overrides(get_config(case["arch"]).reduced(),
+                         case.get("over", {}))
     mesh = make_mesh(tuple(case["shape"]), ("pod", "data", "model"))
     policy = SH.ShardingPolicy(mesh, pd_disaggregated=case.get("pd", False),
                                attn_fallback=case.get("attn_fallback", "seq"))
@@ -1082,7 +1089,10 @@ def _serve_setup(ref_dir: Path, case: dict):
     b, s = tokens.shape
     m = int(ref["max_seq"])
     like_p = M.init_params(cfg, torch.Generator(), "meta")
-    like_c = KC.init_cache(cfg, b, m, device="meta")
+    like_c = SV.cache_like(cfg, b, m, s)
+    # the slots init_cache allots the window: the prompt's, as a prefill
+    # leaves it (serving/sharded.cache_like)
+    slots = min(m, s) if cfg.hybrid is not None else m
     tp = SV.tensor_parallel(policy, cfg)
     rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
         "tokens", (b,)), mesh)
@@ -1095,7 +1105,7 @@ def _serve_setup(ref_dir: Path, case: dict):
                                         policy.sizes),
            "spec_cache": SH.held_bytes(like_c, policy.cache_specs(like_c),
                                        policy.sizes),
-           "init_cache": _nbytes(KC.init_cache(cfg, b, m, policy=policy)),
+           "init_cache": _nbytes(KC.init_cache(cfg, b, slots, policy=policy)),
            "split_over_model": sum(
                "model" in SH.entry_axes(e) for sp in SH.leaf_specs(
                    policy.param_specs(like_p), like_p) for e in sp)}
@@ -1160,7 +1170,7 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
     from repro_torch.serving import sharded as SV
     ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
     tc = SV.transfer_config(case["variant"])
-    b = tokens.shape[0]
+    b, s = tokens.shape
     steps = np.array(ref["step_inputs"]).shape[0]
     logits = []
     res = SV.disaggregated_step(params, {"tokens": tokens}, cfg, policy, tc,
@@ -1176,7 +1186,8 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
         out["routing"] = rec.summary()
     out["stats"] = _stats_dict(res.session.last_stats)
     out["side_bytes"] = res.side.sent_bytes + res.side.recv_bytes
-    whole_sess = SV.hop_plan(cfg, policy, tc, b, m).session(device="cpu")
+    whole_sess = SV.hop_plan(cfg, policy, tc, b, m, s).session(device="cpu")
+    out["routes"] = {r.key: r.route for r in whole_sess.plan.routes}
     arrays = {}
     if res.pod == 0:
         blocks = res.prefill.state.cache
@@ -1186,7 +1197,7 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
         # the whole cache only to drive the whole-cache path: gathered over
         # pod 0's (data, model) ranks
         whole = SH.gather_tree(blocks, policy.cache_specs(
-            SV.cache_like(cfg, b, m)), policy.mesh)
+            SV.cache_like(cfg, b, m, s)), policy.mesh)
         whole_sess.transfer(whole, select_dst=False)
         arrays["last_logits"] = res.prefill.last_logits.float().numpy()
     else:
@@ -1256,6 +1267,83 @@ def _serve_units(rank: int) -> dict:
     return {"merge_max_abs": float((merged - whole).abs().max()),
             "argmax": got.tolist(),
             "argmax_whole": torch.argmax(whole_lg, dim=-1).tolist()}
+
+
+def _recurrent_units(rank: int) -> dict:
+    """The recurrent decode steps under ``tp`` against the whole steps on
+    the same whole state (the world as one ``model`` group, each rank's
+    parameter blocks placed by the policy at (1, 1, world)): reduced
+    Mamba-2's ``mamba2_decode_tp`` against ``mamba2_decode`` and reduced
+    recurrentgemma's ``recurrent_block_step_tp`` against
+    ``recurrent_block_step`` (where its U = 128 splits).  Per step: the
+    output's largest excess over ``8e-3 |want|``, the f32 state block's
+    largest distance, and whether the new conv block is bitwise the whole
+    step's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving import sharded as SV
+    world = dist.get_world_size()
+    policy = SH.ShardingPolicy(make_mesh((1, 1, world),
+                                         ("pod", "data", "model")))
+    g = torch.Generator().manual_seed(21)
+    b = 3
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dtype)
+
+    def excess(got, want):
+        d = (got.float() - want.float()).abs() - 8e-3 * want.float().abs()
+        return float(d.max())
+
+    out = {}
+    for arch, over in (("mamba2-2.7b", {}),
+                       ("recurrentgemma-9b", {"num_layers": 5})):
+        cfg = with_overrides(get_config(arch).reduced(), over)
+        tp = SV.tensor_parallel(policy, cfg)
+        whole = M.init_params(cfg, torch.Generator().manual_seed(3))
+        placed = SV.place_params(cfg, torch.Generator().manual_seed(3), policy)
+        x = randn(b, 1, cfg.d_model)
+        if cfg.ssm is not None:
+            _, heads, conv_ch = SSM.dims(cfg.d_model, cfg.ssm)
+            st = SSM.SSMState(
+                ssm=randn(b, heads, cfg.ssm.head_dim, cfg.ssm.d_state,
+                          dtype=torch.float32, scale=0.1),
+                conv=randn(b, cfg.ssm.conv_width - 1, conv_ch))
+            want_o, want = SSM.mamba2_decode(
+                M.layer_params(whole["layers"], 1)["mixer"], x, st, cfg.ssm,
+                cfg.d_model)
+            got_o, got = SSM.mamba2_decode_tp(
+                M.layer_params(placed["layers"], 1)["mixer"], x,
+                SSM.state_block(st, cfg.ssm, cfg.d_model, tp), cfg.ssm,
+                cfg.d_model, tp)
+            blk = SSM.state_block(want, cfg.ssm, cfg.d_model, tp)
+            out["mamba2"] = dict(
+                out_excess=excess(got_o, want_o),
+                state_max_abs=float((got.ssm - blk.ssm).abs().max()),
+                conv_bitwise=bool(torch.equal(got.conv, blk.conv)),
+                split=dict(heads=tp.splits(heads), conv=tp.splits(conv_ch)))
+            continue
+        u = cfg.hybrid.lru_width
+        if not tp.splits(u):
+            out["rglru"] = None
+            continue
+        blk = tp.block(u)
+        st = {"h": randn(b, u, dtype=torch.float32, scale=0.5),
+              "conv": randn(b, cfg.hybrid.conv_width - 1, u)}
+        want_o, want = RG.recurrent_block_step(
+            M.layer_params(whole["extra"], 1)["block"], x, st)
+        got_o, got = RG.recurrent_block_step_tp(
+            M.layer_params(placed["extra"], 1)["block"], x,
+            {"h": st["h"][:, blk], "conv": st["conv"][..., blk]}, tp)
+        out["rglru"] = dict(
+            out_excess=excess(got_o, want_o),
+            state_max_abs=float((got["h"] - want["h"][:, blk]).abs().max()),
+            conv_bitwise=bool(torch.equal(got["conv"],
+                                          want["conv"][..., blk])))
+    return out
 
 
 def _placed_draws() -> dict:
