@@ -558,15 +558,18 @@ def launch_counters():
 def counted(fn, *args):
     """``fn(*args)`` with every launch counter set to 0 just before it and
     read just after it: ``(result, {kernel: launches})``; the flash kernel's
-    tensor-core launches count apart as ``flash_attention_tc``."""
+    tensor-core launches count apart as ``flash_attention_tc``, its causal
+    ones as ``flash_attention_causal``."""
     from repro_torch.kernels import flash_attention as FA
     wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
     FA.flash_attention.launches_tc = 0
+    FA.flash_attention.launches_causal = 0
     out = fn(*args)
     counts = {k: w.launches for k, w in wrappers.items()}
     counts["flash_attention_tc"] = FA.flash_attention.launches_tc
+    counts["flash_attention_causal"] = FA.flash_attention.launches_causal
     return out, counts
 
 
@@ -4439,6 +4442,16 @@ SERVE_RECURRENT = {
     "hybrid": dict(arch="recurrentgemma-9b", layers=5, prompt=4096,
                    max_seq=8192),
 }
+#: phase serve_tp_frontends: each front end at full width, the depth it is
+#: cut to, its prompt positions (pixtral: 256 patches + 1792 tokens;
+#: hubert: 30 s of frames at 50 a second) and cache slots (pixtral's 3072
+#: split at model 2 put the patches and 1280 tokens in rank 0's span, the
+#: last 512 prompt tokens and every decoded token in rank 1's; hubert has
+#: no cache)
+SERVE_FRONTENDS = {
+    "vlm": dict(arch="pixtral-12b", layers=4, prompt=2048, max_seq=3072),
+    "audio": dict(arch="hubert-xlarge", layers=48, prompt=1500, max_seq=1500),
+}
 #: phase serve_tp_families holds the decoded tokens equal to the replay's
 #: greedy choice where the replay's largest logit leads the next by at
 #: least this much and by twice the rank's largest logit distance from the
@@ -4469,6 +4482,26 @@ def serve_tp_tokens(torch, cfg, prompt=SERVE_TP_PROMPT):
     g = torch.Generator().manual_seed(SERVE_TP_SEED + 1)
     return torch.randint(0, cfg.vocab_size, (SERVE_TP_BATCH, prompt),
                          generator=g, dtype=torch.int64)
+
+
+def serve_tp_prompt(torch, cfg, prompt=SERVE_TP_PROMPT):
+    """The served prompt of ``prompt`` positions, drawn on the host from a
+    seed (every rank and the single-process replay draw the same):
+    :func:`serve_tp_tokens`, a vision config's ``frontend_len`` patches
+    before ``prompt - frontend_len`` tokens, or an audio config's
+    frames (bf16, standard normal)."""
+    g = torch.Generator().manual_seed(SERVE_TP_SEED + 2)
+
+    def normal(*dims):
+        return torch.randn(dims, generator=g).to(torch.bfloat16)
+    if cfg.frontend == "audio_frames":
+        return {"frames": normal(SERVE_TP_BATCH, prompt, cfg.frontend_dim)}
+    if cfg.frontend == "vision_patches":
+        return {"patches": normal(SERVE_TP_BATCH, cfg.frontend_len,
+                                  cfg.frontend_dim),
+                "tokens": serve_tp_tokens(torch, cfg,
+                                          prompt - cfg.frontend_len)}
+    return {"tokens": serve_tp_tokens(torch, cfg, prompt)}
 
 
 def _model_collectives(group, seen, calls):
@@ -4572,6 +4605,31 @@ class _forced_routes:
         return False
 
 
+class _recorded_frame_logits:
+    """Within: the logits an encoder-only prefill returns for every frame
+    (``models.model.prefill``, which ``prefill_step`` calls; the rank's
+    vocab columns under ``tp``), copied to the host into ``calls``."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self.orig = orig = M.prefill
+
+        def prefill(*a, **kw):
+            logits, state = orig(*a, **kw)
+            self.calls.append(logits.float().cpu())
+            return logits, state
+        M.prefill = prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        M.prefill = self.orig
+        return False
+
+
 def serve_tp_rank(torch, rank, device, world, out_dir):
     """Phase ``serve_tp``, world ``world`` (``SERVE_TP_WORLDS``): qwen3-32b
     at full width cut to ``SERVE_TP_LAYERS`` layers (:func:`serve_world`)."""
@@ -4607,6 +4665,21 @@ def serve_recurrent_rank(torch, rank, device, world, out_dir):
     return out
 
 
+def serve_frontends_rank(torch, rank, device, world, out_dir):
+    """Phase ``serve_tp_frontends``, world ``world``: each of
+    ``SERVE_FRONTENDS`` served in turn by the same ranks
+    (:func:`serve_world`, the second hop ``xfer_global``), each model freed
+    before the next is drawn."""
+    out = {}
+    for fam, c in SERVE_FRONTENDS.items():
+        out[fam] = serve_world(torch, rank, device,
+                               _depth_cut(c["arch"], c["layers"]), world,
+                               out_dir, f"fe_{fam}_{world}",
+                               prompt=c["prompt"], max_seq=c["max_seq"])
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
                 prompt=SERVE_TP_PROMPT, max_seq=SERVE_TP_MAX_SEQ,
                 second="xfer_global"):
@@ -4634,7 +4707,13 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     vocab columns of the prefill and of every step's logits, the first
     token, the tokens, a MoE's top-k choices (call order) and a recurrent
     family's f32 state blocks (after the prefill, after the steps) go to
-    ``out_dir`` as ``<tag>_rank<r>.pt`` for the single-process replay."""
+    ``out_dir`` as ``<tag>_rank<r>.pt`` for the single-process replay.
+    The prompt is :func:`serve_tp_prompt`'s (a front end's patches or
+    frames).  An encoder-only config runs the prefill cell alone (its
+    ``prefill`` there is the rank's columns of every frame's logits), and
+    its hop ships the empty cache: pod 1 keeps the first units."""
+    import contextlib
+
     import torch.distributed as dist
 
     from repro_torch.core import tree as TR
@@ -4700,7 +4779,8 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
                if not split])}
     seen, calls = set(), [0]
     _model_collectives(mesh.get_group("model"), seen, calls)
-    tokens = serve_tp_tokens(torch, cfg, prompt).to(device)
+    batch = {k: x.to(device) for k, x in
+             serve_tp_prompt(torch, cfg, prompt).items()}
     rows = SH.shard_slice(torch.arange(b), policy.spec_for_activation(
         "tokens", (b,)), mesh).tolist()
     logits, stamps, routes = [], [], []
@@ -4713,13 +4793,17 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     saved = {"rows": rows}
     ep = None
     chunked = _calls_of(L.chunked_attention)
-    with _recorded_routes(routes), chunked:
+    # an encoder-only prefill's every frame (prefill_step keeps the last)
+    frames = []
+    record = _recorded_frame_logits(frames) if cfg.encoder_only else \
+        contextlib.nullcontext()
+    with _recorded_routes(routes), chunked, record:
         if w["pd"]:
             tc = SV.transfer_config(w["variant"], backend="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res, launches = counted(lambda: SV.disaggregated_step(
-                params, {"tokens": tokens}, cfg, policy, tc, max_seq=m,
+                params, batch, cfg, policy, tc, max_seq=m,
                 num_steps=steps, device=device, on_logits=on_logits))
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
@@ -4735,11 +4819,11 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
                                 leaf_ok=st.leaf_ok,
                                 routes=_hop_routes(res.session, comm)),
                        side_bytes=res.side.sent_bytes + res.side.recv_bytes)
-            if res.pod == 1:
+            if res.pod == 1 and res.tokens is not None:
                 out["decode_collectives"] = calls[0] / steps
         else:
             ep = SV.expert_parallel(policy, cfg, tp)
-            local = SV.local_batch({"tokens": tokens}, policy)
+            local = SV.local_batch(batch, policy)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pre, launches = counted(lambda: prefill_step(
@@ -4748,18 +4832,23 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
             out["held_cache"] = nbytes(pre.state.cache)
             out["cache_replicated_sha"] = replicated_cache(pre.state.cache)
-            saved.update(prefill=pre.last_logits.float().cpu(),
+            out["first_token"] = pre.first_token.tolist()
+            saved.update(prefill=frames[-1] if cfg.encoder_only
+                         else pre.last_logits.float().cpu(),
                          first=pre.first_token.cpu(),
                          state_prefill=f32_blocks(pre.state.cache))
-            calls[0] = 0
-            (toks, after), dl = counted(lambda: decode_loop(
-                params, pre.first_token, pre.state, cfg, steps, tp=tp,
-                max_seq=m, on_logits=on_logits, ep=ep))
-            out["decode_collectives"] = calls[0] / steps
-            out["tokens"] = toks.tolist()
-            out["after_replicated_sha"] = replicated_cache(after.cache)
-            saved.update(steps=torch.stack(logits), tokens=toks.cpu(),
-                         state_after=f32_blocks(after.cache))
+            if cfg.encoder_only:      # the prefill cell alone: no decode
+                _, dl = counted(lambda: None)
+            else:
+                calls[0] = 0
+                (toks, after), dl = counted(lambda: decode_loop(
+                    params, pre.first_token, pre.state, cfg, steps, tp=tp,
+                    max_seq=m, on_logits=on_logits, ep=ep))
+                out["decode_collectives"] = calls[0] / steps
+                out["tokens"] = toks.tolist()
+                out["after_replicated_sha"] = replicated_cache(after.cache)
+                saved.update(steps=torch.stack(logits), tokens=toks.cpu(),
+                             state_after=f32_blocks(after.cache))
             out["launches"], out["decode_launches"] = launches, dl
     out["chunked_attention_calls"] = chunked.n
     if cfg.moe is not None:
@@ -4777,7 +4866,9 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             out["cache_replicated_sha"] = replicated_cache(blocks)
             out["hop"]["raw_bytes"] = nbytes(blocks)
             out["prefill_ms"] = window_ms - comm.seconds * 1e3
-            saved.update(prefill=res.prefill.last_logits.float().cpu(),
+            out["first_token"] = res.prefill.first_token.tolist()
+            saved.update(prefill=frames[-1] if cfg.encoder_only
+                         else res.prefill.last_logits.float().cpu(),
                          first=res.prefill.first_token.cpu(),
                          state_prefill=f32_blocks(blocks))
             torch.cuda.synchronize()
@@ -4787,11 +4878,14 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             out["held_cache"] = nbytes(res.received)
             out["shard_sha"] = _sha_tree(torch, res.received)
             out["hop"]["raw_bytes"] = nbytes(res.received)
-            out["tokens"] = res.tokens.tolist()
+            out["first_token"] = res.first_token.tolist()
             out["after_replicated_sha"] = replicated_cache(res.state.cache)
-            saved.update(steps=torch.stack(logits), first=res.first_token.cpu(),
-                         tokens=res.tokens.cpu(),
-                         state_after=f32_blocks(res.state.cache))
+            saved["first"] = res.first_token.cpu()
+            if res.tokens is not None:
+                out["tokens"] = res.tokens.tolist()
+                saved.update(steps=torch.stack(logits),
+                             tokens=res.tokens.cpu(),
+                             state_after=f32_blocks(res.state.cache))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got, glaunch = counted(gsess.transfer_shard, None)
@@ -4867,8 +4961,12 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of, *,
     its tokens' agreement with the replay's greedy
     choice, how many of them the replay's top logit leads by
     ``SERVE_FAM_MARGIN`` and by twice that largest distance, how many of
-    those differ, and the replay's leads where they differ; and the
-    witness's excess over the whole vocabulary, prefill and decode."""
+    those differ, and the replay's leads where they differ; the same for
+    a prefill rank's first token (an encoder-only config's first unit,
+    from frame 0, whose prefill logits are every frame's); and the
+    witness's excess over the whole vocabulary, prefill and decode (for
+    a recurrent family also ``witness_before``: the witness without its
+    ``out_proj`` / ``w_out`` products, :class:`_f32_row_products`)."""
     from repro_torch.models import model as M
 
     torch.cuda.reset_peak_memory_stats()
@@ -4882,6 +4980,11 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of, *,
     with _f32_row_products():
         wit = _replay_logits(torch, device, cfg, params, saved, prompt,
                              max_seq)
+    before = None
+    if cfg.ssm is not None or cfg.hybrid is not None:
+        with _f32_row_products(recurrent=False):
+            before = _replay_logits(torch, device, cfg, params, saved, prompt,
+                                    max_seq)
     del params
     torch.cuda.synchronize()
     seconds, peak = time.perf_counter() - t0, _peak_gb(torch)
@@ -4891,24 +4994,49 @@ def serve_replay(torch, device, cfg, worlds, out_dir, tag_of, *,
         return (d - SERVE_TP_RTOL * want.abs()).max().item(), d.max().item()
 
     states = ref.pop("states")
-    wit.pop("states")
     pre_keys = [k for k in ref if k[0] == "prefill"]
     steps = [k for k in ref if k[0] != "prefill"]
-    out = {"witness": {
-        "prefill_excess": max(dist_(wit[k], ref[k])[0] for k in pre_keys),
-        "prefill_max_abs": max(dist_(wit[k], ref[k])[1] for k in pre_keys),
-        "decode_excess": max(dist_(wit[k], ref[k])[0] for k in steps),
-        "decode_max_abs": max(dist_(wit[k], ref[k])[1] for k in steps)}}
+
+    def witness(w):
+        w.pop("states")
+        out = {}
+        for when, keys in (("prefill", pre_keys), ("decode", steps)):
+            if keys:
+                out[f"{when}_excess"] = max(dist_(w[k], ref[k])[0]
+                                            for k in keys)
+                out[f"{when}_max_abs"] = max(dist_(w[k], ref[k])[1]
+                                             for k in keys)
+        return out
+    out = {"witness": witness(wit)}
+    if before is not None:
+        out["witness_before"] = witness(before)
     v = cfg.vocab_size
     for (world, rank), (r, sv) in saved.items():
+        if "prefill" not in sv and "steps" not in sv:
+            # an encoder-only pod-1 rank: the first units it received
+            out.setdefault(world, []).append({"rank": rank})
+            continue
         local = sv["prefill"] if "prefill" in sv else sv["steps"][0]
         n = local.shape[-1]
         mr = r["coord"]["model"] % (v // n)
         cols = slice(mr * n, (mr + 1) * n)
         rec = {"rank": rank}
         if "prefill" in sv:
+            want = ref[("prefill", world)][sv["rows"]]
+            if sv["prefill"].shape != want[..., cols].shape:
+                raise AssertionError(f"rank {rank} ({world}): prefill logits "
+                                     f"{tuple(sv['prefill'].shape)}, the "
+                                     f"replay's {tuple(want[..., cols].shape)}")
             rec["prefill_excess"], rec["prefill_max_abs"] = dist_(
-                sv["prefill"], ref[("prefill", world)][sv["rows"]][:, cols])
+                sv["prefill"], want[..., cols])
+            lg = want[:, 0] if cfg.encoder_only else want
+            top2 = torch.topk(lg, 2, dim=-1).values
+            lead = top2[:, 0] - top2[:, 1]
+            same = torch.argmax(lg, -1) == sv["first"].long()
+            held = lead >= max(SERVE_FAM_MARGIN, 2 * rec["prefill_max_abs"])
+            rec["first_agreement"] = float(same.float().mean())
+            rec["first_held"] = int(held.sum())
+            rec["first_held_differ"] = int((held & ~same).sum())
         if "steps" in sv:
             lg = ref[_decode_key(world, r, sv)]
             rec["decode_excess"], rec["decode_max_abs"] = dist_(
@@ -4963,14 +5091,20 @@ def _decode_key(world, r, sv):
 
 class _f32_row_products:
     """Within: the single-process model's row products (``attention_out``'s
-    ``wo``, MLA's ``wo`` product, the SwiGLU's ``w_down``) as f32 products
-    of the bf16 values rounded once, the arithmetic of the ranks'
-    ``row_product`` without the split; and the decode steps' attention
-    as the ranks' merged partials compute it over one span (the
+    ``wo``, MLA's ``wo`` product, the SwiGLU's ``w_down`` and, with
+    ``recurrent``, Mamba-2's ``out_proj`` and the RG-LRU's ``w_out``) as
+    f32 products of the bf16 values rounded once, the arithmetic of the
+    ranks' ``row_product`` without the split; and the decode steps'
+    attention as the ranks' merged partials compute it over one span (the
     unnormalised ``p`` rounded to bf16, ``p . v`` or ``p . ckv`` in f32,
     normalised and rounded once: ``layers.decode_attention_tp``'s and
     ``mla.latent_partials``' arithmetic).  The replay's round-off
-    witness."""
+    witness; ``recurrent=False`` is the witness as it stood before it
+    covered the recurrent products (kept to report the two side by
+    side)."""
+
+    def __init__(self, recurrent=True):
+        self.recurrent = recurrent
 
     def __enter__(self):
         import numpy as np
@@ -4979,9 +5113,12 @@ class _f32_row_products:
 
         from repro_torch.models import layers as L
         from repro_torch.models import mla as MLA
+        from repro_torch.models import rglru as RG
+        from repro_torch.models import ssm as SSM
         self.saved = (L.attention_out, L.mlp, MLA._heads_out,
-                      MLA.latent_attention, L.decode_attention)
-        out, mlp, _, _, _ = self.saved
+                      MLA.latent_attention, L.decode_attention,
+                      SSM.out_product, RG.out_product)
+        out, mlp, _, _, _, _, _ = self.saved
 
         def attention_out(p, o, tp=None):
             if tp is not None:
@@ -5023,22 +5160,29 @@ class _f32_row_products:
                                v.permute(0, 2, 1, 3).float()[:, :, None])
             o = acc / pr.sum(dim=-1)[..., None]
             return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+        def row_product(y, w):
+            return torch.matmul(y.float(), w.float()).to(y.dtype)
         (L.attention_out, L.mlp, MLA._heads_out, MLA.latent_attention,
          L.decode_attention) = (attention_out, swiglu, heads_out,
                                 latent_attention, decode_attention)
+        if self.recurrent:
+            SSM.out_product = RG.out_product = row_product
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import layers as L
         from repro_torch.models import mla as MLA
+        from repro_torch.models import rglru as RG
+        from repro_torch.models import ssm as SSM
         (L.attention_out, L.mlp, MLA._heads_out, MLA.latent_attention,
-         L.decode_attention) = self.saved
+         L.decode_attention, SSM.out_product, RG.out_product) = self.saved
         return False
 
 
 def _replay_logits(torch, device, cfg, params, saved, prompt, max_seq):
     """The single-process prefill's last logits (B, V) of each world
-    (``("prefill", world)``; one run for every world but a MoE's, routed
+    (``("prefill", world)``; an encoder-only config's every frame's, (B,
+    S, V); one run for every world but a MoE's, routed
     as each world's prefill ranks were) and, for each decode (pod, data)
     coordinate (:func:`_decode_key`), its teacher-forced steps' logits
     (steps, B_rank, V), f32 on the host; under ``"states"`` the f32 cache
@@ -5049,8 +5193,11 @@ def _replay_logits(torch, device, cfg, params, saved, prompt, max_seq):
     from repro_torch.serving.decode import serve_step
     from repro_torch.serving.prefill import prefill_step
 
+    from repro_torch.models import model as M
+
     moe = cfg.moe is not None
-    tokens = serve_tp_tokens(torch, cfg, prompt).to(device)
+    batch = {k: x.to(device) for k, x in
+             serve_tp_prompt(torch, cfg, prompt).items()}
     out, pre, states = {}, None, {}
 
     def f32(cache):
@@ -5069,9 +5216,12 @@ def _replay_logits(torch, device, cfg, params, saved, prompt, max_seq):
                      for i in range(cfg.num_layers)])
             del pre
             with forced:
-                pre = prefill_step(params, {"tokens": tokens}, cfg,
-                                   max_seq=max_seq)
-        out[("prefill", world)] = pre.last_logits.float().cpu()
+                pre = prefill_step(params, batch, cfg, max_seq=max_seq)
+                if cfg.encoder_only:   # every frame's logits
+                    frames = M.prefill(params, batch, cfg,
+                                       max_seq=max_seq)[0].float().cpu()
+        out[("prefill", world)] = frames if cfg.encoder_only else \
+            pre.last_logits.float().cpu()
         states[("prefill", world)] = f32(pre.state.cache)
         for r, sv in ranks:
             key = _decode_key(world, r, sv) if "steps" in sv else None
@@ -5101,12 +5251,16 @@ def _replay_logits(torch, device, cfg, params, saved, prompt, max_seq):
 
 
 def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
-                    case="heads", second="global"):
+                    case="heads", second="global", first=False,
+                    causal=True, empty_hop=False):
     """Sharded serving's gates on one world's ranks (``layers`` attention
-    layers of attention ``case``, None for an attention-free family;
-    ``tokens``: the decoded tokens held equal to the replay's greedy choice
-    where its lead allows, :func:`serve_replay`; ``second``: the second
-    hop's variant suffix); returns the numbers each gate read."""
+    layers of attention ``case``, None for an attention-free family, each
+    prefill launch ``causal`` or every one not; ``tokens``: the decoded
+    tokens held equal to the replay's greedy choice where its lead allows,
+    :func:`serve_replay`, and ``first`` the prefill ranks' first tokens or
+    units likewise; ``second``: the second hop's variant suffix;
+    ``empty_hop``: the cache is empty, so both hops move 0 bytes with no
+    codec launch); returns the numbers each gate read."""
     w = SERVE_TP_WORLDS[world]
     tag = f"{tag} ({world})"
     gates = {}
@@ -5126,11 +5280,16 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
             raise AssertionError(f"{tag} rank {r['rank']}: cache bytes "
                                  f"{r['held_cache']}, specs {r['spec_cache']}, "
                                  f"init_cache {r['init_cache']}")
-        if r["param_storages_over_model"] or not r["storages_over_model"]:
+        # a rank that ran the model (not an encoder-only pod 1, which
+        # decodes nothing) handed some tensors to collectives over model
+        ran = r.get("pod", 0) == 0 or "tokens" in r
+        if r["param_storages_over_model"] or \
+                bool(r["storages_over_model"]) != ran:
             raise AssertionError(
                 f"{tag} rank {r['rank']}: {r['param_storages_over_model']} "
                 f"parameter storages of {r['storages_over_model']} handed to "
-                "collectives over model (want 0 of some)")
+                f"collectives over model (want 0 of "
+                f"{'some' if ran else 'none'})")
     gates["held_bytes"] = {r["rank"]: [r["held_params"], r["held_cache"]]
                            for r in ranks}
     # model replicas: every rank of one model coordinate holds the same
@@ -5153,20 +5312,24 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
     gates["replicas"] = {"param_blocks": len(by_model),
                          "token_sets": len(toks),
                          "cache_replica_sets": len(states)}
-    # flash: one tensor-core launch a layer on every prefill rank, none in
-    # decode
+    # flash: one tensor-core launch a layer on every prefill rank, causal
+    # or every one not as the family attends, none in decode
     for r in ranks:
         prefills = ("pod" not in r) or r["pod"] == 0
         want = layers if prefills else 0
         got = (r["launches"]["flash_attention"],
-               r["launches"]["flash_attention_tc"])
-        if got != (want, want) or r.get("decode_launches", {}).get(
-                "flash_attention", 0):
+               r["launches"]["flash_attention_tc"],
+               r["launches"]["flash_attention_causal"])
+        if got != (want, want, want if causal else 0) or r.get(
+                "decode_launches", {}).get("flash_attention", 0):
             raise AssertionError(f"{tag} rank {r['rank']}: flash launches "
-                                 f"{got}, want {want} (tensor-core), and none "
-                                 "in decode")
+                                 f"(all, tensor-core, causal) {got}, want "
+                                 f"{want} (tensor-core, "
+                                 f"{'causal' if causal else 'not causal'}), "
+                                 "and none in decode")
     gates["flash"] = {r["rank"]: r["launches"]["flash_attention_tc"]
                       for r in ranks}
+    gates["flash_causal"] = causal
     if w["pd"]:
         by = {(r["coord"]["pod"], r["coord"]["data"], r["coord"]["model"]): r
               for r in ranks}
@@ -5176,13 +5339,29 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
                 if not r["shard_sha"] == src["shard_sha"] == r[second + "_sha"]:
                     raise AssertionError(f"{tag}: pod 1's shard ({d}, {mo}) "
                                          "is not pod 0's")
+                if r["first_token"] != src["first_token"]:
+                    raise AssertionError(f"{tag}: pod 1's first tokens "
+                                         f"({d}, {mo}) are not pod 0's")
+        codec = ("encode_fused", "encode_dense", "decode_fused",
+                 "decode_dense")
         enc = sum(r["launches"]["encode_fused"] for r in ranks if r["pod"] == 0)
         dec = sum(r["launches"]["decode_fused"] for r in ranks if r["pod"] == 1)
         genc = sum(r[second]["launches"][k] for r in ranks if r["pod"] == 0
                    for k in ("encode_fused", "encode_dense"))
         gdec = sum(r[second]["launches"][k] for r in ranks if r["pod"] == 1
                    for k in ("decode_fused", "decode_dense"))
-        if not (enc and dec and genc and gdec):
+        if empty_hop:
+            moved = {r["rank"]: (r["hop"]["raw_bytes"], r["hop"]["wire_bytes"],
+                                 r[second]["wire_bytes"],
+                                 sum(r["launches"][k] + r[second]["launches"][k]
+                                     for k in codec))
+                     for r in ranks}
+            if any(v != (0, 0, 0, 0) for v in moved.values()):
+                raise AssertionError(f"{tag}: the empty hop moved (raw, wire, "
+                                     f"{second} wire bytes, codec launches) "
+                                     f"{moved}, want 0 each")
+            gates["empty_hop"] = moved
+        elif not (enc and dec and genc and gdec):
             raise AssertionError(f"{tag}: the hop's codec launches: chunked "
                                  f"encode {enc} decode {dec}, {second} "
                                  f"encode {genc} decode {gdec}")
@@ -5207,6 +5386,17 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
     gates["logits_excess"] = dict(worst=worst, allowed=allowed,
                                   within_cpu_bound=max(worst.values())
                                   <= SERVE_TP_ATOL)
+    if first:
+        pres = [rec for rec in replay[world] if "first_agreement" in rec]
+        bad = [rec for rec in pres if rec["first_held_differ"]]
+        if not pres or bad:
+            raise AssertionError(f"{tag}: first tokens or units differ from "
+                                 f"the replay's greedy choice where its lead "
+                                 f"is at least {SERVE_FAM_MARGIN} and twice "
+                                 f"the logits' distance: {bad}")
+        gates["first"] = {rec["rank"]: dict(
+            agreement=rec["first_agreement"], held=rec["first_held"])
+            for rec in pres}
     if tokens:
         decs = [rec for rec in replay[world] if "token_agreement" in rec]
         bad = [rec for rec in decs if rec["tokens_held_differ"]]
@@ -5462,6 +5652,88 @@ def phase_serve_tp_recurrent(torch, smi):
     return windows
 
 
+def phase_serve_tp_frontends(torch, smi):
+    """Sharded serving of the front ends: each world of ``SERVE_TP_WORLDS``
+    spawned once for both (``serve_frontends_rank``); pixtral-12b's
+    patches before the sequence-split cache (the hop ``xfer_chunked`` then
+    ``xfer_global``), hubert-xlarge's prefill cell (every frame's vocab
+    columns, its flash launches all non-causal) and the hop of its empty
+    cache; then each one's single-process replay and gates; a line a rank
+    and front end, then the phase's line."""
+    import shutil
+    import tempfile
+    device = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="serve_fe_", dir=ROOT / "build"))
+    replays, windows, gates = {}, {}, {}
+    try:
+        both, seconds = _spawn_serving("serve_frontends_rank", out_dir)
+        worlds = {fam: {world: [r[fam] for r in ranks]
+                        for world, ranks in both.items()}
+                  for fam in SERVE_FRONTENDS}
+        for fam, c in SERVE_FRONTENDS.items():
+            replays[fam], seconds[f"replay_{fam}"], peak = serve_replay(
+                torch, device, _depth_cut(c["arch"], c["layers"]),
+                worlds[fam], out_dir, lambda world, fam=fam: f"fe_{fam}_{world}",
+                prompt=c["prompt"], max_seq=c["max_seq"])
+            replays[fam]["peak_gb"] = peak
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    failed = []
+    for fam, c in SERVE_FRONTENDS.items():
+        cfg = _depth_cut(c["arch"], c["layers"])
+        gates[fam] = {}
+        for world, ranks in worlds[fam].items():
+            try:
+                gates[fam][world] = _serve_tp_gates(
+                    world, ranks, replays[fam], cfg.num_layers,
+                    f"serve_tp_frontends {fam}", tokens=not cfg.encoder_only,
+                    first=True, causal=not cfg.encoder_only,
+                    empty_hop=cfg.encoder_only)
+            except AssertionError as e:   # every gate read, then raised
+                gates[fam][world] = {"failed": str(e)}
+                failed.append(str(e))
+        windows.update(_serve_windows(f"serve_fe_{fam}", worlds[fam]))
+        for world, ranks in worlds[fam].items():
+            for r in ranks:
+                hop = r.get("hop")
+                emit(phase="serve_tp_frontends_rank", family=fam,
+                     arch=cfg.name, world=world, rank=r["rank"],
+                     coord=r["coord"], prefill_ms=r.get("prefill_ms"),
+                     decode_step_ms=r.get("decode_step_ms"),
+                     decode_collectives=r.get("decode_collectives"),
+                     tp_fwd=r["tp_fwd"],
+                     hop=None if hop is None else dict(
+                         raw_bytes=hop["raw_bytes"],
+                         wire_bytes=hop["wire_bytes"],
+                         ratio=hop["raw_bytes"] / max(hop["wire_bytes"], 1),
+                         retry_steps=hop["retry_steps"], ms=hop["ms"],
+                         routes=hop["routes"]),
+                     global_hop=r.get("global"),
+                     held=dict(params=r["held_params"],
+                               cache=r["held_cache"]),
+                     flash=dict(all=r["launches"]["flash_attention"],
+                                causal=r["launches"]["flash_attention_causal"]),
+                     peak_gb=r["peak_gb"])
+    emit(phase="serve_tp_frontends", nvidia_smi=smi,
+         families={fam: dict(arch=c["arch"], layers=c["layers"],
+                             prompt=c["prompt"], max_seq=c["max_seq"])
+                   for fam, c in SERVE_FRONTENDS.items()},
+         batch=SERVE_TP_BATCH, steps=SERVE_TP_STEPS, transport="gloo",
+         worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"],
+                         second="xfer_global" if v["pd"] else None)
+                 for k, v in SERVE_TP_WORLDS.items()},
+         replay=replays, gates=gates,
+         bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
+                    witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
+         seconds=dict(**seconds, phase=time.perf_counter() - t_phase))
+    if failed:
+        raise AssertionError("serve_tp_frontends: " + " | ".join(failed))
+    return windows
+
+
 def phase_mesh(torch, smi):
     ranks = run_ranks("mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1] * MESH_SHAPE[2])
     src, dst = ranks
@@ -5623,6 +5895,8 @@ def main(argv=None) -> int:
                          smi))
     windows.update(timed("serve_tp_recurrent", phase_serve_tp_recurrent, torch,
                          smi))
+    windows.update(timed("serve_tp_frontends", phase_serve_tp_frontends, torch,
+                         smi))
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)
@@ -5650,6 +5924,9 @@ def main(argv=None) -> int:
         for m in (0, 1)) + tuple(
         f"serve_rec_{fam}_{hop}_{side}{m}" for fam in SERVE_RECURRENT
         for hop in ("xfer", "fp32") for side in ("src", "dst")
+        for m in (0, 1)) + tuple(
+        f"serve_fe_{fam}_{hop}_{side}{m}" for fam in SERVE_FRONTENDS
+        for hop in ("xfer", "global") for side in ("src", "dst")
         for m in (0, 1))
     for k in ("encode_fused", "decode_fused", "encode_dense", "decode_dense"):
         records[k]["launches_by_path"] = {w: windows[w][k] for w in transfer_paths}
@@ -5670,6 +5947,10 @@ def main(argv=None) -> int:
     served_prefills[f"{HYBRID_ARCH} (serve_tp_recurrent)"] = (
         "serve_rec_hybrid_base_prefill0",
         SERVE_RECURRENT["hybrid"]["layers"] // 3)
+    served_prefills.update({
+        f"{c['arch']} (serve_tp_frontends)": (f"serve_fe_{fam}_base_prefill0",
+                                              c["layers"])
+        for fam, c in SERVE_FRONTENDS.items()})
     by_arch = {a: windows[w]["flash_attention"] for a, (w, _) in served_prefills.items()}
     if by_arch != {a: n for a, (_, n) in served_prefills.items()}:
         raise AssertionError(f"flash_attention launches per served prefill "

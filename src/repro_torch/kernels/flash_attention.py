@@ -25,7 +25,8 @@ bf16 operands whose ``d`` and ``dv`` are multiples of 16 go to the
 tensor-core kernel (``sz_flash_attention_tc``: wgmma, TMA-fed tiles),
 everything else (f32, or a bf16 width that is not a multiple of 16) to the
 CUDA-core kernel (``sz_flash_attention``).  ``flash_attention.launches``
-counts every launch, ``flash_attention.launches_tc`` the tensor-core ones.
+counts every launch, ``flash_attention.launches_tc`` the tensor-core ones
+and ``flash_attention.launches_causal`` the causal ones.
 
 The causal mask places query row ``i`` at position ``i``: it is aligned to
 the start of the keys, not to their end, so with Sq < Skv a row sees keys
@@ -244,11 +245,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_tc += int(tc)
+    flash_attention.launches_causal += int(bool(causal))
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_causal = 0
 
 
 # ---------------------------------------------------------------------------

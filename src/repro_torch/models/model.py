@@ -41,8 +41,11 @@ keeps its block of each final state (Mamba-2's are whole on every rank,
 ``ssm.state_block``; the RG-LRU's are the block of U a rank runs; the
 window as :func:`_triple_fwd` says), and a decode step runs on those
 blocks (``ssm.mamba2_decode_tp``, ``rglru.recurrent_block_step_tp``,
-:func:`_windowed_decode_tp`).  The front ends raise there
-(:func:`require_tp_serving`).
+:func:`_windowed_decode_tp`).  The front ends serve there too: a vision
+prompt's patches go through the column-split ``frontend_proj`` and take
+the first positions of the sequence-split cache, after which it decodes
+as the dense family does; the encoder-only audio family's prefill returns
+the rank's columns of every frame's logits and an empty cache.
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
@@ -484,7 +487,8 @@ def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
                                            cache_seq) for t in (k, v))
     elif tp is not None and cache_seq is not None:
         attn_out, (case, k, v) = L.attention_tp(
-            lp["attn"], h, positions, cfg.rope_theta, tp, kv_block=kv_block,
+            lp["attn"], h, positions, cfg.rope_theta, tp,
+            causal=not cfg.encoder_only, kv_block=kv_block,
             attention=attention)
         s = x.shape[1]
         k, v = (TP.prefill_cache_block(t, case, tp, s, cache_seq)
@@ -528,22 +532,18 @@ def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
 # prefill
 # ---------------------------------------------------------------------------
 
-#: the queued slice of sharded serving of each family that has none yet
-TP_SERVING_QUEUE = {"vlm": "the vision front end", "audio": "the audio front end"}
-
-
 def require_tp_serving(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of a family with a
-    sharded serving path (prefill and decode under ``tp``): the dense GQA,
-    MLA, MoE, Mamba-2 and RG-LRU hybrid families; the front ends' slices
-    are queued (ROADMAP, queue 1)."""
-    fam = ("audio" if cfg.encoder_only or cfg.frontend == "audio_frames"
-           else "vlm" if cfg.frontend is not None else None)
-    if fam is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded serving (tp=) runs the dense GQA, MLA, "
-            f"MoE, Mamba-2 and RG-LRU hybrid families; that of "
-            f"{TP_SERVING_QUEUE[fam]} is queued (ROADMAP, queue 1)")
+    """The one gate of sharded serving (prefill and decode under ``tp``).
+    It refuses nothing now: every family serves sharded, the dense GQA,
+    MLA, MoE, Mamba-2 and RG-LRU hybrid families and both front ends (a
+    vision prompt's patches before its tokens; the encoder-only audio
+    family's prefill alone, whose cache is empty)."""
+
+
+def _prompt_shape(batch: Dict, cfg: ArchConfig) -> Tuple[int, int]:
+    """(rows, cache positions) of a prompt (:func:`input_positions`)."""
+    rows = batch["frames" if cfg.frontend == "audio_frames" else "tokens"]
+    return rows.shape[0], input_positions(batch, cfg)
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
@@ -566,16 +566,25 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     shards and ``batch`` the rank's rows: the logits are the rank's vocab
     columns (where the vocab splits) and the cache is the rank's blocks,
     every KV head or the whole latent over its span of ``max_seq``
-    (``tensor_parallel.cache_span``), zeros past the prompt, or a
-    recurrent family's state blocks (module docstring); a MoE's FFN runs
-    under ``ep`` (its routing group's batch, its expert block)."""
+    (``tensor_parallel.cache_span``; a vision prompt's span counts its
+    patches first), zeros past the prompt, or a recurrent family's state
+    blocks (module docstring); a MoE's FFN runs under ``ep`` (its routing
+    group's batch, its expert block).  An encoder-only config collects no
+    cache there either: it returns the rank's columns of every frame's
+    logits (B, S, V_rank) and an empty cache of length S."""
     lengths = batch.get("lengths")
     if tp is not None:
         require_tp_serving(cfg)
         if lengths is not None:
             raise ValueError("ragged prefill (batch['lengths']) under tp is "
                              "not ported")
-        b, s = batch["tokens"].shape
+        b, s = _prompt_shape(batch, cfg)
+        if cfg.encoder_only:
+            logits, _, _ = forward(params, batch, cfg, kv_block=kv_block,
+                                   logits_positions="all", tp=tp, ep=ep)
+            return logits, DecodeState(
+                cache={}, cache_len=torch.full((b,), s, dtype=torch.int32,
+                                               device=logits.device))
         logits, cache, _ = forward(params, batch, cfg, kv_block=kv_block,
                                    collect_cache=True, logits_positions="last",
                                    tp=tp, ep=ep, cache_seq=max_seq or s)
@@ -595,13 +604,7 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
         params, batch, cfg, kv_block=kv_block, collect_cache=True,
         logits_positions="all" if (cfg.encoder_only or lengths is not None)
         else "last")
-    if cfg.frontend == "vision_patches":
-        b, s = batch["tokens"].shape
-        s += cfg.frontend_len
-    elif cfg.frontend == "audio_frames":
-        b, s = batch["frames"].shape[:2]
-    else:
-        b, s = batch["tokens"].shape
+    b, s = _prompt_shape(batch, cfg)
     dev = logits.device
     if cfg.encoder_only:
         return logits, DecodeState(

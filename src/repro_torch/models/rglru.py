@@ -114,6 +114,12 @@ def rglru_step(p, x_t: torch.Tensor, h: torch.Tensor
     return new_h.to(x_t.dtype), new_h
 
 
+def out_product(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The unsplit ``w_out`` product ``y @ w`` (a split one is
+    ``tensor_parallel.row_product``)."""
+    return torch.matmul(y, w)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv (B, S, U) with (W, U) taps: each product and
     partial sum rounded to x's dtype in tap order (the JAX ``sum``), then
@@ -145,7 +151,7 @@ def recurrent_block_forward(p, x: torch.Tensor, state: Optional[dict] = None,
     u = torch.matmul(x, p["w_in"])
     uc = _causal_conv(u, p["conv_w"], p["conv_b"])
     hseq, h_last = rglru_scan(p, uc, h0=state["h"] if state is not None else None)
-    out = torch.matmul(hseq * gate, p["w_out"])
+    out = out_product(hseq * gate, p["w_out"])
     width = p["conv_w"].shape[0]
     return out, {"h": h_last, "conv": u[:, -(width - 1):, :]}
 
@@ -189,7 +195,7 @@ def recurrent_block_step(p, x: torch.Tensor, state: dict
     uc = (window.float() * p["conv_w"].float()).sum(dim=1).to(x.dtype) \
         + p["conv_b"]
     h_out, h_new = rglru_step(p, uc, state["h"])
-    out = torch.matmul(h_out * gate, p["w_out"])[:, None, :]
+    out = out_product(h_out * gate, p["w_out"])[:, None, :]
     return out, {"h": h_new, "conv": window[:, 1:, :]}
 
 

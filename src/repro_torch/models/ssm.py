@@ -59,6 +59,12 @@ def init_mamba2(normal, nl: int, d_model: int, cfg: SSMConfig, device) -> dict:
     }
 
 
+def out_product(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The unsplit ``out_proj`` product ``y @ w`` (a split one is
+    ``tensor_parallel.row_product``)."""
+    return torch.matmul(y, w)
+
+
 def _split_proj(zxbcdt, d_inner, n_groups, d_state, heads):
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * n_groups * d_state]
@@ -197,7 +203,7 @@ def mamba2_forward(p, x: torch.Tensor, cfg: SSMConfig, d_model: int,
         y_blk = TP.region(y, tp)[..., tp.block(d_inner)]
         out = TP.row_product(y_blk, p["out_proj"], tp)
     else:
-        out = torch.matmul(y, p["out_proj"])
+        out = out_product(y, p["out_proj"])
 
     # conv state for decode continuation: the last (width-1) PRE-conv xBC
     tail = zxbcdt[:, -(cfg.conv_width - 1):, :]
@@ -235,7 +241,7 @@ def mamba2_decode(p, x: torch.Tensor, state: SSMState, cfg: SSMConfig,
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(bsz, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
-    out = torch.matmul(y, p["out_proj"])[:, None, :]
+    out = out_product(y, p["out_proj"])[:, None, :]
     return out, SSMState(ssm=new_ssm, conv=window[:, 1:, :])
 
 
@@ -320,5 +326,5 @@ def mamba2_decode_tp(p, x: torch.Tensor, state: SSMState, cfg: SSMConfig,
     if tp.splits(d_inner):
         out = TP.row_product(y[:, tp.block(d_inner)], p["out_proj"], tp)
     else:
-        out = torch.matmul(y, p["out_proj"])
+        out = out_product(y, p["out_proj"])
     return out[:, None, :], SSMState(ssm=new_ssm, conv=window[:, 1:, :])

@@ -27,25 +27,22 @@ def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
                  max_seq: Optional[int] = None, kv_block: int = 1024,
                  tp=None, ep=None) -> PrefillOutput:
     """Run the prompt; the greedy first token, the last logits and the
-    cache.  Under ``tp`` (the dense GQA, MLA and MoE families,
-    ``models.model.prefill``; a MoE's FFN under ``ep``): a rank's shards
-    and rows, ``last_logits`` the rank's vocab columns (the whole rows are
-    never needed: the first token comes from the vocab-parallel argmax,
+    cache.  An encoder-only config encodes and ships: the "first token" is
+    the first frame's argmax unit, ``last_logits`` the last frame's, the
+    cache empty.  Under ``tp`` (every family, ``models.model.prefill``; a
+    MoE's FFN under ``ep``): a rank's shards and rows, ``last_logits`` the
+    rank's vocab columns (the whole rows are never needed: the first token
+    or unit comes from the vocab-parallel argmax,
     ``tensor_parallel.vocab_argmax``, which moves two numbers a row) and
     the cache the rank's blocks."""
     last_logits, state = M.prefill(params, batch, cfg, max_seq=max_seq,
                                    kv_block=kv_block, tp=tp, ep=ep)
-    if tp is not None:
-        return PrefillOutput(first_token=greedy(last_logits, cfg, tp),
-                             last_logits=last_logits, state=state)
     if cfg.encoder_only:
-        # encode-and-ship: the "first token" is the first frame's argmax
-        # unit; prefill returned every frame's logits (B, S, V)
-        first = torch.argmax(last_logits[:, 0], dim=-1).to(torch.int32)
-        return PrefillOutput(first_token=first, last_logits=last_logits[:, -1],
-                             state=state)
-    first = torch.argmax(last_logits, dim=-1).to(torch.int32)
-    return PrefillOutput(first_token=first, last_logits=last_logits, state=state)
+        # prefill returned every frame's logits (B, S, V)
+        return PrefillOutput(first_token=greedy(last_logits[:, 0], cfg, tp),
+                             last_logits=last_logits[:, -1], state=state)
+    return PrefillOutput(first_token=greedy(last_logits, cfg, tp),
+                         last_logits=last_logits, state=state)
 
 
 def greedy(logits: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:

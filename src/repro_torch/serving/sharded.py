@@ -51,8 +51,17 @@ has: the f32 states ship raw, or, under ``compress_fp32`` (the
 ``xfer_fp32`` variant), their hi halves through the codec
 (``fp32_hilo``); a leaf replicated over ``model`` is shipped by every
 model rank to its pod-1 peer, so each copy is counted where it is sent.
-The front ends raise.  Nothing falls back: a collective's failure fails
-the call, and a sharded step never runs whole on one rank.
+
+The front ends: a vision prompt (``patches`` before ``tokens``) fills
+``frontend_len`` + tokens cache positions (``launch/serve.prompt_positions``),
+so the patches take the first slots of the sequence split (rank 0's span
+first), and it decodes as the dense family does.  The encoder-only audio
+family has no decode cell (``shape_applicable`` drops it in the JAX
+dry-run): :func:`serve` runs its prefill cell alone, which leaves the rank
+its vocab columns of the frames' logits and an empty cache, and its
+``xfer_*`` cell ships that empty cache, pod 1 decoding nothing
+(:func:`disaggregated_step`).  Nothing falls back: a collective's failure
+fails the call, and a sharded step never runs whole on one rank.
 """
 
 from __future__ import annotations
@@ -65,9 +74,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as TR
 from repro_torch.core.codebook import DEFAULT_BF16_CODEBOOK, Codebook
+from repro_torch.device import resolve_device
 from repro_torch.distributed import expert_parallel as EP
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.launch.serve import prompt_positions
 from repro_torch.models import kvcache as KC
 from repro_torch.models import model as M
 from repro_torch.models.kvcache import DecodeState
@@ -153,12 +164,14 @@ def cache_like(cfg: ArchConfig, batch: int, max_seq: int,
 class ServeResult:
     """One rank's sharded serving: the prefill's output (its rows, its
     vocab columns and its cache blocks), the greedy tokens decoded after
-    the first (B_rank, num_steps), the decode state after them, the
+    the first (B_rank, num_steps; None for an encoder-only config, which
+    has no decode cell), the decode state after them (an encoder-only
+    config's: the prefill's), the
     tensor-parallel context whose ``fwd`` counted the collectives, and a
     MoE's expert-parallel context (its ``fwd`` the routing collectives,
     ``out_gather`` the expert outputs'; else None)."""
     prefill: PrefillOutput
-    tokens: torch.Tensor
+    tokens: Optional[torch.Tensor]
     state: DecodeState
     tp: TP.TensorParallel
     ep: Optional[EP.ExpertParallel] = None
@@ -172,12 +185,18 @@ def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
     rank runs its rows; the prefill (``prefill_step(tp=)``) leaves the
     rank its cache blocks, on which ``decode_loop(tp=)`` decodes
     ``num_steps`` tokens (``on_logits(i, logits)`` sees each step's
-    logits, the rank's vocab columns)."""
+    logits, the rank's vocab columns).  An encoder-only config runs the
+    prefill cell alone: ``tokens`` None, the state the prefill's (an empty
+    cache of the frames' length); ``decode_loop`` would raise
+    (``models.kvcache.require_decoder``)."""
     M.require_tp_serving(cfg)
     tp = tensor_parallel(policy, cfg)
     ep = expert_parallel(policy, cfg, tp)
     out = prefill_step(params, local_batch(batch, policy), cfg,
                        max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep)
+    if cfg.encoder_only:
+        return ServeResult(prefill=out, tokens=None, state=out.state, tp=tp,
+                           ep=ep)
     toks, st = decode_loop(params, out.first_token, out.state, cfg,
                            num_steps, tp=tp, max_seq=max_seq,
                            on_logits=on_logits, ep=ep)
@@ -211,7 +230,11 @@ def hop_plan(cfg: ArchConfig, policy: SH.ShardingPolicy, tc: TransferConfig,
              prompt_len: Optional[int] = None) -> TransferPlan:
     """The mesh plan of a ``batch`` x ``max_seq`` cache after a prefill of
     ``prompt_len`` positions (:func:`cache_like`) under the policy's
-    ``cache_specs`` (from shapes alone: no rank holds the whole cache)."""
+    ``cache_specs`` (from shapes alone: no rank holds the whole cache).
+    An encoder-only config's cache is ``{}``: its plan has no routes, no
+    segments, a stream of 0 elements and no specs, the ``tensor``
+    granularity (what the JAX ``TransferPlan.build({}, ...)`` gives), and
+    its hop moves no unit (:func:`disaggregated_step`)."""
     like = cache_like(cfg, batch, max_seq, prompt_len)
     return TransferPlan.build(like, tc, mesh=policy.mesh,
                               specs=policy.cache_specs(like))
@@ -226,7 +249,14 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     prefills its rows of ``batch`` and ships its cache blocks, pod 1
     decodes ``num_steps`` tokens from them; the hop's session (of
     :func:`hop_plan`'s plan, its codec on ``device``) comes back in the
-    result."""
+    result.
+
+    An encoder-only config's cache is empty.  Pod 0 ships it all the same
+    (``transfer_shard({})``: a message of no unit, no codec launch), then
+    the first units and ``cache_len`` as for every family; pod 1 receives
+    ``{}`` (``received``), the first units and ``cache_len``, and decodes
+    nothing (``tokens`` None).  ``last_stats`` reads 0 raw and 0 wire
+    bytes on both pods: no chunk, no leaf, no retry step."""
     if not policy.pd_disaggregated:
         raise ValueError("the disaggregated step needs a pd_disaggregated "
                          "policy: pods are prefill and decode workers")
@@ -235,7 +265,7 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     if sizes.get("pod", 1) != 2:
         raise ValueError(f"the disaggregated step runs on 2 pods, not "
                          f"{sizes.get('pod', 1)}")
-    b, s = next(iter(batch.values())).shape[:2]
+    b, s = next(iter(batch.values())).shape[0], prompt_positions(cfg, batch)
     session = hop_plan(cfg, policy, tc, b, max_seq, s).session(device=device)
     plan = session.plan
     pod = mesh.get_local_rank("pod")
@@ -252,7 +282,7 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
         return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
                          prefill=out)
     shard = session.transfer_shard(None)
-    dev = TR.leaves(shard)[0].device
+    dev = resolve_device(device)
     rows = SH.local_shape((b,), policy.spec_for_activation("tokens", (b,)),
                           sizes)
     link = CL.Link(mesh.get_group("pod"), dev, side)
@@ -263,6 +293,9 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     body.end_unit()
     body.done()
     state = DecodeState(cache=shard, cache_len=cache_len)
+    if cfg.encoder_only:
+        return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
+                         received=shard, first_token=first, state=state)
     toks, st = decode_loop(params, first, state, cfg, num_steps, tp=tp,
                            max_seq=max_seq, on_logits=on_logits, ep=ep)
     return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
@@ -282,17 +315,22 @@ def main(argv=None) -> None:
     ``minicpm3-4b`` (MLA), ``qwen3-moe-30b-a3b`` (MoE, its experts over
     ``model``), ``mamba2-2.7b`` (Mamba-2; ``--variant xfer_fp32`` sends
     its f32 state's hi halves through the codec) and
-    ``recurrentgemma-9b`` (the RG-LRU hybrid).  ``--variant base`` runs
-    :func:`serve` (the prefill and decode cells); an ``xfer_*`` variant runs :func:`disaggregated_step` under a
-    ``pd_disaggregated`` policy on 2 pods.  Parameters and the prompt come
-    from ``--seed``.  Without ``--device`` each rank takes the card."""
+    ``recurrentgemma-9b`` (the RG-LRU hybrid), ``pixtral-12b`` (the
+    vision front end; ``--prompt-len`` counts its patches) and
+    ``hubert-xlarge`` (encoder-only: the prefill cell, and the hop of its
+    empty cache; each rank prints its first units).  ``--variant base``
+    runs :func:`serve` (the prefill and decode cells); an ``xfer_*``
+    variant runs :func:`disaggregated_step` under a ``pd_disaggregated``
+    policy on 2 pods.  Parameters and the prompt
+    (``launch/serve.make_prompt``) come from ``--seed``.  Without
+    ``--device`` each rank takes the card."""
     import argparse
 
     import torch.distributed as dist
 
     from repro_torch.configs.base import get_config
-    from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prompt
     from repro_torch.launch.train import _join_group, parse_mesh
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serving.sharded")
@@ -326,10 +364,8 @@ def main(argv=None) -> None:
     max_seq = args.max_seq or 2 * args.prompt_len
     params = place_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), policy, device)
-    g = torch.Generator().manual_seed(args.seed + 1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (args.batch, args.prompt_len),
-                                     generator=g).to(device)}
+    batch = make_prompt(cfg, args.batch, args.prompt_len, device=device,
+                        seed=args.seed + 1)
     coord = SH.coordinate(policy.mesh)
     if xfer:
         backend = args.codec_backend or ("cuda" if device.type == "cuda"
@@ -345,13 +381,18 @@ def main(argv=None) -> None:
               f"{st.wire_bytes:.0f} wire bytes (ratio "
               f"{raw / max(st.wire_bytes, 1):.4f}), retry steps "
               f"{st.n_retry_steps}", flush=True)
-        tokens = res.tokens
+        tokens, first = res.tokens, res.first_token
     else:
-        tokens = serve(params, batch, cfg, policy, max_seq=max_seq,
-                       num_steps=args.new_tokens).tokens
-    if tokens is not None and coord["model"] == 0:
-        print(f"rank {dist.get_rank()} {coord}: tokens {tokens.tolist()}",
-              flush=True)
+        res = serve(params, batch, cfg, policy, max_seq=max_seq,
+                    num_steps=args.new_tokens)
+        tokens, first = res.tokens, res.prefill.first_token
+    if coord["model"] == 0:
+        if tokens is not None:
+            print(f"rank {dist.get_rank()} {coord}: tokens {tokens.tolist()}",
+                  flush=True)
+        elif cfg.encoder_only and first is not None:
+            print(f"rank {dist.get_rank()} {coord}: first units "
+                  f"{first.tolist()}", flush=True)
     dist.barrier()   # no rank tears its connections down under a peer
     dist.destroy_process_group()
 

@@ -52,10 +52,11 @@ whole batch), MLA's merged partial latent attention against whole-key
 attention in f32 within 1e-5, held parameter and cache bytes (and
 ``init_cache(policy=)``), pod 1's shards bitwise pod 0's, and the hop of a
 rank's own shard giving the bytes and ``TransferStats`` of the whole-cache
-hop.  ``require_tp_serving`` still refuses the two front ends and passes
-every family with a sharded serving path (Mamba-2 and the hybrid are
-held in ``tests/test_torch_serve_recurrent.py``), and a MoE under ``tp``
-without ``ep`` raises.
+hop.  ``require_tp_serving`` passes every family, the front ends
+included (Mamba-2 and the hybrid are held in
+``tests/test_torch_serve_recurrent.py``, the front ends in
+``tests/test_torch_serve_frontends.py``), and a MoE under ``tp`` without
+``ep`` raises.
 """
 
 import concurrent.futures
@@ -534,16 +535,9 @@ def test_sharded_cli_runs_both_families(worlds):
                for r in rows)
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
-def test_queued_families_still_refuse(arch):
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import model as M
-    with pytest.raises(NotImplementedError, match="queued"):
-        M.require_tp_serving(get_config(arch))
-
-
 @pytest.mark.parametrize("arch", [MLA, MOE, "qwen3-moe-235b-a22b",
-                                  "mamba2-2.7b", "recurrentgemma-9b"])
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "pixtral-12b", "hubert-xlarge"])
 def test_served_families_pass(arch):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M

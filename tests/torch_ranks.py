@@ -1021,14 +1021,15 @@ def _bits_list(x: torch.Tensor) -> list:
 def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=(),
                    units="attention"):
     """The cases of ``tests/test_torch_serve_tp.py``,
-    ``tests/test_torch_serve_families.py`` and
-    ``tests/test_torch_serve_recurrent.py`` on this world: each a serve
+    ``tests/test_torch_serve_families.py``,
+    ``tests/test_torch_serve_recurrent.py`` and
+    ``tests/test_torch_serve_frontends.py`` on this world: each a serve
     case (prefill, teacher-forced ``serve_step``, greedy ``decode_loop``)
     or a hop case (the disaggregated step and the whole-cache hop), a MoE
     case's routing recorded (:class:`RouteRecorder`); then the unit
     checks: ``units="attention"`` the merges (GQA's and MLA's latent one),
     the vocab argmax and the placed draws, ``"recurrent"`` the recurrent
-    decode steps (:func:`_recurrent_units`).  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
+    decode steps (:func:`_recurrent_units`), None none.  Writes ``rank<r>.json`` and ``rank<r>.npz``.  Then each
     argument list of ``cli`` through ``serving/sharded.py``'s ``main``
     (which tears the group down itself, so each joins a new one), its
     output in ``cli<i>_rank<r>.txt``.  One thread a rank: the products
@@ -1048,7 +1049,7 @@ def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=(),
             arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
         if units == "recurrent":
             summary["units"] = _recurrent_units(rank)
-        else:
+        elif units == "attention":
             summary["units"] = _serve_units(rank)
             summary["units"]["latent_merge_max_abs"] = _latent_merge(rank)
             summary["placed_draws"] = _placed_draws()
@@ -1071,9 +1072,23 @@ def serve_tp_world(rank, world, store, ref_dir, out_dir, cases, cli=(),
             dist.destroy_process_group()
 
 
+def _ref_prompt(ref) -> dict:
+    """The prompt a reference holds: ``tokens``, a vision prompt's
+    ``patches`` before them, or an audio prompt's ``frames`` (the bf16
+    inputs kept as their bits)."""
+    out = {}
+    if "tokens" in ref.files:
+        out["tokens"] = torch.from_numpy(np.array(ref["tokens"]))
+    for k in ("patches", "frames"):
+        if k in ref.files:
+            out[k] = to_torch(np.array(ref[k]), "bfloat16")
+    return out
+
+
 def _serve_setup(ref_dir: Path, case: dict):
     from repro_torch.configs.base import get_config
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import prompt_positions
     from repro_torch.models import kvcache as KC
     from repro_torch.models import model as M
     from repro_torch.models.weights import params_from_jax
@@ -1085,8 +1100,8 @@ def _serve_setup(ref_dir: Path, case: dict):
     policy = SH.ShardingPolicy(mesh, pd_disaggregated=case.get("pd", False),
                                attn_fallback=case.get("attn_fallback", "seq"))
     params = params_from_jax(_np_params(ref), "cpu", policy=policy)
-    tokens = torch.from_numpy(np.array(ref["tokens"]))
-    b, s = tokens.shape
+    prompt = _ref_prompt(ref)
+    b, s = next(iter(prompt.values())).shape[0], prompt_positions(cfg, prompt)
     m = int(ref["max_seq"])
     like_p = M.init_params(cfg, torch.Generator(), "meta")
     like_c = SV.cache_like(cfg, b, m, s)
@@ -1109,7 +1124,7 @@ def _serve_setup(ref_dir: Path, case: dict):
            "split_over_model": sum(
                "model" in SH.entry_axes(e) for sp in SH.leaf_specs(
                    policy.param_specs(like_p), like_p) for e in sp)}
-    return ref, cfg, policy, params, tokens, m, tp, out
+    return ref, cfg, policy, params, prompt, m, tp, out
 
 
 def _serve_case(ref_dir: Path, case: dict, rec=None):
@@ -1119,21 +1134,37 @@ def _serve_case(ref_dir: Path, case: dict, rec=None):
     prefill and after the steps, as arrays.  A MoE case runs under
     ``serving/sharded.expert_parallel`` and ``rec`` (a
     :class:`RouteRecorder`) keeps its routing: the prefill's and the
-    teacher-forced steps' top-k experts as arrays."""
+    teacher-forced steps' top-k experts as arrays.  An encoder-only case
+    has no steps: its prefill (every frame's vocab columns, from the
+    model's prefill under the same context) and ``serve``'s prefill cell."""
+    from repro_torch.models import model as M
     from repro_torch.serving import sharded as SV
     from repro_torch.serving.decode import serve_step
     from repro_torch.serving.prefill import prefill_step
-    ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
+    ref, cfg, policy, params, prompt, m, tp, out = _serve_setup(ref_dir, case)
     ep = SV.expert_parallel(policy, cfg, tp)
     rows = out["rows"]
-    pre = prefill_step(params, SV.local_batch({"tokens": tokens}, policy),
-                       cfg, max_seq=m, kv_block=4, tp=tp, ep=ep)
+    local = SV.local_batch(prompt, policy)
+    pre = prefill_step(params, local, cfg, max_seq=m, kv_block=4, tp=tp,
+                       ep=ep)
     n_pre = len(rec.calls) if rec is not None else 0
     out["prefill_bytes"] = tp.fwd.sent_bytes
     out["held_cache"] = _nbytes(pre.state.cache)
     out["first_token"] = pre.first_token.tolist()
+    out["cache_len"] = pre.state.cache_len.tolist()
     arrays = {"last_logits": pre.last_logits.float().numpy()}
     arrays.update({k: as_bits(x) for k, x in pre.state.cache.items()})
+    if cfg.encoder_only:
+        frames, _ = M.prefill(params, local, cfg, max_seq=m, kv_block=4,
+                              tp=tp)
+        arrays["frame_logits"] = frames.float().numpy()
+        res = SV.serve(params, prompt, cfg, policy, max_seq=m, num_steps=4,
+                       kv_block=4)
+        out["greedy"] = res.tokens
+        out["greedy_first"] = res.prefill.first_token.tolist()
+        out["serve_cache"] = sorted(res.state.cache)
+        out["serve_cache_len"] = res.state.cache_len.tolist()
+        return out, arrays
     st = type(pre.state)(cache={k: v.clone() for k, v in pre.state.cache.items()},
                          cache_len=pre.state.cache_len)
     feed = np.array(ref["step_inputs"])
@@ -1148,7 +1179,7 @@ def _serve_case(ref_dir: Path, case: dict, rec=None):
         n_steps = len(rec.calls)
         arrays.update(rec.arrays(0, n_pre, "prefill", 1))
         arrays.update(rec.arrays(n_pre, n_steps, "steps", feed.shape[0]))
-    res = SV.serve(params, {"tokens": tokens}, cfg, policy, max_seq=m,
+    res = SV.serve(params, prompt, cfg, policy, max_seq=m,
                    num_steps=feed.shape[0], kv_block=4)
     out["greedy"] = res.tokens.tolist()
     out["greedy_first"] = res.prefill.first_token.tolist()
@@ -1167,13 +1198,14 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
     rank: the shards' hash (sent or received, each way), both hops'
     ``TransferStats``, the first token, the tokens."""
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import prompt_positions
     from repro_torch.serving import sharded as SV
-    ref, cfg, policy, params, tokens, m, tp, out = _serve_setup(ref_dir, case)
+    ref, cfg, policy, params, prompt, m, tp, out = _serve_setup(ref_dir, case)
     tc = SV.transfer_config(case["variant"])
-    b, s = tokens.shape
+    b, s = next(iter(prompt.values())).shape[0], prompt_positions(cfg, prompt)
     steps = np.array(ref["step_inputs"]).shape[0]
     logits = []
-    res = SV.disaggregated_step(params, {"tokens": tokens}, cfg, policy, tc,
+    res = SV.disaggregated_step(params, prompt, cfg, policy, tc,
                                 max_seq=m, num_steps=steps, kv_block=4,
                                 device="cpu",
                                 on_logits=lambda i, lg: logits.append(
@@ -1194,6 +1226,7 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
         out["sha"] = _sha(blocks)
         out["first_token"] = res.prefill.first_token.tolist()
         out["held_cache"] = _nbytes(blocks)
+        out["cache_len"] = res.prefill.state.cache_len.tolist()
         # the whole cache only to drive the whole-cache path: gathered over
         # pod 0's (data, model) ranks
         whole = SH.gather_tree(blocks, policy.cache_specs(
@@ -1204,11 +1237,20 @@ def _hop_case(ref_dir: Path, case: dict, rec=None):
         out["sha"] = _sha(res.received)
         out["held_cache"] = _nbytes(res.received)
         out["first_token"] = res.first_token.tolist()
-        out["tokens"] = res.tokens.tolist()
+        out["tokens"] = None if res.tokens is None else res.tokens.tolist()
+        out["received"] = sorted(res.received)
+        out["cache_len"] = res.state.cache_len.tolist()   # after the steps
         got = whole_sess.transfer(None, select_dst=False)
         out["whole_sha"] = _sha(got)
-        arrays["step_logits"] = np.stack(logits)
+        if logits:
+            arrays["step_logits"] = np.stack(logits)
     out["whole_stats"] = _stats_dict(whole_sess.last_stats)
+    plan = whole_sess.plan
+    out["plan"] = dict(routes=len(plan.routes), segments=len(plan.segments),
+                       stream_len=plan.stream_len,
+                       in_specs=[list(sp) for sp in plan.in_specs],
+                       granularity=plan.granularity)
+    out["records"] = len(res.session.last_comm.records)
     if rec is not None:
         arrays.update(arrays_rec)
     return out, arrays
