@@ -197,11 +197,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the seed), batch 8 x 2048, AdamW with the launcher's
               defaults, through ``launch/train.py``'s ``make_run``.  (a) One
               process under ``torch.use_deterministic_algorithms`` (and
-              ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): 6 steps uninterrupted,
+              ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): 4 steps uninterrupted,
               then a ``ResilientTrainer`` with a ``Checkpointer`` on the
-              card (a checkpoint every 3 steps, a crash injected at step 4):
+              card (a checkpoint every 2 steps, a crash injected at step 3):
               every loss finite, the restored state bitwise the one saved
-              at step 3, the resumed losses and final state bitwise the
+              at step 2, the resumed losses and final state bitwise the
               uninterrupted run's.  Step ms (first apart), tok/s, peak GB,
               save and restore ms, raw and directory bytes, escapes a row
               of the parameters and of the moments' hi halves, leaves that
@@ -219,7 +219,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               train window launches the flash kernel.
 8j. shard   — the sharding policy and the sharded train step
               (``make_run(policy=)``) at smollm-135m's full width cut to
-              6 layers (``SHARD_LAYERS``), batch 8 x 2048, ranks spawned
+              4 layers (``SHARD_LAYERS``), batch 8 x 2048, ranks spawned
               over gloo on the one card.  (a) Mesh
               (pod 1, data 2, model 1), 2 steps with ``fsdp`` on and off:
               the gathered parameters and moments bitwise equal across
@@ -242,7 +242,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               each rank hands to gloo.
 8k. tp      — tensor-parallel training over the model axis
               (``distributed/tensor_parallel.py``) at smollm-135m's full
-              width cut to 6 layers (``SHARD_LAYERS``), batch 4 x 2048, 2
+              width cut to 4 layers (``SHARD_LAYERS``), batch 4 x 2048, 2
               steps, ranks spawned over gloo on the one card.  (a) Mesh
               (pod 1, data 1, model 3): 9 / 3 heads split (attention
               case ``heads``), every split leaf a third a rank; (b) mesh
@@ -386,6 +386,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               each hop's raw and wire bytes, ratio and retry steps by
               route, held bytes, peak GB, the f32 state blocks' largest
               distance from the replay's.
+8q. dryrun  — the multi-pod dry run on fake ranks
+              (``python -m repro_torch.launch.dryrun``), in subprocesses
+              (a ``fake`` process group, fake tensors: nothing allocated,
+              no card): (a) three full-size cells, qwen3-32b
+              ``decode_32k`` on the (16, 16) mesh, qwen3-32b
+              ``prefill_32k`` ``xfer_chunked`` on (2, 16, 16) and
+              smollm-135m ``train_4k`` ``fsdp`` on (16, 16): each rank's
+              peak GB against the card's 80 GB, FLOPs, bytes, collective
+              bytes, the H100 roofline terms and bottleneck, the seconds
+              a cell took; (b) phase ``serve_tp``'s configuration and
+              worlds dry-run at every rank coordinate, its predictions
+              held against what that phase's gloo ranks counted on the
+              card: held parameter and cache bytes, ``tp.fwd`` bytes
+              (prefill, and each decode step), the collectives over
+              ``model`` a decode step, the hop's raw shard bytes and side
+              message exactly, its wire bytes within the capacity-sized
+              payload where no unit overflowed; (c) each rank's predicted
+              peak beside its ``torch.cuda.max_memory_allocated``, no gate.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -2844,7 +2862,9 @@ def ring_rank(torch, rank, device):
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2048, 3e-4
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 6, 3, 4
+#: 4 steps, a checkpoint every 2, a crash at 3: every gate reads a save,
+#: a crash between saves and a resume
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 4, 2, 3
 TRAIN_RANKS, TRAIN_RING_STEPS = 2, 2
 
 
@@ -2935,9 +2955,9 @@ def train_attention(torch, cfg, device):
 
 
 def train_rank(torch, rank, device):
-    """Phase ``train`` (a): one process, 6 steps uninterrupted, then the
-    ``ResilientTrainer`` run with a crash at step 4 restored from the
-    step-3 checkpoint."""
+    """Phase ``train`` (a): one process, 4 steps uninterrupted, then the
+    ``ResilientTrainer`` run with a crash at step 3 restored from the
+    step-2 checkpoint."""
     import shutil
     import tempfile
     import warnings
@@ -3283,7 +3303,7 @@ SHARD_STEPS = 2
 #: (at 30 layers they took 98 and 110 s of a 1092-s run of this script on
 #: an H100 80GB HBM3 at 700 W; the layers repeat, so the gates read the
 #: same arithmetic)
-SHARD_LAYERS = 6
+SHARD_LAYERS = 4
 SHARD_FSDP_MESH, SHARD_RING_MESH = (1, 2, 1), (2, 2, 1)
 MESH_AXES = ("pod", "data", "model")
 # the sharded step against the single-process one, the bounds of
@@ -5439,6 +5459,10 @@ def _spawn_serving(body, out_dir):
     return worlds, seconds
 
 
+#: phase ``serve_tp``'s ranks' dicts by world, for phase ``dryrun`` (b)
+SERVE_TP_COUNTS: dict = {}
+
+
 def phase_serve_tp(torch, smi):
     import shutil
     import tempfile
@@ -5457,6 +5481,7 @@ def phase_serve_tp(torch, smi):
     gates = {world: _serve_tp_gates(world, ranks, replay, SERVE_TP_LAYERS,
                                     "serve_tp")
              for world, ranks in worlds.items()}
+    SERVE_TP_COUNTS.update(worlds)       # phase dryrun's predictions' targets
     emit(phase="serve_tp", nvidia_smi=smi, arch=cfg.name,
          layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
          kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -5782,6 +5807,170 @@ def phase_ring(torch, smi):
             for label in ("int_comp", "normal_comp")}
 
 
+# ---------------------------------------------------------------------------
+# phase 8q: the multi-pod dry run on fake ranks
+# ---------------------------------------------------------------------------
+
+#: (arch, shape, multi_pod, variant) of phase dryrun (a), each at full size
+DRYRUN_CELLS = (("qwen3-32b", "decode_32k", False, "base"),
+                ("qwen3-32b", "prefill_32k", True, "xfer_chunked"),
+                ("smollm-135m", "train_4k", False, "fsdp"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_child(what: str, *args) -> dict:
+    """One subprocess's work in phase ``dryrun`` (the fake group must be
+    its process's only group): ``cell`` runs one cell of
+    :data:`DRYRUN_CELLS` (``run_cell``, uncached), ``predict`` phase
+    ``serve_tp``'s worlds rank by rank (``dryrun.predict``, one decode
+    step)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    if what == "cell":
+        arch, shape, multi, variant = DRYRUN_CELLS[int(args[0])]
+        r = D.run_cell(arch, shape, multi, variant, cache=False)
+        r.pop("roofline_scanraw", None)
+        return dict(r, seconds=time.perf_counter() - t0)
+    cfg = serve_tp_config()
+    out = {}
+    for world, w in SERVE_TP_WORLDS.items():
+        ranks = D.predict(cfg, w["mesh"], w["variant"] or "base",
+                          batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
+                          max_seq=SERVE_TP_MAX_SEQ, num_steps=1)
+        out[world] = [{k: v for k, v in dataclasses.asdict(r).items()
+                       if k in ("rank", "coord", "peak_bytes", "seen",
+                                "kernels", "seconds")} for r in ranks]
+    return dict(worlds=out, seconds=time.perf_counter() - t0)
+
+
+def _dryrun_spawn(what: str, *args):
+    code = ("import json, sys; sys.path[:0] = [%r, %r]; import chip_smoke; "
+            "print('DRYRUN ' + json.dumps(chip_smoke.dryrun_child(*sys.argv[1:])))"
+            % (str(SRC), str(ROOT)))
+    return subprocess.Popen([sys.executable, "-c", code, what, *map(str, args)],
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_result(proc) -> dict:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dryrun: a child still ran after "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"dryrun: a child failed ({proc.returncode}): "
+                             f"{err[-3000:]}")
+    return json.loads(lines[-1][len("DRYRUN "):])
+
+
+def _predicted_vs_counted(world: str, counted_ranks, predicted) -> list:
+    """Phase ``serve_tp``'s gloo ranks against the dry run's prediction at
+    their coordinates: raises on any difference; a row a rank."""
+    steps = SERVE_TP_STEPS
+    pred = {p["rank"]: p for p in predicted}
+    rows = []
+    for r in counted_ranks:
+        p = pred[r["rank"]]
+        seen = p["seen"]
+        tag = f"dryrun ({world}) rank {r['rank']}"
+        if p["coord"] != r["coord"]:
+            raise AssertionError(f"{tag}: coordinate {p['coord']}, counted "
+                                 f"{r['coord']}")
+        want = {"held_params": seen["held"]["params"],
+                "held_cache": seen["held"]["cache"]}
+        decode = r.get("pod", 1) == 1
+        if "prefill_fwd" in seen:        # prefill, then the decode steps
+            pre = seen["prefill_fwd"]
+            want["tp_fwd_sent"] = pre["bytes"] + steps * (
+                seen["tp_fwd"]["bytes"] - pre["bytes"])
+            want["tp_fwd_recv"] = pre["recv_bytes"] + steps * (
+                seen["tp_fwd"]["recv_bytes"] - pre["recv_bytes"])
+        else:                            # pod 0 prefills, pod 1 decodes
+            n = steps if decode else 1
+            want["tp_fwd_sent"] = n * seen["tp_fwd"]["bytes"]
+            want["tp_fwd_recv"] = n * seen["tp_fwd"]["recv_bytes"]
+        got = {"held_params": r["held_params"], "held_cache": r["held_cache"],
+               "tp_fwd_sent": r["tp_fwd"]["sent_bytes"],
+               "tp_fwd_recv": r["tp_fwd"]["recv_bytes"]}
+        if decode:
+            want["decode_collectives"] = seen["model_calls"]
+            got["decode_collectives"] = r["decode_collectives"]
+        if "hop" in seen:
+            want["hop_raw_bytes"] = seen["held"]["cache"]
+            got["hop_raw_bytes"] = r["hop"]["raw_bytes"]
+            want["side_bytes"] = seen["hop"]["side_bytes"]
+            got["side_bytes"] = r["side_bytes"]
+        if got != want:
+            raise AssertionError(f"{tag}: counted {got}, predicted {want}")
+        row = dict(rank=r["rank"], coord=r["coord"], **got,
+                   predicted_peak_gb=p["peak_bytes"] / 1e9,
+                   max_memory_allocated_gb=r["peak_gb"])
+        if "hop" in seen:
+            cap = seen["hop"]["comp_bytes"] + seen["hop"]["raw_bytes"]
+            fell = sum(d["fallback"] for d in r["hop"]["routes"].values())
+            row.update(wire_bytes=r["hop"]["wire_bytes"],
+                       capacity_bytes=cap, fallback_units=fell)
+            if not fell and r["hop"]["wire_bytes"] > cap:
+                raise AssertionError(f"{tag}: the hop shipped "
+                                     f"{r['hop']['wire_bytes']} bytes, over "
+                                     f"the capacity-sized {cap}")
+        rows.append(row)
+    return rows
+
+
+def phase_dryrun(torch, smi):
+    """Phase ``dryrun`` (8q): (a) the full-size cells and (b) phase
+    ``serve_tp``'s worlds predicted, each in a subprocess of its own, all
+    at once; (b) held against ``SERVE_TP_COUNTS``; (c) the peaks side by
+    side."""
+    t0 = time.perf_counter()
+    procs = [_dryrun_spawn("cell", i) for i in range(len(DRYRUN_CELLS))]
+    procs.append(_dryrun_spawn("predict"))
+    try:
+        results = [_dryrun_result(p) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    cells, pred = results[:-1], results[-1]
+    summary = []
+    for c in cells:
+        if c["status"] != "ok":
+            raise AssertionError(f"dryrun: cell {c['cell']} "
+                                 f"{c['status']}: {c.get('error')}")
+        rl = c["roofline"]
+        summary.append(dict(
+            cell=c["cell"], device=c["device"], seconds=c["seconds"],
+            peak_gb_a_rank=c["memory"]["peak_bytes"] / 1e9,
+            fits=c["fits"], fits_of=c["roofline_device"],
+            flops_global=rl["flops_global"], bytes_global=rl["bytes_global"],
+            collective_bytes_a_rank=rl["collective_bytes_per_chip"],
+            collectives=rl["collectives_detail"], t_compute=rl["t_compute"],
+            t_memory=rl["t_memory"], t_collective=rl["t_collective"],
+            bottleneck=rl["bottleneck"],
+            useful_flops_ratio=rl["useful_flops_ratio"],
+            kernels={k: v for r in c["ranks_played"]
+                     for k, v in r["kernels"].items()}))
+    if not SERVE_TP_COUNTS:
+        raise AssertionError("dryrun: phase serve_tp's counts are missing")
+    rows = {world: _predicted_vs_counted(world, SERVE_TP_COUNTS[world],
+                                         pred["worlds"][world])
+            for world in SERVE_TP_WORLDS}
+    emit(phase="dryrun", nvidia_smi=smi, roofline_device="NVIDIA H100 80GB "
+         "HBM3 (SXM5), 700 W datasheet constants (predictions, not "
+         "measurements)", cells=summary, serve_tp=dict(
+             arch=SERVE_TP_ARCH, layers=SERVE_TP_LAYERS,
+             predicted_vs_counted=rows, predict_seconds=pred["seconds"]),
+         seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5897,6 +6086,7 @@ def main(argv=None) -> int:
                          smi))
     windows.update(timed("serve_tp_frontends", phase_serve_tp_frontends, torch,
                          smi))
+    timed("dryrun", phase_dryrun, torch, smi)
     windows["moe"], flash[MOE_ARCH] = timed("moe", phase_moe, torch, device)
     emit(phase="launches", **windows)
     emit(phase="flash_live", geometries=flash)

@@ -224,3 +224,25 @@ def get_config(arch: str) -> ArchConfig:
     if arch not in PORTED:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(PORTED)}")
     return importlib.import_module(PORTED[arch]).CONFIG
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """DESIGN.md §4 skip rules (the JAX ``shape_applicable``).  Returns
+    (applicable, reason_if_not)."""
+    if shape.kind == "decode" and cfg.encoder_only:
+        return False, "encoder-only arch has no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "524k context requires sub-quadratic attention (SSM/hybrid only)"
+    return True, ""
+
+
+def cells(arch_ids=ARCH_IDS):
+    """All live (arch, shape) dry-run cells."""
+    out = []
+    for a in arch_ids:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            ok, _ = shape_applicable(cfg, s)
+            if ok:
+                out.append((a, s.name))
+    return out

@@ -28,6 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.core.codebook import FORMATS, Codebook
 
 DEFAULT_CHUNK = 1024  # paper §4.1: "chunked escape value with chunk size 1024"
@@ -337,8 +338,9 @@ def compact_chunked_to_global(
     sel = (jj < cnt[:, None]) & (rank < total_cap)
     esc_pos = torch.full((total_cap,), n, dtype=torch.int64, device=dev)
     esc_val = torch.zeros((total_cap,), dtype=torch.uint8, device=dev)
-    esc_pos[rank[sel]] = gpos[sel]
-    esc_val[rank[sel]] = esc_val_c[sel]
+    r, g, v = AB.used_slots(sel, rank, gpos, esc_val_c)
+    esc_pos[r] = g
+    esc_val[r] = v
     total = count.sum().to(torch.int32)
     ok = (total <= total_cap) & torch.all(count <= cap1)
     return narrow_u32(esc_pos)[None], esc_val[None], total[None], ok
@@ -436,7 +438,8 @@ def compressed_bytes(ct: CompressedTensor) -> float:
     code_bits = max(1, int(np.ceil(np.log2(max(2, k)))))
     codes = n * code_bits / 8.0
     per_escape = 5.0 if ct.layout == "global" else 3.0
-    return dense + codes + per_escape * int(ct.esc_count.sum())
+    return dense + codes + per_escape * AB.n_used_slots(ct.esc_count,
+                                                        ct.esc_pos.numel())
 
 
 def static_stream_bytes(ct: CompressedTensor) -> int:

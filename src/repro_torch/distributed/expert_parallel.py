@@ -65,10 +65,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import abstract as AB
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.serving import collective as CL
 
@@ -89,11 +91,13 @@ def routing_group(policy, ring: bool):
         return mesh.get_group(axes[0])
     names = tuple(mesh.mesh_dim_names)
     lead = [names.index(a) for a in axes]
-    ranks = mesh.mesh.permute(lead + [i for i in range(len(names))
-                                      if i not in lead])
+    # the rank grid as plain integers (the dry run builds this group
+    # under fake tensors)
+    ranks = np.array(AB.host_read(lambda: mesh.mesh.tolist())).transpose(
+        lead + [i for i in range(len(names)) if i not in lead])
     ranks = ranks.reshape(math.prod(policy.sizes[a] for a in axes), -1)
     me, mine = dist.get_rank(), None
-    for col in ranks.t().tolist():
+    for col in ranks.T.tolist():
         if col != sorted(col):
             raise ValueError(f"routing group {col}: the mesh's ranks are not "
                              "in the batch's block order")

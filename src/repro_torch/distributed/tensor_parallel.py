@@ -370,6 +370,20 @@ def prefill_cache_block(x: torch.Tensor, case: str, tp: TensorParallel,
     return out
 
 
+def write_slot(block: torch.Tensor, slot: torch.Tensor, span: slice,
+               new: torch.Tensor) -> None:
+    """Write each row's ``new`` (B, ...) IN PLACE at cache slot ``slot``
+    (B,) of a rank's ``block`` (B, |span|, ...) of the cache, for the rows
+    whose slot lies in the rank's ``span``; every other row's block is left
+    as it was (its value at the clamped slot read and written back).  No
+    shape depends on the data: no host read."""
+    rows = torch.arange(block.shape[0], device=block.device)
+    mine = (slot >= span.start) & (slot < span.stop)
+    at = torch.clamp(slot - span.start, 0, span.stop - span.start - 1)
+    keep = mine.reshape((-1,) + (1,) * (new.dim() - 1))
+    block[rows, at] = torch.where(keep, new.to(block.dtype), block[rows, at])
+
+
 def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
                    tp: TensorParallel) -> torch.Tensor:
     """Attention over keys split over ``model``: each rank's f32 running max

@@ -26,7 +26,10 @@ tensor-core kernel (``sz_flash_attention_tc``: wgmma, TMA-fed tiles),
 everything else (f32, or a bf16 width that is not a multiple of 16) to the
 CUDA-core kernel (``sz_flash_attention``).  ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_tc`` the tensor-core ones
-and ``flash_attention.launches_causal`` the causal ones.
+and ``flash_attention.launches_causal`` the causal ones.  Under the dry
+run's abstract run (:mod:`repro_torch.core.abstract`) fake operands get a
+fake output of the kernel's shape and dtype and the kernel's work
+(:func:`hbm_bytes`, :func:`flops`) credited to the run; nothing launches.
 
 The causal mask places query row ``i`` at position ``i``: it is aligned to
 the start of the keys, not to their end, so with Sq < Skv a row sees keys
@@ -44,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -214,7 +218,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, skv, h, hkv, d, dv = _shapes(q, k, v)
     win = _check_window(window, sq, skv)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(d))
-    if not build.on_cuda(q, k, v):
+    abstract = AB.on_card(q, k, v)
+    if not abstract and not build.on_cuda(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
     if q.dtype not in DTYPE_ID:
@@ -225,6 +230,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if skv < 1 or b * h > 65535:
         raise ValueError(f"Skv={skv}, B*H={b * h}: the kernel needs Skv >= 1 "
                          "and B*H <= 65535")
+    if abstract:
+        AB.credit("flash_attention",
+                  hbm_bytes(b, sq, skv, h, hkv, d, dv, q.element_size()),
+                  flops(b, sq, skv, h, d, dv, causal=causal, window=window))
+        return torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lib = _lib()

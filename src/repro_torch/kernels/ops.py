@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.core.codebook import FORMATS, Codebook
 from repro_torch.kernels import splitzip_decode, splitzip_encode, twostage
@@ -79,9 +80,8 @@ def _patch_escape_bits(bits: torch.Tensor, ct: C.CompressedTensor) -> torch.Tens
         base = (torch.arange(c, dtype=torch.int64, device=pos.device)
                 * ct.chunk)[:, None]
         flat = torch.where(pos < ct.chunk, base + pos, n_pad).reshape(-1)
-    valid = flat < n_pad
-    idx = flat[valid]
-    val = ct.esc_val.reshape(-1)[valid].to(torch.int32)
+    idx, val = AB.used_slots(flat < n_pad, flat,
+                             ct.esc_val.reshape(-1).to(torch.int32))
     keep = ((1 << width) - 1) ^ (((1 << ebits) - 1) << mbits)
     sv = C.signed_view(bits).clone()
     cur = C.widen(C.unsigned_view(sv[idx]))

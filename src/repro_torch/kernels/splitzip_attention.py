@@ -30,7 +30,10 @@ cores.
 Each wrapper launches its kernels for CUDA operands and runs its plain
 PyTorch version (``*_plain``) only for CPU operands; anything else raises.
 ``launches`` on a wrapper counts its calls that launched (one call launches
-the split kernel and, with more than one split, the merge kernel).
+the split kernel and, with more than one split, the merge kernel).  Under
+the dry run's abstract run (:mod:`repro_torch.core.abstract`) fake
+operands get fake outputs and the kernel's work (:func:`paged_work`, every
+page of the table counted full) credited to the run; nothing launches.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import torch
 
 from repro_torch.core import codec as C
 from repro_torch.core.codebook import FORMATS
+from repro_torch.core import abstract as AB
 from repro_torch.kernels import build
 from repro_torch.kernels.splitzip_decode import decode_lut
 
@@ -160,10 +164,15 @@ def decode_pages(streams: Streams, exponents: tuple, fmt: str = "bf16",
     """Whole pages -> container bits (n_pages, page_elems): the kernels'
     shared page decoder for CUDA streams, the plain decoder for CPU ones."""
     npg, pe, cap = _check_streams(streams, "pages", chunk)
-    if not build.on_cuda(*streams):
+    abstract = AB.on_card(*streams)
+    if not abstract and not build.on_cuda(*streams):
         return decode_pages_plain(streams, exponents, fmt, chunk)
     out = torch.empty((npg, pe), dtype=C.container_dtype(fmt),
                       device=streams[0].device)
+    if abstract:
+        AB.credit("decode_pages", npg * (page_bytes(streams)
+                                         + pe * out.element_size()), 12 * npg * pe)
+        return out
     lut = decode_lut(exponents)
     lib = _lib()
     with torch.cuda.device(out.device):
@@ -174,6 +183,38 @@ def decode_pages(streams: Streams, exponents: tuple, fmt: str = "bf16",
     build.check(lib, err, "decode_pages")
     decode_pages.launches += 1
     return out
+
+
+def page_bytes(streams: Streams) -> float:
+    """Bytes one page's five streams hold: its elements' sign-mantissa
+    bytes and codes, 3 bytes an escape slot and its count."""
+    sm, _, pos, _, _ = streams
+    return 1.5 * sm.shape[1] * sm.shape[2] + 3 * pos.shape[1] + 4
+
+
+def paged_work(b: int, nq: int, h: int, n_full: int, tokens_per_page: int,
+               streams0: Streams, streams1: Streams, q_bytes: int,
+               width: int, out_w: int):
+    """(bytes, operations) a paged attention call must move and do over
+    ``n_full`` full pages in all (every row's): each page's compressed
+    streams and its two page-table entries read once, q read, the f32
+    partials written; ``nq * H * tokens_per_page * width`` multiply-adds a
+    page, two operations each.  The dry run's static figure counts every
+    page of the table full."""
+    nbytes = (n_full * (page_bytes(streams0) + page_bytes(streams1) + 8)
+              + q_bytes + b * nq * h * (out_w + 2) * 4 + b * 4)
+    return nbytes, n_full * 2 * nq * h * tokens_per_page * width
+
+
+def _abstract_partials(kernel: str, b, nq, h, out_w, n_pages, tp, s0, s1,
+                       q_bytes, width, device):
+    """The abstract form of a paged kernel: fake partials, its work
+    credited with every page of the table full."""
+    AB.credit(kernel, *paged_work(b, nq, h, b * n_pages, tp, s0, s1, q_bytes,
+                                  width, out_w))
+    return (torch.empty((b, nq, h, out_w), dtype=torch.float32, device=device),
+            torch.empty((b, nq, h), dtype=torch.float32, device=device),
+            torch.empty((b, nq, h), dtype=torch.float32, device=device))
 
 
 def bits_to_float(bits: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -359,6 +400,12 @@ def paged_gqa_attention(q, k_streams, v_streams, page_table_k, page_table_v,
     scale = float(scale if scale is not None else 1.0 / np.sqrt(hd))
     operands = (q, *k_streams, *v_streams, page_table_k, page_table_v,
                 cache_len)
+    if AB.on_card(*operands):
+        nq, h, dv = geo[1], geo[2], geo[4]
+        return _abstract_partials("paged_gqa_attention", b, nq, h, dv, n_pages,
+                                  tokens_per_page, k_streams, v_streams,
+                                  q.numel() * q.element_size(), hd + dv,
+                                  q.device)
     if not build.on_cuda(*operands):
         return paged_gqa_attention_plain(
             q, k_streams, v_streams, page_table_k, page_table_v, cache_len,
@@ -647,6 +694,13 @@ def paged_mla_attention(q_lat, q_rope, ckv_streams, krope_streams,
                         tokens_per_page)
     operands = (q_lat, q_rope, *ckv_streams, *krope_streams, page_table_ckv,
                 page_table_krope, cache_len)
+    if AB.on_card(*operands):
+        b, nq, h, r, rope, n_pages = geo[:6]
+        return _abstract_partials(
+            "paged_mla_attention", b, nq, h, r, n_pages, tokens_per_page,
+            ckv_streams, krope_streams,
+            (q_lat.numel() + q_rope.numel()) * q_lat.element_size(),
+            2 * r + rope, q_lat.device)
     if not build.on_cuda(*operands):
         return paged_mla_attention_plain(
             q_lat, q_rope, ckv_streams, krope_streams, page_table_ckv,

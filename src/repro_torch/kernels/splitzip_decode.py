@@ -22,6 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.core.codebook import FORMATS
 from repro_torch.kernels import build
@@ -102,6 +103,22 @@ def ctas_per_sm(kernel: str, fmt: str, chunk: int, device) -> int:
     return n.value
 
 
+def fused_work(rows: int, chunk: int, applied: int, width: int = 2):
+    """(bytes, operations) ``decode_fused`` must move and do: the codes and
+    sign-mantissa bytes read, ``applied`` escape slots (3 bytes) and the
+    counts read, the bits written; 12 operations an element.  The dry
+    run's static figure applies every slot (``rows * cap``)."""
+    n = rows * chunk
+    return n // 2 + n + 3 * applied + 4 * rows + width * n, 12 * n
+
+
+def dense_work(rows: int, chunk: int, width: int = 2):
+    """(bytes, operations) of ``decode_dense``: the codes and sign-mantissa
+    bytes read, the bits written; 10 operations an element."""
+    n = rows * chunk
+    return n // 2 + n + width * n, 10 * n
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -144,13 +161,19 @@ def decode_fused_plain(packed: torch.Tensor, sign_mantissa: torch.Tensor,
 def decode_dense(packed: torch.Tensor, sign_mantissa: torch.Tensor,
                  exponents: tuple, fmt: str = "bf16", chunk: int = 1024):
     """Dense decode to container bits: (rows, chunk//2) packed + (rows, chunk)
-    sign-mantissa -> (rows, chunk) u16/u8 (escapes still dummy)."""
+    sign-mantissa -> (rows, chunk) u16/u8 (escapes still dummy).  Fake
+    operands under the dry run's abstract run get a fake output and the
+    kernel's :func:`dense_work` credited; nothing launches."""
     rows = _check_dense(packed, sign_mantissa, chunk)
     lut = decode_lut(exponents)
-    if not build.on_cuda(packed, sign_mantissa):
+    abstract = AB.on_card(packed, sign_mantissa)
+    if not abstract and not build.on_cuda(packed, sign_mantissa):
         return decode_dense_plain(packed, sign_mantissa, exponents, fmt, chunk)
     out = torch.empty((rows, chunk), dtype=C.container_dtype(fmt),
                       device=packed.device)
+    if abstract:
+        AB.credit("decode_dense", *dense_work(rows, chunk, out.element_size()))
+        return out
     build.check_launchable(chunk, packed, sign_mantissa, out)
     lib = _lib()
     with torch.cuda.device(packed.device):
@@ -171,20 +194,29 @@ def decode_fused(packed: torch.Tensor, sign_mantissa: torch.Tensor,
 
     (rows, chunk//2) packed + (rows, chunk) sign-mantissa + (rows, cap)
     esc_pos u16 / esc_val u8 + (rows, 1) esc_count i32 (clipped to cap by
-    the caller) -> (rows, chunk) u16/u8 with the sparse correction applied."""
+    the caller) -> (rows, chunk) u16/u8 with the sparse correction applied.
+
+    Fake operands under the dry run's abstract run take the abstract form
+    (:mod:`repro_torch.core.abstract`), as in ``decode_dense``."""
     rows = _check_dense(packed, sign_mantissa, chunk)
     cap = esc_pos.shape[1] if esc_pos.dim() == 2 else -1
     build.check_operand(esc_pos, "esc_pos", torch.uint16, (rows, cap))
     build.check_operand(esc_val, "esc_val", torch.uint8, (rows, cap))
     build.check_operand(esc_count, "esc_count", torch.int32, (rows, 1))
     lut = decode_lut(exponents)
-    if not build.on_cuda(packed, sign_mantissa, esc_pos, esc_val, esc_count):
+    operands = (packed, sign_mantissa, esc_pos, esc_val, esc_count)
+    abstract = AB.on_card(*operands)
+    if not abstract and not build.on_cuda(*operands):
         return decode_fused_plain(packed, sign_mantissa, esc_pos, esc_val,
                                   esc_count, exponents, fmt, chunk)
     if cap < 1:
         raise ValueError("decode_fused needs at least one escape slot per row")
     out = torch.empty((rows, chunk), dtype=C.container_dtype(fmt),
                       device=packed.device)
+    if abstract:
+        AB.credit("decode_fused", *fused_work(rows, chunk, rows * cap,
+                                              out.element_size()))
+        return out
     build.check_launchable(chunk, packed, sign_mantissa, out)
     lib = _lib()
     with torch.cuda.device(packed.device):

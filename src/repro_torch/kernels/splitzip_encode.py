@@ -12,6 +12,10 @@ the capacity schedule's ``layout='global'`` step.
 Each wrapper launches its kernel for CUDA operands and runs its plain PyTorch
 version (``*_plain``, the same arithmetic on tensors) only for CPU operands;
 anything else raises.  ``launches`` on a wrapper counts its kernel launches.
+Under the dry run's abstract run (:mod:`repro_torch.core.abstract`) fake
+operands take the abstract form: fake outputs of the kernel's shapes and
+dtypes, the kernel's work (:func:`fused_work`, :func:`dense_work`) credited
+to the run, nothing built or launched.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.kernels import build
 
@@ -84,6 +89,23 @@ def fused_grid(fmt: str, rows: int, chunk: int, device) -> int:
     return ctas.value
 
 
+def fused_work(rows: int, chunk: int, cap: int, width: int = 2):
+    """(bytes, operations) ``encode_fused`` must move and do over ``rows``
+    x ``chunk`` elements of ``width`` bytes: the bits read once, the
+    sign-mantissa bytes, the nibble codes, every escape slot (3 bytes) and
+    the counts written; 16 operations an element."""
+    n = rows * chunk
+    return width * n + n + n // 2 + 3 * rows * cap + 4 * rows, 16 * n
+
+
+def dense_work(rows: int, chunk: int, width: int = 2):
+    """(bytes, operations) of ``encode_dense``: the bits read once, the
+    sign-mantissa bytes, the codes and the escape mask written; 12
+    operations an element."""
+    n = rows * chunk
+    return width * n + n + n // 2 + n, 12 * n
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -123,9 +145,14 @@ def encode_dense(bits: torch.Tensor, exponents: tuple, fmt: str = "bf16",
     Returns (sign_mantissa u8[rows,chunk], packed u8[rows,chunk//2],
     is_escape u8[rows,chunk]); the escape compaction happens outside."""
     _check_inputs(bits, exponents, fmt, chunk)
+    rows = bits.shape[0]
+    if AB.on_card(bits):
+        AB.credit("encode_dense", *dense_work(rows, chunk, bits.element_size()))
+        sm, packed = _outputs(rows, chunk, bits.device)
+        return sm, packed, torch.empty((rows, chunk), dtype=torch.uint8,
+                                       device=bits.device)
     if not build.on_cuda(bits):
         return encode_dense_plain(bits, exponents, fmt, chunk)
-    rows = bits.shape[0]
     sm, packed = _outputs(rows, chunk, bits.device)
     is_esc = torch.empty((rows, chunk), dtype=torch.uint8, device=bits.device)
     build.check_launchable(chunk, bits, sm, packed, is_esc)
@@ -154,7 +181,8 @@ def encode_fused(bits: torch.Tensor, exponents: tuple, fmt: str = "bf16",
             f"cap ({cap}) outside [1, MAX_FUSED_CAP={MAX_FUSED_CAP}]; use the "
             "two-stage path (repro_torch.kernels.twostage) for larger ones")
     _check_inputs(bits, exponents, fmt, chunk)
-    if not build.on_cuda(bits):
+    abstract = AB.on_card(bits)
+    if not abstract and not build.on_cuda(bits):
         return encode_fused_plain(bits, exponents, fmt, chunk, cap)
     rows = bits.shape[0]
     dev = bits.device
@@ -162,6 +190,10 @@ def encode_fused(bits: torch.Tensor, exponents: tuple, fmt: str = "bf16",
     esc_pos = torch.empty((rows, cap), dtype=torch.uint16, device=dev)
     esc_val = torch.empty((rows, cap), dtype=torch.uint8, device=dev)
     esc_count = torch.empty((rows, 1), dtype=torch.int32, device=dev)
+    if abstract:
+        AB.credit("encode_fused",
+                  *fused_work(rows, chunk, cap, bits.element_size()))
+        return sm, packed, esc_pos, esc_val, esc_count
     build.check_launchable(chunk, bits, sm, packed, esc_pos, esc_val)
     lut = encode_lut(exponents)
     lib = _lib()

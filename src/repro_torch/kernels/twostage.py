@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.core.codebook import FORMATS, Codebook
 from repro_torch.kernels import splitzip_decode, splitzip_encode
@@ -24,7 +25,7 @@ def chunk_rows(x: torch.Tensor, codebook: Codebook, chunk: int) -> torch.Tensor:
     16-byte aligned rows, so a misaligned view is copied."""
     bits = C._pad_to_chunk(C.flat_bits(x, codebook.fmt), chunk,
                            C.pad_bits_for(codebook))
-    if bits.data_ptr() % 16:
+    if not AB.is_fake(bits) and bits.data_ptr() % 16:
         bits = C.unsigned_view(C.signed_view(bits).clone())
     return bits.reshape(-1, chunk)
 

@@ -10,7 +10,11 @@ card the codec runs on ``cuda`` while gloo moves host-staged bytes.  Other
 transports (NCCL: one GPU a rank) are refused by the executors, never
 swapped in quietly.
 
-``make_production_mesh`` (the TPU pod layout) has no counterpart here.
+:func:`make_production_mesh` lays the JAX production meshes, ``(16, 16)``
+over ``("data", "model")`` and ``(2, 16, 16)`` over ``("pod", "data",
+"model")``, over a group of 256 or 512 ranks: the multi-pod dry run builds
+them on torch's ``fake`` backend (``repro_torch.launch.dryrun``), which
+moves no byte.
 """
 
 from __future__ import annotations
@@ -40,6 +44,15 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]):
                          f"group has {world}")
     return DeviceMesh("cpu", torch.arange(world).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (the JAX ``make_production_mesh``'s shape and
+    axis names) over the initialised default group, which must have 256
+    (512 with ``multi_pod``) ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def mesh_shape(mesh) -> Dict[str, int]:

@@ -23,16 +23,47 @@ changes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import abstract as AB
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import flash_attention as FA
 
 NEG_INF = -1e30
+
+# the knobs of the dry run's attention variants (``attn_overrides``)
+_ATTN_OVERRIDES: dict = {}
+
+
+@contextlib.contextmanager
+def attn_overrides(score_dtype=None, kv_block=None):
+    """The JAX ``attn_overrides``: inside it :func:`chunked_attention`
+    computes its scores in ``score_dtype`` (bf16: the scores and ``p``
+    rounded to bf16, ``m``, ``l`` and ``acc`` kept in f32) and walks keys
+    in blocks of ``kv_block``, whatever its caller passes.  The knobs act
+    on the plain chunked path, where the JAX ones act on the XLA path; the
+    flash kernel keeps ``p`` in f32 and its own tiles, so prefill attention
+    on the card refuses them (:func:`prefill_attention`)."""
+    global _ATTN_OVERRIDES
+    prev = _ATTN_OVERRIDES
+    _ATTN_OVERRIDES = {k: v for k, v in dict(score_dtype=score_dtype,
+                                             kv_block=kv_block).items()
+                       if v is not None}
+    try:
+        yield
+    finally:
+        _ATTN_OVERRIDES = prev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's path: a CUDA tensor, or a fake one
+    under the dry run's abstract run of the card."""
+    return t.device.type == "cuda" or AB.on_card(t)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -84,7 +115,8 @@ def chunked_attention(
     dv = v.shape[-1]
     g = h // hkv
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
-    kv_block = min(kv_block, skv)
+    score_dtype = _ATTN_OVERRIDES.get("score_dtype", torch.float32)
+    kv_block = min(_ATTN_OVERRIDES.get("kv_block", kv_block), skv)
     dev = q.device
     # (B, Hkv, G, Sq, D) f32 view of q: one matmul per block and head group
     qg = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4).float()
@@ -97,17 +129,19 @@ def chunked_attention(
         k_blk = k[:, start:stop].permute(0, 2, 1, 3).float()[:, :, None]  # (B,Hkv,1,K,D)
         v_blk = v[:, start:stop].permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,K,Dv)
         k_pos = torch.arange(start, stop, device=dev)
-        s = torch.matmul(qg, k_blk.transpose(-1, -2)) * scale             # (B,Hkv,G,Sq,K)
+        s = torch.matmul(qg, k_blk.transpose(-1, -2))                     # (B,Hkv,G,Sq,K)
+        s = s.to(score_dtype) * scale
         mask = torch.ones((sq, stop - start), dtype=torch.bool, device=dev)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
         if window is not None:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        s = torch.where(mask, s, torch.tensor(NEG_INF, device=dev))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=score_dtype,
+                                              device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1).float())
+        p = torch.exp(s - m_new.to(score_dtype)[..., None])
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
+        l = l * corr + p.sum(dim=-1, dtype=torch.float32)
         pv = torch.matmul(p.to(v.dtype).float(), v_blk.float())
         acc = acc * corr[..., None] + pv
         m = m_new
@@ -133,8 +167,14 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     aligned to the start of the keys), so on the card the block is
     preceded by ``q_offset`` zero rows, whose outputs are dropped: the
     rows kept see exactly their keys, and the zero rows cost their share
-    of the kernel's work."""
-    if q.device.type == "cuda":
+    of the kernel's work.  Under :func:`attn_overrides` the card refuses:
+    the kernel has neither knob."""
+    if on_card(q):
+        if _ATTN_OVERRIDES:
+            raise NotImplementedError(
+                f"attention overrides {sorted(_ATTN_OVERRIDES)} act on the "
+                "plain chunked path; the flash kernel keeps p in f32 and its "
+                "own KV tiles (trace the attn_* variants on the CPU path)")
         if q_offset:
             q = torch.cat([q.new_zeros((q.shape[0], q_offset) + q.shape[2:]),
                            q], dim=1)
@@ -325,10 +365,8 @@ def decode_attention_tp(p, x, cache_k, cache_v, cache_len, theta, tp, *,
     span = TP.cache_span(tp, max_seq)
     b = x.shape[0]
     idx = torch.clamp(cache_len, max=max_seq - 1).to(torch.int64)
-    mine = (idx >= span.start) & (idx < span.stop)
-    rows = torch.arange(b, device=x.device)[mine]
-    cache_k[rows, idx[mine] - span.start] = k[mine, 0]
-    cache_v[rows, idx[mine] - span.start] = v[mine, 0]
+    TP.write_slot(cache_k, idx, span, k[:, 0])
+    TP.write_slot(cache_v, idx, span, v[:, 0])
     if span.stop - span.start == max_seq:
         o = decode_attention(q, cache_k, cache_v, cache_len + 1, window=window)
     else:

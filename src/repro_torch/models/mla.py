@@ -307,10 +307,8 @@ def mla_decode_tp(p, x, cache_ckv, cache_krope, cache_len, cfg: MLAConfig,
     c_new, kr_new = _kv_latents(p, kv, positions, cfg, theta)
     span = TP.cache_span(tp, max_seq)
     idx = torch.clamp(cache_len, max=max_seq - 1).to(torch.int64)
-    mine = (idx >= span.start) & (idx < span.stop)
-    rows = torch.arange(b, device=x.device)[mine]
-    cache_ckv[rows, idx[mine] - span.start] = c_new[mine, 0]
-    cache_krope[rows, idx[mine] - span.start] = kr_new[mine, 0]
+    TP.write_slot(cache_ckv, idx, span, c_new[:, 0])
+    TP.write_slot(cache_krope, idx, span, kr_new[:, 0])
     q_lat, w_v = absorbed_query(p, q_nope, cfg)
     split = tp.splits(tp.heads)
     scale = mla_scale(cfg)

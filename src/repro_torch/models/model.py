@@ -940,3 +940,45 @@ def make_inputs(cfg: ArchConfig, shape: ShapeConfig, generator: torch.Generator,
         return {"patches": normal(b, cfg.frontend_len, cfg.frontend_dim),
                 "tokens": ids(s_text), "labels": ids(s_text)}
     return {"tokens": ids(s), "labels": ids(s)}
+
+
+# ---------------------------------------------------------------------------
+# abstract stand-ins (the dry run)
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ArchConfig) -> Dict:
+    """The parameters' shapes and dtypes as ``meta`` tensors, nothing
+    drawn (the JAX ``abstract_params``, ``jax.eval_shape`` of the init)."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict:
+    """``meta`` stand-ins for every model input of ``shape`` (the JAX
+    ``input_specs``): a decode shape's one token a row; else
+    :func:`make_inputs`'s keys, shapes and dtypes (int32 ids)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        return {"tokens": spec((b, 1), i32)}
+    if cfg.frontend == "audio_frames":
+        return {"frames": spec((b, s, cfg.frontend_dim), bf16),
+                "labels": spec((b, s), i32)}
+    if cfg.frontend == "vision_patches":
+        s_text = s - cfg.frontend_len
+        return {"patches": spec((b, cfg.frontend_len, cfg.frontend_dim), bf16),
+                "tokens": spec((b, s_text), i32),
+                "labels": spec((b, s_text), i32)}
+    return {"tokens": spec((b, s), i32), "labels": spec((b, s), i32)}
+
+
+def abstract_state(cfg: ArchConfig, batch: int, max_seq: int) -> DecodeState:
+    """A decode state of ``batch`` rows over a ``max_seq``-slot cache as
+    ``meta`` tensors (the JAX ``abstract_state``)."""
+    from repro_torch.models.kvcache import init_cache
+    return DecodeState(cache=init_cache(cfg, batch, max_seq, device="meta"),
+                       cache_len=torch.empty((batch,), dtype=torch.int32,
+                                             device="meta"))

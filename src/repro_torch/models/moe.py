@@ -123,7 +123,10 @@ def route_logits(logits: torch.Tensor, cfg: MoEConfig, cap: int, ep=None
     flat_e = expert_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    # a choice count per expert (what ``bincount`` gives, at a shape that
+    # does not depend on the data: no host read)
+    counts = torch.zeros(e, dtype=torch.int64, device=logits.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     if ep is not None:
         starts = starts - ep.offsets(counts)

@@ -25,7 +25,11 @@ a unit that lives on the card is staged through a pinned host buffer (one
 copy out on the sender, one copy in on the receiver), and the staging time
 and bytes are counted (:class:`CommStats`).  NCCL needs one GPU a rank and
 raises until a multi-card machine runs it; nothing falls back from one
-transport to another.
+transport to another.  The dry run's ``fake`` group is taken only inside
+its abstract run (:mod:`repro_torch.core.abstract`), where no byte moves:
+there a fake body ships every escape slot (the plan's capacity-sized
+payload), a header arrives as its sender posted it, and each call's bytes
+are tallied by collective kind.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.core.codebook import Codebook
 
@@ -73,7 +78,11 @@ class CommStats:
 
 
 def check_transport(group) -> None:
+    """Refuse every transport but gloo; the ``fake`` group of the dry run
+    only inside its abstract run."""
     backend = str(dist.get_backend(group))
+    if backend == "fake" and AB.current() is not None:
+        return
     if backend != "gloo":
         raise NotImplementedError(
             f"the collective executors run over gloo only; this group's "
@@ -119,8 +128,9 @@ def comp_unit(ct: C.CompressedTensor, extra: int = 0):
     used escape slots (shipped whatever ``ok`` says: the ring ships an
     overflowed stream as the JAX ring does)."""
     used = _used_slots(ct.esc_count, ct.esc_pos.shape[1])
+    pos, val = AB.used_slots(used, C.signed_view(ct.esc_pos), ct.esc_val)
     parts = [ct.sign_mantissa, ct.packed, ct.esc_count, ct.ok.reshape(1),
-             C.signed_view(ct.esc_pos)[used], ct.esc_val[used]]
+             pos, val]
     rec = [COMP, int(ct.layout == "global"), ct.cap, int(parts[4].numel()),
            nbytes(parts), extra]
     return rec, parts
@@ -170,8 +180,9 @@ class Body:
                               dtype=torch.int64, device=sm.device)
         val_full = torch.zeros((rows, cap), dtype=torch.uint8, device=sm.device)
         mask = _used_slots(count, cap)
-        pos_full[mask] = C.widen(C.unsigned_view(pos)).to(torch.int64)
-        val_full[mask] = val
+        AB.fill_used_slots(pos_full, mask,
+                           C.widen(C.unsigned_view(pos)).to(torch.int64))
+        AB.fill_used_slots(val_full, mask, val)
         return C.CompressedTensor(
             sign_mantissa=sm, packed=packed,
             esc_pos=(C.narrow_u32 if glob else C.narrow_u16)(pos_full),
@@ -259,6 +270,12 @@ class Link:
         self.stats.sent_bytes += hb + body.numel()
         self.stats.header_bytes += hb
         self.stats.messages += len(works)
+        run = AB.current()
+        if run is not None:
+            run.post(dist.get_rank(),
+                     dist.get_global_rank(self.group, peer), records)
+            run.collective("collective-permute", hb + body.numel(),
+                           self.group.group_name)
         return _Pending(works, (header, body))
 
     def wait(self, pending: _Pending) -> None:
@@ -275,6 +292,9 @@ class Link:
         self.stats.recv_bytes += header.numel() * 8
         self.stats.header_bytes += header.numel() * 8
         self.stats.messages += 1
+        if AB.is_fake(header):
+            return AB.current().collect(dist.get_global_rank(self.group, peer),
+                                        dist.get_rank(), n_records)
         vals = header.tolist()
         return [vals[i:i + REC] for i in range(0, len(vals), REC)]
 
@@ -319,6 +339,8 @@ class Link:
         per = host.numel() // len(blocks)
         self.stats.sent_bytes += per * (len(blocks) - 1)
         self.stats.recv_bytes += per * (len(blocks) - 1)
+        AB.collective("all-to-all", per * (len(blocks) - 1),
+                      self.group.group_name)
         body = self._to_device(out)
         return [Body(body[j * per:(j + 1) * per]).raw(shape, dtype)
                 for j in range(len(blocks))]
@@ -345,6 +367,7 @@ class Link:
         self.stats.sent_bytes += sum(sent) - sent[me]
         self.stats.recv_bytes += sum(got) - got[me]
         self.stats.messages += 1
+        AB.collective("all-to-all", sum(sent) - sent[me], self.group.group_name)
         body = self._to_device(out)
         outs, off = [], 0
         for s, n in zip(shapes, got):
@@ -363,6 +386,7 @@ class Link:
         self.stats.wire_s += time.perf_counter() - t0
         self.stats.sent_bytes += host.numel()
         self.stats.recv_bytes += host.numel() * (len(outs) - 1)
+        AB.collective("all-gather", host.numel(), self.group.group_name)
         return [Body(self._to_device(o)).raw(tuple(x.shape), x.dtype)
                 for o in outs]
 

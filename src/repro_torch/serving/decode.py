@@ -48,7 +48,10 @@ def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
     writes in place), so the caller's state is left as it was.  Under
     ``tp`` (and ``ep``) as :func:`serve_step`, each token from the
     vocab-parallel argmax.  ``on_logits(i, logits)``, where given, sees step ``i``'s
-    logits (the rank's columns under ``tp``)."""
+    logits (the rank's columns under ``tp``).  ``num_steps`` 0 returns
+    ``state`` itself: no step writes, so no copy is made."""
+    if num_steps == 0:
+        return _stack([], first_token), state
     st = DecodeState(cache={k: v.clone() for k, v in state.cache.items()},
                      cache_len=state.cache_len)
     tok = first_token

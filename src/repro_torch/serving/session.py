@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import abstract as AB
 from repro_torch.core import codec as C
 from repro_torch.core import tree as TR
 from repro_torch.core.backend import (CodecBackend, WireBackend,
@@ -122,13 +123,13 @@ def _encode_scheduled(plan: TransferPlan, x, codebook, n: int, cap: int,
                              layout=tc.layout)
     if not scheduled:
         return ct, plan.backend.ok(ct), 0
-    if bool(plan.backend.ok(ct)):
+    if AB.host_bool(plan.backend.ok(ct)):
         return ct, True, 0
     extra = 0
     for be, layout, c in plan.schedule_for(n, cap)[1:]:
         extra += 1
         ct = be.encode(x, codebook, chunk=tc.chunk, cap=c, layout=layout)
-        if bool(be.ok(ct)):
+        if AB.host_bool(be.ok(ct)):
             return ct, True, extra
     return ct, False, extra
 
@@ -1021,8 +1022,8 @@ class TransferSession:
             oks.append(ok)
         counts = torch.tensor(oks, dtype=torch.int64)
         dist.all_reduce(counts, group=group)
-        failed = frozenset(j for j, c in enumerate(counts.tolist())
-                           if c != n * (n - 1))
+        failed = frozenset(j for j, c in enumerate(AB.host_values(
+            counts, [n * (n - 1)] * len(oks))) if c != n * (n - 1))
         for j in sorted(failed):
             sums[j], _ = self._ring_leaf(link, xs[j], None, 0, n, i)
         out = [((t / n) if mean else t).to(x.dtype) for t, x in zip(sums, xs)]
@@ -1050,7 +1051,7 @@ class TransferSession:
             else:
                 ct = be.encode(rotating, codebook, chunk=tc.chunk, cap=cap,
                                layout=tc.layout)
-                ok += int(bool(be.ok(ct)))
+                ok += int(AB.host_bool(be.ok(ct)))
                 rec, parts = CL.comp_unit(ct)
             (got,), body = link.exchange(nxt, prv, [(rec, parts)], 1)
             if got[0] == CL.RAW:
@@ -1059,7 +1060,7 @@ class TransferSession:
                 ct = body.comp(got, n=x.numel(), shape=tuple(x.shape),
                                dtype=C.dtype_name(x.dtype),
                                codebook=codebook, chunk=tc.chunk)
-                if bool(ct.ok):
+                if AB.host_bool(ct.ok):
                     rotating = be.decode(ct).reshape(x.shape)
             body.end_unit()
             body.done()
@@ -1297,7 +1298,7 @@ class TransferSession:
         plan, tc = self.plan, self.plan.tc
         seg = plan.segments[i]
         be = plan.backend
-        ok = bool(be.ok(ct))
+        ok = AB.host_bool(be.ok(ct))
         extra = 0
         if not ok:
             for rbe, layout, cap in plan.schedule_for(seg.n_elements,
@@ -1305,7 +1306,7 @@ class TransferSession:
                 extra += 1
                 ct2 = rbe.encode(stream[seg.start:seg.stop], tc.codebook,
                                  chunk=tc.chunk, cap=cap, layout=layout)
-                if bool(rbe.ok(ct2)):
+                if AB.host_bool(rbe.ok(ct2)):
                     ct, ok = ct2, True
                     break
         stats.chunk_retried[i] = extra > 0

@@ -177,6 +177,17 @@ class ServeResult:
     ep: Optional[EP.ExpertParallel] = None
 
 
+def require_unblocked(policy: SH.ShardingPolicy) -> None:
+    """Refuse an ``fsdp`` policy: a serving step computes on the rank's
+    ``model`` shards as they are placed and gathers no FSDP block over
+    ``data`` (the train step does), so blocked parameters would feed it
+    partial products."""
+    if policy.fsdp:
+        raise NotImplementedError(
+            "sharded serving gathers no FSDP block: serve under the same "
+            "mesh with fsdp=False (the train step takes fsdp)")
+
+
 def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
           max_seq: int, num_steps: int, kv_block: int = 1024,
           on_logits=None) -> ServeResult:
@@ -190,6 +201,7 @@ def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
     cache of the frames' length); ``decode_loop`` would raise
     (``models.kvcache.require_decoder``)."""
     M.require_tp_serving(cfg)
+    require_unblocked(policy)
     tp = tensor_parallel(policy, cfg)
     ep = expert_parallel(policy, cfg, tp)
     out = prefill_step(params, local_batch(batch, policy), cfg,
@@ -261,6 +273,7 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
         raise ValueError("the disaggregated step needs a pd_disaggregated "
                          "policy: pods are prefill and decode workers")
     M.require_tp_serving(cfg)
+    require_unblocked(policy)
     mesh, sizes = policy.mesh, policy.sizes
     if sizes.get("pod", 1) != 2:
         raise ValueError(f"the disaggregated step runs on 2 pods, not "

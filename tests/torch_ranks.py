@@ -1524,3 +1524,96 @@ def _latent_merge(rank: int) -> float:
                                     blk.start, n, scale)
     merged = TPM.merge_partials(m, l, acc, tp)
     return float((merged - whole).abs().max())
+
+
+def _count_link_calls(calls: dict) -> None:
+    """Count every ``Link`` collective (``all_to_all``, ``all_to_all_v``,
+    ``all_gather``) by its process group's name into ``calls``."""
+    for name in ("all_to_all", "all_to_all_v", "all_gather"):
+        orig = getattr(CL.Link, name)
+
+        def counted(self, *a, _orig=orig, **k):
+            key = self.group.group_name
+            calls[key] = calls.get(key, 0) + 1
+            return _orig(self, *a, **k)
+        setattr(CL.Link, name, counted)
+
+
+def dryrun_world(rank, world, store, out_dir, cases):
+    """The served worlds of ``tests/test_torch_dryrun.py`` on real gloo
+    ranks: each case a reduced config on its ``(pod, data, model)`` mesh,
+    ``xfer_*`` (the disaggregated step, pod 1 decoding ``steps`` tokens) or
+    ``base`` (``prefill_step`` then ``decode_loop``), seeded parameters
+    (``serving/sharded.place_params``) and prompt.  Per rank: held
+    parameter and cache bytes, ``tp.fwd`` (the prefill's apart under
+    ``base``), the collectives over ``model`` in the decode steps (pod 0 of
+    a hop: in its prefill), and the hop's unit records; written to
+    ``rank<r>.json``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import make_prompt
+    from repro_torch.serving import sharded as SV
+    from repro_torch.serving.decode import decode_loop
+    from repro_torch.serving.prefill import prefill_step
+    torch.set_num_threads(1)
+    _init(rank, world, store)
+    calls: dict = {}
+    _count_link_calls(calls)
+    try:
+        out = {}
+        for case in cases:
+            cfg = get_config(case["arch"]).reduced()
+            xfer = case["variant"] != "base"
+            mesh = make_mesh(tuple(case["mesh"]), ("pod", "data", "model"))
+            policy = SH.ShardingPolicy(mesh, pd_disaggregated=xfer)
+            params = SV.place_params(cfg, torch.Generator().manual_seed(
+                case["seed"]), policy, "cpu")
+            prompt = make_prompt(cfg, case["batch"], case["prompt"],
+                                 device="cpu", seed=case["seed"] + 1)
+            model = mesh.get_group("model").group_name
+            nb = (lambda tree: sum(x.numel() * x.element_size()
+                                   for x in TR.leaves(tree)))
+
+            def fwd(tp):
+                return {"bytes": tp.fwd.sent_bytes,
+                        "recv_bytes": tp.fwd.recv_bytes,
+                        "messages": tp.fwd.messages}
+            rec = {"coord": SH.coordinate(mesh), "held": {"params": nb(params)}}
+            if xfer:
+                calls0 = calls.get(model, 0)
+                res = SV.disaggregated_step(
+                    params, prompt, cfg, policy,
+                    SV.transfer_config(case["variant"]),
+                    max_seq=case["max_seq"], num_steps=case["steps"],
+                    device="cpu")
+                recs = res.session.last_comm.records
+                rec.update(
+                    pod=res.pod, tp_fwd=fwd(res.tp),
+                    model_calls=calls.get(model, 0) - calls0,
+                    hop={"units": len(recs), "records": [list(r) for r in recs],
+                     "wire_bytes": res.session.last_stats.wire_bytes,
+                     "side_bytes": res.side.sent_bytes
+                     + res.side.recv_bytes})
+                rec["held"]["cache"] = nb(res.prefill.state.cache
+                                          if res.pod == 0 else res.received)
+            else:
+                tp = SV.tensor_parallel(policy, cfg)
+                ep = SV.expert_parallel(policy, cfg, tp)
+                pre = prefill_step(params, SV.local_batch(prompt, policy),
+                                   cfg, max_seq=case["max_seq"], tp=tp,
+                                   ep=ep)
+                rec["prefill_fwd"] = fwd(tp)
+                rec["held"]["cache"] = nb(pre.state.cache)
+                calls0 = calls.get(model, 0)
+                decode_loop(params, pre.first_token, pre.state, cfg,
+                            case["steps"], tp=tp, max_seq=case["max_seq"],
+                            ep=ep)
+                rec["model_calls"] = calls.get(model, 0) - calls0
+                rec["tp_fwd"] = fwd(tp)
+            out[case["name"]] = rec
+            dist.barrier()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
