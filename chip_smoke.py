@@ -317,7 +317,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8n. serve_tp — sharded serving of the dense family
               (``serving/sharded.py``): qwen3-32b at full width (5120, 64
               / 8 heads x 128, d_ff 25,600, vocab 151,936, untied) cut to
-              4 layers, batch 2, prompt 2048, max_seq 4096, 16 decoded
+              4 layers, batch 2, prompt 2048, max_seq 4096, 8 decoded
               tokens, each rank drawing its block of the seeded
               parameters in turn.  (a) mesh (2, 1, 2) under
               ``pd_disaggregated``, the dry-run's ``xfer_chunked``: pod 0
@@ -325,10 +325,19 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               split, rank 0's block the prompt, rank 1's zeros until
               decode writes it), each pod-0 rank ships its own shard
               through ``transfer_shard`` with the first token and
-              ``cache_len``, pod 1 decodes 16 tokens from the shards; then
+              ``cache_len``, pod 1 decodes 8 tokens from the shards; then
               one ``xfer_global`` hop of the same shards.  (b) mesh (1, 2,
               2): the batch over data, ``prefill_step(tp=)`` then
-              ``decode_loop(tp=)``.  Then the single-process replay: the
+              ``decode_loop(tp=)``.  (c) the same mesh under ``fsdp``: a
+              rank holds half its model blocks (1,753,134,080 bytes), and
+              the prefill and each of 2 decode steps gather each layer's
+              blocks over data before its products
+              (``serving/sharded.block_gather``); held bitwise to (b)'s
+              first tokens, first 2 steps' tokens and logits, and cache
+              after the prefill and after 2 steps (hashes; (b) hashes its
+              own after 2 uncounted steps); per rank the gathers' bytes, ms
+              and all-gathers a pass, and both worlds' peaks read after
+              the draw.  Then the single-process replay: the
               whole parameters, the prefill and each decode rank's tokens
               teacher-forced, and its round-off witness (the same run with
               the row products f32, rounded once).  Gates: pod 1's shards
@@ -389,9 +398,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8q. dryrun  — the multi-pod dry run on fake ranks
               (``python -m repro_torch.launch.dryrun``), in subprocesses
               (a ``fake`` process group, fake tensors: nothing allocated,
-              no card): (a) three full-size cells, qwen3-32b
-              ``decode_32k`` on the (16, 16) mesh, qwen3-32b
-              ``prefill_32k`` ``xfer_chunked`` on (2, 16, 16) and
+              no card): (a) four full-size cells, qwen3-32b
+              ``decode_32k`` on the (16, 16) mesh with ``fsdp`` off and
+              on, qwen3-32b ``prefill_32k`` ``xfer_chunked`` on (2, 16,
+              16) and
               smollm-135m ``train_4k`` ``fsdp`` on (16, 16): each rank's
               peak GB against the card's 80 GB, FLOPs, bytes, collective
               bytes, the H100 roofline terms and bottleneck, the seconds
@@ -400,10 +410,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               held against what that phase's gloo ranks counted on the
               card: held parameter and cache bytes, ``tp.fwd`` bytes
               (prefill, and each decode step), the collectives over
-              ``model`` a decode step, the hop's raw shard bytes and side
+              ``model`` a decode step, the ``fsdp`` world's gathers (bytes
+              and all-gathers, the prefill's and the decode steps'), the
+              hop's raw shard bytes and side
               message exactly, its wire bytes within the capacity-sized
               payload where no unit overflowed; (c) each rank's predicted
-              peak beside its ``torch.cuda.max_memory_allocated``, no gate.
+              peak beside its ``torch.cuda.max_memory_allocated`` (since
+              the draw) and the peak read after the draw, no gate.
 9. moe      — qwen3-moe-30b-a3b at full width (48 layers, d_model 2048,
               128 experts top-8, about 61 GB of random bf16 weights drawn
               a layer at a time), batch 4, prompt 2048, 40 new tokens: the
@@ -4437,13 +4450,24 @@ def lr_witness(torch, smi):
 #: phase serve_tp_families after it)
 SERVE_TP_ARCH, SERVE_TP_LAYERS = "qwen3-32b", 4
 SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_MAX_SEQ = 2, 2048, 4096
-SERVE_TP_STEPS, SERVE_TP_SEED = 16, 0
-#: world -> its mesh, whether pods are prefill and decode workers, and the
-#: dry-run transfer variant of its hop
+#: decode steps of the serving phases' worlds (8: the script's time
+#: budget, with the fsdp world's gathers)
+SERVE_TP_STEPS, SERVE_TP_SEED = 8, 0
+#: world -> its mesh, whether pods are prefill and decode workers, the
+#: dry-run transfer variant of its hop, and (``fsdp``) whether its ranks
+#: hold FSDP blocks, gathered a layer at a time, with the decode steps it
+#: runs (phase serve_tp alone: it is held bitwise to ``base``'s first steps)
 SERVE_TP_WORLDS = {
     "xfer": dict(mesh=(2, 1, 2), pd=True, variant="xfer_chunked"),
     "base": dict(mesh=(1, 2, 2), pd=False, variant=None),
+    "fsdp": dict(mesh=(1, 2, 2), pd=False, variant=None, fsdp=True, steps=2),
 }
+#: the worlds of phases serve_tp_families, serve_tp_recurrent and
+#: serve_tp_frontends
+SERVE_FAMILY_WORLDS = ("xfer", "base")
+#: phase serve_tp's fsdp world: the parameter bytes a rank holds, the
+#: spec arithmetic of qwen3-32b at 4 layers under fsdp on (1, 2, 2)
+SERVE_TP_FSDP_HELD = 1_753_134_080
 #: the prefill bound of tests/test_torch_serve_tp.py (its docstring says
 #: why), for the last logits and the teacher-forced decode logits; at full
 #: width the single-process run moves farther than that when only its row
@@ -4652,9 +4676,11 @@ class _recorded_frame_logits:
 
 def serve_tp_rank(torch, rank, device, world, out_dir):
     """Phase ``serve_tp``, world ``world`` (``SERVE_TP_WORLDS``): qwen3-32b
-    at full width cut to ``SERVE_TP_LAYERS`` layers (:func:`serve_world`)."""
+    at full width cut to ``SERVE_TP_LAYERS`` layers (:func:`serve_world`);
+    the ``base`` and ``fsdp`` worlds also hash their cache after the
+    ``fsdp`` world's steps."""
     return serve_world(torch, rank, device, serve_tp_config(), world, out_dir,
-                       world)
+                       world, cache_after=SERVE_TP_WORLDS["fsdp"]["steps"])
 
 
 def serve_families_rank(torch, rank, device, world, out_dir):
@@ -4702,7 +4728,7 @@ def serve_frontends_rank(torch, rank, device, world, out_dir):
 
 def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
                 prompt=SERVE_TP_PROMPT, max_seq=SERVE_TP_MAX_SEQ,
-                second="xfer_global"):
+                second="xfer_global", cache_after=None):
     """One rank of one world (``SERVE_TP_WORLDS``) serving ``cfg`` at a
     ``prompt``-token prompt and ``max_seq`` cache slots, each rank drawing
     its block of the seeded parameters (``serving/sharded.place_params``).
@@ -4723,7 +4749,15 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     flash kernel is serving's), launches, prefill and decode-step ms (host
     clock around synchronized calls), the collectives over ``model``
     (``tp.fwd``) and a MoE's routing and expert-output collectives, the
-    hops' stats and each route's raw and wire bytes, peak memory.  Its
+    hops' stats and each route's raw and wire bytes, peak memory (since
+    the draw, and ``serve_peak_gb``: read after ``place_params``).  Under
+    an ``fsdp`` world the ranks hold FSDP blocks and every pass gathers
+    each layer's over ``data`` (``serving/sharded.block_gather``): its
+    bytes, ms and all-gathers, the prefill's apart.  Hashes of the
+    prefill's logits, of each step's logits and of the cache blocks after
+    the prefill (and, with ``cache_after``, after that many steps: an
+    uncounted ``decode_loop`` from the prefill's state where the world
+    runs another number) let two worlds be held bitwise.  Its
     vocab columns of the prefill and of every step's logits, the first
     token, the tokens, a MoE's top-k choices (call order) and a recurrent
     family's f32 state blocks (after the prefill, after the steps) go to
@@ -4747,9 +4781,10 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     from repro_torch.serving.prefill import prefill_step
 
     w = SERVE_TP_WORLDS[world]
-    b, m, steps = SERVE_TP_BATCH, max_seq, SERVE_TP_STEPS
+    b, m, steps = SERVE_TP_BATCH, max_seq, w.get("steps", SERVE_TP_STEPS)
     mesh = make_mesh(w["mesh"], MESH_AXES)
-    policy = SH.ShardingPolicy(mesh, pd_disaggregated=w["pd"])
+    policy = SH.ShardingPolicy(mesh, pd_disaggregated=w["pd"],
+                               fsdp=w.get("fsdp", False))
     coord = SH.coordinate(mesh)
     tp = SV.tensor_parallel(policy, cfg)
     seconds, t0 = {}, time.perf_counter()
@@ -4766,6 +4801,8 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             torch.cuda.empty_cache()
         dist.barrier()
     seconds["params"] = time.perf_counter() - t0
+    draw_peak = _peak_gb(torch)     # read, then reset: the serving's own
+    held_gb = torch.cuda.memory_allocated() / 1e9
     like_p = M.init_params(cfg, torch.Generator(), "meta")
     like_c = SV.cache_like(cfg, b, m, prompt)
     pspecs = SH.leaf_specs(policy.param_specs(like_p), like_p)
@@ -4773,8 +4810,9 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     nbytes = (lambda tree: sum(x.numel() * x.element_size()
                                for x in TR.leaves(tree)))
 
-    def over_model(specs):
-        return [any("model" in SH.entry_axes(e) for e in sp) for sp in specs]
+    def over_model(specs, axes=("model",)):
+        return [any(a in SH.entry_axes(e) for e in sp for a in axes)
+                for sp in specs]
 
     def replicated_cache(cache):
         return _sha_tree(torch, [x for x, split in zip(
@@ -4794,8 +4832,11 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
            "init_cache": nbytes(KC.init_cache(cfg, b, m, device="meta",
                                               policy=policy)),
            "params_sha": _sha_tree(torch, params),
+           # a parameter leaf split over neither model nor (an FSDP
+           # block) data is the same on every rank
            "replicated_sha": _sha_tree(torch, [
-               x for x, split in zip(TR.leaves(params), over_model(pspecs))
+               x for x, split in zip(TR.leaves(params),
+                                     over_model(pspecs, ("model", "data")))
                if not split])}
     seen, calls = set(), [0]
     _model_collectives(mesh.get_group("model"), seen, calls)
@@ -4812,6 +4853,7 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
 
     saved = {"rows": rows}
     ep = None
+    fs = SV.block_gather(policy, cfg)
     chunked = _calls_of(L.chunked_attention)
     # an encoder-only prefill's every frame (prefill_step keeps the last)
     frames = []
@@ -4828,7 +4870,7 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
             st, comm = res.session.last_stats, res.session.last_comm
-            tp, ep = res.tp, res.ep
+            tp, ep, fs = res.tp, res.ep, res.fsdp
             out.update(pod=res.pod, launches=launches, window_ms=window_ms,
                        hop=dict(ms=comm.seconds * 1e3, wire_bytes=st.wire_bytes,
                                 staging_ms=comm.staging_s * 1e3,
@@ -4847,12 +4889,18 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pre, launches = counted(lambda: prefill_step(
-                params, local, cfg, max_seq=m, tp=tp, ep=ep))
+                params, local, cfg, max_seq=m, tp=tp, ep=ep, fsdp=fs))
             torch.cuda.synchronize()
             out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["prefill_gather"] = dict(sent_bytes=fs.comm.sent_bytes,
+                                         recv_bytes=fs.comm.recv_bytes,
+                                         calls=fs.calls,
+                                         ms=fs.comm.seconds * 1e3)
             out["held_cache"] = nbytes(pre.state.cache)
             out["cache_replicated_sha"] = replicated_cache(pre.state.cache)
             out["first_token"] = pre.first_token.tolist()
+            out["prefill_logits_sha"] = _sha_tree(torch, pre.last_logits)
+            out["cache_prefill_sha"] = _sha_tree(torch, pre.state.cache)
             saved.update(prefill=frames[-1] if cfg.encoder_only
                          else pre.last_logits.float().cpu(),
                          first=pre.first_token.cpu(),
@@ -4863,14 +4911,29 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
                 calls[0] = 0
                 (toks, after), dl = counted(lambda: decode_loop(
                     params, pre.first_token, pre.state, cfg, steps, tp=tp,
-                    max_seq=m, on_logits=on_logits, ep=ep))
+                    max_seq=m, on_logits=on_logits, ep=ep, fsdp=fs))
                 out["decode_collectives"] = calls[0] / steps
                 out["tokens"] = toks.tolist()
                 out["after_replicated_sha"] = replicated_cache(after.cache)
+                out["step_logits_sha"] = [_sha_tree(torch, x) for x in logits]
                 saved.update(steps=torch.stack(logits), tokens=toks.cpu(),
                              state_after=f32_blocks(after.cache))
             out["launches"], out["decode_launches"] = launches, dl
     out["chunked_attention_calls"] = chunked.n
+    out["gather"] = dict(sent_bytes=fs.comm.sent_bytes,
+                         recv_bytes=fs.comm.recv_bytes, calls=fs.calls,
+                         ms=fs.comm.seconds * 1e3,
+                         staging_ms=fs.comm.staging_s * 1e3,
+                         wire_ms=fs.comm.wire_s * 1e3)
+    if cache_after is not None and not w["pd"] and not cfg.encoder_only:
+        if cache_after != steps:     # uncounted: contexts of its own
+            tp2 = SV.tensor_parallel(policy, cfg)
+            _, after = decode_loop(params, pre.first_token, pre.state, cfg,
+                                   cache_after, tp=tp2, max_seq=m,
+                                   ep=SV.expert_parallel(policy, cfg, tp2),
+                                   fsdp=SV.block_gather(policy, cfg))
+        out["cache_after_sha"] = _sha_tree(torch, after.cache)
+        del after
     if cfg.moe is not None:
         saved["routes"] = [r.cpu() for r in routes]
     if w["pd"]:
@@ -4935,7 +4998,9 @@ def serve_world(torch, rank, device, cfg, world, out_dir, tag, *,
     ptrs = {x.untyped_storage().data_ptr() for x in TR.leaves(params)}
     out["param_storages_over_model"] = len(ptrs & seen)
     out["storages_over_model"] = len(seen)
-    out["peak_gb"] = _peak_gb(torch)
+    serve_peak = _peak_gb(torch)
+    out.update(peak_gb=max(draw_peak, serve_peak), serve_peak_gb=serve_peak,
+               held_gb=held_gb)
     out["seconds"] = seconds
     torch.save(saved, Path(out_dir) / f"{tag}_rank{rank}.pt")
     return out
@@ -5313,12 +5378,14 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
     gates["held_bytes"] = {r["rank"]: [r["held_params"], r["held_cache"]]
                            for r in ranks}
     # model replicas: every rank of one model coordinate holds the same
-    # parameter blocks, every rank the same replicated leaves, every model
-    # rank of one (pod, data) coordinate the same tokens
+    # parameter blocks (of one (model, data) coordinate under fsdp), every
+    # rank the same replicated leaves, every model rank of one (pod, data)
+    # coordinate the same tokens
     by_model, toks, states = {}, {}, {}
     for r in ranks:
         c = r["coord"]
-        by_model.setdefault(c["model"], set()).add(r["params_sha"])
+        by_model.setdefault((c["model"], c["data"] if w.get("fsdp") else 0),
+                            set()).add(r["params_sha"])
         if "tokens" in r:
             toks.setdefault((c["pod"], c["data"]), set()).add(str(r["tokens"]))
         for k in ("cache_replicated_sha", "after_replicated_sha"):
@@ -5434,29 +5501,90 @@ def _serve_tp_gates(world, ranks, replay, layers, tag, tokens=False,
 def _serve_windows(prefix, worlds, second="global"):
     """Each rank's launch windows: ``<prefix>_xfer_src<m>`` / ``_dst<m>``,
     ``<prefix>_<second>_*`` and ``<prefix>_base_prefill<r>`` /
-    ``_decode<r>``."""
+    ``_decode<r>`` (and ``<prefix>_fsdp_*`` likewise where that world
+    ran)."""
     windows = {}
     for r in worlds["xfer"]:
         side = "src" if r["pod"] == 0 else "dst"
         windows[f"{prefix}_xfer_{side}{r['coord']['model']}"] = r["launches"]
         windows[f"{prefix}_{second}_{side}{r['coord']['model']}"] = \
             r[second]["launches"]
-    for r in worlds["base"]:
-        windows[f"{prefix}_base_prefill{r['rank']}"] = r["launches"]
-        windows[f"{prefix}_base_decode{r['rank']}"] = r["decode_launches"]
+    for world in ("base", "fsdp"):
+        for r in worlds.get(world, ()):
+            windows[f"{prefix}_{world}_prefill{r['rank']}"] = r["launches"]
+            windows[f"{prefix}_{world}_decode{r['rank']}"] = \
+                r["decode_launches"]
     return windows
 
 
-def _spawn_serving(body, out_dir):
-    """Each world of ``SERVE_TP_WORLDS`` spawned once for ``body``: its
-    ranks' dicts and the seconds it took."""
+def _spawn_serving(body, out_dir, names=SERVE_FAMILY_WORLDS):
+    """Each world ``names`` of ``SERVE_TP_WORLDS`` spawned once for
+    ``body``: its ranks' dicts and the seconds it took."""
     worlds, seconds = {}, {}
-    for world, w in SERVE_TP_WORLDS.items():
+    for world in names:
         t0 = time.perf_counter()
-        worlds[world] = run_ranks(body, math.prod(w["mesh"]), world,
-                                  str(out_dir))
+        worlds[world] = run_ranks(body, math.prod(SERVE_TP_WORLDS[world][
+            "mesh"]), world, str(out_dir))
         seconds[world] = time.perf_counter() - t0
     return worlds, seconds
+
+
+def _fsdp_gates(worlds):
+    """Phase ``serve_tp``'s ``fsdp`` world against its ``base`` world, rank
+    by rank at one coordinate: held parameter bytes ``SERVE_TP_FSDP_HELD``;
+    bitwise the base world's first tokens, its first steps' tokens, the
+    prefill's and each step's logits, and the cache blocks after the
+    prefill and after those steps; gathers in every pass of the ``fsdp``
+    world and none in the ``base`` one.  A row a rank: the gathers' bytes,
+    ms and all-gathers a pass (the prefill's, a decode step's), prefill
+    and decode-step ms beside the base world's, held bytes and the peaks
+    read after the draw."""
+    n = SERVE_TP_WORLDS["fsdp"]["steps"]
+    base = {r["rank"]: r for r in worlds["base"]}
+    rows = {}
+    for r in worlds["fsdp"]:
+        b = base[r["rank"]]
+        tag = f"serve_tp (fsdp) rank {r['rank']}"
+        if r["coord"] != b["coord"]:
+            raise AssertionError(f"{tag}: coordinate {r['coord']}, base "
+                                 f"{b['coord']}")
+        if r["held_params"] != SERVE_TP_FSDP_HELD:
+            raise AssertionError(f"{tag}: holds {r['held_params']} parameter "
+                                 f"bytes, want {SERVE_TP_FSDP_HELD}")
+
+        def view(x):
+            return dict(first=x["first_token"],
+                        tokens=[t[:n] for t in x["tokens"]],
+                        prefill_logits=x["prefill_logits_sha"],
+                        step_logits=x["step_logits_sha"][:n],
+                        cache_prefill=x["cache_prefill_sha"],
+                        cache_after=x["cache_after_sha"])
+        got, want = view(r), view(b)
+        if got != want:
+            raise AssertionError(f"{tag}: not bitwise the base world's first "
+                                 f"{n} steps: "
+                                 f"{sorted(k for k in got if got[k] != want[k])}")
+        pg, g = r["prefill_gather"], r["gather"]
+        if not pg["calls"] or g["calls"] <= pg["calls"] or b["gather"]["calls"]:
+            raise AssertionError(f"{tag}: all-gathers prefill {pg['calls']}, "
+                                 f"all {g['calls']}, base "
+                                 f"{b['gather']['calls']}")
+        rows[r["rank"]] = dict(
+            coord=r["coord"], held_params=r["held_params"],
+            base_held_params=b["held_params"], held_gb=r["held_gb"],
+            base_held_gb=b["held_gb"],
+            serve_peak_gb=r["serve_peak_gb"],
+            base_serve_peak_gb=b["serve_peak_gb"], peak_gb=r["peak_gb"],
+            base_peak_gb=b["peak_gb"],
+            prefill_gather=pg, decode_gather_a_step=dict(
+                sent_bytes=(g["sent_bytes"] - pg["sent_bytes"]) / n,
+                calls=(g["calls"] - pg["calls"]) / n,
+                ms=(g["ms"] - pg["ms"]) / n),
+            gather=g, prefill_ms=r["prefill_ms"],
+            base_prefill_ms=b["prefill_ms"],
+            decode_step_ms=r.get("decode_step_ms"),
+            base_decode_step_ms=b.get("decode_step_ms"))
+    return rows
 
 
 #: phase ``serve_tp``'s ranks' dicts by world, for phase ``dryrun`` (b)
@@ -5472,7 +5600,8 @@ def phase_serve_tp(torch, smi):
     out_dir = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
     cfg = serve_tp_config()
     try:
-        worlds, seconds = _spawn_serving("serve_tp_rank", out_dir)
+        worlds, seconds = _spawn_serving("serve_tp_rank", out_dir,
+                                         tuple(SERVE_TP_WORLDS))
         replay, seconds["replay"], replay_peak = serve_replay(
             torch, device, cfg, worlds, out_dir, lambda world: world)
     finally:
@@ -5481,6 +5610,7 @@ def phase_serve_tp(torch, smi):
     gates = {world: _serve_tp_gates(world, ranks, replay, SERVE_TP_LAYERS,
                                     "serve_tp")
              for world, ranks in worlds.items()}
+    gates["fsdp"]["against_base"] = _fsdp_gates(worlds)
     SERVE_TP_COUNTS.update(worlds)       # phase dryrun's predictions' targets
     emit(phase="serve_tp", nvidia_smi=smi, arch=cfg.name,
          layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
@@ -5488,7 +5618,11 @@ def phase_serve_tp(torch, smi):
          batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
          max_seq=SERVE_TP_MAX_SEQ, steps=SERVE_TP_STEPS, transport="gloo",
          worlds={k: dict(mesh=list(SERVE_TP_WORLDS[k]["mesh"]),
-                         variant=SERVE_TP_WORLDS[k]["variant"], ranks=v)
+                         variant=SERVE_TP_WORLDS[k]["variant"],
+                         fsdp=SERVE_TP_WORLDS[k].get("fsdp", False),
+                         steps=SERVE_TP_WORLDS[k].get("steps",
+                                                      SERVE_TP_STEPS),
+                         ranks=v)
                  for k, v in worlds.items()},
          replay=replay, replay_peak_gb=replay_peak, gates=gates,
          bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL),
@@ -5558,8 +5692,9 @@ def phase_serve_tp_families(torch, smi):
                    for fam in SERVE_FAMILIES},
          batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
          max_seq=SERVE_TP_MAX_SEQ, steps=SERVE_TP_STEPS, transport="gloo",
-         worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"])
-                 for k, v in SERVE_TP_WORLDS.items()},
+         worlds={k: dict(mesh=list(SERVE_TP_WORLDS[k]["mesh"]),
+                         variant=SERVE_TP_WORLDS[k]["variant"])
+                 for k in SERVE_FAMILY_WORLDS},
          replay=replays, gates=gates,
          bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
                     witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
@@ -5667,7 +5802,8 @@ def phase_serve_tp_recurrent(torch, smi):
          batch=SERVE_TP_BATCH, steps=SERVE_TP_STEPS, transport="gloo",
          worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"],
                          second="xfer_fp32" if v["pd"] else None)
-                 for k, v in SERVE_TP_WORLDS.items()},
+                 for k, v in SERVE_TP_WORLDS.items()
+                 if k in SERVE_FAMILY_WORLDS},
          replay=replays, gates=gates,
          bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
                     witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
@@ -5749,7 +5885,8 @@ def phase_serve_tp_frontends(torch, smi):
          batch=SERVE_TP_BATCH, steps=SERVE_TP_STEPS, transport="gloo",
          worlds={k: dict(mesh=list(v["mesh"]), variant=v["variant"],
                          second="xfer_global" if v["pd"] else None)
-                 for k, v in SERVE_TP_WORLDS.items()},
+                 for k, v in SERVE_TP_WORLDS.items()
+                 if k in SERVE_FAMILY_WORLDS},
          replay=replays, gates=gates,
          bound=dict(atol=SERVE_TP_ATOL, rtol=SERVE_TP_RTOL,
                     witness=SERVE_TP_WITNESS, token_margin=SERVE_FAM_MARGIN),
@@ -5813,6 +5950,7 @@ def phase_ring(torch, smi):
 
 #: (arch, shape, multi_pod, variant) of phase dryrun (a), each at full size
 DRYRUN_CELLS = (("qwen3-32b", "decode_32k", False, "base"),
+                ("qwen3-32b", "decode_32k", False, "fsdp"),
                 ("qwen3-32b", "prefill_32k", True, "xfer_chunked"),
                 ("smollm-135m", "train_4k", False, "fsdp"))
 DRYRUN_TIMEOUT_S = 300
@@ -5836,13 +5974,18 @@ def dryrun_child(what: str, *args) -> dict:
     cfg = serve_tp_config()
     out = {}
     for world, w in SERVE_TP_WORLDS.items():
-        ranks = D.predict(cfg, w["mesh"], w["variant"] or "base",
+        ranks = D.predict(cfg, w["mesh"], _dryrun_variant(w),
                           batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
                           max_seq=SERVE_TP_MAX_SEQ, num_steps=1)
         out[world] = [{k: v for k, v in dataclasses.asdict(r).items()
                        if k in ("rank", "coord", "peak_bytes", "seen",
                                 "kernels", "seconds")} for r in ranks]
     return dict(worlds=out, seconds=time.perf_counter() - t0)
+
+
+def _dryrun_variant(w) -> str:
+    """The dry-run variant a world of ``SERVE_TP_WORLDS`` serves under."""
+    return w["variant"] or ("fsdp" if w.get("fsdp") else "base")
 
 
 def _dryrun_spawn(what: str, *args):
@@ -5871,8 +6014,11 @@ def _dryrun_result(proc) -> dict:
 
 def _predicted_vs_counted(world: str, counted_ranks, predicted) -> list:
     """Phase ``serve_tp``'s gloo ranks against the dry run's prediction at
-    their coordinates: raises on any difference; a row a rank."""
-    steps = SERVE_TP_STEPS
+    their coordinates (one decode step predicted, the world's counted):
+    held bytes, ``tp.fwd``, a decode step's collectives over ``model``,
+    the FSDP gathers' bytes and all-gathers, the hop's; raises on any
+    difference; a row a rank."""
+    steps = SERVE_TP_WORLDS[world].get("steps", SERVE_TP_STEPS)
     pred = {p["rank"]: p for p in predicted}
     rows = []
     for r in counted_ranks:
@@ -5891,6 +6037,11 @@ def _predicted_vs_counted(world: str, counted_ranks, predicted) -> list:
                 seen["tp_fwd"]["bytes"] - pre["bytes"])
             want["tp_fwd_recv"] = pre["recv_bytes"] + steps * (
                 seen["tp_fwd"]["recv_bytes"] - pre["recv_bytes"])
+            pg, g = seen["prefill_gather"], seen["gather"]
+            want.update({f"gather_{k}": pg[k] + steps * (g[k] - pg[k])
+                         for k in ("bytes", "recv_bytes", "calls")})
+            got_gather = r["gather"]
+            want["prefill_gather"] = [pg["bytes"], pg["calls"]]
         else:                            # pod 0 prefills, pod 1 decodes
             n = steps if decode else 1
             want["tp_fwd_sent"] = n * seen["tp_fwd"]["bytes"]
@@ -5898,6 +6049,12 @@ def _predicted_vs_counted(world: str, counted_ranks, predicted) -> list:
         got = {"held_params": r["held_params"], "held_cache": r["held_cache"],
                "tp_fwd_sent": r["tp_fwd"]["sent_bytes"],
                "tp_fwd_recv": r["tp_fwd"]["recv_bytes"]}
+        if "prefill_fwd" in seen:
+            got.update(gather_bytes=got_gather["sent_bytes"],
+                       gather_recv_bytes=got_gather["recv_bytes"],
+                       gather_calls=got_gather["calls"],
+                       prefill_gather=[r["prefill_gather"]["sent_bytes"],
+                                       r["prefill_gather"]["calls"]])
         if decode:
             want["decode_collectives"] = seen["model_calls"]
             got["decode_collectives"] = r["decode_collectives"]
@@ -5910,7 +6067,8 @@ def _predicted_vs_counted(world: str, counted_ranks, predicted) -> list:
             raise AssertionError(f"{tag}: counted {got}, predicted {want}")
         row = dict(rank=r["rank"], coord=r["coord"], **got,
                    predicted_peak_gb=p["peak_bytes"] / 1e9,
-                   max_memory_allocated_gb=r["peak_gb"])
+                   max_memory_allocated_gb=r["peak_gb"],
+                   after_draw_gb=r["serve_peak_gb"])
         if "hop" in seen:
             cap = seen["hop"]["comp_bytes"] + seen["hop"]["raw_bytes"]
             fell = sum(d["fallback"] for d in r["hop"]["routes"].values())

@@ -337,6 +337,12 @@ def _comm(stats) -> Dict:
             "messages": stats.messages}
 
 
+def _gathers(fs) -> Dict:
+    """The FSDP gathers' bytes and all-gathers (``BlockGather``)."""
+    return {"bytes": fs.comm.sent_bytes, "recv_bytes": fs.comm.recv_bytes,
+            "calls": fs.calls}
+
+
 def build_step(cfg: ArchConfig, shape: ShapeConfig, policy: SH.ShardingPolicy,
                variant: str = "base", *, card: bool = True,
                num_steps: int = 0, max_seq: Optional[int] = None) -> Step:
@@ -350,6 +356,9 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, policy: SH.ShardingPolicy,
       ``num_steps`` its ``prefill_step`` and then ``decode_loop`` over as
       many steps, the prefill's traffic kept apart;
     * decode: one ``serve_step`` over a full-length cache;
+    * under ``fsdp`` (``fsdp``, ``fsdp_moe``) the serving steps gather
+      each layer's FSDP blocks over ``data`` before its products
+      (``serving/sharded.block_gather``; ``gather`` in what they leave);
     * ``xfer_*``: ``serving/sharded.disaggregated_step`` (pod 0 prefills
       and ships its shards; pod 1 receives, and decodes ``num_steps``);
     * ``xferonly_*``: the session's hop alone (``transfer_shard``).
@@ -399,7 +408,7 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, policy: SH.ShardingPolicy,
             res, calls = out
             cache = res.prefill.state.cache if res.pod == 0 else res.received
             return {"pod": res.pod, "tp_fwd": _comm(res.tp.fwd),
-                    "model_calls": calls,
+                    "model_calls": calls, "gather": _gathers(res.fsdp),
                     "hop": _hop_counts(res.session, res.side),
                     "held": {"params": _tree_bytes(params),
                              "cache": _tree_bytes(cache)}}
@@ -428,30 +437,33 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, policy: SH.ShardingPolicy,
             return SV.serve(params, batch, cfg, policy, max_seq=m,
                             num_steps=0)
         return Step(prefill, (params, M.input_specs(cfg, shape)),
-                    lambda res: {"tp_fwd": _comm(res.tp.fwd), "held": {
+                    lambda res: {"tp_fwd": _comm(res.tp.fwd),
+                                 "gather": _gathers(res.fsdp), "held": {
                         "params": _tree_bytes(params),
                         "cache": _tree_bytes(res.prefill.state.cache)}})
     if shape.kind == "prefill":
         def serve(params, batch):
             tp = SV.tensor_parallel(policy, cfg)
             ep = SV.expert_parallel(policy, cfg, tp)
+            fs = SV.block_gather(policy, cfg)
             pre = prefill_step(params, SV.local_batch(batch, policy), cfg,
-                               max_seq=m, tp=tp, ep=ep)
+                               max_seq=m, tp=tp, ep=ep, fsdp=fs)
             marks = {"prefill_fwd": _comm(tp.fwd),
+                     "prefill_gather": _gathers(fs),
                      "held": {"params": _tree_bytes(params),
                               "cache": _tree_bytes(pre.state.cache)}}
             calls0 = model_calls()
             if not cfg.encoder_only:
                 decode_loop(params, pre.first_token, pre.state, cfg,
-                            num_steps, tp=tp, max_seq=m, ep=ep)
+                            num_steps, tp=tp, max_seq=m, ep=ep, fsdp=fs)
             marks["model_calls"] = model_calls() - calls0
             marks["tp_fwd"] = _comm(tp.fwd)
+            marks["gather"] = _gathers(fs)
             return marks
         return Step(serve, (params, M.input_specs(cfg, shape)),
                     lambda marks: marks)
 
     # decode: one step over a full-length cache
-    SV.require_unblocked(policy)
     like = M.abstract_state(cfg, b, m)
     cache = _local(like.cache, policy.cache_specs(like.cache), sizes)
     rows = SH.local_shape((b,), policy.spec_for_activation("tokens", (b,)),
@@ -463,14 +475,16 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, policy: SH.ShardingPolicy,
         from repro_torch.models.kvcache import DecodeState
         tp = SV.tensor_parallel(policy, cfg)
         ep = SV.expert_parallel(policy, cfg, tp)
+        fs = SV.block_gather(policy, cfg)
         serve_step(params, tokens, DecodeState(cache=cache,
                                                cache_len=cache_len),
-                   cfg, tp=tp, max_seq=m, ep=ep)
-        return tp
+                   cfg, tp=tp, max_seq=m, ep=ep, fsdp=fs)
+        return tp, fs
     return Step(decode, (params, toks, cache, lens),
-                lambda tp: {"tp_fwd": _comm(tp.fwd), "held": {
-                    "params": _tree_bytes(params),
-                    "cache": _tree_bytes(cache)}})
+                lambda out: {"tp_fwd": _comm(out[0].fwd),
+                             "gather": _gathers(out[1]), "held": {
+                                 "params": _tree_bytes(params),
+                                 "cache": _tree_bytes(cache)}})
 
 
 # ---------------------------------------------------------------------------
@@ -582,9 +596,11 @@ def predict(cfg: ArchConfig, mesh_shape, variant: str = "base", *,
     over ``max_seq`` cache slots; ``base`` prefills and decodes
     ``num_steps`` tokens (the prefill's traffic apart, ``prefill_fwd``),
     an ``xfer_*`` variant runs the disaggregated step (pod 1 decoding
-    ``num_steps``).  Each rank's ``seen``: held parameter and cache bytes,
-    ``tp.fwd``, the collectives over ``model`` in the decode steps, and a
-    hop's unit records."""
+    ``num_steps``); ``fsdp`` serves as ``base`` on FSDP blocks.  Each
+    rank's ``seen``: held parameter and cache bytes, ``tp.fwd``, the
+    collectives over ``model`` in the decode steps, the FSDP gathers
+    (``gather``; the prefill's apart, ``prefill_gather``), and a hop's unit
+    records."""
     shape = ShapeConfig("predict", seq_len=prompt, global_batch=batch,
                         kind="prefill")
     run = AB.Run(card=True)

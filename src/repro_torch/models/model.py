@@ -45,7 +45,12 @@ blocks (``ssm.mamba2_decode_tp``, ``rglru.recurrent_block_step_tp``,
 prompt's patches go through the column-split ``frontend_proj`` and take
 the first positions of the sequence-split cache, after which it decodes
 as the dense family does; the encoder-only audio family's prefill returns
-the rank's columns of every frame's logits and an empty cache.
+the rank's columns of every frame's logits and an empty cache.  Under
+``fsdp`` (a ``distributed.fsdp.BlockGather``) serving's parameters are a
+rank's FSDP blocks: each layer's (a hybrid triple's, an extra block's)
+are gathered over ``data`` just before its products and dropped after,
+the embedding's and the head's leaves at their reads (a tied table at
+both).
 
 Public API: init_params / embed_inputs / forward / loss_fn / prefill /
 decode_step / resident_decode_step / make_inputs.
@@ -213,6 +218,19 @@ def _split(tp, n: int):
     return tp if tp is not None and tp.splits(n) else None
 
 
+def _layer(fsdp, lp: Dict, prefix: str) -> Dict:
+    """A layer's slice of the stacks under ``prefix`` with its FSDP blocks
+    gathered over ``data`` (``fsdp``, a ``distributed.fsdp.BlockGather``;
+    None: as held)."""
+    return lp if fsdp is None else fsdp.layer(lp, prefix)
+
+
+def _top(fsdp, params: Dict, *names: str) -> Dict:
+    """``params`` with the top-level leaves ``names`` gathered over
+    ``data`` in one collective (``fsdp``; None: as held)."""
+    return params if fsdp is None else fsdp.top(params, names)
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
@@ -226,13 +244,19 @@ def _frontend(params, inputs: torch.Tensor, cfg: ArchConfig, tp=None):
     return y if tp is None else TP.gather(y, tp, -1)
 
 
-def embed_inputs(params, batch: Dict, cfg: ArchConfig, tp=None) -> torch.Tensor:
+def embed_inputs(params, batch: Dict, cfg: ArchConfig, tp=None,
+                 fsdp=None) -> torch.Tensor:
     """(B, S, d_model) bf16 input of the first layer: projected audio frames,
     patch projections prepended to the token embeddings, or the token
     embeddings alone.  Under ``tp`` a vocab-split table is looked up rank
-    by rank and summed (``vocab_embedding``; the same bits)."""
+    by rank and summed (``vocab_embedding``; the same bits).  Under
+    ``fsdp`` the leaves it reads (``embed``, ``frontend_proj``) are
+    gathered over ``data`` first, in one collective."""
     if cfg.frontend == "audio_frames":
-        return _frontend(params, batch["frames"], cfg, tp)
+        return _frontend(_top(fsdp, params, "frontend_proj"), batch["frames"],
+                         cfg, tp)
+    params = _top(fsdp, params, "embed", *(
+        ("frontend_proj",) if cfg.frontend == "vision_patches" else ()))
     # F.embedding, not indexing: on the card its backward sums a token's
     # rows in f32 and rounds once, where indexing's backward adds them in
     # bf16 and loses much of a frequent token's gradient (Zipf tokens at
@@ -257,9 +281,14 @@ def input_positions(batch: Dict, cfg: ArchConfig) -> int:
     return s + batch["patches"].shape[1] if cfg.frontend == "vision_patches" else s
 
 
-def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
+def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None,
+              fsdp=None) -> torch.Tensor:
     """The head's logits; under ``tp`` with the vocab split over ``model``,
-    this rank's columns."""
+    this rank's columns.  Under ``fsdp`` the final norm and the head (a
+    tied config's table, gathered again at this read, not held from the
+    embedding's) are gathered over ``data`` first, in one collective."""
+    params = _top(fsdp, params, "final_norm",
+                  "embed" if cfg.tie_embeddings else "lm_head")
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if _split(tp, cfg.vocab_size) is not None:
         x = TP.region(x, tp)
@@ -275,7 +304,7 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor
 def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
             remat: bool = False, collect_cache: bool = False,
             logits_positions: str = "all", attention=L.prefill_attention,
-            tp=None, ep=None, cache_seq: Optional[int] = None):
+            tp=None, ep=None, cache_seq: Optional[int] = None, fsdp=None):
     """Full-sequence forward.  Returns (logits, cache_or_None, aux_loss).
 
     ``logits_positions='last'`` projects only the final position through the
@@ -287,27 +316,30 @@ def forward(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
     docstring); with ``collect_cache`` (the dense GQA, MLA and MoE
     families) the cache is the rank's blocks of a ``cache_seq``-slot cache
     in the policy's layout (:func:`prefill`); ``ep``: the MoE FFN's expert
-    parallelism and routing group."""
+    parallelism and routing group; ``fsdp``: each layer's FSDP blocks
+    gathered over ``data`` just before its products
+    (``distributed.fsdp.BlockGather``), and the embedding's and head's
+    leaves at their reads."""
     if tp is not None and collect_cache and cache_seq is None:
         raise ValueError("a cache under tp is cut for cache_seq slots: pass "
                          "it (models.model.prefill does)")
-    x = embed_inputs(params, batch, cfg, tp)
+    x = embed_inputs(params, batch, cfg, tp, fsdp)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
     run = _remat if remat else _call
     if cfg.hybrid is not None:
         x, cache = _hybrid_forward(params, x, positions, cfg, kv_block,
-                                   collect_cache, attention, run, tp)
+                                   collect_cache, attention, run, tp, fsdp)
     elif cfg.ssm is not None:
-        x, cache = _ssm_forward(params, x, cfg, collect_cache, run, tp)
+        x, cache = _ssm_forward(params, x, cfg, collect_cache, run, tp, fsdp)
     else:
         x, cache, aux = _dense_forward(params, x, positions, cfg, kv_block,
                                        collect_cache, attention, run, tp,
-                                       ep, cache_seq)
+                                       ep, cache_seq, fsdp)
     if logits_positions == "last":
         x = x[:, -1:]
-    return lm_logits(params, x, cfg, tp), cache, aux
+    return lm_logits(params, x, cfg, tp, fsdp), cache, aux
 
 
 def loss_fn(params, batch: Dict, cfg: ArchConfig, *, kv_block: int = 1024,
@@ -410,7 +442,7 @@ def _triple_fwd(triple, x, positions, cfg: ArchConfig, kv_block: int,
 
 
 def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
-                    collect_cache: bool, attention, run, tp=None):
+                    collect_cache: bool, attention, run, tp=None, fsdp=None):
     """The (rglru, rglru, local_attn) triples, then the extra blocks.  The
     cache keeps each triple's last ``min(window, S)`` keys and values;
     under ``tp`` each leaf is the rank's block (``_triple_fwd``; the
@@ -419,15 +451,16 @@ def _hybrid_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
     nt, ne = n_triples_extra(cfg)
     caches = []
     for triple in _unstack(params["triples"], nt):
-        x, k, v, rec = run(_triple_fwd, triple, x, positions, cfg, kv_block,
-                           attention, tp, collect_cache)
+        x, k, v, rec = run(_triple_fwd, _layer(fsdp, triple, "triples"), x,
+                           positions, cfg, kv_block, attention, tp,
+                           collect_cache)
         if collect_cache:
             caches.append({"attn_k": k, "attn_v": v,
                            "rec_h": torch.stack([r["h"] for r in rec]),
                            "rec_conv": torch.stack([r["conv"] for r in rec])})
     extra = []
     for block in _unstack(params["extra"], ne) if ne else ():
-        x, st = run(_recurrent_fwd, block, x, cfg, tp)
+        x, st = run(_recurrent_fwd, _layer(fsdp, block, "extra"), x, cfg, tp)
         extra.append(st)
     if not collect_cache:
         return x, None
@@ -453,13 +486,13 @@ def _ssm_layer(lp, x, cfg: ArchConfig, tp=None):
 
 
 def _ssm_forward(params, x, cfg: ArchConfig, collect_cache: bool, run,
-                 tp=None):
+                 tp=None, fsdp=None):
     """The Mamba-2 layers; the cache is their final (ssm, conv) states
     (under ``tp`` whole on every rank, of which each keeps its block:
     ``ssm.state_block``)."""
     ssms, convs = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
-        x, st = run(_ssm_layer, lp, x, cfg, tp)
+        x, st = run(_ssm_layer, _layer(fsdp, lp, "layers"), x, cfg, tp)
         if collect_cache:
             if tp is not None:
                 st = SSM.state_block(st, cfg.ssm, cfg.d_model, tp)
@@ -509,12 +542,12 @@ def _dense_layer(lp, x, positions, cfg: ArchConfig, kv_block: int, attention,
 
 def _dense_forward(params, x, positions, cfg: ArchConfig, kv_block: int,
                    collect_cache: bool, attention, run, tp=None, ep=None,
-                   cache_seq=None):
+                   cache_seq=None, fsdp=None):
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
     for lp in _unstack(params["layers"], cfg.num_layers):
-        x, k, v, layer_aux = run(_dense_layer, lp, x, positions, cfg,
-                                 kv_block, attention, tp, ep,
+        x, k, v, layer_aux = run(_dense_layer, _layer(fsdp, lp, "layers"), x,
+                                 positions, cfg, kv_block, attention, tp, ep,
                                  cache_seq if collect_cache else None)
         if layer_aux is not None:
             aux = aux + layer_aux
@@ -547,7 +580,7 @@ def _prompt_shape(batch: Dict, cfg: ArchConfig) -> Tuple[int, int]:
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = None,
-            kv_block: int = 1024, tp=None, ep=None
+            kv_block: int = 1024, tp=None, ep=None, fsdp=None
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return (last-position logits, decode state).
 
@@ -571,7 +604,9 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     blocks (module docstring); a MoE's FFN runs under ``ep`` (its routing
     group's batch, its expert block).  An encoder-only config collects no
     cache there either: it returns the rank's columns of every frame's
-    logits (B, S, V_rank) and an empty cache of length S."""
+    logits (B, S, V_rank) and an empty cache of length S.  Under ``fsdp``
+    the parameters are a rank's FSDP blocks, each layer's gathered over
+    ``data`` just before its products (:func:`forward`)."""
     lengths = batch.get("lengths")
     if tp is not None:
         require_tp_serving(cfg)
@@ -581,13 +616,15 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
         b, s = _prompt_shape(batch, cfg)
         if cfg.encoder_only:
             logits, _, _ = forward(params, batch, cfg, kv_block=kv_block,
-                                   logits_positions="all", tp=tp, ep=ep)
+                                   logits_positions="all", tp=tp, ep=ep,
+                                   fsdp=fsdp)
             return logits, DecodeState(
                 cache={}, cache_len=torch.full((b,), s, dtype=torch.int32,
                                                device=logits.device))
         logits, cache, _ = forward(params, batch, cfg, kv_block=kv_block,
                                    collect_cache=True, logits_positions="last",
-                                   tp=tp, ep=ep, cache_seq=max_seq or s)
+                                   tp=tp, ep=ep, cache_seq=max_seq or s,
+                                   fsdp=fsdp)
         return logits[:, -1], DecodeState(
             cache=cache, cache_len=torch.full((b,), s, dtype=torch.int32,
                                               device=logits.device))
@@ -603,7 +640,7 @@ def prefill(params, batch: Dict, cfg: ArchConfig, *, max_seq: Optional[int] = No
     logits, cache, _ = forward(
         params, batch, cfg, kv_block=kv_block, collect_cache=True,
         logits_positions="all" if (cfg.encoder_only or lengths is not None)
-        else "last")
+        else "last", fsdp=fsdp)
     b, s = _prompt_shape(batch, cfg)
     dev = logits.device
     if cfg.encoder_only:
@@ -706,13 +743,13 @@ def _recurrent_step(sub, x, h_state, conv_state, cfg: ArchConfig, tp=None):
 
 
 def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig,
-                   tp=None):
+                   tp=None, fsdp=None):
     """One token through the triples and extra blocks; a new cache dict
     (under ``tp``, of the rank's blocks: :func:`_recurrent_step`,
     :func:`_windowed_decode_tp`)."""
     ks, vs, hs, convs = [], [], [], []
     for i in range(cache["attn_k"].shape[0]):
-        triple = layer_params(params["triples"], i)
+        triple = _layer(fsdp, layer_params(params["triples"], i), "triples")
         rh, rc = [], []
         for j in range(2):
             x, st = _recurrent_step(layer_params(triple["rec"], j), x,
@@ -741,9 +778,9 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig,
                rec_h=torch.stack(hs), rec_conv=torch.stack(convs))
     eh, ec = [], []
     for i in range(cache["extra_h"].shape[0]):
-        x, st = _recurrent_step(layer_params(params["extra"], i), x,
-                                cache["extra_h"][i], cache["extra_conv"][i], cfg,
-                                tp)
+        x, st = _recurrent_step(
+            _layer(fsdp, layer_params(params["extra"], i), "extra"), x,
+            cache["extra_h"][i], cache["extra_conv"][i], cfg, tp)
         eh.append(st["h"])
         ec.append(st["conv"])
     if eh:
@@ -752,12 +789,12 @@ def _hybrid_decode(params, x, cache: dict, cache_len, cfg: ArchConfig,
     return x, new
 
 
-def _ssm_decode(params, x, cache: dict, cfg: ArchConfig, tp=None):
+def _ssm_decode(params, x, cache: dict, cfg: ArchConfig, tp=None, fsdp=None):
     """One token through the Mamba-2 layers; a new cache dict (under
     ``tp``, of the rank's state blocks: ``ssm.mamba2_decode_tp``)."""
     ssms, convs = [], []
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _layer(fsdp, layer_params(params["layers"], i), "layers")
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
         st = SSM.SSMState(cache["ssm"][i], cache["conv"][i])
         if tp is None:
@@ -773,7 +810,7 @@ def _ssm_decode(params, x, cache: dict, cfg: ArchConfig, tp=None):
 
 def decode_step(params, tokens: torch.Tensor, state: DecodeState,
                 cfg: ArchConfig, tp=None, max_seq: Optional[int] = None,
-                ep=None) -> Tuple[torch.Tensor, DecodeState]:
+                ep=None, fsdp=None) -> Tuple[torch.Tensor, DecodeState]:
     """One autoregressive step.  tokens: (B, 1) int -> logits (B, V).
 
     Dense, MoE and MLA: the new k/v (ckv/krope) are written INTO
@@ -788,25 +825,29 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
     alone do not say whether the slots split; the recurrent families'
     blocks split heads, channels or the window's KV heads, and take no
     ``max_seq``); the logits are the rank's vocab columns; a MoE's FFN
-    runs under ``ep``."""
+    runs under ``ep``.  Under ``fsdp`` each layer's FSDP blocks are
+    gathered over ``data`` just before its products, and the embedding's
+    and head's leaves at their reads."""
     require_decoder(cfg)
     cache_len = state.cache_len
     if cfg.hybrid is not None or cfg.ssm is not None:
-        x = _embed_tokens(params, tokens, cfg, tp)
+        x = _embed_tokens(params, tokens, cfg, tp, fsdp)
         if cfg.hybrid is not None:
-            x, cache = _hybrid_decode(params, x, state.cache, cache_len, cfg, tp)
+            x, cache = _hybrid_decode(params, x, state.cache, cache_len, cfg,
+                                      tp, fsdp)
         else:
-            x, cache = _ssm_decode(params, x, state.cache, cfg, tp)
-        logits = lm_logits(params, x, cfg, tp)[:, -1]
+            x, cache = _ssm_decode(params, x, state.cache, cfg, tp, fsdp)
+        logits = lm_logits(params, x, cfg, tp, fsdp)[:, -1]
         return logits, DecodeState(cache=cache, cache_len=cache_len + 1)
     if tp is not None:
-        return _decode_step_tp(params, tokens, state, cfg, tp, max_seq, ep)
-    x = params["embed"][tokens]
+        return _decode_step_tp(params, tokens, state, cfg, tp, max_seq, ep,
+                               fsdp)
+    x = _top(fsdp, params, "embed")["embed"][tokens]
     mla = cfg.mla is not None
     c0, c1 = (state.cache["ckv"], state.cache["krope"]) if mla else \
         (state.cache["k"], state.cache["v"])
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _layer(fsdp, layer_params(params["layers"], i), "layers")
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
         if mla:
             out, _ = MLA.mla_decode(lp["attn"], h, c0[i], c1[i], cache_len,
@@ -817,12 +858,12 @@ def decode_step(params, tokens: torch.Tensor, state: DecodeState,
         y = x + out
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
         x = y + ffn(lp, h2, cfg)[0]
-    logits = lm_logits(params, x, cfg)[:, -1]
+    logits = lm_logits(params, x, cfg, fsdp=fsdp)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
 
 
 def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
-                    max_seq: Optional[int], ep=None):
+                    max_seq: Optional[int], ep=None, fsdp=None):
     require_tp_serving(cfg)
     mla = cfg.mla is not None
     k_all, v_all = (state.cache["ckv"], state.cache["krope"]) if mla else \
@@ -834,9 +875,10 @@ def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
     if k_all.shape[2] != span.stop - span.start:
         raise ValueError(f"cache blocks of {k_all.shape[2]} slots are not a "
                          f"rank's span of {max_seq} over {tp.size} ranks")
-    x = _embed_tokens(params, tokens, cfg, tp)
+    x = _embed_tokens(params, tokens, cfg, tp, fsdp)
     cache_len = state.cache_len
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        lp = _layer(fsdp, lp, "layers")
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
         if mla:
             out, _ = MLA.mla_decode_tp(lp["attn"], h, k_all[i], v_all[i],
@@ -849,14 +891,16 @@ def _decode_step_tp(params, tokens, state: DecodeState, cfg: ArchConfig, tp,
         y = x + out
         h2 = L.rms_norm(y, lp["norm2"], cfg.norm_eps)
         x = y + ffn(lp, h2, cfg, tp, ep)[0]
-    logits = lm_logits(params, x, cfg, tp)[:, -1]
+    logits = lm_logits(params, x, cfg, tp, fsdp)[:, -1]
     return logits, DecodeState(cache=state.cache, cache_len=cache_len + 1)
 
 
-def _embed_tokens(params, tokens, cfg: ArchConfig, tp=None) -> torch.Tensor:
+def _embed_tokens(params, tokens, cfg: ArchConfig, tp=None,
+                  fsdp=None) -> torch.Tensor:
     """A decode step's token rows: under ``tp`` with the vocab split over
     ``model`` the vocab-parallel lookup, else the table's rows (the same
-    bits)."""
+    bits); under ``fsdp`` of the table gathered over ``data``."""
+    params = _top(fsdp, params, "embed")
     vtp = _split(tp, cfg.vocab_size)
     if vtp is not None:
         return TP.vocab_embedding(tokens, params["embed"], vtp)

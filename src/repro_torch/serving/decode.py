@@ -2,8 +2,9 @@
 port of ``repro.serving.decode``; the JAX ``lax.scan`` is a Python loop).
 
 ``serve_step`` is one step; ``decode_loop`` decodes a raw cache (both
-also under tensor parallelism, ``tp=``, over a rank's cache blocks, and a
-MoE's expert parallelism, ``ep=``);
+also under tensor parallelism, ``tp=``, over a rank's cache blocks, a
+MoE's expert parallelism, ``ep=``, and FSDP blocks gathered a layer at a
+time, ``fsdp=``);
 ``resident_decode_loop`` decodes a compressed-resident one
 (:class:`~repro_torch.models.kvpool.ResidentState`) and demotes to
 ``decode_loop`` if a tail flush cannot stay resident."""
@@ -24,7 +25,7 @@ from repro_torch.serving.prefill import greedy
 @torch.no_grad()
 def serve_step(params, tokens: torch.Tensor, state: DecodeState,
                cfg: ArchConfig, tp=None, max_seq: Optional[int] = None,
-               ep=None) -> Tuple[torch.Tensor, DecodeState]:
+               ep=None, fsdp=None) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step: (B, 1) tokens -> ((B, V) logits, new state), the
     unit the JAX dry-run lowers for its decode cells.  The cache is written
     in place (``models.model.decode_step``).  Under ``tp`` (dense GQA, MLA,
@@ -32,21 +33,23 @@ def serve_step(params, tokens: torch.Tensor, state: DecodeState,
     ``max_seq``-slot cache, and the logits are the rank's vocab columns,
     not gathered: the next token needs only the vocab-parallel argmax
     (``prefill.greedy``), and a gather would move B x V values a step to
-    every rank."""
+    every rank.  Under ``fsdp`` (a ``distributed.fsdp.BlockGather``) the
+    parameters are the rank's FSDP blocks, each layer's gathered over
+    ``data`` just before its products."""
     return M.decode_step(params, tokens, state, cfg, tp=tp, max_seq=max_seq,
-                         ep=ep)
+                         ep=ep, fsdp=fsdp)
 
 
 @torch.no_grad()
 def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
                 cfg: ArchConfig, num_steps: int, tp=None,
-                max_seq: Optional[int] = None, on_logits=None, ep=None
-                ) -> Tuple[torch.Tensor, DecodeState]:
+                max_seq: Optional[int] = None, on_logits=None, ep=None,
+                fsdp=None) -> Tuple[torch.Tensor, DecodeState]:
     """Greedy generation of ``num_steps`` tokens -> ((B, num_steps), state).
 
     The loop decodes into ONE copy of ``state.cache`` (``decode_step``
     writes in place), so the caller's state is left as it was.  Under
-    ``tp`` (and ``ep``) as :func:`serve_step`, each token from the
+    ``tp`` (and ``ep``, ``fsdp``) as :func:`serve_step`, each token from the
     vocab-parallel argmax.  ``on_logits(i, logits)``, where given, sees step ``i``'s
     logits (the rank's columns under ``tp``).  ``num_steps`` 0 returns
     ``state`` itself: no step writes, so no copy is made."""
@@ -58,7 +61,7 @@ def decode_loop(params, first_token: torch.Tensor, state: DecodeState,
     toks = []
     for i in range(num_steps):
         logits, st = M.decode_step(params, tok[:, None], st, cfg, tp=tp,
-                                   max_seq=max_seq, ep=ep)
+                                   max_seq=max_seq, ep=ep, fsdp=fsdp)
         if on_logits is not None:
             on_logits(i, logits)
         tok = greedy(logits, cfg, tp)

@@ -25,7 +25,7 @@ class PrefillOutput:
 @torch.no_grad()
 def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
                  max_seq: Optional[int] = None, kv_block: int = 1024,
-                 tp=None, ep=None) -> PrefillOutput:
+                 tp=None, ep=None, fsdp=None) -> PrefillOutput:
     """Run the prompt; the greedy first token, the last logits and the
     cache.  An encoder-only config encodes and ships: the "first token" is
     the first frame's argmax unit, ``last_logits`` the last frame's, the
@@ -34,9 +34,12 @@ def prefill_step(params, batch: Dict, cfg: ArchConfig, *,
     rank's vocab columns (the whole rows are never needed: the first token
     or unit comes from the vocab-parallel argmax,
     ``tensor_parallel.vocab_argmax``, which moves two numbers a row) and
-    the cache the rank's blocks."""
+    the cache the rank's blocks.  Under ``fsdp`` (a
+    ``distributed.fsdp.BlockGather``) the parameters are the rank's FSDP
+    blocks, each layer's gathered over ``data`` just before its
+    products."""
     last_logits, state = M.prefill(params, batch, cfg, max_seq=max_seq,
-                                   kv_block=kv_block, tp=tp, ep=ep)
+                                   kv_block=kv_block, tp=tp, ep=ep, fsdp=fsdp)
     if cfg.encoder_only:
         # prefill returned every frame's logits (B, S, V)
         return PrefillOutput(first_token=greedy(last_logits[:, 0], cfg, tp),

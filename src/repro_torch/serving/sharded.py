@@ -52,6 +52,17 @@ has: the f32 states ship raw, or, under ``compress_fp32`` (the
 (``fp32_hilo``); a leaf replicated over ``model`` is shipped by every
 model rank to its pod-1 peer, so each copy is counted where it is sent.
 
+Under ``ShardingPolicy(fsdp=True)`` (the dry-run's ``fsdp`` and
+``fsdp_moe`` variants) a rank holds a block of its ``model`` shards, split
+once more over ``data``: every prefill and every decode step gathers each
+layer's blocks over ``data`` just before that layer's products and drops
+them after (:func:`block_gather`, ``distributed/fsdp.py``), where GSPMD
+inserts the per-layer all-gather in JAX.  The results are bitwise those of
+the same mesh with ``fsdp`` off.  Under ``pd_disaggregated`` the ``data``
+group is a pod's, so no parameter gather crosses the pod axis.  The
+policy's ``moe_dispatch_sharding`` is a GSPMD hint the port does not
+carry: the ``moe`` variants serve as ``base`` and ``fsdp`` do.
+
 The front ends: a vision prompt (``patches`` before ``tokens``) fills
 ``frontend_len`` + tokens cache positions (``launch/serve.prompt_positions``),
 so the patches take the first slots of the sequence split (rank 0's span
@@ -76,6 +87,7 @@ from repro_torch.core import tree as TR
 from repro_torch.core.codebook import DEFAULT_BF16_CODEBOOK, Codebook
 from repro_torch.device import resolve_device
 from repro_torch.distributed import expert_parallel as EP
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.launch.serve import prompt_positions
@@ -98,6 +110,11 @@ TRANSFER_VARIANTS = {
     "tight": dict(layout="global", global_budget=0.0025),
     "global": dict(layout="global"),
 }
+
+
+#: the dry-run's policy variants that serve through :func:`serve` (the
+#: ``xfer_*`` ones through :func:`disaggregated_step`)
+SERVING_VARIANTS = ("base", "moe", "fsdp", "fsdp_moe")
 
 
 def transfer_config(variant: str, codebook: Codebook = DEFAULT_BF16_CODEBOOK,
@@ -130,6 +147,13 @@ def expert_parallel(policy: SH.ShardingPolicy, cfg: ArchConfig,
         return None
     return EP.ExpertParallel(cfg, EP.routing_group(policy, ring=False), tp,
                              balance=False)
+
+
+def block_gather(policy: SH.ShardingPolicy, cfg: ArchConfig
+                 ) -> FS.BlockGather:
+    """This rank's per-layer gathers of its FSDP blocks over ``data``
+    (``fsdp=`` of the steps; with ``fsdp`` off it gathers nothing)."""
+    return FS.BlockGather(policy, M.abstract_params(cfg))
 
 
 def place_params(cfg: ArchConfig, generator: torch.Generator,
@@ -167,25 +191,17 @@ class ServeResult:
     the first (B_rank, num_steps; None for an encoder-only config, which
     has no decode cell), the decode state after them (an encoder-only
     config's: the prefill's), the
-    tensor-parallel context whose ``fwd`` counted the collectives, and a
+    tensor-parallel context whose ``fwd`` counted the collectives, a
     MoE's expert-parallel context (its ``fwd`` the routing collectives,
-    ``out_gather`` the expert outputs'; else None)."""
+    ``out_gather`` the expert outputs'; else None), and the FSDP gathers
+    (``fsdp.comm`` their bytes, ``fsdp.calls`` the all-gathers; none
+    with ``fsdp`` off)."""
     prefill: PrefillOutput
     tokens: Optional[torch.Tensor]
     state: DecodeState
     tp: TP.TensorParallel
     ep: Optional[EP.ExpertParallel] = None
-
-
-def require_unblocked(policy: SH.ShardingPolicy) -> None:
-    """Refuse an ``fsdp`` policy: a serving step computes on the rank's
-    ``model`` shards as they are placed and gathers no FSDP block over
-    ``data`` (the train step does), so blocked parameters would feed it
-    partial products."""
-    if policy.fsdp:
-        raise NotImplementedError(
-            "sharded serving gathers no FSDP block: serve under the same "
-            "mesh with fsdp=False (the train step takes fsdp)")
+    fsdp: Optional[FS.BlockGather] = None
 
 
 def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
@@ -199,20 +215,24 @@ def serve(params, batch: Dict, cfg: ArchConfig, policy: SH.ShardingPolicy, *,
     logits, the rank's vocab columns).  An encoder-only config runs the
     prefill cell alone: ``tokens`` None, the state the prefill's (an empty
     cache of the frames' length); ``decode_loop`` would raise
-    (``models.kvcache.require_decoder``)."""
+    (``models.kvcache.require_decoder``).  Under an ``fsdp`` policy
+    ``params`` are the rank's FSDP blocks, gathered a layer at a time
+    (:func:`block_gather`; the result's ``fsdp``)."""
     M.require_tp_serving(cfg)
-    require_unblocked(policy)
     tp = tensor_parallel(policy, cfg)
     ep = expert_parallel(policy, cfg, tp)
+    fs = block_gather(policy, cfg)
     out = prefill_step(params, local_batch(batch, policy), cfg,
-                       max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep)
+                       max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep,
+                       fsdp=fs)
     if cfg.encoder_only:
         return ServeResult(prefill=out, tokens=None, state=out.state, tp=tp,
-                           ep=ep)
+                           ep=ep, fsdp=fs)
     toks, st = decode_loop(params, out.first_token, out.state, cfg,
                            num_steps, tp=tp, max_seq=max_seq,
-                           on_logits=on_logits, ep=ep)
-    return ServeResult(prefill=out, tokens=toks, state=st, tp=tp, ep=ep)
+                           on_logits=on_logits, ep=ep, fsdp=fs)
+    return ServeResult(prefill=out, tokens=toks, state=st, tp=tp, ep=ep,
+                       fsdp=fs)
 
 
 @dataclasses.dataclass
@@ -224,12 +244,14 @@ class HopResult:
     that came with it, the tokens decoded from it and the final state;
     ``prefill`` None.  ``side`` counts the first token's and
     ``cache_len``'s message, ``tp.fwd`` the collectives over ``model``,
-    a MoE's ``ep`` its routing and expert-output collectives."""
+    a MoE's ``ep`` its routing and expert-output collectives, ``fsdp``
+    the FSDP gathers within the pod (:class:`ServeResult`)."""
     pod: int
     session: object
     side: CL.CommStats
     tp: TP.TensorParallel
     ep: Optional[EP.ExpertParallel] = None
+    fsdp: Optional[FS.BlockGather] = None
     prefill: Optional[PrefillOutput] = None
     received: Optional[Dict] = None
     first_token: Optional[torch.Tensor] = None
@@ -268,12 +290,13 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     the first units and ``cache_len`` as for every family; pod 1 receives
     ``{}`` (``received``), the first units and ``cache_len``, and decodes
     nothing (``tokens`` None).  ``last_stats`` reads 0 raw and 0 wire
-    bytes on both pods: no chunk, no leaf, no retry step."""
+    bytes on both pods: no chunk, no leaf, no retry step.  Under an
+    ``fsdp`` policy each pod gathers its FSDP blocks within itself, as
+    :func:`serve` does."""
     if not policy.pd_disaggregated:
         raise ValueError("the disaggregated step needs a pd_disaggregated "
                          "policy: pods are prefill and decode workers")
     M.require_tp_serving(cfg)
-    require_unblocked(policy)
     mesh, sizes = policy.mesh, policy.sizes
     if sizes.get("pod", 1) != 2:
         raise ValueError(f"the disaggregated step runs on 2 pods, not "
@@ -284,16 +307,18 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     pod = mesh.get_local_rank("pod")
     tp = tensor_parallel(policy, cfg)
     ep = expert_parallel(policy, cfg, tp)
+    fs = block_gather(policy, cfg)
     side = CL.CommStats()
     if pod == plan.src_pod:
         out = prefill_step(params, local_batch(batch, policy), cfg,
-                           max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep)
+                           max_seq=max_seq, kv_block=kv_block, tp=tp, ep=ep,
+                           fsdp=fs)
         session.transfer_shard(out.state.cache)
         link = CL.Link(mesh.get_group("pod"), out.first_token.device, side)
         link.wait(link.isend(plan.dst_pod, [
             CL.raw_unit(out.first_token), CL.raw_unit(out.state.cache_len)]))
         return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
-                         prefill=out)
+                         fsdp=fs, prefill=out)
     shard = session.transfer_shard(None)
     dev = resolve_device(device)
     rows = SH.local_shape((b,), policy.spec_for_activation("tokens", (b,)),
@@ -308,11 +333,14 @@ def disaggregated_step(params, batch: Dict, cfg: ArchConfig,
     state = DecodeState(cache=shard, cache_len=cache_len)
     if cfg.encoder_only:
         return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
-                         received=shard, first_token=first, state=state)
+                         fsdp=fs, received=shard, first_token=first,
+                         state=state)
     toks, st = decode_loop(params, first, state, cfg, num_steps, tp=tp,
-                           max_seq=max_seq, on_logits=on_logits, ep=ep)
+                           max_seq=max_seq, on_logits=on_logits, ep=ep,
+                           fsdp=fs)
     return HopResult(pod=pod, session=session, side=side, tp=tp, ep=ep,
-                     received=shard, first_token=first, tokens=toks, state=st)
+                     fsdp=fs, received=shard, first_token=first, tokens=toks,
+                     state=st)
 
 
 def main(argv=None) -> None:
@@ -323,6 +351,9 @@ def main(argv=None) -> None:
         torchrun --nproc-per-node 4 -m repro_torch.serving.sharded \\
             --arch smollm-135m --reduced --device cpu --mesh 2,1,2 \\
             --variant xfer_chunked
+        torchrun --nproc-per-node 4 -m repro_torch.serving.sharded \\
+            --arch smollm-135m --reduced --device cpu --mesh 1,2,2 \\
+            --variant fsdp
 
     ``--arch`` is any family with a sharded serving path: dense GQA,
     ``minicpm3-4b`` (MLA), ``qwen3-moe-30b-a3b`` (MoE, its experts over
@@ -332,9 +363,12 @@ def main(argv=None) -> None:
     vision front end; ``--prompt-len`` counts its patches) and
     ``hubert-xlarge`` (encoder-only: the prefill cell, and the hop of its
     empty cache; each rank prints its first units).  ``--variant base``
-    runs :func:`serve` (the prefill and decode cells); an ``xfer_*``
+    runs :func:`serve` (the prefill and decode cells), as do ``fsdp`` and
+    ``fsdp_moe`` on FSDP blocks (each prints its gathers); an ``xfer_*``
     variant runs :func:`disaggregated_step` under a ``pd_disaggregated``
-    policy on 2 pods.  Parameters and the prompt
+    policy on 2 pods.  The policy is the dry run's for the variant
+    (``launch/dryrun.POLICY_VARIANTS``); ``xfer_*`` under ``fsdp`` runs
+    through the Python API.  Parameters and the prompt
     (``launch/serve.make_prompt``) come from ``--seed``.  Without
     ``--device`` each rank takes the card."""
     import argparse
@@ -342,6 +376,7 @@ def main(argv=None) -> None:
     import torch.distributed as dist
 
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import POLICY_VARIANTS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import make_prompt
     from repro_torch.launch.train import _join_group, parse_mesh
@@ -351,8 +386,8 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mesh", required=True, help="N,D,M: pods, data, model")
     ap.add_argument("--variant", default="base",
-                    help="base, or a dry-run transfer variant (xfer_raw, "
-                         "xfer_chunked, xfer_global, ...)")
+                    help="base, fsdp, fsdp_moe, or a dry-run transfer "
+                         "variant (xfer_raw, xfer_chunked, xfer_global, ...)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-seq", type=int, default=0,
@@ -371,9 +406,13 @@ def main(argv=None) -> None:
     shape = parse_mesh(args.mesh)
     device = resolve_device(_join_group(shape[0] * shape[1] * shape[2],
                                         args.device))
-    xfer = args.variant != "base"
+    xfer = args.variant.startswith("xfer")
+    if not xfer and args.variant not in SERVING_VARIANTS:
+        raise SystemExit(f"--variant {args.variant}: not a serving variant "
+                         f"({', '.join(SERVING_VARIANTS)} or xfer_*)")
     policy = SH.ShardingPolicy(make_mesh(shape, ("pod", "data", "model")),
-                               pd_disaggregated=xfer)
+                               **{**POLICY_VARIANTS.get(args.variant, {}),
+                                  "pd_disaggregated": xfer})
     max_seq = args.max_seq or 2 * args.prompt_len
     params = place_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), policy, device)
@@ -399,6 +438,10 @@ def main(argv=None) -> None:
         res = serve(params, batch, cfg, policy, max_seq=max_seq,
                     num_steps=args.new_tokens)
         tokens, first = res.tokens, res.prefill.first_token
+        if policy.fsdp:
+            print(f"rank {dist.get_rank()} {coord}: fsdp gathers "
+                  f"{res.fsdp.calls} all-gathers, {res.fsdp.comm.sent_bytes:.0f}"
+                  f" bytes sent", flush=True)
     if coord["model"] == 0:
         if tokens is not None:
             print(f"rank {dist.get_rank()} {coord}: tokens {tokens.tolist()}",

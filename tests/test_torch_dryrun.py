@@ -29,7 +29,10 @@ bytes, ``tp.fwd`` bytes and messages (the prefill's and the decode step's),
 collectives over ``model`` and the hop's raw units are predicted exactly,
 its compressed units within the predicted capacity bytes (a unit that
 overflowed its capacity on the real ranks and shipped raw is data the
-static figure cannot see: the dry run ships every unit compressed).  The production
+static figure cannot see: the dry run ships every unit compressed).  An
+``fsdp`` prefill and decode cell on (1, 2, 2) holds the ``fsdp`` spec
+arithmetic's parameter bytes and gathers one pass of blocks
+(``torch_ranks.fsdp_gathers``) over the ``base`` cell's traffic.  The production
 meshes on 256- and 512-rank fake groups (a subprocess) have JAX's shapes
 and axis names, ``check_transport`` refuses a ``fake`` group outside the
 dry run, and ``run_cell`` records a cell that does not apply as skipped
@@ -62,6 +65,7 @@ from repro_torch.analysis import roofline as RL  # noqa: E402
 from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.core import abstract as AB  # noqa: E402
 from repro_torch.core import tree as TR  # noqa: E402
+from repro_torch.distributed import sharding as TSH  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -377,14 +381,33 @@ def test_used_slot_helpers_select_the_slots_in_use_or_every_slot_when_fake():
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_serving_refuses_fsdp_blocks(kind):
-    """Sharded serving gathers no FSDP block, so an fsdp policy is refused
-    (its dry-run cells record the error) rather than served on blocks."""
-    cfg = TB.get_config("smollm-135m").reduced()
+def test_fsdp_serving_cells_play(kind):
+    """An ``fsdp`` serving cell plays on (1, 2, 2): the rank holds the
+    ``fsdp`` spec arithmetic's parameter bytes, and its ``all-gather``
+    bytes are the ``base`` cell's (the ``model`` axis's) plus one pass of
+    the gathered layers' and top-level leaves' blocks (a prefill's reads
+    ``embed``, a decode step's too: ``torch_ranks.fsdp_gathers``), in one
+    all-gather a layer and a read; no group is left initialised."""
+    arch = "smollm-135m"
+    cfg = TB.get_config(arch).reduced()
     shape = TB.ShapeConfig("s", 16, 4, kind)
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        D.play(cfg, shape, (1, 2, 2), ("pod", "data", "model"), 0, "fsdp")
+    mesh, axes = (1, 2, 2), ("pod", "data", "model")
+    base = D.play(cfg, shape, mesh, axes, 0, "base")
+    got = D.play(cfg, shape, mesh, axes, 0, "fsdp")
     assert not dist.is_initialized()
+    sizes = dict(zip(axes, mesh))
+    pol = TSH.ShardingPolicy(sizes, fsdp=True)
+    like = TM.abstract_params(cfg)
+    assert got.seen["held"]["params"] == TSH.held_bytes(
+        like, pol.param_specs(like), sizes) < base.seen["held"]["params"]
+    nbytes, calls = torch_ranks.fsdp_gathers(arch, mesh)[
+        "prefill" if kind == "prefill" else "step"]
+    assert got.seen["gather"] == {"bytes": nbytes, "recv_bytes": nbytes,
+                                  "calls": calls} and calls == 4
+    assert base.seen["gather"] == {"bytes": 0, "recv_bytes": 0, "calls": 0}
+    assert got.collectives["all-gather"] == \
+        base.collectives["all-gather"] + nbytes
+    assert got.seen["tp_fwd"] == base.seen["tp_fwd"]
 
 
 def test_wrappers_launch_or_run_plain_outside_the_abstract_form():

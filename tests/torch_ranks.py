@@ -1617,3 +1617,197 @@ def dryrun_world(rank, world, store, out_dir, cases):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# sharded serving under FSDP: the same world with fsdp off and on
+# ---------------------------------------------------------------------------
+
+def serve_fsdp_world(rank, world, store, ref_dir, out_dir, cases, cli=()):
+    """The cases of ``tests/test_torch_serve_fsdp.py`` on this world, each
+    served twice in the same world, under its mesh's policy with ``fsdp``
+    off and then on (:func:`_fsdp_serve`, :func:`_fsdp_hop`); writes
+    ``rank<r>.json`` and ``rank<r>.npz`` (a case with a reference: the
+    ``fsdp`` run's last and step logits).  Then each argument list of
+    ``cli`` through ``serving/sharded.py``'s ``main``, its output in
+    ``cli<i>_rank<r>.txt``."""
+    import contextlib
+    import io
+    import os
+    torch.set_num_threads(1)
+    _init(rank, world, store)
+    try:
+        summary, arrays = {}, {}
+        for case in cases:
+            run = _fsdp_hop if case["kind"] == "hop" else _fsdp_serve
+            summary[case["name"]], got = run(Path(ref_dir), case)
+            arrays.update({f"{case['name']}/{k}": v for k, v in got.items()})
+            dist.barrier()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
+        dist.barrier()
+        if cli:
+            from repro_torch.serving import sharded as SV
+            os.environ["WORLD_SIZE"] = str(world)
+            for i, argv in enumerate(cli):
+                if i:
+                    _init(rank, world, f"{store}.{i}")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    SV.main(list(argv))
+                (Path(out_dir) / f"cli{i}_rank{rank}.txt").write_text(
+                    buf.getvalue())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _fsdp_setup(ref_dir: Path, case: dict, fsdp: bool):
+    """A case's config, policy (``fsdp`` as given), this rank's parameter
+    blocks (from the reference's numpy parameters, or seeded:
+    ``serving/sharded.place_params``) and the global prompt."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import make_prompt
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.serving import sharded as SV
+    cfg = with_overrides(get_config(case["arch"]).reduced(),
+                         case.get("over", {}))
+    mesh = make_mesh(tuple(case["shape"]), ("pod", "data", "model"))
+    policy = SH.ShardingPolicy(mesh, fsdp=fsdp,
+                               pd_disaggregated=case["kind"] == "hop")
+    if case.get("ref"):
+        ref = np.load(ref_dir / f"{case['ref']}.npz")
+        params = params_from_jax(_np_params(ref), "cpu", policy=policy)
+        prompt = _ref_prompt(ref)
+    else:
+        params = SV.place_params(cfg, torch.Generator().manual_seed(
+            case["seed"]), policy, "cpu")
+        prompt = make_prompt(cfg, case["batch"], case["prompt"],
+                             device="cpu", seed=case["seed"] + 1)
+    return cfg, policy, params, prompt
+
+
+def _fsdp_common(cfg, policy, params, res) -> dict:
+    """Held parameter bytes against the spec arithmetic, and the FSDP
+    gathers' bytes (sent, received) and all-gathers."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    like = M.abstract_params(cfg)
+    return {"held": _nbytes(params),
+            "spec": SH.held_bytes(like, policy.param_specs(like),
+                                  policy.sizes),
+            "gather": [res.fsdp.comm.sent_bytes, res.fsdp.comm.recv_bytes,
+                       res.fsdp.calls]}
+
+
+def _fsdp_serve(ref_dir: Path, case: dict):
+    """``serving/sharded.serve`` with ``fsdp`` off, then on: per run the
+    first token, the greedy tokens, hashes of the last logits, of each
+    step's logits and of the cache blocks after the prefill and after the
+    steps, and :func:`_fsdp_common`'s counts."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.serving import sharded as SV
+    out, arrays = {}, {}
+    for on in (False, True):
+        cfg, policy, params, prompt = _fsdp_setup(ref_dir, case, on)
+        logits = []
+        res = SV.serve(params, prompt, cfg, policy, max_seq=case["max_seq"],
+                       num_steps=case["steps"], kv_block=4,
+                       on_logits=lambda i, lg: logits.append(lg.clone()))
+        out["coord"] = SH.coordinate(policy.mesh)
+        out["on" if on else "off"] = dict(
+            _fsdp_common(cfg, policy, params, res),
+            first=res.prefill.first_token.tolist(),
+            tokens=None if res.tokens is None else res.tokens.tolist(),
+            last_logits=_sha(res.prefill.last_logits),
+            steps=[_sha(x) for x in logits],
+            prefill_cache=_sha(res.prefill.state.cache),
+            cache=_sha(res.state.cache),
+            cache_len=res.state.cache_len.tolist())
+        if on and case.get("ref"):
+            out["rows"] = SH.shard_slice(
+                torch.arange(case["batch"]), policy.spec_for_activation(
+                    "tokens", (case["batch"],)), policy.mesh).tolist()
+            out["tp_rank"], out["tp_size"] = res.tp.rank, res.tp.size
+            out["vocab_split"] = res.tp.splits(cfg.vocab_size)
+            arrays["last_logits"] = res.prefill.last_logits.float().numpy()
+            arrays["step_logits"] = torch.stack(logits).float().numpy()
+    return out, arrays
+
+
+def _fsdp_hop(ref_dir: Path, case: dict):
+    """``serving/sharded.disaggregated_step`` on a ``pd_disaggregated``
+    mesh with ``fsdp`` off, then on: per run the pod, the hop's
+    ``TransferStats``, the side message's bytes, the hash of the shards
+    sent (pod 0) or received (pod 1), the first token, pod 1's tokens and
+    its steps' logits hashes, and :func:`_fsdp_common`'s counts."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.serving import sharded as SV
+    out = {}
+    for on in (False, True):
+        cfg, policy, params, prompt = _fsdp_setup(ref_dir, case, on)
+        logits = []
+        res = SV.disaggregated_step(
+            params, prompt, cfg, policy, SV.transfer_config(case["variant"]),
+            max_seq=case["max_seq"], num_steps=case["steps"], kv_block=4,
+            device="cpu", on_logits=lambda i, lg: logits.append(lg.clone()))
+        src = res.pod == 0
+        out["coord"] = SH.coordinate(policy.mesh)
+        out["on" if on else "off"] = dict(
+            _fsdp_common(cfg, policy, params, res), pod=res.pod,
+            stats=_stats_dict(res.session.last_stats),
+            side_bytes=res.side.sent_bytes + res.side.recv_bytes,
+            shards=_sha(res.prefill.state.cache if src else res.received),
+            first=(res.prefill.first_token if src
+                   else res.first_token).tolist(),
+            tokens=None if src else res.tokens.tolist(),
+            steps=[_sha(x) for x in logits])
+    return out, {}
+
+
+def fsdp_gathers(arch: str, shape, over=None, steps: int = 0) -> dict:
+    """What a rank's gathers hand to gloo under the ``fsdp`` specs of a
+    ``(pod, data, model)`` mesh of ``shape``, from the specs alone: a
+    pass's bytes and all-gathers, and the prefill's and a decode step's
+    (``tests/test_torch_serve_fsdp.py``'s docstring): per pass the
+    gathered layers' and top-level leaves' ``data`` blocks, each padded
+    to ``collective.ALIGN``, one all-gather a layer and a read."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as TM
+    cfg = with_overrides(get_config(arch).reduced(), over or {})
+    sizes = dict(zip(("pod", "data", "model"), shape))
+    pol = SH.ShardingPolicy(sizes, fsdp=True, pd_disaggregated=sizes["pod"] > 1)
+    stacks, depth, tops = {}, {}, {}
+    for p, x in TR.flatten_with_path(TM.abstract_params(cfg))[0]:
+        path = SH.path_str(p)
+        spec = pol.spec_for_param(path, tuple(x.shape))
+        if not any("data" in SH.entry_axes(e) for e in spec):
+            continue
+        n = math.prod(SH.local_shape(tuple(x.shape), spec, sizes)) \
+            * x.element_size()
+        if SH.stack_dims(path):
+            key = path.split("/")[0]
+            n //= x.shape[0]
+            stacks[key] = stacks.get(key, 0) + -(-n // CL.ALIGN) * CL.ALIGN
+            depth[key] = x.shape[0]
+        else:
+            tops[path] = -(-n // CL.ALIGN) * CL.ALIGN
+    layers = sum(stacks[k] * depth[k] for k in stacks)
+    n_layers = sum(depth.values())
+
+    def read(*names):
+        got = sum(tops.get(k, 0) for k in names)
+        return got, int(got > 0)
+    head = read("final_norm", "embed" if cfg.tie_embeddings else "lm_head")
+    first = read(*{"audio_frames": ("frontend_proj",),
+                   "vision_patches": ("embed", "frontend_proj")}.get(
+                       cfg.frontend, ("embed",)))
+    step = read("embed")
+    pre = (layers + first[0] + head[0], n_layers + first[1] + head[1])
+    dec = (layers + step[0] + head[0], n_layers + step[1] + head[1])
+    return {"prefill": pre, "step": dec, "layer_calls": n_layers,
+            "decode_steps": 0 if cfg.encoder_only else steps}
